@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels.
 
 The sources under `paddle_tpu_torch/csrc/` have a plain C interface.
-On first use they are compiled by `nvcc` for `sm_90a` into one shared
+On first use each `.cu` is compiled by its own `nvcc` process for
+`sm_90a` (all started together), the objects are linked into one shared
 library under `paddle_tpu_torch/_build/`, named by a hash of the
 sources (so an edited kernel is rebuilt, an unchanged one is reused),
-and loaded with `ctypes`. Nothing here runs at import time: this module
+and the library is loaded with `ctypes`. Nothing here runs at import time: this module
 is imported on machines without `nvcc` or a GPU, where only the plain
 PyTorch versions of the kernels run.
 """
@@ -25,10 +26,14 @@ _CSRC = os.path.join(_PKG, "csrc")
 _BUILD = os.path.join(_PKG, "_build")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_c_void_p, _c_int = ctypes.c_void_p, ctypes.c_int
+_c_void_p, _c_int, _c_uint = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
 _c_ll, _c_float = ctypes.c_longlong, ctypes.c_float
+_c_ll_p = ctypes.POINTER(ctypes.c_longlong)
+# (strides, scale, causal, dropout, seed, thresh, keep_scale, stream)
+_FLASH_TAIL = [_c_int] * 6 + [_c_ll_p, _c_float, _c_int, _c_int, _c_uint,
+                              _c_uint, _c_float, _c_void_p]
 
 #: argtypes of every exported function: each pointer and the stream is a
 #: c_void_p, so ctypes never truncates them to 32 bits
@@ -39,6 +44,9 @@ SIGNATURES = {
     "ptt_paged_decode_attention_f32": (
         [_c_void_p] * 9 + [_c_int] * 7 + [_c_ll] * 9
         + [_c_int, _c_float, _c_void_p]),
+    "ptt_flash_fwd": [_c_void_p] * 6 + _FLASH_TAIL,
+    "ptt_flash_bwd_dkv": [_c_void_p] * 10 + _FLASH_TAIL,
+    "ptt_flash_bwd_dq": [_c_void_p] * 8 + _FLASH_TAIL,
 }
 
 
@@ -79,19 +87,39 @@ def _nvcc():
 
 
 def _compile(out_path):
+    """One nvcc per source, all running at once, then one link."""
     os.makedirs(_BUILD, exist_ok=True)
-    cu = [p for p in _sources() if p.endswith(".cu")]
-    tmp = f"{out_path}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu]
+    tmp = f"{out_path}.{os.getpid()}"
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    jobs = []
+    for i, src in enumerate(p for p in _sources() if p.endswith(".cu")):
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", f"{tmp}.{i}.o", src]
+        jobs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                           stderr=subprocess.STDOUT,
+                                           text=True)))
+    log, failed = [], []
+    for cmd, proc in jobs:
+        out = proc.communicate()[0]
+        log.append(" ".join(cmd) + "\n" + out)
+        if proc.returncode != 0:
+            failed.append(proc.returncode)
+    if not failed:
+        cmd = [nvcc, "-shared", "-o", tmp + ".so"] + [c[-2] for c, _ in jobs]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log.append(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed.append(proc.returncode)
+    for cmd, _ in jobs:
+        if os.path.exists(cmd[-2]):
+            os.remove(cmd[-2])
     seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
+    log = "".join(log)
     with open(out_path + ".log", "w") as f:
-        f.write(" ".join(cmd) + "\n" + log)
-    if proc.returncode != 0:
-        raise BuildError(f"nvcc failed (exit {proc.returncode}):\n{log}")
-    os.replace(tmp, out_path)       # atomic: concurrent builders agree
+        f.write(log)
+    if failed:
+        raise BuildError(f"nvcc failed (exit {failed[0]}):\n{log}")
+    os.replace(tmp + ".so", out_path)   # atomic: concurrent builds agree
     return seconds, log
 
 

@@ -176,4 +176,6 @@ def test_library_is_named_by_its_sources():
     assert path.startswith(_build._BUILD + "/libptt_kernels_")
     assert path == _build.library_path()
     assert set(_build.SIGNATURES) == {"ptt_decode_attention_f32",
-                                      "ptt_paged_decode_attention_f32"}
+                                      "ptt_paged_decode_attention_f32",
+                                      "ptt_flash_fwd", "ptt_flash_bwd_dkv",
+                                      "ptt_flash_bwd_dq"}
