@@ -10,11 +10,12 @@ Phases, each of which raises (exit code != 0) when its check fails:
 2. Kernels against their plain PyTorch versions on the card, at the
    shapes the serving path gives them, max |kernel - plain| <= 2e-5
    (float32, TF32 off; the tolerance covers summation order): K5 at
-   B=8, S=1024, N=12, D=64 and K6 at block_size 8, M=128 over a
-   shuffled pool with C in {1, 5, 512}. Each is timed beside its plain
-   version, `F.scaled_dot_product_attention` on the same window (a
-   yardstick the port never calls) and its bound (bytes or flops over
-   the H100's peak rates).
+   B=8, S=1024, N=12, D=64, and K6 and K7 (int8 and float8 e4m3 pools
+   with per-row scales) at block_size 8, M=128 over a shuffled pool with
+   C in {1, 5, 512}. Each is timed beside its plain version,
+   `F.scaled_dot_product_attention` on the same (for K7: dequantized)
+   window (a yardstick the port never calls) and its bound (bytes or
+   flops over the H100's peak rates).
 3. Contiguous serving: GenerationServer over DecodeEngine over
    TinyDecoderLM at GPT-2-small widths (vocab 50257, d_model 768, 12
    heads, 12 layers, max_len 1024; seeded random weights), 16 greedy
@@ -29,9 +30,29 @@ Phases, each of which raises (exit code != 0) when its check fails:
    outputs; half the prompts share a 256-token prefix, so admissions hit
    the prefix index and verify runs at chunk 5. Tokens must equal phase
    3's under the same near-tie rule; K6 must have launched.
-5. Where a contiguous decode step's time goes with 8 live slots: host
-   wall time per step, device time per step and the top kernels from
-   torch.profiler, and the device's idle share.
+4a. Quantized serving, int8 then fp8 e4m3: the same requests and draft
+   under PagedDecodeEngine(kv_dtype=...). Tokens must equal the
+   single-request greedy streams of a batch_size=1, spec_k=0 engine of
+   the same dtype (near-tie rule); K7 must have launched >= layers x
+   steps and K6 never. The pool's bytes (kv_pool_bytes() and what
+   torch.cuda allocated) beside float32's, and the token agreement with
+   phase 3. Then fidelity: phase 3's streams teacher-forced through
+   each dtype, mean |dlogits| / mean |logits_f32| below 0.05 (int8) and
+   0.35 (fp8), the JAX package's gates.
+4b. Pool pressure, int8: a pool of PRESSURE_BLOCKS (about four worst-case
+   requests) with a 256-block spill tier serves the requests twice over
+   in one queue: admissions park, the degradation ladder reaches
+   evict_spill, at least one admission is a spill hit, and the tokens
+   still equal the int8 references.
+4c. Relocation, int8: a request decodes half its budget on one engine,
+   is exported (v2 state document), imported into a second engine's
+   spill tier and resumed with submit_resumed: the stream equals the
+   uninterrupted one, its admission promotes spilled blocks, and a
+   document with one flipped scale byte is refused.
+5. Where a decode step's time goes with 8 live slots, on the contiguous
+   f32 engine and on the int8 paged engine: host wall time per step,
+   device time per step and the top kernels from torch.profiler, and
+   the device's idle share.
 6. The flash-attention kernels (K1-K4: forward, dK/dV(+dbias), dQ)
    against their plain PyTorch versions at BERT-base shapes (B=32,
    T=512, N=12, D=64, bf16; all-ones mask, padding mask, dropout 0.1)
@@ -55,7 +76,8 @@ Phases, each of which raises (exit code != 0) when its check fails:
 
 Launch counters are reset just before each main-path phase (serving,
 training) and read just after it, so launches made to compare kernels
-with their plain versions do not count.
+with their plain versions do not count; K7's line reports the launches
+of its three serving runs (phases 4a and 4b) together.
 """
 import argparse
 import json
@@ -76,6 +98,9 @@ GPT2_SMALL = dict(vocab_size=50257, d_model=768, num_heads=12,
                   num_layers=12, max_len=1024)
 TOL = 2e-5
 NEAR_TIE = 1e-4
+#: phase 4b's pool: four worst-case requests (512 + 64 positions = 72
+#: blocks of 8 each) and the garbage block
+PRESSURE_BLOCKS = 4 * 72 + 1
 
 
 def card_line():
@@ -232,6 +257,103 @@ def check_kernels(torch, da, seed, tag, copies=4):
     return {"decode_attention": k5, "paged_decode_attention": k6}
 
 
+def check_quantized_kernel(torch, da, gen, seed, tag, copies=4):
+    """Phase 2, K7: paged attention over int8 and float8 e4m3 pools
+    (payloads and scales from the engine's own row quantizer), block_size
+    8, M=128 over a shuffled pool, B=8, N=12, D=64, C in {1, 5, 512}:
+    max |kernel - plain| <= TOL, each case timed beside its plain
+    version, SDPA on the dequantized gathered window (gathered and
+    dequantized outside the call; a yardstick the port never calls) and
+    its bound. Returns the summary dict of the kernel."""
+    import torch.nn.functional as F
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed + 7)
+    rng = np.random.RandomState(seed + 7)
+    b, n, d, bs, m = 8, 12, 64, 8, 128
+    nb = b * m + 1
+    perm = rng.permutation(np.arange(1, nb)).astype(np.int32)
+    tables = torch.tensor(perm.reshape(b, m), device=dev)
+    win = tables.long()
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev, dtype=torch.float32)
+
+    def deq(pool, scale):
+        """The dequantized window [B, N, M * bs, D] SDPA reads."""
+        w = pool.view(torch.uint8)[win].view(pool.dtype).float()
+        w = w * scale[win][..., None, None]
+        return w.reshape(b, m * bs, n, d).transpose(1, 2).contiguous()
+
+    def library(q, kq, vq, ks, vs, tab, ln, wk, wv):
+        lim = ln[:, None] + torch.arange(q.shape[1], device=dev)[None] + 1
+        mask = torch.arange(m * bs, device=dev)[None, None] < lim[..., None]
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), wk, wv, attn_mask=mask[:, None])
+
+    rows, err_all = [], 0.0
+    for kv_dtype in ("int8", "fp8_e4m3"):
+        pools = []
+        for _ in range(copies):
+            kq, ks = gen._kv_quantize_rows(3.0 * randn(nb, bs, n, d), kv_dtype)
+            vq, vs = gen._kv_quantize_rows(randn(nb, bs, n, d), kv_dtype)
+            pools.append((kq, vq, ks, vs))
+        assert pools[0][0].dtype == gen.kv_torch_dtype(kv_dtype)
+        for c in (1, 5, 512):
+            top = m * bs - c
+            lens = np.concatenate([[0, 1, min(511, top), top],
+                                   rng.randint(0, top + 1, size=b - 4)]
+                                  ).astype(np.int32)
+            lengths = torch.tensor(lens, device=dev)
+            sets = [(randn(b, c, n, d),) + pool + (tables, lengths)
+                    for pool in pools]
+            got = da.quantized_paged_decode_attention(*sets[0])
+            want = da.quantized_paged_decode_attention_reference(*sets[0])
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            assert got.shape == (b, c, n, d) and bool(
+                torch.isfinite(got).all())
+            assert err <= TOL, (f"K7 {kv_dtype} C={c} max |kernel - plain| "
+                                f"{err} > {TOL}")
+            err_all = max(err_all, err)
+            lib_sets = [a + (deq(a[1], a[3]), deq(a[2], a[4])) for a in sets]
+            cap = m * bs
+            distinct = int(np.minimum(lens + c, cap).sum())
+            pairs = int(sum(np.minimum(ln + np.arange(c) + 1, cap).sum()
+                            for ln in lens))
+            nbytes = (2 * b * c * n * d * 4 + b * m * 4 + b * 4
+                      + 2 * distinct * (n * d + 4))
+            bnd, by = bound_ms(nbytes, 4.0 * pairs * n * d)
+            row = {"kv_dtype": kv_dtype, "C": c, "max_abs_err": err,
+                   "ms": timed_ms(torch, da.quantized_paged_decode_attention,
+                                  sets),
+                   "plain_ms": timed_ms(
+                       torch, da.quantized_paged_decode_attention_reference,
+                       sets),
+                   "library_ms": timed_ms(torch, library, lib_sets),
+                   "bound_ms": bnd, "bound_by": by, "lengths": lens.tolist()}
+            rows.append(row)
+            print(f"K7 {kv_dtype} B={b} C={c} N={n} D={d} bs={bs} M={m}: "
+                  f"max_abs_err={err:.3g} kernel_ms={row['ms']:.5f} "
+                  f"plain_ms={row['plain_ms']:.5f} "
+                  f"library_ms={row['library_ms']:.5f} (SDPA on the "
+                  f"dequantized window, gathered outside the call) "
+                  f"bound_us={bnd * 1e3:.3f} ({by}) {tag}")
+            del sets, lib_sets
+        del pools
+        torch.cuda.empty_cache()
+    decode = rows[0]
+    return {"name": "K7 quantized_paged_decode_attention", "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/decode_attention.cu",
+            "replaces": "paddle_tpu/ops/pallas/flash_attention.py:1302",
+            "max_abs_err": err_all, "ms": decode["ms"],
+            "plain_ms": decode["plain_ms"], "bound_ms": decode["bound_ms"],
+            "bound_by": decode["bound_by"],
+            "library_ms": decode["library_ms"],
+            "shape": f"int8 B={b} C=1 N={n} D={d} bs={bs} M={m} (times); "
+                     f"max_abs_err over int8 and fp8, C in (1, 5, 512)",
+            "by_case": rows}
+
+
 def make_prompts(rng, vocab, count):
     """Half the prompts share one 256-token prefix (tails 16..256), half
     are independent (16..512 tokens); budgets 32..64 new tokens."""
@@ -320,15 +442,26 @@ def print_profile(label, brk, tag):
               f"{k['calls_per_step']:6.1f} calls/step  {k['name']}")
 
 
-def step_breakdown(torch, gen, model, prompts, steps=20):
-    """Where one contiguous decode step's time goes with 8 live slots:
-    host wall time per step (synchronised), device time per step and the
-    top kernels from torch.profiler, and the device's idle share."""
-    eng = gen.DecodeEngine(model, batch_size=8, max_len=1024)
+def step_breakdown(torch, gen, model, prompts, steps=20, kv_dtype=None):
+    """Where one decode step's time goes with 8 live slots, on the
+    contiguous engine (kv_dtype None) or on a paged engine of kv_dtype
+    (plain chunk=1 ticks): host wall time per step (synchronised), device
+    time per step and the top kernels from torch.profiler, and the
+    device's idle share."""
+    if kv_dtype is None:
+        eng = gen.DecodeEngine(model, batch_size=8, max_len=1024)
+    else:
+        eng = gen.PagedDecodeEngine(model, batch_size=8, max_len=1024,
+                                    block_size=8, spec_k=0,
+                                    kv_dtype=kv_dtype)
     state = eng.init_state()
     tokens = np.zeros(8, np.int32)
     for i in range(8):
-        state, row = eng.prefill(state, i, prompts[i])
+        if kv_dtype is None:
+            state, row = eng.prefill(state, i, prompts[i])
+        else:   # room for the 3 + 2 x steps ticks below
+            state, row, _ = eng.admit(state, i, prompts[i],
+                                      prompts[i].size + 4 + 2 * steps)
         tokens[i] = int(np.argmax(row))
     active = np.ones(8, bool)
 
@@ -359,6 +492,76 @@ def serve(server_cls, engine, prompts, budgets, **kw):
         srv.shutdown(drain=False, timeout=60)
     return ([r["tokens"] for r in results],
             [r["ttft_s"] for r in results], wall, stats)
+
+
+# ---------------------------------------------------------------------------
+# the quantized paged-KV slice: K7, the spill tier, the ladder, relocation
+# ---------------------------------------------------------------------------
+
+#: mean |logits_q - logits_f32| / mean |logits_f32| under teacher forcing
+#: (the JAX package's gates, tests/test_quantized_serving.py)
+FIDELITY_GATE = {"int8": 0.05, "fp8_e4m3": 0.35}
+QUANT_DTYPES = ("int8", "fp8_e4m3")
+
+
+def paged_greedy(gen, model, prompts, budgets, kv_dtype, num_blocks=None,
+                 forced=None):
+    """One request at a time through a batch_size=1, spec_k=0 paged
+    engine of `kv_dtype`, in submission order with prefix reuse on, as
+    the server admits them. Greedy, or teacher-forced along `forced`
+    streams. Returns (token lists, top-2 gap lists, and the logits rows
+    of teacher-forced runs)."""
+    eng = gen.PagedDecodeEngine(model, batch_size=1, max_len=1024,
+                                block_size=8, num_blocks=num_blocks,
+                                spec_k=0, kv_dtype=kv_dtype)
+    assert eng.kv_dtype == kv_dtype, (eng.kv_dtype, kv_dtype)
+    state = eng.init_state()
+    streams, gaps, rows = [], [], []
+    for i, (p, n) in enumerate(zip(prompts, budgets)):
+        state, row, _ = eng.admit(state, 0, p, total_len=p.size + n)
+        toks, g, r = [], [], []
+        while True:
+            g.append(top2_gap(row))
+            if forced is not None:
+                r.append(row)
+            toks.append(int(np.argmax(row)) if forced is None
+                        else forced[i][len(toks)])
+            if len(toks) >= n:
+                break
+            state, logits = eng.step(state, np.asarray([toks[-1]]),
+                                     np.asarray([True]))
+            row = logits[0]
+        eng.free_slot(0)
+        streams.append(toks)
+        gaps.append(g)
+        rows.append(r)
+    return streams, gaps, rows
+
+
+def fidelity(gen, model, prompts, streams, count=8):
+    """Teacher-force the f32 phase's streams of the first `count`
+    requests through batch_size=1 engines of each dtype: mean |logits_q -
+    logits_f32| / mean |logits_f32| per quantized dtype."""
+    sums = {dt: 0.0 for dt in QUANT_DTYPES}
+    ref_sum = 0.0
+    for i in range(count):
+        one = ([prompts[i]], [len(streams[i])])
+        _, _, (f32,) = paged_greedy(gen, model, *one, "f32",
+                                    forced=[streams[i]])
+        f32 = np.stack(f32)
+        ref_sum += float(np.abs(f32).sum())
+        for dt in QUANT_DTYPES:
+            _, _, (q,) = paged_greedy(gen, model, *one, dt,
+                                      forced=[streams[i]])
+            sums[dt] += float(np.abs(np.stack(q) - f32).sum())
+    return {dt: v / ref_sum for dt, v in sums.items()}
+
+
+def agreement(got, want):
+    """Positions equal and requests equal in full, of got against want."""
+    same = sum(int(a == b) for g, w in zip(got, want) for a, b in zip(g, w))
+    total = sum(min(len(g), len(w)) for g, w in zip(got, want))
+    return same / total, sum(int(g == w) for g, w in zip(got, want))
 
 
 # ---------------------------------------------------------------------------
@@ -717,6 +920,8 @@ def main(argv=None):
 
     # 2. kernels against their plain versions
     kernels = check_kernels(torch, da, args.seed, tag)
+    kernels["quantized_paged_decode_attention"] = check_quantized_kernel(
+        torch, da, gen, args.seed, tag)
 
     # 3. contiguous serving
     cfg = gen.LMConfig(**GPT2_SMALL)
@@ -743,22 +948,31 @@ def main(argv=None):
     results = {"card": card, "seed": args.seed, "config": cfg._asdict(),
                "kernels": kernels, "phases": {}}
 
-    def run_phase(phase, engine, kname, **server_kw):
+    def run_phase(phase, engine, kname, want=None, absent=(), reqs=None,
+                  **server_kw):
         """Warm the engine, serve every request with the launch counts
-        reset just before, check tokens and launches, record the row."""
+        reset just before, check tokens (against `want`, the (references,
+        gaps) of the f32 single-request streams by default) and
+        launches, record the row."""
+        want_refs, want_gaps = want or (refs, gaps)
+        reqs = reqs or (prompts, budgets)
         t0 = time.perf_counter()
         engine.warmup()
         warm_s = time.perf_counter() - t0
         da.reset_launch_counts()
-        toks, ttft, wall, stats = serve(GenerationServer, engine, prompts,
-                                        budgets, **server_kw)
+        toks, ttft, wall, stats = serve(GenerationServer, engine, *reqs,
+                                        **server_kw)
         launches = da.launch_counts[kname]
         steps = stats["counters"]["steps"]
         assert launches >= cfg.num_layers * steps > 0, (
             f"{phase}: {kname} launched {launches} times over {steps} "
             f"decode steps of {cfg.num_layers} layers")
+        for other in absent:
+            assert da.launch_counts[other] == 0, (
+                f"{phase}: {other} launched {da.launch_counts[other]} times")
         excused = sum(compare(f"{phase} request {i}", t, r, g)
-                      for i, (t, r, g) in enumerate(zip(toks, refs, gaps)))
+                      for i, (t, r, g) in enumerate(
+                          zip(toks, want_refs, want_gaps)))
         n_tok = sum(map(len, toks))
         row = {"tokens": n_tok, "wall_s": wall,
                "tokens_per_s": n_tok / wall,
@@ -768,7 +982,8 @@ def main(argv=None):
                "warmup_s": warm_s, "near_ties": excused,
                "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
         results["phases"][phase] = row
-        kernels[kname]["launches"] = launches
+        kernels[kname]["launches"] = (kernels[kname].get("launches", 0)
+                                      + launches)
         print(f"{phase}: {n_tok} tokens in {wall:.2f} s = "
               f"{row['tokens_per_s']:.1f} tokens/s, p50 TTFT "
               f"{row['p50_ttft_ms']:.1f} ms, {steps} decode steps, "
@@ -804,10 +1019,147 @@ def main(argv=None):
           f"the contiguous phase's outputs) {tag}")
     torch.cuda.empty_cache()
 
-    # 5. where a decode step's time goes
+    # 4a. quantized serving, int8 then fp8, the draft of phase 4
+    quant = {}
+    f32_pool_bytes = None
+    for dt in QUANT_DTYPES:
+        t0 = time.perf_counter()
+        qrefs, qgaps, _ = paged_greedy(gen, model, prompts, budgets, dt,
+                                       num_blocks=8 * 128 + 1)
+        quant[dt] = (qrefs, qgaps)
+        print(f"{dt} single-request references (batch_size=1, spec_k=0): "
+              f"{sum(map(len, qrefs))} tokens in "
+              f"{time.perf_counter() - t0:.1f} s; smallest top-2 gap "
+              f"{min(min(g) for g in qgaps):.3g} {tag}")
+        eng = gen.PagedDecodeEngine(model, batch_size=8, max_len=1024,
+                                    block_size=8, spec_k=4, kv_dtype=dt)
+        assert eng.kv_dtype == dt, (eng.kv_dtype, dt)
+        if f32_pool_bytes is None:
+            f32_pool_bytes = (2 * cfg.num_layers * eng.num_blocks * 8
+                              * cfg.d_model * 4)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        state = eng.init_state()
+        allocated = torch.cuda.memory_allocated() - before
+        del state
+        toks, stats, row = run_phase(
+            f"paged {dt}", eng, "quantized_paged_decode_attention",
+            want=quant[dt], absent=("paged_decode_attention",), draft=draft)
+        frac, full = agreement(toks, contiguous)
+        row.update(kv_pool_bytes=eng.kv_pool_bytes(),
+                   pool_bytes_allocated=allocated,
+                   f32_pool_bytes=f32_pool_bytes,
+                   f32_token_agreement=frac, f32_requests_equal=full,
+                   verify_ticks=stats["speculative"]["verify_ticks"])
+        # the caching allocator rounds each tensor up to 512 bytes
+        assert 0 <= allocated - row["kv_pool_bytes"] <= 4 * 512, (
+            f"{dt}: kv_pool_bytes {row['kv_pool_bytes']}, allocated "
+            f"{allocated}")
+        print(f"paged {dt}: pool {eng.kv_pool_bytes()} bytes "
+              f"(torch.cuda allocated {allocated}) vs f32 "
+              f"{f32_pool_bytes}: ratio {f32_pool_bytes / allocated:.3f}; "
+              f"token agreement with phase 3 {frac:.4f} ({full} of "
+              f"{len(toks)} requests equal in full) {tag}")
+        del eng
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    fid = fidelity(gen, model, prompts, contiguous)
+    results["fidelity"] = fid
+    for dt in QUANT_DTYPES:
+        print(f"fidelity {dt}: mean |dlogits| / mean |logits_f32| = "
+              f"{fid[dt]:.5f} (gate {FIDELITY_GATE[dt]}; phase 3's streams "
+              f"of 8 requests teacher-forced, "
+              f"{time.perf_counter() - t0:.1f} s) {tag}")
+        assert fid[dt] < FIDELITY_GATE[dt], (dt, fid[dt])
+    torch.cuda.empty_cache()
+
+    # 4b. pool pressure, int8: the requests twice over in one queue
+    eng = gen.PagedDecodeEngine(model, batch_size=8, max_len=1024,
+                                block_size=8, num_blocks=PRESSURE_BLOCKS,
+                                spec_k=4, spill_blocks=256, kv_dtype="int8")
+    int8_twice = tuple(r + r for r in quant["int8"])
+    _, stats, row = run_phase(
+        "pressure int8", eng, "quantized_paged_decode_attention",
+        want=int8_twice, absent=("paged_decode_attention",), draft=draft,
+        reqs=(prompts + prompts, budgets + budgets))
+    spec, lad = stats["speculative"], stats["ladder"]
+    row.update(num_blocks=PRESSURE_BLOCKS, spill=stats["spill"], ladder=lad,
+               parked=spec["parked"],
+               spill_hit_admissions=spec["spill_hit_admissions"],
+               prefix_hit_admissions=spec["prefix_hit_admissions"])
+    print(f"pressure int8: {PRESSURE_BLOCKS} blocks, parked "
+          f"{spec['parked']} times, ladder {lad}, spill {stats['spill']}, "
+          f"spill-hit admissions {spec['spill_hit_admissions']}, "
+          f"prefix-hit admissions {spec['prefix_hit_admissions']} {tag}")
+    assert spec["parked"] >= 1, "no admission parked"
+    assert lad["evict_spill"] >= 1, "the ladder never reached evict_spill"
+    assert spec["spill_hit_admissions"] >= 1, "no spill-hit admission"
+    del eng
+    torch.cuda.empty_cache()
+
+    # 4c. relocation, int8: export half-way, import, submit_resumed
+    from paddle_tpu_torch.serving.generation import (
+        GenerationRequest, PagedBatcher)
+    i = 1
+    p, n = prompts[i], budgets[i]
+    cut = n // 2
+    donor = gen.PagedDecodeEngine(model, batch_size=1, max_len=1024,
+                                  block_size=8, spec_k=0, kv_dtype="int8")
+    bat = PagedBatcher(donor)
+    req = bat.submit(GenerationRequest(p, n, enqueued_at=0.0))
+    while len(req.tokens) < cut:
+        bat.step()
+    committed = list(req.tokens)
+    slot = bat.snapshot_requests()[req.request_id]["slot"]
+    doc = donor.export_state(bat._state, slot, list(p) + committed)
+    bat.close(drain=False)
+    del bat, donor
+    peer = gen.PagedDecodeEngine(model, batch_size=8, max_len=1024,
+                                 block_size=8, spec_k=4, spill_blocks=256,
+                                 kv_dtype="int8")
+    bad = dict(doc, kv=[dict(e) for e in doc["kv"]])
+    scale = bad["kv"][0]["k_scale"].copy()
+    scale.view(np.uint8).flat[0] ^= 1
+    bad["kv"][0]["k_scale"] = scale
+    try:
+        peer.import_state(bad)
+    except gen.StateDocError as e:
+        refused = str(e)
+    else:
+        raise AssertionError("a document with a flipped scale byte was "
+                             "imported")
+    imported = peer.import_state(doc)
+    srv = GenerationServer(peer)
+    try:
+        resumed = srv.submit_resumed(p, committed, n)
+        rest = resumed.result(timeout=600)["tokens"]
+    finally:
+        srv.shutdown(drain=False, timeout=60)
+    got = committed + rest
+    excused = compare("relocation", got, quant["int8"][0][i],
+                      quant["int8"][1][i])
+    assert resumed.spill_blocks > 0, "the resumed admission hit no spill"
+    results["phases"]["relocation int8"] = {
+        "request": i, "committed": cut, "remaining": len(rest),
+        "doc_blocks": len(doc["kv"]),
+        "spilled_blocks": imported["spilled_blocks"],
+        "spill_blocks_at_admission": resumed.spill_blocks,
+        "near_ties": excused, "tampered_refused": refused}
+    print(f"relocation int8: request {i} exported after {cut} of {n} "
+          f"tokens ({len(doc['kv'])} blocks, crc32 {doc['crc32']}), "
+          f"resumed with {resumed.spill_blocks} spilled blocks promoted, "
+          f"stream equal to the uninterrupted one (near-ties {excused}); "
+          f"flipped scale byte refused: {refused} {tag}")
+    del peer
+    torch.cuda.empty_cache()
+
+    # 5. where a decode step's time goes: contiguous f32, paged int8
     brk = step_breakdown(torch, gen, model, prompts)
     results["step_breakdown"] = brk
     print_profile("decode step, 8 live slots", brk, tag)
+    brk = step_breakdown(torch, gen, model, prompts, kv_dtype="int8")
+    results["step_breakdown_int8"] = brk
+    print_profile("int8 paged decode step, 8 live slots", brk, tag)
     del model
     torch.cuda.empty_cache()
 
@@ -840,7 +1192,8 @@ def main(argv=None):
             "library_ms")
     line = {"kernels": [{k: kernels[name][k] for k in keys}
                         for name in ("decode_attention",
-                                     "paged_decode_attention")
+                                     "paged_decode_attention",
+                                     "quantized_paged_decode_attention")
                         + FLASH_KERNELS]}
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),

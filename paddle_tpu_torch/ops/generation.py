@@ -14,7 +14,12 @@ Counterpart of paddle_tpu/ops/generation.py, in PyTorch:
   `[L, num_blocks, block_size, N, Dh]` with host-side block tables, the
   chain-hash prefix index (`BlockPool`) and a chunk forward that serves
   plain decode (C=1), speculative verify (C=k+1) and prefill
-  continuation (C=bucket) through kernel K6.
+  continuation (C=bucket). Its pool holds float32 KV and attends through
+  kernel K6, or int8 / float8 e4m3 payloads with per-row float32 scales
+  (`kv_dtype`) and attends through kernel K7. Evicted prefix blocks can
+  demote to a host spill tier (`SpillStore`) and come back on a later
+  prefix hit; a live slot exports as a CRC'd v2 state document that
+  either package imports.
 
 The JAX engines donate their cache buffers to jit so XLA updates them in
 place; here the engines run eagerly and write the caches in place
@@ -23,13 +28,14 @@ methods return hold the same tensors they were given.
 
 The reference's jit ladder, CompileLedger, persistent compile cache and
 planner estimates have no counterpart: `warmup()` runs every rung once
-to build the kernels and warm the allocator. Only float32 KV is served
-(`kv_dtype="f32"`); the spill tier and state documents wait for a later
-slice.
+to build the kernels and warm the allocator.
 """
 import collections
 import hashlib
+import json
 import math
+import warnings
+import zlib
 from typing import NamedTuple
 
 import numpy as np
@@ -39,13 +45,19 @@ from torch import nn
 
 from paddle_tpu_torch.core.enforce import enforce
 from paddle_tpu_torch.core.places import resolve_device
+from paddle_tpu_torch.observability import metrics as obs_metrics
 from paddle_tpu_torch.ops.kernels.decode_attention import (
     NEG_INF, decode_attention, paged_decode_attention,
+    quantized_paged_decode_attention,
 )
+from paddle_tpu_torch.reliability.faults import FaultError, inject_point
+from paddle_tpu_torch.weights import kv_to_numpy
 
 __all__ = [
     "LMConfig", "TinyDecoderLM", "DecodeState", "DecodeEngine",
-    "BlockPool", "PoolExhausted", "PagedDecodeState",
+    "BlockPool", "PoolExhausted", "SpillStore", "StateDocError",
+    "KVDtypeMismatch", "KV_DTYPES", "STATE_DOC_VERSION",
+    "fp8_kv_supported", "kv_torch_dtype", "PagedDecodeState",
     "PagedDecodeEngine", "NgramDraft", "greedy_verify",
     "rejection_verify", "prefix_block_hashes", "greedy_decode", "sample_decode", "generate_reference",
     "prompt_buckets", "select_token",
@@ -246,11 +258,14 @@ class TinyDecoderLM(nn.Module):
     # -- paged chunk forward -------------------------------------------
     @torch.no_grad()
     def forward_chunk(self, tokens, cache_k, cache_v, tables, lengths,
-                      wmask):
+                      wmask, scale_k=None, scale_v=None):
         """tokens [R, C] at positions lengths[r]+c; scatter each row's
         KV into the block pools [L, NB, bs, N, Dh] (in place) through
         the block tables [R, M] int32 — masked rows go to garbage block
         0 — then chunked paged attention with exact per-row causality.
+        With scale arrays [L, NB, bs] the pools are int8 / float8: each
+        row is quantized as it is scattered (its scale lands at the same
+        [blk, off]) and attention runs through K7; otherwise through K6.
         Returns logits [R, C, V]."""
         cfg = self.config
         r, c = tokens.shape
@@ -263,14 +278,27 @@ class TinyDecoderLM(nn.Module):
         blk = torch.gather(tables.long(), 1, blk_idx)
         blk = torch.where(wmask, blk, torch.zeros_like(blk))  # garbage
         off = pos % bs
+        kv_dtype = (None if scale_k is None else
+                    "int8" if cache_k.dtype == torch.int8 else "fp8_e4m3")
         x = self.tok_emb[tokens] + self.pos_emb[pos_c]         # [R, C, D]
         shape = (r, c, cfg.num_heads, cfg.head_dim)
         for li, blk_mod in enumerate(self.layers):
             q, k, v = blk_mod.qkv(x, shape)
-            cache_k[li].index_put_((blk, off), k)
-            cache_v[li].index_put_((blk, off), v)
-            att = paged_decode_attention(q, cache_k[li], cache_v[li],
-                                         tables, lengths)
+            if kv_dtype is None:
+                cache_k[li].index_put_((blk, off), k)
+                cache_v[li].index_put_((blk, off), v)
+                att = paged_decode_attention(q, cache_k[li], cache_v[li],
+                                             tables, lengths)
+            else:
+                qk, sk = _kv_quantize_rows(k, kv_dtype)
+                qv, sv = _kv_quantize_rows(v, kv_dtype)
+                _bytes(cache_k[li]).index_put_((blk, off), _bytes(qk))
+                _bytes(cache_v[li]).index_put_((blk, off), _bytes(qv))
+                scale_k[li].index_put_((blk, off), sk)
+                scale_v[li].index_put_((blk, off), sv)
+                att = quantized_paged_decode_attention(
+                    q, cache_k[li], cache_v[li], scale_k[li], scale_v[li],
+                    tables, lengths)
             x = blk_mod.finish(x, att.reshape(r, c, cfg.d_model))
         return self._logits(x)
 
@@ -509,6 +537,75 @@ class PoolExhausted(RuntimeError):
     blocks, never crash."""
 
 
+class StateDocError(ValueError):
+    """An export_state document failed validation (CRC tamper, version
+    skew, geometry mismatch) — refused outright, never misread."""
+
+
+class KVDtypeMismatch(StateDocError):
+    """The document's KV payload dtype does not match the importing
+    engine's pool dtype. Payload bytes mean something only with their
+    scales under the dtype that produced them, so the caller must route
+    the document to a same-dtype engine or re-prefill from tokens."""
+
+
+# -- quantized KV block storage ---------------------------------------------
+#
+# The pool's payload dtype is chosen per engine: "f32", "int8" or
+# "fp8_e4m3" (torch.float8_e4m3fn, probed once; a torch without it falls
+# back to int8 and says so). Quantized pools carry a per-row float32 scale
+# array [L, NB, bs] per side, set to absmax(row)/qmax when the row is
+# scattered. A row's scale is a function of that row alone, so a block's
+# payload and scales move (spill demote/promote, export/import) without
+# ever being re-quantized.
+
+KV_DTYPES = ("f32", "int8", "fp8_e4m3")
+
+#: dequant multiplier bound per dtype: scale = absmax / qmax, payload
+#: = value / scale (int8: rounded and clipped; e4m3: clipped and cast,
+#: finite max 448)
+_KV_QMAX = {"int8": 127.0, "fp8_e4m3": 448.0}
+
+_FP8_PROBE = [None]
+
+
+def fp8_kv_supported():
+    """Probe (once) whether this torch round-trips float8_e4m3fn through
+    a cast — the capability gate for the fp8 KV pool."""
+    if _FP8_PROBE[0] is None:
+        try:
+            x = torch.tensor([0.5, -448.0])
+            back = x.to(torch.float8_e4m3fn).to(torch.float32)
+            _FP8_PROBE[0] = bool(torch.equal(back, x))
+        except (AttributeError, RuntimeError, TypeError):
+            _FP8_PROBE[0] = False
+    return _FP8_PROBE[0]
+
+
+def kv_torch_dtype(kv_dtype):
+    """The pool tensor dtype of a KV_DTYPES name."""
+    return {"f32": torch.float32, "int8": torch.int8,
+            "fp8_e4m3": torch.float8_e4m3fn}[kv_dtype]
+
+
+def _kv_quantize_rows(x, kv_dtype):
+    """Quantize a batch of KV rows: x [..., N, Dh] float32 → (payload
+    [..., N, Dh] in kv_dtype, scale [...] float32) with scale =
+    absmax(row)/qmax; dequant is payload * scale. An all-zero row gets
+    scale 0 and payload 0. The JAX order, to the bit: scale = amax /
+    qmax, safe = max(scale, 1e-30), x / safe, then round (half to even)
+    and clip for int8, clip then cast for e4m3."""
+    qmax = _KV_QMAX[kv_dtype]
+    amax = torch.amax(torch.abs(x), dim=(-2, -1))
+    scale = amax / qmax
+    safe = torch.clamp(scale, min=1e-30)[..., None, None]
+    if kv_dtype == "int8":
+        q = torch.clamp(torch.round(x / safe), -qmax, qmax).to(torch.int8)
+    else:
+        q = torch.clamp(x / safe, -qmax, qmax).to(torch.float8_e4m3fn)
+    return q, scale
+
+
 def prefix_block_hashes(tokens, block_size):
     """Chain hashes of the FULL blocks of a token sequence: h_j =
     blake2b(h_{j-1} || tokens[j*bs:(j+1)*bs]). A hash identifies both a
@@ -574,10 +671,13 @@ class BlockPool:
             self._index.pop(h, None)
             self._cached.pop(h, None)
 
-    def alloc(self, n):
+    def alloc(self, n, demote_cb=None):
         """Take n blocks (refcount 1 each): the free stack first, then
         CACHED blocks oldest-first. Raises PoolExhausted — atomically,
-        nothing is taken — when fewer than n blocks are obtainable."""
+        nothing is taken — when fewer than n blocks are obtainable.
+        `demote_cb(block_id, hash)` fires for each CACHED eviction before
+        the block is unindexed and handed out: the spill tier's last
+        chance to copy the payload off the device."""
         n = int(n)
         if n == 0:
             return []
@@ -590,7 +690,9 @@ class BlockPool:
             if self._free:
                 bid = self._free.pop()
             else:
-                _h, bid = next(iter(self._cached.items()))  # LRU-oldest
+                h, bid = next(iter(self._cached.items()))   # LRU-oldest
+                if demote_cb is not None:
+                    demote_cb(bid, h)
                 self._unindex(bid)
                 self.evictions += 1
             self._ref[bid] = 1
@@ -612,7 +714,7 @@ class BlockPool:
                 self._ref[bid] = 1
             self.prefix_hits += 1
 
-    def acquire(self, shared, n_own):
+    def acquire(self, shared, n_own, demote_cb=None):
         """Ref `shared` (a lookup() result) and alloc `n_own` fresh
         blocks, atomically. The shared prefix is pinned FIRST, so
         alloc()'s LRU eviction cannot hand a shared block back as an
@@ -620,7 +722,7 @@ class BlockPool:
         shared = list(shared)
         self.ref(shared)
         try:
-            return self.alloc(n_own)
+            return self.alloc(n_own, demote_cb=demote_cb)
         except PoolExhausted:
             self.release(shared)
             self.prefix_hits -= len(shared)
@@ -663,36 +765,185 @@ class BlockPool:
             out.append(bid)
         return out
 
+    def evict_cached(self, n=None, demote_cb=None):
+        """Evict up to `n` CACHED blocks (all when None) back to the free
+        stack, oldest-first — the degradation ladder's evict-to-spill
+        rung. `demote_cb(block_id, hash)` fires per block before
+        unindexing, as in alloc(). Returns the number evicted."""
+        count = 0
+        for h in list(self._cached):
+            if n is not None and count >= n:
+                break
+            bid = self._cached[h]
+            if demote_cb is not None:
+                demote_cb(bid, h)
+            self._unindex(bid)
+            self._free.append(bid)
+            count += 1
+        return count
+
+    def drop_cached(self):
+        """Evict every CACHED block back to the free stack."""
+        return self.evict_cached()
+
+
+class SpillStore:
+    """Bounded host-RAM spill tier for evicted CACHED KV blocks.
+
+    Keyed by the prefix chain hashes of the pool's device index, so an
+    entry identifies the block's contents AND everything before it.
+    Entries age FIFO by demotion order; past `capacity` the oldest is
+    dropped (counted: a lost reuse chance, never a correctness event).
+    `get()` POPS on a hit: the payload is about to be restored into a
+    LIVE device block that the pool re-publishes under the same hash.
+    Payloads are host numpy arrays (float8 bytes as uint8). Counters
+    surface as `pt_generation_spill_{demoted,promoted,dropped}_total`."""
+
+    def __init__(self, capacity):
+        enforce(capacity >= 1, "spill capacity must be >= 1, got %s",
+                capacity)
+        self.capacity = int(capacity)
+        # hash -> (k, v, k_scale, v_scale) host numpy; scales None for f32
+        self._store = collections.OrderedDict()
+        self.demoted = 0
+        self.promoted = 0
+        self.dropped = 0
+        reg = obs_metrics.registry()
+        self._m_demoted = reg.counter(
+            "pt_generation_spill_demoted_total",
+            "KV blocks demoted from the device pool to the host spill "
+            "tier")
+        self._m_promoted = reg.counter(
+            "pt_generation_spill_promoted_total",
+            "spill-tier KV blocks promoted back on a prefix hit")
+        self._m_dropped = reg.counter(
+            "pt_generation_spill_dropped_total",
+            "spill-tier KV blocks dropped by the capacity bound")
+
+    def __len__(self):
+        return len(self._store)
+
+    def __contains__(self, h):
+        return h in self._store
+
+    def put(self, h, k, v, k_scale=None, v_scale=None):
+        """Demote one block's KV payload ([L, block_size, N, Dh] each,
+        any pool dtype) under its chain hash; quantized pools pass the
+        block's per-row scale strips ([L, block_size] float32) with it —
+        payload bytes without their scales mean nothing. Re-demoting a
+        resident hash refreshes its age without recounting."""
+        inject_point("generation.spill_write", tag=h)
+        if h in self._store:
+            self._store.move_to_end(h)
+            self._store[h] = (k, v, k_scale, v_scale)
+            return
+        self._store[h] = (k, v, k_scale, v_scale)
+        self.demoted += 1
+        self._m_demoted.inc()
+        while len(self._store) > self.capacity:
+            self._store.popitem(last=False)        # FIFO-oldest
+            self.dropped += 1
+            self._m_dropped.inc()
+
+    def get(self, h):
+        """Pop the payload for `h` — (k, v, k_scale, v_scale) on a hit
+        (scales None for f32 pools), None on a miss."""
+        hit = self._store.pop(h, None)
+        if hit is None:
+            return None
+        inject_point("generation.spill_read", tag=h)
+        self.promoted += 1
+        self._m_promoted.inc()
+        return hit
+
+    def stats(self):
+        return {"capacity": self.capacity, "resident": len(self._store),
+                "demoted": self.demoted, "promoted": self.promoted,
+                "dropped": self.dropped}
+
+
+#: export_state document version. v2 carries an explicit kv_dtype and
+#: per-entry scale strips, and hashes payload bytes under their native
+#: dtype; the JAX package writes and reads the same version.
+STATE_DOC_VERSION = 2
+
+#: the CRC's dtype tag of an e4m3 payload: the JAX package hashes its
+#: ml_dtypes arrays under this name, and the port, whose host copies are
+#: the same bytes as uint8, hashes them under it too
+_FP8_TAG = "float8_e4m3fn"
+
+
+def _payload_tag(arr, kv_dtype):
+    tag = str(arr.dtype)
+    if kv_dtype == "fp8_e4m3" and tag == "uint8":
+        return _FP8_TAG
+    return tag
+
+
+def _state_doc_crc(doc):
+    """CRC32 of an export_state document's canonical bytes: the JSON of
+    its metadata (sorted keys, kv_dtype included) chained with every KV
+    payload's dtype tag and raw C-order bytes — equal to the JAX
+    package's CRC of the same document."""
+    kv_dtype = doc.get("kv_dtype", "f32")
+    meta = {"version": doc["version"], "block_size": doc["block_size"],
+            "kv_dtype": kv_dtype,
+            "tokens": [int(t) for t in doc["tokens"]],
+            "length": int(doc["length"]),
+            "block_hashes": list(doc["block_hashes"]),
+            "kv_hashes": [e["hash"] for e in doc.get("kv", ())]}
+    crc = zlib.crc32(json.dumps(meta, sort_keys=True).encode("utf-8"))
+    for e in doc.get("kv", ()):
+        for key in ("k", "v", "k_scale", "v_scale"):
+            if key not in e:
+                continue
+            arr = np.ascontiguousarray(np.asarray(e[key]))
+            tag = (_payload_tag(arr, kv_dtype) if key in ("k", "v")
+                   else str(arr.dtype))
+            crc = zlib.crc32(tag.encode("utf-8"), crc)
+            crc = zlib.crc32(arr.tobytes(), crc)
+    return crc & 0xFFFFFFFF
+
+
+def _bytes(t):
+    """t, or its uint8 view when it holds float8: indexing and scatter
+    are not implemented for float8 tensors everywhere, so the pools are
+    moved as bytes and only the quantizing cast uses the float8 dtype."""
+    return t.view(torch.uint8) if t.dtype == torch.float8_e4m3fn else t
+
 
 class PagedDecodeState(NamedTuple):
     """The paged carry: per-layer block pools
-    [L, num_blocks, block_size, N, Dh] float32, updated in place. Tables,
-    lengths and the pool accounting live host-side on the engine."""
+    [L, num_blocks, block_size, N, Dh] (float32, or the engine's int8 /
+    float8 payload dtype) plus, for quantized pools, the per-row dequant
+    scales [L, num_blocks, block_size] float32 (None for float32 pools),
+    all updated in place. Tables, lengths and the pool accounting live
+    host-side on the engine."""
     cache_k: torch.Tensor
     cache_v: torch.Tensor
+    scale_k: torch.Tensor = None
+    scale_v: torch.Tensor = None
 
 
 class PagedDecodeEngine:
     """Block-table paged KV decode engine with a unified chunk forward.
 
     `[R, C]` token rows scatter their KV through the slot block tables
-    (masked rows land in garbage block 0) and attend through kernel K6
-    with per-row limits lengths[r]+c+1. The rungs are prefill (R=1,
-    C=bucket: a prompt, or the unshared tail after a prefix hit), plain
-    decode (R=B, C=1) and speculative verify (R=B, C=k+1).
+    (masked rows land in garbage block 0) and attend with per-row limits
+    lengths[r]+c+1: through kernel K6 over a float32 pool, or through K7
+    over an int8 / float8 e4m3 pool (`kv_dtype`) with per-row scales. The
+    rungs are prefill (R=1, C=bucket: a prompt, or the unshared tail
+    after a prefix hit), plain decode (R=B, C=1) and speculative verify
+    (R=B, C=k+1).
 
-    Host-side the engine owns the BlockPool, the per-slot tables [B, M]
-    and committed lengths [B]; the device state is the two pools."""
+    Host-side the engine owns the BlockPool, the per-slot tables [B, M],
+    committed lengths [B] and, with `spill_blocks`, the host SpillStore;
+    the device state is the two pools (and their scale arrays)."""
 
     def __init__(self, model, batch_size, max_len, block_size=8,
-                 num_blocks=None, spec_k=4, kv_dtype="f32", device=None):
+                 num_blocks=None, spec_k=4, spill_blocks=None,
+                 kv_dtype="f32", device=None):
         cfg = model.config
-        if kv_dtype != "f32":
-            raise NotImplementedError(
-                f"kv_dtype={kv_dtype!r}: quantized paged KV needs kernel "
-                f"K7 (flash_quantized_paged_decode_attention), which is "
-                f"still to be ported (ROADMAP.md, Queue 2, K7); the port "
-                f"serves kv_dtype='f32' only")
         enforce(max_len <= cfg.max_len,
                 "engine max_len %d exceeds the model's positional table "
                 "%d", max_len, cfg.max_len)
@@ -701,6 +952,8 @@ class PagedDecodeEngine:
                 "max_len %d must be a multiple of block_size %d",
                 max_len, block_size)
         enforce(spec_k >= 0, "spec_k must be >= 0")
+        enforce(kv_dtype in KV_DTYPES,
+                "kv_dtype must be one of %s, got %r", KV_DTYPES, kv_dtype)
         self.device = _engine_device(model, device)
         self.model = model
         self.batch_size = int(batch_size)
@@ -708,7 +961,14 @@ class PagedDecodeEngine:
         self.block_size = int(block_size)
         self.blocks_per_slot = self.max_len // self.block_size
         self.spec_k = int(spec_k)
+        self.kv_dtype_requested = kv_dtype
+        if kv_dtype == "fp8_e4m3" and not fp8_kv_supported():
+            # the next rung down, loudly
+            warnings.warn("fp8_e4m3 KV storage unsupported by this torch; "
+                          "falling back to int8", RuntimeWarning)
+            kv_dtype = "int8"
         self.kv_dtype = kv_dtype
+        self._kv_quantized = kv_dtype != "f32"
         if num_blocks is None:
             # every slot fully allocated, plus the garbage block
             num_blocks = self.batch_size * self.blocks_per_slot + 1
@@ -718,17 +978,35 @@ class PagedDecodeEngine:
         self.num_blocks = int(num_blocks)
         self.buckets = prompt_buckets(max_len)
         self.pool = BlockPool(self.num_blocks, self.block_size)
+        self.spill = SpillStore(spill_blocks) if spill_blocks else None
         self.tables = np.zeros((self.batch_size, self.blocks_per_slot),
                                np.int32)
         self.lengths = np.zeros((self.batch_size,), np.int32)
         self._slot_blocks = {}      # slot -> [block ids] (incl. shared)
         self._slot_capacity = {}    # slot -> allocated positions
+        reg = obs_metrics.registry()
+        reg.gauge("pt_quant_kv_pool_bytes",
+                  "KV block-pool device bytes (payload + scale arrays)",
+                  labels=("dtype",)).labels(dtype=self.kv_dtype).set(
+                      self.kv_pool_bytes())
+        if self.kv_dtype != self.kv_dtype_requested:
+            reg.counter("pt_quant_kv_dtype_fallback_total",
+                        "engines whose requested KV dtype was unsupported "
+                        "and fell back a rung",
+                        labels=("requested", "effective")).labels(
+                            requested=self.kv_dtype_requested,
+                            effective=self.kv_dtype).inc()
 
     def kv_pool_bytes(self):
-        """Device bytes of one init_state() KV carry (k + v pools)."""
+        """Device bytes of one init_state() KV carry: the payload pools
+        (k + v, in the pool dtype) plus, quantized, the float32 scale
+        arrays."""
         cfg = self.model.config
         rows = cfg.num_layers * self.num_blocks * self.block_size
-        return 2 * rows * cfg.num_heads * cfg.head_dim * 4
+        itemsize = 1 if self._kv_quantized else 4
+        payload = 2 * rows * cfg.num_heads * cfg.head_dim * itemsize
+        scales = 2 * rows * 4 if self._kv_quantized else 0
+        return payload + scales
 
     def _chunk(self, state, tokens, tables, lengths, wmask):
         """Run the chunk forward on host arrays; returns logits
@@ -739,7 +1017,8 @@ class PagedDecodeEngine:
             state.cache_k, state.cache_v,
             torch.from_numpy(np.ascontiguousarray(tables, np.int32)).to(dev),
             torch.from_numpy(np.asarray(lengths, np.int32)).to(dev),
-            torch.from_numpy(np.asarray(wmask, bool)).to(dev))
+            torch.from_numpy(np.asarray(wmask, bool)).to(dev),
+            scale_k=state.scale_k, scale_v=state.scale_v)
 
     def init_state(self):
         """Fresh device pools AND fresh host accounting (pool, tables,
@@ -753,10 +1032,22 @@ class PagedDecodeEngine:
         self.lengths[:] = 0
         self._slot_blocks.clear()
         self._slot_capacity.clear()
+        dt = kv_torch_dtype(self.kv_dtype)
+
+        def pool():
+            # float8 zeros as zero bytes (+0.0 in e4m3)
+            raw = torch.zeros(shape, device=self.device,
+                              dtype=torch.uint8 if dt.itemsize == 1 else dt)
+            return raw.view(dt)
+
+        if not self._kv_quantized:
+            return PagedDecodeState(cache_k=pool(), cache_v=pool())
+        sshape = shape[:3]              # [L, NB, bs] per-row scales
         return PagedDecodeState(
-            cache_k=torch.zeros(shape, dtype=torch.float32,
+            cache_k=pool(), cache_v=pool(),
+            scale_k=torch.zeros(sshape, dtype=torch.float32,
                                 device=self.device),
-            cache_v=torch.zeros(shape, dtype=torch.float32,
+            scale_v=torch.zeros(sshape, dtype=torch.float32,
                                 device=self.device))
 
     def bucket_for(self, prompt_len):
@@ -779,9 +1070,12 @@ class PagedDecodeEngine:
         With `prefix_reuse`, prompt chain hashes are matched against the
         prefix index; hit blocks are reffed (never recomputed) and
         prefill runs only over the unshared tail — at least one token,
-        so the admission always has a logits row to emit from. Returns
-        (state, last-logits-row [V], {"shared_blocks", "shared_tokens",
-        "tail_bucket"})."""
+        so the admission always has a logits row to emit from. With a
+        spill tier the chain is probed past the device index: spilled
+        payloads (with their scales) are restored into own blocks and
+        re-published, so a spill hit re-prefills nothing either. Returns
+        (state, last-logits-row [V], {"shared_blocks", "spill_blocks",
+        "shared_tokens", "tail_bucket"})."""
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         enforce(prompt.size >= 1, "empty prompt")
         enforce(0 <= slot < self.batch_size,
@@ -793,19 +1087,38 @@ class PagedDecodeEngine:
                 "total_len %s outside [prompt %s, max_len %s]",
                 total_len, prompt.size, self.max_len)
         hashes = prefix_block_hashes(prompt, self.block_size)
-        shared = []
+        shared, spill_want = [], []
         if prefix_reuse and hashes:
             # keep >= 1 tail token to prefill (the emission row)
             max_shared = (prompt.size - 1) // self.block_size
             shared = self.pool.lookup(hashes)[:max_shared]
+            if self.spill is not None:
+                # peek only: payloads are popped after the allocation
+                # commits, so PoolExhausted parks without losing entries
+                for j in range(len(shared), max_shared):
+                    if hashes[j] not in self.spill:
+                        break
+                    spill_want.append(hashes[j])
         n_total = -(-total_len // self.block_size)
-        own = self.pool.acquire(shared, n_total - len(shared))
+        own = self.pool.acquire(shared, n_total - len(shared),
+                                demote_cb=self._demote_cb(state))
+        promoted = []
+        for h in spill_want:
+            try:
+                hit = self.spill.get(h)
+            except FaultError:
+                hit = None    # an injected read fault: prefill the rest
+            if hit is None:
+                break
+            promoted.append(hit)
+        if promoted:
+            self._restore(state, own[:len(promoted)], promoted)
         ids = shared + own
         self._slot_blocks[slot] = ids
         self._slot_capacity[slot] = n_total * self.block_size
         self.tables[slot, :] = 0
         self.tables[slot, :len(ids)] = ids
-        shared_tokens = len(shared) * self.block_size
+        shared_tokens = (len(shared) + len(promoted)) * self.block_size
         tail = prompt[shared_tokens:]
         bucket = self.bucket_for(tail.size)
         tokens = np.zeros((1, bucket), np.int32)
@@ -816,12 +1129,14 @@ class PagedDecodeEngine:
                              [shared_tokens], wmask)
         self.lengths[slot] = prompt.size
         # publish the COMPLETE prompt blocks (decode writes start at
-        # prompt.size, outside every one of them)
+        # prompt.size, outside every one of them); restored blocks
+        # re-enter the device index under their original hashes
         n_pub = prompt.size // self.block_size
         self.pool.publish(ids[:n_pub], hashes[:n_pub])
         last = _to_numpy(logits[0, tail.size - 1])
         return (state, last,
                 {"shared_blocks": len(shared),
+                 "spill_blocks": len(promoted),
                  "shared_tokens": shared_tokens,
                  "tail_bucket": bucket})
 
@@ -880,6 +1195,144 @@ class PagedDecodeEngine:
         self.pool.release(ids)
         self.tables[slot, :] = 0
         self.lengths[slot] = 0
+
+    # -- spill tier and state relocation -------------------------------
+    def _block_to_host(self, state, bid):
+        """One block's payloads [L, bs, N, Dh] and, quantized, its scale
+        strips [L, bs] as host numpy copies (float8 bytes as uint8). The
+        device-to-host copy is synchronous, so the host holds the bytes
+        before any later kernel on the stream can overwrite the block."""
+        out = [kv_to_numpy(t[:, bid]) for t in (state.cache_k, state.cache_v)]
+        if not self._kv_quantized:
+            return out + [None, None]
+        return out + [kv_to_numpy(t[:, bid])
+                      for t in (state.scale_k, state.scale_v)]
+
+    def _restore(self, state, bids, payloads):
+        """Scatter n spilled (k, v, k_scale, v_scale) payloads into pool
+        blocks `bids`, one indexed copy per tensor — a block's payload
+        and its scales land together."""
+        dev = self.device
+        idx = torch.as_tensor(np.asarray(bids, np.int64), device=dev)
+        for j, dst in enumerate((state.cache_k, state.cache_v,
+                                 state.scale_k, state.scale_v)):
+            if dst is None:
+                continue
+            src = torch.from_numpy(np.stack([p[j] for p in payloads]))
+            _bytes(dst)[:, idx] = _bytes(src.to(dev)).movedim(0, 1)
+
+    def _demote_cb(self, state):
+        """Demotion callback for pool evictions: copy the victim block's
+        KV (and scales) to the host and spill it under its chain hash.
+        None without a spill tier (eviction destroys the payload)."""
+        if self.spill is None:
+            return None
+
+        def cb(bid, h):
+            payload = self._block_to_host(state, bid)
+            try:
+                self.spill.put(h, *payload)
+            except FaultError:
+                pass    # an injected write fault: the payload is gone,
+                        # the next admit of this prefix re-prefills
+        return cb
+
+    def spill_cached(self, state, n=None):
+        """Demote up to `n` CACHED blocks (all when None) to the spill
+        tier and free them — the degradation ladder's evict-to-spill
+        rung. Without a spill tier the payloads are simply dropped.
+        Returns the number of blocks freed."""
+        return self.pool.evict_cached(n, demote_cb=self._demote_cb(state))
+
+    def export_state(self, state, slot, tokens, include_kv=True):
+        """Snapshot a live slot as a relocatable v2 document: the
+        committed token sequence, the committed length, the prompt chain
+        hashes, the kv_dtype and (with `include_kv`) the raw payloads of
+        every fully scattered block — `lengths[slot] // block_size` of
+        them — with their scale strips when quantized. Payloads keep
+        their native dtype (float8 as its bytes in uint8). A CRC32 over
+        the canonical bytes makes import_state refuse a corrupt
+        document; the JAX package computes the same CRC."""
+        inject_point("generation.state_export", tag=str(slot))
+        enforce(slot in self._slot_blocks,
+                "export_state on unadmitted slot %s", slot)
+        toks = np.asarray(tokens, np.int32).reshape(-1)
+        length = int(self.lengths[slot])
+        enforce(toks.size >= length,
+                "slot %s has %s committed positions but only %s tokens "
+                "were passed", slot, length, toks.size)
+        hashes = prefix_block_hashes(toks, self.block_size)
+        doc = {"version": STATE_DOC_VERSION,
+               "block_size": self.block_size,
+               "kv_dtype": self.kv_dtype,
+               "tokens": [int(t) for t in toks],
+               "length": length,
+               "block_hashes": [h.hex() for h in hashes],
+               "kv": []}
+        if include_kv:
+            ids = self._slot_blocks[slot]
+            for j in range(min(length // self.block_size, len(hashes))):
+                k, v, ks, vs = self._block_to_host(state, ids[j])
+                ent = {"hash": hashes[j].hex(), "k": k, "v": v}
+                if self._kv_quantized:
+                    ent["k_scale"], ent["v_scale"] = ks, vs
+                doc["kv"].append(ent)
+        doc["crc32"] = _state_doc_crc(doc)
+        return doc
+
+    def import_state(self, doc):
+        """Validate an export_state document (the port's or the JAX
+        package's: e4m3 payloads may be ml_dtypes arrays, whose raw
+        bytes are read) and deposit its KV payloads into the spill tier.
+        The device is untouched: the next admit() of the same token
+        prefix promotes them, so a resumed request re-prefills nothing.
+        A document without KV, or an engine without a spill tier, still
+        validates (the caller re-prefills). Returns {"tokens", "length",
+        "spilled_blocks"}. Raises StateDocError on version skew, CRC
+        mismatch or geometry, KVDtypeMismatch on another pool dtype."""
+        inject_point("generation.state_import")
+        if int(doc.get("version", -1)) != STATE_DOC_VERSION:
+            raise StateDocError(
+                f"unknown DecodeState document version "
+                f"{doc.get('version')!r} (this engine speaks "
+                f"{STATE_DOC_VERSION})")
+        if _state_doc_crc(doc) != doc.get("crc32"):
+            raise StateDocError(
+                "DecodeState document CRC mismatch — refusing to import "
+                "corrupt state")
+        if int(doc["block_size"]) != self.block_size:
+            raise StateDocError(
+                f"document block_size {doc['block_size']} != engine "
+                f"block_size {self.block_size}")
+        doc_dtype = doc.get("kv_dtype", "f32")
+        if doc_dtype != self.kv_dtype:
+            raise KVDtypeMismatch(
+                f"document kv_dtype {doc_dtype!r} != engine kv_dtype "
+                f"{self.kv_dtype!r} — refusing cross-precision KV import")
+        want = {"f32": "float32", "int8": "int8",
+                "fp8_e4m3": _FP8_TAG}[self.kv_dtype]
+        entries = []
+        for ent in (doc.get("kv", ()) if self.spill is not None else ()):
+            k, v = np.asarray(ent["k"]), np.asarray(ent["v"])
+            tags = {_payload_tag(k, doc_dtype), _payload_tag(v, doc_dtype)}
+            if tags != {want}:
+                raise KVDtypeMismatch(
+                    f"document payload dtype {k.dtype}/{v.dtype} != pool "
+                    f"dtype {want}")
+            # the spill tier keeps e4m3 payloads as their bytes
+            payload = [np.ascontiguousarray(a).view(np.uint8)
+                       if want == _FP8_TAG else a for a in (k, v)]
+            if self._kv_quantized:
+                payload += [np.asarray(ent[key], np.float32)
+                            for key in ("k_scale", "v_scale")]
+            else:
+                payload += [None, None]
+            entries.append((bytes.fromhex(ent["hash"]), payload))
+        for h, payload in entries:
+            self.spill.put(h, *payload)
+        return {"tokens": np.asarray(doc["tokens"], np.int32),
+                "length": int(doc["length"]),
+                "spilled_blocks": len(entries)}
 
     def warmup(self):
         """Run every prefill bucket, the plain chunk=1 decode and the

@@ -44,6 +44,9 @@ SIGNATURES = {
     "ptt_paged_decode_attention_f32": (
         [_c_void_p] * 9 + [_c_int] * 7 + [_c_ll] * 9
         + [_c_int, _c_float, _c_void_p]),
+    "ptt_quantized_paged_decode_attention": (
+        [_c_void_p] * 11 + [_c_int] * 7 + [_c_ll] * 11
+        + [_c_int, _c_float, _c_int, _c_void_p]),
     "ptt_flash_fwd": [_c_void_p] * 6 + _FLASH_TAIL,
     "ptt_flash_bwd_dkv": [_c_void_p] * 10 + _FLASH_TAIL,
     "ptt_flash_bwd_dq": [_c_void_p] * 8 + _FLASH_TAIL,

@@ -1,11 +1,13 @@
-"""Decode attention: kernels K5 (contiguous cache) and K6 (paged pools).
+"""Decode attention: kernels K5 (contiguous cache), K6 (paged pools) and
+K7 (paged pools with int8 / float8 e4m3 payloads and per-row scales).
 
 Counterpart of the decode half of
 `paddle_tpu/ops/pallas/flash_attention.py`. Each kernel is a CUDA C++
 kernel for Hopper (`paddle_tpu_torch/csrc/decode_attention.cu`, built by
 `_build.py` on first use), and beside it stands its plain PyTorch
 version, the same masked-gather + softmax arithmetic as the JAX package's
-`decode_attention_reference` / `paged_decode_attention_reference`.
+`decode_attention_reference` / `paged_decode_attention_reference` /
+`quantized_paged_decode_attention_reference`.
 
 A wrapper takes the plain version only because the tensors it was given
 lie on the CPU. On a CUDA tensor it launches the kernel or raises: a
@@ -21,8 +23,10 @@ from paddle_tpu_torch.core.enforce import enforce
 
 __all__ = [
     "NEG_INF", "decode_attention", "paged_decode_attention",
-    "decode_attention_reference", "paged_decode_attention_reference",
-    "launch_counts", "reset_launch_counts", "split_count",
+    "quantized_paged_decode_attention", "decode_attention_reference",
+    "paged_decode_attention_reference",
+    "quantized_paged_decode_attention_reference", "launch_counts",
+    "reset_launch_counts", "split_count",
 ]
 
 #: masked-logit value of the JAX package (not -inf: an all-masked row
@@ -39,7 +43,11 @@ _BLOCKS_PER_SM = 4
 _MAX_SPLITS = 16
 
 #: kernel launches per wrapper (bumped once per launched call)
-launch_counts = {"decode_attention": 0, "paged_decode_attention": 0}
+launch_counts = {"decode_attention": 0, "paged_decode_attention": 0,
+                 "quantized_paged_decode_attention": 0}
+
+#: payload dtypes of K7 and the kernel's fp8 flag for each
+_PAYLOAD_FP8 = {torch.int8: 0, torch.float8_e4m3fn: 1}
 
 
 def reset_launch_counts():
@@ -99,6 +107,52 @@ def paged_decode_attention_reference(q, k_pool, v_pool, tables, lengths):
     return torch.einsum("bncs,bsnd->bcnd", probs, win_v)
 
 
+def _payload_window(pool, tables):
+    """pool[tables] as float32. A float8 pool is gathered through its
+    uint8 view (indexing is not implemented for float8 tensors
+    everywhere); only the final cast needs the float8 dtype."""
+    if pool.dtype == torch.float8_e4m3fn:
+        return pool.view(torch.uint8)[tables].view(pool.dtype).float()
+    return pool[tables].float()
+
+
+def quantized_paged_decode_attention_reference(q, k_pool, v_pool, k_scale,
+                                               v_scale, tables, lengths):
+    """Masked paged decode attention over quantized pools: q [B, C, N, D]
+    float32; k_pool/v_pool [NB, bs, N, D] int8 or float8_e4m3fn
+    payloads; k_scale/v_scale [NB, bs] float32 per-row multipliers
+    (payload * scale == value); tables/lengths as in
+    paged_decode_attention_reference. The scales fold in the JAX order:
+    logits = (q . k_q) * s_k * sm_scale, then softmax, then
+    (probs * s_v) . v_q; the window is gathered but never dequantized."""
+    bs = k_pool.shape[1]
+    b, c = q.shape[0], q.shape[1]
+    m = tables.shape[1]
+    tables = tables.long().clamp(0, k_pool.shape[0] - 1)
+    win_kq = _payload_window(k_pool, tables).reshape(
+        (b, m * bs) + tuple(k_pool.shape[2:]))
+    win_vq = _payload_window(v_pool, tables).reshape(
+        (b, m * bs) + tuple(v_pool.shape[2:]))
+    win_ks = k_scale[tables].reshape(b, m * bs)
+    win_vs = v_scale[tables].reshape(b, m * bs)
+    logits = torch.einsum("bcnd,bsnd->bncs", q, win_kq)
+    logits = (logits * win_ks[:, None, None, :]
+              * (1.0 / math.sqrt(q.shape[-1])))
+    limits = (lengths.to(torch.int32)[:, None]
+              + torch.arange(c, dtype=torch.int32, device=q.device)[None, :]
+              + 1)                                        # [B, C]
+    valid = (torch.arange(m * bs, dtype=torch.int32,
+                          device=q.device)[None, None, :]
+             < limits[:, :, None])                        # [B, C, S]
+    logits = torch.where(valid[:, None, :, :], logits,
+                         torch.full_like(logits, NEG_INF))
+    probs = torch.softmax(logits, dim=-1)
+    probs = torch.where((limits > 0)[:, None, :, None], probs,
+                        torch.zeros_like(probs))
+    probs = probs * win_vs[:, None, None, :]
+    return torch.einsum("bncs,bsnd->bcnd", probs, win_vq)
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
@@ -124,6 +178,30 @@ def _check_operand(name, t, ndim):
     enforce(all(s % 4 == 0 for s in t.stride()[:-1])
             and t.data_ptr() % 16 == 0,
             "%s rows must be 16-byte aligned (strides %s)", name, t.stride())
+
+
+def _check_payload(name, t, ndim):
+    enforce(t.is_cuda, "%s must be a CUDA tensor, got device %s", name,
+            t.device)
+    enforce(t.dtype in _PAYLOAD_FP8, "%s must be int8 or float8_e4m3fn, "
+            "got %s", name, t.dtype)
+    enforce(t.dim() == ndim, "%s must have %d dims, got shape %s", name,
+            ndim, tuple(t.shape))
+    enforce(t.stride(-1) == 1, "%s must be contiguous in its last dim "
+            "(strides %s)", name, t.stride())
+    enforce(all(s % 16 == 0 for s in t.stride()[:-1])
+            and t.data_ptr() % 16 == 0,
+            "%s rows must be 16-byte aligned (strides %s)", name, t.stride())
+
+
+def _check_scale(name, t, shape, device):
+    enforce(t.device == device, "%s must lie on %s, got %s", name, device,
+            t.device)
+    enforce(t.dtype == torch.float32, "%s must be float32, got %s", name,
+            t.dtype)
+    enforce(tuple(t.shape) == shape and t.stride(-1) == 1,
+            "%s must be a %s tensor contiguous in its last dim, got shape "
+            "%s strides %s", name, shape, tuple(t.shape), t.stride())
 
 
 def _check_index(name, t, ndim, device):
@@ -244,4 +322,60 @@ def paged_decode_attention(q, k_pool, v_pool, tables, lengths):
         torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(err, "paged_decode_attention")
     launch_counts["paged_decode_attention"] += 1
+    return out
+
+
+def quantized_paged_decode_attention(q, k_pool, v_pool, k_scale, v_scale,
+                                     tables, lengths):
+    """K7: K6 over quantized pools. q [B, C, N, D] float32 against
+    payload pools [NB, bs, N, D] (int8 or float8_e4m3fn, the same for
+    both) with per-row scales [NB, bs] float32, through block tables
+    [B, M] int32, committed lengths [B] int32; row c sees positions
+    < lengths[b]+c+1. Any C. Returns [B, C, N, D] float32."""
+    if q.device.type == "cpu":
+        return quantized_paged_decode_attention_reference(
+            q, k_pool, v_pool, k_scale, v_scale, tables, lengths)
+    from paddle_tpu_torch.ops.kernels import _build
+    _check_operand("q", q, 4)
+    _check_payload("k_pool", k_pool, 4)
+    _check_payload("v_pool", v_pool, 4)
+    b, c, n, d = q.shape
+    nb, bs = k_pool.shape[0], k_pool.shape[1]
+    enforce(tuple(k_pool.shape) == (nb, bs, n, d)
+            and v_pool.shape == k_pool.shape
+            and v_pool.dtype == k_pool.dtype,
+            "pools %s %s / %s %s do not match q %s", tuple(k_pool.shape),
+            k_pool.dtype, tuple(v_pool.shape), v_pool.dtype, tuple(q.shape))
+    enforce(d in KERNEL_HEAD_DIMS, "head dim %d not in %s", d,
+            KERNEL_HEAD_DIMS)
+    enforce(q.device == k_pool.device == v_pool.device,
+            "q and pools must share a device")
+    _check_scale("k_scale", k_scale, (nb, bs), q.device)
+    _check_scale("v_scale", v_scale, (nb, bs), q.device)
+    _check_index("tables", tables, 2, q.device)
+    _check_index("lengths", lengths, 1, q.device)
+    m = tables.shape[1]
+    enforce(tables.shape[0] == b and lengths.shape[0] == b,
+            "tables %s / lengths %s do not match batch %d",
+            tuple(tables.shape), tuple(lengths.shape), b)
+    out = torch.empty((b, c, n, d), dtype=torch.float32, device=q.device)
+    if b == 0 or c == 0 or n == 0:
+        return out
+    row_tiles = 1 if c == 1 else -(-c // 8)
+    nsplit = split_count(b * n * row_tiles, m * bs)
+    pm, pl, pacc = _partials(b * c * n, nsplit, d, q.device)
+    lib = _build.load_library()
+    err = lib.ptt_quantized_paged_decode_attention(
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        k_scale.data_ptr(), v_scale.data_ptr(), tables.data_ptr(),
+        lengths.data_ptr(), out.data_ptr(), _ptr(pm), _ptr(pl), _ptr(pacc),
+        b, c, n, d, nb, bs, m,
+        q.stride(0), q.stride(1), q.stride(2),
+        k_pool.stride(0), k_pool.stride(1), k_pool.stride(2),
+        v_pool.stride(0), v_pool.stride(1), v_pool.stride(2),
+        k_scale.stride(0), v_scale.stride(0),
+        nsplit, 1.0 / math.sqrt(d), _PAYLOAD_FP8[k_pool.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_on(err, "quantized_paged_decode_attention")
+    launch_counts["quantized_paged_decode_attention"] += 1
     return out

@@ -1,7 +1,9 @@
 """Deterministic fault injection.
 
 Counterpart of paddle_tpu/reliability/faults.py for the choke points the
-port has so far: the generation server's `generation.*` sites. Named
+port has so far: the `generation.*` sites of the generation server
+(serving/generation.py) and of the paged engine's spill tier and state
+documents (ops/generation.py). Named
 `inject_point()` calls sit on the live serving path, inert until a
 `FaultPlan` is armed (`set_fault_plan` / the `fault_plan` context
 manager); then each hit consults the plan and may raise, delay, hang or
@@ -62,6 +64,22 @@ KNOWN_SITES = (
                              #   skips the tick with committed lengths
                              #   untouched, so the retried tick is
                              #   exact
+    "generation.state_export",  # ops/generation.py     before a
+                             #   DecodeState export (tag: slot): a raise
+                             #   is a snapshot that failed — the live
+                             #   slot is unaffected (export only reads)
+    "generation.state_import",  # ops/generation.py     before a
+                             #   DecodeState import: a raise (or a CRC
+                             #   mismatch) leaves pool and spill
+                             #   untouched — import is all-or-nothing
+    "generation.spill_write",   # ops/generation.py     before a CACHED
+                             #   block demotes to the host spill store
+                             #   (tag: chain hash): a raise drops the
+                             #   payload — the next admit re-prefills
+    "generation.spill_read",    # ops/generation.py     on a spill-hit
+                             #   promote (tag: chain hash): a raise is a
+                             #   lost payload — admit falls back to
+                             #   prefill, never a corrupt slot
 )
 
 _DEFAULT_HANG_S = 30.0

@@ -14,7 +14,12 @@ bank:
   produced, so time-to-first-token is one prefill, not one batch drain.
 
 `PagedBatcher` does the same over a `PagedDecodeEngine`, with parking
-admission, prefix-hit accounting and the draft/verify speculative tick.
+admission, prefix- and spill-hit accounting, the draft/verify
+speculative tick and the degradation ladder under pool pressure
+(shed_spec → shrink_budget → evict_spill → park). A stream relocated
+from another backend resumes through `admit_resumed` /
+`GenerationServer.submit_resumed`, riding the prefix index and the
+spill tier; `snapshot_requests` gives what a peer needs to resume it.
 
 The decode loop runs on ONE driver thread (engine state is
 single-owner; clients only touch their request's queue), is fake-clock
@@ -22,14 +27,10 @@ testable through `step()`, and reports through the unified metrics
 registry (`pt_generation_*`) plus `serving.decode_step` /
 `serving.generate` spans.
 
-Chaos choke points: `generation.prefill`, `generation.decode_step`,
+Chaos choke points here: `generation.prefill`, `generation.decode_step`,
 `generation.block_alloc`, `generation.draft_step` and
-`generation.verify_step` (reliability/faults.py KNOWN_SITES).
-
-Not ported yet: resumable snapshots (`admit_resumed`,
-`snapshot_requests`, `submit_resumed`) and the paged degradation ladder,
-whose middle rungs need the spill tier: under pool pressure admission
-parks, which was the ladder's last rung.
+`generation.verify_step`; the engine holds the spill and state-document
+sites (reliability/faults.py KNOWN_SITES).
 """
 import collections
 import itertools
@@ -43,8 +44,8 @@ from paddle_tpu_torch.core.enforce import enforce
 from paddle_tpu_torch.observability import metrics as obs_metrics
 from paddle_tpu_torch.observability import trace as obs_trace
 from paddle_tpu_torch.ops.generation import (
-    PagedDecodeEngine, PoolExhausted, greedy_verify, rejection_verify,
-    select_token,
+    PagedDecodeEngine, PoolExhausted, greedy_verify, prefix_block_hashes,
+    rejection_verify, select_token,
 )
 from paddle_tpu_torch.reliability.faults import FaultError, inject_point
 from paddle_tpu_torch.serving.batcher import (
@@ -98,6 +99,8 @@ class GenerationRequest:
         self.enqueued_at = enqueued_at
         self.first_token_at = None          # set by the driver (TTFT)
         self.request_id = None              # stamped at submit()
+        self.resume_offset = 0              # tokens committed elsewhere
+        self.resumed = False
         self.tokens = []
         self.stop_cause = None
         self.span = None                    # serving.generate span
@@ -227,6 +230,8 @@ class ContinuousBatcher:
             "submitted", "completed", "rejected", "cancelled", "failed",
             "refills", "steps", "tokens", "prefill_faults",
             "step_faults"))
+        self.resume_counters = Counter("generation_resume", (
+            "snapshots", "resumed", "resumed_tokens"))
         self._rid_seq = itertools.count(1)
         self._ttft = LatencyStat("generation_ttft_s")
         self._step_lat = LatencyStat("generation_step_s")
@@ -271,6 +276,71 @@ class ContinuousBatcher:
             self.counters.inc("submitted")
             self._cond.notify_all()
         return request
+
+    def admit_resumed(self, prompt, committed, max_new_tokens,
+                      stop_token=None, mode="greedy", temperature=1.0,
+                      seed=0, deadline=None, tenant=None,
+                      trace_ctx=None, request_id=None):
+        """Rebuild a relocated in-flight request from its committed
+        tokens: the committed sequence is appended to the prompt (every
+        committed token conditions the continuation as it did on the
+        original backend — greedy resumes are bit-identical) and the
+        remaining budget decodes here. On a paged engine the admission
+        rides the prefix index and the spill tier, so a warm resume
+        re-prefills nothing; a cold peer pays one full re-prefill. The
+        returned request's `resume_offset` tells the streaming layer
+        which token indices were already delivered elsewhere."""
+        committed = [int(t) for t in committed]
+        remaining = int(max_new_tokens) - len(committed)
+        enforce(remaining >= 1,
+                "admit_resumed with %s committed of %s budgeted tokens "
+                "— nothing left to decode", len(committed),
+                max_new_tokens)
+        prompt = np.asarray(prompt, np.int32).reshape(-1)
+        full = (np.concatenate([prompt, np.asarray(committed, np.int32)])
+                if committed else prompt)
+        req = GenerationRequest(
+            full, remaining, enqueued_at=self._clock(),
+            stop_token=stop_token, mode=mode, temperature=temperature,
+            seed=seed, deadline=deadline, tenant=tenant,
+            trace_ctx=trace_ctx)
+        req.request_id = request_id
+        req.resume_offset = len(committed)
+        req.resumed = True
+        self.resume_counters.inc("resumed")
+        self.resume_counters.inc("resumed_tokens", len(committed))
+        return self.submit(req)
+
+    def snapshot_requests(self):
+        """Resumable snapshots of every in-flight request: request id →
+        prompt, committed tokens, remaining contract and (block-table
+        engines) the committed prefix chain hashes — what a peer needs
+        to admit_resumed() the stream."""
+        self.resume_counters.inc("snapshots")
+        block = getattr(self.engine, "block_size", None)
+        out = {}
+
+        def doc(req, slot_idx, state):
+            d = {"prompt": [int(t) for t in req.prompt],
+                 "committed": list(req.tokens),
+                 "max_new_tokens": req.max_new_tokens,
+                 "stop_token": req.stop_token, "mode": req.mode,
+                 "temperature": req.temperature, "seed": req.seed,
+                 "slot": slot_idx, "state": state}
+            if block:
+                seq = [int(t) for t in req.prompt] + list(req.tokens)
+                d["prefix_hashes"] = [
+                    h.hex() for h in prefix_block_hashes(seq, block)]
+            return d
+
+        for i, slot in enumerate(self._slots):
+            if slot is not None:
+                out[slot.request.request_id] = doc(slot.request, i, "live")
+        with self._cond:
+            pending = list(self._pending)
+        for req in pending:
+            out[req.request_id] = doc(req, None, "queued")
+        return out
 
     @property
     def queue_depth(self):
@@ -483,10 +553,27 @@ class PagedBatcher(ContinuousBatcher):
       degrades the tick to plain chunk=1 decoding — same tokens, fewer
       per tick; a faulted verify (`generation.verify_step`) skips the
       tick with the committed lengths untouched, so the retry is exact.
+
+    Under sustained pool pressure the degradation ladder engages one
+    rung per parked tick and recovers one per clean tick (LADDER_RUNGS).
     """
 
+    #: degradation ladder rungs, engaged one per pressured tick under
+    #: sustained PoolExhausted and recovered one per clean tick:
+    #:   1 shed_spec     suppress speculative ticks (same greedy tokens,
+    #:                   one per slot)
+    #:   2 shrink_budget clamp NEW admissions' max_new_tokens to
+    #:                   min_degraded_budget (skipped when unset)
+    #:   3 evict_spill   demote every CACHED block to the spill tier
+    #:                   (frees device blocks, keeps reuse on the host)
+    #:   4 park          the FIFO head waits for retirements
+    LADDER_RUNGS = ("normal", "shed_spec", "shrink_budget",
+                    "evict_spill", "park")
+    RUNG_SHED, RUNG_SHRINK, RUNG_EVICT, RUNG_PARK = 1, 2, 3, 4
+
     def __init__(self, engine, draft=None, spec_k=None,
-                 prefix_reuse=True, max_queue=128, clock=time.monotonic):
+                 prefix_reuse=True, max_queue=128, clock=time.monotonic,
+                 min_degraded_budget=None):
         enforce(isinstance(engine, PagedDecodeEngine),
                 "PagedBatcher needs a PagedDecodeEngine, got %s",
                 type(engine).__name__)
@@ -504,11 +591,26 @@ class PagedBatcher(ContinuousBatcher):
                 "the engine",
                 self.spec_k, self.spec_k + 1, engine.spec_k + 1)
         self.prefix_reuse = bool(prefix_reuse)
+        self.min_degraded_budget = (None if min_degraded_budget is None
+                                    else int(min_degraded_budget))
+        enforce(self.min_degraded_budget is None
+                or self.min_degraded_budget >= 1,
+                "min_degraded_budget must be >= 1, got %s",
+                min_degraded_budget)
+        self.ladder_rung = 0
         self.spec_counters = Counter("generation_spec", (
             "proposed", "accepted", "verify_ticks", "plain_ticks",
             "draft_faults", "verify_faults", "parked",
-            "prefix_hit_admissions"))
+            "prefix_hit_admissions", "spill_hit_admissions"))
+        self.ladder_counters = Counter("generation_ladder", (
+            "shed_spec", "shrink_budget", "evict_spill", "park",
+            "recovered", "budget_clamped", "spec_shed_ticks",
+            "spill_evicted_blocks"))
         reg = obs_metrics.registry()
+        self._obs_ladder = reg.gauge(
+            "pt_generation_ladder_rung",
+            "degradation ladder rung (0 normal, 1 shed_spec, "
+            "2 shrink_budget, 3 evict_spill, 4 park)")
         self._obs_accepted = reg.counter(
             "pt_generation_accepted_tokens_total",
             "draft proposals accepted by the verify step")
@@ -551,6 +653,14 @@ class PagedBatcher(ContinuousBatcher):
             self._obs_stops.labels(cause="fault").inc()
             self.counters.inc("failed")
             return "consumed"
+        if (self.ladder_rung >= self.RUNG_SHRINK
+                and self.min_degraded_budget is not None
+                and req.max_new_tokens > self.min_degraded_budget):
+            # ladder rung 2: the request completes with a shrunken
+            # budget instead of parking behind a full pool
+            req.max_new_tokens = self.min_degraded_budget
+            req.degraded_budget = True
+            self.ladder_counters.inc("budget_clamped")
         total = int(req.prompt.size) + req.max_new_tokens
         try:
             # chaos: a block_alloc fault fails THIS admission (blocks
@@ -578,11 +688,14 @@ class PagedBatcher(ContinuousBatcher):
                    "mode": req.mode,
                    "prefix_shared_blocks": info["shared_blocks"]})
         req.prefix_shared_blocks = info["shared_blocks"]
+        req.spill_blocks = info["spill_blocks"]
         req.spec_proposed = 0
         req.spec_accepted = 0
         if info["shared_blocks"]:
             self._obs_prefix_hits.inc(info["shared_blocks"])
             self.spec_counters.inc("prefix_hit_admissions")
+        if req.spill_blocks:
+            self.spec_counters.inc("spill_hit_admissions")
         if self.draft is not None:
             self.draft.observe(req.prompt)
         slot = _Slot(req)
@@ -594,6 +707,34 @@ class PagedBatcher(ContinuousBatcher):
         self._sync_block_gauges()
         self._emit(idx, slot, req.pick(logits))
         return "consumed"
+
+    def _ladder_escalate(self):
+        """Advance the degradation ladder one rung and apply its remedy.
+        Returns True when the remedy may have freed admission capacity
+        (the caller retries the parked admission once this tick). Rung 2
+        is skipped when min_degraded_budget is unset: shrinking budgets
+        changes what users get, so it is opt-in."""
+        if self.ladder_rung >= self.RUNG_PARK:
+            return False
+        self.ladder_rung += 1
+        if (self.ladder_rung == self.RUNG_SHRINK
+                and self.min_degraded_budget is None):
+            self.ladder_rung += 1
+        self.ladder_counters.inc(self.LADDER_RUNGS[self.ladder_rung])
+        self._obs_ladder.set(self.ladder_rung)
+        if self.ladder_rung == self.RUNG_EVICT:
+            freed = self.engine.spill_cached(self._state)
+            self.ladder_counters.inc("spill_evicted_blocks", freed)
+            self._sync_block_gauges()
+            return False
+        return self.ladder_rung == self.RUNG_SHRINK
+
+    def _ladder_recover(self):
+        """One clean (unparked) tick recovers one rung."""
+        if self.ladder_rung > 0:
+            self.ladder_rung -= 1
+            self._obs_ladder.set(self.ladder_rung)
+            self.ladder_counters.inc("recovered")
 
     def _draft_for(self, idx, slot):
         """This slot's draft proposals for the tick, capped so emitted
@@ -643,17 +784,31 @@ class PagedBatcher(ContinuousBatcher):
                 self._retire(i, "client_gone",
                              error=GenerationAborted("client went away"))
         free = self._free_slot_indices()
+        parked_tick = False
+        escalated = False
         while free:
             with self._cond:
                 if not self._pending:
                     break
                 req = self._pending[0]       # peek: park keeps FIFO
-            if self._admit_paged(req, free[0], now) == "parked":
-                break
+            verdict = self._admit_paged(req, free[0], now)
+            if verdict == "parked":
+                parked_tick = True
+                # sustained pressure engages the degradation ladder: at
+                # most ONE rung per pressured tick; a remedy that can
+                # free capacity earns one immediate retry
+                if not escalated:
+                    escalated = True
+                    if self._ladder_escalate():
+                        verdict = self._admit_paged(req, free[0], now)
+                if verdict == "parked":
+                    break
             with self._cond:
                 if self._pending and self._pending[0] is req:
                     self._pending.popleft()
             free = self._free_slot_indices()
+        if not parked_tick:
+            self._ladder_recover()
         live = int(self._active.sum())
         self._obs_live.set(live)
         if live == 0:
@@ -661,18 +816,23 @@ class PagedBatcher(ContinuousBatcher):
         self._obs_occupancy.record(live / self.engine.batch_size)
         proposals = {}
         if self.spec_k > 0 and self.draft is not None:
-            try:
-                # chaos: a faulted draft degrades this tick to plain
-                # decoding — same emitted tokens, one per slot
-                inject_point("generation.draft_step")
-                for i, slot in enumerate(self._slots):
-                    if slot is not None and self._active[i]:
-                        props = self._draft_for(i, slot)
-                        if props:
-                            proposals[i] = props
-            except FaultError:
-                self.spec_counters.inc("draft_faults")
-                proposals = {}
+            if self.ladder_rung >= self.RUNG_SHED:
+                # ladder rung 1+: shed speculation — plain ticks emit the
+                # same greedy tokens, one per slot, at no draft cost
+                self.ladder_counters.inc("spec_shed_ticks")
+            else:
+                try:
+                    # chaos: a faulted draft degrades this tick to plain
+                    # decoding — same emitted tokens, one per slot
+                    inject_point("generation.draft_step")
+                    for i, slot in enumerate(self._slots):
+                        if slot is not None and self._active[i]:
+                            props = self._draft_for(i, slot)
+                            if props:
+                                proposals[i] = props
+                except FaultError:
+                    self.spec_counters.inc("draft_faults")
+                    proposals = {}
         oldest = min((s.request for s in self._slots if s is not None),
                      key=lambda r: r.enqueued_at)
         step_span = obs_trace.start_span(
@@ -761,10 +921,17 @@ class PagedBatcher(ContinuousBatcher):
         out["pool"] = self.engine.pool.stats()
         out["kv_dtype"] = self.engine.kv_dtype
         out["kv_pool_bytes"] = self.engine.kv_pool_bytes()
+        if self.engine.spill is not None:
+            out["spill"] = self.engine.spill.stats()
         out["speculative"] = dict(
             prop, spec_k=self.spec_k,
             accept_rate=(prop["accepted"] / prop["proposed"]
                          if prop["proposed"] else None))
+        out["ladder"] = dict(
+            self.ladder_counters.eval(), rung=self.ladder_rung,
+            rung_name=self.LADDER_RUNGS[self.ladder_rung],
+            min_degraded_budget=self.min_degraded_budget)
+        out["resume"] = self.resume_counters.eval()
         return out
 
 
@@ -781,12 +948,12 @@ class GenerationServer:
 
     def __init__(self, engine, max_queue=128, clock=time.monotonic,
                  idle_wait_s=0.005, draft=None, spec_k=None,
-                 prefix_reuse=True):
+                 prefix_reuse=True, min_degraded_budget=None):
         if isinstance(engine, PagedDecodeEngine):
             self.batcher = PagedBatcher(
                 engine, draft=draft, spec_k=spec_k,
                 prefix_reuse=prefix_reuse, max_queue=max_queue,
-                clock=clock)
+                clock=clock, min_degraded_budget=min_degraded_budget)
         else:
             enforce(draft is None,
                     "a draft needs a PagedDecodeEngine (verify rung)")
@@ -825,6 +992,23 @@ class GenerationServer:
             tenant=tenant, trace_ctx=trace_ctx)
         req.request_id = request_id
         self.batcher.submit(req)
+        self._wake.set()
+        return req
+
+    def submit_resumed(self, prompt, committed, max_new_tokens,
+                       stop_token=None, mode="greedy", temperature=1.0,
+                       seed=0, deadline_ms=None, tenant=None,
+                       trace_ctx=None, request_id=None):
+        """Adopt a stream relocated from another backend: committed
+        tokens condition the continuation, only the remaining budget
+        decodes here (see ContinuousBatcher.admit_resumed)."""
+        now = self.batcher._clock()
+        req = self.batcher.admit_resumed(
+            prompt, committed, max_new_tokens, stop_token=stop_token,
+            mode=mode, temperature=temperature, seed=seed,
+            deadline=None if deadline_ms is None
+            else now + deadline_ms / 1e3,
+            tenant=tenant, trace_ctx=trace_ctx, request_id=request_id)
         self._wake.set()
         return req
 

@@ -13,7 +13,15 @@ Bert (`bert_params_from_jax`, `bert_params_to_numpy`): the JAX model's
 `layers.i0.attn.qkv.weight`; the port's `Bert.state_dict()` has the same
 names and `[in, out]` layouts, so the mapping is by name.
 
-All four functions work on numpy arrays (what
+KV pools and state documents (`kv_from_numpy`, `kv_to_numpy`,
+`state_doc_to_jax`): the paged engines of both packages keep int8 or
+float8 e4m3 payloads with float32 scales. JAX's float8 arrays are
+`ml_dtypes.float8_e4m3fn` numpy arrays; the port cannot import
+`ml_dtypes` (a machine with only torch lacks it), so it moves e4m3
+payloads to the host as their bytes in uint8, and these functions view
+them as whichever dtype the other side needs, over the same bytes.
+
+All these functions work on numpy arrays (what
 `jax.tree_util.tree_map(np.asarray, params)` gives), so this module
 imports neither JAX nor the JAX package.
 """
@@ -25,7 +33,8 @@ import torch
 from paddle_tpu_torch.core.enforce import enforce
 
 __all__ = ["params_from_jax", "params_to_numpy", "bert_params_from_jax",
-           "bert_params_to_numpy"]
+           "bert_params_to_numpy", "kv_from_numpy", "kv_to_numpy",
+           "state_doc_to_jax"]
 
 _TOP = ("tok_emb", "pos_emb", "lnf_g", "lnf_b", "head")
 _LAYER = ("ln1_g", "ln1_b", "wqkv", "bqkv", "wo", "bo", "ln2_g", "ln2_b",
@@ -87,6 +96,53 @@ def bert_params_to_numpy(module):
     `trainable_dict()` layout (bfloat16 values are exact in float32)."""
     return collections.OrderedDict(
         (name, _array(p)) for name, p in module.named_parameters())
+
+
+def kv_from_numpy(arr, kv_dtype=None):
+    """A KV payload or scale array (numpy) → a CPU tensor over the same
+    bytes. An `ml_dtypes.float8_e4m3fn` array (a JAX pool or JAX state
+    document), or a uint8 array when `kv_dtype` is "fp8_e4m3" (a port
+    document), becomes a torch.float8_e4m3fn tensor; int8 and float32
+    arrays keep their dtype."""
+    a = np.ascontiguousarray(np.asarray(arr))
+    if a.dtype.name == "float8_e4m3fn" or (
+            kv_dtype == "fp8_e4m3" and a.dtype == np.uint8):
+        return torch.from_numpy(a.view(np.uint8).copy()).view(
+            torch.float8_e4m3fn)
+    enforce(a.dtype in (np.int8, np.float32),
+            "a KV array is float32, int8 or float8_e4m3fn, got %s", a.dtype)
+    return torch.from_numpy(a.copy())
+
+
+def kv_to_numpy(t, fp8_dtype=None):
+    """A copy of a port KV tensor (any device) as numpy, over the same
+    bytes: never a view of the tensor, which the engine overwrites in
+    place. A float8_e4m3fn tensor comes back as its bytes in uint8, or
+    viewed as `fp8_dtype` when given (e.g. `ml_dtypes.float8_e4m3fn`,
+    for the JAX package)."""
+    t = t.detach()
+    if t.dtype == torch.float8_e4m3fn:
+        a = t.view(torch.uint8).to("cpu", copy=True).numpy()
+        return a if fp8_dtype is None else a.view(fp8_dtype)
+    return t.to("cpu", copy=True).numpy()
+
+
+def state_doc_to_jax(doc, fp8_dtype=None):
+    """A port export_state document → one the JAX package's import_state
+    takes: e4m3 payloads (uint8 here) viewed as `fp8_dtype`
+    (`ml_dtypes.float8_e4m3fn`), every other field as it is. Both
+    packages hash e4m3 bytes under the tag "float8_e4m3fn", so the
+    document's crc32 stays valid. The port's import_state takes a JAX
+    document as it is."""
+    if doc.get("kv_dtype") != "fp8_e4m3":
+        return dict(doc)
+    enforce(fp8_dtype is not None,
+            "an fp8_e4m3 document needs the JAX side's float8 dtype")
+    out = dict(doc)
+    out["kv"] = [dict(e, k=np.asarray(e["k"]).view(fp8_dtype),
+                      v=np.asarray(e["v"]).view(fp8_dtype))
+                 for e in doc.get("kv", ())]
+    return out
 
 
 def _tensor(a):

@@ -155,9 +155,14 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
     arrays = _k5_inputs(1, 2, 8, 2, 8, [3, 8])
     tda.decode_attention(*_torch(*arrays))
     arrays = _k6_inputs(1, 2, 3, 2, 8, 6, 4, 3, [0, 5])
-    tda.paged_decode_attention(*_torch(*arrays))
+    q, kp, vp, tables, lengths = _torch(*arrays)
+    tda.paged_decode_attention(q, kp, vp, tables, lengths)
+    tda.quantized_paged_decode_attention(
+        q, kp.to(torch.int8), vp.to(torch.int8), kp[..., 0, 0].abs(),
+        vp[..., 0, 0].abs(), tables, lengths)
     assert tda.launch_counts == {"decode_attention": 0,
-                                 "paged_decode_attention": 0}
+                                 "paged_decode_attention": 0,
+                                 "quantized_paged_decode_attention": 0}
 
 
 @pytest.mark.parametrize("blocks,capacity,want", [
@@ -177,5 +182,6 @@ def test_library_is_named_by_its_sources():
     assert path == _build.library_path()
     assert set(_build.SIGNATURES) == {"ptt_decode_attention_f32",
                                       "ptt_paged_decode_attention_f32",
+                                      "ptt_quantized_paged_decode_attention",
                                       "ptt_flash_fwd", "ptt_flash_bwd_dkv",
                                       "ptt_flash_bwd_dq"}

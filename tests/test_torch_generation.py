@@ -226,11 +226,25 @@ def test_paged_prefix_reuse_and_spec_verify_match_plain(models):
     assert eng.pool.live_count() == 0
 
 
-def test_paged_rejects_quantized_kv_by_name(models):
+def test_paged_serves_int8_kv_on_the_cpu(models):
+    """An int8 pool serves through the server (K7's plain version on the
+    CPU): quantized payloads and their scales are written, and greedy
+    tokens equal the float32 pool's here."""
+    from paddle_tpu_torch.serving.generation import GenerationServer
     _, _, _, tmodel = models
-    with pytest.raises(NotImplementedError, match="K7"):
-        tgen.PagedDecodeEngine(tmodel, batch_size=1, max_len=64,
-                               kv_dtype="int8", device=CPU)
+    prompt = [5, 9, 2, 7, 7, 1, 3, 3, 8, 2]
+    want = tgen.greedy_decode(tmodel, prompt, 6, device=CPU).tolist()
+    eng = tgen.PagedDecodeEngine(tmodel, batch_size=2, max_len=64,
+                                 kv_dtype="int8", device=CPU)
+    assert eng.kv_dtype == "int8"
+    with GenerationServer(eng, idle_wait_s=0.001) as srv:
+        got = srv.generate(prompt, 6, timeout=60)["tokens"]
+        stats = srv.stats()
+    assert got == want
+    assert stats["kv_dtype"] == "int8"
+    state = srv.batcher._state
+    assert state.cache_k.dtype == torch.int8
+    assert bool((state.scale_k > 0).any())
 
 
 def test_engine_rejects_oversized_geometry(models):

@@ -49,6 +49,15 @@ _BLOCKED_RUN = textwrap.dedent("""
                              np.asarray([True, False]))
     assert logits.shape == (2, gen.LMConfig().vocab_size)
     assert np.isfinite(logits).all()
+    for kv_dtype in ("int8", "fp8_e4m3"):
+        peng = gen.PagedDecodeEngine(model, batch_size=1, max_len=32,
+                                     kv_dtype=kv_dtype, spill_blocks=4,
+                                     device="cpu")
+        assert peng.kv_dtype == kv_dtype
+        pstate = peng.init_state()
+        pstate, row, _ = peng.admit(pstate, 0, list(range(1, 11)), 12)
+        doc = peng.export_state(pstate, 0, list(range(1, 11)))
+        assert len(doc["kv"]) == 1 and np.isfinite(row).all()
     assert not _build.build_info(), "a CPU step must not build kernels"
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "paddle_tpu"))

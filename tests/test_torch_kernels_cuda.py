@@ -1,5 +1,6 @@
-"""K5 and K6 on the card: each CUDA kernel against its plain PyTorch
-version, the launch counters, and the wrappers' input checks.
+"""The CUDA kernels on the card (K5, K6, K7; K1-K4 below): each against
+its plain PyTorch version, the launch counters, and the wrappers' input
+checks.
 
 Every test here carries the `cuda` marker and skips without a GPU (the
 kernels are CUDA C++ for sm_90a and have no CPU mode). The file imports
@@ -113,6 +114,102 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
         tda.paged_decode_attention(q[:, None], k.reshape(8, 4, 2, 64),
                                    v.reshape(8, 4, 2, 64), tables.long(),
                                    ln)
+
+
+# ---------------------------------------------------------------------
+# K7: paged attention over int8 / float8 e4m3 pools with per-row scales
+# ---------------------------------------------------------------------
+
+from paddle_tpu_torch.ops.generation import _kv_quantize_rows  # noqa: E402
+
+
+def _quantized_pools(rng, nb, bs, n, d, kv_dtype, device):
+    """Pools quantized by the engine's own row quantizer, with scales."""
+    kq, ks = _kv_quantize_rows(3.0 * _randn(rng, nb, bs, n, d,
+                                            device=device), kv_dtype)
+    vq, vs = _kv_quantize_rows(_randn(rng, nb, bs, n, d, device=device),
+                               kv_dtype)
+    return kq, vq, ks, vs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype", ["int8", "fp8_e4m3"])
+@pytest.mark.parametrize("c,d", [(1, 64), (5, 64), (64, 64), (1, 32),
+                                 (9, 128)])
+def test_k7_kernel_matches_plain(cuda, kv_dtype, c, d):
+    """Tables with repeated and out-of-order blocks (fewer pool blocks
+    than table entries), lengths from an empty prefix to a full window."""
+    b, n, bs, m = 4, 12, 8, 32
+    nb = m + 9
+    rng = np.random.RandomState(7)
+    q = _randn(rng, b, c, n, d, device=cuda)
+    kq, vq, ks, vs = _quantized_pools(rng, nb, bs, n, d, kv_dtype, cuda)
+    tab = rng.randint(0, nb, size=(b, m))
+    tab[0] = np.arange(m)[::-1]
+    tables = _ints(tab, cuda)
+    ln = _ints([0, 1, m * bs - c, 100], cuda)
+    before = tda.launch_counts["quantized_paged_decode_attention"]
+    got = tda.quantized_paged_decode_attention(q, kq, vq, ks, vs, tables,
+                                               ln)
+    want = tda.quantized_paged_decode_attention_reference(
+        q, kq, vq, ks, vs, tables, ln)
+    torch.cuda.synchronize()
+    assert tda.launch_counts["quantized_paged_decode_attention"] == \
+        before + 1
+    assert got.shape == (b, c, n, d) and bool(torch.isfinite(got).all())
+    assert float((got - want).abs().max()) <= TOL
+
+
+@pytest.mark.cuda
+def test_k7_reads_a_layer_view_of_the_engine_pools(cuda):
+    """The engine's operands: one layer of [L, NB, bs, N, D] payload and
+    [L, NB, bs] scale pools, q a view of the fused QKV projection."""
+    rng = np.random.RandomState(8)
+    n, d, bs, nb = 12, 64, 8, 17
+    kq, vq, ks, vs = _quantized_pools(rng, 2 * nb, bs, n, d, "int8", cuda)
+    kq, vq = kq.reshape(2, nb, bs, n, d), vq.reshape(2, nb, bs, n, d)
+    ks, vs = ks.reshape(2, nb, bs), vs.reshape(2, nb, bs)
+    qkv = _randn(rng, 2, 3, 3 * n * d, device=cuda)
+    q = qkv[..., :n * d].reshape(2, 3, n, d)
+    tables = _ints(rng.permutation(np.arange(1, nb))[:16].reshape(2, 8),
+                   cuda)
+    ln = _ints([5, 40], cuda)
+    got = tda.quantized_paged_decode_attention(q, kq[1], vq[1], ks[1],
+                                               vs[1], tables, ln)
+    want = tda.quantized_paged_decode_attention_reference(
+        q, kq[1], vq[1], ks[1], vs[1], tables, ln)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) <= TOL
+
+
+@pytest.mark.cuda
+def test_k7_raises_instead_of_falling_back(cuda):
+    rng = np.random.RandomState(9)
+    n, d, bs, nb = 2, 64, 8, 6
+    kq, vq, ks, vs = _quantized_pools(rng, nb, bs, n, d, "int8", cuda)
+    q = _randn(rng, 2, 1, n, d, device=cuda)
+    tables = _ints(np.ones((2, 3)), cuda)
+    ln = _ints([3, 9], cuda)
+    fn = tda.quantized_paged_decode_attention
+    before = dict(tda.launch_counts)
+    with pytest.raises(EnforceError, match="int8 or float8"):
+        fn(q, kq.float(), vq.float(), ks, vs, tables, ln)       # f32 pool
+    with pytest.raises(EnforceError, match="do not match"):
+        fn(q, kq, vq.view(torch.uint8).view(torch.float8_e4m3fn), ks, vs,
+           tables, ln)                                          # mixed
+    raw = torch.zeros(kq.numel() + 1, dtype=torch.int8, device=cuda)
+    shifted = raw[1:].view(kq.shape)
+    with pytest.raises(EnforceError, match="16-byte aligned"):
+        fn(q, shifted, vq, ks, vs, tables, ln)                  # misaligned
+    with pytest.raises(EnforceError, match="float32"):
+        fn(q, kq, vq, ks.double(), vs, tables, ln)              # scale dtype
+    with pytest.raises(EnforceError, match="k_scale"):
+        fn(q, kq, vq, ks[:, :4], vs, tables, ln)                # scale shape
+    with pytest.raises(EnforceError, match="must lie on"):
+        fn(q, kq, vq, ks.cpu(), vs, tables, ln)                 # device
+    with pytest.raises(EnforceError, match="int32"):
+        fn(q, kq, vq, ks, vs, tables.long(), ln)                # index dtype
+    assert tda.launch_counts == before
 
 
 # ---------------------------------------------------------------------

@@ -230,7 +230,8 @@ def test_decode_and_verify_faults_skip_ticks_exactly(models):
 
 def test_every_known_site_has_a_call_site():
     import pathlib
-    src = pathlib.Path(tserve.__file__).read_text()
+    src = "".join(pathlib.Path(m.__file__).read_text()
+                  for m in (tserve, tgen))
     for site in KNOWN_SITES:
         assert f'inject_point("{site}"' in src, site
 
