@@ -70,14 +70,40 @@ Phases, each of which raises (exit code != 0) when its check fails:
    every gradient under attention_impl="flash" against "xla" within
    MODEL_LOSS_TOL / MODEL_GRAD_TOL.
 9. Where a training step's time goes (torch.profiler, device rows).
-10. Numbers, each beside the card's name and power limit, then a
-    `{"kernels": [...]}` line and, last, the device line
-    `{"ok": true, "device": {...}}`.
+10. (No phase 10: phases 11-13 are the static serving slice's.)
+11. K8 (the fused dequant matmul) against its plain version on the card,
+    int8-activation and weight-only modes, at the ResNet-50 fc at batch 32
+    (32, 2048, 1000), a BERT-base FFN GEMM (4096, 768, 3072) and two odd
+    shapes: int32 accumulators equal and outputs within 1 ulp (int8
+    mode), max |kernel - plain| <= 1e-5 max |plain| (weight-only); each
+    timed beside its plain version, its bound and, at the large shapes,
+    `torch._int_mm` plus the rescale (a yardstick the port never calls);
+    the kernels' ptxas registers and spills. TF32 is off for the static
+    phases (and printed so).
+12. ResNet-50 int8 serving through the Predictor at the published width
+    (He et al. 2015 Table 1: 50 layers, 224 x 224, 1000 classes; depth
+    not cut; random weights from --seed): built with the port's static
+    API, initialized on the card, saved with save_inference_model, then
+    an f32 Predictor and an int8 one (PTQ at load over 4 batches of 8
+    images, hist) serve 4 requests each at batch 1, 8 and 32 through the
+    handles. Checks: 53 quantized_conv2d + 1 quantized_mul and no fake
+    op; K8 launched on every int8 request; the served fc equals K8's
+    plain version + bias within 1 ulp; the stem's and a 3x3 conv's int32
+    accumulators equal float64 on the CPU; int8 vs f32 mean |dlogits| /
+    mean |logits_f32| < 0.2 (top-1 agreement recorded, not gated).
+    Images/s and p50 latency per batch size, PTQ load time and peak
+    memory, int8 weight bytes beside f32's.
+13. Where an int8 batch-32 request's time goes (torch.profiler).
+
+Then a `{"kernels": [...]}` line and, last, the device line
+`{"ok": true, "device": {...}}`. Every number is printed beside the
+card's name and power limit.
 
 Launch counters are reset just before each main-path phase (serving,
-training) and read just after it, so launches made to compare kernels
-with their plain versions do not count; K7's line reports the launches
-of its three serving runs (phases 4a and 4b) together.
+training, int8 ResNet serving) and read just after it, so launches made
+to compare kernels with their plain versions do not count; K7's line
+reports the launches of its three serving runs (phases 4a and 4b)
+together.
 """
 import argparse
 import json
@@ -93,6 +119,8 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 BF16_FLOPS = 989e12
+#: dense int8 tensor-core operations/s of the H100 SXM (data sheet)
+INT8_OPS = 1979e12
 
 GPT2_SMALL = dict(vocab_size=50257, d_model=768, num_heads=12,
                   num_layers=12, max_len=1024)
@@ -885,6 +913,311 @@ def flash_vs_einsum(torch, tfa, trainer, tag, batch=4):
             "worst_grad": worst, "worst_grad_rel_err": grad_err[worst]}
 
 
+# ---------------------------------------------------------------------------
+# the Fluid static serving slice: K8 and ResNet-50 int8 through the Predictor
+# ---------------------------------------------------------------------------
+
+#: phase 11's (M, K, N): the ResNet-50 fc at batch 32 (the main path's
+#: K8 call), the BERT-base FFN up-projection at 32 x 128 tokens (a GEMM
+#: that fills the card) and two odd shapes (edge tiles)
+K8_SHAPES = ((32, 2048, 1000), (4096, 768, 3072), (5, 33, 17),
+             (130, 257, 129))
+#: weight-only mode: max |kernel - plain| <= K8_WO_TOL * max |plain|
+K8_WO_TOL = 1e-5
+#: int8 serving: mean |logits_int8 - logits_f32| / mean |logits_f32|,
+#: the JAX package's int8 Predictor gate
+#: (tests/test_inference_checkpoint.py:74-75)
+INT8_FIDELITY_GATE = 0.2
+RESNET_BATCHES = (1, 8, 32)
+RESNET_REQUESTS_PER_BATCH = 4
+
+
+def ulps(torch, a, b):
+    """Max distance in units in the last place of two float32 tensors."""
+    return int((a.view(torch.int32).long()
+                - b.view(torch.int32).long()).abs().max())
+
+
+def ptxas_lines(log, names):
+    """The ptxas register/shared-memory lines of the kernels whose mangled
+    names contain one of `names`, from an nvcc -Xptxas -v log."""
+    out, current = [], None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            current = next((n for n in names if n in line), None)
+        elif current and ("Used" in line or "spill" in line):
+            out.append(f"{current}: {line.split(':', 1)[-1].strip()}")
+    return out
+
+
+def check_quantized_matmul(torch, k8, seed, tag, copies=3):
+    """Phase 11. K8 against its plain version on the card in both modes
+    at K8_SHAPES: int8-activation mode with equal int32 accumulators and
+    outputs within 1 ulp, weight-only within K8_WO_TOL of max |plain|.
+    Each case is timed beside its plain version, its bound
+    (max(bytes / 3.35 TB/s, 2MKN / 1979 TOP/s), bytes 4MK + KN + 4N + 4MN)
+    and, at the two large shapes in int8 mode, `torch._int_mm` on the
+    same int8 operands plus the rescale (a yardstick the port never
+    calls). Returns the kernel's summary dict."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed + 11)
+    rows = []
+    for m, k, n in K8_SHAPES:
+        sets = []
+        for _ in range(copies):
+            x = torch.randn((m, k), generator=g, device=dev)
+            w = torch.randn((k, n), generator=g, device=dev)
+            w_s = w.abs().amax(dim=0).clamp_min(1e-8)
+            w_q = torch.clamp(torch.round(w / w_s * 127.0), -127, 127).to(
+                torch.int8)
+            sets.append((x, w_q, w_s))
+        xs = float(sets[0][0].abs().max()) * 0.7
+        x, w_q, w_s = sets[0]
+        got, acc = k8.fused_dequant_matmul(x, w_q, w_s, x_scale=xs,
+                                           return_acc=True)
+        want, want_acc = k8.dequant_matmul_reference(x, w_q, w_s,
+                                                     x_scale=xs,
+                                                     return_acc=True)
+        got_wo = k8.fused_dequant_matmul(x, w_q, w_s)
+        want_wo = k8.dequant_matmul_reference(x, w_q, w_s)
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(got).all()) and got.shape == (m, n)
+        assert torch.equal(acc, want_acc), (
+            f"K8 ({m}, {k}, {n}): int32 accumulators differ in "
+            f"{int((acc != want_acc).sum())} places")
+        err_ulp = ulps(torch, got, want)
+        assert err_ulp <= 1, f"K8 ({m}, {k}, {n}) int8: {err_ulp} ulps"
+        wo_rel = float((got_wo - want_wo).abs().max()
+                       / want_wo.abs().max())
+        assert wo_rel <= K8_WO_TOL, (
+            f"K8 ({m}, {k}, {n}) weight-only: {wo_rel} > {K8_WO_TOL}")
+        nbytes = 4 * m * k + k * n + 4 * n + 4 * m * n
+        bnd, by = bound_ms(nbytes, 2.0 * m * k * n, INT8_OPS)
+        args = [(a, b, c, xs) for a, b, c in sets]
+        row = {"M": m, "K": k, "N": n, "max_ulps": err_ulp,
+               "max_abs_err": float((got - want).abs().max()),
+               "weight_only_rel_err": wo_rel,
+               "ms": timed_ms(torch, lambda a, b, c, s:
+                              k8.fused_dequant_matmul(a, b, c, x_scale=s),
+                              args),
+               "plain_ms": timed_ms(torch, lambda a, b, c, s:
+                                    k8.dequant_matmul_reference(
+                                        a, b, c, x_scale=s), args),
+               "weight_only_ms": timed_ms(torch, k8.fused_dequant_matmul,
+                                          [a[:3] for a in args]),
+               "weight_only_plain_ms": timed_ms(
+                   torch, k8.dequant_matmul_reference, [a[:3] for a in args]),
+               "bound_ms": bnd, "bound_by": by, "library_ms": None}
+        if m > 16 and k % 8 == 0 and n % 8 == 0:
+            lib_args = [(k8.quantize_activation(a, xs),
+                         b.t().contiguous().t(), c) for a, b, c in sets]
+            ref = lib_args[0]
+            lib_acc = torch._int_mm(ref[0], ref[1])
+            torch.cuda.synchronize()
+            assert torch.equal(lib_acc, want_acc), "_int_mm disagrees"
+            row["library_ms"] = timed_ms(
+                torch, lambda a, b, c: k8.int8_rescale(
+                    torch._int_mm(a, b), xs, c), lib_args)
+        rows.append(row)
+        lib = ("n/a" if row["library_ms"] is None
+               else f"{row['library_ms']:.5f}")
+        print(f"K8 M={m} K={k} N={n}: int8 max_ulps={err_ulp} acc equal, "
+              f"kernel_ms={row['ms']:.5f} plain_ms={row['plain_ms']:.5f} "
+              f"_int_mm+rescale_ms={lib} bound_ms={bnd:.5f} ({by}); "
+              f"weight-only rel_err={wo_rel:.3g} kernel_ms="
+              f"{row['weight_only_ms']:.5f} plain_ms="
+              f"{row['weight_only_plain_ms']:.5f} {tag}")
+        del sets, args
+    torch.cuda.empty_cache()
+    main = rows[0]
+    return {"name": "K8 quantized_matmul", "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/quantized_matmul.cu",
+            "replaces": "paddle_tpu/ops/pallas/quantized_matmul.py:63",
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": main["library_ms"],
+            "shape": "int8 mode M=32 K=2048 N=1000 (times); max_abs_err "
+                     "over every shape", "by_shape": rows}
+
+
+def resnet_images(rng, n, size=224):
+    return rng.randn(n, 3, size, size).astype(np.float32)
+
+
+def serve_requests(pred, requests):
+    """Each request through the zero-copy handles: copy_from_cpu, run,
+    copy_to_cpu. Returns (outputs, seconds per request)."""
+    h_in = pred.get_input_handle(pred.get_input_names()[0])
+    h_out = pred.get_output_handle(pred.get_output_names()[0])
+    outs, secs = [], []
+    for x in requests:
+        t0 = time.perf_counter()
+        h_in.copy_from_cpu(x)
+        pred.run()
+        outs.append(h_out.copy_to_cpu())
+        secs.append(time.perf_counter() - t0)
+    return outs, secs
+
+
+def resnet_int8_serving(torch, k8, seed, tag, image_size=224):
+    """Phase 12. ResNet-50 at its published width (He et al. 2015 Table
+    1, 50 layers, 224 x 224, 1000 classes; depth not cut), built with the
+    port's static API, initialized on the card from `seed`, saved with
+    save_inference_model, then served by an f32 Predictor and an int8 one
+    (PTQ at load, the default hist algorithm over 4 batches of 8 images):
+    4 requests each at batch 1, 8 and 32 through the handles. Returns
+    (summary, int8 predictor, a batch-32 input, launches)."""
+    import shutil
+    import tempfile
+    from paddle_tpu_torch import inference, static
+    from paddle_tpu_torch.core import ir
+    from paddle_tpu_torch.core.executor import Executor
+    from paddle_tpu_torch.core.scope import Scope, scope_guard
+    from paddle_tpu_torch.models.resnet import build_static
+    from paddle_tpu_torch.slim import quant_ops
+
+    rng = np.random.RandomState(seed + 12)
+    ir.reset_unique_names()
+    main, startup = ir.Program(), ir.Program()
+    startup.random_seed = seed
+    with ir.program_guard(main, startup):
+        img = static.data("img", [3, image_size, image_size], "float32")
+        label = static.data("label", [1], "int64")
+        logits, _, _ = build_static(img, label, depth=50)
+    model_dir = tempfile.mkdtemp(prefix="resnet50_")
+    try:
+        t0 = time.perf_counter()
+        exe = Executor()
+        with scope_guard(Scope()):
+            exe.run(startup)
+            static.io.save_inference_model(model_dir, ["img"], [logits], exe,
+                                           main_program=main)
+        save_s = time.perf_counter() - t0
+        f32 = inference.create_predictor(inference.Config(model_dir))
+        loader = [{"img": resnet_images(rng, 8, image_size)}
+                  for _ in range(4)]
+        cfg = inference.Config(model_dir)
+        cfg.enable_int8(loader)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        int8 = inference.create_predictor(cfg)
+        torch.cuda.synchronize()
+        ptq_s = time.perf_counter() - t0
+        ptq_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    finally:
+        shutil.rmtree(model_dir, ignore_errors=True)
+    ops = int8._program.global_block().ops
+    types = [op.type for op in ops]
+    n_conv, n_mul = types.count("quantized_conv2d"), types.count(
+        "quantized_mul")
+    assert n_conv == 53 and n_mul == 1, (n_conv, n_mul)
+    assert not any(t.startswith("fake_") for t in types), types
+    assert "conv2d" not in types and "fc" not in types, types
+
+    def state_bytes(pred):
+        prog = pred._program
+        return sum(pred._scope.get(v.name).numel()
+                   * pred._scope.get(v.name).element_size()
+                   for v in prog.list_vars()
+                   if v.persistable and pred._scope.has(v.name))
+
+    requests = [resnet_images(rng, b, image_size) for b in RESNET_BATCHES
+                for _ in range(RESNET_REQUESTS_PER_BATCH)]
+    for pred in (f32, int8):          # warm-up: allocator, cuDNN plans
+        serve_requests(pred, requests[::RESNET_REQUESTS_PER_BATCH])
+    torch.cuda.synchronize()
+    f32_bytes, int8_bytes = state_bytes(f32), state_bytes(int8)
+    f32_out, f32_s = serve_requests(f32, requests)
+    k8.reset_launch_counts()
+    int8_out, int8_s = serve_requests(int8, requests)
+    launches = k8.launch_counts["quantized_matmul"]
+    assert launches >= len(requests), (
+        f"K8 launched {launches} times over {len(requests)} int8 requests")
+    num = sum(float(np.abs(a - b).sum()) for a, b in zip(int8_out, f32_out))
+    den = sum(float(np.abs(b).sum()) for b in f32_out)
+    fidelity = num / den
+    top1 = float(np.mean(np.concatenate(
+        [a.argmax(-1) == b.argmax(-1) for a, b in zip(int8_out, f32_out)])))
+    for out in int8_out + f32_out:
+        assert np.isfinite(out).all() and out.shape[1] == 1000
+    print(f"resnet-50 int8 vs f32: mean |dlogits| / mean |logits_f32| = "
+          f"{fidelity:.5f} (gate {INT8_FIDELITY_GATE}), top-1 agreement "
+          f"{top1:.4f} (random weights: not gated) {tag}")
+    assert fidelity < INT8_FIDELITY_GATE, fidelity
+
+    # the main path's fc: K8's plain version on the served inputs + bias
+    qmul = next(op for op in ops if op.type == "quantized_mul")
+    add = next(op for op in ops if op.type == "elementwise_add"
+               and op.inputs["X"] == qmul.outputs["Out"])
+    x32 = requests[-1]
+    served, fc_in = int8.run({"img": x32}, fetch_list=[qmul.inputs["X"][0]])
+    sc = int8._scope
+    fc_x = torch.from_numpy(fc_in).cuda()
+    plain = k8.dequant_matmul_reference(
+        fc_x.reshape(fc_x.shape[0], -1), sc.get(qmul.inputs["Y"][0]),
+        sc.get(qmul.inputs["YScale"][0]).reshape(-1),
+        x_scale=qmul.attrs["x_scale"]) + sc.get(add.inputs["Y"][0])
+    fc_ulps = ulps(torch, torch.from_numpy(served).cuda(), plain)
+    assert fc_ulps <= 1, f"served fc vs plain K8 + bias: {fc_ulps} ulps"
+
+    # the stem's and a 3x3 conv's int32 accumulators against float64 on
+    # the CPU, on the same codes (8 images of the batch-32 request)
+    conv3 = next(op for op in ops if op.type == "quantized_conv2d"
+                 and tuple(sc.get(op.inputs["Filter"][0]).shape[2:])
+                 == (3, 3))
+    checked = {}
+    for label_, op in (("stem 7x7", ops[0]), ("first 3x3", conv3)):
+        assert op.type == "quantized_conv2d"
+        (_, xin) = int8.run({"img": x32[:8]},
+                            fetch_list=[op.inputs["Input"][0]])
+        args = (tuple(op.attrs["strides"]), tuple(op.attrs["paddings"]),
+                tuple(op.attrs["dilations"]), op.attrs["groups"])
+        xs = op.attrs["x_scale"]
+        w = sc.get(op.inputs["Filter"][0])
+        codes = k8.quantize_activation(torch.from_numpy(xin).cuda(), xs)
+        codes_cpu = k8.quantize_activation(torch.from_numpy(xin), xs)
+        acc = quant_ops.quantized_conv2d_acc(codes, w, *args).cpu()
+        acc_cpu = quant_ops.quantized_conv2d_acc(codes_cpu, w.cpu(), *args)
+        assert torch.equal(codes.cpu(), codes_cpu), f"{label_}: codes differ"
+        assert torch.equal(acc, acc_cpu), f"{label_}: accumulators differ"
+        checked[label_] = {"K": int(w[0].numel()),
+                           "max_abs_acc": int(acc.abs().max())}
+    print(f"resnet-50 int8: 53 quantized_conv2d + 1 quantized_mul; served "
+          f"fc = plain K8 + bias within {fc_ulps} ulp; int32 accumulators "
+          f"equal float64 on the CPU: {checked} {tag}")
+
+    per_batch = {}
+    for i, b in enumerate(RESNET_BATCHES):
+        sl = slice(i * RESNET_REQUESTS_PER_BATCH,
+                   (i + 1) * RESNET_REQUESTS_PER_BATCH)
+        row = {}
+        for name, secs in (("f32", f32_s[sl]), ("int8", int8_s[sl])):
+            p50 = float(np.median(secs))
+            row[name] = {"p50_ms": p50 * 1e3, "images_per_s": b / p50}
+        per_batch[b] = row
+        print(f"resnet-50 batch {b}: f32 p50 {row['f32']['p50_ms']:.2f} ms "
+              f"({row['f32']['images_per_s']:.1f} images/s), int8 p50 "
+              f"{row['int8']['p50_ms']:.2f} ms "
+              f"({row['int8']['images_per_s']:.1f} images/s) {tag}")
+    print(f"resnet-50: build + init + save {save_s:.1f} s; int8 load with "
+          f"PTQ (4 x 8 images, hist) {ptq_s:.1f} s, peak {ptq_peak:.2f} GiB; "
+          f"weights {int8_bytes} bytes int8 vs {f32_bytes} f32 "
+          f"({f32_bytes / int8_bytes:.3f}x); K8 launches {launches} over "
+          f"{len(requests)} int8 requests {tag}")
+    summary = {"config": "ResNet-50 (He et al. 2015 Table 1), 224 x 224, "
+                         "1000 classes, random weights from seed",
+               "fidelity": fidelity, "top1_agreement": top1,
+               "fc_ulps": fc_ulps, "acc_checked": checked,
+               "per_batch": per_batch, "save_s": save_s, "ptq_s": ptq_s,
+               "ptq_peak_gib": ptq_peak, "int8_weight_bytes": int8_bytes,
+               "f32_weight_bytes": f32_bytes, "k8_launches": launches,
+               "requests": len(requests)}
+    del f32
+    return summary, int8, requests[-1], launches
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1185,6 +1518,39 @@ def main(argv=None):
     results["bert_step_breakdown"] = brk
     print_profile("bert-base train step", brk, tag)
 
+    # 11. K8 against its plain version (TF32 stays off: set above)
+    from paddle_tpu_torch.ops.kernels import quantized_matmul as k8
+    print(f"static phases: torch.backends.cuda.matmul.allow_tf32="
+          f"{torch.backends.cuda.matmul.allow_tf32}, "
+          f"torch.backends.cudnn.allow_tf32="
+          f"{torch.backends.cudnn.allow_tf32} (f32 convs and GEMMs in "
+          f"true f32) {tag}")
+    for line in ptxas_lines(info["nvcc_log"], ("qmm_int8_kernel",
+                                               "qmm_weight_only_kernel")):
+        print(f"ptxas K8 {line} {tag}")
+    kernels["quantized_matmul"] = check_quantized_matmul(torch, k8,
+                                                         args.seed, tag)
+    del trainer, data
+    torch.cuda.empty_cache()
+
+    # 12. ResNet-50 int8 serving through the Predictor, the main path
+    resnet, int8, x32, launches = resnet_int8_serving(torch, k8, args.seed,
+                                                      tag)
+    results["resnet50_int8"] = resnet
+    kernels["quantized_matmul"]["launches"] = launches
+
+    # 13. where an int8 batch-32 request's time goes
+    def serve32(n):
+        for _ in range(n):
+            int8.run({"img": x32})
+        torch.cuda.synchronize()
+
+    serve32(1)
+    brk = profile_device(torch, serve32, 3, top=10)
+    results["resnet50_int8_breakdown"] = brk
+    print_profile("resnet-50 int8 request, batch 32", brk, tag)
+    del int8
+
     results["total_s"] = time.perf_counter() - t_start
     print(f"total: {results['total_s']:.1f} s {tag}")
     keys = ("name", "route", "source", "replaces", "launches",
@@ -1194,7 +1560,7 @@ def main(argv=None):
                         for name in ("decode_attention",
                                      "paged_decode_attention",
                                      "quantized_paged_decode_attention")
-                        + FLASH_KERNELS]}
+                        + FLASH_KERNELS + ("quantized_matmul",)]}
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)

@@ -1,0 +1,233 @@
+"""Inference engine.
+
+Counterpart of paddle_tpu/inference/__init__.py (the reference's
+AnalysisPredictor + ZeroCopyRun, api/analysis_predictor.h:47, and
+AnalysisConfig):
+
+* `Config`: the model path and precision (float32, or int8 with
+  post-training quantization at load). `device=None` means the GPU;
+  `disable_gpu()` selects the CPU, as in the reference API. The device is
+  resolved when the predictor is created, which raises without a GPU
+  unless the CPU was selected.
+* `Predictor`: loads a saved inference model into a private scope on its
+  device, runs the export passes on old (un-optimized) artifacts, applies
+  the precision (int8: the freeze pass on a QAT model, PTQ with the
+  config's calibration loader otherwise) and serves
+  `get_input_handle` / `run` / `get_output_handle`.
+* `create_predictor`, `Predictor.clone` (shares weights, private
+  handles).
+
+Not ported in this slice, and raising NotImplementedError: bfloat16
+precision (the AMP rewrite), the native C++ engine, StableHLO export and
+the AOT bundle (ROADMAP Queue 1 item 9).
+"""
+import numpy as np
+
+from paddle_tpu_torch.core.enforce import enforce
+from paddle_tpu_torch.reliability.faults import inject_point
+
+__all__ = ["PrecisionType", "Config", "Predictor", "create_predictor"]
+
+
+class PrecisionType:
+    Float32 = "float32"
+    Int8 = "int8"
+
+
+class Config:
+    """AnalysisConfig parity."""
+
+    def __init__(self, model_dir=None, model_filename=None,
+                 params_filename=None, device=None):
+        self.model_dir = model_dir
+        self.model_filename = model_filename
+        self.params_filename = params_filename
+        self.device = device
+        self.precision = PrecisionType.Float32
+        self._calib_loader = None
+        self.ir_optim = True
+
+    def disable_gpu(self):
+        self.device = "cpu"
+
+    def enable_int8(self, calibration_loader=None):
+        """int8 inference. A QAT-trained model needs no loader (its
+        scales are in the model); a float model needs a calibration data
+        loader (an iterable of feed dicts): PTQ runs at load."""
+        self.precision = PrecisionType.Int8
+        self._calib_loader = calibration_loader
+
+    def switch_ir_optim(self, flag=True):
+        """Rerun the export pass list at load on artifacts that were not
+        optimized at save."""
+        self.ir_optim = bool(flag)
+
+    def enable_bfloat16(self):
+        raise NotImplementedError(
+            "bfloat16 predictors (the AMP program rewrite) are not ported "
+            "yet (ROADMAP Queue 1 item 9)")
+
+    def enable_native_engine(self):
+        raise NotImplementedError(
+            "the native C++ engine is not ported yet (ROADMAP Queue 1 "
+            "item 16)")
+
+
+class _Handle:
+    """Zero-copy-style tensor handle (ZeroCopyTensor parity)."""
+
+    def __init__(self, name):
+        self.name = name
+        self._value = None
+        self._shape = None
+
+    def copy_from_cpu(self, arr):
+        self._value = np.array(arr, copy=True, order="C")
+        if self._shape is not None:  # reference call order: reshape first
+            self._value = self._value.reshape(self._shape)
+
+    def reshape(self, shape):
+        self._shape = tuple(shape)
+        if self._value is not None:
+            self._value = self._value.reshape(self._shape)
+
+    def copy_to_cpu(self):
+        return np.array(self._value, copy=True)
+
+    @property
+    def shape(self):
+        return None if self._value is None else self._value.shape
+
+
+class Predictor:
+    """AnalysisPredictor parity: one loaded model, persistent state on the
+    device, eager execution through an Executor."""
+
+    def __init__(self, config):
+        from paddle_tpu_torch.core.executor import Executor
+        from paddle_tpu_torch.core.scope import Scope, scope_guard
+        from paddle_tpu_torch.static import io
+
+        self.config = config
+        self._exe = Executor(config.device)
+        self._scope = Scope()
+        with scope_guard(self._scope):
+            prog, feeds, fetches = io.load_inference_model(
+                config.model_dir, self._exe,
+                model_filename=config.model_filename,
+                params_filename=config.params_filename)
+        self._program = prog
+        self._fetch_vars = fetches
+        if config.ir_optim:
+            self._optimize_loaded()
+        self._init_handles(feeds, [v.name for v in fetches])
+        self._apply_precision()
+
+    def _init_handles(self, feed_names, fetch_names):
+        self._feed_order = list(feed_names)
+        self._fetch_order = list(fetch_names)
+        self._inputs = {n: _Handle(n) for n in self._feed_order}
+        self._outputs = {n: _Handle(n) for n in self._fetch_order}
+
+    def _optimize_loaded(self):
+        """Run the export pass list on a loaded program that was NOT
+        optimized at save; fresh exports carry meta['ir_optimized']."""
+        if self._program.meta.get("ir_optimized"):
+            return
+        from paddle_tpu_torch.inference.optimize import (
+            optimize_inference_program,
+        )
+        params = {v.name: self._scope.find_np(v.name)
+                  for v in self._program.list_vars()
+                  if v.persistable and self._scope.has(v.name)}
+        before = dict(params)
+        self._program, params = optimize_inference_program(self._program,
+                                                           params)
+        for n, arr in params.items():
+            if before.get(n) is not arr:   # only what a pass rewrote
+                self._scope.set(n, arr)
+        for n in set(before) - set(params):
+            self._scope.erase(n)
+        self._program._version += 1
+
+    def _apply_precision(self):
+        if self.config.precision != PrecisionType.Int8:
+            return
+        from paddle_tpu_torch import slim
+        qat = any(op.attrs.get("quantization_type") == "qat"
+                  for op in self._program.global_block().ops)
+        if qat:
+            slim.QuantizationFreezePass().apply(self._program, self._scope)
+            return
+        enforce(self.config._calib_loader is not None,
+                "int8 on a float model needs a calibration loader "
+                "(Config.enable_int8(loader))")
+        slim.PostTrainingQuantization(
+            self._exe, self._program, self._feed_order,
+            self.config._calib_loader, scope=self._scope).quantize()
+
+    def get_input_names(self):
+        return list(self._feed_order)
+
+    def get_output_names(self):
+        return list(self._fetch_order)
+
+    def get_input_handle(self, name):
+        return self._inputs[name]
+
+    def get_output_handle(self, name):
+        return self._outputs[name]
+
+    def run(self, feed=None, fetch_list=None):
+        """ZeroCopyRun: runs on the input handles' contents (or an
+        explicit feed dict), fills the output handles and returns the
+        outputs in get_output_names order (numpy arrays). `fetch_list`
+        fetches other vars of the program besides (returned after the
+        outputs, not put in handles)."""
+        if feed is None:
+            feed = {}
+            for n, h in self._inputs.items():
+                enforce(h._value is not None,
+                        "input %s not set (copy_from_cpu)", n)
+                feed[n] = h._value
+        extra = list(fetch_list or [])
+        outs = self._exe.run(self._program, feed=feed,
+                             fetch_list=self._fetch_order + extra,
+                             scope=self._scope, training=False)
+        # reliability choke point: seeded fault plans fail, delay or poison
+        # whole predictor runs here
+        outs = inject_point("predictor.run", value=outs)
+        for n, o in zip(self._fetch_order, outs):
+            self._outputs[n]._value = o
+        return outs
+
+    def clone(self):
+        """AnalysisPredictor::Clone: a predictor sharing the loaded
+        weights, the program and the executor's step functions, with
+        private input/output handles."""
+        c = object.__new__(Predictor)
+        c.config = self.config
+        c._exe = self._exe
+        c._scope = self._scope
+        c._program = self._program
+        c._fetch_vars = self._fetch_vars
+        c._init_handles(list(self._feed_order),
+                        [v.name for v in self._fetch_vars])
+        return c
+
+
+def create_predictor(config):
+    """paddle_infer::CreatePredictor parity."""
+    return Predictor(config)
+
+
+def export_stablehlo(*args, **kwargs):
+    raise NotImplementedError(
+        "StableHLO export has no counterpart in the port yet (ROADMAP "
+        "Queue 1 item 16: torch.export or out of scope)")
+
+
+def export_aot_bundle(*args, **kwargs):
+    raise NotImplementedError(
+        "the AOT serving bundle has no counterpart in the port yet (ROADMAP "
+        "Queue 1 items 9 and 13)")

@@ -50,6 +50,8 @@ SIGNATURES = {
     "ptt_flash_fwd": [_c_void_p] * 6 + _FLASH_TAIL,
     "ptt_flash_bwd_dkv": [_c_void_p] * 10 + _FLASH_TAIL,
     "ptt_flash_bwd_dq": [_c_void_p] * 8 + _FLASH_TAIL,
+    "ptt_quantized_matmul": ([_c_void_p] * 5 + [_c_int] * 4
+                             + [_c_float] * 3 + [_c_void_p]),
 }
 
 

@@ -1,0 +1,147 @@
+"""Fused dequant matmul: kernel K8.
+
+Counterpart of `paddle_tpu/ops/pallas/quantized_matmul.py`: x [M, K]
+float32 @ w_q [K, N] int8 with per-output-channel scales w_scale [N]
+(w ~= w_q * w_scale / qmax, qmax = 2^(bits-1) - 1). Two modes:
+
+* int8-activation (`x_scale` given; the frozen `quantized_mul`): x is
+  quantized at the static scale, codes = clip(round(x / s * qmax)) with
+  s = float32(max(x_scale, 1e-8)), divided then multiplied, rounded half
+  to even; an exact int32 accumulate of codes x w_q; then
+  out = (float(acc) * float32(x_scale / qmax)) * (w_scale / qmax), with
+  x_scale / qmax divided in double on the host and rounded to float32
+  once (the JAX fold order).
+* weight-only (`x_scale=None`): x @ float(w_q) accumulated in float32,
+  times w_scale / qmax.
+
+The kernel is CUDA C++ for Hopper (`paddle_tpu_torch/csrc/
+quantized_matmul.cu`, built by `_build.py` on first use). Beside it
+stands its plain PyTorch version, `dequant_matmul_reference`, the same
+arithmetic as the JAX package's `dequant_matmul_reference`: it computes
+the int32 accumulator as a float64 matmul of the codes (exact for
+K < 2^53 / 127^2; CUDA has no integer GEMM in `torch.matmul`).
+
+The wrapper takes the plain version only for tensors that lie on the
+CPU (or on the meta device, where shape inference evaluates ops without
+data). On a CUDA tensor it launches the kernel or raises: a failed build
+or a refused launch is an error, never a fallback. `launch_counts`
+counts kernel launches.
+
+Scalars enter divisions as float32 tensors on the operand's device:
+PyTorch's CUDA division by a Python scalar multiplies by its reciprocal,
+which is not the IEEE quotient the JAX package (and the kernel) compute.
+"""
+import torch
+
+from paddle_tpu_torch.core.enforce import enforce
+
+__all__ = ["qmax", "dequant_matmul_reference", "fused_dequant_matmul",
+           "launch_counts", "reset_launch_counts"]
+
+#: kernel launches per wrapper (bumped once per launched call)
+launch_counts = {"quantized_matmul": 0}
+
+
+def reset_launch_counts():
+    for k in launch_counts:
+        launch_counts[k] = 0
+
+
+def qmax(bits):
+    return float(2 ** (bits - 1) - 1)
+
+
+def _f32(value, device):
+    """A 0-dim float32 tensor on `device` holding float32(value), made by
+    a fill on the device (no host-to-device copy)."""
+    return torch.full((), float(value), dtype=torch.float32, device=device)
+
+
+def quantize_activation(x, x_scale, bits=8):
+    """int8 codes of x at a static abs-max scale, in the JAX order:
+    clip(round(x / s * qmax), -qmax, qmax), s = float32(max(x_scale,
+    1e-8)), round half to even."""
+    qm = qmax(bits)
+    s = _f32(max(float(x_scale), 1e-8), x.device)
+    q = torch.round(x / s * qm)
+    return torch.clamp(q, -qm, qm).to(torch.int8)
+
+
+def int8_rescale(acc, x_scale, w_scale, bits=8):
+    """(float32(acc) * float32(x_scale / qmax)) * (w_scale / qmax)."""
+    qm = qmax(bits)
+    dev = acc.device
+    return ((acc.to(torch.float32) * _f32(float(x_scale) / qm, dev))
+            * (w_scale.reshape(1, -1).to(torch.float32) / _f32(qm, dev)))
+
+
+def dequant_matmul_reference(x, w_q, w_scale, x_scale=None, bits=8,
+                             return_acc=False):
+    """The plain version of K8. x [M, K] float32; w_q [K, N] int8;
+    w_scale [N] float32. With `return_acc` (int8-activation mode only)
+    also returns the int32 accumulator [M, N]."""
+    qm = qmax(bits)
+    if x_scale is None:
+        enforce(not return_acc, "return_acc needs x_scale (int8 mode)")
+        return (torch.matmul(x, w_q.to(torch.float32))
+                * (w_scale.reshape(1, -1).to(torch.float32)
+                   / _f32(qm, x.device)))
+    xq = quantize_activation(x, x_scale, bits)
+    acc = torch.matmul(xq.to(torch.float64),
+                       w_q.to(torch.float64)).to(torch.int32)
+    out = int8_rescale(acc, x_scale, w_scale, bits)
+    return (out, acc) if return_acc else out
+
+
+def _check(name, t, dtype, ndim, device):
+    enforce(t.device == device, "%s must lie on %s, got %s", name, device,
+            t.device)
+    enforce(t.dtype == dtype, "%s must be %s, got %s", name, dtype, t.dtype)
+    enforce(t.dim() == ndim and t.is_contiguous(),
+            "%s must be a contiguous %d-dim tensor, got shape %s strides %s",
+            name, ndim, tuple(t.shape), t.stride())
+
+
+def fused_dequant_matmul(x, w_q, w_scale, x_scale=None, bits=8,
+                         return_acc=False):
+    """K8: x [M, K] float32 @ w_q [K, N] int8 with per-channel scales
+    w_scale [N] float32, int8-activation mode when `x_scale` is given,
+    weight-only otherwise. Any M, K, N. Returns [M, N] float32 (and the
+    int32 accumulator with `return_acc`, int8 mode only)."""
+    if x.device.type in ("cpu", "meta"):
+        return dequant_matmul_reference(x, w_q, w_scale, x_scale=x_scale,
+                                        bits=bits, return_acc=return_acc)
+    from paddle_tpu_torch.ops.kernels import _build
+    enforce(x.is_cuda, "fused_dequant_matmul: unsupported device %s",
+            x.device)
+    enforce(2 <= bits <= 8, "bits must be in [2, 8], got %s", bits)
+    enforce(not return_acc or x_scale is not None,
+            "return_acc needs x_scale (int8 mode)")
+    _check("x", x, torch.float32, 2, x.device)
+    _check("w_q", w_q, torch.int8, 2, x.device)
+    _check("w_scale", w_scale.reshape(-1), torch.float32, 1, x.device)
+    m, k = x.shape
+    n = w_q.shape[1]
+    enforce(w_q.shape[0] == k and w_scale.numel() == n,
+            "shapes do not match: x %s, w_q %s, w_scale %s", tuple(x.shape),
+            tuple(w_q.shape), tuple(w_scale.shape))
+    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    acc = (torch.empty((m, n), dtype=torch.int32, device=x.device)
+           if return_acc else None)
+    if m == 0 or n == 0:
+        return (out, acc) if return_acc else out
+    qm = qmax(bits)
+    int8_mode = x_scale is not None
+    s = max(float(x_scale), 1e-8) if int8_mode else 1.0
+    xs_over_qm = float(x_scale) / qm if int8_mode else 0.0
+    lib = _build.load_library()
+    err = lib.ptt_quantized_matmul(
+        x.data_ptr(), w_q.data_ptr(), w_scale.data_ptr(), out.data_ptr(),
+        acc.data_ptr() if acc is not None else None,
+        m, k, n, int(int8_mode), s, qm, xs_over_qm,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(
+            f"quantized_matmul kernel launch failed: cudaError_t {err}")
+    launch_counts["quantized_matmul"] += 1
+    return (out, acc) if return_acc else out

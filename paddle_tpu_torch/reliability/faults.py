@@ -3,7 +3,8 @@
 Counterpart of paddle_tpu/reliability/faults.py for the choke points the
 port has so far: the `generation.*` sites of the generation server
 (serving/generation.py) and of the paged engine's spill tier and state
-documents (ops/generation.py). Named
+documents (ops/generation.py), the Predictor's `predictor.run` and the
+params files' `io.*` sites (inference/, static/io.py). Named
 `inject_point()` calls sit on the live serving path, inert until a
 `FaultPlan` is armed (`set_fault_plan` / the `fault_plan` context
 manager); then each hit consults the plan and may raise, delay, hang or
@@ -80,6 +81,14 @@ KNOWN_SITES = (
                              #   promote (tag: chain hash): a raise is a
                              #   lost payload — admit falls back to
                              #   prefill, never a corrupt slot
+    "predictor.run",         # inference/__init__.py   per Predictor.run,
+                             #   after the outputs are computed: a raise
+                             #   fails that request, `nan` poisons its
+                             #   outputs; the predictor stays usable
+    "io.save_persistables",  # static/io.py  between a params file's write
+                             #   and its rename: a raise leaves the
+                             #   previous file intact (atomic publish)
+    "io.load_persistables",  # static/io.py  before a params file is read
 )
 
 _DEFAULT_HANG_S = 30.0

@@ -21,6 +21,12 @@ float8 e4m3 payloads with float32 scales. JAX's float8 arrays are
 payloads to the host as their bytes in uint8, and these functions view
 them as whichever dtype the other side needs, over the same bytes.
 
+Static programs (`scope_from_jax`, `scope_to_numpy`): a Program's
+persistable vars carry the same names in both packages, so a JAX scope's
+arrays (as numpy, what `scope.find_np` gives) load into a port Scope by
+name, on a chosen device, and back. The saved inference artifact
+(`__model__.json` + `params.npz`) carries them between processes.
+
 All these functions work on numpy arrays (what
 `jax.tree_util.tree_map(np.asarray, params)` gives), so this module
 imports neither JAX nor the JAX package.
@@ -34,7 +40,7 @@ from paddle_tpu_torch.core.enforce import enforce
 
 __all__ = ["params_from_jax", "params_to_numpy", "bert_params_from_jax",
            "bert_params_to_numpy", "kv_from_numpy", "kv_to_numpy",
-           "state_doc_to_jax"]
+           "state_doc_to_jax", "scope_from_jax", "scope_to_numpy"]
 
 _TOP = ("tok_emb", "pos_emb", "lnf_g", "lnf_b", "head")
 _LAYER = ("ln1_g", "ln1_b", "wqkv", "bqkv", "wo", "bo", "ln2_g", "ln2_b",
@@ -151,3 +157,22 @@ def _tensor(a):
 
 def _array(t):
     return t.detach().to("cpu", torch.float32).numpy().copy()
+
+
+def scope_from_jax(arrays, scope, device="cpu"):
+    """Put {name: numpy array} (a JAX scope's persistables) into a port
+    `Scope` as tensors on `device`, copying each array."""
+    for name, arr in arrays.items():
+        scope.set(name, torch.from_numpy(np.array(arr, copy=True)).to(device))
+    return scope
+
+
+def scope_to_numpy(scope, names):
+    """{name: numpy copy} of the named vars of a port `Scope` (what a JAX
+    scope's `set` takes)."""
+    out = {}
+    for name in names:
+        arr = scope.find_np(name)
+        enforce(arr is not None, "scope holds no var %r", name)
+        out[name] = arr
+    return out

@@ -184,4 +184,5 @@ def test_library_is_named_by_its_sources():
                                       "ptt_paged_decode_attention_f32",
                                       "ptt_quantized_paged_decode_attention",
                                       "ptt_flash_fwd", "ptt_flash_bwd_dkv",
-                                      "ptt_flash_bwd_dq"}
+                                      "ptt_flash_bwd_dq",
+                                      "ptt_quantized_matmul"}

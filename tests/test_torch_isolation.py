@@ -1,12 +1,15 @@
 """The port stands alone: no JAX, no paddle_tpu, no silent CPU fallback.
 
 * In a fresh interpreter with `jax` and `paddle_tpu` blocked on
-  sys.meta_path, every module of `paddle_tpu_torch` and `chip_smoke.py`
-  imports, and one CPU decode step runs.
+  sys.meta_path, every module of `paddle_tpu_torch` (the static,
+  inference, slim and analysis subpackages among them) and
+  `chip_smoke.py` imports, one CPU decode step runs, and a tiny static
+  ResNet is built, saved and served by an int8 Predictor.
 * A source scan finds no import of jax or of the JAX package in the
   port or in chip_smoke.py.
-* `device=None` means CUDA: without a GPU the entry points raise, and
-  chip_smoke.py exits non-zero without printing a result.
+* `device=None` means CUDA: without a GPU the entry points raise
+  (`Executor()`, a Predictor from a default `Config`), and chip_smoke.py
+  exits non-zero without printing a result.
 """
 import ast
 import os
@@ -58,6 +61,33 @@ _BLOCKED_RUN = textwrap.dedent("""
         pstate, row, _ = peng.admit(pstate, 0, list(range(1, 11)), 12)
         doc = peng.export_state(pstate, 0, list(range(1, 11)))
         assert len(doc["kv"]) == 1 and np.isfinite(row).all()
+    names = {m.name for m in pkgutil.walk_packages(
+        paddle_tpu_torch.__path__, "paddle_tpu_torch.")}
+    for sub in ("static", "inference", "slim", "analysis"):
+        assert "paddle_tpu_torch." + sub in names, sub
+    # the static serving slice: build, init, save, int8 Predictor
+    import tempfile
+    from paddle_tpu_torch import inference, static
+    from paddle_tpu_torch.core import ir
+    from paddle_tpu_torch.core.executor import Executor
+    from paddle_tpu_torch.models.resnet import build_static
+    main, startup = ir.Program(), ir.Program()
+    with ir.program_guard(main, startup):
+        img = static.data("img", [3, 16, 16])
+        label = static.data("label", [1], "int64")
+        logits, _, _ = build_static(img, label, num_classes=4, width=4,
+                                    blocks=(1, 1))
+    exe = Executor("cpu")
+    exe.run(startup)
+    d = tempfile.mkdtemp()
+    static.io.save_inference_model(d, ["img"], [logits], exe,
+                                   main_program=main)
+    cfg = inference.Config(d)
+    cfg.disable_gpu()
+    cfg.enable_int8([{"img": np.ones((2, 3, 16, 16), np.float32)}])
+    (out,) = inference.create_predictor(cfg).run(
+        {"img": np.ones((2, 3, 16, 16), np.float32)})
+    assert out.shape == (2, 4) and np.isfinite(out).all()
     assert not _build.build_info(), "a CPU step must not build kernels"
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "paddle_tpu"))
@@ -119,6 +149,13 @@ def test_default_device_is_cuda_and_raises_without_it(monkeypatch):
         gen.PagedDecodeEngine(model, batch_size=1, max_len=16)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         gen.greedy_decode(model, [1, 2], 3)
+    from paddle_tpu_torch import inference
+    from paddle_tpu_torch.core.executor import Executor
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Executor()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        inference.create_predictor(inference.Config("unused_model_dir"))
+    assert Executor("cpu").device == torch.device("cpu")
     assert resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(ValueError):
         resolve_device("meta")

@@ -1,4 +1,4 @@
-"""The CUDA kernels on the card (K5, K6, K7; K1-K4 below): each against
+"""The CUDA kernels on the card (K5, K6, K7; K1-K4 and K8 below): each against
 its plain PyTorch version, the launch counters, and the wrappers' input
 checks.
 
@@ -328,3 +328,67 @@ def test_flash_raises_instead_of_falling_back(cuda):
     with pytest.raises(EnforceError, match="device"):
         tfa.flash_attention(q, q.cpu(), q)
     assert tfa.launch_counts == before
+
+
+# ---------------------------------------------------------------------
+# K8: fused dequant matmul
+# ---------------------------------------------------------------------
+
+from paddle_tpu_torch.ops.kernels import quantized_matmul as tk8  # noqa: E402
+
+
+def _k8_inputs(m, k, n, bits, device, seed=5):
+    rng = np.random.RandomState(seed + m + k)
+    x = rng.randn(m, k).astype(np.float32)
+    w = rng.randn(k, n).astype(np.float32)
+    qm = 2 ** (bits - 1) - 1
+    scale = np.maximum(np.abs(w).max(axis=0), 1e-8).astype(np.float32)
+    w_q = np.clip(np.round(w / scale * qm), -qm, qm).astype(np.int8)
+    x_scale = float(np.abs(x).max()) * 0.7
+    return (torch.from_numpy(x).to(device), torch.from_numpy(w_q).to(device),
+            torch.from_numpy(scale).to(device), x_scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(5, 33, 17), (130, 257, 129),
+                                   (32, 2048, 1000), (1, 64, 64),
+                                   (64, 32, 64)])
+@pytest.mark.parametrize("bits", [8, 4])
+def test_k8_int8_mode_matches_plain(cuda, m, k, n, bits):
+    """Codes, int32 accumulators and outputs bit-equal to the plain
+    version (the same IEEE operations in the same order; gate 1 ulp)."""
+    x, w_q, w_s, xs = _k8_inputs(m, k, n, bits, cuda)
+    before = tk8.launch_counts["quantized_matmul"]
+    got, acc = tk8.fused_dequant_matmul(x, w_q, w_s, x_scale=xs, bits=bits,
+                                        return_acc=True)
+    want, want_acc = tk8.dequant_matmul_reference(x, w_q, w_s, x_scale=xs,
+                                                  bits=bits, return_acc=True)
+    torch.cuda.synchronize()
+    assert tk8.launch_counts["quantized_matmul"] == before + 1
+    assert torch.equal(acc, want_acc)
+    ulps = (got.view(torch.int32).long() - want.view(torch.int32).long())
+    assert int(ulps.abs().max()) <= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(5, 33, 17), (130, 257, 129),
+                                   (32, 2048, 1000)])
+def test_k8_weight_only_mode_matches_plain(cuda, m, k, n):
+    x, w_q, w_s, _ = _k8_inputs(m, k, n, 8, cuda)
+    got = tk8.fused_dequant_matmul(x, w_q, w_s)
+    want = tk8.dequant_matmul_reference(x, w_q, w_s)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+@pytest.mark.cuda
+def test_k8_raises_instead_of_falling_back(cuda):
+    x, w_q, w_s, xs = _k8_inputs(4, 16, 8, 8, cuda)
+    before = tk8.launch_counts["quantized_matmul"]
+    with pytest.raises(EnforceError, match="int8"):
+        tk8.fused_dequant_matmul(x, w_q.float(), w_s, x_scale=xs)
+    with pytest.raises(EnforceError, match="contiguous"):
+        tk8.fused_dequant_matmul(x.t(), w_q, w_s, x_scale=xs)
+    with pytest.raises(EnforceError, match="must lie on"):
+        tk8.fused_dequant_matmul(x, w_q.cpu(), w_s, x_scale=xs)
+    assert tk8.launch_counts["quantized_matmul"] == before

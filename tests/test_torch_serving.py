@@ -230,8 +230,10 @@ def test_decode_and_verify_faults_skip_ticks_exactly(models):
 
 def test_every_known_site_has_a_call_site():
     import pathlib
+    from paddle_tpu_torch import inference as tinf
+    from paddle_tpu_torch.static import io as tio
     src = "".join(pathlib.Path(m.__file__).read_text()
-                  for m in (tserve, tgen))
+                  for m in (tserve, tgen, tinf, tio))
     for site in KNOWN_SITES:
         assert f'inject_point("{site}"' in src, site
 
