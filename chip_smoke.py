@@ -53,22 +53,30 @@ Phases, each of which raises (exit code != 0) when its check fails:
    f32 engine and on the int8 paged engine: host wall time per step,
    device time per step and the top kernels from torch.profiler, and
    the device's idle share.
-6. The flash-attention kernels (K1-K4: forward, dK/dV(+dbias), dQ)
-   against their plain PyTorch versions at BERT-base shapes (B=32,
-   T=512, N=12, D=64, bf16; all-ones mask, padding mask, dropout 0.1)
-   and in f32 on the general path (T=1024, causal, mask_grad): o, lse,
-   dq/dk/dv(/dmask) within FLASH_TOL of max |plain|. The dropout case is
-   timed beside its plain version, `F.scaled_dot_product_attention` on
-   the same tensors (a yardstick the port never calls) and its bound.
+6. The flash-attention kernels (K1-K4). First the tensor-core pair as
+   built (csrc/flash_attention_tc.cu): each instantiation's ptxas line
+   and the HGMMA count of its SASS (cuobjdump), failing on a spill or
+   on no HGMMA. Then each kernel against its plain PyTorch version:
+   `flash_fwd` and `flash_bwd` (bf16, tensor cores) at BERT-base shapes
+   (B=32, T=512, N=12, D=64; all-ones mask, padding mask, dropout 0.1)
+   and the CUDA-core f32 trio (`flash_fwd_f32`, `flash_bwd_dkv_f32`,
+   `flash_bwd_dq_f32`) on the general path (T=1024, causal, mask_grad):
+   o, lse, dq/dk/dv(/dmask) within FLASH_TOL of max |plain|, each case
+   launching only its dtype's kernels. The bf16 pair is timed at the
+   main path's case (dropout 0.1) and the f32 trio at phase 8's (batch
+   4), each beside its plain version, `F.scaled_dot_product_attention`
+   on the same tensors (a yardstick the port never calls) and its bound.
 7. The BERT-base pretraining step at full published width (12 layers,
    hidden 768, 12 heads, vocab 30522; bf16 params, f32 master + Adam,
    dropout on, flash attention), batch 32 x 512: 3 warm-up and 10 timed
    steps on one synthetic batch; every loss finite, the last below the
-   first, each flash kernel launched >= 12 times per timed step; step
-   ms, tokens/s, model-flops share of 989 TFLOP/s and peak memory.
+   first, `flash_fwd` and `flash_bwd` launched 12 times per timed step
+   and the f32 kernels never; step ms, tokens/s, model-flops share of
+   989 TFLOP/s and peak memory.
 8. The same weights in f32, eval(), batch 4 x 512: pretrain_loss and
    every gradient under attention_impl="flash" against "xla" within
-   MODEL_LOSS_TOL / MODEL_GRAD_TOL.
+   MODEL_LOSS_TOL / MODEL_GRAD_TOL; the f32 trio launched once per
+   layer and the bf16 pair never.
 9. Where a training step's time goes (torch.profiler, device rows).
 10. (No phase 10: phases 11-13 are the static serving slice's.)
 11. K8 (the fused dequant matmul) against its plain version on the card,
@@ -606,18 +614,32 @@ FLASH_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 #: (relative) and each parameter's gradient (max abs diff over max abs)
 MODEL_LOSS_TOL = 1e-5
 MODEL_GRAD_TOL = 1e-4
-FLASH_KERNELS = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
+#: the flash kernels of each dtype: bfloat16 on the tensor cores (the
+#: main path's), float32 on the CUDA cores (phase 8's)
+FLASH_BF16 = ("flash_fwd", "flash_bwd")
+FLASH_F32 = ("flash_fwd_f32", "flash_bwd_dkv_f32", "flash_bwd_dq_f32")
+FLASH_KERNELS = FLASH_BF16 + FLASH_F32
 #: which outputs each flash kernel writes
 FLASH_OUTPUTS = {"flash_fwd": ("o", "lse"),
-                 "flash_bwd_dkv": ("dk", "dv", "dmask"),
-                 "flash_bwd_dq": ("dq",)}
+                 "flash_bwd": ("dq", "dk", "dv", "dmask"),
+                 "flash_fwd_f32": ("o", "lse"),
+                 "flash_bwd_dkv_f32": ("dk", "dv", "dmask"),
+                 "flash_bwd_dq_f32": ("dq",)}
+_PALLAS = "paddle_tpu/ops/pallas/flash_attention.py"
+_FWD_REPLACES = f"{_PALLAS}:160 (_fwd_kernel, K1), :280 (_fwd1_kernel, K4f)"
 FLASH_REPLACES = {
-    "flash_fwd": "paddle_tpu/ops/pallas/flash_attention.py:160 (_fwd_kernel, "
-                 "K1), :280 (_fwd1_kernel, K4f)",
-    "flash_bwd_dkv": "paddle_tpu/ops/pallas/flash_attention.py:468 "
-                     "(_bwd_dkv_kernel, K2), :311 (_bwd1_kernel, K4b)",
-    "flash_bwd_dq": "paddle_tpu/ops/pallas/flash_attention.py:543 "
-                    "(_bwd_dq_kernel, K3), :311 (_bwd1_kernel, K4b)"}
+    "flash_fwd": _FWD_REPLACES,
+    "flash_bwd": f"{_PALLAS}:468 (_bwd_dkv_kernel, K2), :543 "
+                 "(_bwd_dq_kernel, K3), :311 (_bwd1_kernel, K4b)",
+    "flash_fwd_f32": _FWD_REPLACES,
+    "flash_bwd_dkv_f32": f"{_PALLAS}:468 (_bwd_dkv_kernel, K2), :311 "
+                         "(_bwd1_kernel, K4b)",
+    "flash_bwd_dq_f32": f"{_PALLAS}:543 (_bwd_dq_kernel, K3), :311 "
+                        "(_bwd1_kernel, K4b)"}
+FLASH_SOURCES = {"bfloat16": "paddle_tpu_torch/csrc/flash_attention_tc.cu",
+                 "float32": "paddle_tpu_torch/csrc/flash_attention.cu"}
+#: the tensor-core kernels' mangled-name stems (ptxas lines, SASS counts)
+TC_KERNELS = ("flash_fwd_tc_kernel", "flash_bwd_tc_kernel")
 SEED_ATTN = 12345
 BERT_BATCH, BERT_SEQ = 32, 512
 
@@ -681,13 +703,177 @@ def flash_case(torch, tfa, dev, dtype, b, t, n, d, causal=False, pad=False,
     return out
 
 
-def check_flash(torch, tfa, seed, tag, copies=2):
-    """Phase 6. The three flash kernels against their plain versions at
-    BERT-base shapes (B=32, T=512, N=12, D=64, bf16: an all-ones mask, a
-    padding mask, dropout 0.1) and in f32 on the general path (T=1024,
-    causal, mask_grad); then the bf16 dropout case timed beside its plain
-    version, SDPA and its bound. Returns {kernel: summary dict}."""
+def tc_build_report(info, tag):
+    """The tensor-core flash kernels as built: each instantiation's ptxas
+    line (registers, shared memory, spills) and the count of HGMMA (and
+    HMMA) instructions in its SASS, from `cuobjdump -sass` of the built
+    library. Fails unless every instantiation has HGMMA instructions and
+    spills nothing."""
+    import re
+    import shutil
+    log = info["nvcc_log"]
+    if not log and os.path.exists(info["path"] + ".log"):
+        with open(info["path"] + ".log") as f:
+            log = f.read()
+
+    def label(mangled):
+        stem = next((k for k in TC_KERNELS if k in mangled), None)
+        d = re.search(r"ILi(\d+)E", mangled)
+        return stem and f"{stem}<{d.group(1) if d else '?'}>"
+
+    report, current = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            current = label(line)
+        elif current and ("Used" in line or "spill" in line):
+            row = report.setdefault(current, {"ptxas": []})
+            row["ptxas"].append(line.split(":", 1)[-1].strip())
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          line)
+            if m:
+                row["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+    cuobjdump = (shutil.which("cuobjdump")
+                 or "/usr/local/cuda/bin/cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", info["path"]],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    current = None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            current = label(line)
+            if current:
+                report.setdefault(current, {"ptxas": []}).update(
+                    HGMMA=0, HMMA=0)
+        elif current:
+            for op in ("HGMMA", "HMMA"):
+                report[current][op] += bool(re.search(rf"\b{op}\.", line))
+    assert len(report) == 2 * 3, f"tensor-core instantiations: {report}"
+    for name, row in sorted(report.items()):
+        print(f"ptxas {name}: {'; '.join(row['ptxas'])} {tag}")
+        print(f"sass {name}: {row['HGMMA']} HGMMA, {row['HMMA']} HMMA "
+              f"instructions {tag}")
+        assert row["HGMMA"] > 0, f"{name}: no HGMMA in its SASS"
+        assert row.get("spill_bytes") == 0, f"{name}: spills {row}"
+    return report
+
+
+def time_flash(torch, tfa, dtype, b, t, n, d, rate, seed, tag, copies=2):
+    """The flash kernels of `dtype` timed at (b, t, n, d) with dropout
+    `rate` and an all-ones mask, on q, k, v views of [B, T, 3, N, D]:
+    each beside its plain version, SDPA on the same tensors (forward; dq,
+    dk, dv in one backward call) and its bound. Returns {kernel: row}."""
     import torch.nn.functional as F
+    dev = torch.device("cuda")
+    bf16 = dtype == torch.bfloat16
+    cfg = (False, 1.0 / d ** 0.5, rate, SEED_ATTN if rate else None)
+
+    def keep():
+        return (tfa.batch_keep_masks(SEED_ATTN, b, n, t, t, rate, device=dev)
+                if rate else None)
+
+    sets = []
+    for i in range(copies):
+        qkv, dout, mask = flash_inputs(torch, dev, dtype, b, t, n, d, False,
+                                       False, seed + 1 + i)
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        bias = mask.reshape(b, t).contiguous()
+        o, lse = tfa._launch_fwd(q, k, v, bias, cfg)
+        sets.append(dict(q=q, k=k, v=v, bias=bias, mask=mask, dout=dout,
+                         lse=lse, delta=tfa.bwd_delta(o, dout)))
+
+    def graph(s, lib):
+        """A forward graph kept for timing the backward alone."""
+        x = [s[key].detach().clone().requires_grad_() for key in "qkv"]
+        if lib:
+            out = F.scaled_dot_product_attention(
+                *(a.transpose(1, 2) for a in x),
+                attn_mask=s["mask"].to(dtype), dropout_p=rate)
+            return x, out, s["dout"].transpose(1, 2)
+        return x, tfa.attention_reference(*x, s["mask"], keep_masks=keep()), \
+            s["dout"]
+
+    def grad_of(which):
+        return lambda g: torch.autograd.grad(
+            g[1], [g[0][i] for i in which], g[2], retain_graph=True)
+
+    def bwd_args(s):
+        return (s["q"], s["k"], s["v"], s["bias"], s["dout"], s["lse"],
+                s["delta"], cfg)
+
+    def plain_fwd(s):
+        return tfa.attention_reference(s["q"], s["k"], s["v"], s["mask"],
+                                       keep_masks=keep())
+
+    def lib_fwd(s):
+        return F.scaled_dot_product_attention(
+            s["q"].transpose(1, 2), s["k"].transpose(1, 2),
+            s["v"].transpose(1, 2), attn_mask=s["mask"].to(dtype),
+            dropout_p=rate)
+
+    args = [(s,) for s in sets]
+    plain_graphs = [(graph(s, False),) for s in sets]
+    lib_graphs = [(graph(s, True),) for s in sets]
+    lib_fwd_ms = timed_ms(torch, lib_fwd, args)
+    lib_bwd_ms = timed_ms(torch, grad_of((0, 1, 2)), lib_graphs)
+    bhttd = b * n * t * t * d
+    nbytes = b * t * n * d * (2 if bf16 else 4)
+    rows = b * n * t * 4
+    bias_bytes = b * t * 4
+
+    def fwd(s):
+        return tfa._launch_fwd(s["q"], s["k"], s["v"], s["bias"], cfg)
+
+    # (kernel, plain version (None: its backward graph), bytes, flops)
+    if bf16:
+        timings = {
+            "flash_fwd": (fwd, plain_fwd, 4 * nbytes + bias_bytes + rows,
+                          4 * bhttd),
+            "flash_bwd": (lambda s: tfa._launch_bwd_tc(*bwd_args(s), False),
+                          grad_of((0, 1, 2)),
+                          7 * nbytes + 2 * rows + bias_bytes, 10 * bhttd)}
+    else:
+        timings = {
+            "flash_fwd_f32": (fwd, plain_fwd,
+                              4 * nbytes + bias_bytes + rows, 4 * bhttd),
+            "flash_bwd_dkv_f32": (
+                lambda s: tfa._launch_dkv(*bwd_args(s), False),
+                grad_of((1, 2)), 6 * nbytes + 2 * rows + bias_bytes,
+                8 * bhttd),
+            "flash_bwd_dq_f32": (
+                lambda s: tfa._launch_dq(*bwd_args(s)), grad_of((0,)),
+                5 * nbytes + 2 * rows + bias_bytes, 6 * bhttd)}
+    dname = str(dtype).split(".")[-1]
+    shape = (f"B={b} T={t} N={n} D={d} {dname} dropout {rate} (q, k, v "
+             f"views of [B, T, 3, N, D])")
+    out = {}
+    for kname, (fn, plain, nb, flops) in timings.items():
+        bnd, by = bound_ms(nb, flops, BF16_FLOPS if bf16 else F32_FLOPS)
+        lib_ms = lib_fwd_ms if plain is plain_fwd else lib_bwd_ms
+        row = out[kname] = dict(
+            name=kname, route="cuda", source=FLASH_SOURCES[dname],
+            replaces=FLASH_REPLACES[kname], ms=timed_ms(torch, fn, args),
+            plain_ms=(timed_ms(torch, plain, args) if plain is plain_fwd
+                      else timed_ms(torch, plain, plain_graphs)),
+            bound_ms=bnd, bound_by=by, library_ms=lib_ms, shape=shape)
+        print(f"{kname} {shape}: kernel_ms={row['ms']:.5f} "
+              f"plain_ms={row['plain_ms']:.5f} library_ms={lib_ms:.5f} "
+              f"bound_ms={bnd:.5f} ({by}; "
+              f"{flops / row['ms'] / 1e9:.1f} TFLOP/s) {tag}")
+    print(f"library ({dname}): SDPA forward {lib_fwd_ms:.5f} ms, SDPA "
+          f"backward (dq, dk, dv together) {lib_bwd_ms:.5f} ms on the same "
+          f"tensors {tag}")
+    del sets, plain_graphs, lib_graphs, args
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_flash(torch, tfa, seed, tag):
+    """Phase 6. The flash kernels against their plain versions: the
+    tensor-core pair at BERT-base shapes (B=32, T=512, N=12, D=64, bf16:
+    an all-ones mask, a padding mask, dropout 0.1), the CUDA-core trio in
+    f32 on the general path (T=1024, causal, mask_grad). Then the bf16
+    pair timed at the main path's case (dropout 0.1) and the f32 trio at
+    phase 8's (batch 4, no dropout). Returns {kernel: summary dict}."""
     dev = torch.device("cuda")
     bf16, f32 = torch.bfloat16, torch.float32
     b, t, n, d = BERT_BATCH, BERT_SEQ, 12, 64
@@ -700,115 +886,30 @@ def check_flash(torch, tfa, seed, tag, copies=2):
     ]
     kernels = {k: {"max_abs_err": 0.0, "cases": {}} for k in FLASH_KERNELS}
     for label, dtype, kw in cases:
+        before = dict(tfa.launch_counts)
         errs = flash_case(torch, tfa, dev, dtype, seed=seed, **kw)
+        names = FLASH_BF16 if dtype == bf16 else FLASH_F32
+        launched = {k for k in FLASH_KERNELS
+                    if tfa.launch_counts[k] != before[k]}
+        assert launched == set(names), (
+            f"flash {label}: launched {sorted(launched)}, want {names}")
         tol = FLASH_TOL[str(dtype).split(".")[-1]]
-        for kname, keys in FLASH_OUTPUTS.items():
-            row = {k: errs[k] for k in keys if k in errs}
+        for kname in names:
+            row = {k: errs[k] for k in FLASH_OUTPUTS[kname] if k in errs}
             kernels[kname]["cases"][label] = row
             kernels[kname]["max_abs_err"] = max(
                 kernels[kname]["max_abs_err"], *(a for a, _ in row.values()))
-        print(f"flash {label} {kw}: " + ", ".join(
+        print(f"flash {label} {kw} ({', '.join(names)}): " + ", ".join(
             f"{k} abs {a:.3g} rel {r:.3g}" for k, (a, r) in errs.items())
             + f" (tolerance rel {tol}) {tag}")
         bad = {k: r for k, (_, r) in errs.items() if not r <= tol}
         assert not bad, f"flash {label}: relative errors {bad} > {tol}"
         torch.cuda.empty_cache()
 
-    # timing: the main path's case (bf16, dropout 0.1, all-ones mask)
-    rate, scale = 0.1, 1.0 / d ** 0.5
-    cfg = (False, scale, rate, SEED_ATTN)
-    sets = []
-    for i in range(copies):
-        qkv, dout, mask = flash_inputs(torch, dev, bf16, b, t, n, d, False,
-                                       False, seed + 1 + i)
-        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
-        bias = mask.reshape(b, t).contiguous()
-        o, lse = tfa._launch_fwd(q, k, v, bias, cfg)
-        delta = tfa.bwd_delta(o, dout)
-        sets.append(dict(q=q, k=k, v=v, bias=bias, mask=mask, dout=dout,
-                         lse=lse, delta=delta))
-
-    def plain_graph(s, lib):
-        """A forward graph kept for timing the backward alone."""
-        x = [s[key].detach().clone().requires_grad_() for key in "qkv"]
-        if lib:
-            out = F.scaled_dot_product_attention(
-                *(a.transpose(1, 2) for a in x),
-                attn_mask=s["mask"].to(bf16), dropout_p=rate)
-            dout = s["dout"].transpose(1, 2)
-        else:
-            keep = tfa.batch_keep_masks(SEED_ATTN, b, n, t, t, rate,
-                                        device=dev)
-            out = tfa.attention_reference(*x, s["mask"], keep_masks=keep)
-            dout = s["dout"]
-        return x, out, dout
-
-    def fwd(s):
-        return tfa._launch_fwd(s["q"], s["k"], s["v"], s["bias"], cfg)
-
-    def dkv(s):
-        return tfa._launch_dkv(s["q"], s["k"], s["v"], s["bias"], s["dout"],
-                               s["lse"], s["delta"], cfg, False)
-
-    def dq(s):
-        return tfa._launch_dq(s["q"], s["k"], s["v"], s["bias"], s["dout"],
-                              s["lse"], s["delta"], cfg)
-
-    def plain_fwd(s):
-        keep = tfa.batch_keep_masks(SEED_ATTN, b, n, t, t, rate, device=dev)
-        return tfa.attention_reference(s["q"], s["k"], s["v"], s["mask"],
-                                       keep_masks=keep)
-
-    def lib_fwd(s):
-        return F.scaled_dot_product_attention(
-            s["q"].transpose(1, 2), s["k"].transpose(1, 2),
-            s["v"].transpose(1, 2), attn_mask=s["mask"].to(bf16),
-            dropout_p=rate)
-
-    def grad_of(g, which):
-        x, out, dout = g
-        return torch.autograd.grad(out, [x[i] for i in which], dout,
-                                   retain_graph=True)
-
-    args = [(s,) for s in sets]
-    plain_graphs = [(plain_graph(s, False),) for s in sets]
-    lib_graphs = [(plain_graph(s, True),) for s in sets]
-    lib_bwd_ms = timed_ms(torch, lambda g: grad_of(g, (0, 1, 2)), lib_graphs)
-    bhttd = b * n * t * t * d
-    nbytes_qkv = b * t * n * d * 2
-    rows = b * n * t * 4
-    timings = {
-        "flash_fwd": (fwd, plain_fwd, timed_ms(torch, lib_fwd, args),
-                      4 * nbytes_qkv + b * t * 4 + rows, 4 * bhttd),
-        "flash_bwd_dkv": (dkv, None, lib_bwd_ms,
-                          6 * nbytes_qkv + 2 * rows + b * t * 4, 8 * bhttd),
-        "flash_bwd_dq": (dq, None, lib_bwd_ms,
-                         5 * nbytes_qkv + 2 * rows + b * t * 4, 6 * bhttd),
-    }
-    plain_bwd = {"flash_bwd_dkv": lambda g: grad_of(g, (1, 2)),
-                 "flash_bwd_dq": lambda g: grad_of(g, (0,))}
-    for kname, (fn, plain, lib_ms, nbytes, flops) in timings.items():
-        bnd, by = bound_ms(nbytes, flops, BF16_FLOPS)
-        row = kernels[kname]
-        row.update(
-            name=kname, route="cuda",
-            source="paddle_tpu_torch/csrc/flash_attention.cu",
-            replaces=FLASH_REPLACES[kname],
-            ms=timed_ms(torch, fn, args),
-            plain_ms=(timed_ms(torch, plain, args) if plain else
-                      timed_ms(torch, plain_bwd[kname], plain_graphs)),
-            bound_ms=bnd, bound_by=by, library_ms=lib_ms,
-            shape=f"B={b} T={t} N={n} D={d} bf16 dropout {rate} "
-                  f"(q, k, v views of [B, T, 3, N, D])")
-        print(f"{kname} B={b} T={t} N={n} D={d} bf16 dropout {rate}: "
-              f"kernel_ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
-              f"library_ms={lib_ms:.4f} bound_ms={bnd:.4f} ({by}; "
-              f"{flops / row['ms'] / 1e9:.1f} TFLOP/s) {tag}")
-    print(f"library: SDPA forward {timings['flash_fwd'][2]:.4f} ms, "
-          f"SDPA backward (dq, dk, dv together) {lib_bwd_ms:.4f} ms on the "
-          f"same bf16 tensors {tag}")
-    del sets, plain_graphs, lib_graphs, args
-    torch.cuda.empty_cache()
+    timed = time_flash(torch, tfa, bf16, b, t, n, d, 0.1, seed, tag)
+    timed.update(time_flash(torch, tfa, f32, 4, t, n, d, 0.0, seed, tag))
+    for kname, row in timed.items():
+        kernels[kname].update(row)
     return kernels
 
 
@@ -843,10 +944,13 @@ def bert_train(torch, tfa, seed, tag, warmup=3, steps=10):
     assert all(np.isfinite(losses)), f"non-finite loss: {losses}"
     assert losses[-1] < losses[0], (
         f"loss did not fall over {len(losses)} steps: {losses}")
+    # bf16: the tensor-core pair once per layer per step, no CUDA-core
+    # kernel at all
     for k in FLASH_KERNELS:
-        assert launches[k] >= cfg.num_layers * steps, (
+        want = cfg.num_layers * steps if k in FLASH_BF16 else 0
+        assert launches[k] == want, (
             f"{k} launched {launches[k]} times in {steps} steps of "
-            f"{cfg.num_layers} layers")
+            f"{cfg.num_layers} layers (want {want})")
     n_params = sum(p.numel() for p in trainer.params.values())
     step_ms = dt / steps * 1e3
     tokens_per_s = BERT_BATCH * BERT_SEQ * steps / dt
@@ -893,8 +997,10 @@ def flash_vs_einsum(torch, tfa, trainer, tag, batch=4):
         loss, grads = value_and_grad(lambda: model.pretrain_loss(*data),
                                      model)()
         res[impl] = (float(loss), grads)
+        # f32: the CUDA-core trio once per layer, never the bf16 pair
         want = cfg.num_layers if impl == "flash" else 0
-        assert all(tfa.launch_counts[k] == want for k in FLASH_KERNELS), (
+        assert all(tfa.launch_counts[k] == (want if k in FLASH_F32 else 0)
+                   for k in FLASH_KERNELS), (
             f"{impl}: flash launches {tfa.launch_counts}")
     (lx, gx), (lf, gf) = res["xla"], res["flash"]
     loss_err = abs(lf - lx) / abs(lx)
@@ -1496,7 +1602,9 @@ def main(argv=None):
     del model
     torch.cuda.empty_cache()
 
-    # 6. flash kernels against their plain versions
+    # 6. flash kernels against their plain versions; the tensor-core
+    # kernels' ptxas lines and SASS first
+    results["flash_tc_build"] = tc_build_report(info, tag)
     kernels.update(check_flash(torch, tfa, args.seed, tag))
 
     # 7. the BERT-base pretraining step, the slice's main path

@@ -1,13 +1,17 @@
-// FlashAttention-2 forward and backward for Hopper (sm_90a): kernels
-// K1-K4 of the port, one family of three CUDA kernels.
+// FlashAttention-2 forward and backward on the CUDA cores, float32 only:
+// the f32 half of kernels K1-K4 of the port, one family of three CUDA
+// kernels. bfloat16 inputs go to the tensor-core kernels of
+// flash_attention_tc.cu; float32 stays here because TF32 tensor cores
+// would keep only ~3 decimal digits of its products.
 //
-// ptt_flash_fwd      replaces paddle_tpu/ops/pallas/flash_attention.py
-//                    ::_fwd_kernel (K1, via _fwd) and ::_fwd1_kernel
-//                    (K4f, via _fwd1).
-// ptt_flash_bwd_dkv  replaces ::_bwd_dkv_kernel (K2, via _bwd) and the
-//                    dK/dV/dbias half of ::_bwd1_kernel (K4b, via _bwd1).
-// ptt_flash_bwd_dq   replaces ::_bwd_dq_kernel (K3, via _bwd) and the dQ
-//                    half of ::_bwd1_kernel (K4b).
+// ptt_flash_fwd_f32      replaces paddle_tpu/ops/pallas/flash_attention.py
+//                        ::_fwd_kernel (K1, via _fwd) and ::_fwd1_kernel
+//                        (K4f, via _fwd1).
+// ptt_flash_bwd_dkv_f32  replaces ::_bwd_dkv_kernel (K2, via _bwd) and the
+//                        dK/dV/dbias half of ::_bwd1_kernel (K4b, via
+//                        _bwd1).
+// ptt_flash_bwd_dq_f32   replaces ::_bwd_dq_kernel (K3, via _bwd) and the
+//                        dQ half of ::_bwd1_kernel (K4b).
 //
 // The single-tile Pallas pair exists because a 512 x 512 f32 score tile
 // fits in a TPU core's VMEM. A Hopper block has at most 227 KB of shared
@@ -16,11 +20,8 @@
 //
 // What bounds them on this card: operations. At BERT-base shapes
 // (T=512, D=64) the forward does 4*T*T*D flops for 4*T*D elements read
-// and written per (batch, head), ~T/2 flops per byte in bf16, far above
-// the H100's ~20 flops/byte CUDA-core ridge. This first version runs on
-// the CUDA cores in float32 (67 TFLOP/s peak), not on the tensor cores
-// (989 TFLOP/s bf16): simple and right first; mma/wgmma tiles come
-// later.
+// and written per (batch, head), ~T/8 flops per byte in f32, far above
+// the H100's ~20 flops/byte CUDA-core ridge (67 TFLOP/s f32 peak).
 //
 // What the design does about it:
 //  * 256 threads own a 64 x 64 score tile, 4 x 4 per thread; operand
@@ -42,8 +43,8 @@
 //
 // Semantics follow the Pallas kernels: s = (q.k) * scale + bias[key]
 // (f32), causal keeps col <= row, l sums the undropped p, the keep mask
-// multiplies p before p.v and p is rounded to v's dtype first, l = 0
-// gives safe_l = 1, lse = m + log(safe_l); the backward recomputes
+// multiplies p before p.v (p rounded to v's dtype first, a no-op in f32),
+// l = 0 gives safe_l = 1, lse = m + log(safe_l); the backward recomputes
 // p = exp(s - lse), ds = p * (dp * keep - delta) * scale and rounds p*keep
 // and ds to the operand dtype before their products. Dropout is the
 // counter hash of _keep_mask, bit for bit: stream = fmix32(seed +
@@ -55,7 +56,6 @@
 // cudaError_t of its launch (0 on success). Nothing here allocates or
 // synchronises; the caller owns every buffer and the stream.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -93,16 +93,11 @@ struct FlashArgs {
 };
 
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 template <typename T>
 __device__ __forceinline__ T from_f(float x);
 template <>
 __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 // x rounded to T's precision (the Pallas kernels' astype before a matmul)
 template <typename T>
@@ -548,10 +543,8 @@ cudaError_t launch_t(Which w, const FlashArgs& a, int d, cudaStream_t stream) {
   }
 }
 
-// dtype: 0 float32, 1 bfloat16
-int launch(Which w, FlashArgs& a, int dtype, int d, const long long* strides, float scale,
-           int causal, int dropout, unsigned seed, unsigned thresh, float keep_scale,
-           void* stream) {
+int launch(Which w, FlashArgs& a, int d, const long long* strides, float scale, int causal,
+           int dropout, unsigned seed, unsigned thresh, float keep_scale, void* stream) {
   if (a.B <= 0 || a.N <= 0 || a.Tq <= 0 || a.Tk <= 0 || a.Tq > 65535 || a.Tk > 65535 ||
       (long long)a.B * a.N > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -562,15 +555,7 @@ int launch(Which w, FlashArgs& a, int dtype, int d, const long long* strides, fl
   a.seed = seed;
   a.thresh = thresh;
   a.keep_scale = keep_scale;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (dtype == 0)
-    err = launch_t<float>(w, a, d, st);
-  else if (dtype == 1)
-    err = launch_t<__nv_bfloat16>(w, a, d, st);
-  else
-    err = cudaErrorInvalidValue;
-  return static_cast<int>(err);
+  return static_cast<int>(launch_t<float>(w, a, d, static_cast<cudaStream_t>(stream)));
 }
 
 FlashArgs make_args(const void* q, const void* k, const void* v, const void* bias, int B,
@@ -591,28 +576,27 @@ FlashArgs make_args(const void* q, const void* k, const void* v, const void* bia
 
 extern "C" {
 
-// Forward. q [B, Tq, N, D], k/v [B, Tk, N, D] and o [B, Tq, N, D] through
+// Forward, float32. q [B, Tq, N, D], k/v [B, Tk, N, D] and o [B, Tq, N, D] through
 // their (batch, time, head) strides in slots 0, 3, 6 and 12 of
 // `strides` (21 values, host memory); bias [B, Tk] f32 or null; lse
 // [B*N, Tq] f32.
-int ptt_flash_fwd(const void* q, const void* k, const void* v, const void* bias, void* o,
-                  void* lse, int dtype, int B, int N, int Tq, int Tk, int D,
-                  const long long* strides, float scale, int causal, int dropout,
-                  unsigned seed, unsigned thresh, float keep_scale, void* stream) {
+int ptt_flash_fwd_f32(const void* q, const void* k, const void* v, const void* bias, void* o,
+                      void* lse, int B, int N, int Tq, int Tk, int D, const long long* strides,
+                      float scale, int causal, int dropout, unsigned seed, unsigned thresh,
+                      float keep_scale, void* stream) {
   FlashArgs a = make_args(q, k, v, bias, B, N, Tq, Tk);
   a.out = o;
   a.lse_out = static_cast<float*>(lse);
-  return launch(kFwd, a, dtype, D, strides, scale, causal, dropout, seed, thresh, keep_scale,
-                stream);
+  return launch(kFwd, a, D, strides, scale, causal, dropout, seed, thresh, keep_scale, stream);
 }
 
 // dK, dV and (dbias != null) dbias. dout in slot 9, dk in 15, dv in 18;
 // lse and delta [B*N, Tq] f32; dbias [B, Tk] f32, zeroed by the caller.
-int ptt_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* bias,
-                      const void* dout, const void* lse, const void* delta, void* dk, void* dv,
-                      void* dbias, int dtype, int B, int N, int Tq, int Tk, int D,
-                      const long long* strides, float scale, int causal, int dropout,
-                      unsigned seed, unsigned thresh, float keep_scale, void* stream) {
+int ptt_flash_bwd_dkv_f32(const void* q, const void* k, const void* v, const void* bias,
+                          const void* dout, const void* lse, const void* delta, void* dk,
+                          void* dv, void* dbias, int B, int N, int Tq, int Tk, int D,
+                          const long long* strides, float scale, int causal, int dropout,
+                          unsigned seed, unsigned thresh, float keep_scale, void* stream) {
   FlashArgs a = make_args(q, k, v, bias, B, N, Tq, Tk);
   a.dout = dout;
   a.lse = static_cast<const float*>(lse);
@@ -620,23 +604,21 @@ int ptt_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* b
   a.dk = dk;
   a.dv = dv;
   a.dbias = static_cast<float*>(dbias);
-  return launch(kDkv, a, dtype, D, strides, scale, causal, dropout, seed, thresh, keep_scale,
-                stream);
+  return launch(kDkv, a, D, strides, scale, causal, dropout, seed, thresh, keep_scale, stream);
 }
 
 // dQ, in slot 12.
-int ptt_flash_bwd_dq(const void* q, const void* k, const void* v, const void* bias,
-                     const void* dout, const void* lse, const void* delta, void* dq, int dtype,
-                     int B, int N, int Tq, int Tk, int D, const long long* strides, float scale,
-                     int causal, int dropout, unsigned seed, unsigned thresh, float keep_scale,
-                     void* stream) {
+int ptt_flash_bwd_dq_f32(const void* q, const void* k, const void* v, const void* bias,
+                         const void* dout, const void* lse, const void* delta, void* dq, int B,
+                         int N, int Tq, int Tk, int D, const long long* strides, float scale,
+                         int causal, int dropout, unsigned seed, unsigned thresh,
+                         float keep_scale, void* stream) {
   FlashArgs a = make_args(q, k, v, bias, B, N, Tq, Tk);
   a.dout = dout;
   a.lse = static_cast<const float*>(lse);
   a.delta = static_cast<const float*>(delta);
   a.out = dq;
-  return launch(kDq, a, dtype, D, strides, scale, causal, dropout, seed, thresh, keep_scale,
-                stream);
+  return launch(kDq, a, D, strides, scale, causal, dropout, seed, thresh, keep_scale, stream);
 }
 
 }  // extern "C"

@@ -31,8 +31,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _c_void_p, _c_int, _c_uint = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
 _c_ll, _c_float = ctypes.c_longlong, ctypes.c_float
 _c_ll_p = ctypes.POINTER(ctypes.c_longlong)
-# (strides, scale, causal, dropout, seed, thresh, keep_scale, stream)
-_FLASH_TAIL = [_c_int] * 6 + [_c_ll_p, _c_float, _c_int, _c_int, _c_uint,
+# (B, N, Tq, Tk, D, strides, scale, causal, dropout, seed, thresh,
+#  keep_scale, stream)
+_FLASH_TAIL = [_c_int] * 5 + [_c_ll_p, _c_float, _c_int, _c_int, _c_uint,
                               _c_uint, _c_float, _c_void_p]
 
 #: argtypes of every exported function: each pointer and the stream is a
@@ -48,8 +49,10 @@ SIGNATURES = {
         [_c_void_p] * 11 + [_c_int] * 7 + [_c_ll] * 11
         + [_c_int, _c_float, _c_int, _c_void_p]),
     "ptt_flash_fwd": [_c_void_p] * 6 + _FLASH_TAIL,
-    "ptt_flash_bwd_dkv": [_c_void_p] * 10 + _FLASH_TAIL,
-    "ptt_flash_bwd_dq": [_c_void_p] * 8 + _FLASH_TAIL,
+    "ptt_flash_bwd": [_c_void_p] * 11 + _FLASH_TAIL,
+    "ptt_flash_fwd_f32": [_c_void_p] * 6 + _FLASH_TAIL,
+    "ptt_flash_bwd_dkv_f32": [_c_void_p] * 10 + _FLASH_TAIL,
+    "ptt_flash_bwd_dq_f32": [_c_void_p] * 8 + _FLASH_TAIL,
     "ptt_quantized_matmul": ([_c_void_p] * 5 + [_c_int] * 4
                              + [_c_float] * 3 + [_c_void_p]),
 }

@@ -3,20 +3,28 @@
 Counterpart of the training half of
 `paddle_tpu/ops/pallas/flash_attention.py` (`flash_attention`,
 `flash_attention_lse`). On a CUDA tensor each public function is a
-`torch.autograd.Function` over three CUDA C++ kernels for Hopper
-(`paddle_tpu_torch/csrc/flash_attention.cu`, built by `_build.py` on
-first use): a forward kernel (K1 and the single-tile K4f), a dK/dV
-(+dbias) kernel and a dQ kernel (K2, K3 and the single-tile K4b). The
-kernels stream 64-wide tiles whatever T is, so the Pallas single-tile
-fast path has no separate kernel here.
+`torch.autograd.Function` over CUDA C++ kernels for Hopper (built by
+`_build.py` on first use), chosen by dtype:
+
+- bfloat16: two tensor-core (wgmma) kernels of
+  `paddle_tpu_torch/csrc/flash_attention_tc.cu`, `flash_fwd` (K1 and the
+  single-tile K4f) and `flash_bwd` (K2, K3 and the single-tile K4b: dQ,
+  dK, dV and dbias in one launch, dQ summed into a float32 workspace);
+- float32: three CUDA-core kernels of `csrc/flash_attention.cu`,
+  `flash_fwd_f32`, `flash_bwd_dkv_f32` and `flash_bwd_dq_f32` (TF32 tensor
+  cores would not keep float32's digits).
+
+The kernels stream tiles whatever T is, so the Pallas single-tile fast
+path has no separate kernel here.
 
 Beside them stand their plain PyTorch versions: `keep_mask_reference`,
 the dropout hash bit for bit, and `attention_reference`, the same
 arithmetic as the JAX package's `attention_reference`. A wrapper takes
 the plain version only because the tensors it was given lie on the CPU;
-on a CUDA tensor it launches the kernels or raises (a failed build, a
-refused launch, an unsupported head dim or dtype). `launch_counts`
-counts launches per kernel.
+on a CUDA tensor it launches the kernels of its dtype or raises (a failed
+build, a refused launch, an unsupported head dim or dtype, a bfloat16
+view whose rows are not 16-byte aligned); a bfloat16 call never reaches
+a CUDA-core kernel. `launch_counts` counts launches per kernel.
 
 Differences from the JAX signature: the `dropout_rng` key becomes an
 integer `dropout_seed` in [0, 2**23) (the value the JAX wrapper draws
@@ -44,14 +52,18 @@ NEG_INF = -1e30
 SEED_LIMIT = 1 << 23
 #: head dims the kernels are instantiated for
 KERNEL_HEAD_DIMS = (32, 64, 128)
-KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: the kernel of each dtype: (forward, backward kernels)
+KERNELS = {torch.bfloat16: ("flash_fwd", ("flash_bwd",)),
+           torch.float32: ("flash_fwd_f32",
+                           ("flash_bwd_dkv_f32", "flash_bwd_dq_f32"))}
 
 # murmur3 fmix32 constants and the golden-ratio stream separator
 _M1, _M2, _GOLD = 0x85EBCA6B, 0xC2B2AE35, 0x9E3779B9
 _U32 = 0xFFFFFFFF
 
 #: kernel launches per kernel (bumped once per launched call)
-launch_counts = {"flash_fwd": 0, "flash_bwd_dkv": 0, "flash_bwd_dq": 0}
+launch_counts = {name: 0 for fwd, bwd in KERNELS.values()
+                 for name in (fwd, *bwd)}
 
 
 def reset_launch_counts():
@@ -146,21 +158,28 @@ def attention_reference(q, k, v, mask=None, causal=False, sm_scale=None,
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
+def _aligned(t):
+    """Rows the tensor-core kernels can copy in 16-byte pieces: a 16-byte
+    aligned start and (batch, time, head) strides of whole 8-element
+    pieces."""
+    return t.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in t.stride()[:3])
+
+
 def _check(q, k, v, mask):
     for name, t in (("q", q), ("k", k), ("v", v)):
-        enforce(t.is_cuda, "%s must be a CUDA tensor, got device %s", name,
-                t.device)
-        enforce(t.dtype in KERNEL_DTYPES, "%s must be float32 or bfloat16, "
-                "got %s", name, t.dtype)
+        enforce(t.dtype in KERNELS, "%s must be float32 or bfloat16, got %s",
+                name, t.dtype)
         enforce(t.dim() == 4, "%s must be [B, T, N, D], got shape %s", name,
                 tuple(t.shape))
         enforce(t.stride(-1) == 1, "%s must be contiguous in its last dim "
                 "(strides %s)", name, t.stride())
+        enforce(t.dtype != torch.bfloat16 or _aligned(t), "%s: bfloat16 rows "
+                "must start 16-byte aligned, strides in multiples of 8 "
+                "elements (strides %s)", name, t.stride())
     b, tq, n, d = q.shape
     tk = k.shape[1]
     enforce(q.dtype == k.dtype == v.dtype, "q, k, v dtypes differ: %s %s %s",
             q.dtype, k.dtype, v.dtype)
-    enforce(q.device == k.device == v.device, "q, k, v must share a device")
     enforce(tuple(k.shape) == (b, tk, n, d) and v.shape == k.shape,
             "k %s / v %s do not match q %s", tuple(k.shape), tuple(v.shape),
             tuple(q.shape))
@@ -169,6 +188,10 @@ def _check(q, k, v, mask):
     enforce(0 < tq < 65536 and 0 < tk < 65536,
             "sequence lengths must lie in [1, 65536), got %d / %d", tq, tk)
     enforce(b * n <= 65535, "B * N = %d exceeds 65535", b * n)
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        enforce(t.is_cuda, "%s must be a CUDA tensor, got device %s", name,
+                t.device)
+    enforce(q.device == k.device == v.device, "q, k, v must share a device")
     if mask is not None:
         enforce(mask.device == q.device, "mask must lie on %s", q.device)
         enforce(mask.numel() == b * tk and mask.shape[-1] == tk,
@@ -196,31 +219,38 @@ def _raise_on(err, what):
         raise RuntimeError(f"{what} kernel launch failed: cudaError_t {err}")
 
 
+def _stream(device):
+    return torch.cuda.current_stream(device).cuda_stream
+
+
 def _tail(q, cfg):
     causal, sm_scale, dropout, seed = cfg
     thresh = keep_threshold(dropout) if dropout > 0.0 else 0
     keep_scale = float(np.float32(1.0 / (1.0 - dropout)))
     return (float(sm_scale), int(causal), int(dropout > 0.0), int(seed or 0),
-            thresh, keep_scale, torch.cuda.current_stream(q.device).cuda_stream)
+            thresh, keep_scale, _stream(q.device))
 
 
 def _shape_args(q, k):
     b, tq, n, d = q.shape
-    return (KERNEL_DTYPES[q.dtype], b, n, tq, k.shape[1], d)
+    return (b, n, tq, k.shape[1], d)
+
+
+def _launch(name, *args):
+    from paddle_tpu_torch.ops.kernels import _build
+    _raise_on(getattr(_build.load_library(), "ptt_" + name)(*args), name)
+    launch_counts[name] += 1
 
 
 def _launch_fwd(q, k, v, bias, cfg):
-    from paddle_tpu_torch.ops.kernels import _build
+    """The forward kernel of q's dtype: (o, lse [B, N, Tq] f32)."""
     b, tq, n, d = q.shape
     out = torch.empty((b, tq, n, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, n, tq), dtype=torch.float32, device=q.device)
-    lib = _build.load_library()
-    err = lib.ptt_flash_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias), out.data_ptr(),
-        lse.data_ptr(), *_shape_args(q, k),
-        _strides(q, k, v, None, out), *_tail(q, cfg))
-    _raise_on(err, "flash_fwd")
-    launch_counts["flash_fwd"] += 1
+    _launch(KERNELS[q.dtype][0],
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias),
+            out.data_ptr(), lse.data_ptr(), *_shape_args(q, k),
+            _strides(q, k, v, None, out), *_tail(q, cfg))
     return out, lse
 
 
@@ -233,41 +263,62 @@ def bwd_delta(out, dout, dlse=None):
     return delta.contiguous()
 
 
-def _launch_dkv(q, k, v, bias, dout, lse, delta, cfg, want_dbias):
-    from paddle_tpu_torch.ops.kernels import _build
+def _grads(q, k, want_dbias):
+    """Empty dk, dv and the zeroed dbias [B, Tk] f32 (or None)."""
     b, _, n, d = q.shape
     tk = k.shape[1]
     dk = torch.empty((b, tk, n, d), dtype=k.dtype, device=k.device)
-    dv = torch.empty((b, tk, n, d), dtype=v.dtype, device=v.device)
+    dv = torch.empty((b, tk, n, d), dtype=k.dtype, device=k.device)
     dbias = (torch.zeros((b, tk), dtype=torch.float32, device=q.device)
              if want_dbias else None)
-    err = _build.load_library().ptt_flash_bwd_dkv(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias), dout.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        _ptr(dbias), *_shape_args(q, k),
-        _strides(q, k, v, dout, None, dk, dv), *_tail(q, cfg))
-    _raise_on(err, "flash_bwd_dkv")
-    launch_counts["flash_bwd_dkv"] += 1
+    return dk, dv, dbias
+
+
+def _launch_bwd_tc(q, k, v, bias, dout, lse, delta, cfg, want_dbias):
+    """The tensor-core backward (bfloat16): dQ, dK, dV and dbias from one
+    launch. dQ is summed with atomics into a zeroed float32 workspace
+    [B, Tq, N, D], cast to q's dtype here."""
+    dq_acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    dk, dv, dbias = _grads(q, k, want_dbias)
+    _launch("flash_bwd",
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias),
+            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            dq_acc.data_ptr(), dk.data_ptr(), dv.data_ptr(), _ptr(dbias),
+            *_shape_args(q, k), _strides(q, k, v, dout, dq_acc, dk, dv),
+            *_tail(q, cfg))
+    return dq_acc.to(q.dtype), dk, dv, dbias
+
+
+def _launch_dkv(q, k, v, bias, dout, lse, delta, cfg, want_dbias):
+    """The CUDA-core dK/dV(+dbias) kernel (float32)."""
+    dk, dv, dbias = _grads(q, k, want_dbias)
+    _launch("flash_bwd_dkv_f32",
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias),
+            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), _ptr(dbias), *_shape_args(q, k),
+            _strides(q, k, v, dout, None, dk, dv), *_tail(q, cfg))
     return dk, dv, dbias
 
 
 def _launch_dq(q, k, v, bias, dout, lse, delta, cfg):
-    from paddle_tpu_torch.ops.kernels import _build
+    """The CUDA-core dQ kernel (float32)."""
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    err = _build.load_library().ptt_flash_bwd_dq(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias), dout.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), *_shape_args(q, k),
-        _strides(q, k, v, dout, dq), *_tail(q, cfg))
-    _raise_on(err, "flash_bwd_dq")
-    launch_counts["flash_bwd_dq"] += 1
+    _launch("flash_bwd_dq_f32",
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias),
+            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            *_shape_args(q, k), _strides(q, k, v, dout, dq), *_tail(q, cfg))
     return dq
 
 
 def _launch_bwd(q, k, v, bias, out, lse, dout, dlse, cfg, want_dbias):
+    """The backward kernels of q's dtype: (dq, dk, dv, dbias or None)."""
     dout = dout.to(q.dtype)
-    if dout.stride(-1) != 1:
-        dout = dout.contiguous()
+    if dout.stride(-1) != 1 or not _aligned(dout):
+        dout = dout.clone(memory_format=torch.contiguous_format)
     delta = bwd_delta(out, dout, dlse)
+    if q.dtype == torch.bfloat16:
+        return _launch_bwd_tc(q, k, v, bias, dout, lse, delta, cfg,
+                              want_dbias)
     dk, dv, dbias = _launch_dkv(q, k, v, bias, dout, lse, delta, cfg,
                                 want_dbias)
     dq = _launch_dq(q, k, v, bias, dout, lse, delta, cfg)
@@ -275,8 +326,8 @@ def _launch_bwd(q, k, v, bias, out, lse, dout, dlse, cfg, want_dbias):
 
 
 class _FlashFn(torch.autograd.Function):
-    """out, lse = kernels(q, k, v, mask); the backward launches the dK/dV
-    and dQ kernels. lse is returned as [B, Tq, N, 1]."""
+    """out, lse = kernels(q, k, v, mask); the backward launches the
+    backward kernels of q's dtype. lse is returned as [B, Tq, N, 1]."""
 
     @staticmethod
     def forward(ctx, q, k, v, mask, cfg, mask_grad):

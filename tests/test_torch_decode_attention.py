@@ -183,6 +183,8 @@ def test_library_is_named_by_its_sources():
     assert set(_build.SIGNATURES) == {"ptt_decode_attention_f32",
                                       "ptt_paged_decode_attention_f32",
                                       "ptt_quantized_paged_decode_attention",
-                                      "ptt_flash_fwd", "ptt_flash_bwd_dkv",
-                                      "ptt_flash_bwd_dq",
+                                      "ptt_flash_fwd", "ptt_flash_bwd",
+                                      "ptt_flash_fwd_f32",
+                                      "ptt_flash_bwd_dkv_f32",
+                                      "ptt_flash_bwd_dq_f32",
                                       "ptt_quantized_matmul"}

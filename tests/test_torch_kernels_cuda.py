@@ -213,7 +213,9 @@ def test_k7_raises_instead_of_falling_back(cuda):
 
 
 # ---------------------------------------------------------------------
-# K1-K4: the flash-attention forward, dK/dV and dQ kernels
+# K1-K4: the flash-attention kernels: bfloat16 on the tensor cores
+# (flash_fwd, flash_bwd), float32 on the CUDA cores (flash_fwd_f32,
+# flash_bwd_dkv_f32, flash_bwd_dq_f32)
 # ---------------------------------------------------------------------
 
 from paddle_tpu_torch.ops.kernels import flash_attention as tfa  # noqa: E402
@@ -292,13 +294,17 @@ def _flash_case(device, dtype, b, t, n, d, causal=False, pad=False,
     dict(b=2, t=200, n=2, d=128, rate=0.2, mask_grad=True),
     dict(b=1, t=300, n=2, d=64, causal=True, lse=True),
     dict(b=1, t=64, n=3, d=64, pad=True),                    # one tile
+    dict(b=2, t=512, n=12, d=64, rate=0.1),                  # BERT-base heads
+    dict(b=2, t=129, n=2, d=128, causal=True),               # one past a tile
 ], ids=["bert-T", "dropout", "causal-ragged-dbias", "d128-dropout-dbias",
-        "lse", "single-tile"])
+        "lse", "single-tile", "bert-heads-dropout", "t129-d128-causal"])
 def test_flash_kernels_match_plain(cuda, dtype, case):
     before = dict(tfa.launch_counts)
     errs = _flash_case(cuda, dtype, **case)
-    for k in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"):
-        assert tfa.launch_counts[k] == before[k] + 1, k
+    fwd, bwd = tfa.KERNELS[dtype]
+    # each call launches its dtype's kernels once and no other kernel
+    assert tfa.launch_counts == {
+        k: n + (k in (fwd, *bwd)) for k, n in before.items()}
     tol = FLASH_TOL[dtype]
     assert all(e <= tol for e in errs.values()), errs
 
