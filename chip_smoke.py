@@ -2,20 +2,29 @@
 """Drive the PyTorch/CUDA port (`paddle_tpu_torch`) on one GPU.
 
     python3 chip_smoke.py [--seed N] [--out results.json]
+    python3 chip_smoke.py --latency [ROOT]
 
 Phases, each of which raises (exit code != 0) when its check fails:
 
 1. Device: the card's name and power limit (nvidia-smi), then the build
-   of the CUDA kernels from `paddle_tpu_torch/csrc/`.
+   of the CUDA kernels from `paddle_tpu_torch/csrc/` and the build
+   report of the tensor-core kernels (BUILD_CHECKS): each
+   instantiation's ptxas line and its SASS opcodes (cuobjdump), failing
+   on a spill, on no HGMMA in the bf16 flash pair or K7's prefill
+   kernel, on no IMMA in K8's int8 kernel or on IDP4A there.
 2. Kernels against their plain PyTorch versions on the card, at the
    shapes the serving path gives them, max |kernel - plain| <= 2e-5
    (float32, TF32 off; the tolerance covers summation order): K5 at
-   B=8, S=1024, N=12, D=64, and K6 and K7 (int8 and float8 e4m3 pools
-   with per-row scales) at block_size 8, M=128 over a shuffled pool with
-   C in {1, 5, 512}. Each is timed beside its plain version,
-   `F.scaled_dot_product_attention` on the same (for K7: dequantized)
-   window (a yardstick the port never calls) and its bound (bytes or
-   flops over the H100's peak rates).
+   B=8, S=1024, N=12, D=64; K6 at block_size 8, M=128 over a shuffled
+   pool with C in {1, 5, 512}; K7 (int8 and float8 e4m3 pools with
+   per-row scales) on the same pool layout at K7_CASES: C in {1, 2, 5,
+   8, 16, 64, 512} at B=8, the main path's prefill (B=1, C=512) and D=32
+   and 128, C = 1 on the decode kernel (CUDA cores) and every longer
+   chunk on the prefill kernel (tensor cores). Each is timed beside its
+   plain version, `F.scaled_dot_product_attention` on the same (for
+   K7: dequantized) window (a yardstick the port never calls) and its
+   bound (bytes or operations over the H100's peak rates; K7's prefill
+   route counts three bf16 products per f32 product at 989 TFLOP/s).
 3. Contiguous serving: GenerationServer over DecodeEngine over
    TinyDecoderLM at GPT-2-small widths (vocab 50257, d_model 768, 12
    heads, 12 layers, max_len 1024; seeded random weights), 16 greedy
@@ -33,8 +42,10 @@ Phases, each of which raises (exit code != 0) when its check fails:
 4a. Quantized serving, int8 then fp8 e4m3: the same requests and draft
    under PagedDecodeEngine(kv_dtype=...). Tokens must equal the
    single-request greedy streams of a batch_size=1, spec_k=0 engine of
-   the same dtype (near-tie rule); K7 must have launched >= layers x
-   steps and K6 never. The pool's bytes (kv_pool_bytes() and what
+   the same dtype (near-tie rule); K7's prefill route must have launched
+   once per layer on every admission and on every verify tick (chunk
+   spec_k + 1 > 1), its decode route once per layer on every plain
+   tick, and K6 never. The pool's bytes (kv_pool_bytes() and what
    torch.cuda allocated) beside float32's, and the token agreement with
    phase 3. Then fidelity: phase 3's streams teacher-forced through
    each dtype, mean |dlogits| / mean |logits_f32| below 0.05 (int8) and
@@ -43,7 +54,7 @@ Phases, each of which raises (exit code != 0) when its check fails:
    requests) with a 256-block spill tier serves the requests twice over
    in one queue: admissions park, the degradation ladder reaches
    evict_spill, at least one admission is a spill hit, and the tokens
-   still equal the int8 references.
+   still equal the int8 references, with the same route counts.
 4c. Relocation, int8: a request decodes half its budget on one engine,
    is exported (v2 state document), imported into a second engine's
    spill tier and resumed with submit_resumed: the stream equals the
@@ -53,10 +64,8 @@ Phases, each of which raises (exit code != 0) when its check fails:
    f32 engine and on the int8 paged engine: host wall time per step,
    device time per step and the top kernels from torch.profiler, and
    the device's idle share.
-6. The flash-attention kernels (K1-K4). First the tensor-core pair as
-   built (csrc/flash_attention_tc.cu): each instantiation's ptxas line
-   and the HGMMA count of its SASS (cuobjdump), failing on a spill or
-   on no HGMMA. Then each kernel against its plain PyTorch version:
+6. The flash-attention kernels (K1-K4), each against its plain PyTorch
+   version:
    `flash_fwd` and `flash_bwd` (bf16, tensor cores) at BERT-base shapes
    (B=32, T=512, N=12, D=64; all-ones mask, padding mask, dropout 0.1)
    and the CUDA-core f32 trio (`flash_fwd_f32`, `flash_bwd_dkv_f32`,
@@ -80,14 +89,16 @@ Phases, each of which raises (exit code != 0) when its check fails:
 9. Where a training step's time goes (torch.profiler, device rows).
 10. (No phase 10: phases 11-13 are the static serving slice's.)
 11. K8 (the fused dequant matmul) against its plain version on the card,
-    int8-activation and weight-only modes, at the ResNet-50 fc at batch 32
-    (32, 2048, 1000), a BERT-base FFN GEMM (4096, 768, 3072) and two odd
-    shapes: int32 accumulators equal and outputs within 1 ulp (int8
-    mode), max |kernel - plain| <= 1e-5 max |plain| (weight-only); each
-    timed beside its plain version, its bound and, at the large shapes,
-    `torch._int_mm` plus the rescale (a yardstick the port never calls);
-    the kernels' ptxas registers and spills. TF32 is off for the static
-    phases (and printed so).
+    int8-activation and weight-only modes, at the ResNet-50 fc at batch
+    32, 8 and 1 ((M, 2048, 1000)), a BERT-base FFN GEMM (4096, 768, 3072)
+    and two odd shapes: int32 accumulators equal and outputs within 1 ulp
+    (int8 mode), max |kernel - plain| <= 1e-5 max |plain| (weight-only);
+    each timed beside its plain version, its bound and a yardstick the
+    port never calls (int8: `torch._int_mm` plus the rescale where it
+    takes the shape, its accumulators equal to the kernel's; weight-only:
+    f32 `torch.matmul` on the dequantized weight), with its split count.
+    (Both kernels' ptxas lines are in phase 1's build report.) TF32 is
+    off for the static phases (and printed so).
 12. ResNet-50 int8 serving through the Predictor at the published width
     (He et al. 2015 Table 1: 50 layers, 224 x 224, 1000 classes; depth
     not cut; random weights from --seed): built with the port's static
@@ -109,9 +120,15 @@ card's name and power limit.
 
 Launch counters are reset just before each main-path phase (serving,
 training, int8 ResNet serving) and read just after it, so launches made
-to compare kernels with their plain versions do not count; K7's line
-reports the launches of its three serving runs (phases 4a and 4b)
-together.
+to compare kernels with their plain versions do not count; K7's two
+lines (decode route, prefill route) report the launches of its three
+serving runs (phases 4a and 4b) together.
+
+`--latency [ROOT]` runs none of the phases: it measures, with the port
+found under ROOT (default: this checkout), one prompt's prefill latency
+at LATENCY_LENS and int8 / fp8 serving (see `latency`), and prints one
+line `LATENCY {...}`. Run it on two checkouts in one call (parent,
+change, change, parent) to compare them on the same card.
 """
 import argparse
 import json
@@ -293,101 +310,152 @@ def check_kernels(torch, da, seed, tag, copies=4):
     return {"decode_attention": k5, "paged_decode_attention": k6}
 
 
+#: phase 2's K7 cases (B, C, D): decode C = 1, the shortest chunk C = 2,
+#: the verify chunk C = 5, the prefill buckets 8, 16, 64 and 512 at
+#: B = 8, the main path's prefill (one slot, C = 512) and head dims 32
+#: and 128
+K7_CASES = ((8, 1, 64), (8, 2, 64), (8, 5, 64), (8, 8, 64), (8, 16, 64),
+            (8, 64, 64), (8, 512, 64), (1, 512, 64), (8, 64, 32),
+            (8, 64, 128))
+
+
+def k7_bound(b, c, n, d, lens, m, bs, route):
+    """(bound ms, what bounds it) of one K7 call: bytes (q in, out, the
+    tables, lengths and each distinct key's payload and scales once)
+    over 3.35 TB/s against operations (4 per (row, key) pair per element)
+    at the route's rate: the decode route's f32 on the CUDA cores (67
+    TFLOP/s); the prefill route's three bf16 products per f32 product
+    on the tensor cores (3 x 4 x pairs x N x D at 989 TFLOP/s)."""
+    cap = m * bs
+    distinct = int(np.minimum(lens + c, cap).sum())
+    pairs = int(sum(np.minimum(ln + np.arange(c) + 1, cap).sum()
+                    for ln in lens))
+    nbytes = (2 * b * c * n * d * 4 + b * m * 4 + b * 4
+              + 2 * distinct * (n * d + 4))
+    flops = 4.0 * pairs * n * d
+    if route == "prefill":
+        return bound_ms(nbytes, 3 * flops, BF16_FLOPS)
+    return bound_ms(nbytes, flops)
+
+
 def check_quantized_kernel(torch, da, gen, seed, tag, copies=4):
     """Phase 2, K7: paged attention over int8 and float8 e4m3 pools
     (payloads and scales from the engine's own row quantizer), block_size
-    8, M=128 over a shuffled pool, B=8, N=12, D=64, C in {1, 5, 512}:
-    max |kernel - plain| <= TOL, each case timed beside its plain
-    version, SDPA on the dequantized gathered window (gathered and
-    dequantized outside the call; a yardstick the port never calls) and
-    its bound. Returns the summary dict of the kernel."""
+    8, M=128 over a shuffled pool, N=12, at K7_CASES: max |kernel - plain|
+    <= TOL (C = 1 on the decode kernel, longer chunks on the prefill
+    kernel). Each case is timed beside its plain version, SDPA on the
+    dequantized gathered window (gathered and dequantized outside the
+    call; a yardstick the port never calls) and its route's bound.
+    Returns the summary dicts of the decode route (C = 1) and of the
+    prefill route (the main path's B = 1, C = 512), int8."""
     import torch.nn.functional as F
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed + 7)
     rng = np.random.RandomState(seed + 7)
-    b, n, d, bs, m = 8, 12, 64, 8, 128
-    nb = b * m + 1
-    perm = rng.permutation(np.arange(1, nb)).astype(np.int32)
-    tables = torch.tensor(perm.reshape(b, m), device=dev)
-    win = tables.long()
+    n, bs, m = 12, 8, 128
 
     def randn(*shape):
         return torch.randn(shape, generator=g, device=dev, dtype=torch.float32)
 
-    def deq(pool, scale):
-        """The dequantized window [B, N, M * bs, D] SDPA reads."""
-        w = pool.view(torch.uint8)[win].view(pool.dtype).float()
-        w = w * scale[win][..., None, None]
-        return w.reshape(b, m * bs, n, d).transpose(1, 2).contiguous()
-
     def library(q, kq, vq, ks, vs, tab, ln, wk, wv):
         lim = ln[:, None] + torch.arange(q.shape[1], device=dev)[None] + 1
-        mask = torch.arange(m * bs, device=dev)[None, None] < lim[..., None]
+        mask = (torch.arange(m * bs, device=dev)[None, None]
+                < lim[..., None])
         return F.scaled_dot_product_attention(
             q.transpose(1, 2), wk, wv, attn_mask=mask[:, None])
 
     rows, err_all = [], 0.0
     for kv_dtype in ("int8", "fp8_e4m3"):
-        pools = []
-        for _ in range(copies):
-            kq, ks = gen._kv_quantize_rows(3.0 * randn(nb, bs, n, d), kv_dtype)
-            vq, vs = gen._kv_quantize_rows(randn(nb, bs, n, d), kv_dtype)
-            pools.append((kq, vq, ks, vs))
-        assert pools[0][0].dtype == gen.kv_torch_dtype(kv_dtype)
-        for c in (1, 5, 512):
+        pools = {}
+        for b, c, d in K7_CASES:
+            if (b, d) not in pools:
+                nb = b * m + 1
+                perm = rng.permutation(np.arange(1, nb)).astype(np.int32)
+                tables = torch.tensor(perm.reshape(b, m), device=dev)
+                made = []
+                for _ in range(copies):
+                    kq, ks = gen._kv_quantize_rows(
+                        3.0 * randn(nb, bs, n, d), kv_dtype)
+                    vq, vs = gen._kv_quantize_rows(randn(nb, bs, n, d),
+                                                   kv_dtype)
+                    made.append((kq, vq, ks, vs))
+                assert made[0][0].dtype == gen.kv_torch_dtype(kv_dtype)
+                pools[(b, d)] = (tables, made)
+            tables, made = pools[(b, d)]
+            win = tables.long()
+
+            def deq(pool, scale):
+                """The dequantized window [B, N, M * bs, D] SDPA reads."""
+                w = pool.view(torch.uint8)[win].view(pool.dtype).float()
+                w = w * scale[win][..., None, None]
+                return w.reshape(b, m * bs, n, d).transpose(1, 2).contiguous()
+
             top = m * bs - c
             lens = np.concatenate([[0, 1, min(511, top), top],
-                                   rng.randint(0, top + 1, size=b - 4)]
-                                  ).astype(np.int32)
+                                   rng.randint(0, top + 1, size=4)])[:b]
+            if b == 1:
+                lens = np.zeros(1)   # the main path: a prompt from nothing
+            lens = lens.astype(np.int32)
             lengths = torch.tensor(lens, device=dev)
             sets = [(randn(b, c, n, d),) + pool + (tables, lengths)
-                    for pool in pools]
-            got = da.quantized_paged_decode_attention(*sets[0])
+                    for pool in made]
+            route = "decode" if c == 1 else "prefill"
             want = da.quantized_paged_decode_attention_reference(*sets[0])
+            before = da.launch_counts["quantized_paged_prefill_attention"]
+            got = da.quantized_paged_decode_attention(*sets[0])
             torch.cuda.synchronize()
+            took = ("prefill" if da.launch_counts[
+                "quantized_paged_prefill_attention"] > before else "decode")
+            assert took == route, (c, took)
             err = float((got - want).abs().max())
             assert got.shape == (b, c, n, d) and bool(
                 torch.isfinite(got).all())
-            assert err <= TOL, (f"K7 {kv_dtype} C={c} max |kernel - plain| "
-                                f"{err} > {TOL}")
+            assert err <= TOL, (f"K7 {kv_dtype} B={b} C={c} D={d} {route} "
+                                f"route: max |kernel - plain| {err} > {TOL}")
             err_all = max(err_all, err)
             lib_sets = [a + (deq(a[1], a[3]), deq(a[2], a[4])) for a in sets]
-            cap = m * bs
-            distinct = int(np.minimum(lens + c, cap).sum())
-            pairs = int(sum(np.minimum(ln + np.arange(c) + 1, cap).sum()
-                            for ln in lens))
-            nbytes = (2 * b * c * n * d * 4 + b * m * 4 + b * 4
-                      + 2 * distinct * (n * d + 4))
-            bnd, by = bound_ms(nbytes, 4.0 * pairs * n * d)
-            row = {"kv_dtype": kv_dtype, "C": c, "max_abs_err": err,
+            row = {"kv_dtype": kv_dtype, "B": b, "C": c, "D": d,
+                   "route": route, "max_abs_err": err,
                    "ms": timed_ms(torch, da.quantized_paged_decode_attention,
                                   sets),
                    "plain_ms": timed_ms(
                        torch, da.quantized_paged_decode_attention_reference,
                        sets),
                    "library_ms": timed_ms(torch, library, lib_sets),
-                   "bound_ms": bnd, "bound_by": by, "lengths": lens.tolist()}
+                   "lengths": lens.tolist()}
+            row["bound_ms"], row["bound_by"] = k7_bound(b, c, n, d, lens, m,
+                                                        bs, route)
             rows.append(row)
             print(f"K7 {kv_dtype} B={b} C={c} N={n} D={d} bs={bs} M={m}: "
-                  f"max_abs_err={err:.3g} kernel_ms={row['ms']:.5f} "
-                  f"plain_ms={row['plain_ms']:.5f} "
-                  f"library_ms={row['library_ms']:.5f} (SDPA on the "
+                  f"route={route} max_abs_err={err:.3g} "
+                  f"kernel_ms={row['ms']:.5f} plain_ms={row['plain_ms']:.5f}"
+                  f" library_ms={row['library_ms']:.5f} (SDPA on the "
                   f"dequantized window, gathered outside the call) "
-                  f"bound_us={bnd * 1e3:.3f} ({by}) {tag}")
+                  f"bound_ms={row['bound_ms']:.5f} ({row['bound_by']}) "
+                  f"{tag}")
             del sets, lib_sets
         del pools
         torch.cuda.empty_cache()
-    decode = rows[0]
-    return {"name": "K7 quantized_paged_decode_attention", "route": "cuda",
-            "source": "paddle_tpu_torch/csrc/decode_attention.cu",
-            "replaces": "paddle_tpu/ops/pallas/flash_attention.py:1302",
-            "max_abs_err": err_all, "ms": decode["ms"],
-            "plain_ms": decode["plain_ms"], "bound_ms": decode["bound_ms"],
-            "bound_by": decode["bound_by"],
-            "library_ms": decode["library_ms"],
-            "shape": f"int8 B={b} C=1 N={n} D={d} bs={bs} M={m} (times); "
-                     f"max_abs_err over int8 and fp8, C in (1, 5, 512)",
-            "by_case": rows}
+
+    def summary(name, pick, shape):
+        r = next(x for x in rows if pick(x))
+        return {"name": name, "route": "cuda",
+                "source": "paddle_tpu_torch/csrc/decode_attention.cu",
+                "replaces": "paddle_tpu/ops/pallas/flash_attention.py:1302",
+                "max_abs_err": err_all, "ms": r["ms"],
+                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+                "shape": shape, "by_case": rows}
+
+    return (summary("K7 quantized_paged_decode_attention (decode route)",
+                    lambda x: x["kv_dtype"] == "int8" and x["C"] == 1,
+                    f"int8 B=8 C=1 N={n} D=64 bs={bs} M={m} (times); "
+                    f"max_abs_err over every case"),
+            summary("K7 quantized_paged_prefill_attention (prefill route)",
+                    lambda x: (x["kv_dtype"] == "int8" and x["C"] == 512
+                               and x["B"] == 1),
+                    f"int8 B=1 C=512 N={n} D=64 bs={bs} M={m}, lengths 0 "
+                    f"(times); max_abs_err over every case"))
 
 
 def make_prompts(rng, vocab, count):
@@ -600,6 +668,64 @@ def agreement(got, want):
     return same / total, sum(int(g == w) for g, w in zip(got, want))
 
 
+#: --latency's prompt lengths (prefill chunks of 16 .. 1024 rows)
+LATENCY_LENS = (16, 64, 128, 256, 512, 1000)
+
+
+def latency(torch, seed, reps=7):
+    """--latency: with the port found first on sys.path, for int8 and
+    fp8 pools, the wall time (synchronised) of one admission (a random
+    prompt prefilled from an empty window, prefix reuse off) on a
+    batch_size=1 engine at LATENCY_LENS, the median of the last reps - 2
+    of reps admissions, then tokens/s and p50 TTFT of 16 requests
+    (make_prompts) on a batch_size=8, spec_k=4 engine with an NgramDraft.
+    Only the engine's and the server's public API is used, so any
+    checkout of the port can be measured. Returns the dict it prints."""
+    from paddle_tpu_torch.ops import generation as gen
+    from paddle_tpu_torch.serving.generation import GenerationServer
+    cfg = gen.LMConfig(**GPT2_SMALL)
+    model = gen.TinyDecoderLM(cfg).init_params(seed)
+    rng = np.random.RandomState(seed)
+    out = {"card": card_line()}
+    for dt in QUANT_DTYPES:
+        eng = gen.PagedDecodeEngine(model, batch_size=1, max_len=1024,
+                                    block_size=8, spec_k=0, kv_dtype=dt)
+        eng.warmup()
+        state = eng.init_state()
+        res = {}
+        for n in LATENCY_LENS:
+            prompt = rng.randint(0, cfg.vocab_size, size=n).astype(np.int32)
+            times = []
+            for _ in range(reps):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, _, _ = eng.admit(state, 0, prompt, n + 1,
+                                        prefix_reuse=False)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+                eng.free_slot(0)
+            res[n] = float(np.median(times[2:]))
+        out[f"prefill_ms_{dt}"] = res
+        del eng, state
+        torch.cuda.empty_cache()
+    prompts, budgets = make_prompts(np.random.RandomState(seed),
+                                    cfg.vocab_size, 16)
+    for dt in QUANT_DTYPES:
+        eng = gen.PagedDecodeEngine(model, batch_size=8, max_len=1024,
+                                    block_size=8, spec_k=4, kv_dtype=dt)
+        eng.warmup()
+        toks, ttft, wall, stats = serve(GenerationServer, eng, prompts,
+                                        budgets,
+                                        draft=gen.NgramDraft(cfg.vocab_size))
+        out[f"serve_{dt}"] = {
+            "tokens_per_s": sum(map(len, toks)) / wall,
+            "p50_ttft_ms": float(np.median(ttft)) * 1e3,
+            "steps": stats["counters"]["steps"]}
+        del eng
+        torch.cuda.empty_cache()
+    return out
+
+
 # ---------------------------------------------------------------------------
 # the BERT-base pretraining slice: flash kernels K1-K4 and the train step
 # ---------------------------------------------------------------------------
@@ -638,8 +764,6 @@ FLASH_REPLACES = {
                         "(_bwd1_kernel, K4b)"}
 FLASH_SOURCES = {"bfloat16": "paddle_tpu_torch/csrc/flash_attention_tc.cu",
                  "float32": "paddle_tpu_torch/csrc/flash_attention.cu"}
-#: the tensor-core kernels' mangled-name stems (ptxas lines, SASS counts)
-TC_KERNELS = ("flash_fwd_tc_kernel", "flash_bwd_tc_kernel")
 SEED_ATTN = 12345
 BERT_BATCH, BERT_SEQ = 32, 512
 
@@ -703,12 +827,27 @@ def flash_case(torch, tfa, dev, dtype, b, t, n, d, causal=False, pad=False,
     return out
 
 
-def tc_build_report(info, tag):
-    """The tensor-core flash kernels as built: each instantiation's ptxas
-    line (registers, shared memory, spills) and the count of HGMMA (and
-    HMMA) instructions in its SASS, from `cuobjdump -sass` of the built
-    library. Fails unless every instantiation has HGMMA instructions and
-    spills nothing."""
+#: the kernels whose ptxas lines and SASS the build report checks: mangled
+#: name stem -> (instantiations, opcodes its SASS must hold, opcodes it
+#: must not). The bf16 flash pair and K7's prefill route run on wgmma
+#: (HGMMA); K8's int8 mode on mma.sync s8 (IMMA), with no dp4a left; K8's
+#: weight-only mode (CUDA cores) is listed for its ptxas line.
+BUILD_CHECKS = {
+    "flash_fwd_tc_kernel": (3, ("HGMMA",), ()),
+    "flash_bwd_tc_kernel": (3, ("HGMMA",), ()),
+    "qattn_prefill_tc_kernel": (6, ("HGMMA",), ()),
+    "qmm_int8_tc_kernel": (2, ("IMMA",), ("IDP4A",)),
+    "qmm_weight_only_kernel": (1, (), ()),
+}
+SASS_OPS = ("HGMMA", "HMMA", "IMMA", "IDP4A")
+
+
+def build_report(info, tag):
+    """The tensor-core kernels as built: each instantiation's ptxas line
+    (registers, shared memory, spills) and the count of HGMMA, HMMA,
+    IMMA and IDP4A instructions in its SASS, from `cuobjdump -sass` of
+    the built library. Fails unless every instantiation in BUILD_CHECKS
+    spills nothing, holds its required opcodes and none it must not."""
     import re
     import shutil
     log = info["nvcc_log"]
@@ -717,9 +856,11 @@ def tc_build_report(info, tag):
             log = f.read()
 
     def label(mangled):
-        stem = next((k for k in TC_KERNELS if k in mangled), None)
-        d = re.search(r"ILi(\d+)E", mangled)
-        return stem and f"{stem}<{d.group(1) if d else '?'}>"
+        stem = next((k for k in BUILD_CHECKS if k in mangled), None)
+        if stem is None:
+            return None
+        targs = re.findall(r"L[ib](\d+)E", mangled.split(stem, 1)[1])
+        return f"{stem}<{','.join(targs)}>"
 
     report, current = {}, None
     for line in log.splitlines():
@@ -743,17 +884,23 @@ def tc_build_report(info, tag):
             current = label(line)
             if current:
                 report.setdefault(current, {"ptxas": []}).update(
-                    HGMMA=0, HMMA=0)
+                    {op: 0 for op in SASS_OPS})
         elif current:
-            for op in ("HGMMA", "HMMA"):
-                report[current][op] += bool(re.search(rf"\b{op}\.", line))
-    assert len(report) == 2 * 3, f"tensor-core instantiations: {report}"
-    for name, row in sorted(report.items()):
-        print(f"ptxas {name}: {'; '.join(row['ptxas'])} {tag}")
-        print(f"sass {name}: {row['HGMMA']} HGMMA, {row['HMMA']} HMMA "
-              f"instructions {tag}")
-        assert row["HGMMA"] > 0, f"{name}: no HGMMA in its SASS"
-        assert row.get("spill_bytes") == 0, f"{name}: spills {row}"
+            for op in SASS_OPS:
+                report[current][op] += bool(re.search(rf"\b{op}\b", line))
+    for stem, (count, need, banned) in BUILD_CHECKS.items():
+        rows = sorted(k for k in report if k.startswith(stem + "<"))
+        assert len(rows) == count, f"{stem}: instantiations {rows}"
+        for name in rows:
+            row = report[name]
+            print(f"ptxas {name}: {'; '.join(row['ptxas'])} {tag}")
+            print(f"sass {name}: " + ", ".join(
+                f"{row.get(op, 0)} {op}" for op in SASS_OPS) + f" {tag}")
+            for op in need:
+                assert row.get(op, 0) > 0, f"{name}: no {op} in its SASS"
+            for op in banned:
+                assert row.get(op, 0) == 0, f"{name}: {op} in its SASS"
+            assert row.get("spill_bytes") == 0, f"{name}: spills {row}"
     return report
 
 
@@ -1023,11 +1170,11 @@ def flash_vs_einsum(torch, tfa, trainer, tag, batch=4):
 # the Fluid static serving slice: K8 and ResNet-50 int8 through the Predictor
 # ---------------------------------------------------------------------------
 
-#: phase 11's (M, K, N): the ResNet-50 fc at batch 32 (the main path's
-#: K8 call), the BERT-base FFN up-projection at 32 x 128 tokens (a GEMM
-#: that fills the card) and two odd shapes (edge tiles)
-K8_SHAPES = ((32, 2048, 1000), (4096, 768, 3072), (5, 33, 17),
-             (130, 257, 129))
+#: phase 11's (M, K, N): the ResNet-50 fc at batch 32, 8 and 1 (the main
+#: path's K8 calls), the BERT-base FFN up-projection at 32 x 128 tokens
+#: (a GEMM that fills the card) and two odd shapes (edge tiles)
+K8_SHAPES = ((32, 2048, 1000), (8, 2048, 1000), (1, 2048, 1000),
+             (4096, 768, 3072), (5, 33, 17), (130, 257, 129))
 #: weight-only mode: max |kernel - plain| <= K8_WO_TOL * max |plain|
 K8_WO_TOL = 1e-5
 #: int8 serving: mean |logits_int8 - logits_f32| / mean |logits_f32|,
@@ -1044,27 +1191,18 @@ def ulps(torch, a, b):
                 - b.view(torch.int32).long()).abs().max())
 
 
-def ptxas_lines(log, names):
-    """The ptxas register/shared-memory lines of the kernels whose mangled
-    names contain one of `names`, from an nvcc -Xptxas -v log."""
-    out, current = [], None
-    for line in log.splitlines():
-        if "Compiling entry function" in line:
-            current = next((n for n in names if n in line), None)
-        elif current and ("Used" in line or "spill" in line):
-            out.append(f"{current}: {line.split(':', 1)[-1].strip()}")
-    return out
-
-
 def check_quantized_matmul(torch, k8, seed, tag, copies=3):
     """Phase 11. K8 against its plain version on the card in both modes
     at K8_SHAPES: int8-activation mode with equal int32 accumulators and
     outputs within 1 ulp, weight-only within K8_WO_TOL of max |plain|.
     Each case is timed beside its plain version, its bound
     (max(bytes / 3.35 TB/s, 2MKN / 1979 TOP/s), bytes 4MK + KN + 4N + 4MN)
-    and, at the two large shapes in int8 mode, `torch._int_mm` on the
-    same int8 operands plus the rescale (a yardstick the port never
-    calls). Returns the kernel's summary dict."""
+    and a yardstick the port never calls: in int8 mode, where it takes
+    the shape (M > 16, K and N multiples of 8), `torch._int_mm` on the
+    same int8 operands plus the rescale, whose accumulators must equal
+    the kernel's; in weight-only mode an f32 `torch.matmul` (TF32 off) on
+    the weight dequantized outside the call. Prints each shape's split
+    count. Returns the kernel's summary dict."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed + 11)
     rows = []
@@ -1100,7 +1238,9 @@ def check_quantized_matmul(torch, k8, seed, tag, copies=3):
         nbytes = 4 * m * k + k * n + 4 * n + 4 * m * n
         bnd, by = bound_ms(nbytes, 2.0 * m * k * n, INT8_OPS)
         args = [(a, b, c, xs) for a, b, c in sets]
-        row = {"M": m, "K": k, "N": n, "max_ulps": err_ulp,
+        deq = [(a, b.float() * (c / 127.0)) for a, b, c in sets]
+        row = {"M": m, "K": k, "N": n, "splits": k8.k8_split_count(m, k, n),
+               "tile": k8.k8_tile(m), "max_ulps": err_ulp,
                "max_abs_err": float((got - want).abs().max()),
                "weight_only_rel_err": wo_rel,
                "ms": timed_ms(torch, lambda a, b, c, s:
@@ -1113,6 +1253,7 @@ def check_quantized_matmul(torch, k8, seed, tag, copies=3):
                                           [a[:3] for a in args]),
                "weight_only_plain_ms": timed_ms(
                    torch, k8.dequant_matmul_reference, [a[:3] for a in args]),
+               "weight_only_library_ms": timed_ms(torch, torch.matmul, deq),
                "bound_ms": bnd, "bound_by": by, "library_ms": None}
         if m > 16 and k % 8 == 0 and n % 8 == 0:
             lib_args = [(k8.quantize_activation(a, xs),
@@ -1127,13 +1268,15 @@ def check_quantized_matmul(torch, k8, seed, tag, copies=3):
         rows.append(row)
         lib = ("n/a" if row["library_ms"] is None
                else f"{row['library_ms']:.5f}")
-        print(f"K8 M={m} K={k} N={n}: int8 max_ulps={err_ulp} acc equal, "
+        print(f"K8 M={m} K={k} N={n}: int8 tile {row['tile']} splits "
+              f"{row['splits']}, max_ulps={err_ulp} acc equal, "
               f"kernel_ms={row['ms']:.5f} plain_ms={row['plain_ms']:.5f} "
               f"_int_mm+rescale_ms={lib} bound_ms={bnd:.5f} ({by}); "
               f"weight-only rel_err={wo_rel:.3g} kernel_ms="
               f"{row['weight_only_ms']:.5f} plain_ms="
-              f"{row['weight_only_plain_ms']:.5f} {tag}")
-        del sets, args
+              f"{row['weight_only_plain_ms']:.5f} matmul_ms="
+              f"{row['weight_only_library_ms']:.5f} {tag}")
+        del sets, args, deq
     torch.cuda.empty_cache()
     main = rows[0]
     return {"name": "K8 quantized_matmul", "route": "cuda",
@@ -1329,6 +1472,11 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=None,
                     help="also write every number to this JSON file")
+    ap.add_argument("--latency", nargs="?", const=".", default=None,
+                    metavar="ROOT",
+                    help="only measure prefill latency and quantized "
+                         "serving with the port under ROOT (default: this "
+                         "checkout); print one LATENCY line")
     args = ap.parse_args(argv)
 
     import torch
@@ -1336,6 +1484,17 @@ def main(argv=None):
         print("chip_smoke: torch sees no CUDA device; nothing to drive",
               file=sys.stderr)
         return 2
+    if args.latency is not None:
+        root = os.path.abspath(args.latency)
+        sys.path.insert(0, root)
+        import paddle_tpu_torch
+        assert os.path.dirname(os.path.dirname(
+            os.path.abspath(paddle_tpu_torch.__file__))) == root, (
+            paddle_tpu_torch.__file__, root)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        out = latency(torch, args.seed)
+        print("LATENCY " + json.dumps({"root": args.latency, **out}))
+        return 0
     from paddle_tpu_torch.ops import generation as gen
     from paddle_tpu_torch.ops.kernels import _build
     from paddle_tpu_torch.ops.kernels import decode_attention as da
@@ -1356,11 +1515,17 @@ def main(argv=None):
     print(f"kernel build: {time.perf_counter() - t0:.2f} s "
           f"(nvcc {info['build_seconds']:.2f} s, "
           f"{'built' if info['built'] else 'already built'}) {tag}")
+    # the tensor-core kernels' ptxas lines and SASS
+    build = build_report(info, tag)
 
     # 2. kernels against their plain versions
     kernels = check_kernels(torch, da, args.seed, tag)
-    kernels["quantized_paged_decode_attention"] = check_quantized_kernel(
+    (kernels["quantized_paged_decode_attention"],
+     kernels["quantized_paged_prefill_attention"]) = check_quantized_kernel(
         torch, da, gen, args.seed, tag)
+    for k in ("quantized_paged_decode_attention",
+              "quantized_paged_prefill_attention"):
+        kernels[k]["launches"] = 0
 
     # 3. contiguous serving
     cfg = gen.LMConfig(**GPT2_SMALL)
@@ -1385,7 +1550,7 @@ def main(argv=None):
           f"{min(min(g) for g in gaps):.3g} {tag}")
 
     results = {"card": card, "seed": args.seed, "config": cfg._asdict(),
-               "kernels": kernels, "phases": {}}
+               "kernels": kernels, "phases": {}, "build_report": build}
 
     def run_phase(phase, engine, kname, want=None, absent=(), reqs=None,
                   **server_kw):
@@ -1413,20 +1578,49 @@ def main(argv=None):
                       for i, (t, r, g) in enumerate(
                           zip(toks, want_refs, want_gaps)))
         n_tok = sum(map(len, toks))
+        refills = stats["counters"]["refills"]
         row = {"tokens": n_tok, "wall_s": wall,
                "tokens_per_s": n_tok / wall,
                "p50_ttft_ms": float(np.median(ttft)) * 1e3,
-               "decode_steps": steps, "launches": launches,
-               "launches_per_step": launches / steps,
+               "decode_steps": steps, "admissions": refills,
+               "launches": launches, "launches_per_step": launches / steps,
                "warmup_s": warm_s, "near_ties": excused,
                "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+        if kname == "quantized_paged_decode_attention":
+            # K7's two routes, in every layer: the prefill kernel on every
+            # admission's prefill (every bucket is > 1 row) and on the
+            # verify ticks (chunk spec_k + 1 > 1), the decode kernel on
+            # the plain ticks
+            pre = da.launch_counts["quantized_paged_prefill_attention"]
+            verify = stats["speculative"]["verify_ticks"]
+            assert min(engine.buckets) > 1 and engine.spec_k > 0, (
+                engine.buckets, engine.spec_k)
+            want_pre = refills + verify
+            assert pre == cfg.num_layers * want_pre, (
+                f"{phase}: prefill route launched {pre} times over "
+                f"{refills} admissions and {verify} verify ticks (chunk "
+                f"{engine.spec_k + 1}) of {cfg.num_layers} layers")
+            assert launches - pre == cfg.num_layers * (steps + refills
+                                                       - want_pre), (
+                f"{phase}: decode route launched {launches - pre} times "
+                f"over {steps} ticks of {cfg.num_layers} layers")
+            row.update(prefill_route_launches=pre,
+                       decode_route_launches=launches - pre)
+            kernels["quantized_paged_prefill_attention"]["launches"] += pre
+            kernels[kname]["launches"] += launches - pre
+        else:
+            kernels[kname]["launches"] = (kernels[kname].get("launches", 0)
+                                          + launches)
         results["phases"][phase] = row
-        kernels[kname]["launches"] = (kernels[kname].get("launches", 0)
-                                      + launches)
+        routes = ("" if "prefill_route_launches" not in row else
+                  f" (prefill route {row['prefill_route_launches']} over "
+                  f"{refills} admissions, decode route "
+                  f"{row['decode_route_launches']})")
         print(f"{phase}: {n_tok} tokens in {wall:.2f} s = "
               f"{row['tokens_per_s']:.1f} tokens/s, p50 TTFT "
               f"{row['p50_ttft_ms']:.1f} ms, {steps} decode steps, "
-              f"{kname} launches {launches}, near-ties {excused} {tag}")
+              f"{kname} launches {launches}{routes}, near-ties {excused} "
+              f"{tag}")
         return toks, stats, row
 
     contiguous, _, _ = run_phase(
@@ -1602,9 +1796,8 @@ def main(argv=None):
     del model
     torch.cuda.empty_cache()
 
-    # 6. flash kernels against their plain versions; the tensor-core
-    # kernels' ptxas lines and SASS first
-    results["flash_tc_build"] = tc_build_report(info, tag)
+    # 6. flash kernels against their plain versions (their ptxas lines
+    # and SASS are in phase 1's build report)
     kernels.update(check_flash(torch, tfa, args.seed, tag))
 
     # 7. the BERT-base pretraining step, the slice's main path
@@ -1633,9 +1826,6 @@ def main(argv=None):
           f"torch.backends.cudnn.allow_tf32="
           f"{torch.backends.cudnn.allow_tf32} (f32 convs and GEMMs in "
           f"true f32) {tag}")
-    for line in ptxas_lines(info["nvcc_log"], ("qmm_int8_kernel",
-                                               "qmm_weight_only_kernel")):
-        print(f"ptxas K8 {line} {tag}")
     kernels["quantized_matmul"] = check_quantized_matmul(torch, k8,
                                                          args.seed, tag)
     del trainer, data
@@ -1667,7 +1857,8 @@ def main(argv=None):
     line = {"kernels": [{k: kernels[name][k] for k in keys}
                         for name in ("decode_attention",
                                      "paged_decode_attention",
-                                     "quantized_paged_decode_attention")
+                                     "quantized_paged_decode_attention",
+                                     "quantized_paged_prefill_attention")
                         + FLASH_KERNELS + ("quantized_matmul",)]}
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),

@@ -18,7 +18,12 @@
 //     value). The scales fold where the TPU kernel folds them: s_k into
 //     the logits, s = (q . k_q) * s_k * scale, and s_v into the
 //     probabilities, acc += (p * s_v) * v_q, with l summing p itself. No
-//     dequantized window exists anywhere. Every C is covered here too.
+//     dequantized window exists anywhere. Two kernels split the chunk
+//     sizes: ptt_quantized_paged_decode_attention on the CUDA cores
+//     takes decode ticks (C = 1 only), and
+//     ptt_quantized_paged_prefill_attention on the bf16 tensor cores
+//     takes every C > 1 (verify and prefill chunks; see
+//     qattn_prefill_tc_kernel below).
 //
 // What bounds them on this card: bytes. A decode row does 2 flops per
 // key element it reads (q.k and p.v), far below the ~20 flops/byte where
@@ -45,11 +50,10 @@
 //  * The paged kernels look up their own table entry per key (the TPU
 //    kernel's scalar prefetch has no counterpart here); entries are
 //    clamped into [0, NB) as XLA's gather clamps.
-//  * K7 gives each lane E payload bytes of a key row in one load (E = 16
-//    on the decode path, so D / 16 lanes share a key; E = 4 when a block
-//    holds 8 query rows, whose q and acc registers are what limit E) and
-//    converts them to float in registers; a key's two scales are one
-//    broadcast load each for its lane group.
+//  * K7's decode kernel gives each lane 16 payload bytes of a key row in
+//    one load (D / 16 lanes share a key) and converts them to float in
+//    registers; a key's two scales are one broadcast load each for its
+//    lane group.
 //
 // A window with no keys (length 0) writes zeros, as the Pallas kernels
 // and the JAX references do. Masked logits in the references are -1e30,
@@ -63,6 +67,8 @@
 
 #include <cuda_fp8.h>
 #include <cuda_runtime.h>
+
+#include "tc_common.cuh"
 
 namespace {
 
@@ -346,16 +352,12 @@ cudaError_t launch(const Args& a, int d, cudaStream_t stream) {
 // E payload bytes at p (E-byte aligned) as E / 4 little-endian words.
 template <int E>
 __device__ __forceinline__ void load_bytes(const unsigned char* p, unsigned (&w)[E / 4]) {
-  if constexpr (E == 16) {
-    const uint4 r = __ldg(reinterpret_cast<const uint4*>(p));
-    w[0] = r.x;
-    w[1] = r.y;
-    w[2] = r.z;
-    w[3] = r.w;
-  } else {
-    static_assert(E == 4, "K7 lanes hold 4 or 16 payload bytes");
-    w[0] = __ldg(reinterpret_cast<const unsigned*>(p));
-  }
+  static_assert(E == 16, "K7 decode lanes hold 16 payload bytes");
+  const uint4 r = __ldg(reinterpret_cast<const uint4*>(p));
+  w[0] = r.x;
+  w[1] = r.y;
+  w[2] = r.z;
+  w[3] = r.w;
 }
 
 // Byte i of w as the payload value it stores (int8, or float8 e4m3).
@@ -384,10 +386,14 @@ __device__ __forceinline__ int table_block(const Args& a, int b, int p) {
   return blk < 0 ? 0 : (blk >= a.nb ? a.nb - 1 : blk);
 }
 
-// grid: (nsplit, ceil(C / CR), B * N); block: kThreads. The structure of
-// attn_partial_kernel<PAGED>, with a group of G = D / E lanes per key.
-template <int D, int CR, int E, int U, bool FP8>
+// grid: (nsplit, 1, B * N); block: kThreads. The structure of
+// attn_partial_kernel<PAGED> at one query row (C = 1), with a group of
+// G = D / E lanes per key.
+template <int D, bool FP8>
 __global__ void __launch_bounds__(kThreads) qattn_partial_kernel(Args a) {
+  constexpr int CR = 1;             // query rows per block
+  constexpr int E = 16;             // payload bytes per lane
+  constexpr int U = 2;              // keys per group per step
   constexpr int G = D / E;          // lanes per key group
   constexpr int NG = kThreads / G;  // key groups per block
   const int split = blockIdx.x;
@@ -540,29 +546,454 @@ __global__ void __launch_bounds__(kThreads) qattn_partial_kernel(Args a) {
   }
 }
 
-template <int D, int CR, bool FP8>
+template <int D, bool FP8>
 cudaError_t launch_q(const Args& a, cudaStream_t stream) {
-  constexpr int E = CR == 1 ? 16 : 4;
-  dim3 grid(a.nsplit, (a.C + CR - 1) / CR, a.B * a.N);
-  qattn_partial_kernel<D, CR, E, 2, FP8><<<grid, kThreads, 0, stream>>>(a);
+  dim3 grid(a.nsplit, 1, a.B * a.N);
+  qattn_partial_kernel<D, FP8><<<grid, kThreads, 0, stream>>>(a);
   return combine<D>(a, stream);
 }
 
-template <int CR, bool FP8>
-cudaError_t launch_q_cr(const Args& a, int d, cudaStream_t stream) {
+template <bool FP8>
+cudaError_t launch_q_d(const Args& a, int d, cudaStream_t stream) {
   switch (d) {
-    case 32: return launch_q<32, CR, FP8>(a, stream);
-    case 64: return launch_q<64, CR, FP8>(a, stream);
-    case 128: return launch_q<128, CR, FP8>(a, stream);
+    case 32: return launch_q<32, FP8>(a, stream);
+    case 64: return launch_q<64, FP8>(a, stream);
+    case 128: return launch_q<128, FP8>(a, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
+// The decode kernel takes one query row; chunks go to launch_prefill.
 cudaError_t launch_quantized(const Args& a, int d, bool fp8, cudaStream_t stream) {
+  if (bad_grid(a) || a.tables == nullptr || a.C != 1) return cudaErrorInvalidValue;
+  return fp8 ? launch_q_d<true>(a, d, stream) : launch_q_d<false>(a, d, stream);
+}
+
+// ---------------------------------------------------------------------------
+// K7 prefill (C > 1): the chunk on the bf16 tensor cores
+// ---------------------------------------------------------------------------
+//
+// The decode kernel above gives each (row, key) logit a shuffle reduction
+// in f32 on the CUDA cores, which suits one row. A chunk reuses every key
+// across its rows, so this kernel gives one warpgroup 64 rows and runs
+// both products as wgmma at the f32 kernel's accuracy:
+//  * Every int8 code and every finite e4m3 value is exact in bf16, so a
+//    key tile's codes convert exactly into a bf16 tile.
+//  * q, and p * s_v, are split into three bf16 pieces h = bf16(x),
+//    m = bf16(x - h), l = bf16(x - h - m), which carry all 24 bits of an
+//    f32; each product of a piece and a code is exact in f32, so the sum
+//    of the three wgmma products is as accurate as f32 FMA (two pieces
+//    are not: tests/test_torch_tc_split.py emulates both on the CPU).
+//  * S = sum over pieces of Q_piece . K_codes^T (K-major, both from
+//    shared memory), then s = S * s_k[key] * scale and the mask key <
+//    lengths[b] + row + 1 on the accumulator fragment, the online softmax
+//    in f32 there, and O_tile = sum over pieces of (p * s_v)_piece .
+//    V_codes with the pieces as register A operands and V read through
+//    the descriptor's transpose flag, 64 columns at a time. O_tile starts
+//    from zero each key tile and is added to O (rescaled by corr) by f32
+//    FMAs, so no sum of the tensor core's accumulator runs across key
+//    tiles.
+//  * Key rows are gathered through the block table (one lookup per key,
+//    clamped into [0, NB) as the decode kernel does), 16 payload bytes a
+//    lane, converted in registers and stored into the 128-byte swizzled
+//    tile the descriptors read. For D <= 64 the next tile's bytes are
+//    loaded into registers before this tile's products start.
+//  * Flash-decoding split-K as above: a block owns (key range, 64 rows,
+//    slot * head) and writes partials (m, l, acc) in the decode kernels'
+//    format, which attn_combine_kernel combines.
+constexpr int kTcRows = 64;     // query rows per block (one warpgroup)
+constexpr int kTcKeys = 64;     // keys per tile
+constexpr int kTcThreads = 128;
+
+template <int D>
+struct PrefillSmem {
+  static constexpr int DP = Cols<D>::P;
+  static constexpr int QB = kTcRows * DP * 2;  // one bf16 piece of the q tile
+  static constexpr int KB = kTcKeys * DP * 2;  // the K or V code tile
+  // D = 128 keeps the pieces of p * s_v in shared memory (PB bytes each):
+  // as register operands, beside O (64 registers) they spill
+  static constexpr bool P_SMEM = DP == 128;
+  static constexpr int PB = P_SMEM ? kTcRows * kTcKeys * 2 : 0;
+  static constexpr int BYTES = 1024 + 3 * QB + 2 * KB + 3 * PB + 2 * kTcKeys * 4;
+};
+
+// 16 payload bytes as 16 bf16 values, exactly: two 16-byte chunks
+template <bool FP8>
+__device__ __forceinline__ void codes_to_bf16(uint4 in, uint4 (&out)[2]) {
+  const unsigned w[4] = {in.x, in.y, in.z, in.w};
+  unsigned o[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const unsigned pair = (w[i / 2] >> (16 * (i % 2))) & 0xffffu;
+    float2 f;
+    if constexpr (FP8) {
+      __nv_fp8x2_e4m3 x;
+      x.__x = static_cast<__nv_fp8x2_storage_t>(pair);
+      f = static_cast<float2>(x);
+    } else {
+      f.x = static_cast<float>(static_cast<int>(pair << 24) >> 24);
+      f.y = static_cast<float>(static_cast<int>(pair << 16) >> 24);
+    }
+    o[i] = pack_bf16(f.x, f.y);
+  }
+  out[0] = make_uint4(o[0], o[1], o[2], o[3]);
+  out[1] = make_uint4(o[4], o[5], o[6], o[7]);
+}
+
+// x -> three bf16 pieces h + m + l == x to f32 precision
+__device__ __forceinline__ void split3(float x, float& h, float& m, float& l) {
+  h = __bfloat162float(__float2bfloat16_rn(x));
+  const float r = x - h;
+  m = __bfloat162float(__float2bfloat16_rn(r));
+  l = __bfloat162float(__float2bfloat16_rn(r - m));
+}
+
+template <int D>
+struct KeyTileRegs {
+  static constexpr int CH = D / 32;   // 16-byte chunks a thread owns per tensor
+  uint4 k[CH], v[CH];
+  float ks, vs;
+};
+
+// the payload bytes and scales of keys [k0, k0 + 64) into registers;
+// keys at or beyond k_hi read as zero codes with zero scales
+template <int D>
+__device__ __forceinline__ void load_key_tile(const Args& a, int b, int n, int k0, int k_hi,
+                                              KeyTileRegs<D>& t) {
+  constexpr int CPK = D / 16;  // chunks per key row
+  const int tid = threadIdx.x;
+#pragma unroll
+  for (int j = 0; j < KeyTileRegs<D>::CH; ++j) {
+    const int i = j * kTcThreads + tid, key = i / CPK, part = i % CPK;
+    const int p = k0 + key;
+    t.k[j] = t.v[j] = make_uint4(0u, 0u, 0u, 0u);
+    if (p < k_hi) {
+      const int blk = table_block(a, b, p);
+      const long long off = p % a.bs;
+      t.k[j] = __ldg(reinterpret_cast<const uint4*>(a.kq + (long long)blk * a.k_sb +
+                                                    off * a.k_ss + (long long)n * a.k_sn) + part);
+      t.v[j] = __ldg(reinterpret_cast<const uint4*>(a.vq + (long long)blk * a.v_sb +
+                                                    off * a.v_ss + (long long)n * a.v_sn) + part);
+    }
+  }
+  t.ks = t.vs = 0.f;
+  if (tid < kTcKeys && k0 + tid < k_hi) {
+    const int p = k0 + tid;
+    const int blk = table_block(a, b, p);
+    t.ks = __ldg(a.k_scale + (long long)blk * a.ks_sb + p % a.bs);
+    t.vs = __ldg(a.v_scale + (long long)blk * a.vs_sb + p % a.bs);
+  }
+}
+
+template <int D, bool FP8>
+__device__ __forceinline__ void store_key_tile(const KeyTileRegs<D>& t, uint8_t* sK, uint8_t* sV,
+                                               float* ks_s, float* vs_s) {
+  constexpr int CPK = D / 16;
+  const int tid = threadIdx.x;
+#pragma unroll
+  for (int j = 0; j < KeyTileRegs<D>::CH; ++j) {
+    const int i = j * kTcThreads + tid, key = i / CPK, part = i % CPK;
+    uint4 o[2];
+    codes_to_bf16<FP8>(t.k[j], o);
+    *reinterpret_cast<uint4*>(sK + swz_offset<kTcKeys>(key, 2 * part)) = o[0];
+    *reinterpret_cast<uint4*>(sK + swz_offset<kTcKeys>(key, 2 * part + 1)) = o[1];
+    codes_to_bf16<FP8>(t.v[j], o);
+    *reinterpret_cast<uint4*>(sV + swz_offset<kTcKeys>(key, 2 * part)) = o[0];
+    *reinterpret_cast<uint4*>(sV + swz_offset<kTcKeys>(key, 2 * part + 1)) = o[1];
+  }
+  if (tid < kTcKeys) {
+    ks_s[tid] = t.ks;
+    vs_s[tid] = t.vs;
+  }
+}
+
+// grid: (nsplit, ceil(C / 64), B * N); block: 128 threads (one warpgroup).
+template <int D, bool FP8>
+__global__ void __launch_bounds__(kTcThreads) qattn_prefill_tc_kernel(const Args a) {
+  using S = PrefillSmem<D>;
+  constexpr int DP = S::DP;
+  constexpr bool PREFETCH = D <= 64;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align1024(smem_raw);
+  uint8_t* sQ = smem;                 // pieces h, m, l
+  uint8_t* sK = sQ + 3 * S::QB;
+  uint8_t* sV = sK + S::KB;
+  uint8_t* sP = sV + S::KB;           // pieces of p * s_v (D = 128)
+  float* ks_s = reinterpret_cast<float*>(sP + 3 * S::PB);
+  float* vs_s = ks_s + kTcKeys;
+  const uint32_t uQ0 = smem_u32(sQ), uK0 = smem_u32(sK), uV0 = smem_u32(sV);
+  const uint32_t uP = smem_u32(sP);
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int split = blockIdx.x;
+  const int r0 = blockIdx.y * kTcRows;
+  const int b = blockIdx.z / a.N, n = blockIdx.z % a.N;
+  const int len = max(a.lengths[b], 0);
+  const int last_row = min(r0 + kTcRows, a.C) - 1;
+  const int maxlim = min(len + last_row + 1, a.cap);
+  int kps = (maxlim + a.nsplit - 1) / a.nsplit;
+  kps = (kps + kTcKeys - 1) / kTcKeys * kTcKeys;
+  const int k_lo = split * kps;
+  const int k_hi = min(k_lo + kps, maxlim);
+  const int n_tiles = k_lo < k_hi ? (k_hi - k_lo + kTcKeys - 1) / kTcKeys : 0;
+
+  // q rows r0.. into three bf16 pieces; rows past C and columns past D
+  // (and the code tiles' columns past D) are zeros
+  constexpr int QCH = DP / 8;  // 8-element chunks per row
+  for (int i = tid; i < kTcRows * QCH; i += kTcThreads) {
+    const int r = i / QCH, c = i % QCH, row = r0 + r;
+    float x[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    if (row < a.C && c * 8 < D) {
+      const float* src = a.q + (long long)b * a.q_sb + (long long)row * a.q_sc +
+                         (long long)n * a.q_sn + c * 8;
+      const float4 lo = load4(src), hi = load4(src + 4);
+      x[0] = lo.x; x[1] = lo.y; x[2] = lo.z; x[3] = lo.w;
+      x[4] = hi.x; x[5] = hi.y; x[6] = hi.z; x[7] = hi.w;
+    }
+    unsigned ph[4], pm[4], pl[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      float h0, m0, l0, h1, m1, l1;
+      split3(x[2 * j], h0, m0, l0);
+      split3(x[2 * j + 1], h1, m1, l1);
+      ph[j] = pack_bf16(h0, h1);
+      pm[j] = pack_bf16(m0, m1);
+      pl[j] = pack_bf16(l0, l1);
+    }
+    const uint32_t off = swz_offset<kTcRows>(r, c);
+    *reinterpret_cast<uint4*>(sQ + off) = make_uint4(ph[0], ph[1], ph[2], ph[3]);
+    *reinterpret_cast<uint4*>(sQ + S::QB + off) = make_uint4(pm[0], pm[1], pm[2], pm[3]);
+    *reinterpret_cast<uint4*>(sQ + 2 * S::QB + off) = make_uint4(pl[0], pl[1], pl[2], pl[3]);
+    if (c * 8 >= D) {  // padding columns of the code tiles (D = 32)
+      *reinterpret_cast<uint4*>(sK + swz_offset<kTcKeys>(r, c)) = make_uint4(0u, 0u, 0u, 0u);
+      *reinterpret_cast<uint4*>(sV + swz_offset<kTcKeys>(r, c)) = make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
+
+  // this thread's two rows (h = 0, 1) and the keys each may see
+  int row[2], lim[2];
+  float m[2], l[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    row[h] = r0 + frag_row(warp, lane, 2 * h);
+    lim[h] = row[h] < a.C ? min(len + row[h] + 1, min(a.cap, k_hi)) : 0;
+    m[h] = kNegInf;
+    l[h] = 0.f;
+  }
+  float o[DP / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
+
+  KeyTileRegs<D> regs;
+  if (n_tiles > 0) {
+    load_key_tile<D>(a, b, n, k_lo, k_hi, regs);
+    store_key_tile<D, FP8>(regs, sK, sV, ks_s, vs_s);
+  }
+  fence_async_smem();
+  __syncthreads();
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = k_lo + t * kTcKeys;
+    if (PREFETCH && t + 1 < n_tiles) load_key_tile<D>(a, b, n, k0 + kTcKeys, k_hi, regs);
+    // the tile addresses, opaque to the compiler each tile: otherwise it
+    // keeps all 40-odd loop-invariant descriptors in registers across
+    // the loop, which spills at D = 128
+    uint32_t uQ = uQ0, uK = uK0;
+    asm volatile("" : "+r"(uQ), "+r"(uK));
+
+    // S = Q . K^T over the three pieces of q: 64 rows x 64 keys
+    float s[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int piece = 2; piece >= 0; --piece)
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk)
+        wgmma_ss_n64<0, 0>(s, desc_kmajor(uQ + piece * S::QB, kTcRows, kk),
+                           desc_kmajor(uK, kTcKeys, kk), piece == 2 && kk == 0 ? 0 : 1);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(s);
+
+    // s = S * s_k * scale, masked, then the online softmax on the fragment
+    float mt[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int h = (i >> 1) & 1, c = frag_col(lane, i);
+      const float x = s[i] * ks_s[c] * a.scale;
+      s[i] = k0 + c < lim[h] ? x : kNegInf;
+      mt[h] = fmaxf(mt[h], s[i]);
+    }
+    float corr[2], mu[2], ps[2] = {0.f, 0.f};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float m_new = fmaxf(m[h], quad_max(mt[h]));
+      corr[h] = expf(m[h] - m_new);
+      m[h] = m_new;
+      mu[h] = m_new == kNegInf ? 0.f : m_new;  // no key seen yet: every p is 0
+    }
+    // (p * s_v) in pieces h, m, l: register A operands, or (D = 128)
+    // 64 x 64 swizzled bf16 tiles in shared memory
+    uint32_t pa[3][16];
+#pragma unroll
+    for (int i = 0; i < 32; i += 2) {
+      const int h = (i >> 1) & 1, c = frag_col(lane, i);
+      const float p0 = expf(s[i] - mu[h]), p1 = expf(s[i + 1] - mu[h]);
+      ps[h] += p0 + p1;
+      float h0, m0, l0, h1, m1, l1;
+      split3(p0 * vs_s[c], h0, m0, l0);
+      split3(p1 * vs_s[c + 1], h1, m1, l1);
+      if constexpr (S::P_SMEM) {
+        const uint32_t off =
+            uP + swz_offset<kTcRows>(frag_row(warp, lane, i), c >> 3) + (c & 7) * 2;
+        st_shared_u32(off, pack_bf16(h0, h1));
+        st_shared_u32(off + S::PB, pack_bf16(m0, m1));
+        st_shared_u32(off + 2 * S::PB, pack_bf16(l0, l1));
+      } else {
+        pa[0][i >> 1] = pack_bf16(h0, h1);
+        pa[1][i >> 1] = pack_bf16(m0, m1);
+        pa[2][i >> 1] = pack_bf16(l0, l1);
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) l[h] = l[h] * corr[h] + ps[h];
+    if constexpr (S::P_SMEM) {
+      fence_async_smem();
+      __syncthreads();  // the whole 64-row tile is written
+    }
+
+    // O_tile = (p * s_v) . V_codes over the three pieces, V transposed,
+    // 64 columns at a time (a 64 x 128 f32 tile would not fit beside O
+    // and the pieces at D = 128)
+    uint32_t uV = uV0;
+    asm volatile("" : "+r"(uV));
+#pragma unroll
+    for (int half = 0; half < DP / 64; ++half) {
+      float ot[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) ot[i] = 0.f;
+      wgmma_fence();
+#pragma unroll
+      for (int piece = 2; piece >= 0; --piece)
+#pragma unroll
+        for (int kk = 0; kk < kTcKeys / 16; ++kk) {
+          const uint64_t dv = desc_mnmajor(uV + half * kTcKeys * 128, kTcKeys, kk);
+          const int first = piece == 2 && kk == 0 ? 0 : 1;
+          if constexpr (S::P_SMEM)
+            wgmma_ss_n64<0, 1>(ot, desc_kmajor(uP + piece * S::PB, kTcRows, kk), dv, first);
+          else
+            wgmma_rs_n64<1>(ot, pa[piece] + 4 * kk, dv, first);
+        }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(ot);
+      if constexpr (!S::P_SMEM) {
+        fence_regs(pa[0]);
+        fence_regs(pa[1]);
+        fence_regs(pa[2]);
+      }
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        o[32 * half + i] = fmaf(o[32 * half + i], corr[(i >> 1) & 1], ot[i]);
+    }
+
+    if (t + 1 < n_tiles) {
+      __syncthreads();  // every warp is done with this tile
+      if (!PREFETCH) load_key_tile<D>(a, b, n, k0 + kTcKeys, k_hi, regs);
+      store_key_tile<D, FP8>(regs, sK, sV, ks_s, vs_s);
+      fence_async_smem();
+      __syncthreads();
+    }
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float lsum = quad_sum(l[h]);
+    if (row[h] >= a.C) continue;
+    const long long orow = ((long long)b * a.C + row[h]) * a.N + n;
+    const long long prow = orow * a.nsplit + split;
+    float* dst = a.nsplit == 1 ? a.out + orow * D : a.part_acc + prow * D;
+    const float inv = a.nsplit > 1 ? 1.f : (lsum > 0.f ? 1.f / lsum : 0.f);
+#pragma unroll
+    for (int i = 2 * h; i < DP / 2; i += 4) {
+      const int c = frag_col(lane, i);
+      if (c < D) *reinterpret_cast<float2*>(dst + c) = make_float2(o[i] * inv, o[i + 1] * inv);
+    }
+    if (a.nsplit > 1 && (lane & 3) == 0) {
+      a.part_m[prow] = m[h];
+      a.part_l[prow] = lsum;
+    }
+  }
+}
+
+template <int D, bool FP8>
+cudaError_t launch_prefill_d(const Args& a, cudaStream_t stream) {
+  const int bytes = PrefillSmem<D>::BYTES;
+  void (*kernel)(Args) = qattn_prefill_tc_kernel<D, FP8>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  dim3 grid(a.nsplit, (a.C + kTcRows - 1) / kTcRows, a.B * a.N);
+  kernel<<<grid, kTcThreads, bytes, stream>>>(a);
+  return combine<D>(a, stream);
+}
+
+template <bool FP8>
+cudaError_t launch_prefill_fp8(const Args& a, int d, cudaStream_t stream) {
+  switch (d) {
+    case 32: return launch_prefill_d<32, FP8>(a, stream);
+    case 64: return launch_prefill_d<64, FP8>(a, stream);
+    case 128: return launch_prefill_d<128, FP8>(a, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+cudaError_t launch_prefill(const Args& a, int d, bool fp8, cudaStream_t stream) {
   if (bad_grid(a) || a.tables == nullptr) return cudaErrorInvalidValue;
-  if (a.C == 1)
-    return fp8 ? launch_q_cr<1, true>(a, d, stream) : launch_q_cr<1, false>(a, d, stream);
-  return fp8 ? launch_q_cr<8, true>(a, d, stream) : launch_q_cr<8, false>(a, d, stream);
+  return fp8 ? launch_prefill_fp8<true>(a, d, stream) : launch_prefill_fp8<false>(a, d, stream);
+}
+
+Args quantized_args(const void* q, const void* k_pool, const void* v_pool, const void* k_scale,
+                    const void* v_scale, const void* tables, const void* lengths, void* out,
+                    void* part_m, void* part_l, void* part_acc, int B, int C, int N, int NB,
+                    int bs, int M, long long q_sb, long long q_sc, long long q_sn,
+                    long long k_sb, long long k_ss, long long k_sn, long long v_sb,
+                    long long v_ss, long long v_sn, long long ks_sb, long long vs_sb,
+                    int nsplit, float scale) {
+  Args a{};
+  a.q = static_cast<const float*>(q);
+  a.kq = static_cast<const unsigned char*>(k_pool);
+  a.vq = static_cast<const unsigned char*>(v_pool);
+  a.k_scale = static_cast<const float*>(k_scale);
+  a.v_scale = static_cast<const float*>(v_scale);
+  a.tables = static_cast<const int*>(tables);
+  a.lengths = static_cast<const int*>(lengths);
+  a.out = static_cast<float*>(out);
+  a.part_m = static_cast<float*>(part_m);
+  a.part_l = static_cast<float*>(part_l);
+  a.part_acc = static_cast<float*>(part_acc);
+  a.B = B;
+  a.C = C;
+  a.N = N;
+  a.M = M;
+  a.bs = bs;
+  a.nb = NB;
+  a.cap = M * bs;
+  a.causal = 1;
+  a.q_sb = q_sb;
+  a.q_sc = q_sc;
+  a.q_sn = q_sn;
+  a.k_sb = k_sb;
+  a.k_ss = k_ss;
+  a.k_sn = k_sn;
+  a.v_sb = v_sb;
+  a.v_ss = v_ss;
+  a.v_sn = v_sn;
+  a.ks_sb = ks_sb;
+  a.vs_sb = vs_sb;
+  a.nsplit = nsplit;
+  a.scale = scale;
+  return a;
 }
 
 }  // namespace
@@ -658,6 +1089,7 @@ int ptt_paged_decode_attention_f32(const void* q, const void* k_pool, const void
 // read through their strides (last dim contiguous, rows 16-byte
 // aligned); scales [NB, bs] float32 with row strides ks_sb / vs_sb;
 // tables [B, M] int32 contiguous; lengths [B] int32; out [B, C, N, D].
+// The decode route: CUDA cores, C = 1 only (any other C is refused).
 int ptt_quantized_paged_decode_attention(
     const void* q, const void* k_pool, const void* v_pool, const void* k_scale,
     const void* v_scale, const void* tables, const void* lengths, void* out, void* part_m,
@@ -665,40 +1097,26 @@ int ptt_quantized_paged_decode_attention(
     long long q_sb, long long q_sc, long long q_sn, long long k_sb, long long k_ss,
     long long k_sn, long long v_sb, long long v_ss, long long v_sn, long long ks_sb,
     long long vs_sb, int nsplit, float scale, int fp8, void* stream) {
-  Args a{};
-  a.q = static_cast<const float*>(q);
-  a.kq = static_cast<const unsigned char*>(k_pool);
-  a.vq = static_cast<const unsigned char*>(v_pool);
-  a.k_scale = static_cast<const float*>(k_scale);
-  a.v_scale = static_cast<const float*>(v_scale);
-  a.tables = static_cast<const int*>(tables);
-  a.lengths = static_cast<const int*>(lengths);
-  a.out = static_cast<float*>(out);
-  a.part_m = static_cast<float*>(part_m);
-  a.part_l = static_cast<float*>(part_l);
-  a.part_acc = static_cast<float*>(part_acc);
-  a.B = B;
-  a.C = C;
-  a.N = N;
-  a.M = M;
-  a.bs = bs;
-  a.nb = NB;
-  a.cap = M * bs;
-  a.causal = 1;
-  a.q_sb = q_sb;
-  a.q_sc = q_sc;
-  a.q_sn = q_sn;
-  a.k_sb = k_sb;
-  a.k_ss = k_ss;
-  a.k_sn = k_sn;
-  a.v_sb = v_sb;
-  a.v_ss = v_ss;
-  a.v_sn = v_sn;
-  a.ks_sb = ks_sb;
-  a.vs_sb = vs_sb;
-  a.nsplit = nsplit;
-  a.scale = scale;
+  const Args a = quantized_args(q, k_pool, v_pool, k_scale, v_scale, tables, lengths, out,
+                                part_m, part_l, part_acc, B, C, N, NB, bs, M, q_sb, q_sc, q_sn,
+                                k_sb, k_ss, k_sn, v_sb, v_ss, v_sn, ks_sb, vs_sb, nsplit, scale);
   return static_cast<int>(launch_quantized(a, D, fp8 != 0, static_cast<cudaStream_t>(stream)));
+}
+
+// K7's prefill route: the same arguments and function on the bf16
+// tensor cores (qattn_prefill_tc_kernel; 64 rows a block, so nsplit
+// counts key ranges per (64-row tile, slot, head)).
+int ptt_quantized_paged_prefill_attention(
+    const void* q, const void* k_pool, const void* v_pool, const void* k_scale,
+    const void* v_scale, const void* tables, const void* lengths, void* out, void* part_m,
+    void* part_l, void* part_acc, int B, int C, int N, int D, int NB, int bs, int M,
+    long long q_sb, long long q_sc, long long q_sn, long long k_sb, long long k_ss,
+    long long k_sn, long long v_sb, long long v_ss, long long v_sn, long long ks_sb,
+    long long vs_sb, int nsplit, float scale, int fp8, void* stream) {
+  const Args a = quantized_args(q, k_pool, v_pool, k_scale, v_scale, tables, lengths, out,
+                                part_m, part_l, part_acc, B, C, N, NB, bs, M, q_sb, q_sc, q_sn,
+                                k_sb, k_ss, k_sn, v_sb, v_ss, v_sn, ks_sb, vs_sb, nsplit, scale);
+  return static_cast<int>(launch_prefill(a, D, fp8 != 0, static_cast<cudaStream_t>(stream)));
 }
 
 }  // extern "C"

@@ -9,6 +9,13 @@ version, the same masked-gather + softmax arithmetic as the JAX package's
 `decode_attention_reference` / `paged_decode_attention_reference` /
 `quantized_paged_decode_attention_reference`.
 
+K7 has two kernels on the card: decode ticks (C = 1) go to the decode
+kernel (CUDA cores, one key per lane group), every chunk of more rows
+(verify and prefill) to the prefill kernel (`qattn_prefill_tc_kernel`:
+bf16 tensor cores, q and p * s_v split into three bf16 pieces so the
+products keep f32 accuracy). Both take the same arguments and compute
+the same function.
+
 A wrapper takes the plain version only because the tensors it was given
 lie on the CPU. On a CUDA tensor it launches the kernel or raises: a
 failed build or a refused launch is an error, never a fallback.
@@ -42,9 +49,16 @@ _SMS = 132
 _BLOCKS_PER_SM = 4
 _MAX_SPLITS = 16
 
-#: kernel launches per wrapper (bumped once per launched call)
+#: query rows and keys per tile of K7's prefill kernel (C > 1)
+_PREFILL_ROWS = 64
+_PREFILL_KEYS = 64
+
+#: kernel launches per wrapper (bumped once per launched call);
+#: "quantized_paged_decode_attention" counts every K7 call, and
+#: "quantized_paged_prefill_attention" the chunks (C > 1) among them
 launch_counts = {"decode_attention": 0, "paged_decode_attention": 0,
-                 "quantized_paged_decode_attention": 0}
+                 "quantized_paged_decode_attention": 0,
+                 "quantized_paged_prefill_attention": 0}
 
 #: payload dtypes of K7 and the kernel's fp8 flag for each
 _PAYLOAD_FP8 = {torch.int8: 0, torch.float8_e4m3fn: 1}
@@ -157,13 +171,14 @@ def quantized_paged_decode_attention_reference(q, k_pool, v_pool, k_scale,
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
-def split_count(blocks, capacity):
+def split_count(blocks, capacity, min_keys=32):
     """Key ranges per (slot, head, row tile) block (flash-decoding
     split-K): enough to put _BLOCKS_PER_SM blocks on every SM, at most
-    _MAX_SPLITS, and never more than the window could fill with 32 keys
-    each."""
+    _MAX_SPLITS, and never more than the window could fill with
+    `min_keys` keys each (32; the prefill kernel's key tile of 64)."""
     want = -(-(_SMS * _BLOCKS_PER_SM) // max(int(blocks), 1))
-    return int(max(1, min(want, _MAX_SPLITS, -(-int(capacity) // 32))))
+    return int(max(1, min(want, _MAX_SPLITS,
+                          -(-int(capacity) // int(min_keys)))))
 
 
 def _check_operand(name, t, ndim):
@@ -230,6 +245,10 @@ def _partials(rows, nsplit, d, device):
 
 def _ptr(t):
     return None if t is None else t.data_ptr()
+
+
+def _stream(device):
+    return torch.cuda.current_stream(device).cuda_stream
 
 
 def decode_attention(q, k_cache, v_cache, lengths):
@@ -325,17 +344,57 @@ def paged_decode_attention(q, k_pool, v_pool, tables, lengths):
     return out
 
 
+def _launch_quantized(q, k_pool, v_pool, k_scale, v_scale, tables,
+                      lengths):
+    """One K7 launch on checked operands, counted: a decode tick (C = 1)
+    on the decode kernel, a longer chunk on the prefill kernel. Returns
+    [B, C, N, D] float32."""
+    from paddle_tpu_torch.ops.kernels import _build
+    b, c, n, d = q.shape
+    nb, bs = k_pool.shape[0], k_pool.shape[1]
+    m = tables.shape[1]
+    out = torch.empty((b, c, n, d), dtype=torch.float32, device=q.device)
+    if b == 0 or c == 0 or n == 0:
+        return out
+    if c == 1:
+        nsplit = split_count(b * n, m * bs)
+        fn = "ptt_quantized_paged_decode_attention"
+    else:
+        nsplit = split_count(b * n * -(-c // _PREFILL_ROWS), m * bs,
+                             _PREFILL_KEYS)
+        fn = "ptt_quantized_paged_prefill_attention"
+    pm, pl, pacc = _partials(b * c * n, nsplit, d, q.device)
+    lib = _build.load_library()
+    err = getattr(lib, fn)(
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        k_scale.data_ptr(), v_scale.data_ptr(), tables.data_ptr(),
+        lengths.data_ptr(), out.data_ptr(), _ptr(pm), _ptr(pl), _ptr(pacc),
+        b, c, n, d, nb, bs, m,
+        q.stride(0), q.stride(1), q.stride(2),
+        k_pool.stride(0), k_pool.stride(1), k_pool.stride(2),
+        v_pool.stride(0), v_pool.stride(1), v_pool.stride(2),
+        k_scale.stride(0), v_scale.stride(0),
+        nsplit, 1.0 / math.sqrt(d), _PAYLOAD_FP8[k_pool.dtype],
+        _stream(q.device))
+    _raise_on(err, "quantized_paged_decode_attention")
+    launch_counts["quantized_paged_decode_attention"] += 1
+    if c > 1:
+        launch_counts["quantized_paged_prefill_attention"] += 1
+    return out
+
+
 def quantized_paged_decode_attention(q, k_pool, v_pool, k_scale, v_scale,
                                      tables, lengths):
     """K7: K6 over quantized pools. q [B, C, N, D] float32 against
     payload pools [NB, bs, N, D] (int8 or float8_e4m3fn, the same for
     both) with per-row scales [NB, bs] float32, through block tables
     [B, M] int32, committed lengths [B] int32; row c sees positions
-    < lengths[b]+c+1. Any C. Returns [B, C, N, D] float32."""
+    < lengths[b]+c+1. Any C: a decode tick (C = 1) takes the decode
+    kernel, a longer chunk the prefill kernel. Returns [B, C, N, D]
+    float32."""
     if q.device.type == "cpu":
         return quantized_paged_decode_attention_reference(
             q, k_pool, v_pool, k_scale, v_scale, tables, lengths)
-    from paddle_tpu_torch.ops.kernels import _build
     _check_operand("q", q, 4)
     _check_payload("k_pool", k_pool, 4)
     _check_payload("v_pool", v_pool, 4)
@@ -354,28 +413,8 @@ def quantized_paged_decode_attention(q, k_pool, v_pool, k_scale, v_scale,
     _check_scale("v_scale", v_scale, (nb, bs), q.device)
     _check_index("tables", tables, 2, q.device)
     _check_index("lengths", lengths, 1, q.device)
-    m = tables.shape[1]
     enforce(tables.shape[0] == b and lengths.shape[0] == b,
             "tables %s / lengths %s do not match batch %d",
             tuple(tables.shape), tuple(lengths.shape), b)
-    out = torch.empty((b, c, n, d), dtype=torch.float32, device=q.device)
-    if b == 0 or c == 0 or n == 0:
-        return out
-    row_tiles = 1 if c == 1 else -(-c // 8)
-    nsplit = split_count(b * n * row_tiles, m * bs)
-    pm, pl, pacc = _partials(b * c * n, nsplit, d, q.device)
-    lib = _build.load_library()
-    err = lib.ptt_quantized_paged_decode_attention(
-        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-        k_scale.data_ptr(), v_scale.data_ptr(), tables.data_ptr(),
-        lengths.data_ptr(), out.data_ptr(), _ptr(pm), _ptr(pl), _ptr(pacc),
-        b, c, n, d, nb, bs, m,
-        q.stride(0), q.stride(1), q.stride(2),
-        k_pool.stride(0), k_pool.stride(1), k_pool.stride(2),
-        v_pool.stride(0), v_pool.stride(1), v_pool.stride(2),
-        k_scale.stride(0), v_scale.stride(0),
-        nsplit, 1.0 / math.sqrt(d), _PAYLOAD_FP8[k_pool.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream)
-    _raise_on(err, "quantized_paged_decode_attention")
-    launch_counts["quantized_paged_decode_attention"] += 1
-    return out
+    return _launch_quantized(q, k_pool, v_pool, k_scale, v_scale, tables,
+                             lengths)

@@ -15,7 +15,9 @@ float32 @ w_q [K, N] int8 with per-output-channel scales w_scale [N]
   times w_scale / qmax.
 
 The kernel is CUDA C++ for Hopper (`paddle_tpu_torch/csrc/
-quantized_matmul.cu`, built by `_build.py` on first use). Beside it
+quantized_matmul.cu`, built by `_build.py` on first use): int8 mode on
+the s8 tensor cores (mma.sync) with split-K at small M, weight-only mode
+on the CUDA cores. Beside it
 stands its plain PyTorch version, `dequant_matmul_reference`, the same
 arithmetic as the JAX package's `dequant_matmul_reference`: it computes
 the int32 accumulator as a float64 matmul of the codes (exact for
@@ -36,10 +38,21 @@ import torch
 from paddle_tpu_torch.core.enforce import enforce
 
 __all__ = ["qmax", "dequant_matmul_reference", "fused_dequant_matmul",
-           "launch_counts", "reset_launch_counts"]
+           "launch_counts", "reset_launch_counts", "k8_tile",
+           "k8_split_count"]
 
 #: kernel launches per wrapper (bumped once per launched call)
 launch_counts = {"quantized_matmul": 0}
+
+#: split-K workspaces of the int8 kernel, one per (device, stream): int32
+#: zeros, zeroed once here; each launch leaves what it used zero again
+_workspaces = {}
+
+#: streaming multiprocessors of an H100 SXM: split-K aims to fill them
+_SMS = 132
+#: k values per pipeline stage of the int8 kernel
+_K_TILE = 64
+_MAX_SPLITS = 16
 
 
 def reset_launch_counts():
@@ -93,6 +106,26 @@ def dequant_matmul_reference(x, w_q, w_scale, x_scale=None, bits=8,
     return (out, acc) if return_acc else out
 
 
+def k8_tile(m):
+    """(rows, columns) of the int8 kernel's output tile at M = m: 32 x 64
+    up to M = 32 (the main path's batches 1, 8, 32), else 64 x 256 (the
+    wide tile quantizes each row of x for fewer column tiles)."""
+    return (32, 64) if m <= 32 else (64, 256)
+
+
+def k8_split_count(m, k, n):
+    """k ranges per output tile of the int8 kernel (split-K): none when
+    the output tiles alone fill the 132 SMs, else as many as put one
+    block on each SM (8 at the ResNet-50 fc), at most _MAX_SPLITS and
+    never under two k tiles of 64 each."""
+    bm, bn = k8_tile(m)
+    tiles = -(-m // bm) * -(-n // bn)
+    if tiles >= _SMS:
+        return 1
+    k_tiles = -(-k // _K_TILE)
+    return int(max(1, min(_SMS // tiles, _MAX_SPLITS, k_tiles // 2)))
+
+
 def _check(name, t, dtype, ndim, device):
     enforce(t.device == device, "%s must lie on %s, got %s", name, device,
             t.device)
@@ -111,7 +144,6 @@ def fused_dequant_matmul(x, w_q, w_scale, x_scale=None, bits=8,
     if x.device.type in ("cpu", "meta"):
         return dequant_matmul_reference(x, w_q, w_scale, x_scale=x_scale,
                                         bits=bits, return_acc=return_acc)
-    from paddle_tpu_torch.ops.kernels import _build
     enforce(x.is_cuda, "fused_dequant_matmul: unsupported device %s",
             x.device)
     enforce(2 <= bits <= 8, "bits must be in [2, 8], got %s", bits)
@@ -125,6 +157,18 @@ def fused_dequant_matmul(x, w_q, w_scale, x_scale=None, bits=8,
     enforce(w_q.shape[0] == k and w_scale.numel() == n,
             "shapes do not match: x %s, w_q %s, w_scale %s", tuple(x.shape),
             tuple(w_q.shape), tuple(w_scale.shape))
+    return _launch(x, w_q, w_scale, x_scale, bits, return_acc)
+
+
+def _stream(device):
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _launch(x, w_q, w_scale, x_scale, bits, return_acc):
+    """One K8 launch on checked operands; counts it."""
+    from paddle_tpu_torch.ops.kernels import _build
+    m, k = x.shape
+    n = w_q.shape[1]
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     acc = (torch.empty((m, n), dtype=torch.int32, device=x.device)
            if return_acc else None)
@@ -134,14 +178,33 @@ def fused_dequant_matmul(x, w_q, w_scale, x_scale=None, bits=8,
     int8_mode = x_scale is not None
     s = max(float(x_scale), 1e-8) if int8_mode else 1.0
     xs_over_qm = float(x_scale) / qm if int8_mode else 0.0
+    splits = k8_split_count(m, k, n) if int8_mode else 1
+    work = None
+    if splits > 1:   # int32 sums [M, N], then one arrival counter a tile
+        bm, bn = k8_tile(m)
+        work = _workspace(m * n + -(-m // bm) * -(-n // bn), x.device)
     lib = _build.load_library()
     err = lib.ptt_quantized_matmul(
         x.data_ptr(), w_q.data_ptr(), w_scale.data_ptr(), out.data_ptr(),
         acc.data_ptr() if acc is not None else None,
-        m, k, n, int(int8_mode), s, qm, xs_over_qm,
-        torch.cuda.current_stream(x.device).cuda_stream)
+        work.data_ptr() if work is not None else None,
+        m, k, n, int(int8_mode), splits, s, qm, xs_over_qm,
+        _stream(x.device))
     if err != 0:
+        _workspaces.pop((x.device, _stream(x.device)), None)
         raise RuntimeError(
             f"quantized_matmul kernel launch failed: cudaError_t {err}")
     launch_counts["quantized_matmul"] += 1
     return (out, acc) if return_acc else out
+
+
+def _workspace(size, device):
+    """At least `size` zeroed int32 of the split-K workspace of `device`'s
+    current stream (kernels on one stream run in order, so they can share
+    it); allocated, and zeroed, only when it has to grow."""
+    key = (device, _stream(device))
+    work = _workspaces.get(key)
+    if work is None or work.numel() < size:
+        work = _workspaces[key] = torch.zeros(size, dtype=torch.int32,
+                                              device=device)
+    return work

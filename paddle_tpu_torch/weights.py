@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from paddle_tpu_torch.core.enforce import enforce
+from paddle_tpu_torch.core.places import resolve_device
 
 __all__ = ["params_from_jax", "params_to_numpy", "bert_params_from_jax",
            "bert_params_to_numpy", "kv_from_numpy", "kv_to_numpy",
@@ -159,9 +160,11 @@ def _array(t):
     return t.detach().to("cpu", torch.float32).numpy().copy()
 
 
-def scope_from_jax(arrays, scope, device="cpu"):
+def scope_from_jax(arrays, scope, device=None):
     """Put {name: numpy array} (a JAX scope's persistables) into a port
-    `Scope` as tensors on `device`, copying each array."""
+    `Scope` as tensors on `device`, copying each array. `device=None`
+    means CUDA, and raises without a GPU, as every entry point does."""
+    device = resolve_device(device)
     for name, arr in arrays.items():
         scope.set(name, torch.from_numpy(np.array(arr, copy=True)).to(device))
     return scope

@@ -8,7 +8,8 @@
 * A source scan finds no import of jax or of the JAX package in the
   port or in chip_smoke.py.
 * `device=None` means CUDA: without a GPU the entry points raise
-  (`Executor()`, a Predictor from a default `Config`), and chip_smoke.py
+  (`Executor()`, a Predictor from a default `Config`,
+  `weights.scope_from_jax`), and chip_smoke.py
   exits non-zero without printing a result.
 """
 import ast
@@ -159,6 +160,34 @@ def test_default_device_is_cuda_and_raises_without_it(monkeypatch):
     assert resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(ValueError):
         resolve_device("meta")
+
+
+def test_scope_from_jax_defaults_to_cuda_and_raises_without_it(
+        monkeypatch):
+    import numpy as np
+
+    from paddle_tpu_torch.core.scope import Scope
+    from paddle_tpu_torch.weights import scope_from_jax
+    arrays = {"fc.w": np.ones((2, 3), np.float32)}
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        scope_from_jax(arrays, Scope())
+    scope = scope_from_jax(arrays, Scope(), "cpu")
+    assert scope.get("fc.w").device == torch.device("cpu")
+
+
+@pytest.mark.cuda
+def test_scope_from_jax_puts_weights_on_the_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the default device is the card")
+    import numpy as np
+
+    from paddle_tpu_torch.core.scope import Scope
+    from paddle_tpu_torch.weights import scope_from_jax
+    arr = np.arange(6, dtype=np.float32).reshape(2, 3)
+    scope = scope_from_jax({"fc.w": arr}, Scope())
+    assert scope.get("fc.w").is_cuda
+    np.testing.assert_array_equal(scope.get("fc.w").cpu().numpy(), arr)
 
 
 @pytest.mark.parametrize("alone", [False, True],

@@ -161,6 +161,38 @@ def test_k7_kernel_matches_plain(cuda, kv_dtype, c, d):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype", ["int8", "fp8_e4m3"])
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("b", [1, 8])
+@pytest.mark.parametrize("c", [2, 5, 16, 64, 512])
+def test_k7_prefill_route_matches_plain(cuda, c, b, d, kv_dtype):
+    """The tensor-core kernel over a shuffled pool (block_size 8, M =
+    128), lengths from 0 to a full window, from the shortest chunk (C =
+    2) and the verify chunk (C = 5) to the largest prefill bucket; B = 1
+    splits the keys, B = 8 at C = 512 does not."""
+    n, bs, m = 4, 8, 128
+    nb = b * m + 1
+    rng = np.random.RandomState(c + b + d)
+    q = _randn(rng, b, c, n, d, device=cuda)
+    kq, vq, ks, vs = _quantized_pools(rng, nb, bs, n, d, kv_dtype, cuda)
+    tables = _ints(rng.permutation(np.arange(1, nb)).reshape(b, m), cuda)
+    top = m * bs - c
+    ln = _ints(np.concatenate([[0, top], rng.randint(0, top + 1, 6)])
+               if b > 1 else [top // 2 if c == 64 else 0], cuda)
+    before = dict(tda.launch_counts)
+    got = tda.quantized_paged_decode_attention(q, kq, vq, ks, vs, tables,
+                                               ln)
+    want = tda.quantized_paged_decode_attention_reference(
+        q, kq, vq, ks, vs, tables, ln)
+    torch.cuda.synchronize()
+    for key in ("quantized_paged_decode_attention",
+                "quantized_paged_prefill_attention"):
+        assert tda.launch_counts[key] == before[key] + 1
+    assert got.shape == (b, c, n, d) and bool(torch.isfinite(got).all())
+    assert float((got - want).abs().max()) <= TOL
+
+
+@pytest.mark.cuda
 def test_k7_reads_a_layer_view_of_the_engine_pools(cuda):
     """The engine's operands: one layer of [L, NB, bs, N, D] payload and
     [L, NB, bs] scale pools, q a view of the fused QKV projection."""
@@ -358,7 +390,8 @@ def _k8_inputs(m, k, n, bits, device, seed=5):
 @pytest.mark.cuda
 @pytest.mark.parametrize("m,k,n", [(5, 33, 17), (130, 257, 129),
                                    (32, 2048, 1000), (1, 64, 64),
-                                   (64, 32, 64)])
+                                   (64, 32, 64), (1, 2048, 1000),
+                                   (8, 2048, 1000), (4096, 768, 3072)])
 @pytest.mark.parametrize("bits", [8, 4])
 def test_k8_int8_mode_matches_plain(cuda, m, k, n, bits):
     """Codes, int32 accumulators and outputs bit-equal to the plain
@@ -374,6 +407,24 @@ def test_k8_int8_mode_matches_plain(cuda, m, k, n, bits):
     assert torch.equal(acc, want_acc)
     ulps = (got.view(torch.int32).long() - want.view(torch.int32).long())
     assert int(ulps.abs().max()) <= 1
+
+
+@pytest.mark.cuda
+def test_k8_split_calls_share_a_workspace_and_leave_it_zero(cuda):
+    """Split-K calls of several shapes in a row on one stream reuse one
+    workspace: each stays exact and leaves every sum and counter zero."""
+    for m, k, n in [(32, 2048, 1000), (130, 257, 129), (1, 2048, 1000),
+                    (32, 2048, 1000)]:
+        assert tk8.k8_split_count(m, k, n) > 1
+        x, w_q, w_s, xs = _k8_inputs(m, k, n, 8, cuda)
+        _, acc = tk8.fused_dequant_matmul(x, w_q, w_s, x_scale=xs,
+                                          return_acc=True)
+        _, want = tk8.dequant_matmul_reference(x, w_q, w_s, x_scale=xs,
+                                               return_acc=True)
+        torch.cuda.synchronize()
+        assert torch.equal(acc, want)
+        work = tk8._workspaces[(x.device, tk8._stream(x.device))]
+        assert int(work.abs().max()) == 0
 
 
 @pytest.mark.cuda

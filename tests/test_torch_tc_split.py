@@ -1,0 +1,179 @@
+"""The numerics of K7's prefill route, on the CPU, before any card.
+
+The prefill kernel (`qattn_prefill_tc_kernel` in
+paddle_tpu_torch/csrc/decode_attention.cu) runs both products of K7 on
+the bf16 tensor cores yet is held to the float32 kernel's tolerance
+(max |kernel - plain| <= 2e-5). Two facts carry that design, and this
+file checks both in PyTorch on the CPU:
+
+* every int8 code and every finite float8 e4m3 value is exact in bf16,
+  so the key and value codes enter the tensor cores unrounded;
+* q, and p * s_v, split into three bf16 pieces h = bf16(x),
+  m = bf16(x - h), l = bf16(x - h - m), carry all 24 bits of a float32,
+  and a product of a piece and a code is exact in float32.
+
+`tc_prefill_emulation` repeats the kernel's arithmetic (64-key tiles,
+the pieces summed in float32, s = S * s_k * scale, the online softmax,
+a fresh float32 sum of each tile's P.V added to O) and is held against
+the port's plain version and the JAX package's reference at C = 16 and
+512. With two pieces the same emulation misses the tolerance: that is
+why the kernel spends three products where bf16 would spend one.
+"""
+import importlib
+import math
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from paddle_tpu_torch.ops import generation as tgen
+from paddle_tpu_torch.ops.kernels import decode_attention as tda
+from paddle_tpu_torch.weights import kv_to_numpy
+
+jfa = importlib.import_module("paddle_tpu.ops.pallas.flash_attention")
+
+#: the card's tolerance for K7 (chip_smoke phase 2)
+TOL = 2e-5
+QUANT = ("int8", "fp8_e4m3")
+
+
+def _bf16(x):
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def split_pieces(x, pieces=3):
+    """x (float32) as `pieces` bf16 values, largest first, whose float32
+    sum is x to within the last piece's rounding."""
+    out, rest = [], x
+    for _ in range(pieces):
+        p = _bf16(rest)
+        out.append(p)
+        rest = rest - p
+    return out
+
+
+def tc_prefill_emulation(q, k_pool, v_pool, k_scale, v_scale, tables,
+                         lengths, pieces=3, key_tile=64):
+    """K7 as the prefill kernel computes it, in float32 on the CPU:
+    S = sum over q's pieces of piece . codes^T, s = S * s_k * scale,
+    masked to keys < lengths[b] + row + 1; an online softmax over tiles
+    of `key_tile` keys; O_tile = sum over (p * s_v)'s pieces of
+    piece . V codes, O = O * corr + O_tile; out = O / l."""
+    b, c, n, d = q.shape
+    bs, m = k_pool.shape[1], tables.shape[1]
+    idx = tables.long().clamp(0, k_pool.shape[0] - 1)
+    codes_k = tda._payload_window(k_pool, idx).reshape(b, m * bs, n, d)
+    codes_v = tda._payload_window(v_pool, idx).reshape(b, m * bs, n, d)
+    ks = k_scale[idx].reshape(b, m * bs)
+    vs = v_scale[idx].reshape(b, m * bs)
+    scale = 1.0 / math.sqrt(d)
+    out = torch.zeros_like(q)
+    for bi in range(b):
+        lim = (int(lengths[bi]) + torch.arange(c) + 1).clamp(max=m * bs)
+        n_keys = int(lim.max())
+        for h in range(n):
+            qp = split_pieces(q[bi, :, h], pieces)              # [C, D] each
+            o = torch.zeros(c, d)
+            mx = torch.full((c,), tda.NEG_INF)
+            l_sum = torch.zeros(c)
+            for k0 in range(0, n_keys, key_tile):
+                keys = torch.arange(k0, min(k0 + key_tile, n_keys))
+                kc = _bf16(codes_k[bi, keys, h])                # exact
+                vc = _bf16(codes_v[bi, keys, h])
+                s = sum(p @ kc.T for p in reversed(qp))
+                s = s * ks[bi, keys] * scale
+                s = torch.where(keys[None, :] < lim[:, None], s,
+                                torch.full_like(s, tda.NEG_INF))
+                m_new = torch.maximum(mx, s.max(dim=1).values)
+                corr = torch.exp(mx - m_new)
+                mu = torch.where(m_new == tda.NEG_INF,
+                                 torch.zeros_like(m_new), m_new)
+                p = torch.exp(s - mu[:, None])
+                l_sum = l_sum * corr + p.sum(dim=1)
+                pv = split_pieces(p * vs[bi, keys][None, :], pieces)
+                o = o * corr[:, None] + sum(x @ vc for x in reversed(pv))
+                mx = m_new
+            inv = torch.where(l_sum > 0, 1.0 / l_sum, torch.zeros_like(l_sum))
+            out[bi, :, h] = o * inv[:, None]
+    return out
+
+
+def test_every_int8_code_is_exact_in_bf16():
+    codes = torch.arange(-128, 128, dtype=torch.int32).to(torch.int8)
+    x = codes.to(torch.float32)
+    assert torch.equal(_bf16(x), x)
+    assert torch.equal(x.to(torch.bfloat16).to(torch.int32),
+                       codes.to(torch.int32))
+
+
+def test_every_finite_e4m3_byte_is_exact_in_bf16():
+    raw = torch.arange(256, dtype=torch.int32).to(torch.uint8)
+    x = raw.view(torch.float8_e4m3fn).to(torch.float32)
+    finite = torch.isfinite(x)
+    assert int(finite.sum()) == 254          # 0x7f and 0xff are NaN
+    assert torch.equal(_bf16(x[finite]), x[finite])
+    # the subnormals (exponent field 0) among them
+    sub = x[finite & (raw & 0x78 == 0) & (raw & 0x07 != 0)]
+    assert sub.numel() == 14 and float(sub.abs().min()) == 2.0 ** -9
+
+
+@pytest.mark.parametrize("pieces,bound", [(3, 2 ** -24), (2, 2 ** -16)])
+def test_pieces_carry_the_float32_bits(pieces, bound):
+    x = torch.from_numpy(np.random.RandomState(0).randn(4096)
+                         .astype(np.float32)) * 300
+    total = sum(split_pieces(x, pieces))
+    assert float(((total - x).abs() / x.abs()).max()) <= bound
+
+
+def _inputs(kv_dtype, b, c, n, d, seed, bs=8, m=128):
+    """q, pools from the engine's row quantizer (K at 3x the scale of V,
+    as chip_smoke's phase 2), shuffled tables and lengths including 0."""
+    rng = np.random.RandomState(seed)
+    nb = b * m + 1
+    q = torch.from_numpy(rng.randn(b, c, n, d).astype(np.float32))
+    kq, ks = tgen._kv_quantize_rows(torch.from_numpy(
+        3.0 * rng.randn(nb, bs, n, d).astype(np.float32)), kv_dtype)
+    vq, vs = tgen._kv_quantize_rows(torch.from_numpy(
+        rng.randn(nb, bs, n, d).astype(np.float32)), kv_dtype)
+    perm = rng.permutation(np.arange(1, nb)).astype(np.int32)
+    tables = torch.from_numpy(perm.reshape(b, m))
+    top = m * bs - c
+    lengths = torch.tensor([0, min(511, top)][:b], dtype=torch.int32)
+    return q, kq, vq, ks, vs, tables, lengths
+
+
+def _jax_reference(args):
+    q, kq, vq, ks, vs, tables, lengths = args
+    payload = (lambda t: jnp.asarray(kv_to_numpy(t))
+               if t.dtype == torch.int8 else
+               jnp.asarray(kv_to_numpy(t)).view(jnp.float8_e4m3fn))
+    out = jfa.quantized_paged_decode_attention_reference(
+        jnp.asarray(q.numpy()), payload(kq), payload(vq),
+        jnp.asarray(ks.numpy()), jnp.asarray(vs.numpy()),
+        jnp.asarray(tables.numpy()), jnp.asarray(lengths.numpy()))
+    return np.asarray(out)
+
+
+@pytest.mark.parametrize("kv_dtype", QUANT)
+@pytest.mark.parametrize("c", [16, 512])
+def test_three_pieces_meet_the_f32_tolerance(kv_dtype, c):
+    args = _inputs(kv_dtype, 2, c, 2, 64, seed=c)
+    want = tda.quantized_paged_decode_attention_reference(*args)
+    got = tc_prefill_emulation(*args)
+    err = float((got - want).abs().max())
+    assert err <= TOL, f"three pieces: {err}"
+    np.testing.assert_allclose(got.numpy(), _jax_reference(args),
+                               atol=TOL, rtol=0)
+
+
+@pytest.mark.parametrize("kv_dtype", QUANT)
+def test_two_pieces_miss_it(kv_dtype):
+    """Two pieces keep 16 bits of q and of p * s_v: at C = 512 the output
+    error is 2.4e-5 to 2.8e-5, over the 2e-5 the card holds K7 to, where
+    three pieces stay at 4e-6 to 5e-6 (one piece, plain bf16: 2e-2)."""
+    args = _inputs(kv_dtype, 2, 512, 2, 64, seed=512)
+    want = tda.quantized_paged_decode_attention_reference(*args)
+    err2 = float((tc_prefill_emulation(*args, pieces=2) - want).abs().max())
+    err3 = float((tc_prefill_emulation(*args, pieces=3) - want).abs().max())
+    assert err2 > TOL > err3, (err2, err3)
