@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py [--seed N] [--out results.json]
     python3 chip_smoke.py --latency [ROOT]
+    python3 chip_smoke.py --decode-rows [ROOT]
 
 Phases, each of which raises (exit code != 0) when its check fails:
 
@@ -10,21 +11,26 @@ Phases, each of which raises (exit code != 0) when its check fails:
    of the CUDA kernels from `paddle_tpu_torch/csrc/` and the build
    report of the tensor-core kernels (BUILD_CHECKS): each
    instantiation's ptxas line and its SASS opcodes (cuobjdump), failing
-   on a spill, on no HGMMA in the bf16 flash pair or K7's prefill
-   kernel, on no IMMA in K8's int8 kernel or on IDP4A there.
+   on a spill, on no HGMMA in the bf16 flash pair or K6's / K7's chunk
+   kernels, on no IMMA in K8's int8 kernel or on IDP4A there.
 2. Kernels against their plain PyTorch versions on the card, at the
    shapes the serving path gives them, max |kernel - plain| <= 2e-5
    (float32, TF32 off; the tolerance covers summation order): K5 at
-   B=8, S=1024, N=12, D=64; K6 at block_size 8, M=128 over a shuffled
-   pool with C in {1, 5, 512}; K7 (int8 and float8 e4m3 pools with
-   per-row scales) on the same pool layout at K7_CASES: C in {1, 2, 5,
-   8, 16, 64, 512} at B=8, the main path's prefill (B=1, C=512) and D=32
-   and 128, C = 1 on the decode kernel (CUDA cores) and every longer
-   chunk on the prefill kernel (tensor cores). Each is timed beside its
-   plain version, `F.scaled_dot_product_attention` on the same (for
-   K7: dequantized) window (a yardstick the port never calls) and its
-   bound (bytes or operations over the H100's peak rates; K7's prefill
-   route counts three bf16 products per f32 product at 989 TFLOP/s).
+   B=8, S=1024, N=12, D=64; K6 (f32 pools) and K7 (int8 and float8 e4m3
+   pools with per-row scales) at block_size 8, M=128 over a shuffled
+   pool at K6_CASES / K7_CASES: C in {1, 2, 5, 8, 16, 64, 512} at B=8,
+   the main path's prefill (B=1, C=512) and D=32 and 128: decode ticks
+   on the decode kernels (CUDA cores; K7's in one launch, checked from
+   the profiler's rows), chunks on the chunk kernels (tensor cores; K7's
+   from C = 2, K6's from PAGED_TC_MIN_C rows, shorter ones on its
+   CUDA-core kernel), the route of each case read from the launch
+   counters; K6's chunks at B=8, D=64 also timed on both of its kernels
+   (the crossover). Each is timed beside its plain version,
+   `F.scaled_dot_product_attention` on the same (for K7: dequantized)
+   window (a yardstick the port never calls) and its bound (bytes or
+   operations over the H100's peak rates; the chunk routes count their
+   bf16 products per f32 product, three for K7 and six for K6, at 989
+   TFLOP/s).
 3. Contiguous serving: GenerationServer over DecodeEngine over
    TinyDecoderLM at GPT-2-small widths (vocab 50257, d_model 768, 12
    heads, 12 layers, max_len 1024; seeded random weights), 16 greedy
@@ -38,7 +44,9 @@ Phases, each of which raises (exit code != 0) when its check fails:
    (block_size 8, spec_k 4) with an NgramDraft distilled from phase 3's
    outputs; half the prompts share a 256-token prefix, so admissions hit
    the prefix index and verify runs at chunk 5. Tokens must equal phase
-   3's under the same near-tie rule; K6 must have launched.
+   3's under the same near-tie rule; K6's chunk kernel must have
+   launched once per layer on every admission and verify tick, its
+   decode kernel once per layer on every plain tick.
 4a. Quantized serving, int8 then fp8 e4m3: the same requests and draft
    under PagedDecodeEngine(kv_dtype=...). Tokens must equal the
    single-request greedy streams of a batch_size=1, spec_k=0 engine of
@@ -120,15 +128,17 @@ card's name and power limit.
 
 Launch counters are reset just before each main-path phase (serving,
 training, int8 ResNet serving) and read just after it, so launches made
-to compare kernels with their plain versions do not count; K7's two
-lines (decode route, prefill route) report the launches of its three
-serving runs (phases 4a and 4b) together.
+to compare kernels with their plain versions do not count; K6's two
+lines (decode route, chunk route) report phase 4's launches, K7's two
+lines those of its three serving runs (phases 4a and 4b) together.
 
 `--latency [ROOT]` runs none of the phases: it measures, with the port
 found under ROOT (default: this checkout), one prompt's prefill latency
-at LATENCY_LENS and int8 / fp8 serving (see `latency`), and prints one
-line `LATENCY {...}`. Run it on two checkouts in one call (parent,
-change, change, parent) to compare them on the same card.
+at LATENCY_LENS and f32 / int8 / fp8 paged serving (see `latency`), and
+prints one line `LATENCY {...}`. `--decode-rows [ROOT]` likewise
+profiles K7's decode route at phase 2's case (see `decode_rows`) and
+prints `DECODE_ROWS {...}`. Run either on two checkouts in one call
+(parent, change, change, parent) to compare them on the same card.
 """
 import argparse
 import json
@@ -154,6 +164,11 @@ NEAR_TIE = 1e-4
 #: phase 4b's pool: four worst-case requests (512 + 64 positions = 72
 #: blocks of 8 each) and the garbage block
 PRESSURE_BLOCKS = 4 * 72 + 1
+#: the paged wrappers' launch counters: every call -> the chunks among
+#: them (K6's and K7's tensor-core routes)
+CHUNK_ROUTES = {"paged_decode_attention": "paged_prefill_attention",
+                "quantized_paged_decode_attention":
+                    "quantized_paged_prefill_attention"}
 
 
 def card_line():
@@ -190,9 +205,9 @@ def bound_ms(nbytes, flops, peak_flops=F32_FLOPS):
                                  else "operations")
 
 
-def check_kernels(torch, da, seed, tag, copies=4):
-    """Phase 2. Returns {kernel name: summary dict}; `tag` (the card
-    line) is printed beside every number."""
+def check_contiguous_kernel(torch, da, seed, tag, copies=4):
+    """Phase 2, K5. Returns its summary dict; `tag` (the card line) is
+    printed beside every number."""
     import torch.nn.functional as F
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -240,83 +255,169 @@ def check_kernels(torch, da, seed, tag, copies=4):
           f"library_ms={k5['library_ms']:.5f} "
           f"bound_us={bnd * 1e3:.3f} ({by}) {tag}")
 
-    # K6: paged chunk attention, block_size 8, M = 128 over a shuffled
-    # pool (every slot's table a random slice of one permutation)
-    bs, m = 8, 128
-    nb = b * m + 1
-    perm = rng.permutation(np.arange(1, nb)).astype(np.int32)
-    tables = torch.tensor(perm.reshape(b, m), device=dev)
-    pools = [(randn(nb, bs, n, d), randn(nb, bs, n, d))
-             for _ in range(copies)]
-    k6_rows, err6 = [], 0.0
-    for c in (1, 5, 512):
-        top = m * bs - c
-        lens = np.concatenate([[0, 1, min(511, top), top],
-                               rng.randint(0, top + 1, size=b - 4)]
-                              ).astype(np.int32)
-        lengths = torch.tensor(lens, device=dev)
-        sets = [(randn(b, c, n, d), kp, vp, tables, lengths)
-                for kp, vp in pools]
-        got = da.paged_decode_attention(*sets[0])
-        want = da.paged_decode_attention_reference(*sets[0])
-        torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        assert got.shape == (b, c, n, d) and bool(torch.isfinite(got).all())
-        assert err <= TOL, f"K6 C={c} max |kernel - plain| {err} > {TOL}"
-        err6 = max(err6, err)
-        win = tables.long()
-
-        def k6_library(q, kp, vp, tab, ln, wk, wv):
-            lim = ln[:, None] + torch.arange(q.shape[1], device=dev)[None] + 1
-            mask = torch.arange(m * bs, device=dev)[None, None] < lim[..., None]
-            return F.scaled_dot_product_attention(
-                q.transpose(1, 2), wk, wv, attn_mask=mask[:, None])
-
-        lib_sets = [a + (kp[win].reshape(b, m * bs, n, d).transpose(1, 2),
-                         vp[win].reshape(b, m * bs, n, d).transpose(1, 2))
-                    for a, (kp, vp) in zip(sets, pools)]
-        cap = m * bs
-        distinct = int(np.minimum(lens + c, cap).sum())
-        pairs = int(sum(np.minimum(ln + np.arange(c) + 1, cap).sum()
-                        for ln in lens))
-        nbytes = (2 * b * c * n * d * 4 + b * m * 4 + b * 4
-                  + 2 * distinct * n * d * 4)
-        bnd, by = bound_ms(nbytes, 4.0 * pairs * n * d)
-        row = {"C": c, "max_abs_err": err,
-               "ms": timed_ms(torch, da.paged_decode_attention, sets),
-               "plain_ms": timed_ms(
-                   torch, da.paged_decode_attention_reference, sets),
-               "library_ms": timed_ms(torch, k6_library, lib_sets),
-               "bound_ms": bnd, "bound_by": by,
-               "lengths": lens.tolist()}
-        k6_rows.append(row)
-        print(f"K6 B={b} C={c} N={n} D={d} bs={bs} M={m}: "
-              f"max_abs_err={err:.3g} kernel_ms={row['ms']:.5f} "
-              f"plain_ms={row['plain_ms']:.5f} "
-              f"library_ms={row['library_ms']:.5f} (window gathered "
-              f"outside the call) bound_us={bnd * 1e3:.3f} ({by}) {tag}")
-        del sets, lib_sets
-    decode = k6_rows[0]
-    k6 = {"name": "K6 paged_decode_attention", "route": "cuda",
-          "source": "paddle_tpu_torch/csrc/decode_attention.cu",
-          "replaces": "paddle_tpu/ops/pallas/flash_attention.py:1131",
-          "max_abs_err": err6, "ms": decode["ms"],
-          "plain_ms": decode["plain_ms"], "bound_ms": decode["bound_ms"],
-          "bound_by": decode["bound_by"],
-          "library_ms": decode["library_ms"],
-          "shape": f"B={b} C=1 N={n} D={d} bs={bs} M={m} (times); "
-                   f"max_abs_err over C in (1, 5, 512)",
-          "by_chunk": k6_rows}
-    return {"decode_attention": k5, "paged_decode_attention": k6}
+    return k5
 
 
-#: phase 2's K7 cases (B, C, D): decode C = 1, the shortest chunk C = 2,
-#: the verify chunk C = 5, the prefill buckets 8, 16, 64 and 512 at
-#: B = 8, the main path's prefill (one slot, C = 512) and head dims 32
+#: phase 2's K6 and K7 cases (B, C, D): decode C = 1, the shortest chunk
+#: C = 2, the verify chunk C = 5, the prefill buckets 8, 16, 64 and 512
+#: at B = 8, the main path's prefill (one slot, C = 512) and head dims 32
 #: and 128
 K7_CASES = ((8, 1, 64), (8, 2, 64), (8, 5, 64), (8, 8, 64), (8, 16, 64),
             (8, 64, 64), (8, 512, 64), (1, 512, 64), (8, 64, 32),
             (8, 64, 128))
+K6_CASES = K7_CASES
+
+
+def window_pairs(c, lens, cap):
+    """(distinct keys, (row, key) pairs) of a chunk of c rows over slots
+    of committed lengths `lens` in windows of cap keys."""
+    distinct = int(np.minimum(lens + c, cap).sum())
+    pairs = int(sum(np.minimum(ln + np.arange(c) + 1, cap).sum()
+                    for ln in lens))
+    return distinct, pairs
+
+
+def k6_bound(b, c, n, d, lens, m, bs, route):
+    """(bound ms, what bounds it) of one K6 call: bytes (q in, out, the
+    tables, lengths and each distinct key's f32 K and V rows once) over
+    3.35 TB/s against operations (4 per (row, key) pair per element) at
+    the route's rate: f32 on the CUDA cores (67 TFLOP/s) for the decode
+    route; six bf16 products per f32 product on the tensor cores (6 x 4 x
+    pairs x N x D at 989 TFLOP/s) for the chunk route."""
+    distinct, pairs = window_pairs(c, lens, m * bs)
+    nbytes = (2 * b * c * n * d * 4 + b * m * 4 + b * 4
+              + 2 * distinct * n * d * 4)
+    flops = 4.0 * pairs * n * d
+    if route == "chunk":
+        return bound_ms(nbytes, 6 * flops, BF16_FLOPS)
+    return bound_ms(nbytes, flops)
+
+
+def case_lengths(rng, b, c, cap):
+    """Committed lengths of a phase-2 case: an empty window, one key, 511
+    and a full window, then random ones; 0 for the main path's one-slot
+    prefill (a prompt from nothing)."""
+    top = cap - c
+    lens = np.concatenate([[0, 1, min(511, top), top],
+                           rng.randint(0, top + 1, size=4)])[:b]
+    return (np.zeros(1) if b == 1 else lens).astype(np.int32)
+
+
+def check_paged_kernel(torch, da, seed, tag, copies=4):
+    """Phase 2, K6: paged attention over f32 pools (K at 3x the scale of
+    V, as K7's), block_size 8, M=128 over a shuffled pool, N=12, at
+    K6_CASES: max |kernel - plain| <= TOL, C = 1 on the CUDA-core kernel
+    and every C >= PAGED_TC_MIN_C on the tensor-core kernel (each case's
+    route read from the launch counters). Each case is timed beside its
+    plain version, SDPA on the gathered window (gathered outside the
+    call; a yardstick the port never calls) and its route's bound; at
+    B=8, D=64 each chunk is also timed on both kernels (the threshold
+    moved for the call), the crossover PAGED_TC_MIN_C is read from.
+    Returns the
+    summary dicts of the decode route (C = 1) and of the chunk route
+    (the main path's B = 1, C = 512)."""
+    import torch.nn.functional as F
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed + 5)
+    rng = np.random.RandomState(seed + 5)
+    n, bs, m = 12, 8, 128
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev, dtype=torch.float32)
+
+    def library(q, kp, vp, tab, ln, wk, wv):
+        lim = ln[:, None] + torch.arange(q.shape[1], device=dev)[None] + 1
+        mask = (torch.arange(m * bs, device=dev)[None, None]
+                < lim[..., None])
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), wk, wv, attn_mask=mask[:, None])
+
+    rows, err_all, pools = [], 0.0, {}
+    for b, c, d in K6_CASES:
+        if (b, d) not in pools:
+            pools.clear()
+            torch.cuda.empty_cache()
+            nb = b * m + 1
+            perm = rng.permutation(np.arange(1, nb)).astype(np.int32)
+            pools[(b, d)] = (torch.tensor(perm.reshape(b, m), device=dev),
+                             [(3.0 * randn(nb, bs, n, d), randn(nb, bs, n, d))
+                              for _ in range(copies)])
+        tables, made = pools[(b, d)]
+        win = tables.long()
+        lens = case_lengths(rng, b, c, m * bs)
+        lengths = torch.tensor(lens, device=dev)
+        sets = [(randn(b, c, n, d), kp, vp, tables, lengths)
+                for kp, vp in made]
+        route = "chunk" if c >= da.PAGED_TC_MIN_C else "decode"
+        want = da.paged_decode_attention_reference(*sets[0])
+        before = da.launch_counts["paged_prefill_attention"]
+        got = da.paged_decode_attention(*sets[0])
+        torch.cuda.synchronize()
+        took = ("chunk" if da.launch_counts["paged_prefill_attention"]
+                > before else "decode")
+        assert took == route, (c, took)
+        err = float((got - want).abs().max())
+        assert got.shape == (b, c, n, d) and bool(torch.isfinite(got).all())
+        assert err <= TOL, (f"K6 B={b} C={c} D={d} {route} route: "
+                            f"max |kernel - plain| {err} > {TOL}")
+        err_all = max(err_all, err)
+        lib_sets = [a + (kp[win].reshape(b, m * bs, n, d).transpose(1, 2),
+                         vp[win].reshape(b, m * bs, n, d).transpose(1, 2))
+                    for a, (kp, vp) in zip(sets, made)]
+        row = {"B": b, "C": c, "D": d, "route": route, "max_abs_err": err,
+               "ms": timed_ms(torch, da.paged_decode_attention, sets),
+               "plain_ms": timed_ms(
+                   torch, da.paged_decode_attention_reference, sets),
+               "library_ms": timed_ms(torch, library, lib_sets),
+               "lengths": lens.tolist()}
+        row["bound_ms"], row["bound_by"] = k6_bound(b, c, n, d, lens, m, bs,
+                                                    route)
+        core = ""
+        if c > 1 and b == 8 and d == 64:   # the crossover: both kernels
+            threshold = da.PAGED_TC_MIN_C
+            try:
+                for key, forced in (("cuda_core_ms", 1 << 30),
+                                    ("tensor_core_ms", 2)):
+                    da.PAGED_TC_MIN_C = forced
+                    got = da.paged_decode_attention(*sets[0])
+                    torch.cuda.synchronize()
+                    forced_err = float((got - want).abs().max())
+                    assert forced_err <= TOL, (c, key, forced_err)
+                    row[key] = timed_ms(torch, da.paged_decode_attention,
+                                        sets)
+            finally:
+                da.PAGED_TC_MIN_C = threshold
+            core = (f" (crossover: cuda_core_ms={row['cuda_core_ms']:.5f} "
+                    f"tensor_core_ms={row['tensor_core_ms']:.5f})")
+        rows.append(row)
+        print(f"K6 B={b} C={c} N={n} D={d} bs={bs} M={m}: route={route} "
+              f"max_abs_err={err:.3g} kernel_ms={row['ms']:.5f}{core} "
+              f"plain_ms={row['plain_ms']:.5f} "
+              f"library_ms={row['library_ms']:.5f} (SDPA on the window, "
+              f"gathered outside the call) bound_ms={row['bound_ms']:.5f} "
+              f"({row['bound_by']}) {tag}")
+        del sets, lib_sets
+    pools.clear()
+    torch.cuda.empty_cache()
+
+    def summary(name, pick, shape):
+        r = next(x for x in rows if pick(x))
+        return {"name": name, "route": "cuda",
+                "source": "paddle_tpu_torch/csrc/decode_attention.cu",
+                "replaces": "paddle_tpu/ops/pallas/flash_attention.py:1131",
+                "max_abs_err": err_all, "ms": r["ms"],
+                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+                "shape": shape, "by_case": rows}
+
+    return (summary("K6 paged_decode_attention (decode route)",
+                    lambda x: x["C"] == 1,
+                    f"B=8 C=1 N={n} D=64 bs={bs} M={m} (times); "
+                    f"max_abs_err over every case"),
+            summary("K6 paged_prefill_attention (chunk route)",
+                    lambda x: x["C"] == 512 and x["B"] == 1,
+                    f"B=1 C=512 N={n} D=64 bs={bs} M={m}, lengths 0 "
+                    f"(times); max_abs_err over every case"))
 
 
 def k7_bound(b, c, n, d, lens, m, bs, route):
@@ -326,10 +427,7 @@ def k7_bound(b, c, n, d, lens, m, bs, route):
     at the route's rate: the decode route's f32 on the CUDA cores (67
     TFLOP/s); the prefill route's three bf16 products per f32 product
     on the tensor cores (3 x 4 x pairs x N x D at 989 TFLOP/s)."""
-    cap = m * bs
-    distinct = int(np.minimum(lens + c, cap).sum())
-    pairs = int(sum(np.minimum(ln + np.arange(c) + 1, cap).sum()
-                    for ln in lens))
+    distinct, pairs = window_pairs(c, lens, m * bs)
     nbytes = (2 * b * c * n * d * 4 + b * m * 4 + b * 4
               + 2 * distinct * (n * d + 4))
     flops = 4.0 * pairs * n * d
@@ -342,8 +440,9 @@ def check_quantized_kernel(torch, da, gen, seed, tag, copies=4):
     """Phase 2, K7: paged attention over int8 and float8 e4m3 pools
     (payloads and scales from the engine's own row quantizer), block_size
     8, M=128 over a shuffled pool, N=12, at K7_CASES: max |kernel - plain|
-    <= TOL (C = 1 on the decode kernel, longer chunks on the prefill
-    kernel). Each case is timed beside its plain version, SDPA on the
+    <= TOL (C = 1 on the decode kernel, one kernel a call by the
+    profiler's rows; longer chunks on the prefill kernel). Each case is
+    timed beside its plain version, SDPA on the
     dequantized gathered window (gathered and dequantized outside the
     call; a yardstick the port never calls) and its route's bound.
     Returns the summary dicts of the decode route (C = 1) and of the
@@ -390,12 +489,7 @@ def check_quantized_kernel(torch, da, gen, seed, tag, copies=4):
                 w = w * scale[win][..., None, None]
                 return w.reshape(b, m * bs, n, d).transpose(1, 2).contiguous()
 
-            top = m * bs - c
-            lens = np.concatenate([[0, 1, min(511, top), top],
-                                   rng.randint(0, top + 1, size=4)])[:b]
-            if b == 1:
-                lens = np.zeros(1)   # the main path: a prompt from nothing
-            lens = lens.astype(np.int32)
+            lens = case_lengths(rng, b, c, m * bs)
             lengths = torch.tensor(lens, device=dev)
             sets = [(randn(b, c, n, d),) + pool + (tables, lengths)
                     for pool in made]
@@ -414,8 +508,16 @@ def check_quantized_kernel(torch, da, gen, seed, tag, copies=4):
                                 f"route: max |kernel - plain| {err} > {TOL}")
             err_all = max(err_all, err)
             lib_sets = [a + (deq(a[1], a[3]), deq(a[2], a[4])) for a in sets]
+            kernels = None
+            if route == "decode":   # one launch a call: the profiler's rows
+                kernels = kernel_rows(torch,
+                                      da.quantized_paged_decode_attention,
+                                      sets)
+                assert len(kernels) == 1 and kernels[0][
+                    "launches_per_call"] == 1 and "qattn_decode_kernel" in \
+                    kernels[0]["name"], kernels
             row = {"kv_dtype": kv_dtype, "B": b, "C": c, "D": d,
-                   "route": route, "max_abs_err": err,
+                   "route": route, "max_abs_err": err, "kernels": kernels,
                    "ms": timed_ms(torch, da.quantized_paged_decode_attention,
                                   sets),
                    "plain_ms": timed_ms(
@@ -426,6 +528,12 @@ def check_quantized_kernel(torch, da, gen, seed, tag, copies=4):
             row["bound_ms"], row["bound_by"] = k7_bound(b, c, n, d, lens, m,
                                                         bs, route)
             rows.append(row)
+            if kernels:
+                print(f"K7 {kv_dtype} B={b} C={c} D={d}: kernels per call "
+                      f"(torch.profiler): " + "; ".join(
+                          f"{k['launches_per_call']:g} x {k['name'][:60]} "
+                          f"{k['us_per_call']:.3f} us" for k in kernels)
+                      + f" {tag}")
             print(f"K7 {kv_dtype} B={b} C={c} N={n} D={d} bs={bs} M={m}: "
                   f"route={route} max_abs_err={err:.3g} "
                   f"kernel_ms={row['ms']:.5f} plain_ms={row['plain_ms']:.5f}"
@@ -501,28 +609,52 @@ def compare(label, got, want, gaps):
     return 0
 
 
+def dev_us(e):
+    """Device microseconds of a torch.profiler row."""
+    return getattr(e, "self_device_time_total",
+                   getattr(e, "self_cuda_time_total", 0.0))
+
+
+def device_rows(torch, run):
+    """torch.profiler's device-side rows over `run()`: a CPU op's row
+    also carries the device time of the kernels it launched, which would
+    count them twice."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        run()
+    return [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
+
+
+def kernel_rows(torch, fn, argsets, calls=20):
+    """The kernels one call of `fn` launches, from the profiler's device
+    rows over `calls` calls (rotating `argsets`, each warmed once):
+    [{"name", "launches_per_call", "us_per_call"}]."""
+    for a in argsets:
+        fn(*a)
+    torch.cuda.synchronize()
+
+    def run():
+        for i in range(calls):
+            fn(*argsets[i % len(argsets)])
+        torch.cuda.synchronize()
+
+    return [{"name": e.key, "launches_per_call": e.count / calls,
+             "us_per_call": dev_us(e) / calls}
+            for e in device_rows(torch, run)]
+
+
 def profile_device(torch, run, steps, top=8):
     """Host wall time per step of `run(steps)` (which ends in a
     synchronisation), then device time per step, the idle share and the
     top kernels from torch.profiler over a second `run(steps)`."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     t0 = time.perf_counter()
     run(steps)
     wall_ms = (time.perf_counter() - t0) / steps * 1e3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA],
-                 acc_events=True) as prof:
-        run(steps)
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
-
-    # device-side events only: a CPU op's row also carries the device
-    # time of the kernels it launched, which would count them twice
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
+    events = device_rows(torch, lambda: run(steps))
     device_ms = sum(dev_us(e) for e in events) / steps / 1e3
     ranked = sorted(events, key=dev_us, reverse=True)[:top]
     return {"step_wall_ms": wall_ms,
@@ -670,11 +802,14 @@ def agreement(got, want):
 
 #: --latency's prompt lengths (prefill chunks of 16 .. 1024 rows)
 LATENCY_LENS = (16, 64, 128, 256, 512, 1000)
+#: --latency's pools: f32 (K6), int8 and fp8 (K7)
+LATENCY_DTYPES = ("f32",) + QUANT_DTYPES
 
 
 def latency(torch, seed, reps=7):
-    """--latency: with the port found first on sys.path, for int8 and
-    fp8 pools, the wall time (synchronised) of one admission (a random
+    """--latency: with the port found first on sys.path, for f32 (phase
+    4's engine), int8 and fp8 pools, the wall time (synchronised) of one
+    admission (a random
     prompt prefilled from an empty window, prefix reuse off) on a
     batch_size=1 engine at LATENCY_LENS, the median of the last reps - 2
     of reps admissions, then tokens/s and p50 TTFT of 16 requests
@@ -687,7 +822,7 @@ def latency(torch, seed, reps=7):
     model = gen.TinyDecoderLM(cfg).init_params(seed)
     rng = np.random.RandomState(seed)
     out = {"card": card_line()}
-    for dt in QUANT_DTYPES:
+    for dt in LATENCY_DTYPES:
         eng = gen.PagedDecodeEngine(model, batch_size=1, max_len=1024,
                                     block_size=8, spec_k=0, kv_dtype=dt)
         eng.warmup()
@@ -710,7 +845,7 @@ def latency(torch, seed, reps=7):
         torch.cuda.empty_cache()
     prompts, budgets = make_prompts(np.random.RandomState(seed),
                                     cfg.vocab_size, 16)
-    for dt in QUANT_DTYPES:
+    for dt in LATENCY_DTYPES:
         eng = gen.PagedDecodeEngine(model, batch_size=8, max_len=1024,
                                     block_size=8, spec_k=4, kv_dtype=dt)
         eng.warmup()
@@ -723,6 +858,61 @@ def latency(torch, seed, reps=7):
             "steps": stats["counters"]["steps"]}
         del eng
         torch.cuda.empty_cache()
+    return out
+
+
+def decode_rows(torch, seed, calls=50):
+    """--decode-rows: with the port found first on sys.path, K7's decode
+    route (C = 1) at phase 2's case (B=8, N=12, D=64, block_size 8,
+    M=128, lengths from case_lengths), int8 and fp8: each kernel a call
+    launches with its device time (torch.profiler rows over `calls`
+    calls) and the call's time (timed_ms), with the key ranges the
+    wrapper picks and with one range (its split functions patched to 1).
+    Only the wrapper's public function is called, so any checkout of the
+    port can be measured. Returns the dict it prints."""
+    from paddle_tpu_torch.ops import generation as gen
+    from paddle_tpu_torch.ops.kernels import decode_attention as da
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed + 7)
+    rng = np.random.RandomState(seed + 7)
+    b, n, d, bs, m = 8, 12, 64, 8, 128
+    nb = b * m + 1
+    tables = torch.tensor(rng.permutation(np.arange(1, nb)).astype(
+        np.int32).reshape(b, m), device=dev)
+    lengths = torch.tensor(case_lengths(rng, b, 1, m * bs), device=dev)
+    out = {"card": card_line()}
+    for dt in QUANT_DTYPES:
+        sets = []
+        for _ in range(4):
+            kq, ks = gen._kv_quantize_rows(3.0 * torch.randn(
+                (nb, bs, n, d), generator=g, device=dev), dt)
+            vq, vs = gen._kv_quantize_rows(torch.randn(
+                (nb, bs, n, d), generator=g, device=dev), dt)
+            sets.append((torch.randn((b, 1, n, d), generator=g, device=dev),
+                         kq, vq, ks, vs, tables, lengths))
+        for label in ("wrapper's split", "one range"):
+            saved = {f: getattr(da, f) for f in ("split_count",
+                                                 "decode_split_count")
+                     if hasattr(da, f)}
+            if label == "one range":
+                for f in saved:
+                    setattr(da, f, lambda *a, **k: 1)
+            try:
+                fn = da.quantized_paged_decode_attention
+                got = fn(*sets[0])
+                want = da.quantized_paged_decode_attention_reference(
+                    *sets[0])
+                torch.cuda.synchronize()
+                err = float((got - want).abs().max())
+                assert err <= TOL, (dt, label, err)
+                out[f"{dt}, {label}"] = {
+                    "max_abs_err": err,
+                    "kernels": kernel_rows(torch, fn, sets, calls),
+                    "ms": timed_ms(torch, fn, sets)}
+            finally:
+                for f, v in saved.items():
+                    setattr(da, f, v)
+        del sets
     return out
 
 
@@ -829,13 +1019,16 @@ def flash_case(torch, tfa, dev, dtype, b, t, n, d, causal=False, pad=False,
 
 #: the kernels whose ptxas lines and SASS the build report checks: mangled
 #: name stem -> (instantiations, opcodes its SASS must hold, opcodes it
-#: must not). The bf16 flash pair and K7's prefill route run on wgmma
-#: (HGMMA); K8's int8 mode on mma.sync s8 (IMMA), with no dp4a left; K8's
-#: weight-only mode (CUDA cores) is listed for its ptxas line.
+#: must not). The bf16 flash pair and K6's and K7's chunk routes run on
+#: wgmma (HGMMA); K8's int8 mode on mma.sync s8 (IMMA), with no dp4a
+#: left; K7's decode kernel and K8's weight-only mode (CUDA cores) are
+#: listed for their ptxas lines (0 spill).
 BUILD_CHECKS = {
     "flash_fwd_tc_kernel": (3, ("HGMMA",), ()),
     "flash_bwd_tc_kernel": (3, ("HGMMA",), ()),
     "qattn_prefill_tc_kernel": (6, ("HGMMA",), ()),
+    "paged_prefill_tc_kernel": (3, ("HGMMA",), ()),
+    "qattn_decode_kernel": (6, (), ()),
     "qmm_int8_tc_kernel": (2, ("IMMA",), ("IDP4A",)),
     "qmm_weight_only_kernel": (1, (), ()),
 }
@@ -1196,8 +1389,9 @@ def check_quantized_matmul(torch, k8, seed, tag, copies=3):
     at K8_SHAPES: int8-activation mode with equal int32 accumulators and
     outputs within 1 ulp, weight-only within K8_WO_TOL of max |plain|.
     Each case is timed beside its plain version, its bound
-    (max(bytes / 3.35 TB/s, 2MKN / 1979 TOP/s), bytes 4MK + KN + 4N + 4MN)
-    and a yardstick the port never calls: in int8 mode, where it takes
+    (max(bytes / 3.35 TB/s, 2MKN / peak), bytes 4MK + KN + 4N + 4MN; the
+    peak 1979 TOP/s int8, 67 TFLOP/s f32 for weight-only) and a yardstick
+    the port never calls: in int8 mode, where it takes
     the shape (M > 16, K and N multiples of 8), `torch._int_mm` on the
     same int8 operands plus the rescale, whose accumulators must equal
     the kernel's; in weight-only mode an f32 `torch.matmul` (TF32 off) on
@@ -1237,6 +1431,8 @@ def check_quantized_matmul(torch, k8, seed, tag, copies=3):
             f"K8 ({m}, {k}, {n}) weight-only: {wo_rel} > {K8_WO_TOL}")
         nbytes = 4 * m * k + k * n + 4 * n + 4 * m * n
         bnd, by = bound_ms(nbytes, 2.0 * m * k * n, INT8_OPS)
+        # weight-only multiplies in f32 on the same bytes
+        wo_bnd, wo_by = bound_ms(nbytes, 2.0 * m * k * n, F32_FLOPS)
         args = [(a, b, c, xs) for a, b, c in sets]
         deq = [(a, b.float() * (c / 127.0)) for a, b, c in sets]
         row = {"M": m, "K": k, "N": n, "splits": k8.k8_split_count(m, k, n),
@@ -1254,6 +1450,7 @@ def check_quantized_matmul(torch, k8, seed, tag, copies=3):
                "weight_only_plain_ms": timed_ms(
                    torch, k8.dequant_matmul_reference, [a[:3] for a in args]),
                "weight_only_library_ms": timed_ms(torch, torch.matmul, deq),
+               "weight_only_bound_ms": wo_bnd, "weight_only_bound_by": wo_by,
                "bound_ms": bnd, "bound_by": by, "library_ms": None}
         if m > 16 and k % 8 == 0 and n % 8 == 0:
             lib_args = [(k8.quantize_activation(a, xs),
@@ -1275,7 +1472,8 @@ def check_quantized_matmul(torch, k8, seed, tag, copies=3):
               f"weight-only rel_err={wo_rel:.3g} kernel_ms="
               f"{row['weight_only_ms']:.5f} plain_ms="
               f"{row['weight_only_plain_ms']:.5f} matmul_ms="
-              f"{row['weight_only_library_ms']:.5f} {tag}")
+              f"{row['weight_only_library_ms']:.5f} bound_ms={wo_bnd:.5f} "
+              f"({wo_by}) {tag}")
         del sets, args, deq
     torch.cuda.empty_cache()
     main = rows[0]
@@ -1474,9 +1672,14 @@ def main(argv=None):
                     help="also write every number to this JSON file")
     ap.add_argument("--latency", nargs="?", const=".", default=None,
                     metavar="ROOT",
-                    help="only measure prefill latency and quantized "
-                         "serving with the port under ROOT (default: this "
-                         "checkout); print one LATENCY line")
+                    help="only measure prefill latency and paged serving "
+                         "(f32, int8, fp8) with the port under ROOT "
+                         "(default: this checkout); print one LATENCY line")
+    ap.add_argument("--decode-rows", nargs="?", const=".", default=None,
+                    metavar="ROOT",
+                    help="only profile K7's decode route at phase 2's case "
+                         "with the port under ROOT (default: this "
+                         "checkout); print one DECODE_ROWS line")
     args = ap.parse_args(argv)
 
     import torch
@@ -1484,16 +1687,19 @@ def main(argv=None):
         print("chip_smoke: torch sees no CUDA device; nothing to drive",
               file=sys.stderr)
         return 2
-    if args.latency is not None:
-        root = os.path.abspath(args.latency)
+    for mode, fn, label in ((args.latency, latency, "LATENCY"),
+                            (args.decode_rows, decode_rows, "DECODE_ROWS")):
+        if mode is None:
+            continue
+        root = os.path.abspath(mode)
         sys.path.insert(0, root)
         import paddle_tpu_torch
         assert os.path.dirname(os.path.dirname(
             os.path.abspath(paddle_tpu_torch.__file__))) == root, (
             paddle_tpu_torch.__file__, root)
         torch.backends.cuda.matmul.allow_tf32 = False
-        out = latency(torch, args.seed)
-        print("LATENCY " + json.dumps({"root": args.latency, **out}))
+        out = fn(torch, args.seed)
+        print(f"{label} " + json.dumps({"root": mode, **out}))
         return 0
     from paddle_tpu_torch.ops import generation as gen
     from paddle_tpu_torch.ops.kernels import _build
@@ -1519,12 +1725,15 @@ def main(argv=None):
     build = build_report(info, tag)
 
     # 2. kernels against their plain versions
-    kernels = check_kernels(torch, da, args.seed, tag)
+    kernels = {"decode_attention": check_contiguous_kernel(
+        torch, da, args.seed, tag)}
+    (kernels["paged_decode_attention"],
+     kernels["paged_prefill_attention"]) = check_paged_kernel(
+        torch, da, args.seed, tag)
     (kernels["quantized_paged_decode_attention"],
      kernels["quantized_paged_prefill_attention"]) = check_quantized_kernel(
         torch, da, gen, args.seed, tag)
-    for k in ("quantized_paged_decode_attention",
-              "quantized_paged_prefill_attention"):
+    for k in CHUNK_ROUTES.keys() | CHUNK_ROUTES.values():
         kernels[k]["launches"] = 0
 
     # 3. contiguous serving
@@ -1586,27 +1795,33 @@ def main(argv=None):
                "launches": launches, "launches_per_step": launches / steps,
                "warmup_s": warm_s, "near_ties": excused,
                "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
-        if kname == "quantized_paged_decode_attention":
-            # K7's two routes, in every layer: the prefill kernel on every
-            # admission's prefill (every bucket is > 1 row) and on the
-            # verify ticks (chunk spec_k + 1 > 1), the decode kernel on
+        if kname in CHUNK_ROUTES:
+            # K6's and K7's two routes, in every layer: the chunk kernel
+            # on every admission's prefill (every bucket is a chunk) and
+            # on the verify ticks (chunk spec_k + 1), the decode kernel on
             # the plain ticks
-            pre = da.launch_counts["quantized_paged_prefill_attention"]
+            chunk = CHUNK_ROUTES[kname]
+            min_c = (da.PAGED_TC_MIN_C if kname == "paged_decode_attention"
+                     else 2)
+            pre = da.launch_counts[chunk]
             verify = stats["speculative"]["verify_ticks"]
-            assert min(engine.buckets) > 1 and engine.spec_k > 0, (
-                engine.buckets, engine.spec_k)
-            want_pre = refills + verify
+            assert min(engine.buckets) >= min_c, (engine.buckets, min_c)
+            # verify chunks below the route's threshold take the decode
+            # kernel
+            want_pre = refills + (verify if engine.spec_k + 1 >= min_c
+                                  else 0)
             assert pre == cfg.num_layers * want_pre, (
-                f"{phase}: prefill route launched {pre} times over "
+                f"{phase}: {chunk} launched {pre} times over "
                 f"{refills} admissions and {verify} verify ticks (chunk "
-                f"{engine.spec_k + 1}) of {cfg.num_layers} layers")
+                f"{engine.spec_k + 1}, route threshold {min_c}) of "
+                f"{cfg.num_layers} layers")
             assert launches - pre == cfg.num_layers * (steps + refills
                                                        - want_pre), (
                 f"{phase}: decode route launched {launches - pre} times "
                 f"over {steps} ticks of {cfg.num_layers} layers")
             row.update(prefill_route_launches=pre,
                        decode_route_launches=launches - pre)
-            kernels["quantized_paged_prefill_attention"]["launches"] += pre
+            kernels[chunk]["launches"] += pre
             kernels[kname]["launches"] += launches - pre
         else:
             kernels[kname]["launches"] = (kernels[kname].get("launches", 0)
@@ -1857,6 +2072,7 @@ def main(argv=None):
     line = {"kernels": [{k: kernels[name][k] for k in keys}
                         for name in ("decode_attention",
                                      "paged_decode_attention",
+                                     "paged_prefill_attention",
                                      "quantized_paged_decode_attention",
                                      "quantized_paged_prefill_attention")
                         + FLASH_KERNELS + ("quantized_matmul",)]}

@@ -9,7 +9,11 @@
 //     (launched by flash_paged_decode_attention): a chunk of C query rows
 //     per slot against block pools [NB, bs, N, D] through block tables
 //     [B, M]; row c attends to positions < lengths[b] + c + 1. Every C is
-//     covered (the TPU kernel stopped at C <= 8).
+//     covered (the TPU kernel stopped at C <= 8). Two kernels split the
+//     chunk sizes as K7's do: ptt_paged_decode_attention_f32 on the CUDA
+//     cores takes decode ticks (C = 1), ptt_paged_prefill_attention_f32
+//     on the bf16 tensor cores the verify and prefill chunks (C > 1;
+//     see paged_prefill_tc_kernel below).
 // K7  ptt_quantized_paged_decode_attention replaces
 //     paddle_tpu/ops/pallas/flash_attention.py::_quantized_paged_decode_kernel
 //     (launched by flash_quantized_paged_decode_attention): K6 over pools
@@ -46,10 +50,13 @@
 //    cannot fill 132 SMs, the wrapper asks for nsplit key ranges per
 //    block; each range writes a partial (m, l, acc) and a second small
 //    kernel combines them. Ranges are cut from the slot's own length on
-//    the device, so short slots do not leave empty blocks behind.
-//  * The paged kernels look up their own table entry per key (the TPU
+//    the device, so short slots do not leave empty blocks behind. K7's
+//    decode kernel merges in the same launch instead (its last block).
+//  * The paged kernels look up their own table entries (the TPU
 //    kernel's scalar prefetch has no counterpart here); entries are
-//    clamped into [0, NB) as XLA's gather clamps.
+//    clamped into [0, NB) as XLA's gather clamps. K7's decode kernel and
+//    K6's chunk kernel hold them in shared memory, loaded before the
+//    keys that need them.
 //  * K7's decode kernel gives each lane 16 payload bytes of a key row in
 //    one load (D / 16 lanes share a key) and converts them to float in
 //    registers; a key's two scales are one broadcast load each for its
@@ -99,6 +106,10 @@ struct Args {
   const float* k_scale;
   const float* v_scale;
   long long ks_sb, vs_sb;  // row strides of the scale arrays
+  // K7's decode route: arrival counters [B * N] and partial records
+  // [B * N][nsplit][D + 4], zero between launches
+  int* counters;
+  float* records;
 };
 
 __device__ __forceinline__ float4 load4(const float* p) {
@@ -349,36 +360,22 @@ cudaError_t launch(const Args& a, int d, cudaStream_t stream) {
 // K7: paged attention over 1-byte payloads with per-row scales
 // ---------------------------------------------------------------------------
 
-// E payload bytes at p (E-byte aligned) as E / 4 little-endian words.
-template <int E>
-__device__ __forceinline__ void load_bytes(const unsigned char* p, unsigned (&w)[E / 4]) {
-  static_assert(E == 16, "K7 decode lanes hold 16 payload bytes");
-  const uint4 r = __ldg(reinterpret_cast<const uint4*>(p));
-  w[0] = r.x;
-  w[1] = r.y;
-  w[2] = r.z;
-  w[3] = r.w;
-}
-
-// Byte i of w as the payload value it stores (int8, or float8 e4m3).
+// Elements 2j and 2j + 1 of 16 payload bytes held as one uint4, as the
+// values they store (int8, or float8 e4m3 with its subnormals), exactly
 template <bool FP8>
-__device__ __forceinline__ float payload_value(unsigned w, int i) {
-  const unsigned byte = (w >> (8 * i)) & 0xffu;
+__device__ __forceinline__ float2 payload_pair(const uint4& r, int j) {
+  const unsigned w = j < 2 ? r.x : (j < 4 ? r.y : (j < 6 ? r.z : r.w));
+  const unsigned pair = (w >> (16 * (j % 2))) & 0xffffu;
+  float2 f;
   if constexpr (FP8) {
-    __nv_fp8_e4m3 x;
-    x.__x = static_cast<__nv_fp8_storage_t>(byte);
-    return static_cast<float>(x);
+    __nv_fp8x2_e4m3 x;
+    x.__x = static_cast<__nv_fp8x2_storage_t>(pair);
+    f = static_cast<float2>(x);
   } else {
-    return static_cast<float>(static_cast<int>(byte << 24) >> 24);
+    f.x = static_cast<float>(static_cast<int>(pair << 24) >> 24);
+    f.y = static_cast<float>(static_cast<int>(pair << 16) >> 24);
   }
-}
-
-template <int E, bool FP8>
-__device__ __forceinline__ void load_row(const unsigned char* p, float (&x)[E]) {
-  unsigned w[E / 4];
-  load_bytes<E>(p, w);
-#pragma unroll
-  for (int i = 0; i < E; ++i) x[i] = payload_value<FP8>(w[i / 4], i % 4);
+  return f;
 }
 
 __device__ __forceinline__ int table_block(const Args& a, int b, int p) {
@@ -386,18 +383,52 @@ __device__ __forceinline__ int table_block(const Args& a, int b, int p) {
   return blk < 0 ? 0 : (blk >= a.nb ? a.nb - 1 : blk);
 }
 
-// grid: (nsplit, 1, B * N); block: kThreads. The structure of
-// attn_partial_kernel<PAGED> at one query row (C = 1), with a group of
-// G = D / E lanes per key.
+// K7's decode route (C = 1). One launch: the key ranges of a (slot,
+// head) are cut from the window's capacity, not from its length, so a
+// block knows its keys before the length arrives; each block loads its
+// slice of the block table into shared memory beside the length and q,
+// so the key loop reads no table entry from device memory; a lane keeps
+// U = 4 keys' payload rows (16 bytes each of K and V) and scales in
+// flight per step, and a range is two steps of keys (the wrapper's
+// decode_split_count: on the card two steps of 4 ranges ran faster than
+// one step of 8). With nsplit > 1 each block writes a partial (acc, m, l)
+// record; the last block of a (slot, head) to arrive (an arrival counter
+// after __threadfence, as K8's split-K) merges them, writes the row and
+// leaves the records and the counter zero, so the caller keeps one
+// zeroed workspace and issues no memset per call.
+constexpr int kDecodeTable = 256;  // table entries a block holds at a time
+constexpr int kDecodeSplits = 16;  // key ranges a (slot, head) may have
+
+// entries [w0, w0 + kDecodeTable) of slot b's table (those whose keys
+// start below k_end), clamped into [0, NB)
+__device__ __forceinline__ void load_table_window(const Args& a, int b, int w0, int k_end,
+                                                  int* blk_s) {
+  for (int i = threadIdx.x; i < kDecodeTable; i += kThreads) {
+    const int e = w0 + i;
+    int blk = 0;
+    if (e * a.bs < k_end) {
+      blk = a.tables[(long long)b * a.M + e];
+      blk = blk < 0 ? 0 : (blk >= a.nb ? a.nb - 1 : blk);
+    }
+    blk_s[i] = blk;
+  }
+}
+
+// grid: (nsplit, 1, B * N); block: kThreads; a group of G = D / E lanes
+// per key, U keys per group per step.
+// __launch_bounds__: four blocks an SM (<= 128 registers), so the 4 key
+// ranges x 96 (slot, head) of the main path's tick run in one wave
 template <int D, bool FP8>
-__global__ void __launch_bounds__(kThreads) qattn_partial_kernel(Args a) {
-  constexpr int CR = 1;             // query rows per block
+__global__ void __launch_bounds__(kThreads, 4) qattn_decode_kernel(Args a) {
   constexpr int E = 16;             // payload bytes per lane
-  constexpr int U = 2;              // keys per group per step
+  constexpr int U = 4;              // keys per group per step
   constexpr int G = D / E;          // lanes per key group
   constexpr int NG = kThreads / G;  // key groups per block
+  __shared__ int blk_s[kDecodeTable];
+  __shared__ float sm_m[NG], sm_l[NG];
+  __shared__ float sm_acc[NG][D];
+  __shared__ int last;
   const int split = blockIdx.x;
-  const int r0 = blockIdx.y * CR;
   const int b = blockIdx.z / a.N;
   const int n = blockIdx.z % a.N;
   const int tid = threadIdx.x;
@@ -406,167 +437,185 @@ __global__ void __launch_bounds__(kThreads) qattn_partial_kernel(Args a) {
   const unsigned gmask =
       (G == 32) ? 0xffffffffu : (((1u << G) - 1u) << ((tid % 32) / G * G));
 
-  int len = a.lengths[b];
-  len = len < 0 ? 0 : len;
-  int lim[CR];
-  int maxlim = 0;
-#pragma unroll
-  for (int r = 0; r < CR; ++r) {
-    int l = 0;
-    if (r0 + r < a.C) {
-      l = len + r0 + r + 1;
-      l = l < a.cap ? l : a.cap;
-    }
-    lim[r] = l;
-    maxlim = l > maxlim ? l : maxlim;
-  }
-  int kps = (maxlim + a.nsplit - 1) / a.nsplit;
+  int kps = (a.cap + a.nsplit - 1) / a.nsplit;
   kps = (kps + U - 1) / U * U;
   const int k_lo = split * kps;
-  const int k_hi = min(k_lo + kps, maxlim);
-
-  float qv[CR][E];
+  const int k_end = min(k_lo + kps, a.cap);
+  const int len = max(a.lengths[b], 0);
+  load_table_window(a, b, k_lo / a.bs, k_end, blk_s);
+  float qv[E];
 #pragma unroll
-  for (int r = 0; r < CR; ++r) {
-#pragma unroll
-    for (int j = 0; j < E / 4; ++j) {
-      float4 t = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (r0 + r < a.C)
-        t = load4(a.q + (long long)b * a.q_sb + (long long)(r0 + r) * a.q_sc +
-                  (long long)n * a.q_sn + lane * E + 4 * j);
-      qv[r][4 * j] = t.x;
-      qv[r][4 * j + 1] = t.y;
-      qv[r][4 * j + 2] = t.z;
-      qv[r][4 * j + 3] = t.w;
-    }
+  for (int j = 0; j < E / 4; ++j) {
+    const float4 t =
+        load4(a.q + (long long)b * a.q_sb + (long long)n * a.q_sn + lane * E + 4 * j);
+    qv[4 * j] = t.x;
+    qv[4 * j + 1] = t.y;
+    qv[4 * j + 2] = t.z;
+    qv[4 * j + 3] = t.w;
   }
-  float m[CR], l[CR], acc[CR][E];
+  const int k_hi = min(k_end, min(len + 1, a.cap));  // the row sees len + 1 keys
+  float m = kNegInf, l = 0.f, acc[E];
 #pragma unroll
-  for (int r = 0; r < CR; ++r) {
-    m[r] = kNegInf;
-    l[r] = 0.f;
-#pragma unroll
-    for (int i = 0; i < E; ++i) acc[r][i] = 0.f;
-  }
+  for (int i = 0; i < E; ++i) acc[i] = 0.f;
+  __syncthreads();
 
-  for (int base = k_lo + grp * U; base < k_hi; base += NG * U) {
-    float kk[U][E], vv[U][E], ks[U], vs[U];
+  for (int w0 = k_lo / a.bs;;) {
+    const int w_lo = max(k_lo, w0 * a.bs);
+    const int w_hi = min(k_hi, (w0 + kDecodeTable) * a.bs);
+    for (int base = w_lo + grp * U; base < w_hi; base += NG * U) {
+      uint4 kw[U], vw[U];
+      float ks[U], vs[U];
 #pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int p = base + u;
-      if (p < k_hi) {
-        const int blk = table_block(a, b, p);
-        const long long off = p % a.bs;
-        load_row<E, FP8>(a.kq + (long long)blk * a.k_sb + off * a.k_ss +
-                             (long long)n * a.k_sn + lane * E,
-                         kk[u]);
-        load_row<E, FP8>(a.vq + (long long)blk * a.v_sb + off * a.v_ss +
-                             (long long)n * a.v_sn + lane * E,
-                         vv[u]);
-        ks[u] = __ldg(a.k_scale + (long long)blk * a.ks_sb + off);
-        vs[u] = __ldg(a.v_scale + (long long)blk * a.vs_sb + off);
-      } else {
-#pragma unroll
-        for (int i = 0; i < E; ++i) kk[u][i] = vv[u][i] = 0.f;
+      for (int u = 0; u < U; ++u) {
+        const int p = base + u;
+        kw[u] = vw[u] = make_uint4(0u, 0u, 0u, 0u);
         ks[u] = vs[u] = 0.f;
+        if (p < w_hi) {
+          const int e = p / a.bs;
+          const long long blk = blk_s[e - w0];
+          const long long off = p - e * a.bs;
+          kw[u] = __ldg(reinterpret_cast<const uint4*>(a.kq + blk * a.k_sb + off * a.k_ss +
+                                                       (long long)n * a.k_sn + lane * E));
+          vw[u] = __ldg(reinterpret_cast<const uint4*>(a.vq + blk * a.v_sb + off * a.v_ss +
+                                                       (long long)n * a.v_sn + lane * E));
+          ks[u] = __ldg(a.k_scale + blk * a.ks_sb + off);
+          vs[u] = __ldg(a.v_scale + blk * a.vs_sb + off);
+        }
       }
-    }
-#pragma unroll
-    for (int r = 0; r < CR; ++r) {
-      if (base >= lim[r]) continue;  // uniform within the group
       float s[U];
-      float mnew = m[r];
+      float mnew = m;
 #pragma unroll
       for (int u = 0; u < U; ++u) {
         float dot = 0.f;
 #pragma unroll
-        for (int i = 0; i < E; ++i) dot += qv[r][i] * kk[u][i];
+        for (int j = 0; j < E / 2; ++j) {
+          const float2 k2 = payload_pair<FP8>(kw[u], j);
+          dot += qv[2 * j] * k2.x;
+          dot += qv[2 * j + 1] * k2.y;
+        }
         s[u] = group_sum<G>(dot, gmask) * ks[u] * a.scale;
-        const int p = base + u;
-        if (p < k_hi && p < lim[r]) mnew = fmaxf(mnew, s[u]);
+        if (base + u < w_hi) mnew = fmaxf(mnew, s[u]);
       }
-      const float corr = expf(m[r] - mnew);
+      const float corr = expf(m - mnew);
       float psum = 0.f;
 #pragma unroll
-      for (int i = 0; i < E; ++i) acc[r][i] *= corr;
+      for (int i = 0; i < E; ++i) acc[i] *= corr;
 #pragma unroll
       for (int u = 0; u < U; ++u) {
-        const int p = base + u;
-        const float pr = (p < k_hi && p < lim[r]) ? expf(s[u] - mnew) : 0.f;
+        const float pr = base + u < w_hi ? expf(s[u] - mnew) : 0.f;
         psum += pr;
         const float pv = pr * vs[u];
 #pragma unroll
-        for (int i = 0; i < E; ++i) acc[r][i] += pv * vv[u][i];
+        for (int j = 0; j < E / 2; ++j) {
+          const float2 v2 = payload_pair<FP8>(vw[u], j);
+          acc[2 * j] += pv * v2.x;
+          acc[2 * j + 1] += pv * v2.y;
+        }
       }
-      l[r] = l[r] * corr + psum;
-      m[r] = mnew;
+      l = l * corr + psum;
+      m = mnew;
     }
+    w0 += kDecodeTable;
+    if (w0 * a.bs >= k_hi) break;  // uniform over the block
+    __syncthreads();
+    load_table_window(a, b, w0, k_end, blk_s);
+    __syncthreads();
   }
 
-  // merge the NG key groups of this block
-  __shared__ float sm_m[NG][CR];
-  __shared__ float sm_l[NG][CR];
-  __shared__ float sm_acc[NG][CR][D];
-#pragma unroll
-  for (int r = 0; r < CR; ++r) {
-    if (lane == 0) {
-      sm_m[grp][r] = m[r];
-      sm_l[grp][r] = l[r];
-    }
-#pragma unroll
-    for (int i = 0; i < E; ++i) sm_acc[grp][r][lane * E + i] = acc[r][i];
+  // merge the NG key groups of this block; thread c < D owns column c
+  if (lane == 0) {
+    sm_m[grp] = m;
+    sm_l[grp] = l;
   }
-  __syncthreads();
-  for (int idx = tid; idx < CR * D; idx += kThreads) {
-    const int r = idx / D;
-    const int c = idx % D;
-    const int row = r0 + r;
-    if (row >= a.C) continue;
-    float mx = kNegInf;
 #pragma unroll
-    for (int g = 0; g < NG; ++g) mx = fmaxf(mx, sm_m[g][r]);
-    float lsum = 0.f, as = 0.f;
+  for (int i = 0; i < E; ++i) sm_acc[grp][lane * E + i] = acc[i];
+  __syncthreads();
+  const int c = tid;
+  const long long row = (long long)b * a.N + n;  // out [B, 1, N, D]
+  float mx = kNegInf, lsum = 0.f, as = 0.f;
+  if (c < D) {
+#pragma unroll
+    for (int g = 0; g < NG; ++g) mx = fmaxf(mx, sm_m[g]);
 #pragma unroll
     for (int g = 0; g < NG; ++g) {
-      const float w = expf(sm_m[g][r] - mx);
-      lsum += sm_l[g][r] * w;
-      as += sm_acc[g][r][c] * w;
-    }
-    const long long orow = ((long long)b * a.C + row) * a.N + n;
-    if (a.nsplit == 1) {
-      a.out[orow * D + c] = lsum > 0.f ? as * (1.f / lsum) : 0.f;
-    } else {
-      const long long prow = orow * a.nsplit + split;
-      a.part_acc[prow * D + c] = as;
-      if (c == 0) {
-        a.part_m[prow] = mx;
-        a.part_l[prow] = lsum;
-      }
+      const float w = expf(sm_m[g] - mx);
+      lsum += sm_l[g] * w;
+      as += sm_acc[g][c] * w;
     }
   }
-}
-
-template <int D, bool FP8>
-cudaError_t launch_q(const Args& a, cudaStream_t stream) {
-  dim3 grid(a.nsplit, 1, a.B * a.N);
-  qattn_partial_kernel<D, FP8><<<grid, kThreads, 0, stream>>>(a);
-  return combine<D>(a, stream);
+  if (a.nsplit == 1) {
+    if (c < D) a.out[row * D + c] = lsum > 0.f ? as * (1.f / lsum) : 0.f;
+    return;
+  }
+  // records [B * N][nsplit][D + 4]: acc[D], m, l
+  constexpr int R = D + 4;
+  float* rec = a.records + row * a.nsplit * R;
+  if (c < D) {
+    rec[split * R + c] = as;
+    if (c == 0) {
+      rec[split * R + D] = mx;
+      rec[split * R + D + 1] = lsum;
+    }
+  }
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) last = atomicAdd(a.counters + row, 1) == a.nsplit - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  // every record in one round of loads: (m, l) of each range into shared
+  // memory, column c of each range's acc into registers
+  float xs[kDecodeSplits];
+  if (tid < a.nsplit) {
+    sm_m[tid] = __ldcg(rec + tid * R + D);
+    sm_l[tid] = __ldcg(rec + tid * R + D + 1);
+  }
+#pragma unroll
+  for (int s = 0; s < kDecodeSplits; ++s)
+    xs[s] = s < a.nsplit && c < D ? __ldcg(rec + s * R + c) : 0.f;
+  __syncthreads();
+  if (c < D) {
+    mx = kNegInf;
+    for (int s = 0; s < a.nsplit; ++s) mx = fmaxf(mx, sm_m[s]);
+    lsum = as = 0.f;
+#pragma unroll
+    for (int s = 0; s < kDecodeSplits; ++s) {
+      if (s >= a.nsplit) break;
+      const float w = expf(sm_m[s] - mx);
+      lsum += sm_l[s] * w;
+      as += xs[s] * w;
+    }
+    a.out[row * D + c] = lsum > 0.f ? as * (1.f / lsum) : 0.f;
+  }
+  __syncthreads();  // every m and l is read: leave the records and the counter zero
+  if (c < D)
+    for (int s = 0; s < a.nsplit; ++s) __stcg(rec + s * R + c, 0.f);
+  if (tid < a.nsplit) {
+    __stcg(rec + tid * R + D, 0.f);
+    __stcg(rec + tid * R + D + 1, 0.f);
+  }
+  if (tid == 0) a.counters[row] = 0;
 }
 
 template <bool FP8>
-cudaError_t launch_q_d(const Args& a, int d, cudaStream_t stream) {
+cudaError_t launch_decode_fp8(const Args& a, int d, cudaStream_t stream) {
+  const dim3 grid(a.nsplit, 1, a.B * a.N);
   switch (d) {
-    case 32: return launch_q<32, FP8>(a, stream);
-    case 64: return launch_q<64, FP8>(a, stream);
-    case 128: return launch_q<128, FP8>(a, stream);
+    case 32: qattn_decode_kernel<32, FP8><<<grid, kThreads, 0, stream>>>(a); break;
+    case 64: qattn_decode_kernel<64, FP8><<<grid, kThreads, 0, stream>>>(a); break;
+    case 128: qattn_decode_kernel<128, FP8><<<grid, kThreads, 0, stream>>>(a); break;
     default: return cudaErrorInvalidValue;
   }
+  return cudaGetLastError();
 }
 
 // The decode kernel takes one query row; chunks go to launch_prefill.
+// Split keys need the workspace (counters and records).
 cudaError_t launch_quantized(const Args& a, int d, bool fp8, cudaStream_t stream) {
-  if (bad_grid(a) || a.tables == nullptr || a.C != 1) return cudaErrorInvalidValue;
-  return fp8 ? launch_q_d<true>(a, d, stream) : launch_q_d<false>(a, d, stream);
+  if (bad_grid(a) || a.tables == nullptr || a.C != 1 || a.nsplit > kDecodeSplits ||
+      (a.nsplit > 1 && a.counters == nullptr))
+    return cudaErrorInvalidValue;
+  return fp8 ? launch_decode_fp8<true>(a, d, stream) : launch_decode_fp8<false>(a, d, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -620,32 +669,43 @@ struct PrefillSmem {
 // 16 payload bytes as 16 bf16 values, exactly: two 16-byte chunks
 template <bool FP8>
 __device__ __forceinline__ void codes_to_bf16(uint4 in, uint4 (&out)[2]) {
-  const unsigned w[4] = {in.x, in.y, in.z, in.w};
   unsigned o[8];
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
-    const unsigned pair = (w[i / 2] >> (16 * (i % 2))) & 0xffffu;
-    float2 f;
-    if constexpr (FP8) {
-      __nv_fp8x2_e4m3 x;
-      x.__x = static_cast<__nv_fp8x2_storage_t>(pair);
-      f = static_cast<float2>(x);
-    } else {
-      f.x = static_cast<float>(static_cast<int>(pair << 24) >> 24);
-      f.y = static_cast<float>(static_cast<int>(pair << 16) >> 24);
-    }
+    const float2 f = payload_pair<FP8>(in, i);
     o[i] = pack_bf16(f.x, f.y);
   }
   out[0] = make_uint4(o[0], o[1], o[2], o[3]);
   out[1] = make_uint4(o[4], o[5], o[6], o[7]);
 }
 
-// x -> three bf16 pieces h + m + l == x to f32 precision
-__device__ __forceinline__ void split3(float x, float& h, float& m, float& l) {
-  h = __bfloat162float(__float2bfloat16_rn(x));
-  const float r = x - h;
-  m = __bfloat162float(__float2bfloat16_rn(r));
-  l = __bfloat162float(__float2bfloat16_rn(r - m));
+// x -> three bf16 pieces h = bf16(x), m = bf16(x - h), l = bf16(x - h -
+// m), whose sum is x to f32 precision; two at a time, packed as the bf16
+// pairs the tiles and register operands hold (three paired conversions)
+__device__ __forceinline__ void split3_pair(float x0, float x1, uint32_t& h, uint32_t& m,
+                                            uint32_t& l) {
+  const __nv_bfloat162 hb = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(hb);
+  const float r0 = x0 - hf.x, r1 = x1 - hf.y;
+  const __nv_bfloat162 mb = __floats2bfloat162_rn(r0, r1);
+  const float2 mf = __bfloat1622float2(mb);
+  const __nv_bfloat162 lb = __floats2bfloat162_rn(r0 - mf.x, r1 - mf.y);
+  h = *reinterpret_cast<const uint32_t*>(&hb);
+  m = *reinterpret_cast<const uint32_t*>(&mb);
+  l = *reinterpret_cast<const uint32_t*>(&lb);
+}
+
+// eight floats as one 16-byte bf16 chunk of each of three piece tiles
+// (h at dst + off, m one piece further, l two): the chunk at `off` of a
+// swizzled tile, pieces `piece_bytes` apart
+__device__ __forceinline__ void store_pieces(const float (&x)[8], uint8_t* dst, int piece_bytes,
+                                             uint32_t off) {
+  uint32_t ph[4], pm[4], pl[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) split3_pair(x[2 * j], x[2 * j + 1], ph[j], pm[j], pl[j]);
+  *reinterpret_cast<uint4*>(dst + off) = make_uint4(ph[0], ph[1], ph[2], ph[3]);
+  *reinterpret_cast<uint4*>(dst + piece_bytes + off) = make_uint4(pm[0], pm[1], pm[2], pm[3]);
+  *reinterpret_cast<uint4*>(dst + 2 * piece_bytes + off) = make_uint4(pl[0], pl[1], pl[2], pl[3]);
 }
 
 template <int D>
@@ -750,20 +810,7 @@ __global__ void __launch_bounds__(kTcThreads) qattn_prefill_tc_kernel(const Args
       x[0] = lo.x; x[1] = lo.y; x[2] = lo.z; x[3] = lo.w;
       x[4] = hi.x; x[5] = hi.y; x[6] = hi.z; x[7] = hi.w;
     }
-    unsigned ph[4], pm[4], pl[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      float h0, m0, l0, h1, m1, l1;
-      split3(x[2 * j], h0, m0, l0);
-      split3(x[2 * j + 1], h1, m1, l1);
-      ph[j] = pack_bf16(h0, h1);
-      pm[j] = pack_bf16(m0, m1);
-      pl[j] = pack_bf16(l0, l1);
-    }
-    const uint32_t off = swz_offset<kTcRows>(r, c);
-    *reinterpret_cast<uint4*>(sQ + off) = make_uint4(ph[0], ph[1], ph[2], ph[3]);
-    *reinterpret_cast<uint4*>(sQ + S::QB + off) = make_uint4(pm[0], pm[1], pm[2], pm[3]);
-    *reinterpret_cast<uint4*>(sQ + 2 * S::QB + off) = make_uint4(pl[0], pl[1], pl[2], pl[3]);
+    store_pieces(x, sQ, S::QB, swz_offset<kTcRows>(r, c));
     if (c * 8 >= D) {  // padding columns of the code tiles (D = 32)
       *reinterpret_cast<uint4*>(sK + swz_offset<kTcKeys>(r, c)) = make_uint4(0u, 0u, 0u, 0u);
       *reinterpret_cast<uint4*>(sV + swz_offset<kTcKeys>(r, c)) = make_uint4(0u, 0u, 0u, 0u);
@@ -841,19 +888,18 @@ __global__ void __launch_bounds__(kTcThreads) qattn_prefill_tc_kernel(const Args
       const int h = (i >> 1) & 1, c = frag_col(lane, i);
       const float p0 = expf(s[i] - mu[h]), p1 = expf(s[i + 1] - mu[h]);
       ps[h] += p0 + p1;
-      float h0, m0, l0, h1, m1, l1;
-      split3(p0 * vs_s[c], h0, m0, l0);
-      split3(p1 * vs_s[c + 1], h1, m1, l1);
+      uint32_t ph, pm, pl;
+      split3_pair(p0 * vs_s[c], p1 * vs_s[c + 1], ph, pm, pl);
       if constexpr (S::P_SMEM) {
         const uint32_t off =
             uP + swz_offset<kTcRows>(frag_row(warp, lane, i), c >> 3) + (c & 7) * 2;
-        st_shared_u32(off, pack_bf16(h0, h1));
-        st_shared_u32(off + S::PB, pack_bf16(m0, m1));
-        st_shared_u32(off + 2 * S::PB, pack_bf16(l0, l1));
+        st_shared_u32(off, ph);
+        st_shared_u32(off + S::PB, pm);
+        st_shared_u32(off + 2 * S::PB, pl);
       } else {
-        pa[0][i >> 1] = pack_bf16(h0, h1);
-        pa[1][i >> 1] = pack_bf16(m0, m1);
-        pa[2][i >> 1] = pack_bf16(l0, l1);
+        pa[0][i >> 1] = ph;
+        pa[1][i >> 1] = pm;
+        pa[2][i >> 1] = pl;
       }
     }
 #pragma unroll
@@ -953,6 +999,384 @@ cudaError_t launch_prefill(const Args& a, int d, bool fp8, cudaStream_t stream) 
   return fp8 ? launch_prefill_fp8<true>(a, d, stream) : launch_prefill_fp8<false>(a, d, stream);
 }
 
+// ---------------------------------------------------------------------------
+// K6 chunks (C > 1): f32 pools on the bf16 tensor cores
+// ---------------------------------------------------------------------------
+//
+// The structure of qattn_prefill_tc_kernel (64 query rows a warpgroup,
+// 64-key tiles, the online softmax in f32 on the accumulator fragment,
+// flash-decoding split-K over key ranges cut from the slot's length, a
+// fresh f32 accumulator per key tile for P . V), with both operands of
+// both products in float32:
+//  * q, k, v and p are each split into three bf16 pieces h + m + l (the
+//    pieces of x carry all 24 bits of its float32; split3_pair). K and V
+//    are split on their way from the pool into shared memory: a register
+//    pass over the raw tile, which cp.async has copied into a staging
+//    area while the previous tile's products ran (D <= 64; at D = 128
+//    the staging area does not fit beside the pieces, so the tile is
+//    loaded and split after the products).
+//  * S = sum of Q_i . K_j^T and O_tile = sum of P_i . V_j over the six
+//    piece pairs with i + j <= 2 (h = 0, m = 1, l = 2), smallest first.
+//    The pairs left out (m.l, l.m, l.l) are below 2^-24 of the
+//    products; any five pairs, or three, miss the float32 kernel's
+//    tolerance (tests/test_torch_tc_split.py models every set on the
+//    CPU).
+//  * The block table is read one tile ahead of the copies that need it
+//    (one entry per key, clamped into [0, NB)) and kept in shared
+//    memory, so no copy waits on a table load.
+// Bound: at C = 512 the six bf16 products per f32 product put it on the
+// operation side (6 x 4 x pairs x N x D at 989 TFLOP/s), against bytes
+// for short chunks.
+constexpr int kPieces = 3;
+constexpr int kPairs = 6;
+
+// piece pair pr of the six, smallest products first: (2,0) (1,1) (0,2)
+// (1,0) (0,1) (0,0) as (piece of the A operand, piece of the B operand)
+__host__ __device__ constexpr int pair_a(int pr) { return pr < 3 ? 2 - pr : (pr < 5 ? 4 - pr : 0); }
+__host__ __device__ constexpr int pair_b(int pr) { return pr < 3 ? pr : (pr < 5 ? pr - 3 : 0); }
+
+template <int D>
+struct PagedTcSmem {
+  static constexpr int DP = Cols<D>::P;
+  static constexpr int TB = kTcRows * DP * 2;  // one bf16 piece of a Q, K or V tile
+  static constexpr bool P_SMEM = DP == 128;    // p's pieces in shared memory, as K7's
+  static constexpr int PB = P_SMEM ? kTcRows * kTcKeys * 2 : 0;
+  static constexpr bool STAGE = D <= 64;       // raw f32 K and V of the next tile
+  static constexpr int SB = STAGE ? kTcKeys * D * 4 : 0;
+  static constexpr int BYTES = 1024 + 3 * kPieces * TB + kPieces * PB + 2 * SB + 4 * kTcKeys * 4;
+};
+
+// thread tid < 64's table entry for key tid of the tile at k0 (raw: the
+// clamp and the range test come with tile_entry_store)
+__device__ __forceinline__ int tile_entry_load(const Args& a, int b, int k0, int k_hi) {
+  const int p = k0 + threadIdx.x;
+  return p < k_hi ? __ldg(a.tables + (long long)b * a.M + p / a.bs) : 0;
+}
+// (block, offset) of key tid into slot `par`: block -1 past k_hi
+__device__ __forceinline__ void tile_entry_store(const Args& a, int k0, int k_hi, int raw,
+                                                 int* ent, int par) {
+  const int p = k0 + threadIdx.x;
+  const int blk = raw < 0 ? 0 : (raw >= a.nb ? a.nb - 1 : raw);
+  ent[par * 2 * kTcKeys + threadIdx.x] = p < k_hi ? blk : -1;
+  ent[par * 2 * kTcKeys + kTcKeys + threadIdx.x] = p % a.bs;
+}
+
+// the raw f32 rows of tile `par`'s keys into the staging area by
+// cp.async (zeros past k_hi)
+template <int D>
+__device__ __forceinline__ void stage_tile(const Args& a, int n, const int* ent, int par,
+                                           uint32_t stK, uint32_t stV) {
+  constexpr int CPR = D / 4;  // 16-byte chunks per key row
+#pragma unroll
+  for (int it = 0; it < kTcKeys * CPR / kTcThreads; ++it) {
+    const int i = it * kTcThreads + threadIdx.x, key = i / CPR, part = i % CPR;
+    const int blk = ent[par * 2 * kTcKeys + key];
+    const long long off = ent[par * 2 * kTcKeys + kTcKeys + key];
+    const bool ok = blk >= 0;
+    const long long ko = blk * a.k_sb + off * a.k_ss + (long long)n * a.k_sn + part * 4;
+    const long long vo = blk * a.v_sb + off * a.v_ss + (long long)n * a.v_sn + part * 4;
+    const float* gk = ok ? a.k + ko : a.k;
+    const float* gv = ok ? a.v + vo : a.v;
+    cp_async16(stK + i * 16, gk, ok);
+    cp_async16(stV + i * 16, gv, ok);
+  }
+  cp_async_commit();
+}
+
+// the key tile split into the pieces of sK and sV: from the staging
+// area (STAGE) or straight from the pool through tile `par`'s entries
+template <int D, bool STAGE>
+__device__ __forceinline__ void split_tile(const Args& a, int n, const int* ent, int par,
+                                           const float* stK, const float* stV, uint8_t* sK,
+                                           uint8_t* sV) {
+  constexpr int CPK = D / 8;  // 8-float chunks per key row
+  constexpr int TB = PagedTcSmem<D>::TB;
+#pragma unroll 4
+  for (int it = 0; it < kTcKeys * CPK / kTcThreads; ++it) {
+    const int i = it * kTcThreads + threadIdx.x, key = i / CPK, c = i % CPK;
+    float xk[8], xv[8];
+    float4 k0, k1, v0, v1;
+    if constexpr (STAGE) {
+      k0 = *reinterpret_cast<const float4*>(stK + i * 8);
+      k1 = *reinterpret_cast<const float4*>(stK + i * 8 + 4);
+      v0 = *reinterpret_cast<const float4*>(stV + i * 8);
+      v1 = *reinterpret_cast<const float4*>(stV + i * 8 + 4);
+    } else {
+      const int blk = ent[par * 2 * kTcKeys + key];
+      const long long off = ent[par * 2 * kTcKeys + kTcKeys + key];
+      k0 = k1 = v0 = v1 = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (blk >= 0) {
+        const float* gk = a.k + blk * a.k_sb + off * a.k_ss + (long long)n * a.k_sn + c * 8;
+        const float* gv = a.v + blk * a.v_sb + off * a.v_ss + (long long)n * a.v_sn + c * 8;
+        k0 = load4(gk);
+        k1 = load4(gk + 4);
+        v0 = load4(gv);
+        v1 = load4(gv + 4);
+      }
+    }
+    xk[0] = k0.x; xk[1] = k0.y; xk[2] = k0.z; xk[3] = k0.w;
+    xk[4] = k1.x; xk[5] = k1.y; xk[6] = k1.z; xk[7] = k1.w;
+    xv[0] = v0.x; xv[1] = v0.y; xv[2] = v0.z; xv[3] = v0.w;
+    xv[4] = v1.x; xv[5] = v1.y; xv[6] = v1.z; xv[7] = v1.w;
+    const uint32_t off = swz_offset<kTcKeys>(key, c);
+    store_pieces(xk, sK, TB, off);
+    store_pieces(xv, sV, TB, off);
+  }
+}
+
+// grid: (nsplit, ceil(C / 64), B * N); block: 128 threads (one warpgroup).
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, PagedTcSmem<D>::STAGE ? 2 : 1)
+    paged_prefill_tc_kernel(const Args a) {
+  using S = PagedTcSmem<D>;
+  constexpr int DP = S::DP;
+  constexpr bool STAGE = S::STAGE;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align1024(smem_raw);
+  uint8_t* sQ = smem;                     // pieces h, m, l of each
+  uint8_t* sK = sQ + kPieces * S::TB;
+  uint8_t* sV = sK + kPieces * S::TB;
+  uint8_t* sP = sV + kPieces * S::TB;     // pieces of p (D = 128)
+  float* stK = reinterpret_cast<float*>(sP + kPieces * S::PB);  // staging (D <= 64)
+  float* stV = reinterpret_cast<float*>(reinterpret_cast<uint8_t*>(stK) + S::SB);
+  int* ent = reinterpret_cast<int*>(reinterpret_cast<uint8_t*>(stV) + S::SB);  // [2][blk, off][64]
+  const uint32_t uQ0 = smem_u32(sQ), uK0 = smem_u32(sK), uV0 = smem_u32(sV);
+  const uint32_t uP = smem_u32(sP);
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int split = blockIdx.x;
+  const int r0 = blockIdx.y * kTcRows;
+  const int b = blockIdx.z / a.N, n = blockIdx.z % a.N;
+  const int len = max(a.lengths[b], 0);
+  const int last_row = min(r0 + kTcRows, a.C) - 1;
+  const int maxlim = min(len + last_row + 1, a.cap);
+  int kps = (maxlim + a.nsplit - 1) / a.nsplit;
+  kps = (kps + kTcKeys - 1) / kTcKeys * kTcKeys;
+  const int k_lo = split * kps;
+  const int k_hi = min(k_lo + kps, maxlim);
+  const int n_tiles = k_lo < k_hi ? (k_hi - k_lo + kTcKeys - 1) / kTcKeys : 0;
+
+  // the first two tiles' table entries, in flight while q is split
+  int raw0 = 0, raw1 = 0;
+  if (tid < kTcKeys) {
+    raw0 = tile_entry_load(a, b, k_lo, k_hi);
+    raw1 = tile_entry_load(a, b, k_lo + kTcKeys, k_hi);
+  }
+  // q rows r0.. into three bf16 pieces; rows past C and columns past D
+  // (and the K and V pieces' columns past D) are zeros
+  constexpr int QCH = DP / 8;  // 8-element chunks per row
+  for (int i = tid; i < kTcRows * QCH; i += kTcThreads) {
+    const int r = i / QCH, c = i % QCH, row = r0 + r;
+    float x[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    if (row < a.C && c * 8 < D) {
+      const float* src = a.q + (long long)b * a.q_sb + (long long)row * a.q_sc +
+                         (long long)n * a.q_sn + c * 8;
+      const float4 lo = load4(src), hi = load4(src + 4);
+      x[0] = lo.x; x[1] = lo.y; x[2] = lo.z; x[3] = lo.w;
+      x[4] = hi.x; x[5] = hi.y; x[6] = hi.z; x[7] = hi.w;
+    }
+    const uint32_t off = swz_offset<kTcRows>(r, c);
+    store_pieces(x, sQ, S::TB, off);
+    if (c * 8 >= D) {  // padding columns of the key tiles (D = 32)
+      const float zero[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+      store_pieces(zero, sK, S::TB, off);
+      store_pieces(zero, sV, S::TB, off);
+    }
+  }
+  if (tid < kTcKeys) {
+    tile_entry_store(a, k_lo, k_hi, raw0, ent, 0);
+    tile_entry_store(a, k_lo + kTcKeys, k_hi, raw1, ent, 1);
+  }
+  __syncthreads();
+  if (n_tiles > 0) {
+    if constexpr (STAGE) {
+      stage_tile<D>(a, n, ent, 0, smem_u32(stK), smem_u32(stV));
+      cp_async_wait<0>();
+      __syncthreads();
+    }
+    split_tile<D, STAGE>(a, n, ent, 0, stK, stV, sK, sV);
+  }
+  fence_async_smem();
+  __syncthreads();
+
+  // this thread's two rows (h = 0, 1) and the keys each may see
+  int row[2], lim[2];
+  float m[2], l[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    row[h] = r0 + frag_row(warp, lane, 2 * h);
+    lim[h] = row[h] < a.C ? min(len + row[h] + 1, min(a.cap, k_hi)) : 0;
+    m[h] = kNegInf;
+    l[h] = 0.f;
+  }
+  float o[DP / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = k_lo + t * kTcKeys;
+    const bool more = t + 1 < n_tiles;
+    // the next tile's rows into the staging area, the one after's table
+    // entries into a register, both while this tile's products run
+    if constexpr (STAGE) {
+      if (more) stage_tile<D>(a, n, ent, (t + 1) & 1, smem_u32(stK), smem_u32(stV));
+    }
+    int raw = 0;
+    if (t + 2 < n_tiles && tid < kTcKeys) raw = tile_entry_load(a, b, k0 + 2 * kTcKeys, k_hi);
+    // the tile addresses, opaque to the compiler each tile (as in K7's
+    // kernel: it would otherwise keep every descriptor in registers)
+    uint32_t uQ = uQ0, uK = uK0;
+    asm volatile("" : "+r"(uQ), "+r"(uK));
+
+    // S = Q . K^T over the six piece pairs: 64 rows x 64 keys
+    float s[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int pr = 0; pr < kPairs; ++pr)
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk)
+        wgmma_ss_n64<0, 0>(s, desc_kmajor(uQ + pair_a(pr) * S::TB, kTcRows, kk),
+                           desc_kmajor(uK + pair_b(pr) * S::TB, kTcKeys, kk),
+                           pr == 0 && kk == 0 ? 0 : 1);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(s);
+
+    // s = S * scale, masked, then the online softmax on the fragment
+    float mt[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int h = (i >> 1) & 1, c = frag_col(lane, i);
+      const float x = s[i] * a.scale;
+      s[i] = k0 + c < lim[h] ? x : kNegInf;
+      mt[h] = fmaxf(mt[h], s[i]);
+    }
+    float corr[2], mu[2], ps[2] = {0.f, 0.f};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float m_new = fmaxf(m[h], quad_max(mt[h]));
+      corr[h] = expf(m[h] - m_new);
+      m[h] = m_new;
+      mu[h] = m_new == kNegInf ? 0.f : m_new;  // no key seen yet: every p is 0
+    }
+    // p in pieces h, m, l: register A operands, or (D = 128) 64 x 64
+    // swizzled bf16 tiles in shared memory
+    uint32_t pa[kPieces][16];
+#pragma unroll
+    for (int i = 0; i < 32; i += 2) {
+      const int h = (i >> 1) & 1, c = frag_col(lane, i);
+      const float p0 = expf(s[i] - mu[h]), p1 = expf(s[i + 1] - mu[h]);
+      ps[h] += p0 + p1;
+      uint32_t ph, pm, pl;
+      split3_pair(p0, p1, ph, pm, pl);
+      if constexpr (S::P_SMEM) {
+        const uint32_t off =
+            uP + swz_offset<kTcRows>(frag_row(warp, lane, i), c >> 3) + (c & 7) * 2;
+        st_shared_u32(off, ph);
+        st_shared_u32(off + S::PB, pm);
+        st_shared_u32(off + 2 * S::PB, pl);
+      } else {
+        pa[0][i >> 1] = ph;
+        pa[1][i >> 1] = pm;
+        pa[2][i >> 1] = pl;
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) l[h] = l[h] * corr[h] + ps[h];
+    if constexpr (S::P_SMEM) {
+      fence_async_smem();
+      __syncthreads();  // the whole 64-row tile is written
+    }
+
+    // O_tile = P . V over the six piece pairs, V transposed, 64 columns
+    // at a time, from a fresh f32 accumulator
+    uint32_t uV = uV0;
+    asm volatile("" : "+r"(uV));
+#pragma unroll
+    for (int half = 0; half < DP / 64; ++half) {
+      float ot[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) ot[i] = 0.f;
+      wgmma_fence();
+#pragma unroll
+      for (int pr = 0; pr < kPairs; ++pr)
+#pragma unroll
+        for (int kk = 0; kk < kTcKeys / 16; ++kk) {
+          const uint64_t dv =
+              desc_mnmajor(uV + pair_b(pr) * S::TB + half * kTcKeys * 128, kTcKeys, kk);
+          const int first = pr == 0 && kk == 0 ? 0 : 1;
+          if constexpr (S::P_SMEM)
+            wgmma_ss_n64<0, 1>(ot, desc_kmajor(uP + pair_a(pr) * S::PB, kTcRows, kk), dv, first);
+          else
+            wgmma_rs_n64<1>(ot, pa[pair_a(pr)] + 4 * kk, dv, first);
+        }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(ot);
+      if constexpr (!S::P_SMEM) {
+        fence_regs(pa[0]);
+        fence_regs(pa[1]);
+        fence_regs(pa[2]);
+      }
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        o[32 * half + i] = fmaf(o[32 * half + i], corr[(i >> 1) & 1], ot[i]);
+    }
+
+    if (more) {
+      if (t + 2 < n_tiles && tid < kTcKeys)
+        tile_entry_store(a, k0 + 2 * kTcKeys, k_hi, raw, ent, t & 1);
+      if constexpr (STAGE) cp_async_wait<0>();
+      __syncthreads();  // every warp is done with this tile; the next one's rows are in
+      split_tile<D, STAGE>(a, n, ent, (t + 1) & 1, stK, stV, sK, sV);
+      fence_async_smem();
+      __syncthreads();
+    }
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float lsum = quad_sum(l[h]);
+    if (row[h] >= a.C) continue;
+    const long long orow = ((long long)b * a.C + row[h]) * a.N + n;
+    const long long prow = orow * a.nsplit + split;
+    float* dst = a.nsplit == 1 ? a.out + orow * D : a.part_acc + prow * D;
+    const float inv = a.nsplit > 1 ? 1.f : (lsum > 0.f ? 1.f / lsum : 0.f);
+#pragma unroll
+    for (int i = 2 * h; i < DP / 2; i += 4) {
+      const int c = frag_col(lane, i);
+      if (c < D) *reinterpret_cast<float2*>(dst + c) = make_float2(o[i] * inv, o[i + 1] * inv);
+    }
+    if (a.nsplit > 1 && (lane & 3) == 0) {
+      a.part_m[prow] = m[h];
+      a.part_l[prow] = lsum;
+    }
+  }
+}
+
+template <int D>
+cudaError_t launch_paged_tc_d(const Args& a, cudaStream_t stream) {
+  const int bytes = PagedTcSmem<D>::BYTES;
+  void (*kernel)(Args) = paged_prefill_tc_kernel<D>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  dim3 grid(a.nsplit, (a.C + kTcRows - 1) / kTcRows, a.B * a.N);
+  kernel<<<grid, kTcThreads, bytes, stream>>>(a);
+  return combine<D>(a, stream);
+}
+
+cudaError_t launch_paged_tc(const Args& a, int d, cudaStream_t stream) {
+  if (bad_grid(a) || a.tables == nullptr) return cudaErrorInvalidValue;
+  switch (d) {
+    case 32: return launch_paged_tc_d<32>(a, stream);
+    case 64: return launch_paged_tc_d<64>(a, stream);
+    case 128: return launch_paged_tc_d<128>(a, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 Args quantized_args(const void* q, const void* k_pool, const void* v_pool, const void* k_scale,
                     const void* v_scale, const void* tables, const void* lengths, void* out,
                     void* part_m, void* part_l, void* part_acc, int B, int C, int N, int NB,
@@ -991,6 +1415,43 @@ Args quantized_args(const void* q, const void* k_pool, const void* v_pool, const
   a.v_sn = v_sn;
   a.ks_sb = ks_sb;
   a.vs_sb = vs_sb;
+  a.nsplit = nsplit;
+  a.scale = scale;
+  return a;
+}
+
+Args paged_args(const void* q, const void* k_pool, const void* v_pool, const void* tables,
+                const void* lengths, void* out, void* part_m, void* part_l, void* part_acc, int B,
+                int C, int N, int NB, int bs, int M, long long q_sb, long long q_sc,
+                long long q_sn, long long k_sb, long long k_ss, long long k_sn, long long v_sb,
+                long long v_ss, long long v_sn, int nsplit, float scale) {
+  Args a{};
+  a.q = static_cast<const float*>(q);
+  a.k = static_cast<const float*>(k_pool);
+  a.v = static_cast<const float*>(v_pool);
+  a.tables = static_cast<const int*>(tables);
+  a.lengths = static_cast<const int*>(lengths);
+  a.out = static_cast<float*>(out);
+  a.part_m = static_cast<float*>(part_m);
+  a.part_l = static_cast<float*>(part_l);
+  a.part_acc = static_cast<float*>(part_acc);
+  a.B = B;
+  a.C = C;
+  a.N = N;
+  a.M = M;
+  a.bs = bs;
+  a.nb = NB;
+  a.cap = M * bs;
+  a.causal = 1;
+  a.q_sb = q_sb;
+  a.q_sc = q_sc;
+  a.q_sn = q_sn;
+  a.k_sb = k_sb;
+  a.k_ss = k_ss;
+  a.k_sn = k_sn;
+  a.v_sb = v_sb;
+  a.v_ss = v_ss;
+  a.v_sn = v_sn;
   a.nsplit = nsplit;
   a.scale = scale;
   return a;
@@ -1042,7 +1503,8 @@ int ptt_decode_attention_f32(const void* q, const void* k, const void* v,
 
 // K6. q [B, C, N, D] (strides q_sb, q_sc, q_sn); pools [NB, bs, N, D]
 // read through their strides (last dim contiguous); tables [B, M] int32
-// contiguous; lengths [B] int32; out [B, C, N, D].
+// contiguous; lengths [B] int32; out [B, C, N, D]. The CUDA-core
+// kernel: any C (8-row tiles for C > 1).
 int ptt_paged_decode_attention_f32(const void* q, const void* k_pool, const void* v_pool,
                                    const void* tables, const void* lengths, void* out,
                                    void* part_m, void* part_l, void* part_acc, int B, int C,
@@ -1051,37 +1513,28 @@ int ptt_paged_decode_attention_f32(const void* q, const void* k_pool, const void
                                    long long k_ss, long long k_sn, long long v_sb,
                                    long long v_ss, long long v_sn, int nsplit, float scale,
                                    void* stream) {
-  Args a{};
-  a.q = static_cast<const float*>(q);
-  a.k = static_cast<const float*>(k_pool);
-  a.v = static_cast<const float*>(v_pool);
-  a.tables = static_cast<const int*>(tables);
-  a.lengths = static_cast<const int*>(lengths);
-  a.out = static_cast<float*>(out);
-  a.part_m = static_cast<float*>(part_m);
-  a.part_l = static_cast<float*>(part_l);
-  a.part_acc = static_cast<float*>(part_acc);
-  a.B = B;
-  a.C = C;
-  a.N = N;
-  a.M = M;
-  a.bs = bs;
-  a.nb = NB;
-  a.cap = M * bs;
-  a.causal = 1;
-  a.q_sb = q_sb;
-  a.q_sc = q_sc;
-  a.q_sn = q_sn;
-  a.k_sb = k_sb;
-  a.k_ss = k_ss;
-  a.k_sn = k_sn;
-  a.v_sb = v_sb;
-  a.v_ss = v_ss;
-  a.v_sn = v_sn;
-  a.nsplit = nsplit;
-  a.scale = scale;
+  const Args a = paged_args(q, k_pool, v_pool, tables, lengths, out, part_m, part_l, part_acc,
+                            B, C, N, NB, bs, M, q_sb, q_sc, q_sn, k_sb, k_ss, k_sn, v_sb, v_ss,
+                            v_sn, nsplit, scale);
   if (a.tables == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(launch(a, D, static_cast<cudaStream_t>(stream)));
+}
+
+// K6's chunk route: the same arguments and function on the bf16 tensor
+// cores (paged_prefill_tc_kernel; 64 rows a block, so nsplit counts key
+// ranges per (64-row tile, slot, head)).
+int ptt_paged_prefill_attention_f32(const void* q, const void* k_pool, const void* v_pool,
+                                    const void* tables, const void* lengths, void* out,
+                                    void* part_m, void* part_l, void* part_acc, int B, int C,
+                                    int N, int D, int NB, int bs, int M, long long q_sb,
+                                    long long q_sc, long long q_sn, long long k_sb,
+                                    long long k_ss, long long k_sn, long long v_sb,
+                                    long long v_ss, long long v_sn, int nsplit, float scale,
+                                    void* stream) {
+  const Args a = paged_args(q, k_pool, v_pool, tables, lengths, out, part_m, part_l, part_acc,
+                            B, C, N, NB, bs, M, q_sb, q_sc, q_sn, k_sb, k_ss, k_sn, v_sb, v_ss,
+                            v_sn, nsplit, scale);
+  return static_cast<int>(launch_paged_tc(a, D, static_cast<cudaStream_t>(stream)));
 }
 
 // K7. q [B, C, N, D] float32 (strides q_sb, q_sc, q_sn); payload pools
@@ -1089,17 +1542,24 @@ int ptt_paged_decode_attention_f32(const void* q, const void* k_pool, const void
 // read through their strides (last dim contiguous, rows 16-byte
 // aligned); scales [NB, bs] float32 with row strides ks_sb / vs_sb;
 // tables [B, M] int32 contiguous; lengths [B] int32; out [B, C, N, D].
-// The decode route: CUDA cores, C = 1 only (any other C is refused).
+// The decode route: CUDA cores, C = 1 only (any other C is refused), one
+// launch. `work` (int32, zero, left zero) holds round_up(B * N, 4)
+// arrival counters, then B * N * nsplit records of D + 4 floats; null
+// when nsplit == 1.
 int ptt_quantized_paged_decode_attention(
     const void* q, const void* k_pool, const void* v_pool, const void* k_scale,
-    const void* v_scale, const void* tables, const void* lengths, void* out, void* part_m,
-    void* part_l, void* part_acc, int B, int C, int N, int D, int NB, int bs, int M,
-    long long q_sb, long long q_sc, long long q_sn, long long k_sb, long long k_ss,
-    long long k_sn, long long v_sb, long long v_ss, long long v_sn, long long ks_sb,
-    long long vs_sb, int nsplit, float scale, int fp8, void* stream) {
-  const Args a = quantized_args(q, k_pool, v_pool, k_scale, v_scale, tables, lengths, out,
-                                part_m, part_l, part_acc, B, C, N, NB, bs, M, q_sb, q_sc, q_sn,
-                                k_sb, k_ss, k_sn, v_sb, v_ss, v_sn, ks_sb, vs_sb, nsplit, scale);
+    const void* v_scale, const void* tables, const void* lengths, void* out, void* work,
+    int B, int C, int N, int D, int NB, int bs, int M, long long q_sb, long long q_sc,
+    long long q_sn, long long k_sb, long long k_ss, long long k_sn, long long v_sb,
+    long long v_ss, long long v_sn, long long ks_sb, long long vs_sb, int nsplit, float scale,
+    int fp8, void* stream) {
+  Args a = quantized_args(q, k_pool, v_pool, k_scale, v_scale, tables, lengths, out, nullptr,
+                          nullptr, nullptr, B, C, N, NB, bs, M, q_sb, q_sc, q_sn, k_sb, k_ss,
+                          k_sn, v_sb, v_ss, v_sn, ks_sb, vs_sb, nsplit, scale);
+  if (work != nullptr) {
+    a.counters = static_cast<int*>(work);
+    a.records = reinterpret_cast<float*>(a.counters + ((B * N + 3) & ~3));
+  }
   return static_cast<int>(launch_quantized(a, D, fp8 != 0, static_cast<cudaStream_t>(stream)));
 }
 

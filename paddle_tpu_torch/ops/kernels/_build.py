@@ -45,8 +45,11 @@ SIGNATURES = {
     "ptt_paged_decode_attention_f32": (
         [_c_void_p] * 9 + [_c_int] * 7 + [_c_ll] * 9
         + [_c_int, _c_float, _c_void_p]),
+    "ptt_paged_prefill_attention_f32": (
+        [_c_void_p] * 9 + [_c_int] * 7 + [_c_ll] * 9
+        + [_c_int, _c_float, _c_void_p]),
     "ptt_quantized_paged_decode_attention": (
-        [_c_void_p] * 11 + [_c_int] * 7 + [_c_ll] * 11
+        [_c_void_p] * 9 + [_c_int] * 7 + [_c_ll] * 11
         + [_c_int, _c_float, _c_int, _c_void_p]),
     "ptt_quantized_paged_prefill_attention": (
         [_c_void_p] * 11 + [_c_int] * 7 + [_c_ll] * 11

@@ -9,12 +9,16 @@ version, the same masked-gather + softmax arithmetic as the JAX package's
 `decode_attention_reference` / `paged_decode_attention_reference` /
 `quantized_paged_decode_attention_reference`.
 
-K7 has two kernels on the card: decode ticks (C = 1) go to the decode
-kernel (CUDA cores, one key per lane group), every chunk of more rows
-(verify and prefill) to the prefill kernel (`qattn_prefill_tc_kernel`:
-bf16 tensor cores, q and p * s_v split into three bf16 pieces so the
-products keep f32 accuracy). Both take the same arguments and compute
-the same function.
+K6 and K7 each have two kernels on the card. Decode ticks (C = 1) go to
+a decode kernel on the CUDA cores (one key per lane group), every chunk
+of more rows (verify and prefill) to a prefill kernel on the bf16 tensor
+cores that keeps f32 accuracy by splitting operands into three bf16
+pieces: K7's `qattn_prefill_tc_kernel` splits q and p * s_v (its codes
+are exact in bf16), K6's `paged_prefill_tc_kernel` splits q, k, v and p
+and sums six piece products per f32 product. Both kernels of a wrapper
+take the same arguments and compute the same function. K7's decode
+kernel merges its key ranges in the same launch, through a zeroed
+workspace per (device, stream) that it leaves zeroed.
 
 A wrapper takes the plain version only because the tensors it was given
 lie on the CPU. On a CUDA tensor it launches the kernel or raises: a
@@ -33,7 +37,9 @@ __all__ = [
     "quantized_paged_decode_attention", "decode_attention_reference",
     "paged_decode_attention_reference",
     "quantized_paged_decode_attention_reference", "launch_counts",
-    "reset_launch_counts", "split_count",
+    "reset_launch_counts", "split_count", "chunk_split_count",
+    "decode_split_count",
+    "PAGED_TC_MIN_C",
 ]
 
 #: masked-logit value of the JAX package (not -inf: an all-masked row
@@ -49,16 +55,28 @@ _SMS = 132
 _BLOCKS_PER_SM = 4
 _MAX_SPLITS = 16
 
-#: query rows and keys per tile of K7's prefill kernel (C > 1)
+#: query rows and keys per tile of the prefill kernels (C > 1)
 _PREFILL_ROWS = 64
 _PREFILL_KEYS = 64
 
+#: chunks of at least this many rows take K6's tensor-core kernel; on
+#: the card (chip_smoke phase 2's crossover at B = 8) its CUDA-core kernel
+#: was faster at C = 2 and slower from the verify chunk C = 5 up
+PAGED_TC_MIN_C = 5
+
 #: kernel launches per wrapper (bumped once per launched call);
+#: "paged_decode_attention" counts every K6 call and
+#: "paged_prefill_attention" the chunks (C >= PAGED_TC_MIN_C) among them;
 #: "quantized_paged_decode_attention" counts every K7 call, and
 #: "quantized_paged_prefill_attention" the chunks (C > 1) among them
 launch_counts = {"decode_attention": 0, "paged_decode_attention": 0,
+                 "paged_prefill_attention": 0,
                  "quantized_paged_decode_attention": 0,
                  "quantized_paged_prefill_attention": 0}
+
+#: workspaces of K7's decode kernel, one per (device, stream): int32
+#: zeros, zeroed once here; each launch leaves what it used zero again
+_workspaces = {}
 
 #: payload dtypes of K7 and the kernel's fp8 flag for each
 _PAYLOAD_FP8 = {torch.int8: 0, torch.float8_e4m3fn: 1}
@@ -175,10 +193,33 @@ def split_count(blocks, capacity, min_keys=32):
     """Key ranges per (slot, head, row tile) block (flash-decoding
     split-K): enough to put _BLOCKS_PER_SM blocks on every SM, at most
     _MAX_SPLITS, and never more than the window could fill with
-    `min_keys` keys each (32; the prefill kernel's key tile of 64)."""
+    `min_keys` keys each (32; the prefill kernels' key tile of 64)."""
     want = -(-(_SMS * _BLOCKS_PER_SM) // max(int(blocks), 1))
     return int(max(1, min(want, _MAX_SPLITS,
                           -(-int(capacity) // int(min_keys)))))
+
+
+def chunk_split_count(blocks, capacity):
+    """Key ranges per (64-row tile, slot, head) of K6's chunk kernel:
+    about three blocks an SM, rounded down (the kernel holds two an SM,
+    with 106 KB of shared memory at D = 64 against K7's 42 KB, so K7's
+    rule of four would queue three waves of the 96 tiles of the main
+    path's verify chunk), at most _MAX_SPLITS and never under one key
+    tile of 64 a range."""
+    want = _SMS * 3 // max(int(blocks), 1)
+    return int(max(1, min(want, _MAX_SPLITS,
+                          -(-int(capacity) // _PREFILL_KEYS))))
+
+
+def decode_split_count(capacity, d):
+    """Key ranges per (slot, head) of K7's decode kernel: as many as give
+    each block at most two steps of keys (its 128 / (D / 16) lane groups
+    take 4 keys a step: 256 keys at D = 64, so 4 ranges of a 1024-key
+    window), at most _MAX_SPLITS. The ranges are cut from the capacity
+    and all of them run at once: the slowest block, not the count, sets
+    the time."""
+    keys = 2 * 4 * 128 // (int(d) // 16)
+    return int(max(1, min(_MAX_SPLITS, -(-int(capacity) // keys))))
 
 
 def _check_operand(name, t, ndim):
@@ -298,12 +339,12 @@ def paged_decode_attention(q, k_pool, v_pool, tables, lengths):
     """K6: chunked paged decode attention, q [B, C, N, D] against block
     pools [NB, bs, N, D] through block tables [B, M] int32, with
     committed lengths [B] int32; row c sees positions < lengths[b]+c+1.
-    Any C (decode 1, verify k+1, prefill continuation up to max_len).
-    Returns [B, C, N, D]."""
+    Any C (decode 1, verify k+1, prefill continuation up to max_len): a
+    decode tick takes the CUDA-core kernel, a chunk of PAGED_TC_MIN_C
+    rows or more the tensor-core kernel. Returns [B, C, N, D]."""
     if q.device.type == "cpu":
         return paged_decode_attention_reference(q, k_pool, v_pool, tables,
                                                 lengths)
-    from paddle_tpu_torch.ops.kernels import _build
     _check_operand("q", q, 4)
     _check_operand("k_pool", k_pool, 4)
     _check_operand("v_pool", v_pool, 4)
@@ -319,36 +360,53 @@ def paged_decode_attention(q, k_pool, v_pool, tables, lengths):
             "q and pools must share a device")
     _check_index("tables", tables, 2, q.device)
     _check_index("lengths", lengths, 1, q.device)
-    m = tables.shape[1]
     enforce(tables.shape[0] == b and lengths.shape[0] == b,
             "tables %s / lengths %s do not match batch %d",
             tuple(tables.shape), tuple(lengths.shape), b)
+    return _launch_paged(q, k_pool, v_pool, tables, lengths)
+
+
+def _launch_paged(q, k_pool, v_pool, tables, lengths):
+    """One K6 launch on checked operands, counted: a decode tick on the
+    CUDA-core kernel, a chunk of PAGED_TC_MIN_C rows or more on the
+    tensor-core kernel. Returns [B, C, N, D] float32."""
+    from paddle_tpu_torch.ops.kernels import _build
+    b, c, n, d = q.shape
+    nb, bs = k_pool.shape[0], k_pool.shape[1]
+    m = tables.shape[1]
     out = torch.empty((b, c, n, d), dtype=torch.float32, device=q.device)
     if b == 0 or c == 0 or n == 0:
         return out
-    row_tiles = 1 if c == 1 else -(-c // 8)
-    nsplit = split_count(b * n * row_tiles, m * bs)
+    chunk = c >= PAGED_TC_MIN_C
+    if chunk:
+        nsplit = chunk_split_count(b * n * -(-c // _PREFILL_ROWS), m * bs)
+        fn = "ptt_paged_prefill_attention_f32"
+    else:
+        nsplit = split_count(b * n * (1 if c == 1 else -(-c // 8)), m * bs)
+        fn = "ptt_paged_decode_attention_f32"
     pm, pl, pacc = _partials(b * c * n, nsplit, d, q.device)
     lib = _build.load_library()
-    err = lib.ptt_paged_decode_attention_f32(
+    err = getattr(lib, fn)(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         tables.data_ptr(), lengths.data_ptr(), out.data_ptr(), _ptr(pm),
         _ptr(pl), _ptr(pacc), b, c, n, d, nb, bs, m,
         q.stride(0), q.stride(1), q.stride(2),
         k_pool.stride(0), k_pool.stride(1), k_pool.stride(2),
         v_pool.stride(0), v_pool.stride(1), v_pool.stride(2),
-        nsplit, 1.0 / math.sqrt(d),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        nsplit, 1.0 / math.sqrt(d), _stream(q.device))
     _raise_on(err, "paged_decode_attention")
     launch_counts["paged_decode_attention"] += 1
+    if chunk:
+        launch_counts["paged_prefill_attention"] += 1
     return out
 
 
 def _launch_quantized(q, k_pool, v_pool, k_scale, v_scale, tables,
                       lengths):
     """One K7 launch on checked operands, counted: a decode tick (C = 1)
-    on the decode kernel, a longer chunk on the prefill kernel. Returns
-    [B, C, N, D] float32."""
+    on the decode kernel (one launch; its workspace when the keys split),
+    a longer chunk on the prefill kernel (partials and a combine).
+    Returns [B, C, N, D] float32."""
     from paddle_tpu_torch.ops.kernels import _build
     b, c, n, d = q.shape
     nb, bs = k_pool.shape[0], k_pool.shape[1]
@@ -357,18 +415,24 @@ def _launch_quantized(q, k_pool, v_pool, k_scale, v_scale, tables,
     if b == 0 or c == 0 or n == 0:
         return out
     if c == 1:
-        nsplit = split_count(b * n, m * bs)
+        nsplit = decode_split_count(m * bs, d)
         fn = "ptt_quantized_paged_decode_attention"
+        work = None
+        if nsplit > 1:   # arrival counters, then (acc, m, l) records
+            rows = b * n
+            work = _workspace(-(-rows // 4) * 4 + rows * nsplit * (d + 4),
+                              q.device)
+        buffers = (work,)
     else:
         nsplit = split_count(b * n * -(-c // _PREFILL_ROWS), m * bs,
                              _PREFILL_KEYS)
         fn = "ptt_quantized_paged_prefill_attention"
-    pm, pl, pacc = _partials(b * c * n, nsplit, d, q.device)
+        buffers = _partials(b * c * n, nsplit, d, q.device)
     lib = _build.load_library()
     err = getattr(lib, fn)(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         k_scale.data_ptr(), v_scale.data_ptr(), tables.data_ptr(),
-        lengths.data_ptr(), out.data_ptr(), _ptr(pm), _ptr(pl), _ptr(pacc),
+        lengths.data_ptr(), out.data_ptr(), *map(_ptr, buffers),
         b, c, n, d, nb, bs, m,
         q.stride(0), q.stride(1), q.stride(2),
         k_pool.stride(0), k_pool.stride(1), k_pool.stride(2),
@@ -376,11 +440,26 @@ def _launch_quantized(q, k_pool, v_pool, k_scale, v_scale, tables,
         k_scale.stride(0), v_scale.stride(0),
         nsplit, 1.0 / math.sqrt(d), _PAYLOAD_FP8[k_pool.dtype],
         _stream(q.device))
+    if err != 0 and c == 1:   # the workspace may not be zero any more
+        _workspaces.pop((q.device, _stream(q.device)), None)
     _raise_on(err, "quantized_paged_decode_attention")
     launch_counts["quantized_paged_decode_attention"] += 1
     if c > 1:
         launch_counts["quantized_paged_prefill_attention"] += 1
     return out
+
+
+def _workspace(size, device):
+    """At least `size` zeroed int32 of the decode kernel's workspace for
+    `device`'s current stream (kernels on one stream run in order, so
+    they can share it); allocated, and zeroed, only when it has to
+    grow."""
+    key = (device, _stream(device))
+    work = _workspaces.get(key)
+    if work is None or work.numel() < size:
+        work = _workspaces[key] = torch.zeros(size, dtype=torch.int32,
+                                              device=device)
+    return work
 
 
 def quantized_paged_decode_attention(q, k_pool, v_pool, k_scale, v_scale,

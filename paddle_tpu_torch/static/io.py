@@ -22,6 +22,7 @@ import torch
 
 from paddle_tpu_torch.core.enforce import EnforceError, enforce
 from paddle_tpu_torch.core.ir import Program, Variable, default_main_program
+from paddle_tpu_torch.core.places import resolve_device
 from paddle_tpu_torch.core.scope import global_scope
 from paddle_tpu_torch.reliability.faults import inject_point
 
@@ -73,7 +74,8 @@ def save_persistables(executor, dirname, main_program=None, filename=None):
 
 def load_persistables(executor, dirname, main_program=None, filename=None):
     """Read a params file into the current scope, as tensors on the
-    executor's device (the CPU without an executor)."""
+    executor's device; without an executor, on the GPU
+    (`core.places.resolve_device(None)`: raises when none is visible)."""
     path = os.path.join(dirname, filename or PARAMS_FILENAME)
     inject_point("io.load_persistables", tag=path)
     try:
@@ -85,7 +87,8 @@ def load_persistables(executor, dirname, main_program=None, filename=None):
     except (ValueError, KeyError, zipfile.BadZipFile) as e:
         raise CheckpointError(
             f"params file {path} is corrupt (truncated write?): {e}") from e
-    device = executor.device if executor is not None else torch.device("cpu")
+    device = (executor.device if executor is not None
+              else resolve_device(None))
     scope = global_scope()
     for name, arr in loaded.items():
         scope.set(name, torch.from_numpy(arr).to(device))

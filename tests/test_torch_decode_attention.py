@@ -162,6 +162,7 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
         vp[..., 0, 0].abs(), tables, lengths)
     assert tda.launch_counts == {"decode_attention": 0,
                                  "paged_decode_attention": 0,
+                                 "paged_prefill_attention": 0,
                                  "quantized_paged_decode_attention": 0,
                                  "quantized_paged_prefill_attention": 0}
 
@@ -183,6 +184,7 @@ def test_library_is_named_by_its_sources():
     assert path == _build.library_path()
     assert set(_build.SIGNATURES) == {"ptt_decode_attention_f32",
                                       "ptt_paged_decode_attention_f32",
+                                      "ptt_paged_prefill_attention_f32",
                                       "ptt_quantized_paged_decode_attention",
                                       "ptt_quantized_paged_prefill_attention",
                                       "ptt_flash_fwd", "ptt_flash_bwd",

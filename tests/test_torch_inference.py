@@ -312,6 +312,28 @@ def test_persistables_round_trip_and_atomic_write(tmp_path):
         tstatic.io.load_persistables(exe, str(tmp_path / "missing"))
 
 
+def test_load_persistables_without_an_executor_means_the_gpu(tmp_path):
+    """The port's entry points take device=None as CUDA: with no executor,
+    load_persistables resolves the GPU and raises where none is visible,
+    never loading onto the CPU quietly; with a CPU executor it still
+    round-trips."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is visible: device=None resolves to it")
+    d = str(tmp_path / "ckpt")
+    main, startup, _ = _port_build()
+    exe = TExecutor("cpu")
+    exe.run(startup)
+    tstatic.io.save_persistables(exe, d, main_program=main)
+    before = tstatic.io.global_scope().find_np("conv2d_w_0")
+    fresh = Scope()
+    with scope_guard(fresh):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            tstatic.io.load_persistables(None, d)
+        assert fresh.find_np("conv2d_w_0") is None
+        tstatic.io.load_persistables(exe, d)
+        np.testing.assert_array_equal(fresh.find_np("conv2d_w_0"), before)
+
+
 def test_export_passes_match_jax():
     """optimize_inference_program of both packages on the same program
     and params: the same program and bit-equal params."""

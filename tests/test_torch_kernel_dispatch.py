@@ -1,18 +1,23 @@
-"""The host code of K7's two routes and of K8's split-K, on the CPU.
+"""The host code of K6's and K7's two routes and of K8's split-K, on the
+CPU.
 
 `_build.load_library` is replaced by a recording stub (as in
 tests/test_torch_flash_dispatch.py), so the launch helpers run with CPU
 tensors: each records the C function it called and its arguments and
-returns 0. That checks, without a card, that K7 sends decode ticks
-(C = 1) to the decode kernel and the verify and prefill chunks to the
-tensor-core kernel with the partial buffers each needs; that K8 in int8
-mode asks for the split count `k8_split_count` gives and hands the
-kernel a zeroed int32 workspace of M * N sums plus one arrival counter
-per output tile, reused from call to call (the kernel leaves it zero);
-that every call has the arity `_build.SIGNATURES`
-declares; and that those declarations match the C prototypes in
-csrc/. The kernels' arithmetic is held against the plain versions on
-the card (tests/test_torch_kernels_cuda.py).
+returns 0. That checks, without a card, that K6 sends decode ticks and
+chunks below PAGED_TC_MIN_C to its CUDA-core kernel and longer chunks to
+its tensor-core kernel, with the partials and split count each needs;
+that K7 sends decode ticks (C = 1) to its one-launch decode kernel with
+a zeroed int32 workspace of arrival counters and records (reused from
+call to call, dropped after a refused launch) and the verify and
+prefill chunks to its tensor-core kernel with partial buffers; that K8
+in int8 mode asks for the split count `k8_split_count` gives and hands
+the kernel a zeroed int32 workspace of M * N sums plus one arrival
+counter per output tile, reused from call to call (the kernel leaves it
+zero); that every call has the arity `_build.SIGNATURES` declares; and
+that those declarations match the C prototypes in csrc/. The kernels'
+arithmetic is held against the plain versions on the card
+(tests/test_torch_kernels_cuda.py).
 """
 import ctypes
 import pathlib
@@ -56,6 +61,7 @@ def stub(monkeypatch):
     monkeypatch.setattr(tda, "_stream", lambda device: 0)
     monkeypatch.setattr(tk8, "_stream", lambda device: 0)
     monkeypatch.setattr(tk8, "_workspaces", {})
+    monkeypatch.setattr(tda, "_workspaces", {})
     tda.reset_launch_counts()
     tk8.reset_launch_counts()
     yield lib
@@ -114,17 +120,94 @@ def test_k7_launch_hands_each_kernel_its_partials(stub, monkeypatch, b, c):
     n, d, m, bs = args[0].shape[2], args[0].shape[3], 16, 8
     if route == "prefill":   # 64-row tiles, key ranges of >= 64 keys
         nsplit = tda.split_count(b * n * -(-c // 64), m * bs, 64)
-    else:                    # one row, >= 32 keys
-        nsplit = tda.split_count(b * n, m * bs)
-    assert shapes == [(b * c * n, nsplit, d)]
+        assert shapes == [(b * c * n, nsplit, d)]
+    else:                    # one row, one launch: a workspace, no partials
+        nsplit = tda.decode_split_count(m * bs, d)
+        assert shapes == []
     nsplit_arg = call[-4]
     assert nsplit_arg == nsplit
-    assert (call[8] is None) == (nsplit == 1)       # part_m only when split
-    assert call[11:18] == (b, c, n, d, b * m + 1, bs, m)
+    # part_m (prefill) or the workspace (decode) only when split
+    assert (call[8] is None) == (nsplit == 1)
+    first_int = 11 if route == "prefill" else 9
+    assert call[first_int:first_int + 7] == (b, c, n, d, b * m + 1, bs, m)
     assert out.shape == (b, c, n, d)
     assert tda.launch_counts["quantized_paged_decode_attention"] == 1
     assert tda.launch_counts["quantized_paged_prefill_attention"] == \
         (route == "prefill")
+
+
+@pytest.mark.parametrize("blocks,cap,nsplit", [
+    (8 * 12, 1024, 4),       # the verify chunk (C = 5, B = 8, N = 12)
+    (12, 1024, 16),          # a prefill bucket of <= 64 rows at B = 1
+    (8 * 12 * 8, 1024, 1),   # C = 512 at B = 8: the tiles fill the card
+    (12, 100, 2),            # never under 64 keys a range
+])
+def test_k6_chunk_split_count(blocks, cap, nsplit):
+    assert tda.chunk_split_count(blocks, cap) == nsplit
+
+
+@pytest.mark.parametrize("cap,d,nsplit", [
+    (1024, 64, 4),      # the main path's decode tick: two steps of 128 keys
+    (1024, 32, 2),      # 64 lane groups: 256 keys a step
+    (1024, 128, 8),     # 16 lane groups: 64 keys a step
+    (256, 64, 1),       # two steps cover the window
+    (100000, 64, 16),   # at most _MAX_SPLITS
+])
+def test_k7_decode_split_count(cap, d, nsplit):
+    assert tda.decode_split_count(cap, d) == nsplit
+
+
+@pytest.mark.parametrize("b,n,d", [(8, 12, 64), (1, 2, 32), (3, 5, 128)])
+def test_k7_decode_launch_hands_a_zeroed_workspace(stub, b, n, d):
+    """C = 1 with a window that splits: one call of the decode kernel
+    with a zeroed int32 workspace of round_up(B * N, 4) arrival counters
+    and B * N * nsplit records of D + 4 floats."""
+    seen = {}
+    nsplit = tda.decode_split_count(128 * 8, d)
+    size = -(-(b * n) // 4) * 4 + b * n * nsplit * (d + 4)
+
+    def hook(name, args):
+        words = (ctypes.c_int32 * size).from_address(args[8])
+        seen["zeroed"] = not any(words)
+
+    stub.hook = hook
+    args = _k7_args(b, 1, n=n, d=d, m=128)
+    tda._launch_quantized(*args)
+    (name, call), = stub.calls
+    assert name == "ptt_quantized_paged_decode_attention"
+    assert call[-4] == nsplit > 1 and seen["zeroed"]
+    (work,) = tda._workspaces.values()
+    assert work.dtype == torch.int32 and work.numel() == size
+
+
+def test_k7_decode_calls_reuse_the_workspace(stub):
+    """The kernel leaves its workspace zero, so the wrapper zeroes one
+    only when it allocates or grows it: a smaller call reuses it."""
+    ptrs = []
+    stub.hook = lambda name, args: ptrs.append(args[8])
+    tda._launch_quantized(*_k7_args(8, 1, n=12, m=128))
+    tda._launch_quantized(*_k7_args(1, 1, n=12, m=128))    # fits
+    tda._launch_quantized(*_k7_args(8, 1, n=12, m=128))
+    assert len(set(ptrs)) == 1 and len(tda._workspaces) == 1
+    tda._launch_quantized(*_k7_args(16, 1, n=12, m=128))   # grows
+    assert ptrs[-1] != ptrs[0]
+    assert tda._workspaces[(torch.device("cpu"), 0)].numel() >= \
+        16 * 12 * (1 + 4 * 68)
+    tda._launch_quantized(*_k7_args(1, 1, n=2, m=16))      # no split
+    assert ptrs[-1] is None
+
+
+def test_k7_decode_failed_launch_drops_the_workspace(monkeypatch, stub):
+    """After a refused launch the workspace may not be zero: the next
+    call gets a fresh one."""
+    tda._launch_quantized(*_k7_args(8, 1, n=12, m=128))
+    assert len(tda._workspaces) == 1
+    monkeypatch.setattr(_Recorder, "__getattr__",
+                        lambda self, name: lambda *args: 1)
+    with pytest.raises(RuntimeError, match="cudaError_t 1"):
+        tda._launch_quantized(*_k7_args(8, 1, n=12, m=128))
+    assert tda._workspaces == {}
+    assert tda.launch_counts["quantized_paged_decode_attention"] == 1
 
 
 def test_k7_prefill_splits_fill_the_card_at_batch_one():
@@ -134,6 +217,59 @@ def test_k7_prefill_splits_fill_the_card_at_batch_one():
     assert tda.split_count(1 * 12 * 8, 1024, 64) == 6
     assert tda.split_count(8 * 12 * 8, 1024, 64) == 1
     assert tda.split_count(1, 100, 64) == 2
+
+
+# ---------------------------------------------------------------------
+# K6: decode route and chunk route
+# ---------------------------------------------------------------------
+
+_K6_KERNELS = {"decode": "ptt_paged_decode_attention_f32",
+               "chunk": "ptt_paged_prefill_attention_f32"}
+
+
+def _k6_args(b, c, n=2, d=64, bs=8, m=16):
+    rng = np.random.RandomState(c)
+    nb = b * m + 1
+    q = torch.from_numpy(rng.randn(b, c, n, d).astype(np.float32))
+    kp = torch.from_numpy(rng.randn(nb, bs, n, d).astype(np.float32))
+    tables = torch.arange(1, nb, dtype=torch.int32).reshape(b, m)
+    return q, kp, kp.clone(), tables, torch.zeros(b, dtype=torch.int32)
+
+
+@pytest.mark.parametrize("c,route", [(1, "decode"), (2, "decode"),
+                                     (4, "decode"), (5, "chunk"),
+                                     (8, "chunk"), (64, "chunk"),
+                                     (512, "chunk")])
+def test_k6_route_by_chunk(stub, monkeypatch, c, route):
+    """Decode ticks (C = 1) and chunks shorter than PAGED_TC_MIN_C stay
+    on the CUDA-core kernel (8-row tiles); every chunk from the verify
+    chunk C = 5 up (prefill buckets too) takes the tensor-core kernel,
+    with the partials its 64-row tiles need; both are counted."""
+    assert tda.PAGED_TC_MIN_C == 5
+    shapes = []
+    real = tda._partials
+
+    def partials(rows, nsplit, d, device):
+        shapes.append((rows, nsplit, d))
+        return real(rows, nsplit, d, device)
+
+    monkeypatch.setattr(tda, "_partials", partials)
+    b, m, bs = 2, 16, 8
+    args = _k6_args(b, c, m=m, bs=bs)
+    n, d = args[0].shape[2], args[0].shape[3]
+    out = tda._launch_paged(*args)
+    (name, call), = stub.calls
+    assert name == _K6_KERNELS[route]
+    assert len(call) == len(_build.SIGNATURES[name])
+    if route == "chunk":
+        nsplit = tda.chunk_split_count(b * n * -(-c // 64), m * bs)
+    else:
+        nsplit = tda.split_count(b * n * -(-c // 8), m * bs)
+    assert call[-3] == nsplit and shapes == [(b * c * n, nsplit, d)]
+    assert call[9:16] == (b, c, n, d, b * m + 1, bs, m)
+    assert out.shape == (b, c, n, d)
+    assert tda.launch_counts["paged_decode_attention"] == 1
+    assert tda.launch_counts["paged_prefill_attention"] == (route == "chunk")
 
 
 # ---------------------------------------------------------------------

@@ -1,6 +1,6 @@
-"""The CUDA kernels on the card (K5, K6, K7; K1-K4 and K8 below): each against
-its plain PyTorch version, the launch counters, and the wrappers' input
-checks.
+"""The CUDA kernels on the card (K5, K6 and K7 with both routes each; K1-K4
+and K8 below): each against its plain PyTorch version, the launch
+counters, K7's decode workspace, and the wrappers' input checks.
 
 Every test here carries the `cuda` marker and skips without a GPU (the
 kernels are CUDA C++ for sm_90a and have no CPU mode). The file imports
@@ -91,6 +91,57 @@ def test_k6_kernel_matches_plain(cuda, c):
     want = tda.paged_decode_attention_reference(q, kp, vp, tables, ln)
     torch.cuda.synchronize()
     assert tda.launch_counts["paged_decode_attention"] == before + 1
+    assert float((got - want).abs().max()) <= TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("b", [1, 8])
+@pytest.mark.parametrize("c", [2, 5, 16, 64, 512])
+def test_k6_chunk_route_matches_plain(cuda, monkeypatch, c, b, d):
+    """The tensor-core kernel (six bf16 piece products per f32 product)
+    over a shuffled pool (block_size 8, M = 128), K at 3x the scale of V,
+    lengths from 0 to a full window, from the shortest chunk (C = 2,
+    routed there by lowering PAGED_TC_MIN_C) and the verify chunk (C = 5)
+    to the largest prefill bucket; B = 1 splits the keys, B = 8 at C =
+    512 does not."""
+    monkeypatch.setattr(tda, "PAGED_TC_MIN_C", 2)
+    n, bs, m = 4, 8, 128
+    nb = b * m + 1
+    rng = np.random.RandomState(c + b + d + 1)
+    q = _randn(rng, b, c, n, d, device=cuda)
+    kp = 3.0 * _randn(rng, nb, bs, n, d, device=cuda)
+    vp = _randn(rng, nb, bs, n, d, device=cuda)
+    tables = _ints(rng.permutation(np.arange(1, nb)).reshape(b, m), cuda)
+    top = m * bs - c
+    ln = _ints(np.concatenate([[0, top], rng.randint(0, top + 1, 6)])
+               if b > 1 else [top // 2 if c == 64 else 0], cuda)
+    before = dict(tda.launch_counts)
+    got = tda.paged_decode_attention(q, kp, vp, tables, ln)
+    want = tda.paged_decode_attention_reference(q, kp, vp, tables, ln)
+    torch.cuda.synchronize()
+    for key in ("paged_decode_attention", "paged_prefill_attention"):
+        assert tda.launch_counts[key] == before[key] + 1
+    assert got.shape == (b, c, n, d) and bool(torch.isfinite(got).all())
+    assert float((got - want).abs().max()) <= TOL
+
+
+@pytest.mark.cuda
+def test_k6_chunk_route_reads_a_layer_view_of_the_engine_pools(cuda):
+    """The engine's operands: one layer of [L, NB, bs, N, D] pools, q a
+    view of the fused QKV projection, tables with repeated blocks."""
+    rng = np.random.RandomState(10)
+    n, d, bs, nb = 12, 64, 8, 17
+    pools = _randn(rng, 2, 2, nb, bs, n, d, device=cuda)
+    qkv = _randn(rng, 2, 70, 3 * n * d, device=cuda)
+    q = qkv[..., :n * d].reshape(2, 70, n, d)
+    tab = rng.randint(0, nb, size=(2, 16))
+    tables = _ints(tab, cuda)
+    ln = _ints([5, 40], cuda)
+    got = tda.paged_decode_attention(q, pools[0, 1], pools[1, 1], tables, ln)
+    want = tda.paged_decode_attention_reference(q, pools[0, 1], pools[1, 1],
+                                                tables, ln)
+    torch.cuda.synchronize()
     assert float((got - want).abs().max()) <= TOL
 
 
@@ -190,6 +241,33 @@ def test_k7_prefill_route_matches_plain(cuda, c, b, d, kv_dtype):
         assert tda.launch_counts[key] == before[key] + 1
     assert got.shape == (b, c, n, d) and bool(torch.isfinite(got).all())
     assert float((got - want).abs().max()) <= TOL
+
+
+@pytest.mark.cuda
+def test_k7_decode_calls_share_a_workspace_and_leave_it_zero(cuda):
+    """Decode ticks (C = 1) of several shapes in a row on one stream, the
+    keys split into ranges: each call is one launch, right, and leaves
+    every counter and record of the shared workspace zero."""
+    rng = np.random.RandomState(11)
+    for b, n, d, m, kv_dtype in [(8, 12, 64, 128, "int8"),
+                                 (3, 4, 128, 64, "fp8_e4m3"),
+                                 (8, 12, 64, 128, "fp8_e4m3"),
+                                 (2, 2, 32, 200, "int8")]:
+        bs = 8
+        nb = b * m + 1
+        assert tda.decode_split_count(m * bs, d) > 1
+        q = _randn(rng, b, 1, n, d, device=cuda)
+        kq, vq, ks, vs = _quantized_pools(rng, nb, bs, n, d, kv_dtype, cuda)
+        tables = _ints(rng.permutation(np.arange(1, nb)).reshape(b, m), cuda)
+        ln = _ints(rng.randint(0, m * bs, size=b), cuda)
+        got = tda.quantized_paged_decode_attention(q, kq, vq, ks, vs, tables,
+                                                   ln)
+        want = tda.quantized_paged_decode_attention_reference(
+            q, kq, vq, ks, vs, tables, ln)
+        torch.cuda.synchronize()
+        assert float((got - want).abs().max()) <= TOL
+        work = tda._workspaces[(q.device, tda._stream(q.device))]
+        assert int(work.abs().max()) == 0
 
 
 @pytest.mark.cuda

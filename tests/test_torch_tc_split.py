@@ -18,6 +18,14 @@ a fresh float32 sum of each tile's P.V added to O) and is held against
 the port's plain version and the JAX package's reference at C = 16 and
 512. With two pieces the same emulation misses the tolerance: that is
 why the kernel spends three products where bf16 would spend one.
+
+K6's chunk kernel (`paged_prefill_tc_kernel`) has f32 keys and values,
+which bf16 does not hold exactly, so k and v are split into three pieces
+too and each product is a sum of piece products. `tc_paged_emulation`
+repeats that arithmetic for a chosen set of piece pairs (i, j), i the
+piece of q (or p), j of k (or v): the six pairs with i + j <= 2 that the
+kernel runs meet the tolerance at D = 32, 64 and 128, C = 2, 16 and
+512, against the JAX package's reference; every set of five misses it.
 """
 import importlib
 import math
@@ -177,3 +185,102 @@ def test_two_pieces_miss_it(kv_dtype):
     err2 = float((tc_prefill_emulation(*args, pieces=2) - want).abs().max())
     err3 = float((tc_prefill_emulation(*args, pieces=3) - want).abs().max())
     assert err2 > TOL > err3, (err2, err3)
+
+
+# ---------------------------------------------------------------------
+# K6's chunk kernel: f32 pools, both operands in pieces
+# ---------------------------------------------------------------------
+
+#: the piece pairs the kernel sums, smallest products first
+SIX_PAIRS = ((2, 0), (1, 1), (0, 2), (1, 0), (0, 1), (0, 0))
+
+
+def tc_paged_emulation(q, k_pool, v_pool, tables, lengths, pairs=SIX_PAIRS,
+                       key_tile=64):
+    """K6 as the chunk kernel computes it, in float32 on the CPU: S = sum
+    over `pairs` (i, j) of q's piece i . k's piece j ^T, s = S * scale,
+    masked to keys < lengths[b] + row + 1; an online softmax over tiles
+    of `key_tile` keys; O_tile = sum over `pairs` of p's piece i . v's
+    piece j, O = O * corr + O_tile; out = O / l."""
+    b, c, n, d = q.shape
+    bs, m = k_pool.shape[1], tables.shape[1]
+    idx = tables.long().clamp(0, k_pool.shape[0] - 1)
+    win_k = k_pool[idx].reshape(b, m * bs, n, d)
+    win_v = v_pool[idx].reshape(b, m * bs, n, d)
+    scale = 1.0 / math.sqrt(d)
+    out = torch.zeros_like(q)
+    for bi in range(b):
+        lim = (int(lengths[bi]) + torch.arange(c) + 1).clamp(max=m * bs)
+        n_keys = int(lim.max())
+        for h in range(n):
+            qp = split_pieces(q[bi, :, h])
+            o = torch.zeros(c, d)
+            mx = torch.full((c,), tda.NEG_INF)
+            l_sum = torch.zeros(c)
+            for k0 in range(0, n_keys, key_tile):
+                keys = torch.arange(k0, min(k0 + key_tile, n_keys))
+                kp = split_pieces(win_k[bi, keys, h])
+                vp = split_pieces(win_v[bi, keys, h])
+                s = sum(qp[i] @ kp[j].T for i, j in pairs) * scale
+                s = torch.where(keys[None, :] < lim[:, None], s,
+                                torch.full_like(s, tda.NEG_INF))
+                m_new = torch.maximum(mx, s.max(dim=1).values)
+                corr = torch.exp(mx - m_new)
+                mu = torch.where(m_new == tda.NEG_INF,
+                                 torch.zeros_like(m_new), m_new)
+                p = torch.exp(s - mu[:, None])
+                l_sum = l_sum * corr + p.sum(dim=1)
+                pp = split_pieces(p)
+                o = o * corr[:, None] + sum(pp[i] @ vp[j] for i, j in pairs)
+                mx = m_new
+            inv = torch.where(l_sum > 0, 1.0 / l_sum, torch.zeros_like(l_sum))
+            out[bi, :, h] = o * inv[:, None]
+    return out
+
+
+def _paged_inputs(b, c, n, d, seed, bs=8, m=128):
+    """q, f32 pools (K at 3x the scale of V, as chip_smoke's phase 2),
+    shuffled tables over a 1024-key window, lengths 0 and 511."""
+    rng = np.random.RandomState(seed)
+    nb = b * m + 1
+    q = torch.from_numpy(rng.randn(b, c, n, d).astype(np.float32))
+    kp = torch.from_numpy((3.0 * rng.randn(nb, bs, n, d)).astype(np.float32))
+    vp = torch.from_numpy(rng.randn(nb, bs, n, d).astype(np.float32))
+    perm = rng.permutation(np.arange(1, nb)).astype(np.int32)
+    tables = torch.from_numpy(perm.reshape(b, m))
+    lengths = torch.tensor([0, min(511, m * bs - c)][:b], dtype=torch.int32)
+    return q, kp, vp, tables, lengths
+
+
+def test_six_pairs_are_those_of_total_rank_at_most_two():
+    assert sorted(SIX_PAIRS) == sorted(
+        (i, j) for i in range(3) for j in range(3) if i + j <= 2)
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("c", [2, 16, 512])
+def test_six_pairs_meet_the_f32_tolerance(c, d):
+    """With margin: within half the card's tolerance, so the tensor
+    cores' own summation has room."""
+    args = _paged_inputs(2, c, 2, d, seed=c + d)
+    got = tc_paged_emulation(*args)
+    want = tda.paged_decode_attention_reference(*args)
+    assert float((got - want).abs().max()) <= TOL / 2
+    jax_out = np.asarray(jfa.paged_decode_attention_reference(
+        *(jnp.asarray(t.numpy()) for t in args)))
+    np.testing.assert_allclose(got.numpy(), jax_out, atol=TOL, rtol=0)
+
+
+@pytest.mark.parametrize("dropped", [(2, 0), (1, 1), (0, 2)])
+def test_five_pairs_miss_it(dropped):
+    """Leaving out any pair of total rank 2 (an error term of 2^-16 of a
+    product, like K7's two pieces) puts the output 2.7e-5 to 3.3e-5 from
+    the plain version at C = 512, D = 64, over the 2e-5 the card holds
+    K6 to, where the six pairs stay near 5e-6."""
+    args = _paged_inputs(2, 512, 2, 64, seed=512 + 64)
+    want = tda.paged_decode_attention_reference(*args)
+    five = tuple(p for p in SIX_PAIRS if p != dropped)
+    err5 = float((tc_paged_emulation(*args, pairs=five) - want).abs().max())
+    err6 = float((tc_paged_emulation(*args) - want).abs().max())
+    assert err5 > TOL > err6, (err5, err6)
+
