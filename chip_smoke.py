@@ -11,8 +11,9 @@ Phases, each of which raises (exit code != 0) when its check fails:
    of the CUDA kernels from `paddle_tpu_torch/csrc/` and the build
    report of the tensor-core kernels (BUILD_CHECKS): each
    instantiation's ptxas line and its SASS opcodes (cuobjdump), failing
-   on a spill, on no HGMMA in the bf16 flash pair or K6's / K7's chunk
-   kernels, on no IMMA in K8's int8 kernel or on IDP4A there.
+   on a spill, on no HGMMA in the bf16 flash pair, the f32 flash forward,
+   K6's / K7's chunk kernels or K8's weight-only kernel, on no IMMA in
+   K8's int8 kernel or on IDP4A there.
 2. Kernels against their plain PyTorch versions on the card, at the
    shapes the serving path gives them, max |kernel - plain| <= 2e-5
    (float32, TF32 off; the tolerance covers summation order): K5 at
@@ -76,13 +77,17 @@ Phases, each of which raises (exit code != 0) when its check fails:
    version:
    `flash_fwd` and `flash_bwd` (bf16, tensor cores) at BERT-base shapes
    (B=32, T=512, N=12, D=64; all-ones mask, padding mask, dropout 0.1)
-   and the CUDA-core f32 trio (`flash_fwd_f32`, `flash_bwd_dkv_f32`,
-   `flash_bwd_dq_f32`) on the general path (T=1024, causal, mask_grad):
-   o, lse, dq/dk/dv(/dmask) within FLASH_TOL of max |plain|, each case
-   launching only its dtype's kernels. The bf16 pair is timed at the
-   main path's case (dropout 0.1) and the f32 trio at phase 8's (batch
-   4), each beside its plain version, `F.scaled_dot_product_attention`
-   on the same tensors (a yardstick the port never calls) and its bound.
+   and the f32 trio (`flash_fwd_f32` on the bf16 tensor cores with six
+   piece products per f32 product, `flash_bwd_dkv_f32` and
+   `flash_bwd_dq_f32` on the CUDA cores) on the general path (T=1024,
+   causal, mask_grad) and on views whose rows are not 16-byte aligned
+   (offset by one float): o, lse, dq/dk/dv(/dmask) within FLASH_TOL of
+   max |plain|, each case launching only its dtype's kernels. The bf16
+   pair is timed at the main path's case (dropout 0.1) and the f32 trio
+   at phase 8's (batch 4), each beside its plain version,
+   `F.scaled_dot_product_attention` on the same tensors (a yardstick the
+   port never calls) and its bound (the f32 forward's as six bf16
+   products per f32 product at 989 TFLOP/s).
 7. The BERT-base pretraining step at full published width (12 layers,
    hidden 768, 12 heads, vocab 30522; bf16 params, f32 master + Adam,
    dropout on, flash attention), batch 32 x 512: 3 warm-up and 10 timed
@@ -100,11 +105,14 @@ Phases, each of which raises (exit code != 0) when its check fails:
     int8-activation and weight-only modes, at the ResNet-50 fc at batch
     32, 8 and 1 ((M, 2048, 1000)), a BERT-base FFN GEMM (4096, 768, 3072)
     and two odd shapes: int32 accumulators equal and outputs within 1 ulp
-    (int8 mode), max |kernel - plain| <= 1e-5 max |plain| (weight-only);
-    each timed beside its plain version, its bound and a yardstick the
-    port never calls (int8: `torch._int_mm` plus the rescale where it
-    takes the shape, its accumulators equal to the kernel's; weight-only:
-    f32 `torch.matmul` on the dequantized weight), with its split count.
+    (int8 mode), max |kernel - plain| <= 1e-5 max |plain| and two calls
+    bit-equal (weight-only: x in three bf16 pieces on wgmma, split-K
+    summed in split order); each timed beside its plain version, its
+    bound (weight-only: three bf16 products per f32 product at 989
+    TFLOP/s) and a yardstick the port never calls (int8: `torch._int_mm`
+    plus the rescale where it takes the shape, its accumulators equal to
+    the kernel's; weight-only: f32 `torch.matmul` on the dequantized
+    weight), with each mode's split count.
     (Both kernels' ptxas lines are in phase 1's build report.) TF32 is
     off for the static phases (and printed so).
 12. ResNet-50 int8 serving through the Predictor at the published width
@@ -952,8 +960,12 @@ FLASH_REPLACES = {
                          "(_bwd1_kernel, K4b)",
     "flash_bwd_dq_f32": f"{_PALLAS}:543 (_bwd_dq_kernel, K3), :311 "
                         "(_bwd1_kernel, K4b)"}
-FLASH_SOURCES = {"bfloat16": "paddle_tpu_torch/csrc/flash_attention_tc.cu",
-                 "float32": "paddle_tpu_torch/csrc/flash_attention.cu"}
+_CSRC = "paddle_tpu_torch/csrc/"
+FLASH_SOURCES = {"flash_fwd": _CSRC + "flash_attention_tc.cu",
+                 "flash_bwd": _CSRC + "flash_attention_tc.cu",
+                 "flash_fwd_f32": _CSRC + "flash_fwd_f32_tc.cu",
+                 "flash_bwd_dkv_f32": _CSRC + "flash_attention.cu",
+                 "flash_bwd_dq_f32": _CSRC + "flash_attention.cu"}
 SEED_ATTN = 12345
 BERT_BATCH, BERT_SEQ = 32, 512
 
@@ -975,16 +987,21 @@ def flash_inputs(torch, dev, dtype, b, t, n, d, pad, mask_grad, seed):
 
 
 def flash_case(torch, tfa, dev, dtype, b, t, n, d, causal=False, pad=False,
-               rate=0.0, mask_grad=False, seed=0):
+               rate=0.0, mask_grad=False, offset=0, seed=0):
     """Kernels and plain version on the same inputs: forward o and lse,
-    and dq/dk/dv (+dmask) from one backward. Returns {output: (max abs
-    err, relative err)}."""
+    and dq/dk/dv (+dmask) from one backward. With `offset`, q, k, v are
+    views of a fused tensor that starts `offset` elements into its
+    buffer (rows not 16-byte aligned for an offset of one float).
+    Returns {output: (max abs err, relative err)}."""
     qkv, dout, mask = flash_inputs(torch, dev, dtype, b, t, n, d, pad,
                                    mask_grad, seed)
     seed_k = SEED_ATTN if rate else None
     res = {}
     for side in ("kernel", "plain"):
-        x = qkv.detach().clone().requires_grad_()
+        buf = torch.empty(qkv.numel() + offset, dtype=dtype, device=dev)
+        buf[offset:].copy_(qkv.reshape(-1))
+        buf.requires_grad_()
+        x = buf[offset:].view(qkv.shape)
         m = mask.detach().clone().requires_grad_(mask_grad)
         q, k, v = x[:, :, 0], x[:, :, 1], x[:, :, 2]
         if side == "kernel":
@@ -1002,9 +1019,10 @@ def flash_case(torch, tfa, dev, dtype, b, t, n, d, causal=False, pad=False,
                                              keep_masks=keep,
                                              return_lse=True)
         (o.float() * dout.float()).sum().backward()
+        grad = buf.grad[offset:].view(qkv.shape)
         res[side] = {"o": o.detach(), "lse": lse.detach(),
-                     "dq": x.grad[:, :, 0], "dk": x.grad[:, :, 1],
-                     "dv": x.grad[:, :, 2]}
+                     "dq": grad[:, :, 0], "dk": grad[:, :, 1],
+                     "dv": grad[:, :, 2]}
         if mask_grad:
             res[side]["dmask"] = m.grad
     torch.cuda.synchronize()
@@ -1019,18 +1037,19 @@ def flash_case(torch, tfa, dev, dtype, b, t, n, d, causal=False, pad=False,
 
 #: the kernels whose ptxas lines and SASS the build report checks: mangled
 #: name stem -> (instantiations, opcodes its SASS must hold, opcodes it
-#: must not). The bf16 flash pair and K6's and K7's chunk routes run on
-#: wgmma (HGMMA); K8's int8 mode on mma.sync s8 (IMMA), with no dp4a
-#: left; K7's decode kernel and K8's weight-only mode (CUDA cores) are
-#: listed for their ptxas lines (0 spill).
+#: must not). The bf16 flash pair, the f32 flash forward, K6's and K7's
+#: chunk routes and K8's weight-only mode run on wgmma (HGMMA); K8's int8
+#: mode on mma.sync s8 (IMMA), with no dp4a left; K7's decode kernel (CUDA
+#: cores) is listed for its ptxas lines (0 spill).
 BUILD_CHECKS = {
     "flash_fwd_tc_kernel": (3, ("HGMMA",), ()),
     "flash_bwd_tc_kernel": (3, ("HGMMA",), ()),
+    "flash_fwd_f32_tc_kernel": (3, ("HGMMA",), ()),
     "qattn_prefill_tc_kernel": (6, ("HGMMA",), ()),
     "paged_prefill_tc_kernel": (3, ("HGMMA",), ()),
     "qattn_decode_kernel": (6, (), ()),
     "qmm_int8_tc_kernel": (2, ("IMMA",), ("IDP4A",)),
-    "qmm_weight_only_kernel": (1, (), ()),
+    "qmm_weight_only_tc_kernel": (5, ("HGMMA",), ()),
 }
 SASS_OPS = ("HGMMA", "HMMA", "IMMA", "IDP4A")
 
@@ -1173,8 +1192,9 @@ def time_flash(torch, tfa, dtype, b, t, n, d, rate, seed, tag, copies=2):
                           7 * nbytes + 2 * rows + bias_bytes, 10 * bhttd)}
     else:
         timings = {
+            # six bf16 products per f32 product on the tensor cores
             "flash_fwd_f32": (fwd, plain_fwd,
-                              4 * nbytes + bias_bytes + rows, 4 * bhttd),
+                              4 * nbytes + bias_bytes + rows, 6 * 4 * bhttd),
             "flash_bwd_dkv_f32": (
                 lambda s: tfa._launch_dkv(*bwd_args(s), False),
                 grad_of((1, 2)), 6 * nbytes + 2 * rows + bias_bytes,
@@ -1187,10 +1207,12 @@ def time_flash(torch, tfa, dtype, b, t, n, d, rate, seed, tag, copies=2):
              f"views of [B, T, 3, N, D])")
     out = {}
     for kname, (fn, plain, nb, flops) in timings.items():
-        bnd, by = bound_ms(nb, flops, BF16_FLOPS if bf16 else F32_FLOPS)
+        tensor_cores = bf16 or kname == "flash_fwd_f32"
+        bnd, by = bound_ms(nb, flops, BF16_FLOPS if tensor_cores
+                           else F32_FLOPS)
         lib_ms = lib_fwd_ms if plain is plain_fwd else lib_bwd_ms
         row = out[kname] = dict(
-            name=kname, route="cuda", source=FLASH_SOURCES[dname],
+            name=kname, route="cuda", source=FLASH_SOURCES[kname],
             replaces=FLASH_REPLACES[kname], ms=timed_ms(torch, fn, args),
             plain_ms=(timed_ms(torch, plain, args) if plain is plain_fwd
                       else timed_ms(torch, plain, plain_graphs)),
@@ -1210,8 +1232,9 @@ def time_flash(torch, tfa, dtype, b, t, n, d, rate, seed, tag, copies=2):
 def check_flash(torch, tfa, seed, tag):
     """Phase 6. The flash kernels against their plain versions: the
     tensor-core pair at BERT-base shapes (B=32, T=512, N=12, D=64, bf16:
-    an all-ones mask, a padding mask, dropout 0.1), the CUDA-core trio in
-    f32 on the general path (T=1024, causal, mask_grad). Then the bf16
+    an all-ones mask, a padding mask, dropout 0.1), the f32 trio on the
+    general path (T=1024, causal, mask_grad) and on views offset by one
+    float (rows not 16-byte aligned). Then the bf16
     pair timed at the main path's case (dropout 0.1) and the f32 trio at
     phase 8's (batch 4, no dropout). Returns {kernel: summary dict}."""
     dev = torch.device("cuda")
@@ -1223,6 +1246,9 @@ def check_flash(torch, tfa, seed, tag):
         ("bf16 dropout 0.1", bf16, dict(b=b, t=t, n=n, d=d, rate=0.1)),
         ("f32 T=1024 causal mask_grad", f32,
          dict(b=4, t=1024, n=n, d=d, causal=True, mask_grad=True)),
+        # rows 4 bytes past a 16-byte boundary: the 4-byte load path
+        ("f32 offset view", f32,
+         dict(b=4, t=t, n=n, d=d, mask_grad=True, offset=1)),
     ]
     kernels = {k: {"max_abs_err": 0.0, "cases": {}} for k in FLASH_KERNELS}
     for label, dtype, kw in cases:
@@ -1388,15 +1414,19 @@ def check_quantized_matmul(torch, k8, seed, tag, copies=3):
     """Phase 11. K8 against its plain version on the card in both modes
     at K8_SHAPES: int8-activation mode with equal int32 accumulators and
     outputs within 1 ulp, weight-only within K8_WO_TOL of max |plain|.
-    Each case is timed beside its plain version, its bound
-    (max(bytes / 3.35 TB/s, 2MKN / peak), bytes 4MK + KN + 4N + 4MN; the
-    peak 1979 TOP/s int8, 67 TFLOP/s f32 for weight-only) and a yardstick
+    Weight-only mode runs twice on the same inputs and must give the
+    same bits (its split-K sums the partials in split order). Each case
+    is timed beside its plain version, its bound (max(bytes / 3.35 TB/s,
+    ops / peak), bytes 4MK + KN + 4N + 4MN; int8: 2MKN at 1979 TOP/s;
+    weight-only: three bf16 products per f32 product, 3 x 2MKN at 989
+    TFLOP/s) and a yardstick
     the port never calls: in int8 mode, where it takes
     the shape (M > 16, K and N multiples of 8), `torch._int_mm` on the
     same int8 operands plus the rescale, whose accumulators must equal
     the kernel's; in weight-only mode an f32 `torch.matmul` (TF32 off) on
     the weight dequantized outside the call. Prints each shape's split
-    count. Returns the kernel's summary dict."""
+    counts. Returns the summary dicts of the int8 and the weight-only
+    kernel."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed + 11)
     rows = []
@@ -1417,8 +1447,13 @@ def check_quantized_matmul(torch, k8, seed, tag, copies=3):
                                                      x_scale=xs,
                                                      return_acc=True)
         got_wo = k8.fused_dequant_matmul(x, w_q, w_s)
+        again_wo = k8.fused_dequant_matmul(x, w_q, w_s)
         want_wo = k8.dequant_matmul_reference(x, w_q, w_s)
         torch.cuda.synchronize()
+        assert bool(torch.isfinite(got_wo).all()) and got_wo.shape == (m, n)
+        assert torch.equal(got_wo.view(torch.int32),
+                           again_wo.view(torch.int32)), (
+            f"K8 ({m}, {k}, {n}) weight-only: two calls differ")
         assert bool(torch.isfinite(got).all()) and got.shape == (m, n)
         assert torch.equal(acc, want_acc), (
             f"K8 ({m}, {k}, {n}): int32 accumulators differ in "
@@ -1431,14 +1466,18 @@ def check_quantized_matmul(torch, k8, seed, tag, copies=3):
             f"K8 ({m}, {k}, {n}) weight-only: {wo_rel} > {K8_WO_TOL}")
         nbytes = 4 * m * k + k * n + 4 * n + 4 * m * n
         bnd, by = bound_ms(nbytes, 2.0 * m * k * n, INT8_OPS)
-        # weight-only multiplies in f32 on the same bytes
-        wo_bnd, wo_by = bound_ms(nbytes, 2.0 * m * k * n, F32_FLOPS)
+        # weight-only: three bf16 products (x's pieces) per f32 product
+        wo_bnd, wo_by = bound_ms(nbytes, 3 * 2.0 * m * k * n, BF16_FLOPS)
         args = [(a, b, c, xs) for a, b, c in sets]
         deq = [(a, b.float() * (c / 127.0)) for a, b, c in sets]
         row = {"M": m, "K": k, "N": n, "splits": k8.k8_split_count(m, k, n),
                "tile": k8.k8_tile(m), "max_ulps": err_ulp,
                "max_abs_err": float((got - want).abs().max()),
                "weight_only_rel_err": wo_rel,
+               "weight_only_max_abs_err": float(
+                   (got_wo - want_wo).abs().max()),
+               "weight_only_splits": k8.k8_wo_split_count(m, k, n),
+               "weight_only_tile": k8.k8_wo_tile(m, n),
                "ms": timed_ms(torch, lambda a, b, c, s:
                               k8.fused_dequant_matmul(a, b, c, x_scale=s),
                               args),
@@ -1469,7 +1508,9 @@ def check_quantized_matmul(torch, k8, seed, tag, copies=3):
               f"{row['splits']}, max_ulps={err_ulp} acc equal, "
               f"kernel_ms={row['ms']:.5f} plain_ms={row['plain_ms']:.5f} "
               f"_int_mm+rescale_ms={lib} bound_ms={bnd:.5f} ({by}); "
-              f"weight-only rel_err={wo_rel:.3g} kernel_ms="
+              f"weight-only tile {row['weight_only_tile']} splits "
+              f"{row['weight_only_splits']}, rel_err={wo_rel:.3g}, two "
+              f"calls bit-equal, kernel_ms="
               f"{row['weight_only_ms']:.5f} plain_ms="
               f"{row['weight_only_plain_ms']:.5f} matmul_ms="
               f"{row['weight_only_library_ms']:.5f} bound_ms={wo_bnd:.5f} "
@@ -1477,15 +1518,26 @@ def check_quantized_matmul(torch, k8, seed, tag, copies=3):
         del sets, args, deq
     torch.cuda.empty_cache()
     main = rows[0]
-    return {"name": "K8 quantized_matmul", "route": "cuda",
-            "source": "paddle_tpu_torch/csrc/quantized_matmul.cu",
-            "replaces": "paddle_tpu/ops/pallas/quantized_matmul.py:63",
-            "max_abs_err": max(r["max_abs_err"] for r in rows),
-            "ms": main["ms"], "plain_ms": main["plain_ms"],
-            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
-            "library_ms": main["library_ms"],
-            "shape": "int8 mode M=32 K=2048 N=1000 (times); max_abs_err "
-                     "over every shape", "by_shape": rows}
+    common = {"route": "cuda",
+              "source": "paddle_tpu_torch/csrc/quantized_matmul.cu",
+              "replaces": "paddle_tpu/ops/pallas/quantized_matmul.py:63"}
+    int8_mode = dict(
+        common, name="K8 quantized_matmul",
+        max_abs_err=max(r["max_abs_err"] for r in rows), ms=main["ms"],
+        plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+        bound_by=main["bound_by"], library_ms=main["library_ms"],
+        shape="int8 mode M=32 K=2048 N=1000 (times); max_abs_err over "
+              "every shape", by_shape=rows)
+    weight_only = dict(
+        common, name="K8 quantized_matmul weight-only",
+        max_abs_err=max(r["weight_only_max_abs_err"] for r in rows),
+        ms=main["weight_only_ms"], plain_ms=main["weight_only_plain_ms"],
+        bound_ms=main["weight_only_bound_ms"],
+        bound_by=main["weight_only_bound_by"],
+        library_ms=main["weight_only_library_ms"],
+        shape="weight-only mode M=32 K=2048 N=1000 (times); max_abs_err "
+              "over every shape")
+    return int8_mode, weight_only
 
 
 def resnet_images(rng, n, size=224):
@@ -1579,8 +1631,8 @@ def resnet_int8_serving(torch, k8, seed, tag, image_size=224):
     f32_out, f32_s = serve_requests(f32, requests)
     k8.reset_launch_counts()
     int8_out, int8_s = serve_requests(int8, requests)
-    launches = k8.launch_counts["quantized_matmul"]
-    assert launches >= len(requests), (
+    launches = dict(k8.launch_counts)
+    assert launches["quantized_matmul"] >= len(requests), (
         f"K8 launched {launches} times over {len(requests)} int8 requests")
     num = sum(float(np.abs(a - b).sum()) for a, b in zip(int8_out, f32_out))
     den = sum(float(np.abs(b).sum()) for b in f32_out)
@@ -2041,8 +2093,9 @@ def main(argv=None):
           f"torch.backends.cudnn.allow_tf32="
           f"{torch.backends.cudnn.allow_tf32} (f32 convs and GEMMs in "
           f"true f32) {tag}")
-    kernels["quantized_matmul"] = check_quantized_matmul(torch, k8,
-                                                         args.seed, tag)
+    (kernels["quantized_matmul"],
+     kernels["quantized_matmul_weight_only"]) = check_quantized_matmul(
+        torch, k8, args.seed, tag)
     del trainer, data
     torch.cuda.empty_cache()
 
@@ -2050,7 +2103,11 @@ def main(argv=None):
     resnet, int8, x32, launches = resnet_int8_serving(torch, k8, args.seed,
                                                       tag)
     results["resnet50_int8"] = resnet
-    kernels["quantized_matmul"]["launches"] = launches
+    # every call counts under "quantized_matmul", weight-only calls also
+    # under their own key
+    wo = launches["quantized_matmul_weight_only"]
+    kernels["quantized_matmul"]["launches"] = launches["quantized_matmul"] - wo
+    kernels["quantized_matmul_weight_only"]["launches"] = wo
 
     # 13. where an int8 batch-32 request's time goes
     def serve32(n):
@@ -2075,7 +2132,8 @@ def main(argv=None):
                                      "paged_prefill_attention",
                                      "quantized_paged_decode_attention",
                                      "quantized_paged_prefill_attention")
-                        + FLASH_KERNELS + ("quantized_matmul",)]}
+                        + FLASH_KERNELS + ("quantized_matmul",
+                                           "quantized_matmul_weight_only")]}
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)

@@ -18,6 +18,7 @@ running without its gradients.
 """
 from paddle_tpu_torch.core import flags as _flags
 from paddle_tpu_torch.core.enforce import OpRunError, enforce
+from paddle_tpu_torch.core.places import resolve_device
 from paddle_tpu_torch.core.registry import OpContext, get_op
 
 __all__ = ["run_ops", "make_step_fn", "referenced_state"]
@@ -40,8 +41,11 @@ def run_ops(ops, block, env, seed, training, device, op_index_base=0):
 
 
 def make_step_fn(program, feed_names, fetch_names, state_names,
-                 training=True, device="cpu"):
-    """The step function of a program's global block on `device`."""
+                 training=True, device=None):
+    """The step function of a program's global block on `device` (None:
+    the GPU, through `places.resolve_device`, which raises where none is
+    visible)."""
+    device = resolve_device(device)
     if _flags.get_flag("verify_program"):
         from paddle_tpu_torch.analysis import verify_program
         verify_program(program, label="make_step_fn")

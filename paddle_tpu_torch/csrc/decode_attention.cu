@@ -679,35 +679,6 @@ __device__ __forceinline__ void codes_to_bf16(uint4 in, uint4 (&out)[2]) {
   out[1] = make_uint4(o[4], o[5], o[6], o[7]);
 }
 
-// x -> three bf16 pieces h = bf16(x), m = bf16(x - h), l = bf16(x - h -
-// m), whose sum is x to f32 precision; two at a time, packed as the bf16
-// pairs the tiles and register operands hold (three paired conversions)
-__device__ __forceinline__ void split3_pair(float x0, float x1, uint32_t& h, uint32_t& m,
-                                            uint32_t& l) {
-  const __nv_bfloat162 hb = __floats2bfloat162_rn(x0, x1);
-  const float2 hf = __bfloat1622float2(hb);
-  const float r0 = x0 - hf.x, r1 = x1 - hf.y;
-  const __nv_bfloat162 mb = __floats2bfloat162_rn(r0, r1);
-  const float2 mf = __bfloat1622float2(mb);
-  const __nv_bfloat162 lb = __floats2bfloat162_rn(r0 - mf.x, r1 - mf.y);
-  h = *reinterpret_cast<const uint32_t*>(&hb);
-  m = *reinterpret_cast<const uint32_t*>(&mb);
-  l = *reinterpret_cast<const uint32_t*>(&lb);
-}
-
-// eight floats as one 16-byte bf16 chunk of each of three piece tiles
-// (h at dst + off, m one piece further, l two): the chunk at `off` of a
-// swizzled tile, pieces `piece_bytes` apart
-__device__ __forceinline__ void store_pieces(const float (&x)[8], uint8_t* dst, int piece_bytes,
-                                             uint32_t off) {
-  uint32_t ph[4], pm[4], pl[4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) split3_pair(x[2 * j], x[2 * j + 1], ph[j], pm[j], pl[j]);
-  *reinterpret_cast<uint4*>(dst + off) = make_uint4(ph[0], ph[1], ph[2], ph[3]);
-  *reinterpret_cast<uint4*>(dst + piece_bytes + off) = make_uint4(pm[0], pm[1], pm[2], pm[3]);
-  *reinterpret_cast<uint4*>(dst + 2 * piece_bytes + off) = make_uint4(pl[0], pl[1], pl[2], pl[3]);
-}
-
 template <int D>
 struct KeyTileRegs {
   static constexpr int CH = D / 32;   // 16-byte chunks a thread owns per tensor
@@ -1027,13 +998,6 @@ cudaError_t launch_prefill(const Args& a, int d, bool fp8, cudaStream_t stream) 
 // Bound: at C = 512 the six bf16 products per f32 product put it on the
 // operation side (6 x 4 x pairs x N x D at 989 TFLOP/s), against bytes
 // for short chunks.
-constexpr int kPieces = 3;
-constexpr int kPairs = 6;
-
-// piece pair pr of the six, smallest products first: (2,0) (1,1) (0,2)
-// (1,0) (0,1) (0,0) as (piece of the A operand, piece of the B operand)
-__host__ __device__ constexpr int pair_a(int pr) { return pr < 3 ? 2 - pr : (pr < 5 ? 4 - pr : 0); }
-__host__ __device__ constexpr int pair_b(int pr) { return pr < 3 ? pr : (pr < 5 ? pr - 3 : 0); }
 
 template <int D>
 struct PagedTcSmem {

@@ -1,13 +1,11 @@
-// FlashAttention-2 forward and backward on the CUDA cores, float32 only:
-// the f32 half of kernels K1-K4 of the port, one family of three CUDA
-// kernels. bfloat16 inputs go to the tensor-core kernels of
-// flash_attention_tc.cu; float32 stays here because TF32 tensor cores
-// would keep only ~3 decimal digits of its products.
+// FlashAttention-2 backward on the CUDA cores, float32 only: the f32
+// half of kernels K2-K4b of the port, two CUDA kernels. bfloat16 inputs
+// go to the tensor-core kernels of flash_attention_tc.cu; the f32
+// forward runs on the tensor cores in three bf16 pieces
+// (flash_fwd_f32_tc.cu), whose lse these kernels read to recompute p.
 //
-// ptt_flash_fwd_f32      replaces paddle_tpu/ops/pallas/flash_attention.py
-//                        ::_fwd_kernel (K1, via _fwd) and ::_fwd1_kernel
-//                        (K4f, via _fwd1).
-// ptt_flash_bwd_dkv_f32  replaces ::_bwd_dkv_kernel (K2, via _bwd) and the
+// ptt_flash_bwd_dkv_f32  replaces paddle_tpu/ops/pallas/flash_attention.py
+//                        ::_bwd_dkv_kernel (K2, via _bwd) and the
 //                        dK/dV/dbias half of ::_bwd1_kernel (K4b, via
 //                        _bwd1).
 // ptt_flash_bwd_dq_f32   replaces ::_bwd_dq_kernel (K3, via _bwd) and the
@@ -19,9 +17,9 @@
 // online softmax, and one kernel family covers both Pallas paths.
 //
 // What bounds them on this card: operations. At BERT-base shapes
-// (T=512, D=64) the forward does 4*T*T*D flops for 4*T*D elements read
-// and written per (batch, head), ~T/8 flops per byte in f32, far above
-// the H100's ~20 flops/byte CUDA-core ridge (67 TFLOP/s f32 peak).
+// (T=512, D=64) the backward does 14*T*T*D flops (dK/dV 8, dQ 6) for
+// ~11*T*D elements read and written per (batch, head), far above the
+// H100's ~20 flops/byte CUDA-core ridge (67 TFLOP/s f32 peak).
 //
 // What the design does about it:
 //  * 256 threads own a 64 x 64 score tile, 4 x 4 per thread; operand
@@ -30,8 +28,8 @@
 //    the score tile is staged transposed so the following product reads
 //    it as float4 broadcasts.
 //  * Nothing of size T x T reaches device memory: s, p and ds live in
-//    registers and one 64 x 64 shared tile; m, l and the accumulators
-//    stay in registers in f32.
+//    registers and one 64 x 64 shared tile; the accumulators stay in
+//    registers in f32.
 //  * Causal tiles wholly above the diagonal are skipped; the ragged edge
 //    of T is masked in the kernel (no padding copies).
 //  * q, k and v are read through their strides, so views of the fused
@@ -42,15 +40,13 @@
 //    block, so its summation order varies from run to run.
 //
 // Semantics follow the Pallas kernels: s = (q.k) * scale + bias[key]
-// (f32), causal keeps col <= row, l sums the undropped p, the keep mask
-// multiplies p before p.v (p rounded to v's dtype first, a no-op in f32),
-// l = 0 gives safe_l = 1, lse = m + log(safe_l); the backward recomputes
-// p = exp(s - lse), ds = p * (dp * keep - delta) * scale and rounds p*keep
-// and ds to the operand dtype before their products. Dropout is the
-// counter hash of _keep_mask, bit for bit: stream = fmix32(seed +
-// (b*N + n) * 0x9E3779B9), x = fmix32(((row << 16) ^ col) + stream), keep
-// iff x >= thresh, kept values scaled by keep_scale, with global rows and
-// columns, so every tiling regenerates the same mask.
+// (f32), causal keeps col <= row; the backward recomputes p = exp(s -
+// lse) from the forward's lse, ds = p * (dp * keep - delta) * scale and
+// rounds p*keep and ds to the operand dtype before their products.
+// Dropout is the counter hash of _keep_mask, bit for bit: stream =
+// fmix32(seed + (b*N + n) * 0x9E3779B9), x = fmix32(((row << 16) ^ col)
+// + stream), keep iff x >= thresh, kept values scaled by keep_scale, with
+// global rows and columns, so every tiling regenerates the same mask.
 //
 // Plain C interface, loaded with ctypes: every function returns the
 // cudaError_t of its launch (0 on success). Nothing here allocates or
@@ -77,10 +73,9 @@ struct FlashArgs {
   const void* dout;
   const float* lse;    // [B*N, Tq]
   const float* delta;  // [B*N, Tq]
-  void* out;           // o (forward) or dq
+  void* out;           // dq
   void* dk;
   void* dv;
-  float* lse_out;      // [B*N, Tq]
   float* dbias;        // [B, Tk], zeroed by the caller, or null
   int B, N, Tq, Tk;
   long long s[21];
@@ -241,7 +236,7 @@ __device__ __forceinline__ T* slice_out(void* base, const long long* s, int b, i
 // rows ty*4 + i of a [64][D] result tile, columns tx*CW + c, to memory
 template <typename T, int D>
 __device__ __forceinline__ void write_rows(T* dst, long long st, int r0, int limit,
-                                           const float acc[4][D / 16], const float* mul) {
+                                           const float acc[4][D / 16]) {
   constexpr int CW = D / 16;
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
 #pragma unroll
@@ -249,107 +244,7 @@ __device__ __forceinline__ void write_rows(T* dst, long long st, int r0, int lim
     const int row = r0 + ty * 4 + i;
     if (row >= limit) continue;
 #pragma unroll
-    for (int c = 0; c < CW; ++c)
-      dst[(long long)row * st + tx * CW + c] =
-          from_f<T>(mul ? acc[i][c] / mul[i] : acc[i][c]);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// forward: one block per (query tile, batch * head)
-// ---------------------------------------------------------------------------
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads) flash_fwd_kernel(FlashArgs a) {
-  constexpr int LD = D + 4, CW = D / 16;
-  extern __shared__ float4 smem4[];
-  float* Qs = reinterpret_cast<float*>(smem4);
-  float* Ks = Qs + kTile * LD;
-  float* Vs = Ks + kTile * LD;
-  float* Pt = Vs + kTile * LD;        // [key][row]
-  float* bias_s = Pt + kTile * kLT;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const int q0 = blockIdx.x * kTile;
-  const int bh = blockIdx.y;
-  const int b = bh / a.N, n = bh % a.N;
-  const T* q = slice<T>(a.q, a.s + kQ, b, n);
-  const T* k = slice<T>(a.k, a.s + kK, b, n);
-  const T* v = slice<T>(a.v, a.s + kV, b, n);
-  const uint32_t stream = fmix32(a.seed + (uint32_t)bh * 0x9E3779B9u);
-
-  load_tile<T, D>(Qs, q, a.s[kQ + 1], q0, a.Tq);
-  float m[4], l[4], acc[4][CW];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < CW; ++c) acc[i][c] = 0.f;
-  }
-  const int k_end = a.causal ? min(a.Tk, q0 + kTile) : a.Tk;
-  for (int k0 = 0; k0 < k_end; k0 += kTile) {
-    __syncthreads();  // the previous tile's readers are done
-    load_tile<T, D>(Ks, k, a.s[kK + 1], k0, a.Tk);
-    load_tile<T, D>(Vs, v, a.s[kV + 1], k0, a.Tk);
-    if (threadIdx.x < kTile)
-      bias_s[threadIdx.x] = (a.bias != nullptr && k0 + (int)threadIdx.x < a.Tk)
-                                ? a.bias[(long long)b * a.Tk + k0 + threadIdx.x]
-                                : 0.f;
-    __syncthreads();
-    float s[4][4];
-    tile_dot<D>(Qs, Ks, s);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty * 4 + i;
-      float mt = kNegInf;
-      unsigned ok = 0;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = k0 + tx + 16 * j;
-        s[i][j] = score(s[i][j], a.scale, bias_s[tx + 16 * j]);
-        if (valid_at(a, row, col)) {
-          ok |= 1u << j;
-          mt = fmaxf(mt, s[i][j]);
-        }
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1) mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, off));
-      const float m_new = fmaxf(m[i], mt);
-      const float corr = expf(m[i] - m_new);
-      float psum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = (ok >> j) & 1u ? expf(s[i][j] - m_new) : 0.f;
-        psum += p;
-        s[i][j] = p;
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1) psum += __shfl_xor_sync(0xffffffffu, psum, off);
-      l[i] = l[i] * corr + psum;  // l sums the undropped p
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < CW; ++c) acc[i][c] *= corr;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        float p = s[i][j];
-        if (a.dropout) p *= keep_factor(a, stream, row, k0 + tx + 16 * j);
-        s[i][j] = round_to<T>(p);
-      }
-    }
-    store_t(Pt, s);
-    __syncthreads();
-    acc_mm<D>(Pt, Vs, acc);
-  }
-
-  float safe_l[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) safe_l[i] = l[i] == 0.f ? 1.f : l[i];
-  write_rows<T, D>(slice_out<T>(a.out, a.s + kO, b, n), a.s[kO + 1], q0, a.Tq, acc, safe_l);
-  if (tx == 0) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty * 4 + i;
-      if (row < a.Tq) a.lse_out[(long long)bh * a.Tq + row] = m[i] + logf(safe_l[i]);
-    }
+    for (int c = 0; c < CW; ++c) dst[(long long)row * st + tx * CW + c] = from_f<T>(acc[i][c]);
   }
 }
 
@@ -427,8 +322,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(FlashArgs a) {
     acc_mm<D>(Ds, Qs, dk);   // dK += ds^T q
   }
 
-  write_rows<T, D>(slice_out<T>(a.dk, a.s + kDK, b, n), a.s[kDK + 1], k0, a.Tk, dk, nullptr);
-  write_rows<T, D>(slice_out<T>(a.dv, a.s + kDV, b, n), a.s[kDV + 1], k0, a.Tk, dv, nullptr);
+  write_rows<T, D>(slice_out<T>(a.dk, a.s + kDK, b, n), a.s[kDK + 1], k0, a.Tk, dk);
+  write_rows<T, D>(slice_out<T>(a.dv, a.s + kDV, b, n), a.s[kDV + 1], k0, a.Tk, dv);
   if (a.dbias != nullptr) {
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -504,27 +399,24 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(FlashArgs a) {
     __syncthreads();
     acc_mm<D>(Dt, Ks, dq);  // dQ += ds k
   }
-  write_rows<T, D>(slice_out<T>(a.out, a.s + kO, b, n), a.s[kO + 1], q0, a.Tq, dq, nullptr);
+  write_rows<T, D>(slice_out<T>(a.out, a.s + kO, b, n), a.s[kO + 1], q0, a.Tq, dq);
 }
 
 // ---------------------------------------------------------------------------
 // launchers
 // ---------------------------------------------------------------------------
-enum Which { kFwd, kDkv, kDq };
+enum Which { kDkv, kDq };
 
 template <int D>
 constexpr size_t smem_bytes(Which w) {
-  return sizeof(float) * (w == kFwd   ? 3 * kTile * (D + 4) + kTile * kLT + kTile
-                          : w == kDkv ? 4 * kTile * (D + 4) + 2 * kTile * kLT + 3 * kTile
-                                      : 4 * kTile * (D + 4) + kTile * kLT + 3 * kTile);
+  return sizeof(float) * (w == kDkv ? 4 * kTile * (D + 4) + 2 * kTile * kLT + 3 * kTile
+                                    : 4 * kTile * (D + 4) + kTile * kLT + 3 * kTile);
 }
 
 template <typename T, int D>
 cudaError_t launch_td(Which w, const FlashArgs& a, cudaStream_t stream) {
   const size_t bytes = smem_bytes<D>(w);
-  void (*kernel)(FlashArgs) = w == kFwd   ? flash_fwd_kernel<T, D>
-                              : w == kDkv ? flash_bwd_dkv_kernel<T, D>
-                                          : flash_bwd_dq_kernel<T, D>;
+  void (*kernel)(FlashArgs) = w == kDkv ? flash_bwd_dkv_kernel<T, D> : flash_bwd_dq_kernel<T, D>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return err;
@@ -575,20 +467,6 @@ FlashArgs make_args(const void* q, const void* k, const void* v, const void* bia
 }  // namespace
 
 extern "C" {
-
-// Forward, float32. q [B, Tq, N, D], k/v [B, Tk, N, D] and o [B, Tq, N, D] through
-// their (batch, time, head) strides in slots 0, 3, 6 and 12 of
-// `strides` (21 values, host memory); bias [B, Tk] f32 or null; lse
-// [B*N, Tq] f32.
-int ptt_flash_fwd_f32(const void* q, const void* k, const void* v, const void* bias, void* o,
-                      void* lse, int B, int N, int Tq, int Tk, int D, const long long* strides,
-                      float scale, int causal, int dropout, unsigned seed, unsigned thresh,
-                      float keep_scale, void* stream) {
-  FlashArgs a = make_args(q, k, v, bias, B, N, Tq, Tk);
-  a.out = o;
-  a.lse_out = static_cast<float*>(lse);
-  return launch(kFwd, a, D, strides, scale, causal, dropout, seed, thresh, keep_scale, stream);
-}
 
 // dK, dV and (dbias != null) dbias. dout in slot 9, dk in 15, dv in 18;
 // lse and delta [B*N, Tq] f32; dbias [B, Tk] f32, zeroed by the caller.

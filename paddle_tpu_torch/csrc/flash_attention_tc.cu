@@ -112,15 +112,6 @@ struct TcArgs {
 // ---------------------------------------------------------------------------
 // helpers of the flash kernels (the tensor-core ones are in tc_common.cuh)
 // ---------------------------------------------------------------------------
-__device__ __forceinline__ uint32_t fmix32(uint32_t x) {
-  x ^= x >> 16;
-  x *= 0x85EBCA6Bu;
-  x ^= x >> 13;
-  x *= 0xC2B2AE35u;
-  x ^= x >> 16;
-  return x;
-}
-
 __device__ __forceinline__ float keep_factor(const TcArgs& a, uint32_t stream, int row, int col) {
   const uint32_t x = fmix32((((uint32_t)row << 16) ^ (uint32_t)col) + stream);
   return x >= a.thresh ? a.keep_scale : 0.f;

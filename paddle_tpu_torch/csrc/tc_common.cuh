@@ -1,8 +1,11 @@
 // Tensor-core building blocks shared by the port's wgmma kernels
-// (flash_attention_tc.cu, decode_attention.cu) for sm_90a: cp.async,
-// wgmma fences, shared-memory matrix descriptors for the 128-byte
-// swizzled layout, the wgmma instructions (bf16 x bf16 -> f32), the
-// accumulator fragment's index map and the swizzled tile loader.
+// (flash_attention_tc.cu, flash_fwd_f32_tc.cu, decode_attention.cu,
+// quantized_matmul.cu) for sm_90a: cp.async, wgmma fences, shared-memory
+// matrix descriptors for the 128-byte swizzled layout, the wgmma
+// instructions (bf16 x bf16 -> f32), the accumulator fragment's index
+// map, the swizzled tile loader, the split of float32 values into three
+// bf16 pieces with the piece pairs of an f32-accurate product, and the
+// dropout hash of the flash kernels.
 //
 // Tile layout: a [ROWS][DP] bf16 tile (DP = Cols<D>::P) is held as DP/64
 // sub-tiles of ROWS x 128 bytes; 16-byte chunk c of row r sits at chunk
@@ -33,6 +36,13 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool full) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
                "r"(full ? 16 : 0)
+               : "memory");
+}
+// BYTES (4, 8 or 16) global -> shared through L1; `full` false zero-fills
+template <int BYTES>
+__device__ __forceinline__ void cp_async_ca(uint32_t dst, const void* src, bool full) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(dst), "l"(src),
+               "n"(BYTES), "r"(full ? BYTES : 0)
                : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() {
@@ -94,6 +104,37 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// D[64 x 24] (+)= A[64 x 16] . B[16 x 24], A and B in shared memory
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_n24(float (&d)[12], uint64_t da, uint64_t db,
+                                             int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %14, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n24k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11"
+      "}, %12, %13, p, 1, 1, %15, %16;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+// D[64 x 48] (+)= A[64 x 16] . B[16 x 48], A and B in shared memory
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_n48(float (&d)[24], uint64_t da, uint64_t db,
+                                             int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %26, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23"
+      "}, %24, %25, p, 1, 1, %27, %28;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
 // D[64 x 32] (+)= A[64 x 16] . B[16 x 32], A and B in shared memory
 template <int TA, int TB>
 __device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da, uint64_t db,
@@ -128,6 +169,28 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64
       : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
 }
 
+// D[64 x 96] (+)= A[64 x 16] . B[16 x 96], A and B in shared memory
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_n96(float (&d)[48], uint64_t da, uint64_t db,
+                                             int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
+      "}, %48, %49, p, 1, 1, %51, %52;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
 // D[64 x 128] (+)= A[64 x 16] . B[16 x 128], A and B in shared memory
 template <int TA, int TB>
 __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db,
@@ -151,6 +214,39 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint6
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
         "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+// D[64 x 192] (+)= A[64 x 16] . B[16 x 192], A and B in shared memory
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_n192(float (&d)[96], uint64_t da, uint64_t db,
+                                             int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
+      "}, %96, %97, p, 1, 1, %99, %100;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
       : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
 }
 
@@ -246,6 +342,62 @@ __device__ __forceinline__ int frag_row(int warp, int lane, int i) {
 }
 __device__ __forceinline__ int frag_col(int lane, int i) {
   return 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
+}
+
+// ---------------------------------------------------------------------------
+// float32 products on the bf16 tensor cores
+// ---------------------------------------------------------------------------
+// x -> three bf16 pieces h = bf16(x), m = bf16(x - h), l = bf16(x - h -
+// m), whose sum is x to f32 precision; two at a time, packed as the bf16
+// pairs the tiles and register operands hold (three paired conversions)
+__device__ __forceinline__ void split3_pair(float x0, float x1, uint32_t& h, uint32_t& m,
+                                            uint32_t& l) {
+  const __nv_bfloat162 hb = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(hb);
+  const float r0 = x0 - hf.x, r1 = x1 - hf.y;
+  const __nv_bfloat162 mb = __floats2bfloat162_rn(r0, r1);
+  const float2 mf = __bfloat1622float2(mb);
+  const __nv_bfloat162 lb = __floats2bfloat162_rn(r0 - mf.x, r1 - mf.y);
+  h = *reinterpret_cast<const uint32_t*>(&hb);
+  m = *reinterpret_cast<const uint32_t*>(&mb);
+  l = *reinterpret_cast<const uint32_t*>(&lb);
+}
+
+// eight floats as one 16-byte bf16 chunk of each of three piece tiles
+// (h at dst + off, m one piece further, l two): the chunk at `off` of a
+// swizzled tile, pieces `piece_bytes` apart
+__device__ __forceinline__ void store_pieces(const float (&x)[8], uint8_t* dst, int piece_bytes,
+                                             uint32_t off) {
+  uint32_t ph[4], pm[4], pl[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) split3_pair(x[2 * j], x[2 * j + 1], ph[j], pm[j], pl[j]);
+  *reinterpret_cast<uint4*>(dst + off) = make_uint4(ph[0], ph[1], ph[2], ph[3]);
+  *reinterpret_cast<uint4*>(dst + piece_bytes + off) = make_uint4(pm[0], pm[1], pm[2], pm[3]);
+  *reinterpret_cast<uint4*>(dst + 2 * piece_bytes + off) = make_uint4(pl[0], pl[1], pl[2], pl[3]);
+}
+
+// A product of two float32 operands, each in three pieces, is summed over
+// the six piece pairs with i + j <= 2 (h = 0, m = 1, l = 2), smallest
+// first; the pairs left out (m.l, l.m, l.l) are below 2^-24 of the
+// product (tests/test_torch_tc_split.py models the sets on the CPU).
+constexpr int kPieces = 3;
+constexpr int kPairs = 6;
+
+// piece pair pr of the six, smallest products first: (2,0) (1,1) (0,2)
+// (1,0) (0,1) (0,0) as (piece of the A operand, piece of the B operand)
+__host__ __device__ constexpr int pair_a(int pr) { return pr < 3 ? 2 - pr : (pr < 5 ? 4 - pr : 0); }
+__host__ __device__ constexpr int pair_b(int pr) { return pr < 3 ? pr : (pr < 5 ? pr - 3 : 0); }
+
+// ---------------------------------------------------------------------------
+// the flash kernels' dropout: the counter hash of the Pallas _keep_mask
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ uint32_t fmix32(uint32_t x) {
+  x ^= x >> 16;
+  x *= 0x85EBCA6Bu;
+  x ^= x >> 13;
+  x *= 0xC2B2AE35u;
+  x ^= x >> 16;
+  return x;
 }
 
 }  // namespace

@@ -10,9 +10,12 @@ Counterpart of the training half of
   `paddle_tpu_torch/csrc/flash_attention_tc.cu`, `flash_fwd` (K1 and the
   single-tile K4f) and `flash_bwd` (K2, K3 and the single-tile K4b: dQ,
   dK, dV and dbias in one launch, dQ summed into a float32 workspace);
-- float32: three CUDA-core kernels of `csrc/flash_attention.cu`,
-  `flash_fwd_f32`, `flash_bwd_dkv_f32` and `flash_bwd_dq_f32` (TF32 tensor
-  cores would not keep float32's digits).
+- float32: the forward `flash_fwd_f32` on the bf16 tensor cores
+  (`csrc/flash_fwd_f32_tc.cu`: q, k, v and p in three bf16 pieces, six
+  piece products per f32 product, so f32's digits are kept where TF32
+  would keep ~3), and the backward on the CUDA cores
+  (`csrc/flash_attention.cu`, `flash_bwd_dkv_f32` and `flash_bwd_dq_f32`),
+  which recomputes p from the forward's lse.
 
 The kernels stream tiles whatever T is, so the Pallas single-tile fast
 path has no separate kernel here.
@@ -23,8 +26,9 @@ arithmetic as the JAX package's `attention_reference`. A wrapper takes
 the plain version only because the tensors it was given lie on the CPU;
 on a CUDA tensor it launches the kernels of its dtype or raises (a failed
 build, a refused launch, an unsupported head dim or dtype, a bfloat16
-view whose rows are not 16-byte aligned); a bfloat16 call never reaches
-a CUDA-core kernel. `launch_counts` counts launches per kernel.
+view whose rows are not 16-byte aligned; a float32 view of any stride
+is taken); a bfloat16 call never reaches a CUDA-core kernel.
+`launch_counts` counts launches per kernel.
 
 Differences from the JAX signature: the `dropout_rng` key becomes an
 integer `dropout_seed` in [0, 2**23) (the value the JAX wrapper draws

@@ -17,7 +17,9 @@ float32 @ w_q [K, N] int8 with per-output-channel scales w_scale [N]
 The kernel is CUDA C++ for Hopper (`paddle_tpu_torch/csrc/
 quantized_matmul.cu`, built by `_build.py` on first use): int8 mode on
 the s8 tensor cores (mma.sync) with split-K at small M, weight-only mode
-on the CUDA cores. Beside it
+on the bf16 tensor cores (wgmma; x in three bf16 pieces, which carry
+float32's bits, against the codes, exact in bf16) with a deterministic
+split-K (partials summed in split order by the last block). Beside it
 stands its plain PyTorch version, `dequant_matmul_reference`, the same
 arithmetic as the JAX package's `dequant_matmul_reference`: it computes
 the int32 accumulator as a float64 matmul of the codes (exact for
@@ -39,20 +41,26 @@ from paddle_tpu_torch.core.enforce import enforce
 
 __all__ = ["qmax", "dequant_matmul_reference", "fused_dequant_matmul",
            "launch_counts", "reset_launch_counts", "k8_tile",
-           "k8_split_count"]
+           "k8_split_count", "k8_wo_tile", "k8_wo_split_count"]
 
-#: kernel launches per wrapper (bumped once per launched call)
-launch_counts = {"quantized_matmul": 0}
+#: kernel launches: every launched call counts under "quantized_matmul";
+#: weight-only calls (their own kernel) also under
+#: "quantized_matmul_weight_only"
+launch_counts = {"quantized_matmul": 0, "quantized_matmul_weight_only": 0}
 
-#: split-K workspaces of the int8 kernel, one per (device, stream): int32
-#: zeros, zeroed once here; each launch leaves what it used zero again
+#: split-K workspaces, one per (device, stream) and mode: int32 zeros,
+#: zeroed once here; each launch leaves what must be zero zero again
 _workspaces = {}
+_wo_workspaces = {}
 
 #: streaming multiprocessors of an H100 SXM: split-K aims to fill them
 _SMS = 132
 #: k values per pipeline stage of the int8 kernel
 _K_TILE = 64
 _MAX_SPLITS = 16
+#: arrival counters at the head of the weight-only workspace (kWoCounters
+#: in csrc/quantized_matmul.cu)
+_WO_COUNTERS = 256
 
 
 def reset_launch_counts():
@@ -120,10 +128,48 @@ def k8_split_count(m, k, n):
     never under two k tiles of 64 each."""
     bm, bn = k8_tile(m)
     tiles = -(-m // bm) * -(-n // bn)
+    return _splits(tiles, k)
+
+
+def _splits(tiles, k):
     if tiles >= _SMS:
         return 1
     k_tiles = -(-k // _K_TILE)
     return int(max(1, min(_SMS // tiles, _MAX_SPLITS, k_tiles // 2)))
+
+
+def k8_wo_tile(m, n):
+    """(rows of x, weight columns) of the weight-only kernel's output tile
+    at M = m, N = n: the least of 8, 16, 32, 64 rows that holds m, by 64
+    columns (one warpgroup: the columns fill wgmma's 64-row side); above
+    64 rows, 128 x 128 (two warpgroups) where those tiles fill the card,
+    else 32 x 64 (more tiles in flight; on the card it beat 64 x 64 at
+    every such shape timed)."""
+    for bm in (8, 16, 32, 64):
+        if m <= bm:
+            return bm, 64
+    if -(-m // 128) * -(-n // 128) >= _SMS:
+        return 128, 128
+    return 32, 64
+
+
+def k8_wo_split_count(m, k, n):
+    """k ranges per output tile of the weight-only kernel, by
+    k8_split_count's rule over its own tiles (8 at the ResNet-50 fc)."""
+    bm, bn = k8_wo_tile(m, n)
+    return _splits(-(-m // bm) * -(-n // bn), k)
+
+
+def _wo_workspace_words(m, k, n):
+    """int32 words of the weight-only split-K workspace: _WO_COUNTERS
+    arrival counters (a split call has fewer tiles than _SMS, so calls of
+    every shape share them where they stay zero), then splits x tiles x
+    threads x bm / 2 float32 partial sums."""
+    bm, bn = k8_wo_tile(m, n)
+    tiles = -(-m // bm) * -(-n // bn)
+    threads = 2 * bn
+    return (_WO_COUNTERS
+            + k8_wo_split_count(m, k, n) * tiles * threads * bm // 2)
 
 
 def _check(name, t, dtype, ndim, device):
@@ -178,11 +224,18 @@ def _launch(x, w_q, w_scale, x_scale, bits, return_acc):
     int8_mode = x_scale is not None
     s = max(float(x_scale), 1e-8) if int8_mode else 1.0
     xs_over_qm = float(x_scale) / qm if int8_mode else 0.0
-    splits = k8_split_count(m, k, n) if int8_mode else 1
-    work = None
-    if splits > 1:   # int32 sums [M, N], then one arrival counter a tile
-        bm, bn = k8_tile(m)
-        work = _workspace(m * n + -(-m // bm) * -(-n // bn), x.device)
+    work, cache = None, _workspaces
+    if int8_mode:
+        splits = k8_split_count(m, k, n)
+        if splits > 1:   # int32 sums [M, N], then one arrival counter a tile
+            bm, bn = k8_tile(m)
+            work = _workspace(m * n + -(-m // bm) * -(-n // bn), x.device,
+                              cache)
+    else:
+        splits = k8_wo_split_count(m, k, n)
+        cache = _wo_workspaces
+        if splits > 1:   # arrival counters, then the splits' partial tiles
+            work = _workspace(_wo_workspace_words(m, k, n), x.device, cache)
     lib = _build.load_library()
     err = lib.ptt_quantized_matmul(
         x.data_ptr(), w_q.data_ptr(), w_scale.data_ptr(), out.data_ptr(),
@@ -191,20 +244,23 @@ def _launch(x, w_q, w_scale, x_scale, bits, return_acc):
         m, k, n, int(int8_mode), splits, s, qm, xs_over_qm,
         _stream(x.device))
     if err != 0:
-        _workspaces.pop((x.device, _stream(x.device)), None)
+        cache.pop((x.device, _stream(x.device)), None)
         raise RuntimeError(
             f"quantized_matmul kernel launch failed: cudaError_t {err}")
     launch_counts["quantized_matmul"] += 1
+    if not int8_mode:
+        launch_counts["quantized_matmul_weight_only"] += 1
     return (out, acc) if return_acc else out
 
 
-def _workspace(size, device):
+def _workspace(size, device, cache):
     """At least `size` zeroed int32 of the split-K workspace of `device`'s
-    current stream (kernels on one stream run in order, so they can share
-    it); allocated, and zeroed, only when it has to grow."""
+    current stream in `cache` (kernels on one stream run in order, so
+    they can share it); allocated, and zeroed, only when it has to
+    grow."""
     key = (device, _stream(device))
-    work = _workspaces.get(key)
+    work = cache.get(key)
     if work is None or work.numel() < size:
-        work = _workspaces[key] = torch.zeros(size, dtype=torch.int32,
-                                              device=device)
+        work = cache[key] = torch.zeros(size, dtype=torch.int32,
+                                        device=device)
     return work

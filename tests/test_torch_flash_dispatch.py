@@ -5,11 +5,14 @@ to and what it is handed.
 (the autograd function a CUDA call runs) can be driven with CPU tensors:
 the stub records every kernel call and returns 0 (success). That checks,
 without a card, that a bfloat16 call goes to the two tensor-core kernels
-(`ptt_flash_fwd`, `ptt_flash_bwd`) and a float32 call to the three
-CUDA-core kernels, with the argument counts `_build.SIGNATURES` declares,
+(`ptt_flash_fwd`, `ptt_flash_bwd`) and a float32 call to its forward on
+the tensor cores (`ptt_flash_fwd_f32`, csrc/flash_fwd_f32_tc.cu) and its
+two CUDA-core backward kernels, with the argument counts
+`_build.SIGNATURES` declares,
 the strides of a fused-QKV view, the zeroed float32 dQ workspace [B, Tq,
-N, D] and its cast to q's dtype; and that unsupported inputs are refused
-before any launch. The kernels' arithmetic is held against the plain
+N, D] and its cast to q's dtype; that a float32 view whose rows are not
+16-byte aligned is launched, not refused; and that unsupported inputs
+are refused before any launch. The kernels' arithmetic is held against the plain
 version on the card (tests/test_torch_kernels_cuda.py).
 """
 import ctypes
@@ -151,12 +154,51 @@ def test_unsupported_inputs_are_refused_before_any_launch(stub):
     assert not any(tfa.launch_counts.values())
 
 
+def test_f32_forward_launches_the_tensor_core_entry_point(stub):
+    """The f32 forward runs ptt_flash_fwd_f32 at every T, and that entry
+    point is the six-piece-pair tensor-core kernel's
+    (csrc/flash_fwd_f32_tc.cu): no CUDA-core forward is left."""
+    for t in (1, 64, 129, 512, 1024):
+        _, (q, k, v) = _qkv(torch.float32, b=1, t=t, n=2, d=32)
+        tfa._launch_fwd(q.detach(), k.detach(), v.detach(), None,
+                        (True, 0.5, 0.0, None))
+    assert [name for name, _ in stub.calls] == ["ptt_flash_fwd_f32"] * 5
+    assert tfa.launch_counts["flash_fwd_f32"] == 5
+    csrc = pathlib.Path(_build.__file__).parents[2] / "csrc"
+    defines = [f.name for f in sorted(csrc.glob("*.cu"))
+               if re.search(r"\nint ptt_flash_fwd_f32\(", f.read_text())]
+    assert defines == ["flash_fwd_f32_tc.cu"]
+    assert "flash_fwd_f32_tc_kernel" in (csrc / defines[0]).read_text()
+
+
+def test_unaligned_f32_view_is_launched_not_refused(stub):
+    """The f32 kernels read rows that are not 16-byte aligned (4-byte
+    loads in the forward): a view one float into its buffer (every row 4
+    bytes past a 16-byte boundary) passes the checks and reaches the
+    kernels as it is."""
+    b, t, n, d = 1, 24, 3, 32
+    buf = torch.zeros(b * t * 3 * n * d + 1)
+    x = buf[1:].view(b, t, 3, n, d).requires_grad_()
+    q, k, v = x[:, :, 0], x[:, :, 1], x[:, :, 2]
+    assert q.data_ptr() % 16 == 4
+    # every check passes but the device's (the tensors lie on the CPU)
+    with pytest.raises(EnforceError, match="must be a CUDA tensor"):
+        tfa._check(q.detach(), k.detach(), v.detach(), None)
+    out, lse = tfa._FlashFn.apply(q, k, v, None, (False, 0.1, 0.0, None),
+                                  False)
+    (out.sum() + lse.sum()).backward()
+    fwd_name, bwd_names = tfa.KERNELS[torch.float32]
+    assert [name for name, _ in stub.calls] == [
+        "ptt_" + kernel for kernel in (fwd_name, *bwd_names)]
+    fwd = stub.calls[0][1]
+    assert fwd[:3] == (q.data_ptr(), k.data_ptr(), v.data_ptr())
+
+
 def test_ctypes_signatures_match_the_flash_entry_points():
     """The argtypes `_build` declares have the arity and kinds of the C
-    functions in csrc/flash_attention{,_tc}.cu."""
+    functions in csrc/flash*.cu."""
     csrc = pathlib.Path(_build.__file__).parents[2] / "csrc"
-    src = "".join((csrc / f).read_text()
-                  for f in ("flash_attention.cu", "flash_attention_tc.cu"))
+    src = "".join(f.read_text() for f in sorted(csrc.glob("flash*.cu")))
     protos = dict(re.findall(r"\nint (ptt_flash_\w+)\(([^)]*)\)", src))
     assert set(protos) == {k for k in _build.SIGNATURES
                            if k.startswith("ptt_flash")}

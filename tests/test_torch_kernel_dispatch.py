@@ -61,6 +61,7 @@ def stub(monkeypatch):
     monkeypatch.setattr(tda, "_stream", lambda device: 0)
     monkeypatch.setattr(tk8, "_stream", lambda device: 0)
     monkeypatch.setattr(tk8, "_workspaces", {})
+    monkeypatch.setattr(tk8, "_wo_workspaces", {})
     monkeypatch.setattr(tda, "_workspaces", {})
     tda.reset_launch_counts()
     tk8.reset_launch_counts()
@@ -362,11 +363,97 @@ def test_k8_failed_launch_drops_the_workspace(monkeypatch, stub):
 
 
 def test_k8_weight_only_asks_for_no_split(stub):
-    x = torch.ones(32, 2048)
-    w_q = torch.ones(2048, 1000, dtype=torch.int8)
-    tk8._launch(x, w_q, torch.ones(1000), None, 8, False)
-    (_, call), = stub.calls
-    assert call[9:11] == (0, 1) and call[5] is None
+    """Weight-only mode takes no split where its tiles fill the card (or
+    K holds one k tile): no workspace, one launch counted under both
+    keys."""
+    for m, k, n in [(4096, 768, 3072), (5, 33, 17)]:
+        assert tk8.k8_wo_split_count(m, k, n) == 1
+        tk8._launch(torch.ones(m, k), torch.ones(k, n, dtype=torch.int8),
+                    torch.ones(n), None, 8, False)
+    for _, call in stub.calls:
+        assert call[9:11] == (0, 1) and call[5] is None
+    assert tk8._wo_workspaces == {}
+    assert tk8.launch_counts == {"quantized_matmul": 2,
+                                 "quantized_matmul_weight_only": 2}
+
+
+@pytest.mark.parametrize("m,k,n,tile,splits", [
+    (32, 2048, 1000, (32, 64), 8),      # the ResNet-50 fc at batch 32
+    (8, 2048, 1000, (8, 64), 8),        # batch 8: an n8 tile of x
+    (1, 2048, 1000, (8, 64), 8),        # batch 1
+    (4096, 768, 3072, (128, 128), 1),   # 768 tiles fill the card
+    (5, 33, 17, (8, 64), 1),            # one k tile
+    (130, 257, 129, (32, 64), 2),       # 128-row tiles: 4, too few
+    (64, 2048, 1000, (64, 64), 8),
+    (16, 4096, 8192, (16, 64), 1),      # 128 tiles of 64 columns
+    (1, 64, 1000, (8, 64), 1),          # one k tile: no split
+])
+def test_k8_wo_split_count(m, k, n, tile, splits):
+    """The weight-only kernel's tile (rows of x as wgmma's n side, 64
+    weight columns a warpgroup; 128 x 128 only where those tiles fill
+    the card) and split count, by k8_split_count's rule over its own
+    tiles."""
+    assert tk8.k8_wo_tile(m, n) == tile
+    assert tk8.k8_wo_split_count(m, k, n) == splits
+
+
+@pytest.mark.parametrize("m,k,n", [(32, 2048, 1000), (1, 2048, 1000),
+                                   (130, 257, 129)])
+def test_k8_weight_only_hands_a_workspace_with_zero_counters(stub, m, k, n):
+    """A split weight-only launch gets its split count and a workspace of
+    256 zero arrival counters (more than the tiles of any split call)
+    followed by room for every split's partial tile (splits x tiles x
+    threads x bm / 2 floats)."""
+    seen = {}
+    bm, bn = tk8.k8_wo_tile(m, n)
+    tiles = -(-m // bm) * -(-n // bn)
+    splits = tk8.k8_wo_split_count(m, k, n)
+    words = 256 + splits * tiles * 2 * bn * bm // 2
+    assert tiles < 132
+
+    def hook(name, args):
+        seen.update(splits=args[10], mode=args[9])
+        counters = (ctypes.c_int32 * words).from_address(args[5])
+        seen["zeroed"] = not any(counters[:256])
+
+    stub.hook = hook
+    rng = np.random.RandomState(2)
+    x = torch.from_numpy(rng.randn(m, k).astype(np.float32))
+    w_q = torch.from_numpy(rng.randint(-127, 128, (k, n)).astype(np.int8))
+    out = tk8._launch(x, w_q, torch.rand(n), None, 8, False)
+    (name, call), = stub.calls
+    assert len(call) == len(_build.SIGNATURES[name])
+    assert seen == {"splits": splits, "mode": 0, "zeroed": True}
+    assert splits > 1 and call[4] is None
+    (work,) = tk8._wo_workspaces.values()
+    assert work.numel() == words and tk8._workspaces == {}
+    assert out.shape == (m, n) and out.dtype == torch.float32
+
+
+def test_k8_weight_only_reuses_its_workspace_and_drops_it_on_failure(
+        monkeypatch, stub):
+    """Like int8 mode's: one buffer for calls that fit, grown when a call
+    needs more, and dropped after a refused launch (the counters may not
+    be zero then)."""
+    ptrs = []
+    stub.hook = lambda name, args: ptrs.append(args[5])
+
+    def call(m, k, n):
+        tk8._launch(torch.ones(m, k), torch.ones(k, n, dtype=torch.int8),
+                    torch.ones(n), None, 8, False)
+
+    call(32, 2048, 1000)
+    call(1, 2048, 1000)        # fits: the same buffer
+    assert len(ptrs) == 2 and ptrs[0] == ptrs[1]
+    call(64, 2048, 1000)       # bm 64: grows
+    assert ptrs[-1] != ptrs[0]
+    assert len(tk8._wo_workspaces) == 1
+    monkeypatch.setattr(_Recorder, "__getattr__",
+                        lambda self, name: lambda *args: 1)
+    with pytest.raises(RuntimeError, match="cudaError_t 1"):
+        call(32, 2048, 1000)
+    assert tk8._wo_workspaces == {}
+    assert tk8.launch_counts["quantized_matmul_weight_only"] == 3
 
 
 # ---------------------------------------------------------------------

@@ -324,8 +324,9 @@ def test_k7_raises_instead_of_falling_back(cuda):
 
 # ---------------------------------------------------------------------
 # K1-K4: the flash-attention kernels: bfloat16 on the tensor cores
-# (flash_fwd, flash_bwd), float32 on the CUDA cores (flash_fwd_f32,
-# flash_bwd_dkv_f32, flash_bwd_dq_f32)
+# (flash_fwd, flash_bwd); float32's forward on the tensor cores in three
+# bf16 pieces (flash_fwd_f32), its backward on the CUDA cores
+# (flash_bwd_dkv_f32, flash_bwd_dq_f32)
 # ---------------------------------------------------------------------
 
 from paddle_tpu_torch.ops.kernels import flash_attention as tfa  # noqa: E402
@@ -420,6 +421,31 @@ def test_flash_kernels_match_plain(cuda, dtype, case):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_flash_f32_reads_views_that_are_not_16_byte_aligned(cuda, d):
+    """q, k, v one float into their buffer (rows 4 bytes past a 16-byte
+    boundary) take the forward's 4-byte loads: o and lse as close to the
+    plain version as on aligned views, and the f32 kernels launched."""
+    b, t, n = 2, 200, 3
+    g = torch.Generator(device=cuda).manual_seed(7)
+    qkv = torch.randn((b, t, 3, n, d), generator=g, device=cuda)
+    buf = torch.empty(qkv.numel() + 1, device=cuda)
+    buf[1:].copy_(qkv.reshape(-1))
+    x = buf[1:].view(qkv.shape)
+    q, k, v = x[:, :, 0], x[:, :, 1], x[:, :, 2]
+    assert q.data_ptr() % 16 == 4
+    mask = 0.5 * torch.randn((b, 1, 1, t), generator=g, device=cuda)
+    before = tfa.launch_counts["flash_fwd_f32"]
+    o, lse = tfa.flash_attention_lse(q, k, v, mask=mask, causal=True)
+    want, want_lse = tfa.attention_reference(q, k, v, mask, causal=True,
+                                             return_lse=True)
+    torch.cuda.synchronize()
+    assert tfa.launch_counts["flash_fwd_f32"] == before + 1
+    assert _rel_err(o, want) <= FLASH_TOL[torch.float32]
+    assert _rel_err(lse, want_lse) <= FLASH_TOL[torch.float32]
+
+
+@pytest.mark.cuda
 def test_flash_dropout_keeps_the_rate_and_varies_with_the_seed(cuda):
     b, t, n, d = 1, 256, 2, 64
     q = torch.ones((b, t, n, d), device=cuda)
@@ -507,13 +533,43 @@ def test_k8_split_calls_share_a_workspace_and_leave_it_zero(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("m,k,n", [(5, 33, 17), (130, 257, 129),
-                                   (32, 2048, 1000)])
+                                   (32, 2048, 1000), (1, 2048, 1000),
+                                   (8, 2048, 1000), (16, 1000, 48),
+                                   (64, 512, 256), (4096, 768, 3072),
+                                   (3, 4, 5)])
 def test_k8_weight_only_mode_matches_plain(cuda, m, k, n):
+    """x in three bf16 pieces against the codes on the tensor cores:
+    within 1e-5 of max |plain| (summation order), and the same bits from
+    a second call (split-K partials summed in split order)."""
     x, w_q, w_s, _ = _k8_inputs(m, k, n, 8, cuda)
+    before = dict(tk8.launch_counts)
     got = tk8.fused_dequant_matmul(x, w_q, w_s)
+    again = tk8.fused_dequant_matmul(x, w_q, w_s)
     want = tk8.dequant_matmul_reference(x, w_q, w_s)
     torch.cuda.synchronize()
+    assert tk8.launch_counts == {k: v + 2 for k, v in before.items()}
     assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_k8_weight_only_split_calls_leave_their_counters_zero(cuda):
+    """Split weight-only calls of several shapes on one stream share one
+    workspace (a call with fewer tiles and more partials after one with
+    more tiles, then that one again); each stays right and leaves every
+    arrival counter zero."""
+    for m, k, n in [(32, 2048, 1000), (1, 2048, 1000), (130, 257, 129),
+                    (32, 2048, 1000)]:
+        splits = tk8.k8_wo_split_count(m, k, n)
+        assert splits > 1
+        x, w_q, w_s, _ = _k8_inputs(m, k, n, 8, cuda)
+        got = tk8.fused_dequant_matmul(x, w_q, w_s)
+        want = tk8.dequant_matmul_reference(x, w_q, w_s)
+        torch.cuda.synchronize()
+        assert float((got - want).abs().max()) <= 1e-5 * float(
+            want.abs().max())
+        work = tk8._wo_workspaces[(x.device, tk8._stream(x.device))]
+        assert int(work[:256].abs().max()) == 0
 
 
 @pytest.mark.cuda

@@ -213,6 +213,22 @@ def test_executor_caches_one_step_per_program_version():
         assert len(exe._cache) == 3
 
 
+def test_make_step_fn_without_a_device_means_the_gpu(monkeypatch):
+    """make_step_fn takes device=None as CUDA, as every entry point of the
+    port does: where no GPU is visible it raises instead of building a
+    step on the CPU; with device="cpu" the step runs there."""
+    from paddle_tpu_torch.core.lowering import make_step_fn
+    _, tstart, _ = _build("port", "lenet")
+    state = [v.name for v in tstart.list_vars() if v.persistable]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_step_fn(tstart, [], [], [])
+    step = make_step_fn(tstart, [], state, [], device="cpu")
+    fetches, new_state = step({}, {}, 0)
+    assert fetches and all(t.device == torch.device("cpu") for t in fetches)
+    assert set(state) <= set(new_state)
+
+
 def test_construction_time_shape_inference_is_strict():
     """A mis-built static graph fails where it is built, naming the op;
     a -1 batch dim defers failures that the sentinel could cause."""

@@ -26,6 +26,27 @@ repeats that arithmetic for a chosen set of piece pairs (i, j), i the
 piece of q (or p), j of k (or v): the six pairs with i + j <= 2 that the
 kernel runs meet the tolerance at D = 32, 64 and 128, C = 2, 16 and
 512, against the JAX package's reference; every set of five misses it.
+
+Two more kernels rest on the same pieces:
+
+* K8's weight-only mode (`qmm_weight_only_tc_kernel` in
+  csrc/quantized_matmul.cu): x in three pieces against the int8 codes,
+  a fresh float32 sum per 64-k tile added into a running sum.
+  `k8_weight_only_emulation` meets K8_WO_TOL (1e-5 of max |plain|) at
+  every shape of chip_smoke's phase 11 with a wide margin. Two pieces
+  meet it as well (2.5e-6 to 3.2e-6 here), at three times or more the
+  error of three; one piece (x in bf16) misses it a hundredfold. The
+  kernel keeps three: the margin is what the tensor cores' own
+  summation order may spend.
+* The f32 flash forward (`flash_fwd_f32_tc_kernel` in
+  csrc/flash_fwd_f32_tc.cu): q, k, v and p in pieces, the six pairs,
+  s = S * scale + bias, causal, the dropout keep mask, lse.
+  `flash_f32_emulation` stays within half of the card's tolerance
+  (FLASH_TOL["float32"] = 1e-5 of max |plain|) of the JAX package's
+  `attention_reference` at T = 1024 and within 1e-6, the level of the
+  CUDA-core f32 kernel it replaces (4.4e-7 on the card); every set of
+  five pairs is past 1e-6 (2.7e-6 to 4.2e-6 here), though inside the
+  1e-5 gate.
 """
 import importlib
 import math
@@ -35,8 +56,12 @@ import numpy as np
 import pytest
 import torch
 
+from paddle_tpu.ops.pallas.quantized_matmul import (
+    dequant_matmul_reference as jax_dequant_matmul)
 from paddle_tpu_torch.ops import generation as tgen
 from paddle_tpu_torch.ops.kernels import decode_attention as tda
+from paddle_tpu_torch.ops.kernels import flash_attention as tfa
+from paddle_tpu_torch.ops.kernels import quantized_matmul as tk8
 from paddle_tpu_torch.weights import kv_to_numpy
 
 jfa = importlib.import_module("paddle_tpu.ops.pallas.flash_attention")
@@ -284,3 +309,185 @@ def test_five_pairs_miss_it(dropped):
     err6 = float((tc_paged_emulation(*args) - want).abs().max())
     assert err5 > TOL > err6, (err5, err6)
 
+
+
+# ---------------------------------------------------------------------
+# K8 weight-only: x in pieces against the int8 codes
+# ---------------------------------------------------------------------
+
+#: chip_smoke phase 11's weight-only gate: max |kernel - plain| <=
+#: K8_WO_TOL * max |plain|
+K8_WO_TOL = 1e-5
+#: chip_smoke's K8_SHAPES: the ResNet-50 fc at batch 32, 8, 1, a BERT-base
+#: FFN GEMM and two odd shapes
+K8_SHAPES = ((32, 2048, 1000), (8, 2048, 1000), (1, 2048, 1000),
+             (4096, 768, 3072), (5, 33, 17), (130, 257, 129))
+
+
+def k8_weight_only_emulation(x, w_q, w_scale, pieces=3, k_tile=64):
+    """K8's weight-only mode as the kernel computes it, in float32 on the
+    CPU: per 64-k tile a fresh sum over x's pieces (smallest first) of
+    piece . codes (each product exact in f32), added into a running f32
+    sum; then acc * (w_scale / qmax) with the quotient rounded once."""
+    codes = _bf16(w_q.to(torch.float32))                    # exact
+    xp = split_pieces(x, pieces)
+    run = torch.zeros(x.shape[0], w_q.shape[1])
+    for k0 in range(0, x.shape[1], k_tile):
+        sl = slice(k0, k0 + k_tile)
+        run = run + sum(p[:, sl] @ codes[sl] for p in reversed(xp))
+    return run * (w_scale.reshape(1, -1) / tk8._f32(tk8.qmax(8), "cpu"))
+
+
+def _k8_inputs(m, k, n, seed=11):
+    """As chip_smoke's phase 11: x and w standard normal, w quantized per
+    output column at its abs-max."""
+    rng = np.random.RandomState(seed + m)
+    x = torch.from_numpy(rng.randn(m, k).astype(np.float32))
+    w = torch.from_numpy(rng.randn(k, n).astype(np.float32))
+    w_s = w.abs().amax(dim=0).clamp_min(1e-8)
+    w_q = torch.clamp(torch.round(w / w_s * 127.0), -127, 127).to(torch.int8)
+    return x, w_q, w_s
+
+
+def _rel(got, want):
+    want = torch.as_tensor(np.array(want))
+    return float((got - want).abs().max() / want.abs().max())
+
+
+@pytest.mark.parametrize("m,k,n", K8_SHAPES)
+def test_k8_three_pieces_meet_the_weight_only_tolerance(m, k, n):
+    """Within a tenth of K8_WO_TOL of the port's plain version, and within
+    K8_WO_TOL of the JAX package's dequant_matmul_reference (whose own
+    summation order puts it up to 2e-6 from the port's plain version)."""
+    x, w_q, w_s = _k8_inputs(m, k, n)
+    got = k8_weight_only_emulation(x, w_q, w_s)
+    assert _rel(got, tk8.dequant_matmul_reference(x, w_q, w_s)) <= (
+        K8_WO_TOL / 10)
+    want = jax_dequant_matmul(jnp.asarray(x.numpy()), jnp.asarray(
+        w_q.numpy()), jnp.asarray(w_s.numpy()))
+    assert _rel(got, want) <= K8_WO_TOL
+
+
+@pytest.mark.parametrize("m,k,n", K8_SHAPES)
+def test_k8_fewer_pieces_lose_the_margin(m, k, n):
+    """Two pieces keep 16 bits of x: still inside K8_WO_TOL here, at two
+    times (or more) the error of three; one piece, x in bf16, misses the
+    tolerance a hundredfold."""
+    x, w_q, w_s = _k8_inputs(m, k, n)
+    want = tk8.dequant_matmul_reference(x, w_q, w_s)
+    err = {p: _rel(k8_weight_only_emulation(x, w_q, w_s, pieces=p), want)
+           for p in (1, 2, 3)}
+    assert err[3] <= K8_WO_TOL / 10
+    assert 2 * err[3] <= err[2] <= K8_WO_TOL, err
+    assert err[1] > 100 * K8_WO_TOL, err
+
+
+# ---------------------------------------------------------------------
+# the f32 flash forward: six piece pairs with bias, causal, dropout, lse
+# ---------------------------------------------------------------------
+
+#: chip_smoke phase 6's float32 gate (max |kernel - plain| / max |plain|)
+FLASH_F32_TOL = 1e-5
+#: the accuracy of the CUDA-core f32 kernel the tensor-core forward
+#: replaced (4.4e-7 relative on the card), with room
+F32_LEVEL = 1e-6
+
+
+def flash_f32_emulation(q, k, v, bias, causal, keep, pairs=SIX_PAIRS,
+                        key_tile=64):
+    """The f32 flash forward as the tensor-core kernel computes it, in
+    float32 on the CPU, for q/k/v [B, T, N, D], bias [B, Tk] or None, keep
+    [B, N, Tq, Tk] or None: S = sum over `pairs` (i, j) of q's piece i .
+    k's piece j ^T, s = S * scale + bias, causal keeps col <= row; an
+    online softmax over tiles of `key_tile` keys with l summing the
+    undropped p; O_tile = sum over `pairs` of (p x keep)'s piece i . v's
+    piece j, O = O * corr + O_tile; o = O / safe_l, lse = m +
+    log(safe_l). Returns o [B, T, N, D] and lse [B, N, T]."""
+    b, t, n, d = q.shape
+    tk = k.shape[1]
+    scale = np.float32(1.0 / math.sqrt(d))
+    rows = torch.arange(t)
+    out = torch.zeros_like(q)
+    lse = torch.zeros(b, n, t)
+    for bi in range(b):
+        for h in range(n):
+            qp = split_pieces(q[bi, :, h])
+            o = torch.zeros(t, d)
+            mx = torch.full((t,), tfa.NEG_INF)
+            l_sum = torch.zeros(t)
+            for k0 in range(0, tk, key_tile):
+                keys = torch.arange(k0, min(k0 + key_tile, tk))
+                kp = split_pieces(k[bi, keys, h])
+                vp = split_pieces(v[bi, keys, h])
+                s = sum(qp[i] @ kp[j].T for i, j in pairs) * scale
+                if bias is not None:
+                    s = s + bias[bi, keys][None, :]
+                if causal:
+                    s = torch.where(keys[None, :] <= rows[:, None], s,
+                                    torch.full_like(s, tfa.NEG_INF))
+                m_new = torch.maximum(mx, s.max(dim=1).values)
+                corr = torch.exp(mx - m_new)
+                mu = torch.where(m_new == tfa.NEG_INF,
+                                 torch.zeros_like(m_new), m_new)
+                p = torch.exp(s - mu[:, None])
+                l_sum = l_sum * corr + p.sum(dim=1)
+                if keep is not None:
+                    p = p * keep[bi, h][:, keys]
+                pp = split_pieces(p)
+                o = o * corr[:, None] + sum(pp[i] @ vp[j] for i, j in pairs)
+                mx = m_new
+            safe = torch.where(l_sum == 0, torch.ones_like(l_sum), l_sum)
+            out[bi, :, h] = o / safe[:, None]
+            lse[bi, h] = mx + torch.log(safe)
+    return out, lse
+
+
+def _flash_inputs(d, t=1024, b=1, n=2, rate=0.1, seed=3):
+    """Standard normal q, k, v (as chip_smoke's phase 6), a random key
+    bias (its mask_grad case), the kernels' dropout masks."""
+    rng = np.random.RandomState(seed + d)
+    q, k, v = (torch.from_numpy(rng.randn(b, t, n, d).astype(np.float32))
+               for _ in range(3))
+    bias = torch.from_numpy((0.5 * rng.randn(b, t)).astype(np.float32))
+    keep = tfa.batch_keep_masks(12345, b, n, t, t, rate)
+    return q, k, v, bias, keep
+
+
+def _jax_attention(q, k, v, bias, keep):
+    b, t = bias.shape
+    return np.asarray(jfa.attention_reference(
+        *(jnp.asarray(x.numpy()) for x in (q, k, v)),
+        mask=jnp.asarray(bias.numpy()).reshape(b, 1, 1, t), causal=True,
+        keep_masks=jnp.asarray(keep.numpy())))
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_flash_f32_six_pairs_meet_the_tolerance(d):
+    """T = 1024, causal, bias, dropout 0.1: o within half of the card's
+    f32 gate of the JAX reference (and within F32_LEVEL), lse within
+    F32_LEVEL of the plain version's."""
+    q, k, v, bias, keep = _flash_inputs(d)
+    got, lse = flash_f32_emulation(q, k, v, bias, True, keep)
+    want = _jax_attention(q, k, v, bias, keep)
+    assert _rel(got, want) <= min(FLASH_F32_TOL / 2, F32_LEVEL)
+    b, t = bias.shape
+    _, want_lse = tfa.attention_reference(q, k, v, bias.reshape(b, 1, 1, t),
+                                          True, keep_masks=keep,
+                                          return_lse=True)
+    assert _rel(lse, want_lse[..., 0].permute(0, 2, 1)) <= F32_LEVEL
+
+
+@pytest.mark.parametrize("dropped", [(2, 0), (1, 1), (0, 2)])
+def test_flash_f32_five_pairs_lose_f32_accuracy(dropped):
+    """Leaving out a pair of total rank 2 (an error term of 2^-16 of a
+    product) puts o past F32_LEVEL of the plain version at D = 64, where
+    the six pairs stay near 3e-7."""
+    q, k, v, bias, keep = _flash_inputs(64)
+    b, t = bias.shape
+    want = tfa.attention_reference(q, k, v, bias.reshape(b, 1, 1, t), True,
+                                   keep_masks=keep)
+    five = tuple(p for p in SIX_PAIRS if p != dropped)
+    err5 = _rel(flash_f32_emulation(q, k, v, bias, True, keep, five)[0],
+                want)
+    err6 = _rel(flash_f32_emulation(q, k, v, bias, True, keep)[0], want)
+    assert err5 > F32_LEVEL > err6, (err5, err6)
