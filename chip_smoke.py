@@ -4,6 +4,7 @@
     python3 chip_smoke.py [--seed N] [--out results.json]
     python3 chip_smoke.py --latency [ROOT]
     python3 chip_smoke.py --decode-rows [ROOT]
+    python3 chip_smoke.py --flash-sweep [ROOT]
 
 Phases, each of which raises (exit code != 0) when its check fails:
 
@@ -11,7 +12,7 @@ Phases, each of which raises (exit code != 0) when its check fails:
    of the CUDA kernels from `paddle_tpu_torch/csrc/` and the build
    report of the tensor-core kernels (BUILD_CHECKS): each
    instantiation's ptxas line and its SASS opcodes (cuobjdump), failing
-   on a spill, on no HGMMA in the bf16 flash pair, the f32 flash forward,
+   on a spill, on no HGMMA in the bf16 flash pair, the f32 flash pair,
    K6's / K7's chunk kernels or K8's weight-only kernel, on no IMMA in
    K8's int8 kernel or on IDP4A there.
 2. Kernels against their plain PyTorch versions on the card, at the
@@ -77,17 +78,19 @@ Phases, each of which raises (exit code != 0) when its check fails:
    version:
    `flash_fwd` and `flash_bwd` (bf16, tensor cores) at BERT-base shapes
    (B=32, T=512, N=12, D=64; all-ones mask, padding mask, dropout 0.1)
-   and the f32 trio (`flash_fwd_f32` on the bf16 tensor cores with six
-   piece products per f32 product, `flash_bwd_dkv_f32` and
-   `flash_bwd_dq_f32` on the CUDA cores) on the general path (T=1024,
-   causal, mask_grad) and on views whose rows are not 16-byte aligned
-   (offset by one float): o, lse, dq/dk/dv(/dmask) within FLASH_TOL of
-   max |plain|, each case launching only its dtype's kernels. The bf16
-   pair is timed at the main path's case (dropout 0.1) and the f32 trio
-   at phase 8's (batch 4), each beside its plain version,
+   and the f32 pair (`flash_fwd_f32` and `flash_bwd_f32`, on the bf16
+   tensor cores with every operand in three bf16 pieces and six piece
+   products per f32 product) on the general path (T=1024, causal,
+   mask_grad) and on views whose rows are not 16-byte aligned (offset by
+   one float): o, lse, dq/dk/dv(/dmask) within FLASH_TOL of max |plain|,
+   each case launching only its dtype's kernels. The bf16 pair is timed
+   at the main path's case (dropout 0.1) and the f32 pair at phase 8's
+   (batch 4), each beside its plain version,
    `F.scaled_dot_product_attention` on the same tensors (a yardstick the
-   port never calls) and its bound (the f32 forward's as six bf16
-   products per f32 product at 989 TFLOP/s).
+   port never calls) and its bound (the f32 pair's as six bf16 products
+   per f32 product at 989 TFLOP/s). Then the f32 backward and SDPA's f32
+   backward at B=4, N=12, D=64, T in FLASH_SWEEP_T, causal and not (see
+   `flash_sweep`).
 7. The BERT-base pretraining step at full published width (12 layers,
    hidden 768, 12 heads, vocab 30522; bf16 params, f32 master + Adam,
    dropout on, flash attention), batch 32 x 512: 3 warm-up and 10 timed
@@ -97,7 +100,7 @@ Phases, each of which raises (exit code != 0) when its check fails:
    989 TFLOP/s and peak memory.
 8. The same weights in f32, eval(), batch 4 x 512: pretrain_loss and
    every gradient under attention_impl="flash" against "xla" within
-   MODEL_LOSS_TOL / MODEL_GRAD_TOL; the f32 trio launched once per
+   MODEL_LOSS_TOL / MODEL_GRAD_TOL; the f32 pair launched once per
    layer and the bf16 pair never.
 9. Where a training step's time goes (torch.profiler, device rows).
 10. (No phase 10: phases 11-13 are the static serving slice's.)
@@ -145,7 +148,9 @@ found under ROOT (default: this checkout), one prompt's prefill latency
 at LATENCY_LENS and f32 / int8 / fp8 paged serving (see `latency`), and
 prints one line `LATENCY {...}`. `--decode-rows [ROOT]` likewise
 profiles K7's decode route at phase 2's case (see `decode_rows`) and
-prints `DECODE_ROWS {...}`. Run either on two checkouts in one call
+prints `DECODE_ROWS {...}`. `--flash-sweep [ROOT]` times the f32 flash
+backward of the port under ROOT beside SDPA's (see `flash_sweep`) and
+prints `FLASH_SWEEP {...}`. Run any of them on two checkouts in one call
 (parent, change, change, parent) to compare them on the same card.
 """
 import argparse
@@ -938,34 +943,28 @@ FLASH_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 #: (relative) and each parameter's gradient (max abs diff over max abs)
 MODEL_LOSS_TOL = 1e-5
 MODEL_GRAD_TOL = 1e-4
-#: the flash kernels of each dtype: bfloat16 on the tensor cores (the
-#: main path's), float32 on the CUDA cores (phase 8's)
+#: the flash kernels of each dtype, all on the tensor cores: bfloat16 (the
+#: main path's) and float32 in three bf16 pieces (phase 8's)
 FLASH_BF16 = ("flash_fwd", "flash_bwd")
-FLASH_F32 = ("flash_fwd_f32", "flash_bwd_dkv_f32", "flash_bwd_dq_f32")
+FLASH_F32 = ("flash_fwd_f32", "flash_bwd_f32")
 FLASH_KERNELS = FLASH_BF16 + FLASH_F32
 #: which outputs each flash kernel writes
 FLASH_OUTPUTS = {"flash_fwd": ("o", "lse"),
                  "flash_bwd": ("dq", "dk", "dv", "dmask"),
                  "flash_fwd_f32": ("o", "lse"),
-                 "flash_bwd_dkv_f32": ("dk", "dv", "dmask"),
-                 "flash_bwd_dq_f32": ("dq",)}
+                 "flash_bwd_f32": ("dq", "dk", "dv", "dmask")}
 _PALLAS = "paddle_tpu/ops/pallas/flash_attention.py"
 _FWD_REPLACES = f"{_PALLAS}:160 (_fwd_kernel, K1), :280 (_fwd1_kernel, K4f)"
-FLASH_REPLACES = {
-    "flash_fwd": _FWD_REPLACES,
-    "flash_bwd": f"{_PALLAS}:468 (_bwd_dkv_kernel, K2), :543 "
-                 "(_bwd_dq_kernel, K3), :311 (_bwd1_kernel, K4b)",
-    "flash_fwd_f32": _FWD_REPLACES,
-    "flash_bwd_dkv_f32": f"{_PALLAS}:468 (_bwd_dkv_kernel, K2), :311 "
-                         "(_bwd1_kernel, K4b)",
-    "flash_bwd_dq_f32": f"{_PALLAS}:543 (_bwd_dq_kernel, K3), :311 "
-                        "(_bwd1_kernel, K4b)"}
+_BWD_REPLACES = (f"{_PALLAS}:468 (_bwd_dkv_kernel, K2), :543 "
+                 "(_bwd_dq_kernel, K3), :311 (_bwd1_kernel, K4b)")
+FLASH_REPLACES = {"flash_fwd": _FWD_REPLACES, "flash_bwd": _BWD_REPLACES,
+                  "flash_fwd_f32": _FWD_REPLACES,
+                  "flash_bwd_f32": _BWD_REPLACES}
 _CSRC = "paddle_tpu_torch/csrc/"
 FLASH_SOURCES = {"flash_fwd": _CSRC + "flash_attention_tc.cu",
                  "flash_bwd": _CSRC + "flash_attention_tc.cu",
                  "flash_fwd_f32": _CSRC + "flash_fwd_f32_tc.cu",
-                 "flash_bwd_dkv_f32": _CSRC + "flash_attention.cu",
-                 "flash_bwd_dq_f32": _CSRC + "flash_attention.cu"}
+                 "flash_bwd_f32": _CSRC + "flash_bwd_f32_tc.cu"}
 SEED_ATTN = 12345
 BERT_BATCH, BERT_SEQ = 32, 512
 
@@ -1037,14 +1036,15 @@ def flash_case(torch, tfa, dev, dtype, b, t, n, d, causal=False, pad=False,
 
 #: the kernels whose ptxas lines and SASS the build report checks: mangled
 #: name stem -> (instantiations, opcodes its SASS must hold, opcodes it
-#: must not). The bf16 flash pair, the f32 flash forward, K6's and K7's
-#: chunk routes and K8's weight-only mode run on wgmma (HGMMA); K8's int8
+#: must not). The bf16 and f32 flash pairs, K6's and K7's chunk routes
+#: and K8's weight-only mode run on wgmma (HGMMA); K8's int8
 #: mode on mma.sync s8 (IMMA), with no dp4a left; K7's decode kernel (CUDA
 #: cores) is listed for its ptxas lines (0 spill).
 BUILD_CHECKS = {
     "flash_fwd_tc_kernel": (3, ("HGMMA",), ()),
     "flash_bwd_tc_kernel": (3, ("HGMMA",), ()),
     "flash_fwd_f32_tc_kernel": (3, ("HGMMA",), ()),
+    "flash_bwd_f32_tc_kernel": (3, ("HGMMA",), ()),
     "qattn_prefill_tc_kernel": (6, ("HGMMA",), ()),
     "paged_prefill_tc_kernel": (3, ("HGMMA",), ()),
     "qattn_decode_kernel": (6, (), ()),
@@ -1195,21 +1195,16 @@ def time_flash(torch, tfa, dtype, b, t, n, d, rate, seed, tag, copies=2):
             # six bf16 products per f32 product on the tensor cores
             "flash_fwd_f32": (fwd, plain_fwd,
                               4 * nbytes + bias_bytes + rows, 6 * 4 * bhttd),
-            "flash_bwd_dkv_f32": (
-                lambda s: tfa._launch_dkv(*bwd_args(s), False),
-                grad_of((1, 2)), 6 * nbytes + 2 * rows + bias_bytes,
-                8 * bhttd),
-            "flash_bwd_dq_f32": (
-                lambda s: tfa._launch_dq(*bwd_args(s)), grad_of((0,)),
-                5 * nbytes + 2 * rows + bias_bytes, 6 * bhttd)}
+            "flash_bwd_f32": (
+                lambda s: tfa._launch_bwd_tc(*bwd_args(s), False),
+                grad_of((0, 1, 2)), 7 * nbytes + 2 * rows + bias_bytes,
+                6 * 10 * bhttd)}
     dname = str(dtype).split(".")[-1]
     shape = (f"B={b} T={t} N={n} D={d} {dname} dropout {rate} (q, k, v "
              f"views of [B, T, 3, N, D])")
     out = {}
     for kname, (fn, plain, nb, flops) in timings.items():
-        tensor_cores = bf16 or kname == "flash_fwd_f32"
-        bnd, by = bound_ms(nb, flops, BF16_FLOPS if tensor_cores
-                           else F32_FLOPS)
+        bnd, by = bound_ms(nb, flops, BF16_FLOPS)
         lib_ms = lib_fwd_ms if plain is plain_fwd else lib_bwd_ms
         row = out[kname] = dict(
             name=kname, route="cuda", source=FLASH_SOURCES[kname],
@@ -1232,11 +1227,12 @@ def time_flash(torch, tfa, dtype, b, t, n, d, rate, seed, tag, copies=2):
 def check_flash(torch, tfa, seed, tag):
     """Phase 6. The flash kernels against their plain versions: the
     tensor-core pair at BERT-base shapes (B=32, T=512, N=12, D=64, bf16:
-    an all-ones mask, a padding mask, dropout 0.1), the f32 trio on the
+    an all-ones mask, a padding mask, dropout 0.1), the f32 pair on the
     general path (T=1024, causal, mask_grad) and on views offset by one
-    float (rows not 16-byte aligned). Then the bf16
-    pair timed at the main path's case (dropout 0.1) and the f32 trio at
-    phase 8's (batch 4, no dropout). Returns {kernel: summary dict}."""
+    float (rows not 16-byte aligned). Then the bf16 pair timed at the
+    main path's case (dropout 0.1), the f32 pair at phase 8's (batch 4,
+    no dropout), and the f32 backward's T sweep (`flash_sweep`). Returns
+    {kernel: summary dict}."""
     dev = torch.device("cuda")
     bf16, f32 = torch.bfloat16, torch.float32
     b, t, n, d = BERT_BATCH, BERT_SEQ, 12, 64
@@ -1276,7 +1272,81 @@ def check_flash(torch, tfa, seed, tag):
     timed.update(time_flash(torch, tfa, f32, 4, t, n, d, 0.0, seed, tag))
     for kname, row in timed.items():
         kernels[kname].update(row)
+    kernels["flash_bwd_f32"]["sweep"] = flash_sweep(torch, tfa, seed, tag)
     return kernels
+
+
+#: the sequence lengths of the f32 backward's sweep (phase 6 and
+#: --flash-sweep): B=4, N=12, D=64, each causal and not
+FLASH_SWEEP_T = (128, 512, 1024, 2048)
+
+
+def flash_sweep(torch, tfa, seed, tag, ts=FLASH_SWEEP_T, b=4, n=12, d=64):
+    """The f32 flash backward of the port in `tfa` at (b, T, n, d), no
+    mask, no dropout, T in `ts`, causal and not: the backward kernels
+    called as the autograd function calls them, on q, k, v views of [B,
+    T, 3, N, D], beside SDPA's f32 backward (dq, dk, dv in one call) on
+    the same tensors and the bound (six bf16 products per f32 product of
+    10 B N D x the (row, key) pairs the mask keeps, at 989 TFLOP/s). A
+    port from before the tensor-core f32 backward (`_launch_dkv` and
+    `_launch_dq`, the CUDA-core pair) is timed as its two launches, so
+    --flash-sweep on a parent checkout and on this one compares the two.
+    Returns {"T=<t> causal=<c>": {"ms", "library_ms", "bound_ms"}}."""
+    import torch.nn.functional as F
+    dev = torch.device("cuda")
+    if hasattr(tfa, "_launch_dkv"):
+        def bwd(s):
+            tfa._launch_dkv(*s["args"], False)
+            tfa._launch_dq(*s["args"])
+    else:
+        def bwd(s):
+            tfa._launch_bwd_tc(*s["args"], False)
+
+    def lib_bwd(s):
+        return torch.autograd.grad(s["out"], s["x"], s["dout_t"],
+                                   retain_graph=True)
+
+    out = {}
+    for t in ts:
+        for causal in (False, True):
+            cfg = (causal, 1.0 / d ** 0.5, 0.0, None)
+            sets = []
+            for i in range(2):
+                qkv, dout, _ = flash_inputs(torch, dev, torch.float32, b, t,
+                                            n, d, False, False, seed + 1 + i)
+                q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+                o, lse = tfa._launch_fwd(q, k, v, None, cfg)
+                x = [a.detach().clone().requires_grad_() for a in (q, k, v)]
+                lib_out = F.scaled_dot_product_attention(
+                    *(a.transpose(1, 2) for a in x), is_causal=causal)
+                sets.append(dict(
+                    args=(q, k, v, None, dout, lse, tfa.bwd_delta(o, dout),
+                          cfg),
+                    x=x, out=lib_out, dout_t=dout.transpose(1, 2)))
+            args = [(st,) for st in sets]
+            ms = timed_ms(torch, bwd, args)
+            lib_ms = timed_ms(torch, lib_bwd, args)
+            pairs = t * (t + 1) // 2 if causal else t * t
+            bnd, by = bound_ms(7 * b * t * n * d * 4 + 2 * b * n * t * 4,
+                               6 * 10 * b * n * pairs * d, BF16_FLOPS)
+            row = out[f"T={t} causal={causal}"] = dict(
+                ms=ms, library_ms=lib_ms, bound_ms=bnd, bound_by=by)
+            print(f"f32 flash backward sweep B={b} T={t} N={n} D={d} "
+                  f"causal={causal}: kernel_ms={ms:.5f} "
+                  f"library_ms={lib_ms:.5f} (SDPA f32 backward) "
+                  f"bound_ms={bnd:.5f} ({by}) {tag}")
+            del sets, args
+            torch.cuda.empty_cache()
+    return out
+
+
+def flash_sweep_mode(torch, seed):
+    """--flash-sweep: `flash_sweep` on the port found on sys.path."""
+    from paddle_tpu_torch.ops.kernels import flash_attention as tfa
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = card_line()
+    return {"card": card, "sweep": flash_sweep(torch, tfa, seed,
+                                               f"[{card}]")}
 
 
 def bert_train(torch, tfa, seed, tag, warmup=3, steps=10):
@@ -1310,8 +1380,7 @@ def bert_train(torch, tfa, seed, tag, warmup=3, steps=10):
     assert all(np.isfinite(losses)), f"non-finite loss: {losses}"
     assert losses[-1] < losses[0], (
         f"loss did not fall over {len(losses)} steps: {losses}")
-    # bf16: the tensor-core pair once per layer per step, no CUDA-core
-    # kernel at all
+    # bf16: the bf16 pair once per layer per step, no f32 kernel
     for k in FLASH_KERNELS:
         want = cfg.num_layers * steps if k in FLASH_BF16 else 0
         assert launches[k] == want, (
@@ -1363,7 +1432,7 @@ def flash_vs_einsum(torch, tfa, trainer, tag, batch=4):
         loss, grads = value_and_grad(lambda: model.pretrain_loss(*data),
                                      model)()
         res[impl] = (float(loss), grads)
-        # f32: the CUDA-core trio once per layer, never the bf16 pair
+        # f32: the f32 pair once per layer, never the bf16 pair
         want = cfg.num_layers if impl == "flash" else 0
         assert all(tfa.launch_counts[k] == (want if k in FLASH_F32 else 0)
                    for k in FLASH_KERNELS), (
@@ -1732,6 +1801,12 @@ def main(argv=None):
                     help="only profile K7's decode route at phase 2's case "
                          "with the port under ROOT (default: this "
                          "checkout); print one DECODE_ROWS line")
+    ap.add_argument("--flash-sweep", nargs="?", const=".", default=None,
+                    metavar="ROOT",
+                    help="only time the f32 flash backward beside SDPA's "
+                         "at FLASH_SWEEP_T with the port under ROOT "
+                         "(default: this checkout); print one FLASH_SWEEP "
+                         "line")
     args = ap.parse_args(argv)
 
     import torch
@@ -1740,7 +1815,9 @@ def main(argv=None):
               file=sys.stderr)
         return 2
     for mode, fn, label in ((args.latency, latency, "LATENCY"),
-                            (args.decode_rows, decode_rows, "DECODE_ROWS")):
+                            (args.decode_rows, decode_rows, "DECODE_ROWS"),
+                            (args.flash_sweep, flash_sweep_mode,
+                             "FLASH_SWEEP")):
         if mode is None:
             continue
         root = os.path.abspath(mode)

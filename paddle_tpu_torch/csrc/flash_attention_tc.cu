@@ -1,6 +1,7 @@
 // FlashAttention forward and backward for Hopper's tensor cores (sm_90a),
 // bfloat16 in, float32 accumulate: the bf16 half of kernels K1-K4 of the
-// port. (float32 keeps the CUDA-core kernels of flash_attention.cu.)
+// port. (float32 has its own tensor-core pair, in three bf16 pieces:
+// flash_fwd_f32_tc.cu and flash_bwd_f32_tc.cu.)
 //
 // ptt_flash_fwd  replaces paddle_tpu/ops/pallas/flash_attention.py
 //                ::_fwd_kernel (K1, :160, via _fwd) and ::_fwd1_kernel
@@ -50,7 +51,7 @@
 //  * Nothing of size T x T reaches device memory; m, l and the
 //    accumulators stay in registers in f32.
 //
-// Semantics are those of flash_attention.cu and the Pallas kernels:
+// Semantics are those of the Pallas kernels:
 // s = (q.k) * scale + bias[key] (f32), causal keeps col <= row, the ragged
 // edge of T masked, l sums the undropped p, p x keep rounded to bf16
 // before P.V, l = 0 gives safe_l = 1, lse = m + log(safe_l) as [B*N, Tq]

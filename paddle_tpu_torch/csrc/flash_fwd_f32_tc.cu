@@ -5,8 +5,8 @@
 //                    ::_fwd_kernel (K1, :160, via _fwd) and ::_fwd1_kernel
 //                    (K4f, :280, via _fwd1) for float32 q, k, v.
 //                    (bfloat16 takes flash_fwd_tc_kernel in
-//                    flash_attention_tc.cu; the f32 backward stays on the
-//                    CUDA cores in flash_attention.cu.)
+//                    flash_attention_tc.cu; the f32 backward, which
+//                    reads this kernel's lse, is flash_bwd_f32_tc.cu.)
 //
 // What bounds it on this card: operations. At BERT-base shapes (T = 512,
 // D = 64) the forward does 4*T*T*D flops per (batch, head) against 4*T*D
@@ -42,13 +42,13 @@
 //  * Causal tiles wholly above the diagonal are skipped; the ragged edge
 //    of T is masked in the kernel.
 //
-// Semantics are those of the Pallas kernels and flash_attention.cu:
+// Semantics are those of the Pallas kernels:
 // s = (q.k) * scale + bias[key] as two rounded f32 operations (the scale
 // applied after the piece sum, as the plain version multiplies the f32
 // logits), causal keeps col <= row, l sums the undropped p, the keep mask
 // multiplies p before P.V, l = 0 gives safe_l = 1, o = O / safe_l, lse =
-// m + log(safe_l) as [B*N, Tq] f32 (the CUDA-core backward recomputes p =
-// exp(s - lse) from it). Dropout is the counter hash of _keep_mask, bit
+// m + log(safe_l) as [B*N, Tq] f32 (the backward recomputes p = exp(s -
+// lse) from it). Dropout is the counter hash of _keep_mask, bit
 // for bit: stream = fmix32(seed + (b*N + n) * 0x9E3779B9), x =
 // fmix32(((row << 16) ^ col) + stream), keep iff x >= thresh, with global
 // rows and columns from the accumulator fragment's index map.

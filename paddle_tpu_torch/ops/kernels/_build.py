@@ -57,8 +57,7 @@ SIGNATURES = {
     "ptt_flash_fwd": [_c_void_p] * 6 + _FLASH_TAIL,
     "ptt_flash_bwd": [_c_void_p] * 11 + _FLASH_TAIL,
     "ptt_flash_fwd_f32": [_c_void_p] * 6 + _FLASH_TAIL,
-    "ptt_flash_bwd_dkv_f32": [_c_void_p] * 10 + _FLASH_TAIL,
-    "ptt_flash_bwd_dq_f32": [_c_void_p] * 8 + _FLASH_TAIL,
+    "ptt_flash_bwd_f32": [_c_void_p] * 11 + _FLASH_TAIL,
     "ptt_quantized_matmul": ([_c_void_p] * 6 + [_c_int] * 5
                              + [_c_float] * 3 + [_c_void_p]),
 }

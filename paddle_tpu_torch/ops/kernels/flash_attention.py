@@ -10,12 +10,13 @@ Counterpart of the training half of
   `paddle_tpu_torch/csrc/flash_attention_tc.cu`, `flash_fwd` (K1 and the
   single-tile K4f) and `flash_bwd` (K2, K3 and the single-tile K4b: dQ,
   dK, dV and dbias in one launch, dQ summed into a float32 workspace);
-- float32: the forward `flash_fwd_f32` on the bf16 tensor cores
-  (`csrc/flash_fwd_f32_tc.cu`: q, k, v and p in three bf16 pieces, six
-  piece products per f32 product, so f32's digits are kept where TF32
-  would keep ~3), and the backward on the CUDA cores
-  (`csrc/flash_attention.cu`, `flash_bwd_dkv_f32` and `flash_bwd_dq_f32`),
-  which recomputes p from the forward's lse.
+- float32: the same two roles on the bf16 tensor cores with every f32
+  operand in three bf16 pieces and six piece products per f32 product,
+  so f32's digits are kept where TF32 would keep ~3: the forward
+  `flash_fwd_f32` (`csrc/flash_fwd_f32_tc.cu`) and the backward
+  `flash_bwd_f32` (`csrc/flash_bwd_f32_tc.cu`: dQ, dK, dV and dbias in
+  one launch, p recomputed from the forward's lse, dQ summed into a
+  zeroed float32 workspace that is the output itself).
 
 The kernels stream tiles whatever T is, so the Pallas single-tile fast
 path has no separate kernel here.
@@ -27,7 +28,7 @@ the plain version only because the tensors it was given lie on the CPU;
 on a CUDA tensor it launches the kernels of its dtype or raises (a failed
 build, a refused launch, an unsupported head dim or dtype, a bfloat16
 view whose rows are not 16-byte aligned; a float32 view of any stride
-is taken); a bfloat16 call never reaches a CUDA-core kernel.
+is taken); no call reaches a CUDA-core kernel.
 `launch_counts` counts launches per kernel.
 
 Differences from the JAX signature: the `dropout_rng` key becomes an
@@ -58,8 +59,7 @@ SEED_LIMIT = 1 << 23
 KERNEL_HEAD_DIMS = (32, 64, 128)
 #: the kernel of each dtype: (forward, backward kernels)
 KERNELS = {torch.bfloat16: ("flash_fwd", ("flash_bwd",)),
-           torch.float32: ("flash_fwd_f32",
-                           ("flash_bwd_dkv_f32", "flash_bwd_dq_f32"))}
+           torch.float32: ("flash_fwd_f32", ("flash_bwd_f32",))}
 
 # murmur3 fmix32 constants and the golden-ratio stream separator
 _M1, _M2, _GOLD = 0x85EBCA6B, 0xC2B2AE35, 0x9E3779B9
@@ -267,24 +267,18 @@ def bwd_delta(out, dout, dlse=None):
     return delta.contiguous()
 
 
-def _grads(q, k, want_dbias):
-    """Empty dk, dv and the zeroed dbias [B, Tk] f32 (or None)."""
-    b, _, n, d = q.shape
-    tk = k.shape[1]
-    dk = torch.empty((b, tk, n, d), dtype=k.dtype, device=k.device)
-    dv = torch.empty((b, tk, n, d), dtype=k.dtype, device=k.device)
-    dbias = (torch.zeros((b, tk), dtype=torch.float32, device=q.device)
-             if want_dbias else None)
-    return dk, dv, dbias
-
-
 def _launch_bwd_tc(q, k, v, bias, dout, lse, delta, cfg, want_dbias):
-    """The tensor-core backward (bfloat16): dQ, dK, dV and dbias from one
-    launch. dQ is summed with atomics into a zeroed float32 workspace
-    [B, Tq, N, D], cast to q's dtype here."""
+    """The tensor-core backward of q's dtype: dQ, dK, dV and dbias from
+    one launch. dQ is summed with atomics into a zeroed float32 workspace
+    [B, Tq, N, D]: for float32 that workspace is dQ, for bfloat16 it is
+    cast to q's dtype here. dbias [B, Tk] f32 (zeroed) only if
+    `want_dbias`."""
     dq_acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
-    dk, dv, dbias = _grads(q, k, want_dbias)
-    _launch("flash_bwd",
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dbias = (torch.zeros((q.shape[0], k.shape[1]), dtype=torch.float32,
+                         device=q.device) if want_dbias else None)
+    _launch(KERNELS[q.dtype][1][0],
             q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias),
             dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
             dq_acc.data_ptr(), dk.data_ptr(), dv.data_ptr(), _ptr(dbias),
@@ -293,45 +287,18 @@ def _launch_bwd_tc(q, k, v, bias, dout, lse, delta, cfg, want_dbias):
     return dq_acc.to(q.dtype), dk, dv, dbias
 
 
-def _launch_dkv(q, k, v, bias, dout, lse, delta, cfg, want_dbias):
-    """The CUDA-core dK/dV(+dbias) kernel (float32)."""
-    dk, dv, dbias = _grads(q, k, want_dbias)
-    _launch("flash_bwd_dkv_f32",
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias),
-            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), _ptr(dbias), *_shape_args(q, k),
-            _strides(q, k, v, dout, None, dk, dv), *_tail(q, cfg))
-    return dk, dv, dbias
-
-
-def _launch_dq(q, k, v, bias, dout, lse, delta, cfg):
-    """The CUDA-core dQ kernel (float32)."""
-    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _launch("flash_bwd_dq_f32",
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias),
-            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-            *_shape_args(q, k), _strides(q, k, v, dout, dq), *_tail(q, cfg))
-    return dq
-
-
 def _launch_bwd(q, k, v, bias, out, lse, dout, dlse, cfg, want_dbias):
-    """The backward kernels of q's dtype: (dq, dk, dv, dbias or None)."""
+    """The backward kernel of q's dtype: (dq, dk, dv, dbias or None)."""
     dout = dout.to(q.dtype)
     if dout.stride(-1) != 1 or not _aligned(dout):
         dout = dout.clone(memory_format=torch.contiguous_format)
     delta = bwd_delta(out, dout, dlse)
-    if q.dtype == torch.bfloat16:
-        return _launch_bwd_tc(q, k, v, bias, dout, lse, delta, cfg,
-                              want_dbias)
-    dk, dv, dbias = _launch_dkv(q, k, v, bias, dout, lse, delta, cfg,
-                                want_dbias)
-    dq = _launch_dq(q, k, v, bias, dout, lse, delta, cfg)
-    return dq, dk, dv, dbias
+    return _launch_bwd_tc(q, k, v, bias, dout, lse, delta, cfg, want_dbias)
 
 
 class _FlashFn(torch.autograd.Function):
     """out, lse = kernels(q, k, v, mask); the backward launches the
-    backward kernels of q's dtype. lse is returned as [B, Tq, N, 1]."""
+    backward kernel of q's dtype. lse is returned as [B, Tq, N, 1]."""
 
     @staticmethod
     def forward(ctx, q, k, v, mask, cfg, mask_grad):

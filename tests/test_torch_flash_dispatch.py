@@ -5,15 +5,16 @@ to and what it is handed.
 (the autograd function a CUDA call runs) can be driven with CPU tensors:
 the stub records every kernel call and returns 0 (success). That checks,
 without a card, that a bfloat16 call goes to the two tensor-core kernels
-(`ptt_flash_fwd`, `ptt_flash_bwd`) and a float32 call to its forward on
-the tensor cores (`ptt_flash_fwd_f32`, csrc/flash_fwd_f32_tc.cu) and its
-two CUDA-core backward kernels, with the argument counts
-`_build.SIGNATURES` declares,
-the strides of a fused-QKV view, the zeroed float32 dQ workspace [B, Tq,
-N, D] and its cast to q's dtype; that a float32 view whose rows are not
-16-byte aligned is launched, not refused; and that unsupported inputs
-are refused before any launch. The kernels' arithmetic is held against the plain
-version on the card (tests/test_torch_kernels_cuda.py).
+(`ptt_flash_fwd`, `ptt_flash_bwd`) and a float32 call to its two
+(`ptt_flash_fwd_f32`, csrc/flash_fwd_f32_tc.cu, and `ptt_flash_bwd_f32`,
+csrc/flash_bwd_f32_tc.cu), one launch each way, with the argument
+counts `_build.SIGNATURES` declares, the strides of a fused-QKV view,
+the zeroed float32 dQ workspace [B, Tq, N, D] (cast to bf16 for bf16;
+for float32 the workspace is dQ itself, returned without a copy); that
+a float32 view whose rows are not 16-byte aligned is launched, not
+refused; and that unsupported inputs are refused before any launch.
+The kernels' arithmetic is held against the plain version on the card
+(tests/test_torch_kernels_cuda.py).
 """
 import ctypes
 import pathlib
@@ -85,6 +86,10 @@ def test_each_dtype_goes_to_its_own_kernels(stub, dtype, mask_grad):
     x, mask, out = _run(dtype, mask_grad, b, t, n, d)
     fwd, bwd = tfa.KERNELS[dtype]
     names = ["ptt_" + k for k in (fwd, *bwd)]
+    # one forward and one backward launch, each on the tensor cores
+    assert names == {torch.bfloat16: ["ptt_flash_fwd", "ptt_flash_bwd"],
+                     torch.float32: ["ptt_flash_fwd_f32",
+                                     "ptt_flash_bwd_f32"]}[dtype]
     assert [name for name, _ in stub.calls] == names
     assert tfa.launch_counts == {k: int(k in (fwd, *bwd))
                                  for k in tfa.launch_counts}
@@ -133,6 +138,26 @@ def test_bf16_backward_sums_dq_in_a_zeroed_f32_workspace(monkeypatch):
     assert torch.equal(x.grad[:, :, 0], want)
 
 
+def test_f32_backward_is_one_launch_whose_workspace_is_dq(stub):
+    """float32: ptt_flash_bwd_f32 is the only backward launch, and the dQ
+    it returns is the very float32 workspace the kernel added into (no
+    copy, no cast), contiguous [B, Tq, N, D]."""
+    _, (q, k, v) = _qkv(torch.float32, b=2, t=24, n=3, d=64)
+    q, k, v = q.detach(), k.detach(), v.detach()
+    dout = torch.ones_like(q)
+    lse = torch.zeros((2, 3, 24))
+    delta = torch.zeros((2, 3, 24))
+    dq, dk, dv, dbias = tfa._launch_bwd_tc(q, k, v, None, dout, lse, delta,
+                                           (True, 0.125, 0.0, None), True)
+    assert [name for name, _ in stub.calls] == ["ptt_flash_bwd_f32"]
+    args = stub.calls[0][1]
+    assert args[7] == dq.data_ptr() and dq.dtype == torch.float32
+    assert dq.is_contiguous() and dq.shape == q.shape
+    assert (args[8], args[9], args[10]) == (dk.data_ptr(), dv.data_ptr(),
+                                            dbias.data_ptr())
+    assert tfa.launch_counts["flash_bwd_f32"] == 1
+
+
 def test_unsupported_inputs_are_refused_before_any_launch(stub):
     q = torch.zeros((1, 16, 2, 64), dtype=torch.bfloat16)
     with pytest.raises(EnforceError, match="float32 or bfloat16"):
@@ -173,9 +198,9 @@ def test_f32_forward_launches_the_tensor_core_entry_point(stub):
 
 def test_unaligned_f32_view_is_launched_not_refused(stub):
     """The f32 kernels read rows that are not 16-byte aligned (4-byte
-    loads in the forward): a view one float into its buffer (every row 4
-    bytes past a 16-byte boundary) passes the checks and reaches the
-    kernels as it is."""
+    loads in both): a view one float into its buffer (every row 4 bytes
+    past a 16-byte boundary) passes the checks and reaches the forward
+    and the backward kernel as it is."""
     b, t, n, d = 1, 24, 3, 32
     buf = torch.zeros(b * t * 3 * n * d + 1)
     x = buf[1:].view(b, t, 3, n, d).requires_grad_()
@@ -190,18 +215,26 @@ def test_unaligned_f32_view_is_launched_not_refused(stub):
     fwd_name, bwd_names = tfa.KERNELS[torch.float32]
     assert [name for name, _ in stub.calls] == [
         "ptt_" + kernel for kernel in (fwd_name, *bwd_names)]
-    fwd = stub.calls[0][1]
-    assert fwd[:3] == (q.data_ptr(), k.data_ptr(), v.data_ptr())
+    for _, args in stub.calls:
+        assert args[:3] == (q.data_ptr(), k.data_ptr(), v.data_ptr())
 
 
 def test_ctypes_signatures_match_the_flash_entry_points():
     """The argtypes `_build` declares have the arity and kinds of the C
-    functions in csrc/flash*.cu."""
+    functions in csrc/flash*.cu: the four tensor-core entry points, the
+    f32 backward in csrc/flash_bwd_f32_tc.cu with the bf16 backward's
+    arguments."""
     csrc = pathlib.Path(_build.__file__).parents[2] / "csrc"
     src = "".join(f.read_text() for f in sorted(csrc.glob("flash*.cu")))
     protos = dict(re.findall(r"\nint (ptt_flash_\w+)\(([^)]*)\)", src))
     assert set(protos) == {k for k in _build.SIGNATURES
-                           if k.startswith("ptt_flash")}
+                           if k.startswith("ptt_flash")} == {
+        "ptt_flash_fwd", "ptt_flash_bwd", "ptt_flash_fwd_f32",
+        "ptt_flash_bwd_f32"}
+    assert "\nint ptt_flash_bwd_f32(" in (
+        csrc / "flash_bwd_f32_tc.cu").read_text()
+    assert (_build.SIGNATURES["ptt_flash_bwd_f32"]
+            == _build.SIGNATURES["ptt_flash_bwd"])
     for name, proto in protos.items():
         kinds = []
         for p in (p.strip() for p in proto.split(",")):

@@ -324,9 +324,8 @@ def test_k7_raises_instead_of_falling_back(cuda):
 
 # ---------------------------------------------------------------------
 # K1-K4: the flash-attention kernels: bfloat16 on the tensor cores
-# (flash_fwd, flash_bwd); float32's forward on the tensor cores in three
-# bf16 pieces (flash_fwd_f32), its backward on the CUDA cores
-# (flash_bwd_dkv_f32, flash_bwd_dq_f32)
+# (flash_fwd, flash_bwd); float32 on the tensor cores too, every operand
+# in three bf16 pieces (flash_fwd_f32, flash_bwd_f32)
 # ---------------------------------------------------------------------
 
 from paddle_tpu_torch.ops.kernels import flash_attention as tfa  # noqa: E402
@@ -443,6 +442,52 @@ def test_flash_f32_reads_views_that_are_not_16_byte_aligned(cuda, d):
     assert tfa.launch_counts["flash_fwd_f32"] == before + 1
     assert _rel_err(o, want) <= FLASH_TOL[torch.float32]
     assert _rel_err(lse, want_lse) <= FLASH_TOL[torch.float32]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "offset-view"])
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_flash_f32_backward_matches_plain(cuda, d, offset):
+    """The f32 backward kernel (flash_bwd_f32: dQ, dK, dV and dbias from
+    one launch on the tensor cores) at every head dim, T = 200 (not a
+    multiple of 64), causal, mask_grad and dropout 0.1, on q, k, v views
+    of a fused tensor that starts `offset` floats into its buffer (one
+    float: rows 4 bytes past a 16-byte boundary). dQ and dmask are summed
+    with atomics, so they are held to the tolerance, not to bits."""
+    b, t, n = 2, 200, 3
+    g = torch.Generator(device=cuda).manual_seed(11 + d)
+    qkv = torch.randn((b, t, 3, n, d), generator=g, device=cuda)
+    dout = torch.randn((b, t, n, d), generator=g, device=cuda)
+    mask = 0.5 * torch.randn((b, 1, 1, t), generator=g, device=cuda)
+    keep = tfa.batch_keep_masks(12345, b, n, t, t, 0.1, device=cuda)
+    grads = {}
+    for side in ("kernel", "plain"):
+        buf = torch.empty(qkv.numel() + offset, device=cuda)
+        buf[offset:].copy_(qkv.reshape(-1))
+        buf.requires_grad_()
+        x = buf[offset:].view(qkv.shape)
+        q, k, v = x[:, :, 0], x[:, :, 1], x[:, :, 2]
+        m = mask.clone().requires_grad_()
+        before = dict(tfa.launch_counts)
+        if side == "kernel":
+            assert q.data_ptr() % 16 == 4 * offset
+            o = tfa.flash_attention(q, k, v, m, causal=True,
+                                    dropout_rate=0.1, dropout_seed=12345,
+                                    mask_grad=True)
+        else:
+            o = tfa.attention_reference(q, k, v, m, True, keep_masks=keep)
+        (o * dout).sum().backward()
+        want = ({"flash_fwd_f32", "flash_bwd_f32"} if side == "kernel"
+                else set())
+        assert {kname for kname, c in tfa.launch_counts.items()
+                if c != before[kname]} == want
+        grads[side] = (buf.grad[offset:].view(qkv.shape), m.grad)
+    torch.cuda.synchronize()
+    (gx, gm), (wx, wm) = grads["kernel"], grads["plain"]
+    errs = {name: _rel_err(gx[:, :, i], wx[:, :, i])
+            for i, name in enumerate(("dq", "dk", "dv"))}
+    errs["dmask"] = _rel_err(gm, wm)
+    assert all(e <= FLASH_TOL[torch.float32] for e in errs.values()), errs
 
 
 @pytest.mark.cuda
