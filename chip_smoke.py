@@ -22,12 +22,13 @@ Phases, each of which raises (exit code != 0) when its check fails:
    pools with per-row scales) at block_size 8, M=128 over a shuffled
    pool at K6_CASES / K7_CASES: C in {1, 2, 5, 8, 16, 64, 512} at B=8,
    the main path's prefill (B=1, C=512) and D=32 and 128: decode ticks
-   on the decode kernels (CUDA cores; K7's in one launch, checked from
-   the profiler's rows), chunks on the chunk kernels (tensor cores; K7's
-   from C = 2, K6's from PAGED_TC_MIN_C rows, shorter ones on its
-   CUDA-core kernel), the route of each case read from the launch
-   counters; K6's chunks at B=8, D=64 also timed on both of its kernels
-   (the crossover). Each is timed beside its plain version,
+   on the decode kernels (CUDA cores, one launch a call, checked from
+   the profiler's rows: K5, K6 at C = 1, 2 and 5, K7 at C = 1; the
+   printed line names K5's and K6's key split), chunks on the chunk kernels
+   (tensor cores; K7's from C = 2, K6's from PAGED_TC_MIN_C rows, shorter
+   ones on its CUDA-core kernel), the route of each case read from the
+   launch counters; K6's chunks at B=8, D=64 also timed on both of its
+   kernels (the crossover). Each is timed beside its plain version,
    `F.scaled_dot_product_attention` on the same (for K7: dequantized)
    window (a yardstick the port never calls) and its bound (bytes or
    operations over the H100's peak rates; the chunk routes count their
@@ -47,8 +48,14 @@ Phases, each of which raises (exit code != 0) when its check fails:
    outputs; half the prompts share a 256-token prefix, so admissions hit
    the prefix index and verify runs at chunk 5. Tokens must equal phase
    3's under the same near-tie rule; K6's chunk kernel must have
-   launched once per layer on every admission and verify tick, its
-   decode kernel once per layer on every plain tick.
+   launched once per layer on every admission (and on every verify tick
+   whose chunk reaches PAGED_TC_MIN_C), its decode kernel once per layer
+   on every other tick.
+4'. Paged serving without speculation: the same requests under
+   PagedDecodeEngine(batch_size=8, block_size 8, spec_k=0). Tokens must
+   equal phase 3's (near-tie rule); every tick is a plain tick, so K6's
+   decode kernel must have launched once per layer on every tick and its
+   chunk kernel once per layer on every admission.
 4a. Quantized serving, int8 then fp8 e4m3: the same requests and draft
    under PagedDecodeEngine(kv_dtype=...). Tokens must equal the
    single-request greedy streams of a batch_size=1, spec_k=0 engine of
@@ -140,14 +147,15 @@ card's name and power limit.
 Launch counters are reset just before each main-path phase (serving,
 training, int8 ResNet serving) and read just after it, so launches made
 to compare kernels with their plain versions do not count; K6's two
-lines (decode route, chunk route) report phase 4's launches, K7's two
+lines (decode route, chunk route) report phases 4 and 4' together, K7's two
 lines those of its three serving runs (phases 4a and 4b) together.
 
 `--latency [ROOT]` runs none of the phases: it measures, with the port
 found under ROOT (default: this checkout), one prompt's prefill latency
 at LATENCY_LENS and f32 / int8 / fp8 paged serving (see `latency`), and
 prints one line `LATENCY {...}`. `--decode-rows [ROOT]` likewise
-profiles K7's decode route at phase 2's case (see `decode_rows`) and
+profiles the decode routes at phase 2's cases, K5, K6 at C = 1 and 2,
+and K7 (see `decode_rows`), and
 prints `DECODE_ROWS {...}`. `--flash-sweep [ROOT]` times the f32 flash
 backward of the port under ROOT beside SDPA's (see `flash_sweep`) and
 prints `FLASH_SWEEP {...}`. Run any of them on two checkouts in one call
@@ -218,6 +226,39 @@ def bound_ms(nbytes, flops, peak_flops=F32_FLOPS):
                                  else "operations")
 
 
+#: phase 2's K5 case (B, S, N, D): the contiguous engine's decode step
+K5_CASE = (8, 1024, 12, 64)
+
+
+def k5_lengths(rng, b, s):
+    """Phase 2's K5 lengths: an empty window, one key, 511, a full
+    window, then random ones."""
+    return np.concatenate([[0, 1, 511, s],
+                           rng.randint(1, s + 1, size=b - 4)]).astype(
+        np.int32)
+
+
+def f32_split(da, cap, d):
+    """The key split of f32_decode_kernel (K5, K6's decode route) at a
+    capacity: the blocks a tile (one cluster) that the window's stages
+    are striped over, and their keys at a full window."""
+    nsplit = da.f32_decode_split_count(cap, d)
+    return (f"keys striped over {nsplit} blocks (one cluster), "
+            f"{-(-cap // nsplit)} keys a block at a full window")
+
+
+def one_kernel_a_call(torch, fn, sets, what, tag):
+    """The profiler's rows of `fn` over `sets`: exactly one kernel a
+    call, f32_decode_kernel. Returns the rows."""
+    kernels = kernel_rows(torch, fn, sets)
+    assert len(kernels) == 1 and kernels[0]["launches_per_call"] == 1 \
+        and "f32_decode_kernel" in kernels[0]["name"], (what, kernels)
+    print(f"{what}: kernels per call (torch.profiler): " + "; ".join(
+        f"{k['launches_per_call']:g} x {k['name'][:60]} "
+        f"{k['us_per_call']:.3f} us" for k in kernels) + f" {tag}")
+    return kernels
+
+
 def check_contiguous_kernel(torch, da, seed, tag, copies=4):
     """Phase 2, K5. Returns its summary dict; `tag` (the card line) is
     printed beside every number."""
@@ -231,10 +272,8 @@ def check_contiguous_kernel(torch, da, seed, tag, copies=4):
                            dtype=torch.float32)
 
     # K5: decode step of the contiguous engine
-    b, s, n, d = 8, 1024, 12, 64
-    lens = np.concatenate([[0, 1, 511, 1024],
-                           rng.randint(1, s + 1, size=b - 4)]).astype(
-        np.int32)
+    b, s, n, d = K5_CASE
+    lens = k5_lengths(rng, b, s)
     lengths = torch.tensor(lens, device=dev)
     sets = [(randn(b, n, d), randn(b, s, n, d), randn(b, s, n, d),
              lengths) for _ in range(copies)]
@@ -251,6 +290,8 @@ def check_contiguous_kernel(torch, da, seed, tag, copies=4):
             q[:, :, None, :], k.transpose(1, 2), v.transpose(1, 2),
             attn_mask=mask[:, None, None, :])
 
+    kernels = one_kernel_a_call(torch, da.decode_attention, sets,
+                                f"K5 B={b} S={s} N={n} D={d}", tag)
     keys = int(np.minimum(lens, s).sum())
     nbytes = 2 * b * n * d * 4 + b * 4 + 2 * keys * n * d * 4
     bnd, by = bound_ms(nbytes, 4.0 * keys * n * d)
@@ -262,8 +303,10 @@ def check_contiguous_kernel(torch, da, seed, tag, copies=4):
           "plain_ms": timed_ms(torch, da.decode_attention_reference, sets),
           "bound_ms": bnd, "bound_by": by,
           "library_ms": timed_ms(torch, k5_library, sets),
+          "kernels": kernels, "split": f32_split(da, s, d),
           "shape": f"B={b} S={s} N={n} D={d} lengths={lens.tolist()}"}
-    print(f"K5 B={b} S={s} N={n} D={d}: max_abs_err={err5:.3g} "
+    print(f"K5 B={b} S={s} N={n} D={d}: {k5['split']}, "
+          f"max_abs_err={err5:.3g} "
           f"kernel_ms={k5['ms']:.5f} plain_ms={k5['plain_ms']:.5f} "
           f"library_ms={k5['library_ms']:.5f} "
           f"bound_us={bnd * 1e3:.3f} ({by}) {tag}")
@@ -319,9 +362,10 @@ def case_lengths(rng, b, c, cap):
 def check_paged_kernel(torch, da, seed, tag, copies=4):
     """Phase 2, K6: paged attention over f32 pools (K at 3x the scale of
     V, as K7's), block_size 8, M=128 over a shuffled pool, N=12, at
-    K6_CASES: max |kernel - plain| <= TOL, C = 1 on the CUDA-core kernel
-    and every C >= PAGED_TC_MIN_C on the tensor-core kernel (each case's
-    route read from the launch counters). Each case is timed beside its
+    K6_CASES: max |kernel - plain| <= TOL, every C below PAGED_TC_MIN_C
+    (1, 2, 5) on the CUDA-core kernel (one kernel a call by the
+    profiler's rows) and every longer chunk on the tensor-core kernel
+    (each case's route read from the launch counters). Each case is timed beside its
     plain version, SDPA on the gathered window (gathered outside the
     call; a yardstick the port never calls) and its route's bound; at
     B=8, D=64 each chunk is also timed on both kernels (the threshold
@@ -377,7 +421,14 @@ def check_paged_kernel(torch, da, seed, tag, copies=4):
         lib_sets = [a + (kp[win].reshape(b, m * bs, n, d).transpose(1, 2),
                          vp[win].reshape(b, m * bs, n, d).transpose(1, 2))
                     for a, (kp, vp) in zip(sets, made)]
+        split = ""
+        if route == "decode":   # one launch a call: the profiler's rows
+            row_kernels = one_kernel_a_call(
+                torch, da.paged_decode_attention, sets,
+                f"K6 B={b} C={c} D={d}", tag)
+            split = f"{f32_split(da, m * bs, d)}, "
         row = {"B": b, "C": c, "D": d, "route": route, "max_abs_err": err,
+               "kernels": row_kernels if route == "decode" else None,
                "ms": timed_ms(torch, da.paged_decode_attention, sets),
                "plain_ms": timed_ms(
                    torch, da.paged_decode_attention_reference, sets),
@@ -404,7 +455,7 @@ def check_paged_kernel(torch, da, seed, tag, copies=4):
                     f"tensor_core_ms={row['tensor_core_ms']:.5f})")
         rows.append(row)
         print(f"K6 B={b} C={c} N={n} D={d} bs={bs} M={m}: route={route} "
-              f"max_abs_err={err:.3g} kernel_ms={row['ms']:.5f}{core} "
+              f"{split}max_abs_err={err:.3g} kernel_ms={row['ms']:.5f}{core} "
               f"plain_ms={row['plain_ms']:.5f} "
               f"library_ms={row['library_ms']:.5f} (SDPA on the window, "
               f"gathered outside the call) bound_ms={row['bound_ms']:.5f} "
@@ -875,25 +926,74 @@ def latency(torch, seed, reps=7):
 
 
 def decode_rows(torch, seed, calls=50):
-    """--decode-rows: with the port found first on sys.path, K7's decode
-    route (C = 1) at phase 2's case (B=8, N=12, D=64, block_size 8,
-    M=128, lengths from case_lengths), int8 and fp8: each kernel a call
-    launches with its device time (torch.profiler rows over `calls`
-    calls) and the call's time (timed_ms), with the key ranges the
-    wrapper picks and with one range (its split functions patched to 1).
-    Only the wrapper's public function is called, so any checkout of the
-    port can be measured. Returns the dict it prints."""
+    """--decode-rows: with the port found first on sys.path, the decode
+    routes at phase 2's cases, each kernel a call launches with its
+    device time (torch.profiler rows over `calls` calls) and the call's
+    time (timed_ms): K5 (B=8, S=1024, N=12, D=64, k5_lengths; and at
+    phase 5's lengths, its 8 prompts after 20 decode steps) and K6's
+    decode route at C = 1 and C = 2 (B=8, N=12, D=64, block_size 8,
+    M=128 over a shuffled pool, case_lengths); then K7's (C = 1), int8
+    and fp8, with the key ranges the wrapper picks and with one range
+    (its split functions patched to 1). Only the wrappers'
+    public functions are called, so any checkout of the port can be
+    measured. Returns the dict it prints."""
     from paddle_tpu_torch.ops import generation as gen
     from paddle_tpu_torch.ops.kernels import decode_attention as da
     dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(seed + 7)
-    rng = np.random.RandomState(seed + 7)
-    b, n, d, bs, m = 8, 12, 64, 8, 128
+    out = {"card": card_line()}
+
+    def measure(key, fn, ref, sets):
+        got = fn(*sets[0])
+        want = ref(*sets[0])
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        assert err <= TOL, (key, err)
+        out[key] = {"max_abs_err": err,
+                    "kernels": kernel_rows(torch, fn, sets, calls),
+                    "ms": timed_ms(torch, fn, sets)}
+
+    # K5 and K6's decode route, phase 2's inputs from the same seeds
+    g = torch.Generator(device=dev).manual_seed(seed)
+    b, s, n, d = K5_CASE
+    lengths = torch.tensor(k5_lengths(np.random.RandomState(seed), b, s),
+                           device=dev)
+    k5_sets = [tuple(torch.randn(shape, generator=g, device=dev)
+                     for shape in ((b, n, d), (b, s, n, d), (b, s, n, d)))
+               + (lengths,) for _ in range(4)]
+    prompts, _ = make_prompts(np.random.RandomState(seed), GPT2_SMALL[
+        "vocab_size"], 16)
+    step_lengths = torch.tensor([p.size + 20 for p in prompts[:b]],
+                                dtype=torch.int32, device=dev)
+    rng = np.random.RandomState(seed + 5)
+    bs, m = 8, 128
     nb = b * m + 1
     tables = torch.tensor(rng.permutation(np.arange(1, nb)).astype(
         np.int32).reshape(b, m), device=dev)
+    pools = [(3.0 * torch.randn((nb, bs, n, d), generator=g, device=dev),
+              torch.randn((nb, bs, n, d), generator=g, device=dev))
+             for _ in range(4)]
+    k6_sets = {}
+    for c in (1, 2):
+        ln = torch.tensor(case_lengths(rng, b, c, m * bs), device=dev)
+        k6_sets[c] = [(torch.randn((b, c, n, d), generator=g, device=dev),
+                       kp, vp, tables, ln) for kp, vp in pools]
+    measure("K5", da.decode_attention, da.decode_attention_reference,
+            k5_sets)
+    measure("K5 at phase 5's lengths", da.decode_attention,
+            da.decode_attention_reference,
+            [x[:3] + (step_lengths,) for x in k5_sets])
+    for c, sets in k6_sets.items():
+        measure(f"K6 C={c}", da.paged_decode_attention,
+                da.paged_decode_attention_reference, sets)
+    del k5_sets, k6_sets, pools
+    torch.cuda.empty_cache()
+
+    # K7's decode route
+    g = torch.Generator(device=dev).manual_seed(seed + 7)
+    rng = np.random.RandomState(seed + 7)
+    tables = torch.tensor(rng.permutation(np.arange(1, nb)).astype(
+        np.int32).reshape(b, m), device=dev)
     lengths = torch.tensor(case_lengths(rng, b, 1, m * bs), device=dev)
-    out = {"card": card_line()}
     for dt in QUANT_DTYPES:
         sets = []
         for _ in range(4):
@@ -911,17 +1011,8 @@ def decode_rows(torch, seed, calls=50):
                 for f in saved:
                     setattr(da, f, lambda *a, **k: 1)
             try:
-                fn = da.quantized_paged_decode_attention
-                got = fn(*sets[0])
-                want = da.quantized_paged_decode_attention_reference(
-                    *sets[0])
-                torch.cuda.synchronize()
-                err = float((got - want).abs().max())
-                assert err <= TOL, (dt, label, err)
-                out[f"{dt}, {label}"] = {
-                    "max_abs_err": err,
-                    "kernels": kernel_rows(torch, fn, sets, calls),
-                    "ms": timed_ms(torch, fn, sets)}
+                measure(f"{dt}, {label}", da.quantized_paged_decode_attention,
+                        da.quantized_paged_decode_attention_reference, sets)
             finally:
                 for f, v in saved.items():
                     setattr(da, f, v)
@@ -1038,8 +1129,9 @@ def flash_case(torch, tfa, dev, dtype, b, t, n, d, causal=False, pad=False,
 #: name stem -> (instantiations, opcodes its SASS must hold, opcodes it
 #: must not). The bf16 and f32 flash pairs, K6's and K7's chunk routes
 #: and K8's weight-only mode run on wgmma (HGMMA); K8's int8
-#: mode on mma.sync s8 (IMMA), with no dp4a left; K7's decode kernel (CUDA
-#: cores) is listed for its ptxas lines (0 spill).
+#: mode on mma.sync s8 (IMMA), with no dp4a left; the decode kernels on
+#: the CUDA cores (K7's; K5's and K6's f32_decode_kernel) are listed for
+#: their ptxas lines (0 spill).
 BUILD_CHECKS = {
     "flash_fwd_tc_kernel": (3, ("HGMMA",), ()),
     "flash_bwd_tc_kernel": (3, ("HGMMA",), ()),
@@ -1048,6 +1140,7 @@ BUILD_CHECKS = {
     "qattn_prefill_tc_kernel": (6, ("HGMMA",), ()),
     "paged_prefill_tc_kernel": (3, ("HGMMA",), ()),
     "qattn_decode_kernel": (6, (), ()),
+    "f32_decode_kernel": (12, (), ()),
     "qmm_int8_tc_kernel": (2, ("IMMA",), ("IDP4A",)),
     "qmm_weight_only_tc_kernel": (5, ("HGMMA",), ()),
 }
@@ -1798,7 +1891,8 @@ def main(argv=None):
                          "(default: this checkout); print one LATENCY line")
     ap.add_argument("--decode-rows", nargs="?", const=".", default=None,
                     metavar="ROOT",
-                    help="only profile K7's decode route at phase 2's case "
+                    help="only profile the decode routes (K5, K6, K7) at "
+                         "phase 2's cases "
                          "with the port under ROOT (default: this "
                          "checkout); print one DECODE_ROWS line")
     ap.add_argument("--flash-sweep", nargs="?", const=".", default=None,
@@ -1994,6 +2088,22 @@ def main(argv=None):
           f"accepted proposals {spec['accepted']} of {spec['proposed']} "
           f"over {spec['verify_ticks']} verify ticks (draft distilled from "
           f"the contiguous phase's outputs) {tag}")
+    torch.cuda.empty_cache()
+
+    # 4'. paged serving without speculation: every tick on K6's decode
+    # route, every admission on its chunk route
+    plain, stats, row = run_phase(
+        "paged spec_k=0", gen.PagedDecodeEngine(model, batch_size=8,
+                                                max_len=1024, block_size=8,
+                                                spec_k=0),
+        "paged_decode_attention")
+    row["near_ties"] += sum(
+        compare(f"paged spec_k=0 vs contiguous request {i}", t, r, g)
+        for i, (t, r, g) in enumerate(zip(plain, contiguous, gaps)))
+    spec = stats["speculative"]
+    assert spec["verify_ticks"] == 0 and spec["plain_ticks"] > 0, spec
+    row.update(plain_ticks=spec["plain_ticks"],
+               prefix_hit_admissions=spec["prefix_hit_admissions"])
     torch.cuda.empty_cache()
 
     # 4a. quantized serving, int8 then fp8, the draft of phase 4

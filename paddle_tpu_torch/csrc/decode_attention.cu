@@ -11,9 +11,10 @@
 //     [B, M]; row c attends to positions < lengths[b] + c + 1. Every C is
 //     covered (the TPU kernel stopped at C <= 8). Two kernels split the
 //     chunk sizes as K7's do: ptt_paged_decode_attention_f32 on the CUDA
-//     cores takes decode ticks (C = 1), ptt_paged_prefill_attention_f32
-//     on the bf16 tensor cores the verify and prefill chunks (C > 1;
-//     see paged_prefill_tc_kernel below).
+//     cores (f32_decode_kernel, K5's kernel) takes decode ticks and
+//     chunks below the wrapper's PAGED_TC_MIN_C, and
+//     ptt_paged_prefill_attention_f32 on the bf16 tensor cores the
+//     verify and prefill chunks (see paged_prefill_tc_kernel below).
 // K7  ptt_quantized_paged_decode_attention replaces
 //     paddle_tpu/ops/pallas/flash_attention.py::_quantized_paged_decode_kernel
 //     (launched by flash_quantized_paged_decode_attention): K6 over pools
@@ -38,25 +39,34 @@
 // K7 reads a quarter of K6's bytes for the same keys, so it sits at the
 // same arithmetic per key with 4x less traffic: still bytes for decode.
 //
-// What the design does about it:
-//  * Every K/V byte of a slot's window is read once per (slot, head,
-//    row tile): a group of D/4 lanes owns one key at a time and reads
-//    its D floats as one float4 per lane (a coalesced 256-byte row at
-//    D=64), and that key serves all CR query rows the block holds.
-//  * Loops stop at the slot's length: nothing beyond lengths[b] (+c+1)
-//    is read, and no [B, N, S] logits ever reach device memory; the
-//    online softmax state (m, l, acc) lives in registers in float32.
-//  * Flash-decoding split-K: when (slot, head, row tile) blocks alone
-//    cannot fill 132 SMs, the wrapper asks for nsplit key ranges per
-//    block; each range writes a partial (m, l, acc) and a second small
-//    kernel combines them. Ranges are cut from the slot's own length on
-//    the device, so short slots do not leave empty blocks behind. K7's
-//    decode kernel merges in the same launch instead (its last block).
+// What the design does about it (f32_decode_kernel, K5 and K6's decode
+// route; the other kernels below say what they do differently):
+//  * One launch a call and no buffer a call. The keys of a (slot, head,
+//    row tile) are striped in stages over a number of blocks set by the
+//    window's capacity (S, or M * bs), not by its length: a block knows
+//    its keys before the length arrives. The blocks of a tile are one
+//    thread-block cluster and merge inside the same launch through
+//    distributed shared memory, in block order (deterministic).
+//  * Keys in flight: a group of D/4 lanes owns U = 4 keys of a stage and
+//    copies their K and V rows (one float4 a lane, coalesced) into a
+//    shared-memory ring by cp.async, 16 KB a stage, the next stage in
+//    flight while a stage's softmax step runs. The length, q and the
+//    first stages' table entries come in one round of loads before that.
+//  * Every K/V byte of a window is read once per row tile, and every
+//    key serves all CR <= 4 query rows of the tile; nothing beyond
+//    lengths[b] (+c+1) is read, and a block with no stage below its
+//    rows' limit issues no key load. No [B, N, S] logits reach device
+//    memory; the softmax state (m, l, acc) stays in f32 registers, in
+//    log2 units (log2 e folded into the scale, exp2f).
 //  * The paged kernels look up their own table entries (the TPU
 //    kernel's scalar prefetch has no counterpart here); entries are
-//    clamped into [0, NB) as XLA's gather clamps. K7's decode kernel and
-//    K6's chunk kernel hold them in shared memory, loaded before the
-//    keys that need them.
+//    clamped into [0, NB) as XLA's gather clamps, and loaded before the
+//    keys that need them (K5/K6's decode kernel: a stage's entries in
+//    registers while the stage before it is in flight; K7's decode kernel
+//    and K6's chunk kernel: in shared memory).
+//  * The chunk kernels (C >= 2 for K7, C >= PAGED_TC_MIN_C for K6) run
+//    flash-decoding split-K with ranges cut from the length and a
+//    second small kernel (attn_combine_kernel) to combine them.
 //  * K7's decode kernel gives each lane 16 payload bytes of a key row in
 //    one load (D / 16 lanes share a key) and converts them to float in
 //    registers; a key's two scales are one broadcast load each for its
@@ -72,6 +82,7 @@
 // synchronises; the caller owns the outputs, the partial buffers and the
 // stream.
 
+#include <cooperative_groups.h>
 #include <cuda_fp8.h>
 #include <cuda_runtime.h>
 
@@ -128,164 +139,6 @@ __device__ __forceinline__ float group_sum(float x, unsigned mask) {
   return x;
 }
 
-template <bool PAGED>
-__device__ __forceinline__ long long key_offset(const Args& a, int b, int n, int p,
-                                                long long sb, long long ss, long long sn) {
-  if (PAGED) {
-    int blk = a.tables[(long long)b * a.M + p / a.bs];
-    blk = blk < 0 ? 0 : (blk >= a.nb ? a.nb - 1 : blk);
-    return (long long)blk * sb + (long long)(p % a.bs) * ss + (long long)n * sn;
-  }
-  return (long long)b * sb + (long long)p * ss + (long long)n * sn;
-}
-
-// grid: (nsplit, ceil(C / CR), B * N); block: kThreads.
-// Each block owns rows [r0, r0 + CR) of one (slot, head) and one key range.
-template <int D, int CR, int U, bool PAGED>
-__global__ void __launch_bounds__(kThreads) attn_partial_kernel(Args a) {
-  constexpr int G = D / 4;          // lanes per key group
-  constexpr int NG = kThreads / G;  // key groups per block
-  const int split = blockIdx.x;
-  const int r0 = blockIdx.y * CR;
-  const int b = blockIdx.z / a.N;
-  const int n = blockIdx.z % a.N;
-  const int tid = threadIdx.x;
-  const int grp = tid / G;
-  const int lane = tid % G;
-  const unsigned gmask =
-      (G == 32) ? 0xffffffffu : (((1u << G) - 1u) << ((tid % 32) / G * G));
-
-  int len = a.lengths[b];
-  len = len < 0 ? 0 : len;
-  int lim[CR];
-  int maxlim = 0;
-#pragma unroll
-  for (int r = 0; r < CR; ++r) {
-    int l = 0;
-    if (r0 + r < a.C) {
-      l = len + (a.causal ? r0 + r + 1 : 0);
-      l = l < a.cap ? l : a.cap;
-    }
-    lim[r] = l;
-    maxlim = l > maxlim ? l : maxlim;
-  }
-  // this block's key range, cut from the window the tile actually sees
-  int kps = (maxlim + a.nsplit - 1) / a.nsplit;
-  kps = (kps + U - 1) / U * U;
-  const int k_lo = split * kps;
-  const int k_hi = min(k_lo + kps, maxlim);
-
-  float4 qv[CR];
-#pragma unroll
-  for (int r = 0; r < CR; ++r) {
-    if (r0 + r < a.C)
-      qv[r] = load4(a.q + (long long)b * a.q_sb + (long long)(r0 + r) * a.q_sc +
-                    (long long)n * a.q_sn + lane * 4);
-    else
-      qv[r] = make_float4(0.f, 0.f, 0.f, 0.f);
-  }
-  float m[CR], l[CR];
-  float4 acc[CR];
-#pragma unroll
-  for (int r = 0; r < CR; ++r) {
-    m[r] = kNegInf;
-    l[r] = 0.f;
-    acc[r] = make_float4(0.f, 0.f, 0.f, 0.f);
-  }
-
-  for (int base = k_lo + grp * U; base < k_hi; base += NG * U) {
-    float4 kk[U], vv[U];
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int p = base + u;
-      if (p < k_hi) {
-        kk[u] = load4(a.k + key_offset<PAGED>(a, b, n, p, a.k_sb, a.k_ss, a.k_sn) + lane * 4);
-        vv[u] = load4(a.v + key_offset<PAGED>(a, b, n, p, a.v_sb, a.v_ss, a.v_sn) + lane * 4);
-      } else {
-        kk[u] = make_float4(0.f, 0.f, 0.f, 0.f);
-        vv[u] = kk[u];
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < CR; ++r) {
-      if (base >= lim[r]) continue;  // uniform within the group
-      float s[U];
-      float mnew = m[r];
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-        s[u] = group_sum<G>(dot4(qv[r], kk[u]), gmask) * a.scale;
-        const int p = base + u;
-        if (p < k_hi && p < lim[r]) mnew = fmaxf(mnew, s[u]);
-      }
-      const float corr = expf(m[r] - mnew);
-      float psum = 0.f;
-      float4 av = make_float4(acc[r].x * corr, acc[r].y * corr, acc[r].z * corr,
-                              acc[r].w * corr);
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-        const int p = base + u;
-        const float pr = (p < k_hi && p < lim[r]) ? expf(s[u] - mnew) : 0.f;
-        psum += pr;
-        av.x += pr * vv[u].x;
-        av.y += pr * vv[u].y;
-        av.z += pr * vv[u].z;
-        av.w += pr * vv[u].w;
-      }
-      acc[r] = av;
-      l[r] = l[r] * corr + psum;
-      m[r] = mnew;
-    }
-  }
-
-  // merge the NG key groups of this block
-  __shared__ float sm_m[NG][CR];
-  __shared__ float sm_l[NG][CR];
-  __shared__ float4 sm_acc[NG][CR][G];
-#pragma unroll
-  for (int r = 0; r < CR; ++r) {
-    if (lane == 0) {
-      sm_m[grp][r] = m[r];
-      sm_l[grp][r] = l[r];
-    }
-    sm_acc[grp][r][lane] = acc[r];
-  }
-  __syncthreads();
-  for (int idx = tid; idx < CR * G; idx += kThreads) {
-    const int r = idx / G;
-    const int ln = idx % G;
-    const int row = r0 + r;
-    if (row >= a.C) continue;
-    float mx = kNegInf;
-#pragma unroll
-    for (int g = 0; g < NG; ++g) mx = fmaxf(mx, sm_m[g][r]);
-    float lsum = 0.f;
-    float4 as = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll
-    for (int g = 0; g < NG; ++g) {
-      const float w = expf(sm_m[g][r] - mx);
-      const float4 x = sm_acc[g][r][ln];
-      lsum += sm_l[g][r] * w;
-      as.x += x.x * w;
-      as.y += x.y * w;
-      as.z += x.z * w;
-      as.w += x.w * w;
-    }
-    const long long orow = ((long long)b * a.C + row) * a.N + n;
-    if (a.nsplit == 1) {
-      const float inv = lsum > 0.f ? 1.f / lsum : 0.f;
-      reinterpret_cast<float4*>(a.out + orow * D)[ln] =
-          make_float4(as.x * inv, as.y * inv, as.z * inv, as.w * inv);
-    } else {
-      const long long prow = orow * a.nsplit + split;
-      reinterpret_cast<float4*>(a.part_acc + prow * D)[ln] = as;
-      if (ln == 0) {
-        a.part_m[prow] = mx;
-        a.part_l[prow] = lsum;
-      }
-    }
-  }
-}
-
 // grid: ceil(rows / (kThreads / G)); one key group per output row.
 template <int D>
 __global__ void __launch_bounds__(kThreads) attn_combine_kernel(Args a, long long rows) {
@@ -313,7 +166,7 @@ __global__ void __launch_bounds__(kThreads) attn_combine_kernel(Args a, long lon
       make_float4(as.x * inv, as.y * inv, as.z * inv, as.w * inv);
 }
 
-// After a partial kernel: the combine pass when the keys were split.
+// After a chunk kernel: the combine pass when the keys were split.
 template <int D>
 cudaError_t combine(const Args& a, cudaStream_t stream) {
   cudaError_t err = cudaGetLastError();
@@ -325,35 +178,349 @@ cudaError_t combine(const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <int D, int CR, bool PAGED>
-cudaError_t launch_d(const Args& a, cudaStream_t stream) {
-  constexpr int U = CR == 1 ? 4 : 2;
-  dim3 grid(a.nsplit, (a.C + CR - 1) / CR, a.B * a.N);
-  attn_partial_kernel<D, CR, U, PAGED><<<grid, kThreads, 0, stream>>>(a);
-  return combine<D>(a, stream);
-}
-
-template <int CR, bool PAGED>
-cudaError_t launch_cr(const Args& a, int d, cudaStream_t stream) {
-  switch (d) {
-    case 32: return launch_d<32, CR, PAGED>(a, stream);
-    case 64: return launch_d<64, CR, PAGED>(a, stream);
-    case 128: return launch_d<128, CR, PAGED>(a, stream);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
 bool bad_grid(const Args& a) {
   return a.B <= 0 || a.C <= 0 || a.N <= 0 || a.nsplit <= 0 || a.B * a.N > 65535 ||
          (a.C + 7) / 8 > 65535;
 }
 
-cudaError_t launch(const Args& a, int d, cudaStream_t stream) {
-  if (bad_grid(a)) return cudaErrorInvalidValue;
+// ---------------------------------------------------------------------------
+// K5 and K6's decode route: f32 on the CUDA cores, one launch a call
+// ---------------------------------------------------------------------------
+//
+// f32_decode_kernel<D, CR, PAGED>: one block a (head, split, row tile
+// of CR <= 4 rows of a slot); grid (N, nsplit, B * ceil(C / CR)), the
+// heads of a split neighbouring blocks. The window is walked in stages
+// of KS keys (16 KB of f32 K and V), striped over the nsplit blocks of a
+// tile: block s takes stages s, s + nsplit, ... (nsplit from the
+// capacity: the wrapper's f32_decode_split_count, 4 for a 1024-key
+// window at D = 64). So a block knows its keys before the length
+// arrives, and every window of nsplit stages or more spreads over all of
+// the tile's blocks (contiguous ranges cut from the capacity leave a
+// window shorter than the capacity on fewer blocks, each with a longer
+// chain of stages; on the card that made the decode step's K5 calls
+// slower). Each lane copies its
+// own 16-byte chunks of a stage with cp.async into a two-stage ring in
+// shared memory and reads back only what it copied, so the ring needs
+// no barrier, and the next stage is in flight while a stage's softmax
+// step runs. Blocks past the window's last stage issue no key load.
+//
+// The nsplit blocks of a tile are one thread-block cluster (launch
+// attribute, up to 16 blocks): each leaves its (m, l, acc) record in its
+// shared memory, and after a cluster barrier rank 0 reads the active
+// blocks' records through distributed shared memory, merges them in
+// block order (two calls give the same bits) and writes the rows. No
+// workspace, no counter and no global round trip: on the card this
+// merge ran as fast as a last-block merge through a zeroed workspace
+// (K7's) at C = 1 and faster at C = 2 (PERF.md).
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kF32Splits = 16;  // blocks a tile may have: a cluster's most
+
+template <int D, int CR>
+struct F32Decode {
+  static constexpr int G = D / 4;          // lanes a key (one float4 each)
+  static constexpr int NG = kThreads / G;  // key groups a block
+  static constexpr int U = 4;              // keys a group takes a stage
+  static constexpr int KS = NG * U;        // keys a stage: 16 KB of K and V
+  static constexpr int STAGE = 2 * KS * G; // float4s a stage: K, then V
+  static constexpr int SMEM = 2 * STAGE * 16;  // the ring's bytes: two stages
+  // the merge's scratch, in the ring once the keys are done
+  static_assert(NG * CR * (G * 16 + 8) <= SMEM, "merge scratch exceeds the ring");
+};
+
+// query rows a block serves for a chunk of c rows
+constexpr int f32_tile_rows(int c) { return c == 1 ? 1 : (c == 2 ? 2 : 4); }
+
+// where this lane's keys of stage g sit: (block, offset) of key
+// g * KS + u * NG + grp through slot b's table (clamped into [0, NB)),
+// or the contiguous cache's position; keys past the capacity read
+// nothing later
+template <int D, int CR, bool PAGED>
+struct StageKeys {
+  int blk[F32Decode<D, CR>::U], off[F32Decode<D, CR>::U];
+  __device__ __forceinline__ void load(const Args& a, int b, int g) {
+    using P = F32Decode<D, CR>;
+    const int grp = threadIdx.x / P::G;
+#pragma unroll
+    for (int u = 0; u < P::U; ++u) {
+      const int p = g * P::KS + u * P::NG + grp;
+      blk[u] = b;
+      off[u] = p;
+      if constexpr (PAGED) {
+        const int e = p / a.bs;
+        int raw = p < a.cap ? __ldg(a.tables + (long long)b * a.M + e) : 0;
+        blk[u] = raw < 0 ? 0 : (raw >= a.nb ? a.nb - 1 : raw);
+        off[u] = p - e * a.bs;
+      }
+    }
+  }
+};
+
+// this lane's chunks of stage g (keys from k_hi on zero-filled, which
+// reads nothing) into ring slot `slot`, as one cp.async group
+template <int D, int CR, bool PAGED>
+__device__ __forceinline__ void issue_f32_stage(const Args& a, int n, int g, int k_hi,
+                                                const StageKeys<D, CR, PAGED>& keys,
+                                                float4* slot) {
+  using P = F32Decode<D, CR>;
+  const int grp = threadIdx.x / P::G, lane = threadIdx.x % P::G;
+#pragma unroll
+  for (int u = 0; u < P::U; ++u) {
+    const int key = u * P::NG + grp;
+    const bool ok = g * P::KS + key < k_hi;
+    long long ko = 0, vo = 0;
+    if (ok) {
+      ko = (long long)keys.blk[u] * a.k_sb + (long long)keys.off[u] * a.k_ss +
+           (long long)n * a.k_sn + lane * 4;
+      vo = (long long)keys.blk[u] * a.v_sb + (long long)keys.off[u] * a.v_ss +
+           (long long)n * a.v_sn + lane * 4;
+    }
+    cp_async16(smem_u32(slot + key * P::G + lane), a.k + ko, ok);
+    cp_async16(smem_u32(slot + (P::KS + key) * P::G + lane), a.v + vo, ok);
+  }
+  cp_async_commit();
+}
+
+// __launch_bounds__: six blocks an SM (<= 80 registers) for one row,
+// five for two (80 spilled at D = 128), three for four
+template <int D, int CR, bool PAGED>
+__global__ void __launch_bounds__(kThreads, CR == 1 ? 6 : (CR == 2 ? 5 : 3))
+    f32_decode_kernel(const Args a) {
+  namespace cg = cooperative_groups;
+  using P = F32Decode<D, CR>;
+  constexpr int G = P::G, NG = P::NG, U = P::U, KS = P::KS;
+  extern __shared__ float4 ring[];        // [2][K, V][KS][G]
+  __shared__ float rec_m[CR], rec_l[CR];  // this block's record
+  __shared__ float4 rec_acc[CR][G];
+  __shared__ float all_m[kF32Splits][CR], all_l[kF32Splits][CR];
+  // the heads of a (slot, split) are neighbouring blocks: they read the
+  // same key positions at the same time
+  const int n = blockIdx.x, split = blockIdx.y, nsplit = gridDim.y;
+  const int tiles = gridDim.z / a.B;
+  const int b = blockIdx.z / tiles, r0 = blockIdx.z % tiles * CR;
+  const int tid = threadIdx.x, grp = tid / G, lane = tid % G;
+  const unsigned gmask =
+      (G == 32) ? 0xffffffffu : (((1u << G) - 1u) << ((tid % 32) / G * G));
+  const float scale = a.scale * kLog2e;  // logits in log2 units
+
+  // this block's stages (split, split + nsplit, ...) are known before
+  // anything is loaded; one round of loads: the length, q and (paged)
+  // the table entries of its first three stages
+  int len = a.lengths[b];
+  float4 qv[CR];
+#pragma unroll
+  for (int r = 0; r < CR; ++r)
+    qv[r] = r0 + r < a.C ? load4(a.q + (long long)b * a.q_sb + (long long)(r0 + r) * a.q_sc +
+                                 (long long)n * a.q_sn + lane * 4)
+                         : make_float4(0.f, 0.f, 0.f, 0.f);
+  StageKeys<D, CR, PAGED> k0, k1, k2;
+  k0.load(a, b, split);
+  k1.load(a, b, split + nsplit);
+  k2.load(a, b, split + 2 * nsplit);
+  len = max(len, 0);
+  int lim[CR];
+  int k_hi = 0;
+#pragma unroll
+  for (int r = 0; r < CR; ++r) {
+    lim[r] = r0 + r < a.C ? min(len + (a.causal ? r0 + r + 1 : 0), a.cap) : 0;
+    k_hi = max(k_hi, lim[r]);
+  }
+  // stages of the tile's window, and the blocks that hold some (at least
+  // one: an empty window writes zeros)
+  const int stages = (k_hi + KS - 1) / KS;
+  const int active = max(1, min(nsplit, stages));
+  cg::cluster_group cluster = cg::this_cluster();
+  if (split >= active) {  // no key load, no record: only the barriers
+    cluster.sync();
+    cluster.sync();
+    return;
+  }
+  const int mine = (stages - split + nsplit - 1) / nsplit;  // this block's stages
+
+  // two stages in flight: every lane copies its own chunks and reads
+  // back only those, so the ring needs no barrier
+  if (mine > 0) issue_f32_stage<D, CR, PAGED>(a, n, split, k_hi, k0, ring);
+  if (mine > 1) issue_f32_stage<D, CR, PAGED>(a, n, split + nsplit, k_hi, k1, ring + P::STAGE);
+  float m[CR], l[CR];
+  float4 acc[CR];
+#pragma unroll
+  for (int r = 0; r < CR; ++r) {
+    m[r] = kNegInf;
+    l[r] = 0.f;
+    acc[r] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  for (int j = 0; j < mine; ++j) {
+    const int s0 = (split + j * nsplit) * KS;
+    const int s_hi = min(s0 + KS, k_hi);
+    float4* slot = ring + (j & 1) * P::STAGE;
+    if (j + 1 < mine)
+      cp_async_wait<1>();  // this lane's chunks of stage j are in
+    else
+      cp_async_wait<0>();
+    float4 kk[U], vv[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      kk[u] = slot[(u * NG + grp) * G + lane];
+      vv[u] = slot[(KS + u * NG + grp) * G + lane];
+    }
+#pragma unroll
+    for (int r = 0; r < CR; ++r) {
+      const int hi = min(s_hi, lim[r]);
+      if (s0 >= hi) continue;  // uniform over the block
+      float s[U];
+      float mnew = m[r];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        s[u] = group_sum<G>(dot4(qv[r], kk[u]), gmask) * scale;
+        if (s0 + u * NG + grp < hi) mnew = fmaxf(mnew, s[u]);
+      }
+      const float corr = exp2f(m[r] - mnew);
+      float psum = 0.f;
+      float4 av = make_float4(acc[r].x * corr, acc[r].y * corr, acc[r].z * corr,
+                              acc[r].w * corr);
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const float pr = s0 + u * NG + grp < hi ? exp2f(s[u] - mnew) : 0.f;
+        psum += pr;
+        av.x += pr * vv[u].x;
+        av.y += pr * vv[u].y;
+        av.z += pr * vv[u].z;
+        av.w += pr * vv[u].w;
+      }
+      acc[r] = av;
+      l[r] = l[r] * corr + psum;
+      m[r] = mnew;
+    }
+    // the slot is read: stage j + 2 takes it, and the table entries of
+    // stage j + 3 come in while it flies
+    if (j + 2 < mine) {
+      issue_f32_stage<D, CR, PAGED>(a, n, split + (j + 2) * nsplit, k_hi, k2, slot);
+      k2.load(a, b, split + (j + 3) * nsplit);
+    }
+  }
+
+  // this block's record: the NG key groups merged through the ring's
+  // space; thread (r, c4) < CR * G owns float4 column c4 of row r
+  __syncthreads();
+  float4* sm_acc = ring;                                      // [NG][CR][G]
+  float* sm_m = reinterpret_cast<float*>(ring + NG * CR * G);  // [NG][CR]
+  float* sm_l = sm_m + NG * CR;
+#pragma unroll
+  for (int r = 0; r < CR; ++r) {
+    if (lane == 0) {
+      sm_m[grp * CR + r] = m[r];
+      sm_l[grp * CR + r] = l[r];
+    }
+    sm_acc[(grp * CR + r) * G + lane] = acc[r];
+  }
+  __syncthreads();
+  const int rr = tid / G, c4 = tid % G;
+  const bool owner = tid < CR * G;
+  float mx = kNegInf, lsum = 0.f;
+  float4 as = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (owner) {
+#pragma unroll
+    for (int g = 0; g < NG; ++g) mx = fmaxf(mx, sm_m[g * CR + rr]);
+#pragma unroll
+    for (int g = 0; g < NG; ++g) {
+      const float w = exp2f(sm_m[g * CR + rr] - mx);
+      const float4 x = sm_acc[(g * CR + rr) * G + c4];
+      lsum += sm_l[g * CR + rr] * w;
+      as.x += x.x * w;
+      as.y += x.y * w;
+      as.z += x.z * w;
+      as.w += x.w * w;
+    }
+  }
+  const int row = r0 + rr;
+  float4* dst = reinterpret_cast<float4*>(a.out + (((long long)b * a.C + row) * a.N + n) * D);
+  const bool writes = owner && row < a.C;
+
+  if (owner) {
+    rec_acc[rr][c4] = as;
+    if (c4 == 0) {
+      rec_m[rr] = mx;
+      rec_l[rr] = lsum;
+    }
+  }
+  cluster.sync();  // every active range's record is in its block
+  if (split == 0) {
+    if (tid < active * CR) {
+      const int s = tid / CR, r = tid % CR;
+      all_m[s][r] = cluster.map_shared_rank(rec_m, s)[r];
+      all_l[s][r] = cluster.map_shared_rank(rec_l, s)[r];
+    }
+    __syncthreads();
+    if (writes) {
+      mx = kNegInf;
+      for (int s = 0; s < active; ++s) mx = fmaxf(mx, all_m[s][rr]);
+      lsum = 0.f;
+      as = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int s = 0; s < active; ++s) {
+        const float w = exp2f(all_m[s][rr] - mx);
+        const float4 x = cluster.map_shared_rank(&rec_acc[0][0], s)[rr * G + c4];
+        lsum += all_l[s][rr] * w;
+        as.x += x.x * w;
+        as.y += x.y * w;
+        as.z += x.z * w;
+        as.w += x.w * w;
+      }
+      const float inv = lsum > 0.f ? 1.f / lsum : 0.f;
+      dst[c4] = make_float4(as.x * inv, as.y * inv, as.z * inv, as.w * inv);
+    }
+  }
+  cluster.sync();  // rank 0 has read every record: the blocks may exit
+}
+
+template <int D, int CR, bool PAGED>
+cudaError_t launch_f32_decode_d(const Args& a, cudaStream_t stream) {
+  const dim3 grid(a.N, a.nsplit, a.B * ((a.C + CR - 1) / CR));
+  const int bytes = F32Decode<D, CR>::SMEM;
+  void (*kernel)(const Args) = f32_decode_kernel<D, CR, PAGED>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess && a.nsplit > 8)  // 9-16 blocks: a non-portable cluster size
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = a.nsplit;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, a);
+}
+
+template <int CR, bool PAGED>
+cudaError_t launch_f32_decode_cr(const Args& a, int d, cudaStream_t stream) {
+  switch (d) {
+    case 32: return launch_f32_decode_d<32, CR, PAGED>(a, stream);
+    case 64: return launch_f32_decode_d<64, CR, PAGED>(a, stream);
+    case 128: return launch_f32_decode_d<128, CR, PAGED>(a, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// K5 (contiguous, C = 1) and K6's decode route (paged, any C; CR rows a
+// tile): one launch, nsplit blocks a tile.
+cudaError_t launch_f32_decode(Args a, int d, cudaStream_t stream) {
+  const int cr = f32_tile_rows(a.C);
+  if (bad_grid(a) || a.nsplit > kF32Splits ||
+      (long long)a.B * ((a.C + cr - 1) / cr) > 65535)
+    return cudaErrorInvalidValue;
   const bool paged = a.tables != nullptr;
-  if (a.C == 1)
-    return paged ? launch_cr<1, true>(a, d, stream) : launch_cr<1, false>(a, d, stream);
-  return paged ? launch_cr<8, true>(a, d, stream) : launch_cr<8, false>(a, d, stream);
+  if (!paged)
+    return a.C == 1 ? launch_f32_decode_cr<1, false>(a, d, stream) : cudaErrorInvalidValue;
+  switch (cr) {
+    case 1: return launch_f32_decode_cr<1, true>(a, d, stream);
+    case 2: return launch_f32_decode_cr<2, true>(a, d, stream);
+    default: return launch_f32_decode_cr<4, true>(a, d, stream);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1427,12 +1594,13 @@ extern "C" {
 
 // K5. q [B, N, D] (strides q_sb, q_sn); k/v [B, S, N, D] read through
 // their strides (last dim contiguous); lengths [B] int32; out [B, N, D].
+// One launch (f32_decode_kernel): nsplit blocks a (slot, head), one
+// cluster.
 int ptt_decode_attention_f32(const void* q, const void* k, const void* v,
-                             const void* lengths, void* out, void* part_m, void* part_l,
-                             void* part_acc, int B, int S, int N, int D, long long q_sb,
-                             long long q_sn, long long k_sb, long long k_ss, long long k_sn,
-                             long long v_sb, long long v_ss, long long v_sn, int nsplit,
-                             float scale, void* stream) {
+                             const void* lengths, void* out, int B, int S, int N, int D,
+                             long long q_sb, long long q_sn, long long k_sb, long long k_ss,
+                             long long k_sn, long long v_sb, long long v_ss, long long v_sn,
+                             int nsplit, float scale, void* stream) {
   Args a{};
   a.q = static_cast<const float*>(q);
   a.k = static_cast<const float*>(k);
@@ -1440,9 +1608,6 @@ int ptt_decode_attention_f32(const void* q, const void* k, const void* v,
   a.tables = nullptr;
   a.lengths = static_cast<const int*>(lengths);
   a.out = static_cast<float*>(out);
-  a.part_m = static_cast<float*>(part_m);
-  a.part_l = static_cast<float*>(part_l);
-  a.part_acc = static_cast<float*>(part_acc);
   a.B = B;
   a.C = 1;
   a.N = N;
@@ -1462,26 +1627,26 @@ int ptt_decode_attention_f32(const void* q, const void* k, const void* v,
   a.v_sn = v_sn;
   a.nsplit = nsplit;
   a.scale = scale;
-  return static_cast<int>(launch(a, D, static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(launch_f32_decode(a, D, static_cast<cudaStream_t>(stream)));
 }
 
-// K6. q [B, C, N, D] (strides q_sb, q_sc, q_sn); pools [NB, bs, N, D]
-// read through their strides (last dim contiguous); tables [B, M] int32
-// contiguous; lengths [B] int32; out [B, C, N, D]. The CUDA-core
-// kernel: any C (8-row tiles for C > 1).
+// K6's decode route. q [B, C, N, D] (strides q_sb, q_sc, q_sn); pools
+// [NB, bs, N, D] read through their strides (last dim contiguous);
+// tables [B, M] int32 contiguous; lengths [B] int32; out [B, C, N, D].
+// The CUDA-core kernel (f32_decode_kernel), one launch: any C, in tiles
+// of f32_tile_rows(C) rows, nsplit blocks a tile, one cluster.
 int ptt_paged_decode_attention_f32(const void* q, const void* k_pool, const void* v_pool,
-                                   const void* tables, const void* lengths, void* out,
-                                   void* part_m, void* part_l, void* part_acc, int B, int C,
-                                   int N, int D, int NB, int bs, int M, long long q_sb,
+                                   const void* tables, const void* lengths, void* out, int B,
+                                   int C, int N, int D, int NB, int bs, int M, long long q_sb,
                                    long long q_sc, long long q_sn, long long k_sb,
                                    long long k_ss, long long k_sn, long long v_sb,
                                    long long v_ss, long long v_sn, int nsplit, float scale,
                                    void* stream) {
-  const Args a = paged_args(q, k_pool, v_pool, tables, lengths, out, part_m, part_l, part_acc,
+  const Args a = paged_args(q, k_pool, v_pool, tables, lengths, out, nullptr, nullptr, nullptr,
                             B, C, N, NB, bs, M, q_sb, q_sc, q_sn, k_sb, k_ss, k_sn, v_sb, v_ss,
                             v_sn, nsplit, scale);
   if (a.tables == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(launch(a, D, static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(launch_f32_decode(a, D, static_cast<cudaStream_t>(stream)));
 }
 
 // K6's chunk route: the same arguments and function on the bf16 tensor

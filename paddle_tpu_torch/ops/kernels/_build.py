@@ -40,10 +40,10 @@ _FLASH_TAIL = [_c_int] * 5 + [_c_ll_p, _c_float, _c_int, _c_int, _c_uint,
 #: c_void_p, so ctypes never truncates them to 32 bits
 SIGNATURES = {
     "ptt_decode_attention_f32": (
-        [_c_void_p] * 8 + [_c_int] * 4 + [_c_ll] * 8
+        [_c_void_p] * 5 + [_c_int] * 4 + [_c_ll] * 8
         + [_c_int, _c_float, _c_void_p]),
     "ptt_paged_decode_attention_f32": (
-        [_c_void_p] * 9 + [_c_int] * 7 + [_c_ll] * 9
+        [_c_void_p] * 6 + [_c_int] * 7 + [_c_ll] * 9
         + [_c_int, _c_float, _c_void_p]),
     "ptt_paged_prefill_attention_f32": (
         [_c_void_p] * 9 + [_c_int] * 7 + [_c_ll] * 9

@@ -9,16 +9,22 @@ version, the same masked-gather + softmax arithmetic as the JAX package's
 `decode_attention_reference` / `paged_decode_attention_reference` /
 `quantized_paged_decode_attention_reference`.
 
-K6 and K7 each have two kernels on the card. Decode ticks (C = 1) go to
-a decode kernel on the CUDA cores (one key per lane group), every chunk
-of more rows (verify and prefill) to a prefill kernel on the bf16 tensor
-cores that keeps f32 accuracy by splitting operands into three bf16
-pieces: K7's `qattn_prefill_tc_kernel` splits q and p * s_v (its codes
-are exact in bf16), K6's `paged_prefill_tc_kernel` splits q, k, v and p
-and sums six piece products per f32 product. Both kernels of a wrapper
-take the same arguments and compute the same function. K7's decode
-kernel merges its key ranges in the same launch, through a zeroed
-workspace per (device, stream) that it leaves zeroed.
+K5 runs one kernel on the CUDA cores, `f32_decode_kernel`, which is
+also K6's decode route. K6 and K7 each have two kernels on the card.
+Decode ticks (and K6's chunks below PAGED_TC_MIN_C rows) go to a decode
+kernel on the CUDA cores, every longer chunk (verify and prefill) to a
+prefill kernel on the bf16 tensor cores that keeps f32 accuracy by
+splitting operands into three bf16 pieces: K7's `qattn_prefill_tc_kernel`
+splits q and p * s_v (its codes are exact in bf16), K6's
+`paged_prefill_tc_kernel` splits q, k, v and p and sums six piece
+products per f32 product. Both kernels of a wrapper take the same
+arguments and compute the same function. The decode kernels run as one
+launch that allocates nothing but its output: their keys are split from
+the window's capacity (K5's and K6's striped in stages over the blocks
+of a tile, K7's in ranges) and merged inside the launch, K5's and K6's
+in a thread-block cluster through distributed shared memory, K7's
+through a zeroed workspace per (device, stream) that the kernel leaves
+zeroed.
 
 A wrapper takes the plain version only because the tensors it was given
 lie on the CPU. On a CUDA tensor it launches the kernel or raises: a
@@ -38,7 +44,7 @@ __all__ = [
     "paged_decode_attention_reference",
     "quantized_paged_decode_attention_reference", "launch_counts",
     "reset_launch_counts", "split_count", "chunk_split_count",
-    "decode_split_count",
+    "decode_split_count", "f32_decode_split_count",
     "PAGED_TC_MIN_C",
 ]
 
@@ -61,8 +67,11 @@ _PREFILL_KEYS = 64
 
 #: chunks of at least this many rows take K6's tensor-core kernel; on
 #: the card (chip_smoke phase 2's crossover at B = 8) its CUDA-core kernel
-#: was faster at C = 2 and slower from the verify chunk C = 5 up
-PAGED_TC_MIN_C = 5
+#: was faster at C = 2, 5 and 8 and slower from C = 16 on; the threshold
+#: sits at the smallest prefill bucket, 8, so every prefill (one slot,
+#: not timed on both kernels) stays on the tensor cores, and the decode
+#: ticks and the verify chunk (spec_k + 1 = 5) take the CUDA cores
+PAGED_TC_MIN_C = 8
 
 #: kernel launches per wrapper (bumped once per launched call);
 #: "paged_decode_attention" counts every K6 call and
@@ -190,10 +199,10 @@ def quantized_paged_decode_attention_reference(q, k_pool, v_pool, k_scale,
 # ---------------------------------------------------------------------------
 
 def split_count(blocks, capacity, min_keys=32):
-    """Key ranges per (slot, head, row tile) block (flash-decoding
-    split-K): enough to put _BLOCKS_PER_SM blocks on every SM, at most
-    _MAX_SPLITS, and never more than the window could fill with
-    `min_keys` keys each (32; the prefill kernels' key tile of 64)."""
+    """Key ranges per (row tile, slot, head) block of K7's prefill
+    kernel (flash-decoding split-K): enough to put _BLOCKS_PER_SM blocks
+    on every SM, at most _MAX_SPLITS, and never more than the window
+    could fill with `min_keys` keys each (its key tile of 64)."""
     want = -(-(_SMS * _BLOCKS_PER_SM) // max(int(blocks), 1))
     return int(max(1, min(want, _MAX_SPLITS,
                           -(-int(capacity) // int(min_keys)))))
@@ -219,6 +228,16 @@ def decode_split_count(capacity, d):
     and all of them run at once: the slowest block, not the count, sets
     the time."""
     keys = 2 * 4 * 128 // (int(d) // 16)
+    return int(max(1, min(_MAX_SPLITS, -(-int(capacity) // keys))))
+
+
+def f32_decode_split_count(capacity, d):
+    """Blocks per (row tile, slot, head) of f32_decode_kernel (K5, K6's
+    decode route), one thread-block cluster that the window's stages are
+    striped over: one per 128 KB of f32 K and V in a full window (16384
+    / D keys: 4 blocks of a 1024-key window at D = 64), at most
+    _MAX_SPLITS (a cluster's most)."""
+    keys = 16384 // int(d)
     return int(max(1, min(_MAX_SPLITS, -(-int(capacity) // keys))))
 
 
@@ -276,6 +295,7 @@ def _raise_on(err, what):
 
 
 def _partials(rows, nsplit, d, device):
+    """Partial (m, l, acc) buffers of a chunk kernel's split keys."""
     if nsplit == 1:
         return None, None, None
     return (torch.empty((rows, nsplit), dtype=torch.float32, device=device),
@@ -299,7 +319,6 @@ def decode_attention(q, k_cache, v_cache, lengths):
     validity `lengths` [B] int32. Returns [B, N, D]."""
     if q.device.type == "cpu":
         return decode_attention_reference(q, k_cache, v_cache, lengths)
-    from paddle_tpu_torch.ops.kernels import _build
     _check_operand("q", q, 3)
     _check_operand("k_cache", k_cache, 4)
     _check_operand("v_cache", v_cache, 4)
@@ -316,20 +335,27 @@ def decode_attention(q, k_cache, v_cache, lengths):
     _check_index("lengths", lengths, 1, q.device)
     enforce(lengths.shape[0] == b, "lengths %s != batch %d",
             tuple(lengths.shape), b)
+    return _launch_contiguous(q, k_cache, v_cache, lengths)
+
+
+def _launch_contiguous(q, k_cache, v_cache, lengths):
+    """One K5 launch on checked operands, counted. Returns [B, N, D]
+    float32."""
+    from paddle_tpu_torch.ops.kernels import _build
+    b, n, d = q.shape
+    s_len = k_cache.shape[1]
     out = torch.empty((b, n, d), dtype=torch.float32, device=q.device)
     if b == 0 or n == 0:
         return out
-    nsplit = split_count(b * n, s_len)
-    pm, pl, pacc = _partials(b * n, nsplit, d, q.device)
     lib = _build.load_library()
     err = lib.ptt_decode_attention_f32(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        lengths.data_ptr(), out.data_ptr(), _ptr(pm), _ptr(pl), _ptr(pacc),
+        lengths.data_ptr(), out.data_ptr(),
         b, s_len, n, d, q.stride(0), q.stride(1),
         k_cache.stride(0), k_cache.stride(1), k_cache.stride(2),
         v_cache.stride(0), v_cache.stride(1), v_cache.stride(2),
-        nsplit, 1.0 / math.sqrt(d),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        f32_decode_split_count(s_len, d), 1.0 / math.sqrt(d),
+        _stream(q.device))
     _raise_on(err, "decode_attention")
     launch_counts["decode_attention"] += 1
     return out
@@ -340,8 +366,9 @@ def paged_decode_attention(q, k_pool, v_pool, tables, lengths):
     pools [NB, bs, N, D] through block tables [B, M] int32, with
     committed lengths [B] int32; row c sees positions < lengths[b]+c+1.
     Any C (decode 1, verify k+1, prefill continuation up to max_len): a
-    decode tick takes the CUDA-core kernel, a chunk of PAGED_TC_MIN_C
-    rows or more the tensor-core kernel. Returns [B, C, N, D]."""
+    decode tick and a chunk of fewer than PAGED_TC_MIN_C rows take the
+    CUDA-core kernel (one launch), a longer chunk the tensor-core kernel.
+    Returns [B, C, N, D]."""
     if q.device.type == "cpu":
         return paged_decode_attention_reference(q, k_pool, v_pool, tables,
                                                 lengths)
@@ -367,9 +394,10 @@ def paged_decode_attention(q, k_pool, v_pool, tables, lengths):
 
 
 def _launch_paged(q, k_pool, v_pool, tables, lengths):
-    """One K6 launch on checked operands, counted: a decode tick on the
-    CUDA-core kernel, a chunk of PAGED_TC_MIN_C rows or more on the
-    tensor-core kernel. Returns [B, C, N, D] float32."""
+    """One K6 launch on checked operands, counted: a decode tick or a
+    chunk of fewer than PAGED_TC_MIN_C rows on the CUDA-core kernel (one
+    launch, no buffer), a longer chunk on the tensor-core kernel
+    (partials and a combine). Returns [B, C, N, D] float32."""
     from paddle_tpu_torch.ops.kernels import _build
     b, c, n, d = q.shape
     nb, bs = k_pool.shape[0], k_pool.shape[1]
@@ -381,15 +409,16 @@ def _launch_paged(q, k_pool, v_pool, tables, lengths):
     if chunk:
         nsplit = chunk_split_count(b * n * -(-c // _PREFILL_ROWS), m * bs)
         fn = "ptt_paged_prefill_attention_f32"
+        buffers = _partials(b * c * n, nsplit, d, q.device)
     else:
-        nsplit = split_count(b * n * (1 if c == 1 else -(-c // 8)), m * bs)
+        nsplit = f32_decode_split_count(m * bs, d)
         fn = "ptt_paged_decode_attention_f32"
-    pm, pl, pacc = _partials(b * c * n, nsplit, d, q.device)
+        buffers = ()
     lib = _build.load_library()
     err = getattr(lib, fn)(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-        tables.data_ptr(), lengths.data_ptr(), out.data_ptr(), _ptr(pm),
-        _ptr(pl), _ptr(pacc), b, c, n, d, nb, bs, m,
+        tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+        *map(_ptr, buffers), b, c, n, d, nb, bs, m,
         q.stride(0), q.stride(1), q.stride(2),
         k_pool.stride(0), k_pool.stride(1), k_pool.stride(2),
         v_pool.stride(0), v_pool.stride(1), v_pool.stride(2),

@@ -168,7 +168,8 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
 
 
 @pytest.mark.parametrize("blocks,capacity,want", [
-    (96, 1024, 6),        # decode at B=8, N=12: split-K fills the card
+    (96, 1024, 6),        # 96 tiles (K7's prefill route at B=8, N=12,
+                          # C <= 64): split-K fills the card
     (12 * 64 * 8, 1024, 1),   # prefill tiles fill it alone
     (1, 1024, 16),        # capped
     (1, 40, 2),           # never fewer than 32 keys per range

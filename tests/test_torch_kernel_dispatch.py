@@ -1,12 +1,15 @@
-"""The host code of K6's and K7's two routes and of K8's split-K, on the
-CPU.
+"""The host code of K5, of K6's and K7's two routes and of K8's split-K,
+on the CPU.
 
 `_build.load_library` is replaced by a recording stub (as in
 tests/test_torch_flash_dispatch.py), so the launch helpers run with CPU
 tensors: each records the C function it called and its arguments and
-returns 0. That checks, without a card, that K6 sends decode ticks and
-chunks below PAGED_TC_MIN_C to its CUDA-core kernel and longer chunks to
-its tensor-core kernel, with the partials and split count each needs;
+returns 0. That checks, without a card, that K5 and K6's decode route
+(decode ticks and chunks below PAGED_TC_MIN_C) are one call of the
+one-launch CUDA-core kernel that allocates nothing but its output (its
+key ranges, f32_decode_split_count's, merge in a thread-block cluster:
+no partials, no workspace); that K6's longer chunks go to its
+tensor-core kernel with the partials and split count it needs;
 that K7 sends decode ticks (C = 1) to its one-launch decode kernel with
 a zeroed int32 workspace of arrival counters and records (reused from
 call to call, dropped after a refused launch) and the verify and
@@ -238,15 +241,16 @@ def _k6_args(b, c, n=2, d=64, bs=8, m=16):
 
 
 @pytest.mark.parametrize("c,route", [(1, "decode"), (2, "decode"),
-                                     (4, "decode"), (5, "chunk"),
+                                     (4, "decode"), (5, "decode"),
                                      (8, "chunk"), (64, "chunk"),
                                      (512, "chunk")])
 def test_k6_route_by_chunk(stub, monkeypatch, c, route):
-    """Decode ticks (C = 1) and chunks shorter than PAGED_TC_MIN_C stay
-    on the CUDA-core kernel (8-row tiles); every chunk from the verify
-    chunk C = 5 up (prefill buckets too) takes the tensor-core kernel,
-    with the partials its 64-row tiles need; both are counted."""
-    assert tda.PAGED_TC_MIN_C == 5
+    """Decode ticks (C = 1) and chunks shorter than PAGED_TC_MIN_C (the
+    verify chunk C = 5 too) stay on the CUDA-core kernel (one launch, no
+    partials); every prefill bucket (C >= 8) takes the tensor-core
+    kernel, with the partials its 64-row tiles need; both are
+    counted."""
+    assert tda.PAGED_TC_MIN_C == 8
     shapes = []
     real = tda._partials
 
@@ -264,13 +268,94 @@ def test_k6_route_by_chunk(stub, monkeypatch, c, route):
     assert len(call) == len(_build.SIGNATURES[name])
     if route == "chunk":
         nsplit = tda.chunk_split_count(b * n * -(-c // 64), m * bs)
+        assert call[-3] == nsplit and shapes == [(b * c * n, nsplit, d)]
+        assert call[9:16] == (b, c, n, d, b * m + 1, bs, m)
     else:
-        nsplit = tda.split_count(b * n * -(-c // 8), m * bs)
-    assert call[-3] == nsplit and shapes == [(b * c * n, nsplit, d)]
-    assert call[9:16] == (b, c, n, d, b * m + 1, bs, m)
+        nsplit = tda.f32_decode_split_count(m * bs, d)
+        assert call[-3] == nsplit and shapes == []
+        assert call[6:13] == (b, c, n, d, b * m + 1, bs, m)
     assert out.shape == (b, c, n, d)
     assert tda.launch_counts["paged_decode_attention"] == 1
     assert tda.launch_counts["paged_prefill_attention"] == (route == "chunk")
+
+
+# ---------------------------------------------------------------------
+# K5 and K6's decode route: f32_decode_kernel, one launch
+# ---------------------------------------------------------------------
+
+def _k5_args(b, s=1024, n=12, d=64):
+    rng = np.random.RandomState(b)
+    q = torch.from_numpy(rng.randn(b, n, d).astype(np.float32))
+    k = torch.from_numpy(rng.randn(b, s, n, d).astype(np.float32))
+    return q, k, k.clone(), torch.full((b,), s // 2, dtype=torch.int32)
+
+
+def _f32_decode_args(kind, b, c, n=12, d=64, m=128):
+    """(launch helper, operands) of K5 (kind "k5", C = 1) or of K6's
+    decode route."""
+    if kind == "k5":
+        return tda._launch_contiguous, _k5_args(b, m * 8, n, d)
+    return tda._launch_paged, _k6_args(b, c, n=n, d=d, m=m)
+
+
+def _f32_decode_call(kind, b, c, **kw):
+    fn, args = _f32_decode_args(kind, b, c, **kw)
+    return fn(*args)
+
+
+_F32_CASES = [("k5", 1), ("k6", 1), ("k6", 2), ("k6", 4)]
+
+
+@pytest.mark.parametrize("cap,d,nsplit", [
+    (1024, 64, 4),      # the main path: 4 ranges of 256 keys (128 KB)
+    (1024, 32, 2),      # 512 keys a range at D = 32
+    (1024, 128, 8),     # 128 keys a range at D = 128
+    (300, 64, 2),       # a full range and a partial one
+    (256, 64, 1),       # one range is the window
+    (100000, 64, 16),   # at most _MAX_SPLITS (a cluster's most): long ranges
+])
+def test_f32_decode_split_count(cap, d, nsplit):
+    assert tda.f32_decode_split_count(cap, d) == nsplit
+
+
+@pytest.mark.parametrize("kind,c", _F32_CASES)
+def test_f32_decode_is_one_call_that_allocates_only_its_output(
+        stub, monkeypatch, kind, c):
+    """K5 and K6 at C in {1, 2, 4}: exactly one library call each, with
+    the split f32_decode_split_count gives, no partial buffer and no
+    workspace: the one allocation is the output."""
+    monkeypatch.setattr(tda, "_partials", None)   # a call would raise
+    launch, args = _f32_decode_args(kind, 8, c)
+    allocs = []
+    for name in ("empty", "zeros"):
+        real = getattr(torch, name)
+        monkeypatch.setattr(torch, name, lambda *a, _real=real, **k: (
+            allocs.append(a), _real(*a, **k))[1])
+    out = launch(*args)
+    launch(*args)
+    monkeypatch.undo()
+    assert [name for name, _ in stub.calls] == 2 * [
+        "ptt_decode_attention_f32" if kind == "k5"
+        else "ptt_paged_decode_attention_f32"]
+    for name, call in stub.calls:
+        assert len(call) == len(_build.SIGNATURES[name])
+        assert call[-3] == tda.f32_decode_split_count(1024, 64) == 4
+    assert allocs == 2 * [(tuple(out.shape),)]
+    assert tda._workspaces == {}
+    assert tda.launch_counts["decode_attention" if kind == "k5"
+                             else "paged_decode_attention"] == 2
+
+
+@pytest.mark.parametrize("kind,c", _F32_CASES)
+def test_f32_decode_refused_launch_raises_and_counts_nothing(
+        stub, monkeypatch, kind, c):
+    """A refused launch is an error (no fallback to the plain version)
+    and is not counted."""
+    monkeypatch.setattr(_Recorder, "__getattr__",
+                        lambda self, name: lambda *args: 1)
+    with pytest.raises(RuntimeError, match="cudaError_t 1"):
+        _f32_decode_call(kind, 8, c)
+    assert tda.launch_counts == dict.fromkeys(tda.launch_counts, 0)
 
 
 # ---------------------------------------------------------------------

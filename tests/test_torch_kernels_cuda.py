@@ -40,22 +40,31 @@ def _ints(values, device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,lengths", [
     ((8, 1024, 12, 64), [0, 1, 511, 1024, 3, 700, 64, 1000]),
+    ((8, 1024, 12, 32), [0, 1, 1024, 700, 129, 128, 5, 900]),
+    ((4, 1024, 12, 128), [0, 1024, 1, 333]),
     ((3, 24, 4, 32), [0, 13, 24]),
     ((2, 100, 2, 128), [57, 100]),
+    ((2, 5000, 2, 64), [4999, 5000]),   # ranges of several stages
 ])
 def test_k5_kernel_matches_plain(cuda, shape, lengths):
+    """One layer of stacked [2, L, B, S, N, D] caches, D = 32, 64 and 128,
+    lengths 0, 1, the full capacity and ones that end inside a range:
+    within TOL of the plain version, zeros for an empty window, one
+    launch counted, and two calls give the same bits."""
     b, s, n, d = shape
-    rng = np.random.RandomState(2)
+    rng = np.random.RandomState(2 + d)
     q = _randn(rng, b, n, d, device=cuda)
-    k = _randn(rng, b, s, n, d, device=cuda)
-    v = _randn(rng, b, s, n, d, device=cuda)
+    cache = _randn(rng, 2, 2, b, s, n, d, device=cuda)
+    k, v = cache[0, 1], cache[1, 1]
     ln = _ints(lengths, cuda)
     before = tda.launch_counts["decode_attention"]
     got = tda.decode_attention(q, k, v, ln)
     want = tda.decode_attention_reference(q, k, v, ln)
+    again = tda.decode_attention(q, k, v, ln)
     torch.cuda.synchronize()
-    assert tda.launch_counts["decode_attention"] == before + 1
+    assert tda.launch_counts["decode_attention"] == before + 2
     assert float((got - want).abs().max()) <= TOL
+    assert torch.equal(got, again)
     if lengths[0] == 0:
         assert not got[0].any()
 
@@ -76,21 +85,66 @@ def test_k5_kernel_reads_strided_layer_views(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("c", [1, 5, 8, 9, 512])
-def test_k6_kernel_matches_plain(cuda, c):
-    b, n, d, bs, m = 4, 12, 64, 8, 128
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("c", [1, 2, 3, 4, 5, 8, 9, 512])
+def test_k6_kernel_matches_plain(cuda, c, d):
+    """One layer of stacked [2, L, NB, bs, N, D] pools through shuffled
+    tables, q a view of a fused QKV projection, lengths 0, 1, the full
+    capacity (the last row sees every key) and one that ends inside a
+    key range: C = 1-4 on the decode route (CUDA cores, one launch; two
+    calls give the same bits), C >= 5 on the chunk route."""
+    b, n, bs, m = 4, 12, 8, 128
     nb = b * m + 1
-    rng = np.random.RandomState(4)
-    q = _randn(rng, b, c, n, d, device=cuda)
-    kp = _randn(rng, nb, bs, n, d, device=cuda)
-    vp = _randn(rng, nb, bs, n, d, device=cuda)
+    rng = np.random.RandomState(4 + c + d)
+    qkv = _randn(rng, b, c, 3 * n * d, device=cuda)
+    q = qkv[..., n * d:2 * n * d].reshape(b, c, n, d)
+    pools = _randn(rng, 2, 2, nb, bs, n, d, device=cuda)
+    kp, vp = 3.0 * pools[0, 1], pools[1, 1]
     tables = _ints(rng.permutation(np.arange(1, nb)).reshape(b, m), cuda)
     ln = _ints([0, 1, m * bs - c, 300], cuda)
-    before = tda.launch_counts["paged_decode_attention"]
+    before = dict(tda.launch_counts)
     got = tda.paged_decode_attention(q, kp, vp, tables, ln)
     want = tda.paged_decode_attention_reference(q, kp, vp, tables, ln)
     torch.cuda.synchronize()
-    assert tda.launch_counts["paged_decode_attention"] == before + 1
+    assert tda.launch_counts["paged_decode_attention"] == \
+        before["paged_decode_attention"] + 1
+    assert tda.launch_counts["paged_prefill_attention"] == \
+        before["paged_prefill_attention"] + (c >= tda.PAGED_TC_MIN_C)
+    assert got.shape == (b, c, n, d) and bool(torch.isfinite(got).all())
+    assert float((got - want).abs().max()) <= TOL
+    if c < tda.PAGED_TC_MIN_C:
+        again = tda.paged_decode_attention(q, kp, vp, tables, ln)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [16, 40, 128, 256, 512])
+def test_f32_decode_clusters_of_every_size(cuda, m):
+    """Capacities whose key ranges make clusters of 1, 2, 4, 8 and 16
+    blocks (16 is a non-portable cluster size), K5 and K6 at C = 1 and
+    3: each call within TOL of the plain version."""
+    rng = np.random.RandomState(12 + m)
+    b, n, d, bs = 3, 4, 64, 8
+    nb = b * m + 1
+    cap = m * bs
+    assert tda.f32_decode_split_count(cap, d) == min(16, -(-cap // 256))
+    kp = _randn(rng, nb, bs, n, d, device=cuda)
+    vp = _randn(rng, nb, bs, n, d, device=cuda)
+    tables = _ints(rng.permutation(np.arange(1, nb)).reshape(b, m), cuda)
+    for c in (1, 3):
+        q = _randn(rng, b, c, n, d, device=cuda)
+        ln = _ints([0, cap - c, rng.randint(0, cap - c + 1)], cuda)
+        got = tda.paged_decode_attention(q, kp, vp, tables, ln)
+        want = tda.paged_decode_attention_reference(q, kp, vp, tables, ln)
+        torch.cuda.synchronize()
+        assert float((got - want).abs().max()) <= TOL
+    cache_k = _randn(rng, b, cap, n, d, device=cuda)
+    cache_v = _randn(rng, b, cap, n, d, device=cuda)
+    ln = _ints([cap, 1, rng.randint(0, cap + 1)], cuda)
+    got = tda.decode_attention(q[:, 0], cache_k, cache_v, ln)
+    want = tda.decode_attention_reference(q[:, 0], cache_k, cache_v, ln)
+    torch.cuda.synchronize()
     assert float((got - want).abs().max()) <= TOL
 
 
