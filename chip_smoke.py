@@ -139,13 +139,34 @@ Phases, each of which raises (exit code != 0) when its check fails:
     Images/s and p50 latency per batch size, PTQ load time and peak
     memory, int8 weight bytes beside f32's.
 13. Where an int8 batch-32 request's time goes (torch.profiler).
+14. ResNet-50 static training at the published width (depth 50, 224 x
+    224, 1000 classes; random weights from --seed): build_static, the
+    test clone, Momentum(0.0125, 0.9) + L2Decay(1e-4).minimize (Fluid's
+    0.1 at batch 256 scaled to 32), startup on the card, one synthetic
+    batch of 32 fed as numpy, f32 with TF32 off. (a) One step at batch
+    4 from the startup weights on the card and on the host CPU: in
+    float32 the loss within 1e-4 and the BN running statistics within
+    1e-5 of their max, updates and velocities printed with the ReLU
+    masks that differ between the two runs; with every float var made
+    float64, the loss, every parameter's update (1e-3 of its max), the
+    BN statistics and velocities (1e-5) (see `step_agreement`). (b) 3
+    warm-up and 10 timed steps at batch 32: every loss finite, the last
+    below the first; step ms (wall), images/s, peak memory, beside the
+    step's f32 bound (3 x 32 x flops_per_image(50) at 67 TFLOP/s). (c)
+    save_inference_model (feed img, target logits) into an f32
+    Predictor: its logits at batch 4 equal the test clone's within 1e-5
+    of max |logits|. No hand-written kernel is on this path.
+15. Where a training step's time goes (torch.profiler): wall and device
+    ms, the idle share, the top kernels, and the launches and device ms
+    of the forward, the backward and the regularizer + update ops.
 
 Then a `{"kernels": [...]}` line and, last, the device line
 `{"ok": true, "device": {...}}`. Every number is printed beside the
 card's name and power limit.
 
 Launch counters are reset just before each main-path phase (serving,
-training, int8 ResNet serving) and read just after it, so launches made
+training, int8 ResNet serving; phase 14 launches none of the kernels)
+and read just after it, so launches made
 to compare kernels with their plain versions do not count; K6's two
 lines (decode route, chunk route) report phases 4 and 4' together, K7's two
 lines those of its three serving runs (phases 4a and 4b) together.
@@ -713,8 +734,9 @@ def kernel_rows(torch, fn, argsets, calls=20):
 
 def profile_device(torch, run, steps, top=8):
     """Host wall time per step of `run(steps)` (which ends in a
-    synchronisation), then device time per step, the idle share and the
-    top kernels from torch.profiler over a second `run(steps)`."""
+    synchronisation), then device time and kernel launches per step, the
+    idle share and the top kernels from torch.profiler over a second
+    `run(steps)`."""
     t0 = time.perf_counter()
     run(steps)
     wall_ms = (time.perf_counter() - t0) / steps * 1e3
@@ -723,6 +745,7 @@ def profile_device(torch, run, steps, top=8):
     ranked = sorted(events, key=dev_us, reverse=True)[:top]
     return {"step_wall_ms": wall_ms,
             "step_device_ms": device_ms if events else None,
+            "launches_per_step": sum(e.count for e in events) / steps,
             "device_idle_share": (1.0 - device_ms / wall_ms
                                   if events else None),
             "top_kernels": [{"name": e.key[:80],
@@ -1879,6 +1902,285 @@ def resnet_int8_serving(torch, k8, seed, tag, image_size=224):
     return summary, int8, requests[-1], launches
 
 
+# ---------------------------------------------------------------------------
+# the Fluid static training slice: ResNet-50 through minimize and Executor
+# ---------------------------------------------------------------------------
+
+#: phase 14's optimizer: Fluid's ResNet-50 recipe (Momentum 0.9, L2Decay
+#: 1e-4, learning rate 0.1 at batch 256) with the rate scaled to batch 32
+TRAIN_LR, TRAIN_MOMENTUM, TRAIN_L2 = 0.0125, 0.9, 1e-4
+TRAIN_BATCH, CHECK_BATCH = 32, 4
+#: phase 14(a), the card against the CPU after one step at CHECK_BATCH:
+#: the loss (relative), each parameter's update (after - before) against
+#: its max |update|, BN running statistics and velocities against their
+#: max |value| (see `step_agreement` for which hold in float32)
+LOSS_RTOL, UPDATE_TOL, STATE_TOL = 1e-4, 1e-3, 1e-5
+#: phase 14(c): the Predictor's logits against the test clone's, of max
+#: |logits|
+LOGITS_TOL = 1e-5
+
+
+def resnet_train_programs(seed, image_size=224):
+    """ResNet-50 (build_static(depth=50)), its test clone (made before
+    minimize) and Momentum + L2Decay's minimize: (main, startup, test,
+    logits name, loss name)."""
+    from paddle_tpu_torch import optimizer, regularizer, static
+    from paddle_tpu_torch.core import ir
+    from paddle_tpu_torch.models.resnet import build_static
+
+    ir.reset_unique_names()
+    main, startup = ir.Program(), ir.Program()
+    startup.random_seed = seed
+    with ir.program_guard(main, startup):
+        img = static.data("img", [3, image_size, image_size], "float32")
+        label = static.data("label", [1], "int64")
+        logits, loss, _ = build_static(img, label, depth=50)
+        test = main.clone(for_test=True)
+        optimizer.Momentum(
+            learning_rate=TRAIN_LR, momentum=TRAIN_MOMENTUM,
+            regularization=regularizer.L2Decay(TRAIN_L2)).minimize(loss)
+    return main, startup, test, logits.name, loss.name
+
+
+def widened(torch, program):
+    """A copy of `program` whose float32 vars are float64 (batch norm and
+    the updates then compute in float64 too: `dtypes.at_least_f32`)."""
+    from paddle_tpu_torch.core import ir
+    p = ir.Program.from_dict(program.to_dict())
+    for b in p.blocks:
+        for v in b.vars.values():
+            if v.dtype == torch.float32:
+                v.dtype = torch.float64
+    return p
+
+
+def one_step(torch, program, state, feed, fetch, device):
+    """One run of `program` from `state` (numpy) on `device`: (the
+    fetches, the state after), as numpy."""
+    from paddle_tpu_torch.core.executor import Executor
+    from paddle_tpu_torch.core.scope import Scope
+    from paddle_tpu_torch.weights import scope_from_jax, scope_to_numpy
+    scope = scope_from_jax(state, Scope(), device)
+    outs = Executor(device).run(program, feed=feed, fetch_list=fetch,
+                                scope=scope)
+    return outs, scope_to_numpy(scope, sorted(state))
+
+
+def step_agreement(torch, main, state, feed, loss, tag):
+    """Phase 14(a): one step at CHECK_BATCH from the same weights on the
+    card and on the host CPU, in float32 and with every float var made
+    float64. float32 holds the loss (LOSS_RTOL) and the BN running
+    statistics (STATE_TOL); its updates and velocities are printed with
+    the ReLU masks that differ between the two runs: a pre-activation
+    within float32's forward error of zero takes the other side of the
+    kink, and the gradient behind it moves by that element's whole
+    upstream value. float64 holds the loss, every update (UPDATE_TOL of
+    its max), the BN statistics and the velocities (STATE_TOL)."""
+    ops = main.global_block().ops
+    params = next(op for op in ops if op.type == "autodiff").attrs["params"]
+    relu_in = [op.inputs["X"][0] for op in ops if op.type == "relu"]
+    classes = {
+        "update": params,
+        "bn statistics": [n for n in state if n.startswith("bn_")],
+        "velocity": [n for n in state if n.endswith("_velocity_Momentum")]}
+    gates = {"update": UPDATE_TOL, "bn statistics": STATE_TOL,
+             "velocity": STATE_TOL}
+    wide = {n: a.astype(np.float64) if a.dtype == np.float32 else a
+            for n, a in state.items()}
+    runs = {("float32", dev): one_step(torch, main, state, feed,
+                                       [loss] + relu_in, dev)
+            for dev in ("cuda", "cpu")}
+    feed64 = dict(feed, img=feed["img"].astype(np.float64))
+    runs.update({("float64", dev): one_step(
+        torch, widened(torch, main), wide, feed64, [loss] + relu_in, dev)
+        for dev in ("cuda", "cpu")})
+
+    def err(got, want, name):
+        if name in params:       # updates: after - before
+            got, want = got - state[name], want - state[name]
+        return float(np.abs(got - want).max() / np.abs(want).max())
+
+    row, failed = {}, []
+    for dt in ("float32", "float64"):
+        (gf, gpu), (cf, cpu) = runs[(dt, "cuda")], runs[(dt, "cpu")]
+        flips = sum(int(((a > 0) != (b > 0)).sum())
+                    for a, b in zip(gf[1:], cf[1:]))
+        r = {"loss": {"card": float(gf[0]), "cpu": float(cf[0]),
+                      "rel_err": abs(float(gf[0]) - float(cf[0]))
+                      / abs(float(cf[0])), "gate": LOSS_RTOL},
+             "relu_mask_flips": flips,
+             "relu_elements": sum(a.size for a in gf[1:])}
+        if r["loss"]["rel_err"] > LOSS_RTOL:
+            failed.append(f"{dt} loss")
+        print(f"resnet-50 one step at batch {CHECK_BATCH}, {dt}, card vs "
+              f"CPU: loss {gf[0]:.9g} vs {cf[0]:.9g}, rel "
+              f"{r['loss']['rel_err']:.3g} (gate {LOSS_RTOL}); ReLU masks "
+              f"that differ: {flips} of {r['relu_elements']} elements {tag}")
+        for cls, names in classes.items():
+            ranked = sorted(names, key=lambda n: -err(gpu[n], cpu[n], n))
+            gated = dt == "float64" or cls == "bn statistics"
+            r[cls] = {"vars": len(names), "gate": gates[cls] if gated
+                      else None, "worst": {n: err(gpu[n], cpu[n], n)
+                                           for n in ranked[:3]}}
+            worst = r[cls]["worst"][ranked[0]]
+            if gated and worst > gates[cls]:
+                failed.append(f"{dt} {cls}")
+            print(f"  {cls}: {len(names)} vars, worst "
+                  f"{r[cls]['worst']} (gate "
+                  f"{gates[cls] if gated else 'none: printed'}) {tag}")
+        row[dt] = r
+    assert not failed, f"phase 14(a): card vs CPU outside the gate: {failed}"
+    return row
+
+
+def resnet_static_training(torch, seed, tag, image_size=224, warmup=3,
+                           steps=10):
+    """Phase 14. ResNet-50 at its published width trained through the
+    port's static path: build_static, Momentum + L2Decay minimize,
+    startup on the card, one synthetic batch of TRAIN_BATCH from `seed`.
+    (a) `step_agreement`; (b) `warmup` + `steps` steps at TRAIN_BATCH,
+    every loss finite and the last below the first; (c)
+    save_inference_model of the trained program, an f32 Predictor's
+    logits against the test clone's. Returns (summary, main program,
+    scope, batch, loss name)."""
+    import shutil
+    import tempfile
+    from paddle_tpu_torch import inference, static
+    from paddle_tpu_torch.core.executor import Executor
+    from paddle_tpu_torch.core.scope import Scope, scope_guard
+    from paddle_tpu_torch.models.resnet import flops_per_image
+    from paddle_tpu_torch.weights import scope_from_jax, scope_to_numpy
+
+    main, startup, test, logits, loss = resnet_train_programs(seed,
+                                                              image_size)
+    exe = Executor()
+    scope = Scope()
+    t0 = time.perf_counter()
+    exe.run(startup, scope=scope)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    start = scope_to_numpy(scope, sorted(
+        v.name for v in main.list_vars() if v.persistable))
+    rng = np.random.RandomState(seed + 14)
+    batch = {"img": resnet_images(rng, TRAIN_BATCH, image_size),
+             "label": rng.randint(0, 1000, (TRAIN_BATCH, 1)).astype(
+                 np.int64)}
+
+    # (a) card against the CPU, one step at CHECK_BATCH
+    small = {k: v[:CHECK_BATCH] for k, v in batch.items()}
+    agreement = step_agreement(torch, main, start, small, loss, tag)
+
+    # (b) training at TRAIN_BATCH from the startup weights
+    scope = scope_from_jax(start, Scope())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    outs = []
+    for i in range(warmup + steps):
+        if i == warmup:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        outs += exe.run(main, feed=batch, fetch_list=[loss], scope=scope,
+                        return_numpy=False)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / steps * 1e3
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = [float(o) for o in outs]
+    assert all(np.isfinite(losses)), losses
+    assert losses[-1] < losses[0], f"loss did not fall: {losses}"
+    flops = 3 * TRAIN_BATCH * flops_per_image(50, image_size)
+    bound = flops / F32_FLOPS * 1e3
+    print(f"resnet-50 static training, batch {TRAIN_BATCH}, f32 (TF32 off), "
+          f"Momentum {TRAIN_MOMENTUM} + L2Decay {TRAIN_L2}, lr {TRAIN_LR}: "
+          f"loss {losses[0]:.4f} -> {losses[-1]:.4f} over "
+          f"{warmup + steps} steps; {step_ms:.2f} ms a step (wall, "
+          f"{steps} steps after {warmup}), {TRAIN_BATCH / step_ms * 1e3:.1f} "
+          f"images/s; f32 bound {bound:.2f} ms ({flops / 1e9:.1f} GFLOP at "
+          f"{F32_FLOPS / 1e12:.0f} TFLOP/s); peak {peak_gib:.2f} GiB; "
+          f"startup on the card {init_s:.2f} s {tag}")
+
+    # (c) the book-test contract: save, load into a Predictor, compare
+    x4 = batch["img"][:CHECK_BATCH]
+    (want,) = exe.run(test, feed={k: v[:CHECK_BATCH] for k, v in
+                                  batch.items()},
+                      fetch_list=[logits], scope=scope)
+    model_dir = tempfile.mkdtemp(prefix="resnet50_trained_")
+    try:
+        with scope_guard(scope):
+            static.io.save_inference_model(model_dir, ["img"], [logits],
+                                           exe, main_program=main)
+        pred = inference.create_predictor(inference.Config(model_dir))
+    finally:
+        shutil.rmtree(model_dir, ignore_errors=True)
+    (got,) = pred.run({"img": x4})
+    logits_err = float(np.abs(got - want).max() / np.abs(want).max())
+    print(f"resnet-50 trained: Predictor logits vs the test clone's at "
+          f"batch {CHECK_BATCH}: max |d| / max |logits| {logits_err:.3g} "
+          f"(gate {LOGITS_TOL}) {tag}")
+    assert got.shape == (CHECK_BATCH, 1000) and np.isfinite(got).all()
+    assert logits_err <= LOGITS_TOL, logits_err
+    summary = {"config": "ResNet-50 (He et al. 2015 Table 1), 224 x 224, "
+                         "1000 classes, random weights from seed; "
+                         f"Momentum {TRAIN_MOMENTUM}, L2Decay {TRAIN_L2}, "
+                         f"lr {TRAIN_LR}, batch {TRAIN_BATCH}, f32",
+               "agreement": agreement, "losses": losses,
+               "step_ms": step_ms,
+               "images_per_s": TRAIN_BATCH / step_ms * 1e3,
+               "bound_ms": bound, "peak_gib": peak_gib, "init_s": init_s,
+               "predictor_logits_err": logits_err}
+    del pred
+    return summary, main, scope, batch, loss
+
+
+def training_step_profile(torch, main, scope, batch, loss, tag, steps=3):
+    """Phase 15. Where a training step's time goes: wall and device ms a
+    step, the idle share and the top kernels (torch.profiler), then the
+    launches and device ms of the forward alone and of forward +
+    backward (prefixes of the program's ops); the rest of the step is
+    the regularizer's scale / sum and the momentum ops."""
+    from paddle_tpu_torch.core import ir
+    from paddle_tpu_torch.core.executor import Executor
+
+    exe = Executor()
+    ops = main.global_block().ops
+    ad = next(i for i, op in enumerate(ops) if op.type == "autodiff")
+    counts = {"forward": ad,
+              "regularizer": sum(op.role == ir.OpRole.BACKWARD
+                                 for op in ops[ad + 1:]),
+              "update": sum(op.role == ir.OpRole.OPTIMIZE for op in ops)}
+
+    def runner(program):
+        def run(n):
+            for _ in range(n):
+                exe.run(program, feed=batch, fetch_list=[loss], scope=scope,
+                        return_numpy=False)
+            torch.cuda.synchronize()
+        run(1)
+        return run
+
+    run = runner(main)
+    brk = profile_device(torch, run, steps, top=10)
+    print_profile(f"resnet-50 train step, batch {TRAIN_BATCH}", brk, tag)
+    seg = []
+    for n_ops in (ad, ad + 1):      # forward; forward + backward
+        prefix = ir.Program.from_dict(main.to_dict())
+        prefix.global_block().ops = prefix.global_block().ops[:n_ops]
+        p = profile_device(torch, runner(prefix), steps)
+        seg.append((p["launches_per_step"], p["step_device_ms"] or 0.0))
+    (fl, fm), (bl, bm) = seg
+    sl, sm = brk["launches_per_step"], brk["step_device_ms"] or 0.0
+    print(f"resnet-50 train step ops: {counts['forward']} forward, 1 "
+          f"autodiff, {counts['regularizer']} regularizer (scale + sum), "
+          f"{counts['update']} momentum; launches a step: forward {fl:.0f}, "
+          f"backward {bl - fl:.0f}, regularizer + update {sl - bl:.0f}, "
+          f"total {sl:.0f}; device ms a step: forward {fm:.3f}, backward "
+          f"{bm - fm:.3f}, regularizer + update {sm - bm:.3f} {tag}")
+    brk.update(ops=counts, launches={"forward": fl, "backward": bl - fl,
+                                     "update": sl - bl, "total": sl},
+               device_ms={"forward": fm, "backward": bm - fm,
+                          "update": sm - bm, "total": sm})
+    return brk
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2307,6 +2609,17 @@ def main(argv=None):
     results["resnet50_int8_breakdown"] = brk
     print_profile("resnet-50 int8 request, batch 32", brk, tag)
     del int8
+    torch.cuda.empty_cache()
+
+    # 14. ResNet-50 static training, the static-training slice's main path
+    train, main_prog, scope, batch, loss = resnet_static_training(
+        torch, args.seed, tag)
+    results["resnet50_train"] = train
+
+    # 15. where a training step's time goes
+    results["resnet50_train_breakdown"] = training_step_profile(
+        torch, main_prog, scope, batch, loss, tag)
+    del scope
 
     results["total_s"] = time.perf_counter() - t_start
     print(f"total: {results['total_s']:.1f} s {tag}")

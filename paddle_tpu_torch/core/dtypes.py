@@ -11,12 +11,15 @@ to 32 bits and the executor range-checks 64-bit feeds. PyTorch has real
 int64 var stays int64 on the GPU and no feed is narrowed. The IR records
 the same DECLARED dtypes in both packages (the JAX package infers under
 x64 for that reason), so a serialized program reads the same in both.
+For the same reason `at_least_f32` keeps float64 where the JAX package
+casts to float32 (batch norm's statistics, the optimizer updates): with
+x64 off that cast only ever widens there.
 """
 import numpy as np
 import torch
 
 __all__ = ["normalize_dtype", "dtype_name", "numpy_dtype", "is_floating",
-           "device_dtype", "float16",
+           "device_dtype", "at_least_f32", "float16",
            "bfloat16", "float32", "float64", "int8", "uint8", "int16",
            "int32", "int64", "bool_"]
 
@@ -86,3 +89,9 @@ def device_dtype(dtype):
     """The on-device dtype of a declared dtype: the dtype itself (64-bit
     types stay 64-bit on the card; see the module docstring)."""
     return normalize_dtype(dtype)
+
+
+def at_least_f32(t):
+    """`t` in float32, or as it is when float64: the arithmetic dtype of
+    the ops that compute narrower floats in float32."""
+    return t if t.dtype == float64 else t.float()

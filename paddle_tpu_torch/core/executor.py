@@ -99,7 +99,7 @@ class Executor:
         else:
             seed = program.random_seed
         state = {n: scope.tensor_on(n, self.device) for n in state_names}
-        with torch.no_grad():
+        with torch.no_grad():     # the autodiff segment turns grad on
             fetches, new_state = step(state, feed_vals, seed)
         for n, v in new_state.items():
             scope.set(n, v)

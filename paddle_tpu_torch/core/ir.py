@@ -269,10 +269,22 @@ class Program:
     def current_block(self):
         return self.blocks[self._current_block_idx]
 
+    @contextlib.contextmanager
+    def op_role_guard(self, role):
+        """Ops appended inside carry `role` (op_proto_maker.h OpRole)."""
+        prev, self._current_role = self._current_role, role
+        try:
+            yield
+        finally:
+            self._current_role = prev
+
     def list_vars(self):
         for b in self.blocks:
             for v in b.vars.values():
                 yield Variable(b, v)
+
+    def all_parameters(self):
+        return [v for v in self.list_vars() if v.desc.is_parameter]
 
     def to_dict(self):
         used = sorted({op.type for b in self.blocks for op in b.ops})

@@ -33,6 +33,7 @@ _OPS = {}
 _OP_MODULES = ("paddle_tpu_torch.ops.tensor", "paddle_tpu_torch.ops.random",
                "paddle_tpu_torch.ops.math", "paddle_tpu_torch.ops.nn",
                "paddle_tpu_torch.ops.metrics", "paddle_tpu_torch.ops.fused",
+               "paddle_tpu_torch.ops.optimizer_ops",
                "paddle_tpu_torch.slim.quant_ops")
 _loaded = [False]
 

@@ -1,0 +1,12 @@
+"""Data input: reader decorators, DataFeeder and the synthetic datasets.
+
+Counterpart of paddle_tpu/io/ for what static training's book tests
+read so far (`reader.py`, `dataset.py`'s mnist and uci_housing). The
+DataLoader, ragged batching, the Fluid datasets and checkpoints are
+later slices (ROADMAP Queue 1 item 16). numpy and the standard library
+only.
+"""
+from paddle_tpu_torch.io.reader import (  # noqa: F401
+    DataFeeder, batch, buffered, cache, map_readers, shuffle,
+)
+from paddle_tpu_torch.io import dataset  # noqa: F401

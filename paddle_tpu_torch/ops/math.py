@@ -4,8 +4,11 @@ Counterpart of paddle_tpu/ops/math.py for what the static serving slice
 runs: `relu`, `elementwise_add` (Fluid's mid-axis broadcast) and the
 rest of the elementwise family the Variable operators reach, `scale`,
 `mul`, `reduce_mean`, `mean`, `softmax`, `top_k`, and `reciprocal` /
-`pow` (the Variable operators' scalar forms). f32
-matmuls run in f32 (the port sets no global TF32 flag).
+`pow` (the Variable operators' scalar forms); and what static training
+appends after `autodiff`: `sum` (regularizers, the global-norm clip),
+`sign` (L1Decay), `clip`, `sqrt`, `squared_l2_norm` and `frobenius_norm`
+(the clips). f32 matmuls run in f32 (the port sets no global TF32
+flag).
 """
 import torch
 
@@ -64,14 +67,30 @@ def _mul(ctx, x, y):
     return torch.matmul(x2, y2).reshape(xs[:xd] + ys[yd:])
 
 
-@register_op("relu", inputs=["X"], outputs=["Out"])
-def _relu(ctx, x):
-    return torch.relu(x)
+@register_op("sum", inputs=["X[]"], outputs=["Out"])
+def _sum(ctx, xs):
+    """sum_op.cc (add_n): elementwise sum of N tensors, left to right."""
+    out = xs[0]
+    for x in xs[1:]:
+        out = out + x
+    return out
 
 
-@register_op("reciprocal", inputs=["X"], outputs=["Out"])
-def _reciprocal(ctx, x):
-    return torch.reciprocal(x)
+def _register_unary(name, fn):
+    @register_op(name, inputs=["X"], outputs=["Out"])
+    def _impl(ctx, x, _fn=fn):
+        return _fn(x)
+
+
+_register_unary("relu", torch.relu)
+_register_unary("reciprocal", torch.reciprocal)
+_register_unary("sqrt", torch.sqrt)
+_register_unary("sign", torch.sign)
+
+
+@register_op("clip", inputs=["X"], outputs=["Out"])
+def _clip(ctx, x):
+    return torch.clamp(x, ctx.attr("min"), ctx.attr("max"))
 
 
 @register_op("pow", inputs=["X"], outputs=["Out"])
@@ -92,6 +111,16 @@ def _register_reduce(name, fn):
 
 
 _register_reduce("reduce_mean", torch.mean)
+
+
+@register_op("squared_l2_norm", inputs=["X"], outputs=["Out"])
+def _squared_l2_norm(ctx, x):
+    return torch.sum(torch.square(x)).reshape((1,))
+
+
+@register_op("frobenius_norm", inputs=["X"], outputs=["Out"])
+def _frobenius_norm(ctx, x):
+    return torch.sqrt(torch.sum(torch.square(x)))
 
 
 @register_op("mean", inputs=["X"], outputs=["Out"])

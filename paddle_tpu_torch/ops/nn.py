@@ -1,4 +1,5 @@
-"""Neural-net ops: conv, pool, batch norm, softmax cross-entropy.
+"""Neural-net ops: conv, pool, batch norm, softmax cross-entropy,
+square error.
 
 Counterpart of paddle_tpu/ops/nn.py for what the static serving slice
 runs. NCHW activations and OIHW filters, as in the JAX package.
@@ -11,6 +12,7 @@ than PyTorch's own ceil rule.
 import torch
 import torch.nn.functional as F
 
+from paddle_tpu_torch.core.dtypes import at_least_f32
 from paddle_tpu_torch.core.enforce import enforce
 from paddle_tpu_torch.core.registry import register_op
 
@@ -96,26 +98,27 @@ def _batch_norm(ctx, x, scale, bias, mean, var):
     """batch_norm_op.cc. Training normalizes with the batch statistics and
     returns the updated running mean/variance (MeanOut/VarianceOut name
     the inputs); inference (is_test, use_global_stats, or not training)
-    normalizes with the running statistics."""
+    normalizes with the running statistics. Arithmetic in float32 (in
+    float64 for a float64 x)."""
     eps = ctx.attr("epsilon", 1e-5)
     momentum = ctx.attr("momentum", 0.9)
     use_global = (ctx.attr("is_test", False)
                   or ctx.attr("use_global_stats", False) or not ctx.training)
     axes = tuple(i for i in range(x.dim()) if i != 1)
     bshape = (1, -1) + (1,) * (x.dim() - 2)
+    xf = at_least_f32(x)
     if use_global:
         m, v = mean, var
         new_mean, new_var = mean, var
     else:
-        xf = x.float()
         m = xf.mean(dim=axes)
         v = xf.var(dim=axes, unbiased=False)
         new_mean = momentum * mean + (1 - momentum) * m.to(mean.dtype)
         new_var = momentum * var + (1 - momentum) * v.to(var.dtype)
-    inv = torch.rsqrt(v.float() + eps)
-    y = (x.float() - m.reshape(bshape)) * inv.reshape(bshape)
+    inv = torch.rsqrt(at_least_f32(v) + eps)
+    y = (xf - m.reshape(bshape)) * inv.reshape(bshape)
     y = y * scale.reshape(bshape) + bias.reshape(bshape)
-    return y.to(x.dtype), new_mean, new_var, m.float(), inv.float()
+    return y.to(x.dtype), new_mean, new_var, at_least_f32(m), inv
 
 
 @register_op("softmax_with_cross_entropy", inputs=["Logits", "Label"],
@@ -140,3 +143,8 @@ def _softmax_with_cross_entropy(ctx, logits, label):
     loss = torch.where(keep.unsqueeze(axis), -picked,
                        torch.zeros_like(picked))
     return sm, loss
+
+
+@register_op("square_error_cost", inputs=["X", "Y"], outputs=["Out"])
+def _square_error_cost(ctx, x, y):
+    return torch.square(x - y)

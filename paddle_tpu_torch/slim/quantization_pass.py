@@ -20,9 +20,9 @@ import numpy as np
 
 from paddle_tpu_torch.analysis.diagnostic import Severity
 from paddle_tpu_torch.analysis.framework import Pass, register_pass
-from paddle_tpu_torch.core import dtypes as _dt
 from paddle_tpu_torch.core.enforce import enforce
 from paddle_tpu_torch.core.ir import OpDesc, OpRole, unique_name
+from paddle_tpu_torch.optimizer import _persistable_var
 from paddle_tpu_torch.slim import quant_ops
 
 __all__ = ["SLIM_PASSES", "QUANTIZABLE", "QuantizationTransformPass",
@@ -49,23 +49,6 @@ _CHANNEL_AXIS = {"conv2d": 0, "depthwise_conv2d": 0, "mul": 1, "matmul": 1,
 
 def _is_param(block, name):
     return block.has_var(name) and block.var(name).desc.is_parameter
-
-
-def _persistable_var(program, startup, name, shape, dtype, init_value=0.0):
-    """A persistable state var in both programs, with its startup init
-    (the JAX package's optimizer._persistable_var)."""
-    gb = program.global_block()
-    if not gb.has_var(name):
-        gb.create_var(name=name, shape=shape, dtype=dtype, persistable=True,
-                      stop_gradient=True)
-    sb = startup.global_block()
-    if not sb.has_var(name):
-        sb.create_var(name=name, shape=shape, dtype=dtype, persistable=True,
-                      stop_gradient=True)
-        sb.append_op("fill_constant", {}, {"Out": [name]},
-                     {"shape": list(shape), "value": init_value,
-                      "dtype": _dt.dtype_name(_dt.normalize_dtype(dtype))})
-    return gb.var(name)
 
 
 class QuantizationTransformPass:

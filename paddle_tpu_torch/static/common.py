@@ -3,8 +3,8 @@
 Counterpart of paddle_tpu/static/common.py (the reference's layers/ops.py
 and math_op_patch.py) for what the ResNet and LeNet builders and the
 Variable operators call: activations, softmax, the elementwise family,
-mul, mean, reduce_mean, scale, the losses and metrics of those models,
-top_k and fill_constant.
+mul, mean, reduce_mean, scale, the losses and metrics of those models
+and fit_a_line's `square_error_cost`, top_k and fill_constant.
 """
 from paddle_tpu_torch.core import dtypes as _dt
 from paddle_tpu_torch.core.ir import Variable
@@ -13,7 +13,8 @@ from paddle_tpu_torch.static.helper import LayerHelper
 __all__ = ["relu", "reciprocal", "softmax", "pow", "elementwise_add",
            "elementwise_sub", "elementwise_mul", "elementwise_div",
            "elementwise_pow", "mul", "mean", "reduce_mean", "scale",
-           "softmax_with_cross_entropy", "accuracy", "topk",
+           "softmax_with_cross_entropy", "square_error_cost", "accuracy",
+           "topk",
            "fill_constant"]
 
 
@@ -130,6 +131,10 @@ def softmax_with_cross_entropy(logits, label, soft_label=False, axis=-1,
                         "ignore_index": ignore_index},
                        n_out=2, out_slots=["Softmax", "Loss"])
     return (loss, sm) if return_softmax else loss
+
+
+def square_error_cost(input, label, name=None):
+    return _simple("square_error_cost", {"X": input, "Y": label})
 
 
 def accuracy(input, label, k=1, name=None, **kw):

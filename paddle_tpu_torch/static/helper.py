@@ -13,7 +13,11 @@ from paddle_tpu_torch.core.registry import infer_shapes
 from paddle_tpu_torch.utils.initializer import Constant, Xavier
 from paddle_tpu_torch.utils.param_attr import ParamAttr
 
-__all__ = ["LayerHelper"]
+__all__ = ["LayerHelper", "param_attr_of"]
+
+#: param name -> its ParamAttr (regularizer and learning-rate objects the
+#: optimizer reads; not serialized), as in the JAX package
+_param_registry = {}
 
 
 class LayerHelper:
@@ -75,6 +79,7 @@ class LayerHelper:
             attrs = dict(attrs)
             attrs.setdefault("dtype", _dt.dtype_name(dtype))
             sb.append_op(op_type, {}, {"Out": [name]}, attrs)
+        _param_registry[name] = attr
         return main_var
 
     def create_tmp(self, dtype=None, stop_gradient=False, lod_level=0):
@@ -105,6 +110,11 @@ class LayerHelper:
         self.append_op(op_type or self.layer_type, inputs,
                        {s: [o.name] for s, o in zip(out_slots, outs)}, attrs)
         return outs[0] if n_out == 1 else tuple(outs)
+
+
+def param_attr_of(name):
+    """The ParamAttr a parameter was created with (None if unknown)."""
+    return _param_registry.get(name)
 
 
 def _names(d):

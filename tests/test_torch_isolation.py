@@ -4,7 +4,8 @@
   sys.meta_path, every module of `paddle_tpu_torch` (the static,
   inference, slim and analysis subpackages among them) and
   `chip_smoke.py` imports, one CPU decode step runs, and a tiny static
-  ResNet is built, saved and served by an int8 Predictor.
+  ResNet is built, saved and served by an int8 Predictor, and a
+  fit_a_line program trains three Momentum steps.
 * A source scan finds no import of jax or of the JAX package in the
   port or in chip_smoke.py.
 * `device=None` means CUDA: without a GPU the entry points raise
@@ -89,6 +90,22 @@ _BLOCKED_RUN = textwrap.dedent("""
     (out,) = inference.create_predictor(cfg).run(
         {"img": np.ones((2, 3, 16, 16), np.float32)})
     assert out.shape == (2, 4) and np.isfinite(out).all()
+    # the static-training slice: fit_a_line, Momentum + L2Decay, 3 steps
+    from paddle_tpu_torch import optimizer, regularizer
+    from paddle_tpu_torch.io import dataset, reader
+    main, startup = ir.Program(), ir.Program()
+    with ir.program_guard(main, startup):
+        x = static.data("x", [13])
+        y = static.data("y", [1])
+        cost = static.mean(static.square_error_cost(static.fc(x, 1), y))
+        optimizer.Momentum(0.01, regularization=regularizer.L2Decay(
+            1e-4)).minimize(cost)
+    exe.run(startup)
+    feeder = reader.DataFeeder([main.global_block().var("x"),
+                                main.global_block().var("y")])
+    losses = [float(exe.run(main, feed=feeder.feed(b), fetch_list=[cost])[0])
+              for b in reader.batch(dataset.uci_housing.train(96), 32)()]
+    assert len(losses) == 3 and losses[-1] < losses[0], losses
     assert not _build.build_info(), "a CPU step must not build kernels"
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "paddle_tpu"))
