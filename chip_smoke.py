@@ -159,13 +159,46 @@ Phases, each of which raises (exit code != 0) when its check fails:
 15. Where a training step's time goes (torch.profiler): wall and device
     ms, the idle share, the top kernels, and the launches and device ms
     of the forward, the backward and the regularizer + update ops.
+16. VGG-16-BN static training at the published width (the Fluid book's
+    image_classification `vgg_bn_drop`, built here from
+    static.nets.img_conv_group: 13 3x3 convs of 64..512 with batch norm
+    + ReLU and their dropouts, 2x2 max pools, dropout 0.5, fc 512, BN,
+    dropout 0.5, fc 512, fc 10 softmax; cross_entropy, accuracy; CIFAR-10
+    3 x 32 x 32; random weights from --seed), Adam(0.001), the test
+    clone, startup on the card, one synthetic batch of 128 from
+    io.dataset.cifar fed as numpy, f32 with TF32 off. (a) One step at
+    batch 4 with every drop rate 0, card against the host CPU: float32
+    loss within 1e-4 and BN statistics within 1e-5 of their max; with
+    every float var made float64, every parameter's change within 1e-3
+    of lr, the Adam moments within 1e-5 of their max (the conv and fc
+    biases in front of a batch norm, whose exact gradient is zero, left
+    out of that gate), the ReLU masks that differ printed (see
+    `vgg_step_agreement`). (b) 3 warm-up and 10 timed steps at batch 128
+    with dropout on: every loss finite, the last below the first; one
+    more step's masks: each dropout op's kept fraction within 5 sigma of
+    1 - p; step ms (wall), images/s, peak memory, beside the step's f32
+    bound (3 x 128 x the program's forward flops an image, computed from
+    its conv and mul shapes, at 67 TFLOP/s). (c) save_inference_model of
+    the class probabilities into an f32 Predictor: within 1e-5 of the
+    test clone's max at batch 4 (dropout in test mode there).
+17. Where a VGG step's time goes, as phase 15: wall and device ms, the
+    idle share, the top kernels, the launches and device ms of the
+    forward, the backward and the Adam update.
+18. The Fluid book's word2vec at its width (chapter 04: N = 5, the
+    synthetic imikolov vocabulary of 2048, embedding 32 shared by four
+    lookups, hidden 256 sigmoid, softmax fc, cross_entropy, SGD 0.001,
+    batch 100): one float64 step card against CPU, the shared table's
+    update within 1e-9 of its max; then 20 steps on one batch under a
+    piecewise_decay schedule from 0.001, on the card and on the CPU: the
+    card's loss falls and its rate equals the CPU's at every step.
 
 Then a `{"kernels": [...]}` line and, last, the device line
 `{"ok": true, "device": {...}}`. Every number is printed beside the
 card's name and power limit.
 
 Launch counters are reset just before each main-path phase (serving,
-training, int8 ResNet serving; phase 14 launches none of the kernels)
+training, int8 ResNet serving; phases 14 and 16-18 launch none of the
+kernels)
 and read just after it, so launches made
 to compare kernels with their plain versions do not count; K6's two
 lines (decode route, chunk route) report phases 4 and 4' together, K7's two
@@ -1960,7 +1993,7 @@ def one_step(torch, program, state, feed, fetch, device):
     from paddle_tpu_torch.core.executor import Executor
     from paddle_tpu_torch.core.scope import Scope
     from paddle_tpu_torch.weights import scope_from_jax, scope_to_numpy
-    scope = scope_from_jax(state, Scope(), device)
+    scope = scope_from_jax(state, Scope(), device, program=program)
     outs = Executor(device).run(program, feed=feed, fetch_list=fetch,
                                 scope=scope)
     return outs, scope_to_numpy(scope, sorted(state))
@@ -2131,12 +2164,14 @@ def resnet_static_training(torch, seed, tag, image_size=224, warmup=3,
     return summary, main, scope, batch, loss
 
 
-def training_step_profile(torch, main, scope, batch, loss, tag, steps=3):
-    """Phase 15. Where a training step's time goes: wall and device ms a
-    step, the idle share and the top kernels (torch.profiler), then the
-    launches and device ms of the forward alone and of forward +
-    backward (prefixes of the program's ops); the rest of the step is
-    the regularizer's scale / sum and the momentum ops."""
+def training_step_profile(torch, main, scope, batch, loss, tag, steps=3,
+                          label=f"resnet-50 train step, batch {TRAIN_BATCH}"):
+    """Phases 15 and 17. Where a training step's time goes: wall and
+    device ms a step, the idle share and the top kernels
+    (torch.profiler), then the launches and device ms of the forward
+    alone and of forward + backward (prefixes of the program's ops); the
+    rest of the step is the regularizer's ops (none without one) and the
+    update ops."""
     from paddle_tpu_torch.core import ir
     from paddle_tpu_torch.core.executor import Executor
 
@@ -2159,7 +2194,7 @@ def training_step_profile(torch, main, scope, batch, loss, tag, steps=3):
 
     run = runner(main)
     brk = profile_device(torch, run, steps, top=10)
-    print_profile(f"resnet-50 train step, batch {TRAIN_BATCH}", brk, tag)
+    print_profile(label, brk, tag)
     seg = []
     for n_ops in (ad, ad + 1):      # forward; forward + backward
         prefix = ir.Program.from_dict(main.to_dict())
@@ -2168,9 +2203,12 @@ def training_step_profile(torch, main, scope, batch, loss, tag, steps=3):
         seg.append((p["launches_per_step"], p["step_device_ms"] or 0.0))
     (fl, fm), (bl, bm) = seg
     sl, sm = brk["launches_per_step"], brk["step_device_ms"] or 0.0
-    print(f"resnet-50 train step ops: {counts['forward']} forward, 1 "
-          f"autodiff, {counts['regularizer']} regularizer (scale + sum), "
-          f"{counts['update']} momentum; launches a step: forward {fl:.0f}, "
+    updates = sorted({op.type for op in ops
+                      if op.role == ir.OpRole.OPTIMIZE})
+    print(f"{label} ops: {counts['forward']} forward, 1 "
+          f"autodiff, {counts['regularizer']} regularizer, "
+          f"{counts['update']} update ({', '.join(updates)}); launches a "
+          f"step: forward {fl:.0f}, "
           f"backward {bl - fl:.0f}, regularizer + update {sl - bl:.0f}, "
           f"total {sl:.0f}; device ms a step: forward {fm:.3f}, backward "
           f"{bm - fm:.3f}, regularizer + update {sm - bm:.3f} {tag}")
@@ -2179,6 +2217,394 @@ def training_step_profile(torch, main, scope, batch, loss, tag, steps=3):
                device_ms={"forward": fm, "backward": bm - fm,
                           "update": sm - bm, "total": sm})
     return brk
+
+
+# ---------------------------------------------------------------------------
+# the Fluid book: VGG-16-BN (chapter 03) and word2vec (chapter 04)
+# ---------------------------------------------------------------------------
+
+#: phase 16: the book's image-classification recipe (Adam 0.001, batch
+#: 128, CIFAR-10 3 x 32 x 32)
+VGG_LR, VGG_BATCH, VGG_CHECK_BATCH = 1e-3, 128, 4
+#: phase 16(a): float64 parameter changes card against CPU, of lr; Adam
+#: moments, of their max
+VGG_UPDATE_TOL, VGG_MOMENT_TOL = 1e-3, 1e-5
+#: phase 18: the book's word2vec (N-gram of 5, embedding 32, hidden 256,
+#: SGD 0.001, batch 100) over the synthetic imikolov vocabulary, and the
+#: schedule that starts at the book's rate
+W2V_EMBED, W2V_HIDDEN, W2V_BATCH, W2V_STEPS = 32, 256, 100, 20
+W2V_BOUNDARIES, W2V_RATES = [5, 10, 15], [1e-3, 8e-4, 6e-4, 4e-4]
+#: phase 18: the shared table's float64 update, card against CPU, of its
+#: max
+W2V_TABLE_TOL = 1e-9
+
+
+def vgg_bn_drop(static, img, dropout=True):
+    """The Fluid book's vgg_bn_drop (image_classification/train.py):
+    five img_conv_group blocks of 3x3 convs, each with batch norm + ReLU
+    and a dropout of its rate, 2x2 max pools; dropout 0.5, fc 512, BN
+    ReLU, dropout 0.5, fc 512, fc 10 softmax. `dropout=False` sets every
+    rate to 0 (phase 16(a))."""
+    def rates(rs):
+        return [r if dropout else 0.0 for r in rs]
+
+    def block(x, nf, groups, rs):
+        return static.nets.img_conv_group(
+            x, [nf] * groups, 2, conv_filter_size=3, conv_act="relu",
+            conv_with_batchnorm=True, conv_batchnorm_drop_rate=rates(rs),
+            pool_stride=2, pool_type="max")
+
+    t = block(img, 64, 2, [0.3, 0])
+    t = block(t, 128, 2, [0.4, 0])
+    for _ in range(3):
+        t = block(t, 256 if _ == 0 else 512, 3, [0.4, 0.4, 0])
+    t = static.dropout(t, 0.5 if dropout else 0.0)
+    t = static.batch_norm(static.fc(t, 512), act="relu")
+    t = static.dropout(t, 0.5 if dropout else 0.0)
+    return static.fc(static.fc(t, 512), 10, act="softmax")
+
+
+def program_flops(program, batch):
+    """Forward flops of a program's convs and GEMMs at `batch` images: 2
+    per multiply-add, from each conv2d's filter and output shapes and
+    each mul's operands."""
+    block = program.global_block()
+    total = 0
+    for op in block.ops:
+        if op.type == "conv2d":
+            w = block.var(op.inputs["Filter"][0]).shape
+            out = block.var(op.outputs["Output"][0]).shape
+            total += 2 * int(np.prod(w)) * out[2] * out[3] * batch
+        elif op.type == "mul":
+            y = block.var(op.inputs["Y"][0]).shape
+            total += 2 * y[0] * y[1] * batch
+    return total
+
+
+def vgg_programs(seed, dropout):
+    """VGG-16-BN, its test clone (before minimize) and Adam's minimize:
+    (main, startup, test, predict name, loss name, acc name)."""
+    from paddle_tpu_torch import optimizer, static
+    from paddle_tpu_torch.core import ir
+
+    ir.reset_unique_names()
+    main, startup = ir.Program(), ir.Program()
+    startup.random_seed = seed
+    with ir.program_guard(main, startup):
+        img = static.data("img", [3, 32, 32], "float32")
+        label = static.data("label", [1], "int64")
+        predict = vgg_bn_drop(static, img, dropout)
+        loss = static.mean(static.cross_entropy(predict, label))
+        acc = static.accuracy(predict, label)
+        test = main.clone(for_test=True)
+        optimizer.Adam(learning_rate=VGG_LR).minimize(loss)
+    return main, startup, test, predict.name, loss.name, acc.name
+
+
+def bn_cancelled_biases(program):
+    """The biases added (a conv2d's Bias, an elementwise_add's Y) into a
+    batch norm's input: their exact gradient is zero (the norm
+    subtracts the batch mean), so what each device computes is rounding
+    noise."""
+    block = program.global_block()
+    normed = {op.inputs["X"][0] for op in block.ops
+              if op.type == "batch_norm"}
+    out = set()
+    for op in block.ops:
+        if op.type == "conv2d" and op.inputs.get("Bias") \
+                and op.outputs["Output"][0] in normed:
+            out.add(op.inputs["Bias"][0])
+        elif op.type == "elementwise_add" and op.outputs["Out"][0] in normed \
+                and block.var(op.inputs["Y"][0]).desc.is_parameter:
+            out.add(op.inputs["Y"][0])
+    return out
+
+
+def vgg_step_agreement(torch, main, state, feed, loss, tag):
+    """Phase 16(a): one step at VGG_CHECK_BATCH from the same weights,
+    every drop rate 0, on the card and on the host CPU. float32: the loss
+    (LOSS_RTOL) and the BN running statistics (STATE_TOL of their max).
+    float64 (every float var widened): the loss, every parameter's
+    change within VGG_UPDATE_TOL x lr, the Adam moments within
+    VGG_MOMENT_TOL of their max, and the ReLU masks that differ printed.
+    The conv biases in front of a batch norm (`bn_cancelled_biases`)
+    have a gradient of rounding noise on each device; their moments are
+    left out of the moment gate (their changes stay in the update
+    gate)."""
+    ops = main.global_block().ops
+    params = next(op for op in ops if op.type == "autodiff").attrs["params"]
+    relu_in = [op.inputs["X"][0] for op in ops if op.type == "relu"]
+    noise = bn_cancelled_biases(main)
+    moments = [n for n in state if n.endswith(("_moment1_Adam",
+                                               "_moment2_Adam"))
+               and n.rsplit("_moment", 1)[0] not in noise]
+    bn_stats = [n for n in state if n.startswith("bn_")]
+    wide = {n: a.astype(np.float64) if a.dtype == np.float32 else a
+            for n, a in state.items()}
+    feed64 = dict(feed, img=feed["img"].astype(np.float64))
+    runs = {}
+    for dt, prog, st, fd in (("float32", main, state, feed),
+                             ("float64", widened(torch, main), wide,
+                              feed64)):
+        for dev in ("cuda", "cpu"):
+            runs[(dt, dev)] = one_step(torch, prog, st, fd,
+                                       [loss] + relu_in, dev)
+
+    def worst(names, got, want, scale):
+        errs = {n: float(np.abs(got[n] - want[n]).max() / scale(n))
+                for n in names}
+        top = sorted(errs, key=errs.get, reverse=True)[:3]
+        return {n: errs[n] for n in top}
+
+    row, failed = {}, []
+    for dt in ("float32", "float64"):
+        (gf, gpu), (cf, cpu) = runs[(dt, "cuda")], runs[(dt, "cpu")]
+        flips = sum(int(((a > 0) != (b > 0)).sum())
+                    for a, b in zip(gf[1:], cf[1:]))
+        rel = abs(float(gf[0]) - float(cf[0])) / abs(float(cf[0]))
+        r = {"loss": {"card": float(gf[0]), "cpu": float(cf[0]),
+                      "rel_err": rel, "gate": LOSS_RTOL},
+             "relu_mask_flips": flips,
+             "relu_elements": sum(a.size for a in gf[1:]),
+             "bn statistics": worst(bn_stats, gpu, cpu,
+                                    lambda n: np.abs(cpu[n]).max())}
+        if rel > LOSS_RTOL:
+            failed.append(f"{dt} loss")
+        if max(r["bn statistics"].values()) > STATE_TOL:
+            failed.append(f"{dt} bn statistics")
+        if dt == "float64":
+            r["update_of_lr"] = worst(
+                params, {n: gpu[n] - state[n] for n in params},
+                {n: cpu[n] - state[n] for n in params}, lambda n: VGG_LR)
+            r["moments"] = worst(moments, gpu, cpu,
+                                 lambda n: max(np.abs(cpu[n]).max(), 1e-300))
+            if max(r["update_of_lr"].values()) > VGG_UPDATE_TOL:
+                failed.append("float64 updates")
+            if max(r["moments"].values()) > VGG_MOMENT_TOL:
+                failed.append("float64 moments")
+        print(f"vgg-16-bn one step at batch {len(feed['img'])}, {dt}, card "
+              f"vs CPU, drop rates 0: loss {gf[0]:.9g} vs {cf[0]:.9g}, rel "
+              f"{rel:.3g} (gate {LOSS_RTOL}); BN statistics worst "
+              f"{r['bn statistics']} (gate {STATE_TOL}); ReLU masks that "
+              f"differ: {flips} of {r['relu_elements']} {tag}")
+        if dt == "float64":
+            print(f"  float64 parameter changes, worst |d| / lr "
+                  f"{r['update_of_lr']} (gate {VGG_UPDATE_TOL}); Adam "
+                  f"moments worst {r['moments']} (gate {VGG_MOMENT_TOL}; "
+                  f"the moments of {len(noise)} biases before a BN left out) {tag}")
+        row[dt] = r
+    assert not failed, f"phase 16(a): card vs CPU outside the gate: {failed}"
+    return row
+
+
+def vgg_static_training(torch, seed, tag, batch=VGG_BATCH,
+                        check_batch=VGG_CHECK_BATCH, warmup=3, steps=10):
+    """Phase 16. The Fluid book's VGG-16-BN on CIFAR-10 shapes trained
+    through the port's static path: vgg_bn_drop from
+    static.nets.img_conv_group, Adam(VGG_LR), startup on the card, one
+    synthetic batch of `batch` from io.dataset.cifar fed as numpy. (a)
+    `vgg_step_agreement` at `check_batch` with every drop rate 0; (b)
+    `warmup` + `steps` steps with dropout on, every loss finite and the
+    last below the first, each dropout op's kept fraction within 5 sigma
+    of 1 - p; (c) save_inference_model of the class probabilities into
+    an f32 Predictor against the test clone's. Returns (summary, main
+    program, scope, batch, loss name)."""
+    import shutil
+    import tempfile
+    from paddle_tpu_torch import inference, static
+    from paddle_tpu_torch.core.executor import Executor
+    from paddle_tpu_torch.core.scope import Scope, scope_guard
+    from paddle_tpu_torch.io import dataset, reader
+    from paddle_tpu_torch.weights import scope_from_jax, scope_to_numpy
+
+    samples = next(reader.batch(dataset.cifar.train10(batch), batch)())
+    feed = {"img": np.stack([s[0] for s in samples]),
+            "label": np.stack([s[1] for s in samples]).reshape(-1, 1)}
+
+    # (a) card against the CPU, one step, every drop rate 0
+    main0, startup0, _, _, loss0, _ = vgg_programs(seed, dropout=False)
+    scope = Scope()
+    Executor().run(startup0, scope=scope)
+    start = scope_to_numpy(scope, sorted(
+        v.name for v in main0.list_vars() if v.persistable))
+    agreement = vgg_step_agreement(
+        torch, main0, start, {k: v[:check_batch] for k, v in feed.items()},
+        loss0, tag)
+
+    # (b) training with dropout on, from the same startup weights
+    main, startup, test, predict, loss, acc = vgg_programs(seed, True)
+    assert main.to_dict()["blocks"][0]["vars"].keys() >= {
+        n for n in start}, "the two builds name their state alike"
+    flops = program_flops(test, 1)
+    exe = Executor()
+    scope = scope_from_jax(start, Scope())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    outs = []
+    for i in range(warmup + steps):
+        if i == warmup:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        outs.append(exe.run(main, feed=feed, fetch_list=[loss, acc],
+                            scope=scope, return_numpy=False))
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / steps * 1e3
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = [float(o[0]) for o in outs]
+    accs = [float(o[1]) for o in outs]
+    assert all(np.isfinite(losses)), losses
+    assert losses[-1] < losses[0], f"loss did not fall: {losses}"
+    bound = 3 * flops * batch / F32_FLOPS * 1e3
+    print(f"vgg-16-bn static training, batch {batch}, f32 (TF32 off), "
+          f"Adam {VGG_LR}, dropout on: loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}, accuracy {accs[0]:.3f} -> {accs[-1]:.3f} "
+          f"over {warmup + steps} steps; {step_ms:.2f} ms a step (wall, "
+          f"{steps} steps after {warmup}), {batch / step_ms * 1e3:.1f} "
+          f"images/s; f32 bound {bound:.3f} ms (3 x {flops / 1e9:.4f} "
+          f"GFLOP an image x {batch} at {F32_FLOPS / 1e12:.0f} TFLOP/s); "
+          f"peak {peak_gib:.2f} GiB {tag}")
+    # each dropout op's kept fraction, from one more step's masks
+    drops = [op for op in main.global_block().ops if op.type == "dropout"]
+    masks = exe.run(main, feed=feed, fetch_list=[op.outputs["Mask"][0]
+                                                 for op in drops],
+                    scope=scope, return_numpy=False)
+    kept = []
+    for op, m in zip(drops, masks):
+        p = op.attrs["dropout_prob"]
+        frac = float(m.float().mean())
+        sigma = (p * (1 - p) / m.numel()) ** 0.5
+        kept.append({"p": p, "kept": frac, "sigmas": abs(frac - (1 - p))
+                     / sigma})
+        assert abs(frac - (1 - p)) < 5 * sigma, (op.outputs["Mask"], p, frac)
+    print(f"vgg-16-bn dropout: {len(drops)} ops, kept fractions "
+          f"{[round(k['kept'], 4) for k in kept]} against 1 - p "
+          f"{[1 - k['p'] for k in kept]}, worst "
+          f"{max(k['sigmas'] for k in kept):.2f} sigma (gate 5) {tag}")
+
+    # (c) save, load into a Predictor, compare with the test clone
+    small = {k: v[:check_batch] for k, v in feed.items()}
+    (want,) = exe.run(test, feed=small, fetch_list=[predict], scope=scope)
+    model_dir = tempfile.mkdtemp(prefix="vgg16_bn_trained_")
+    try:
+        with scope_guard(scope):
+            static.io.save_inference_model(model_dir, ["img"], [predict],
+                                           exe, main_program=main)
+        pred = inference.create_predictor(inference.Config(model_dir))
+    finally:
+        shutil.rmtree(model_dir, ignore_errors=True)
+    (got,) = pred.run({"img": small["img"]})
+    err = float(np.abs(got - want).max() / np.abs(want).max())
+    print(f"vgg-16-bn trained: Predictor class probabilities vs the test "
+          f"clone's at batch {check_batch}: max |d| / max |p| {err:.3g} "
+          f"(gate {LOGITS_TOL}) {tag}")
+    assert got.shape == (check_batch, 10) and np.isfinite(got).all()
+    assert err <= LOGITS_TOL, err
+    summary = {"config": "VGG-16-BN (Fluid book ch. 03 vgg_bn_drop), "
+                         "CIFAR-10 3 x 32 x 32, 10 classes, random weights "
+                         f"from seed; Adam {VGG_LR}, batch {batch}, f32",
+               "agreement": agreement, "losses": losses,
+               "accuracies": accs, "step_ms": step_ms,
+               "images_per_s": batch / step_ms * 1e3,
+               "flops_per_image": flops, "bound_ms": bound,
+               "peak_gib": peak_gib, "dropout": kept,
+               "predictor_err": err}
+    del pred
+    return summary, main, scope, feed, loss
+
+
+def word2vec_programs(seed, scheduled):
+    """The book's word2vec: four lookups of one shared table, concat,
+    fc 256 sigmoid, fc softmax over the vocabulary, cross_entropy, SGD
+    (0.001, or the piecewise schedule that starts there): (main,
+    startup, loss name, the schedule's var name or None)."""
+    from paddle_tpu_torch import optimizer, static
+    from paddle_tpu_torch.core import ir
+    from paddle_tpu_torch.io import dataset
+    from paddle_tpu_torch.utils.param_attr import ParamAttr
+
+    vocab = dataset.imikolov.VOCAB
+    ir.reset_unique_names()
+    main, startup = ir.Program(), ir.Program()
+    startup.random_seed = seed
+    with ir.program_guard(main, startup):
+        words = [static.data(f"w{i}", [1], "int64") for i in range(5)]
+        embs = [static.embedding(w, size=[vocab, W2V_EMBED],
+                                 param_attr=ParamAttr(name="shared_w"))
+                for w in words[:-1]]
+        hidden = static.fc(static.concat(embs, axis=1), W2V_HIDDEN,
+                           act="sigmoid")
+        predict = static.fc(hidden, vocab, act="softmax")
+        loss = static.mean(static.cross_entropy(predict, words[-1]))
+        lr = (static.piecewise_decay(W2V_BOUNDARIES, W2V_RATES)
+              if scheduled else W2V_RATES[0])
+        optimizer.SGD(learning_rate=lr).minimize(loss)
+    return main, startup, loss.name, lr.name if scheduled else None
+
+
+def word2vec_training(torch, seed, tag, steps=W2V_STEPS):
+    """Phase 18. The book's word2vec at its width on the card: one
+    float64 step card against CPU (the shared table's update within
+    W2V_TABLE_TOL of its max), then `steps` steps of the scheduled
+    program on one batch of W2V_BATCH windows on the card and on the
+    CPU: the loss falls and the rate equals the CPU's at every step."""
+    from paddle_tpu_torch.core.executor import Executor
+    from paddle_tpu_torch.core.scope import Scope
+    from paddle_tpu_torch.io import dataset
+    from paddle_tpu_torch.weights import scope_to_numpy
+
+    cols = list(zip(*dataset.imikolov.train(W2V_BATCH)()))
+    feed = {f"w{i}": np.asarray(c, np.int64).reshape(-1, 1)
+            for i, c in enumerate(cols)}
+    main, startup, loss, _ = word2vec_programs(seed, scheduled=False)
+    scope = Scope()
+    Executor().run(startup, scope=scope)
+    start = scope_to_numpy(scope, sorted(
+        v.name for v in main.list_vars() if v.persistable))
+    wide = {n: a.astype(np.float64) if a.dtype == np.float32 else a
+            for n, a in start.items()}
+    steps64 = {dev: one_step(torch, widened(torch, main), wide, feed,
+                             [loss], dev) for dev in ("cuda", "cpu")}
+    (gl,), g = steps64["cuda"]
+    (cl,), c = steps64["cpu"]
+    upd = c["shared_w"] - wide["shared_w"]
+    table_err = float(np.abs(g["shared_w"] - c["shared_w"]).max()
+                      / np.abs(upd).max())
+    print(f"word2vec one step at batch {W2V_BATCH}, float64, card vs CPU: "
+          f"loss {float(gl):.12g} vs {float(cl):.12g}; shared table update "
+          f"max |d| / max |update| {table_err:.3g} (gate {W2V_TABLE_TOL}; "
+          f"{int((np.abs(upd).sum(axis=1) > 0).sum())} rows updated) {tag}")
+    assert table_err <= W2V_TABLE_TOL, table_err
+
+    main, startup, loss, lr = word2vec_programs(seed, scheduled=True)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        scope = Scope()
+        exe = Executor(dev)
+        exe.run(startup, scope=scope)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        out = [exe.run(main, feed=feed, fetch_list=[loss, lr], scope=scope,
+                       return_numpy=False) for _ in range(steps)]
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            step_ms = (time.perf_counter() - t0) / steps * 1e3
+        runs[dev] = (np.array([float(o[0]) for o in out]),
+                     np.array([float(o[1]) for o in out]))
+    losses, rates = runs["cuda"]
+    assert np.isfinite(losses).all() and losses[-1] < losses[0], losses
+    assert np.array_equal(rates, runs["cpu"][1]), (rates, runs["cpu"][1])
+    print(f"word2vec {steps} steps on the card, piecewise_decay "
+          f"{W2V_BOUNDARIES} {W2V_RATES}: loss {losses[0]:.6f} -> "
+          f"{losses[-1]:.6f}; rates {sorted(set(rates.tolist()))} equal "
+          f"the CPU's at every step; {step_ms:.2f} ms a step (wall, first "
+          f"step included) {tag}")
+    return {"config": "word2vec (Fluid book ch. 04): N 5, vocab "
+                      f"{dataset.imikolov.VOCAB} (synthetic imikolov), embedding "
+                      f"{W2V_EMBED} shared by 4 lookups, hidden {W2V_HIDDEN} "
+                      f"sigmoid, softmax, SGD, batch {W2V_BATCH}",
+            "float64_table_err": table_err, "losses": losses.tolist(),
+            "rates": rates.tolist(), "step_ms": step_ms}
 
 
 def main(argv=None):
@@ -2620,6 +3046,23 @@ def main(argv=None):
     results["resnet50_train_breakdown"] = training_step_profile(
         torch, main_prog, scope, batch, loss, tag)
     del scope
+    torch.cuda.empty_cache()
+
+    # 16. VGG-16-BN static training, the Fluid book's image
+    # classification at its published width
+    vgg, main_prog, scope, batch, loss = vgg_static_training(
+        torch, args.seed, tag)
+    results["vgg16_bn_train"] = vgg
+
+    # 17. where a VGG step's time goes
+    results["vgg16_bn_train_breakdown"] = training_step_profile(
+        torch, main_prog, scope, batch, loss, tag,
+        label=f"vgg-16-bn train step, batch {VGG_BATCH}")
+    del scope
+    torch.cuda.empty_cache()
+
+    # 18. the book's word2vec: float64 card vs CPU, a scheduled SGD run
+    results["word2vec"] = word2vec_training(torch, args.seed, tag)
 
     results["total_s"] = time.perf_counter() - t_start
     print(f"total: {results['total_s']:.1f} s {tag}")

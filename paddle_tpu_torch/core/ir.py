@@ -399,8 +399,22 @@ class Variable:
     def __pow__(self, o):
         return self._binary(o, "elementwise_pow")
 
+    def __rpow__(self, o):
+        # c ** x = exp(x ln c)
+        import math
+        from paddle_tpu_torch import static
+        return static.exp(self._binary(math.log(o), "elementwise_mul"))
+
     def __neg__(self):
         return self._binary(-1.0, "elementwise_mul")
+
+    def __matmul__(self, o):
+        from paddle_tpu_torch import static
+        return static.matmul(self, o)
+
+    def __getitem__(self, idx):
+        from paddle_tpu_torch import static
+        return static.getitem(self, idx)
 
     def __repr__(self):
         return (f"Variable(name={self.name!r}, shape={self.shape}, "

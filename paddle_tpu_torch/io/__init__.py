@@ -1,7 +1,7 @@
 """Data input: reader decorators, DataFeeder and the synthetic datasets.
 
 Counterpart of paddle_tpu/io/ for what static training's book tests
-read so far (`reader.py`, `dataset.py`'s mnist and uci_housing). The
+read: `reader.py` and `dataset.py`'s synthetic generators. The
 DataLoader, ragged batching, the Fluid datasets and checkpoints are
 later slices (ROADMAP Queue 1 item 16). numpy and the standard library
 only.

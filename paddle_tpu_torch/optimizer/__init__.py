@@ -1,8 +1,11 @@
 """Optimizers of the static graph.
 
 Counterpart of paddle_tpu/optimizer/__init__.py (the reference's
-optimizer.py: minimize() :641 = append_backward + apply_gradients) for
-SGD, Momentum and Adam. `minimize` appends the `autodiff` op, then per
+optimizer.py: minimize() :641 = append_backward + apply_gradients): SGD,
+Momentum, LarsMomentum, Adam, Adamax, Adagrad, DecayedAdagrad, Adadelta,
+RMSProp, Ftrl, Lamb and Dpsgd, with their `*Optimizer` aliases; the
+meta-optimizers of `meta.py`; the LR schedulers of `lr.py`, whose
+Variable any of them takes as `learning_rate`. `minimize` appends the `autodiff` op, then per
 parameter its regularizer's ops (ParamAttr's, else the optimizer's), the
 gradient clip's ops (the optimizer's, else `set_gradient_clip`'s), and
 the update op (ops/optimizer_ops.py), with the learning rate scaled by
@@ -11,9 +14,7 @@ the update op (ops/optimizer_ops.py), with the learning rate scaled by
 moves between the packages by name.
 
 The eager trainer of the port is nn/train.py; the JAX package's eager
-`init_state` / `apply` halves have no counterpart here. Learning-rate
-schedules (optimizer/lr.py) and the other optimizers are later slices
-(ROADMAP Queue 1 item 8).
+`init_state` / `apply` halves have no counterpart here.
 """
 from paddle_tpu_torch.core import dtypes as _dt
 from paddle_tpu_torch.core.ir import (OpRole, Variable, default_main_program,
@@ -22,8 +23,16 @@ from paddle_tpu_torch.static.backward import append_backward
 from paddle_tpu_torch.static.helper import param_attr_of
 from paddle_tpu_torch.utils import clip as clip_mod
 
-__all__ = ["Optimizer", "SGD", "SGDOptimizer", "Momentum",
-           "MomentumOptimizer", "Adam", "AdamOptimizer"]
+__all__ = [
+    "Optimizer", "SGD", "SGDOptimizer", "Momentum", "MomentumOptimizer",
+    "LarsMomentum", "LarsMomentumOptimizer", "Adam", "AdamOptimizer",
+    "Adamax", "AdamaxOptimizer", "Adagrad", "AdagradOptimizer",
+    "DecayedAdagrad", "DecayedAdagradOptimizer", "Adadelta",
+    "AdadeltaOptimizer", "RMSProp", "RMSPropOptimizer", "Ftrl",
+    "FtrlOptimizer", "Lamb", "LambOptimizer", "Dpsgd", "DpsgdOptimizer",
+    "ExponentialMovingAverage", "ModelAverage", "LookaheadOptimizer",
+    "RecomputeOptimizer",
+]
 
 
 def _persistable_var(program, startup, name, shape, dtype, init_value=0.0):
@@ -153,6 +162,26 @@ class Momentum(Optimizer):
             {"mu": self.momentum, "use_nesterov": self.use_nesterov})
 
 
+class LarsMomentum(Optimizer):
+    def __init__(self, learning_rate, momentum=0.9, lars_coeff=0.001,
+                 lars_weight_decay=0.0005, **kw):
+        super().__init__(learning_rate, **kw)
+        self.momentum = momentum
+        self.lars_coeff = lars_coeff
+        self.lars_weight_decay = lars_weight_decay
+
+    def _append_update_op(self, program, startup, block, p, g, lr):
+        v = self._add_accumulator(program, startup, p, "velocity",
+                                  block.var(p).shape)
+        return block.append_op(
+            "lars_momentum",
+            {"Param": [p], "Grad": [g], "Velocity": [v.name],
+             "LearningRate": [lr]},
+            {"ParamOut": [p], "VelocityOut": [v.name]},
+            {"mu": self.momentum, "lars_coeff": self.lars_coeff,
+             "lars_weight_decay": self.lars_weight_decay})
+
+
 class Adam(Optimizer):
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, lazy_mode=False, **kw):
@@ -179,6 +208,186 @@ class Adam(Optimizer):
              "epsilon": self.epsilon})
 
 
+class Adamax(Optimizer):
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, **kw):
+        super().__init__(learning_rate, **kw)
+        self.beta1, self.beta2, self.epsilon = beta1, beta2, epsilon
+
+    def _append_update_op(self, program, startup, block, p, g, lr):
+        shape = block.var(p).shape
+        m = self._add_accumulator(program, startup, p, "moment", shape)
+        u = self._add_accumulator(program, startup, p, "inf_norm", shape)
+        b1p = self._add_accumulator(program, startup, p, "beta1pow", [1],
+                                    self.beta1)
+        return block.append_op(
+            "adamax",
+            {"Param": [p], "Grad": [g], "Moment": [m.name],
+             "InfNorm": [u.name], "Beta1Pow": [b1p.name],
+             "LearningRate": [lr]},
+            {"ParamOut": [p], "MomentOut": [m.name], "InfNormOut": [u.name],
+             "Beta1PowOut": [b1p.name]},
+            {"beta1": self.beta1, "beta2": self.beta2,
+             "epsilon": self.epsilon})
+
+
+class Adagrad(Optimizer):
+    def __init__(self, learning_rate, epsilon=1e-6,
+                 initial_accumulator_value=0.0, **kw):
+        super().__init__(learning_rate, **kw)
+        self.epsilon = epsilon
+        self.init_acc = initial_accumulator_value
+
+    def _append_update_op(self, program, startup, block, p, g, lr):
+        m = self._add_accumulator(program, startup, p, "moment",
+                                  block.var(p).shape, self.init_acc)
+        return block.append_op(
+            "adagrad",
+            {"Param": [p], "Grad": [g], "Moment": [m.name],
+             "LearningRate": [lr]},
+            {"ParamOut": [p], "MomentOut": [m.name]},
+            {"epsilon": self.epsilon})
+
+
+class DecayedAdagrad(Optimizer):
+    def __init__(self, learning_rate, decay=0.95, epsilon=1e-6, **kw):
+        super().__init__(learning_rate, **kw)
+        self.decay, self.epsilon = decay, epsilon
+
+    def _append_update_op(self, program, startup, block, p, g, lr):
+        m = self._add_accumulator(program, startup, p, "moment",
+                                  block.var(p).shape)
+        return block.append_op(
+            "decayed_adagrad",
+            {"Param": [p], "Grad": [g], "Moment": [m.name],
+             "LearningRate": [lr]},
+            {"ParamOut": [p], "MomentOut": [m.name]},
+            {"decay": self.decay, "epsilon": self.epsilon})
+
+
+class Adadelta(Optimizer):
+    """The update has no learning rate (adadelta_op.cc); the rate var is
+    made all the same, as in the JAX package."""
+
+    def __init__(self, learning_rate, epsilon=1e-6, rho=0.95, **kw):
+        super().__init__(learning_rate, **kw)
+        self.epsilon, self.rho = epsilon, rho
+
+    def _append_update_op(self, program, startup, block, p, g, lr):
+        shape = block.var(p).shape
+        ag = self._add_accumulator(program, startup, p, "avg_squared_grad",
+                                   shape)
+        au = self._add_accumulator(program, startup, p, "avg_squared_update",
+                                   shape)
+        return block.append_op(
+            "adadelta",
+            {"Param": [p], "Grad": [g], "AvgSquaredGrad": [ag.name],
+             "AvgSquaredUpdate": [au.name]},
+            {"ParamOut": [p], "AvgSquaredGradOut": [ag.name],
+             "AvgSquaredUpdateOut": [au.name]},
+            {"rho": self.rho, "epsilon": self.epsilon})
+
+
+class RMSProp(Optimizer):
+    def __init__(self, learning_rate, rho=0.95, epsilon=1e-6, momentum=0.0,
+                 centered=False, **kw):
+        super().__init__(learning_rate, **kw)
+        self.rho, self.epsilon, self.momentum, self.centered = (
+            rho, epsilon, momentum, centered)
+
+    def _append_update_op(self, program, startup, block, p, g, lr):
+        shape = block.var(p).shape
+        ms = self._add_accumulator(program, startup, p, "mean_square", shape)
+        mg = self._add_accumulator(program, startup, p, "mean_grad", shape)
+        mom = self._add_accumulator(program, startup, p, "momentum_acc",
+                                    shape)
+        return block.append_op(
+            "rmsprop",
+            {"Param": [p], "Grad": [g], "MeanSquare": [ms.name],
+             "MeanGrad": [mg.name], "Moment": [mom.name],
+             "LearningRate": [lr]},
+            {"ParamOut": [p], "MeanSquareOut": [ms.name],
+             "MeanGradOut": [mg.name], "MomentOut": [mom.name]},
+            {"decay": self.rho, "epsilon": self.epsilon,
+             "momentum": self.momentum, "centered": self.centered})
+
+
+class Ftrl(Optimizer):
+    def __init__(self, learning_rate, l1=0.0, l2=0.0, lr_power=-0.5, **kw):
+        super().__init__(learning_rate, **kw)
+        self.l1, self.l2, self.lr_power = l1, l2, lr_power
+
+    def _append_update_op(self, program, startup, block, p, g, lr):
+        shape = block.var(p).shape
+        sq = self._add_accumulator(program, startup, p, "squared", shape)
+        lin = self._add_accumulator(program, startup, p, "linear", shape)
+        return block.append_op(
+            "ftrl",
+            {"Param": [p], "Grad": [g], "SquaredAccumulator": [sq.name],
+             "LinearAccumulator": [lin.name], "LearningRate": [lr]},
+            {"ParamOut": [p], "SquaredAccumOut": [sq.name],
+             "LinearAccumOut": [lin.name]},
+            {"l1": self.l1, "l2": self.l2, "lr_power": self.lr_power})
+
+
+class Lamb(Optimizer):
+    def __init__(self, learning_rate=0.001, lamb_weight_decay=0.01,
+                 beta1=0.9, beta2=0.999, epsilon=1e-6, **kw):
+        super().__init__(learning_rate, **kw)
+        self.wd, self.beta1, self.beta2, self.epsilon = (
+            lamb_weight_decay, beta1, beta2, epsilon)
+
+    def _append_update_op(self, program, startup, block, p, g, lr):
+        shape = block.var(p).shape
+        m1 = self._add_accumulator(program, startup, p, "moment1", shape)
+        m2 = self._add_accumulator(program, startup, p, "moment2", shape)
+        b1p = self._add_accumulator(program, startup, p, "beta1pow", [1],
+                                    self.beta1)
+        b2p = self._add_accumulator(program, startup, p, "beta2pow", [1],
+                                    self.beta2)
+        return block.append_op(
+            "lamb",
+            {"Param": [p], "Grad": [g], "Moment1": [m1.name],
+             "Moment2": [m2.name], "Beta1Pow": [b1p.name],
+             "Beta2Pow": [b2p.name], "LearningRate": [lr]},
+            {"ParamOut": [p], "Moment1Out": [m1.name],
+             "Moment2Out": [m2.name], "Beta1PowOut": [b1p.name],
+             "Beta2PowOut": [b2p.name]},
+            {"beta1": self.beta1, "beta2": self.beta2,
+             "epsilon": self.epsilon, "weight_decay": self.wd})
+
+
+class Dpsgd(Optimizer):
+    """Clipped, noised SGD; the noise comes from each op's generator, so
+    it differs from the JAX package's draws."""
+
+    def __init__(self, learning_rate=0.001, clip=10.0, batch_size=16.0,
+                 sigma=1.0, **kw):
+        super().__init__(learning_rate, **kw)
+        self.clip, self.batch_size, self.sigma = clip, batch_size, sigma
+
+    def _append_update_op(self, program, startup, block, p, g, lr):
+        return block.append_op(
+            "dpsgd", {"Param": [p], "Grad": [g], "LearningRate": [lr]},
+            {"ParamOut": [p]},
+            {"clip": self.clip, "batch_size": self.batch_size,
+             "sigma": self.sigma})
+
+
 SGDOptimizer = SGD
 MomentumOptimizer = Momentum
 AdamOptimizer = Adam
+LarsMomentumOptimizer = LarsMomentum
+AdamaxOptimizer = Adamax
+AdagradOptimizer = Adagrad
+DecayedAdagradOptimizer = DecayedAdagrad
+AdadeltaOptimizer = Adadelta
+RMSPropOptimizer = RMSProp
+FtrlOptimizer = Ftrl
+LambOptimizer = Lamb
+DpsgdOptimizer = Dpsgd
+
+from paddle_tpu_torch.optimizer.meta import (  # noqa: E402,F401
+    ExponentialMovingAverage, LookaheadOptimizer, ModelAverage,
+    RecomputeOptimizer)
+from paddle_tpu_torch.optimizer import lr  # noqa: E402,F401

@@ -1,20 +1,25 @@
 """Parameter initializers.
 
 Counterpart of paddle_tpu/utils/initializer.py (the reference's
-initializer.py: Constant, Uniform, Normal, Xavier, MSRA). An initializer
-has two uses:
+initializer.py: Constant, Uniform, Normal, TruncatedNormal, Xavier, MSRA,
+Bilinear, NumpyArrayInitializer). An initializer has two uses:
 
 * `op_spec(shape, dtype)` → (op type, attrs) of the one op it appends to
   a startup program — the static path, the same spec as the JAX package
   emits, so both packages build the same startup programs;
 * `init(tensor, generator)` fills a tensor in place from an explicit
-  `torch.Generator` — the eager layers.
+  `torch.Generator` — the eager layers (those that have one).
+
+Bilinear and NumpyArrayInitializer emit `assign_value` with the values
+in the attrs, computed on the host in numpy, as in the JAX package.
 """
 import math
 
+import numpy as np
 import torch
 
-__all__ = ["Initializer", "Constant", "Uniform", "Normal", "Xavier", "MSRA",
+__all__ = ["Initializer", "Constant", "Uniform", "Normal", "TruncatedNormal",
+           "Xavier", "MSRA", "NumpyArrayInitializer", "Bilinear",
            "ConstantInitializer", "UniformInitializer", "NormalInitializer",
            "XavierInitializer", "MSRAInitializer"]
 
@@ -76,6 +81,18 @@ class Normal(Initializer):
             return tensor.normal_(self.loc, self.scale, generator=generator)
 
 
+class TruncatedNormal(Initializer):
+    """N(loc, scale) truncated to loc +- 2 scale."""
+
+    def __init__(self, loc=0.0, scale=1.0, seed=0):
+        self.loc, self.scale, self.seed = loc, scale, seed
+
+    def op_spec(self, shape, dtype):
+        return "truncated_gaussian_random", {
+            "shape": list(shape), "mean": self.loc, "std": self.scale,
+            "seed": self.seed}
+
+
 class Xavier(Initializer):
     """Glorot init (initializer.py XavierInitializer)."""
 
@@ -112,6 +129,31 @@ class MSRA(Initializer):
         std = math.sqrt(2.0 / fi)
         return "gaussian_random", {"shape": list(shape), "mean": 0.0,
                                    "std": std, "seed": self.seed}
+
+
+class NumpyArrayInitializer(Initializer):
+    def __init__(self, value):
+        self.value = np.asarray(value)
+
+    def op_spec(self, shape, dtype):
+        return "assign_value", {"shape": list(self.value.shape),
+                                "values": self.value.reshape(-1).tolist()}
+
+
+class Bilinear(Initializer):
+    """The bilinear upsampling kernel of a conv_transpose filter
+    [C_in, C_out, kh, kw] (initializer.py BilinearInitializer)."""
+
+    def op_spec(self, shape, dtype):
+        _, _, kh, kw = shape
+        f = math.ceil(kw / 2.0)
+        cc = (2 * f - 1 - f % 2) / (2.0 * f)
+        w = np.zeros(shape, dtype=np.float32)
+        for i in range(kh):
+            for j in range(kw):
+                w[:, :, i, j] = (1 - abs(i / f - cc)) * (1 - abs(j / f - cc))
+        return "assign_value", {"shape": list(shape),
+                                "values": w.reshape(-1).tolist()}
 
 
 # default aliases matching fluid

@@ -160,11 +160,35 @@ def _array(t):
     return t.detach().to("cpu", torch.float32).numpy().copy()
 
 
-def scope_from_jax(arrays, scope, device=None):
+def scope_from_jax(arrays, scope, device=None, program=None):
     """Put {name: numpy array} (a JAX scope's persistables) into a port
     `Scope` as tensors on `device`, copying each array. `device=None`
-    means CUDA, and raises without a GPU, as every entry point does."""
+    means CUDA, and raises without a GPU, as every entry point does.
+
+    Optimizer state moves like the parameters: the accumulators are
+    persistable vars named `{param}_{suffix}_{optimizer name}`
+    (`_moment1_Adam`, `_inf_norm_Adamax`, `_mean_square_RMSProp`, ...),
+    the rate `learning_rate_{optimizer name}` and the LR schedulers'
+    step counter `lr_global_step`, in both packages. Given the training
+    `program`, every persistable var it declares must be in `arrays`
+    (a missing accumulator or counter raises instead of restarting
+    from zero), and each array takes the var's declared shape and dtype
+    (the JAX package holds a declared int64 as int32 with x64 off)."""
     device = resolve_device(device)
+    if program is not None:
+        from paddle_tpu_torch.core import dtypes
+        arrays = dict(arrays)
+        for v in program.list_vars():
+            if not v.persistable:
+                continue
+            enforce(v.name in arrays, "the JAX state has no var %r", v.name)
+            arr = np.asarray(arrays[v.name])
+            if v.shape is not None:
+                enforce(tuple(arr.shape) == tuple(v.shape),
+                        "var %r: shape %s, declared %s", v.name,
+                        tuple(arr.shape), tuple(v.shape))
+            if v.dtype is not None:
+                arrays[v.name] = arr.astype(dtypes.numpy_dtype(v.dtype))
     for name, arr in arrays.items():
         scope.set(name, torch.from_numpy(np.array(arr, copy=True)).to(device))
     return scope

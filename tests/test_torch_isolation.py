@@ -4,8 +4,10 @@
   sys.meta_path, every module of `paddle_tpu_torch` (the static,
   inference, slim and analysis subpackages among them) and
   `chip_smoke.py` imports, one CPU decode step runs, and a tiny static
-  ResNet is built, saved and served by an int8 Predictor, and a
-  fit_a_line program trains three Momentum steps.
+  ResNet is built, saved and served by an int8 Predictor, a
+  fit_a_line program trains three Momentum steps, and the book's
+  word2vec (shared embedding, concat, reshape, fc) trains one Adam step
+  under `exponential_decay`, its LR counter advanced in the scope.
 * A source scan finds no import of jax or of the JAX package in the
   port or in chip_smoke.py.
 * `device=None` means CUDA: without a GPU the entry points raise
@@ -106,6 +108,29 @@ _BLOCKED_RUN = textwrap.dedent("""
     losses = [float(exe.run(main, feed=feeder.feed(b), fetch_list=[cost])[0])
               for b in reader.batch(dataset.uci_housing.train(96), 32)()]
     assert len(losses) == 3 and losses[-1] < losses[0], losses
+    # the book's word2vec: one Adam step under exponential_decay
+    from paddle_tpu_torch.utils.param_attr import ParamAttr
+    main, startup = ir.Program(), ir.Program()
+    with ir.program_guard(main, startup):
+        words = [static.data(f"w{i}", [1], "int64") for i in range(5)]
+        embs = [static.reshape(static.embedding(
+            w, size=[dataset.imikolov.VOCAB, 8],
+            param_attr=ParamAttr(name="shared_emb")), [-1, 8])
+            for w in words[:-1]]
+        logits = static.fc(static.fc(static.concat(embs, axis=1), 16,
+                                     act="relu"), dataset.imikolov.VOCAB)
+        cost = static.mean(static.softmax_with_cross_entropy(logits,
+                                                             words[-1]))
+        optimizer.Adam(static.exponential_decay(0.01, 10, 0.5)).minimize(
+            cost)
+    exe.run(startup)
+    cols = list(zip(*dataset.imikolov.train(16)()))
+    feed = {f"w{i}": np.asarray(c).reshape(-1, 1) for i, c in
+            enumerate(cols)}
+    (lv,) = exe.run(main, feed=feed, fetch_list=[cost])
+    from paddle_tpu_torch.core.scope import global_scope
+    assert np.isfinite(lv).all()
+    assert float(global_scope().find_np("lr_global_step")[0]) == 1.0
     assert not _build.build_info(), "a CPU step must not build kernels"
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "paddle_tpu"))

@@ -14,6 +14,15 @@ the JAX package, on the CPU, in float32.
   train a small fc net like the JAX package (rtol 1e-5 / atol 1e-7).
 * `set_gradient_clip` applies to every later `minimize`;
   `ErrorClipByValue` clips a torch tensor.
+* LarsMomentum, Adamax, Adagrad, DecayedAdagrad, Adadelta, RMSProp
+  (plain, with momentum, centered), Ftrl, Lamb and Dpsgd (sigma 0: no
+  noise) train fit_a_line (fc 13 -> 1, `uci_housing` batches of 32) for
+  5 steps like the JAX package from its startup weights: the same
+  program, each step's loss and, by name, every parameter and
+  accumulator within rtol 1e-5 / atol 1e-7; Dpsgd's noise is seeded
+  from the run.
+* ExponentialMovingAverage and ModelAverage append the same ops, keep
+  the same averages over 3 steps, and `apply()` swaps them in and out.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -23,6 +32,7 @@ import torch
 import paddle_tpu as pt
 import paddle_tpu.clip as jclip_mod
 import paddle_tpu.regularizer as jreg
+from paddle_tpu.io import dataset as jdataset
 from paddle_tpu.core import ir as jir
 from paddle_tpu.core import registry as jreg_ops
 from paddle_tpu.utils.param_attr import ParamAttr as JParamAttr
@@ -33,7 +43,7 @@ from paddle_tpu_torch import static as tstatic
 from paddle_tpu_torch.core import ir as tir
 from paddle_tpu_torch.core import registry as treg_ops
 from paddle_tpu_torch.core.executor import Executor as TExecutor
-from paddle_tpu_torch.core.scope import Scope, scope_guard
+from paddle_tpu_torch.core.scope import Scope, global_scope, scope_guard
 from paddle_tpu_torch.utils.param_attr import ParamAttr as TParamAttr
 from paddle_tpu_torch.weights import scope_from_jax
 
@@ -231,3 +241,133 @@ def test_error_clip_by_value_clips_a_tensor():
     assert torch.equal(got, torch.tensor([-0.5, -0.2, 0.5]))
     assert (c.min, c.max) == (-0.5, 0.5)
     assert tclip_mod.ErrorClipByValue(1.0, min=-2.0).min == -2.0
+
+
+#: the nine optimizers of this slice on fit_a_line: (class, kwargs)
+FIT_OPTIMIZERS = {
+    "lars_momentum": ("LarsMomentum", dict(learning_rate=0.1,
+                                           momentum=0.8)),
+    "adamax": ("AdamaxOptimizer", dict(learning_rate=0.05, beta1=0.8)),
+    "adagrad": ("Adagrad", dict(learning_rate=0.1,
+                                initial_accumulator_value=0.1)),
+    "decayed_adagrad": ("DecayedAdagradOptimizer", dict(learning_rate=0.05,
+                                                        decay=0.9)),
+    "adadelta": ("Adadelta", dict(learning_rate=1.0, rho=0.9,
+                                  epsilon=1e-4)),
+    "rmsprop": ("RMSProp", dict(learning_rate=0.01)),
+    "rmsprop_momentum": ("RMSPropOptimizer", dict(learning_rate=0.01,
+                                                  momentum=0.5)),
+    "rmsprop_centered": ("RMSProp", dict(learning_rate=0.01, momentum=0.5,
+                                         centered=True)),
+    "ftrl": ("Ftrl", dict(learning_rate=0.1, l1=1e-3, l2=1e-3)),
+    "lamb": ("LambOptimizer", dict(learning_rate=0.02)),
+    "dpsgd": ("Dpsgd", dict(learning_rate=0.5, clip=5.0, batch_size=4.0,
+                            sigma=0.0)),
+}
+
+
+def _fit_a_line(side, opt_name, extra=None, **kw):
+    """fit_a_line: fc 13 -> 1, mean square error, `opt_name`; `extra`
+    (ema / model_average) after minimize."""
+    ir, static, opt, _, _, _ = SIDES[side]
+    ir.reset_unique_names()
+    main, startup = ir.Program(), ir.Program()
+    meta = None
+    with ir.program_guard(main, startup):
+        x = static.data("x", [13], "float32")
+        y = static.data("y", [1], "float32")
+        loss = static.mean(static.square_error_cost(static.fc(x, 1), y))
+        getattr(opt, opt_name)(**kw).minimize(loss)
+        if extra == "ema":
+            meta = opt.ExponentialMovingAverage(0.9)
+            meta.update()
+        elif extra == "model_average":
+            meta = opt.ModelAverage(0.15)
+    return main, startup, loss.name, meta
+
+
+def _fit_batches(steps):
+    samples = list(jdataset.uci_housing.train(32 * steps)())
+    for i in range(steps):
+        chunk = samples[32 * i:32 * (i + 1)]
+        yield {"x": np.stack([s[0] for s in chunk]),
+               "y": np.stack([s[1] for s in chunk])}
+
+
+def _jax_persistables(main):
+    jscope = pt.global_scope()
+    return {v.name: jscope.find_np(v.name) for v in main.list_vars()
+            if v.persistable and jscope.has(v.name)}
+
+
+@pytest.mark.parametrize("case", sorted(FIT_OPTIMIZERS))
+def test_fit_a_line_optimizer_matches_jax(case):
+    opt_name, kw = FIT_OPTIMIZERS[case]
+    jmain, jstart, loss, _ = _fit_a_line("jax", opt_name, **kw)
+    tmain, tstart, _, _ = _fit_a_line("port", opt_name, **kw)
+    assert tmain.to_dict() == jmain.to_dict()
+    assert tstart.to_dict() == jstart.to_dict()
+    exe = pt.Executor()
+    exe.run(jstart)
+    scope = scope_from_jax(_jax_persistables(jmain), Scope(), "cpu")
+    texe = TExecutor("cpu")
+    for feed in _fit_batches(5):
+        (jl,) = exe.run(jmain, feed=feed, fetch_list=[loss])
+        (tl,) = texe.run(tmain, feed=feed, fetch_list=[loss], scope=scope)
+        np.testing.assert_allclose(tl, jl, **RUN_TOL)
+    want = _jax_persistables(jmain)
+    assert len(want) >= 3
+    for n, w in want.items():
+        np.testing.assert_allclose(scope.find_np(n), w, err_msg=n,
+                                   **RUN_TOL)
+
+
+def test_dpsgd_noise_is_seeded_from_the_run():
+    """sigma > 0: two runs of the same program from the same state and
+    the same run seed update alike; the noise moves the weights off the
+    noiseless update."""
+    main, startup, loss, _ = _fit_a_line("port", "Dpsgd", learning_rate=0.5,
+                                         clip=5.0, batch_size=4.0, sigma=1.0)
+    feed = next(_fit_batches(1))
+    out = []
+    for _ in range(2):
+        scope = Scope()
+        exe = TExecutor("cpu")
+        exe.run(startup, scope=scope)
+        w0 = scope.find_np("fc_w_0")
+        exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+        out.append(scope.find_np("fc_w_0"))
+    np.testing.assert_array_equal(out[0], out[1])
+    assert np.abs(out[0] - w0).max() > 0
+
+
+@pytest.mark.parametrize("extra", ["ema", "model_average"])
+def test_averages_match_jax(extra):
+    jmain, jstart, loss, jmeta = _fit_a_line("jax", "SGD", extra,
+                                             learning_rate=0.05)
+    tmain, tstart, _, tmeta = _fit_a_line("port", "SGD", extra,
+                                          learning_rate=0.05)
+    assert tmain.to_dict() == jmain.to_dict()
+    assert tstart.to_dict() == jstart.to_dict()
+    types = {op.type for op in tmain.global_block().ops}
+    assert ({"scale", "sum"} if extra == "ema" else {"increment", "sum"}) \
+        <= types
+    exe = pt.Executor()
+    exe.run(jstart)
+    scope = scope_from_jax(_jax_persistables(jmain), global_scope(), "cpu")
+    texe = TExecutor("cpu")
+    for feed in _fit_batches(3):
+        exe.run(jmain, feed=feed, fetch_list=[loss])
+        texe.run(tmain, feed=feed, fetch_list=[loss])
+    want = _jax_persistables(jmain)
+    for n, w in want.items():
+        np.testing.assert_allclose(scope.find_np(n), w, err_msg=n,
+                                   **RUN_TOL)
+    trained = scope.find_np("fc_w_0")
+    with tmeta.apply():
+        inside = scope.find_np("fc_w_0")
+    with jmeta.apply():
+        jinside = pt.global_scope().find_np("fc_w_0")
+    np.testing.assert_allclose(inside, jinside, **RUN_TOL)
+    assert np.abs(inside - trained).max() > 0
+    np.testing.assert_array_equal(scope.find_np("fc_w_0"), trained)
