@@ -191,13 +191,55 @@ Phases, each of which raises (exit code != 0) when its check fails:
     update within 1e-9 of its max; then 20 steps on one batch under a
     piecewise_decay schedule from 0.001, on the card and on the CPU: the
     card's loss falls and its rate equals the CPU's at every step.
+19. The Fluid book's label_semantic_roles at its width (chapter 07
+    `db_lstm`: 8 embedded inputs, the word and its 5 context words
+    through the shared frozen `emb` table (word_dim 32), the predicate
+    (32), the mark (5); an fc 512 tanh each, summed; 8 dynamic_lstm(512)
+    with relu candidate and sigmoid cell, the direction alternating, a
+    sum of two tanh fcs between them; two tanh fcs to the 35 labels;
+    linear_chain_crf with crfw at learning rate 1e-3, crf_decoding; SGD
+    under exponential_decay(0.01, 1e5, 0.5, staircase)), on the JAX
+    package's synthetic conll05 (dictionaries 801 / 60 / 35), batches
+    padded to their longest sentence with the lengths fed to every LSTM
+    and the CRF, f32 with TF32 off, random weights from --seed, startup
+    on the card. (a) One step at batch 4, card against the host CPU:
+    float32 loss within 1e-4; with every float var (and the programs'
+    float32 dtype attrs) float64, the loss within 1e-9, each parameter's
+    change within 1e-6 of its largest change, the Viterbi paths equal.
+    (b) 3 warm-up and 20 timed steps on one batch of 10: every loss
+    finite, the last below the first; step ms, words/s, peak memory.
+    (c) save_inference_model of the Viterbi path, loaded and run with
+    training=False: equal to the test clone's, two runs bit-equal.
+20. machine_translation (tests/test_book_seq2seq.py's GRU seq2seq) at
+    the book's chapter 08 widths: dictionaries 30000, word_dim 512,
+    hidden 512, sequence_pool LAST into the decoder's h_0, the 30000-
+    class fc, softmax_with_cross_entropy masked by sequence_mask over the
+    target lengths, Adam 0.01; batch 64 from --seed with numpy (sources
+    of 4-30 ids in [3, 30000), the target the reversed source with BOS 1
+    and EOS 2), padded, lengths fed. (a) One step at batch 4, card
+    against CPU: float32 loss within 1e-4; float64, every parameter's
+    change within 1e-3 of lr and the Adam moments within 1e-5 of their
+    max. (b) 3 warm-up and 10 timed steps at batch 64: losses finite and
+    falling; step ms, target tokens/s, peak memory beside the step's f32
+    bound (3 x the forward flops over the padded lengths at 67 TFLOP/s).
+    (c) The decode program (While + gru_unit + beam_search + gather +
+    array_write + beam_search_decode, parameters shared by name; batch
+    16, beam 4, 32 steps) on the trained weights: float64 card against
+    CPU ids equal and scores within 1e-9 of their max; in f32 on the
+    card the best beam's score >= the last beam's, and
+    save_inference_model -> load_inference_model gives the same ids.
+21. Where the sequence models' time goes, as phases 15 and 17: wall and
+    device ms of an SRL and an MT step, the idle share, the top kernels,
+    the launches and device ms of the forward, the backward and the
+    update; for the decode, launches a While iteration and the host's
+    condition reads (count and the seconds the host waited in them).
 
 Then a `{"kernels": [...]}` line and, last, the device line
 `{"ok": true, "device": {...}}`. Every number is printed beside the
 card's name and power limit.
 
 Launch counters are reset just before each main-path phase (serving,
-training, int8 ResNet serving; phases 14 and 16-18 launch none of the
+training, int8 ResNet serving; phases 14 and 16-21 launch none of the
 kernels)
 and read just after it, so launches made
 to compare kernels with their plain versions do not count; K6's two
@@ -1987,6 +2029,12 @@ def widened(torch, program):
     return p
 
 
+def widen_state(state):
+    """A state (numpy) with its float32 arrays made float64."""
+    return {n: a.astype(np.float64) if a.dtype == np.float32 else a
+            for n, a in state.items()}
+
+
 def one_step(torch, program, state, feed, fetch, device):
     """One run of `program` from `state` (numpy) on `device`: (the
     fetches, the state after), as numpy."""
@@ -2018,8 +2066,7 @@ def step_agreement(torch, main, state, feed, loss, tag):
         "velocity": [n for n in state if n.endswith("_velocity_Momentum")]}
     gates = {"update": UPDATE_TOL, "bn statistics": STATE_TOL,
              "velocity": STATE_TOL}
-    wide = {n: a.astype(np.float64) if a.dtype == np.float32 else a
-            for n, a in state.items()}
+    wide = widen_state(state)
     runs = {("float32", dev): one_step(torch, main, state, feed,
                                        [loss] + relu_in, dev)
             for dev in ("cuda", "cpu")}
@@ -2339,8 +2386,7 @@ def vgg_step_agreement(torch, main, state, feed, loss, tag):
                                                "_moment2_Adam"))
                and n.rsplit("_moment", 1)[0] not in noise]
     bn_stats = [n for n in state if n.startswith("bn_")]
-    wide = {n: a.astype(np.float64) if a.dtype == np.float32 else a
-            for n, a in state.items()}
+    wide = widen_state(state)
     feed64 = dict(feed, img=feed["img"].astype(np.float64))
     runs = {}
     for dt, prog, st, fd in (("float32", main, state, feed),
@@ -2560,8 +2606,7 @@ def word2vec_training(torch, seed, tag, steps=W2V_STEPS):
     Executor().run(startup, scope=scope)
     start = scope_to_numpy(scope, sorted(
         v.name for v in main.list_vars() if v.persistable))
-    wide = {n: a.astype(np.float64) if a.dtype == np.float32 else a
-            for n, a in start.items()}
+    wide = widen_state(start)
     steps64 = {dev: one_step(torch, widened(torch, main), wide, feed,
                              [loss], dev) for dev in ("cuda", "cpu")}
     (gl,), g = steps64["cuda"]
@@ -2605,6 +2650,615 @@ def word2vec_training(torch, seed, tag, steps=W2V_STEPS):
                       f"sigmoid, softmax, SGD, batch {W2V_BATCH}",
             "float64_table_err": table_err, "losses": losses.tolist(),
             "rates": rates.tolist(), "step_ms": step_ms}
+
+
+# ---------------------------------------------------------------------------
+# the Fluid book's sequence chapters: label_semantic_roles (chapter 07)
+# and machine_translation (chapter 08)
+# ---------------------------------------------------------------------------
+
+#: phase 19: the book's db_lstm (word_dim 32, mark_dim 5, hidden 512,
+#: depth 8, batch 10; SGD under exponential_decay(0.01, 1e5, 0.5,
+#: staircase); the CRF's transition at learning rate 1e-3)
+SRL_WORD_DIM, SRL_MARK_DIM, SRL_HIDDEN, SRL_DEPTH = 32, 5, 512, 8
+SRL_BATCH, SRL_CHECK_BATCH, SRL_CRF_LR = 10, 4, 1e-3
+SRL_FEATURES = ("word", "ctx_n2", "ctx_n1", "ctx_0", "ctx_p1", "ctx_p2",
+                "pred", "mark")
+#: phase 19(a) in float64: the loss (relative) and each parameter's
+#: change against its largest change
+SRL_LOSS_TOL64, SRL_UPDATE_TOL64 = 1e-9, 1e-6
+#: phase 20: the book's machine_translation widths (dictionaries 30000,
+#: word_dim 512, hidden 512) with GRU encoder and decoder, Adam 0.01,
+#: batch 64; sources of 4-30 ids, targets the reversed source + EOS,
+#: padded to MT_SRC_LEN / MT_TRG_LEN
+MT_VOCAB, MT_DIM, MT_HIDDEN, MT_LR = 30000, 512, 512, 0.01
+MT_BATCH, MT_CHECK_BATCH, MT_BOS, MT_EOS = 64, 4, 1, 2
+MT_SRC_LEN = 30
+MT_TRG_LEN = MT_SRC_LEN + 1
+#: phase 20(c): the decode program's batch, beam and steps; its float64
+#: scores card against CPU, of their max
+MT_DECODE_BATCH, MT_BEAM, MT_DECODE_STEPS, MT_SCORE_TOL64 = 16, 4, 32, 1e-9
+
+
+def fully_widened(torch, program):
+    """`widened`, and the ops' float32 dtype attrs (fill_constant, cast,
+    assign_value, sequence_mask, ...) made float64 too, so constants made
+    inside the program (a loop's scores, a mask) are float64 as well."""
+    p = widened(torch, program)
+    for b in p.blocks:
+        for op in b.ops:
+            for k in ("dtype", "out_dtype"):
+                if op.attrs.get(k) == "float32":
+                    op.attrs[k] = "float64"
+    return p
+
+
+def change_err(params, before, got, want):
+    """{param: max |d_got - d_want| / max |d_want|} of the changes from
+    `before` (a parameter the step leaves unchanged must stay so)."""
+    out = {}
+    for n in params:
+        dg, dw = got[n] - before[n], want[n] - before[n]
+        top = float(np.abs(dw).max())
+        diff = float(np.abs(dg - dw).max())
+        out[n] = diff / top if top > 0 else (0.0 if diff == 0 else np.inf)
+    return out
+
+
+def worst3(errs):
+    return {n: errs[n] for n in sorted(errs, key=errs.get,
+                                       reverse=True)[:3]}
+
+
+def srl_programs(seed):
+    """The book's db_lstm on conll05: 8 embedded inputs (the word and
+    its 5 context words through the shared, frozen `emb` table, the
+    predicate through `vemb`, the mark), an fc 512 tanh each, summed;
+    8 dynamic_lstm(512) with relu candidate and sigmoid cell, the
+    direction alternating, a sum of two tanh fcs between them; the sum
+    of two tanh fcs to the labels; linear_chain_crf (crfw at learning
+    rate 1e-3), mean, crf_decoding; SGD under exponential_decay. Every
+    sequence is padded, its lengths fed to each LSTM and to the CRF.
+    Returns (main, startup, test clone, loss name, decode name)."""
+    from paddle_tpu_torch import optimizer, static
+    from paddle_tpu_torch.core import ir
+    from paddle_tpu_torch.io import dataset_ext
+    from paddle_tpu_torch.utils.param_attr import ParamAttr
+
+    word_dict, verb_dict, label_dict = dataset_ext.conll05.get_dict()
+    ir.reset_unique_names()
+    main, startup = ir.Program(), ir.Program()
+    startup.random_seed = seed
+    with ir.program_guard(main, startup):
+        feats = [static.data(n, [-1, -1], "int64", append_batch_size=False)
+                 for n in SRL_FEATURES]
+        target = static.data("target", [-1, -1], "int64",
+                             append_batch_size=False)
+        lens = static.data("lens", [-1], "int64", append_batch_size=False)
+        embs = [static.embedding(x, [len(word_dict), SRL_WORD_DIM],
+                                 param_attr=ParamAttr(name="emb",
+                                                      trainable=False))
+                for x in feats[:6]]
+        embs.append(static.embedding(feats[6], [len(verb_dict),
+                                                SRL_WORD_DIM],
+                                     param_attr=ParamAttr(name="vemb")))
+        embs.append(static.embedding(feats[7], [2, SRL_MARK_DIM]))
+
+        def fc(x, size):
+            return static.fc(x, size, num_flatten_dims=2, act="tanh")
+
+        hidden = static.sums([fc(e, SRL_HIDDEN) for e in embs])
+        lstm_kw = dict(lengths=lens, candidate_activation="relu",
+                       gate_activation="sigmoid", cell_activation="sigmoid")
+        lstm, _ = static.dynamic_lstm(hidden, SRL_HIDDEN, **lstm_kw)
+        for i in range(1, SRL_DEPTH):
+            hidden = static.sums([fc(hidden, SRL_HIDDEN),
+                                  fc(lstm, SRL_HIDDEN)])
+            lstm, _ = static.dynamic_lstm(hidden, SRL_HIDDEN,
+                                          is_reverse=i % 2 == 1, **lstm_kw)
+        feature = static.sums([fc(hidden, len(label_dict)),
+                               fc(lstm, len(label_dict))])
+        crf_cost = static.linear_chain_crf(
+            feature, target, ParamAttr(name="crfw",
+                                       learning_rate=SRL_CRF_LR),
+            length=lens)
+        loss = static.mean(crf_cost)
+        decode = static.crf_decoding(feature, ParamAttr(name="crfw"),
+                                     length=lens)
+        test = main.clone(for_test=True)
+        optimizer.SGD(learning_rate=static.exponential_decay(
+            0.01, 100000, 0.5, staircase=True)).minimize(loss)
+    return main, startup, test, loss.name, decode.name
+
+
+def srl_batch(samples):
+    """conll05 samples padded to the longest, with their lengths."""
+    lens = np.array([len(s[0]) for s in samples], np.int64)
+    t = int(lens.max())
+
+    def col(i):
+        return np.stack([np.pad(np.asarray(s[i], np.int64),
+                                (0, t - len(s[i]))) for s in samples])
+    feed = {n: col(i) for i, n in enumerate(SRL_FEATURES)}
+    feed.update(target=col(8), lens=lens)
+    return feed
+
+
+def srl_training(torch, seed, tag, batch=SRL_BATCH,
+                 check_batch=SRL_CHECK_BATCH, warmup=3, steps=20):
+    """Phase 19. The book's label_semantic_roles at its width on the
+    card. (a) One step at `check_batch` from the startup weights, card
+    against the host CPU: float32 loss within LOSS_RTOL; every float var
+    float64, the loss within SRL_LOSS_TOL64, each parameter's change
+    within SRL_UPDATE_TOL64 of its largest change, the Viterbi paths
+    equal. (b) `warmup` + `steps` steps on one batch of `batch`: every
+    loss finite, the last below the first; step ms, words/s, peak
+    memory. (c) save_inference_model of the Viterbi path, loaded and run
+    with training=False: equal to the test clone's, two runs bit-equal.
+    Returns (summary, main, scope, batch feed, loss name)."""
+    import shutil
+    import tempfile
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.core.executor import Executor
+    from paddle_tpu_torch.core.scope import Scope, scope_guard
+    from paddle_tpu_torch.io import dataset_ext
+    from paddle_tpu_torch.weights import scope_from_jax, scope_to_numpy
+
+    samples = list(dataset_ext.conll05.test(64)())
+    feed = srl_batch(samples[:batch])
+    small = srl_batch(samples[:check_batch])
+    main, startup, test, loss, decode = srl_programs(seed)
+    scope = Scope()
+    Executor().run(startup, scope=scope)
+    start = scope_to_numpy(scope, sorted(
+        v.name for v in main.list_vars() if v.persistable))
+    params = next(op for op in main.global_block().ops
+                  if op.type == "autodiff").attrs["params"]
+
+    # (a) card against the CPU, one step
+    runs = {("float32", d): one_step(torch, main, start, small,
+                                     [loss, decode], d)
+            for d in ("cuda", "cpu")}
+    wide, main64 = widen_state(start), fully_widened(torch, main)
+    runs.update({("float64", d): one_step(torch, main64, wide, small,
+                                          [loss, decode], d)
+                 for d in ("cuda", "cpu")})
+    agreement = {}
+    for dt, tol in (("float32", LOSS_RTOL), ("float64", SRL_LOSS_TOL64)):
+        (gl, gp), g = runs[(dt, "cuda")]
+        (cl, cp), c = runs[(dt, "cpu")]
+        rel = abs(float(gl) - float(cl)) / abs(float(cl))
+        flips = int((np.asarray(gp) != np.asarray(cp)).sum())
+        row = {"loss_card": float(gl), "loss_cpu": float(cl),
+               "loss_rel_err": rel, "loss_gate": tol,
+               "viterbi_positions_differing": flips}
+        if dt == "float64":
+            errs = change_err(params, wide, g, c)
+            row.update(update_err=worst3(errs),
+                       update_gate=SRL_UPDATE_TOL64)
+            assert max(errs.values()) <= SRL_UPDATE_TOL64, worst3(errs)
+            assert flips == 0, f"float64 Viterbi paths differ at {flips}"
+        print(f"srl db_lstm one step at batch {check_batch}, {dt}, card vs "
+              f"CPU: loss {float(gl):.12g} vs {float(cl):.12g}, rel "
+              f"{rel:.3g} (gate {tol}); Viterbi positions that differ "
+              f"{flips}" + (f"; parameter changes worst "
+                            f"{row['update_err']} (gate {SRL_UPDATE_TOL64})"
+                            if dt == "float64" else "") + f" {tag}")
+        assert rel <= tol, (dt, rel)
+        agreement[dt] = row
+
+    # (b) training on one batch
+    exe = Executor()
+    scope = scope_from_jax(start, Scope())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    outs = []
+    for i in range(warmup + steps):
+        if i == warmup:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        outs.append(exe.run(main, feed=feed, fetch_list=[loss], scope=scope,
+                            return_numpy=False)[0])
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / steps * 1e3
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = [float(o) for o in outs]
+    words = int(feed["lens"].sum())
+    assert all(np.isfinite(losses)), losses
+    assert losses[-1] < losses[0], f"loss did not fall: {losses}"
+    print(f"srl db_lstm training, batch {batch} ({words} words, padded to "
+          f"{feed['word'].shape[1]}), f32 (TF32 off), SGD under "
+          f"exponential_decay: loss {losses[0]:.4f} -> {losses[-1]:.4f} over "
+          f"{warmup + steps} steps; {step_ms:.2f} ms a step (wall, {steps} "
+          f"steps after {warmup}), {words / step_ms * 1e3:.1f} words/s; peak "
+          f"{peak_gib:.2f} GiB {tag}")
+
+    # (c) the Viterbi path through save / load, in test mode
+    infeed = {k: v for k, v in feed.items() if k != "target"}
+    (want,) = exe.run(test, feed=feed, fetch_list=[decode], scope=scope)
+    model_dir = tempfile.mkdtemp(prefix="srl_db_lstm_")
+    try:
+        with scope_guard(scope):
+            static.io.save_inference_model(
+                model_dir, list(SRL_FEATURES) + ["lens"], [decode], exe,
+                main_program=main)
+        with scope_guard(Scope()):
+            prog, feeds, fetches = static.io.load_inference_model(
+                model_dir, exe)
+            got = [exe.run(prog, feed={k: infeed[k] for k in feeds},
+                           fetch_list=fetches, training=False)[0]
+                   for _ in range(2)]
+    finally:
+        shutil.rmtree(model_dir, ignore_errors=True)
+    assert np.array_equal(got[0], got[1]), "two loaded runs differ"
+    assert np.array_equal(got[0], want), "loaded paths differ from the test " \
+        "clone's"
+    acc = float(((got[0] == feed["target"]) & (np.arange(
+        got[0].shape[1])[None, :] < feed["lens"][:, None])).sum() / words)
+    print(f"srl db_lstm saved and loaded: Viterbi paths equal the test "
+          f"clone's and each other's over two runs; {acc:.3f} of the words "
+          f"tagged as labelled after {warmup + steps} steps {tag}")
+    summary = {"config": "label_semantic_roles db_lstm (Fluid book ch. 07): "
+                         "word_dim 32, mark_dim 5, hidden 512, depth 8, "
+                         "synthetic conll05 dictionaries 801 / 60 / 35, "
+                         f"batch {batch}, SGD + exponential_decay, f32",
+               "agreement": agreement, "losses": losses, "step_ms": step_ms,
+               "words": words, "words_per_s": words / step_ms * 1e3,
+               "peak_gib": peak_gib, "tag_accuracy": acc}
+    return summary, main, scope, feed, loss
+
+
+def mt_encoder(static, param_attr, src, src_len):
+    """The GRU encoder's last state [B, 512] (test_book_seq2seq's)."""
+    semb = static.embedding(src, [MT_VOCAB, MT_DIM],
+                            param_attr=param_attr(name="src_emb_w"))
+    enc_in = static.fc(semb, 3 * MT_HIDDEN, num_flatten_dims=2,
+                       param_attr=param_attr(name="enc_fc_w"),
+                       bias_attr=param_attr(name="enc_fc_b"))
+    enc = static.dynamic_gru(enc_in, MT_HIDDEN, lengths=src_len,
+                             param_attr=param_attr(name="enc_gru_w"),
+                             bias_attr=param_attr(name="enc_gru_b"))
+    return static.sequence_pool(enc, "LAST", lengths=src_len)
+
+
+def mt_programs(seed):
+    """The training program of tests/test_book_seq2seq.py's
+    machine_translation at the book's widths: embeddings of 30000 x 512,
+    GRU encoder (its last state through sequence_pool LAST) and decoder
+    of 512, the 30000-class fc, softmax_with_cross_entropy masked by
+    sequence_mask over the target lengths, Adam 0.01. (main, startup,
+    loss name)."""
+    from paddle_tpu_torch import optimizer, static
+    from paddle_tpu_torch.core import ir
+    from paddle_tpu_torch.utils.param_attr import ParamAttr
+
+    ir.reset_unique_names()
+    main, startup = ir.Program(), ir.Program()
+    startup.random_seed = seed
+    with ir.program_guard(main, startup):
+        src = static.data("src", [MT_SRC_LEN], "int64")
+        src_len = static.data("src_len", [-1], "int64",
+                              append_batch_size=False)
+        trg_in = static.data("trg_in", [MT_TRG_LEN], "int64")
+        trg_out = static.data("trg_out", [MT_TRG_LEN, 1], "int64")
+        trg_len = static.data("trg_len", [-1], "int64",
+                              append_batch_size=False)
+        enc_last = mt_encoder(static, ParamAttr, src, src_len)
+        temb = static.embedding(trg_in, [MT_VOCAB, MT_DIM],
+                                param_attr=ParamAttr(name="trg_emb_w"))
+        dec_in = static.fc(temb, 3 * MT_HIDDEN, num_flatten_dims=2,
+                           param_attr=ParamAttr(name="dec_fc_w"),
+                           bias_attr=ParamAttr(name="dec_fc_b"))
+        dec = static.dynamic_gru(dec_in, MT_HIDDEN, h_0=enc_last,
+                                 lengths=trg_len,
+                                 param_attr=ParamAttr(name="dec_gru_w"),
+                                 bias_attr=ParamAttr(name="dec_gru_b"))
+        logits = static.fc(dec, MT_VOCAB, num_flatten_dims=2,
+                           param_attr=ParamAttr(name="out_fc_w"),
+                           bias_attr=ParamAttr(name="out_fc_b"))
+        ce = static.reshape(static.softmax_with_cross_entropy(
+            logits, trg_out), [-1, MT_TRG_LEN])
+        mask = static.sequence_mask(trg_len, maxlen=MT_TRG_LEN,
+                                    dtype="float32")
+        loss = static.elementwise_div(
+            static.reduce_sum(static.elementwise_mul(ce, mask)),
+            static.reduce_sum(mask))
+        optimizer.Adam(learning_rate=MT_LR).minimize(loss)
+    return main, startup, loss.name
+
+
+def mt_decode_program():
+    """The decode program: the encoder, then While over MT_DECODE_STEPS
+    steps of embedding, fc, gru_unit, the output fc, beam_search
+    (MT_BEAM beams) and the state gathered by parent beam, ids and
+    parents into tensor arrays, beam_search_decode; parameters shared
+    with the training program by name. (program, [ids, scores] names)."""
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.core import ir
+    from paddle_tpu_torch.utils.param_attr import ParamAttr as PA
+
+    B, K, V, H = MT_DECODE_BATCH, MT_BEAM, MT_VOCAB, MT_HIDDEN
+    ir.reset_unique_names()
+    prog = ir.Program()
+    with ir.program_guard(prog, ir.Program()):
+        src = static.data("src", [B, MT_SRC_LEN], "int64",
+                          append_batch_size=False)
+        src_len = static.data("src_len", [B], "int64",
+                              append_batch_size=False)
+        enc_last = mt_encoder(static, PA, src, src_len)
+        h = static.fill_constant([B * K, H], "float32", 0.0)
+        static.assign(static.reshape(static.expand(
+            static.unsqueeze(enc_last, axes=[1]), expand_times=[1, K, 1]),
+            [B * K, H]), h)
+        pre_ids = static.fill_constant([B, K], "int32", MT_BOS)
+        pre_scores = static.fill_constant([B, K], "float32", 0.0)
+        static.assign(static.elementwise_add(pre_scores, static.assign(
+            np.array([[0.0] + [-1e9] * (K - 1)], np.float32))), pre_scores)
+        ids_arr = static.create_array(MT_DECODE_STEPS, [B, K], "int32")
+        parents_arr = static.create_array(MT_DECODE_STEPS, [B, K], "int32")
+        base = static.reshape(static.range(0, B * K, K, "int32"), [B, 1])
+        i = static.fill_constant([1], "int64", 0)
+        n = static.fill_constant([1], "int64", MT_DECODE_STEPS)
+        cond = static.less_than(i, n)
+        loop = static.While(cond)
+        with loop.block():
+            tok = static.reshape(static.assign(pre_ids), [B * K, 1])
+            temb = static.embedding(tok, [V, MT_DIM],
+                                    param_attr=PA(name="trg_emb_w"))
+            dec_in = static.fc(temb, 3 * H, param_attr=PA(name="dec_fc_w"),
+                               bias_attr=PA(name="dec_fc_b"))
+            h_new, _, _ = static.gru_unit(dec_in, static.assign(h), 3 * H,
+                                          param_attr=PA(name="dec_gru_w"),
+                                          bias_attr=PA(name="dec_gru_b"))
+            logits = static.fc(h_new, V, param_attr=PA(name="out_fc_w"),
+                               bias_attr=PA(name="out_fc_b"))
+            sel_ids, sel_scores, parent = static.beam_search(
+                static.assign(pre_ids), static.assign(pre_scores),
+                static.reshape(logits, [B, K, V]), K, MT_EOS)
+            static.assign(static.array_write(sel_ids, i, ids_arr), ids_arr)
+            static.assign(static.array_write(parent, i, parents_arr),
+                          parents_arr)
+            static.assign(sel_ids, pre_ids)
+            static.assign(sel_scores, pre_scores)
+            static.assign(static.gather(h_new, static.reshape(
+                static.elementwise_add(parent, base), [B * K])), h)
+            ni = static.increment(static.assign(i), value=1)
+            static.assign(ni, i)
+            static.assign(static.less_than(ni, n), cond)
+        ids, scores = static.beam_search_decode(ids_arr, parents_arr,
+                                                pre_scores, end_id=MT_EOS)
+    return prog, [ids.name, scores.name]
+
+
+def mt_batch(rng, n, src_len=MT_SRC_LEN):
+    """`n` pairs from numpy: sources of 4-src_len ids in [3, 30000), the
+    target the reversed source (test_book_seq2seq's rule) after BOS and
+    before EOS, padded with 0, with their lengths."""
+    lens = rng.randint(4, src_len + 1, n).astype(np.int64)
+    src = np.zeros((n, src_len), np.int64)
+    trg_in = np.zeros((n, src_len + 1), np.int64)
+    trg_out = np.zeros((n, src_len + 1), np.int64)
+    for b, L in enumerate(lens):
+        s = rng.randint(3, MT_VOCAB, L)
+        src[b, :L] = s
+        trg_in[b, :L + 1] = np.concatenate([[MT_BOS], s[::-1]])
+        trg_out[b, :L + 1] = np.concatenate([s[::-1], [MT_EOS]])
+    return {"src": src, "src_len": lens, "trg_in": trg_in,
+            "trg_out": trg_out[..., None], "trg_len": lens + 1}
+
+
+def mt_forward_flops(program, batch):
+    """Forward flops of the MT program at `batch` pairs over the padded
+    lengths: 2 per multiply-add of each fc (`mul`, its rows batch x the
+    padded length) and of each GRU's recurrent matmuls (h [B, 512]
+    against the [512, 1536] weight at every padded step)."""
+    block = program.global_block()
+    total = 0
+    for op in block.ops:
+        if op.type == "mul":
+            x = block.var(op.inputs["X"][0]).shape
+            y = block.var(op.inputs["Y"][0]).shape
+            rows = batch * int(np.prod(x[1:op.attrs.get("x_num_col_dims",
+                                                        1)]))
+            total += 2 * y[0] * y[1] * rows
+        elif op.type == "gru":
+            steps = block.var(op.inputs["Input"][0]).shape[1]
+            w = block.var(op.inputs["Weight"][0]).shape
+            total += 2 * w[0] * w[1] * batch * steps
+    return total
+
+
+def mt_training(torch, seed, tag, batch=MT_BATCH,
+                check_batch=MT_CHECK_BATCH, warmup=3, steps=10):
+    """Phase 20. machine_translation at the book's widths on the card.
+    (a) One step at `check_batch`, card against the host CPU: float32
+    loss within LOSS_RTOL; float64, every parameter's change within
+    VGG_UPDATE_TOL of lr and the Adam moments within VGG_MOMENT_TOL of
+    their max. (b) `warmup` + `steps` steps at `batch`: losses finite
+    and falling; step ms, target tokens/s and peak memory beside the
+    step's f32 bound (3 x the forward flops at 67 TFLOP/s). (c) the
+    decode program on the trained weights: float64 card against CPU (ids
+    equal, scores within MT_SCORE_TOL64 of their max), then f32 on the
+    card timed, the best beam's scores >= the last's, and save / load
+    giving the same ids. Returns (summary, main, scope, feed, loss,
+    decode program, its feed, its fetches)."""
+    import shutil
+    import tempfile
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.core.executor import Executor
+    from paddle_tpu_torch.core.scope import Scope, scope_guard
+    from paddle_tpu_torch.weights import scope_from_jax, scope_to_numpy
+
+    rng = np.random.RandomState(seed + 20)
+    feed = mt_batch(rng, batch)
+    small = {k: v[:check_batch] for k, v in feed.items()}
+    main, startup, loss = mt_programs(seed)
+    scope = Scope()
+    Executor().run(startup, scope=scope)
+    start = scope_to_numpy(scope, sorted(
+        v.name for v in main.list_vars() if v.persistable))
+    params = next(op for op in main.global_block().ops
+                  if op.type == "autodiff").attrs["params"]
+
+    # (a) card against the CPU, one step
+    agreement = {}
+    wide = widen_state(start)
+    main64 = fully_widened(torch, main)
+    for dt, prog, st in (("float32", main, start), ("float64", main64,
+                                                    wide)):
+        (gl,), g = one_step(torch, prog, st, small, [loss], "cuda")
+        (cl,), c = one_step(torch, prog, st, small, [loss], "cpu")
+        rel = abs(float(gl) - float(cl)) / abs(float(cl))
+        row = {"loss_card": float(gl), "loss_cpu": float(cl),
+               "loss_rel_err": rel, "loss_gate": LOSS_RTOL}
+        line = (f"mt one step at batch {check_batch}, {dt}, card vs CPU: "
+                f"loss {float(gl):.12g} vs {float(cl):.12g}, rel {rel:.3g} "
+                f"(gate {LOSS_RTOL})")
+        assert rel <= LOSS_RTOL, (dt, rel)
+        if dt == "float64":
+            upd = {n: float(np.abs((g[n] - st[n]) - (c[n] - st[n])).max()
+                            / MT_LR) for n in params}
+            moments = [n for n in c if n.endswith(("_moment1_Adam",
+                                                   "_moment2_Adam"))]
+            mom = {n: float(np.abs(g[n] - c[n]).max()
+                            / max(np.abs(c[n]).max(), 1e-300))
+                   for n in moments}
+            row.update(update_of_lr=worst3(upd), moments=worst3(mom))
+            line += (f"; parameter changes worst |d| / lr {worst3(upd)} "
+                     f"(gate {VGG_UPDATE_TOL}); Adam moments worst "
+                     f"{worst3(mom)} (gate {VGG_MOMENT_TOL})")
+            assert max(upd.values()) <= VGG_UPDATE_TOL, worst3(upd)
+            assert max(mom.values()) <= VGG_MOMENT_TOL, worst3(mom)
+        print(line + f" {tag}")
+        agreement[dt] = row
+
+    # (b) training at `batch`
+    flops = mt_forward_flops(main, batch)
+    bound = 3 * flops / F32_FLOPS * 1e3
+    exe = Executor()
+    scope = scope_from_jax(start, Scope())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    outs = []
+    for i in range(warmup + steps):
+        if i == warmup:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        outs.append(exe.run(main, feed=feed, fetch_list=[loss], scope=scope,
+                            return_numpy=False)[0])
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / steps * 1e3
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = [float(o) for o in outs]
+    tokens = int(feed["trg_len"].sum())
+    assert all(np.isfinite(losses)), losses
+    assert losses[-1] < losses[0], f"loss did not fall: {losses}"
+    print(f"mt training, batch {batch} ({tokens} target tokens, padded to "
+          f"{MT_TRG_LEN}), f32 (TF32 off), Adam {MT_LR}: loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f} over {warmup + steps} steps; "
+          f"{step_ms:.2f} ms a step (wall, {steps} steps after {warmup}), "
+          f"{tokens / step_ms * 1e3:.1f} target tokens/s; f32 bound "
+          f"{bound:.3f} ms (3 x {flops / 1e9:.2f} GFLOP at "
+          f"{F32_FLOPS / 1e12:.0f} TFLOP/s); peak {peak_gib:.2f} GiB {tag}")
+
+    # (c) the decode program on the trained weights
+    dec, dfetch = mt_decode_program()
+    dfeed = {k: v for k, v in mt_batch(
+        np.random.RandomState(seed + 21), MT_DECODE_BATCH).items()
+        if k in ("src", "src_len")}
+    names = [v.name for v in dec.list_vars() if v.persistable]
+    trained = scope_to_numpy(scope, sorted(n for n in names
+                                           if scope.has(n)))
+    dec64 = fully_widened(torch, dec)
+    (gi, gs), _ = one_step(torch, dec64, widen_state(trained), dfeed,
+                           dfetch, "cuda")
+    (ci, cs), _ = one_step(torch, dec64, widen_state(trained), dfeed,
+                           dfetch, "cpu")
+    score_err = float(np.abs(gs - cs).max() / np.abs(cs).max())
+    print(f"mt decode, float64, card vs CPU: ids equal "
+          f"{bool(np.array_equal(gi, ci))}, scores max |d| / max |s| "
+          f"{score_err:.3g} (gate {MT_SCORE_TOL64}) {tag}")
+    assert np.array_equal(gi, ci), "float64 decode ids differ"
+    assert score_err <= MT_SCORE_TOL64, score_err
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ids, scores = exe.run(dec, feed=dfeed, fetch_list=dfetch, scope=scope,
+                          training=False)
+    decode_ms = (time.perf_counter() - t0) * 1e3
+    assert ids.shape == (MT_DECODE_BATCH, MT_BEAM, MT_DECODE_STEPS)
+    assert np.isfinite(scores).all()
+    assert (scores[:, 0] >= scores[:, -1]).all(), scores
+    model_dir = tempfile.mkdtemp(prefix="mt_decode_")
+    try:
+        with scope_guard(scope):
+            static.io.save_inference_model(model_dir, ["src", "src_len"],
+                                           [dfetch[0]], exe,
+                                           main_program=dec)
+        with scope_guard(Scope()):
+            prog, feeds, fetches = static.io.load_inference_model(
+                model_dir, exe)
+            (ids2,) = exe.run(prog, feed={k: dfeed[k] for k in feeds},
+                              fetch_list=fetches, training=False)
+    finally:
+        shutil.rmtree(model_dir, ignore_errors=True)
+    assert np.array_equal(np.asarray(ids2).reshape(ids.shape), ids)
+    ended = float((ids[:, 0] == MT_EOS).any(axis=-1).mean())
+    print(f"mt decode, batch {MT_DECODE_BATCH}, beam {MT_BEAM}, "
+          f"{MT_DECODE_STEPS} steps, f32 on the card: {decode_ms:.2f} ms "
+          f"(wall, one run); best beam >= last beam in every row; "
+          f"{ended:.3f} of the best beams end in EOS; saved and loaded: "
+          f"ids equal {tag}")
+    summary = {"config": "machine_translation (test_book_seq2seq's GRU "
+                         "seq2seq at Fluid book ch. 08 widths): "
+                         "dictionaries 30000, word_dim 512, hidden 512, "
+                         f"Adam {MT_LR}, batch {batch}, sources 4-30, f32",
+               "agreement": agreement, "losses": losses, "step_ms": step_ms,
+               "target_tokens": tokens,
+               "target_tokens_per_s": tokens / step_ms * 1e3,
+               "forward_flops": flops, "bound_ms": bound,
+               "peak_gib": peak_gib,
+               "decode": {"float64_score_err": score_err,
+                          "ms": decode_ms, "best_beams_ended": ended}}
+    return summary, main, scope, feed, loss, dec, dfeed, dfetch
+
+
+def decode_profile(torch, dec, dfeed, dfetch, scope, tag, runs=3):
+    """Phase 21's decode: wall and device ms a decode run, the idle share
+    and top kernels, the launches a While iteration, and the condition
+    reads on the host (count and the seconds the host waited in them)."""
+    from paddle_tpu_torch.core.executor import Executor
+    from paddle_tpu_torch.ops import control_flow
+
+    exe = Executor()
+
+    def run(n):
+        for _ in range(n):
+            exe.run(dec, feed=dfeed, fetch_list=dfetch, scope=scope,
+                    training=False, return_numpy=False)
+        torch.cuda.synchronize()
+
+    run(1)
+    control_flow.reset_host_reads()
+    t0 = time.perf_counter()
+    run(runs)
+    wall = (time.perf_counter() - t0) / runs * 1e3
+    reads = dict(control_flow.host_reads)
+    brk = profile_device(torch, run, runs, top=10)
+    label = (f"mt decode run, batch {MT_DECODE_BATCH}, beam {MT_BEAM}, "
+             f"{MT_DECODE_STEPS} While iterations")
+    print_profile(label, brk, tag)
+    per_iter = brk["launches_per_step"] / MT_DECODE_STEPS
+    print(f"{label}: {brk['launches_per_step']:.0f} launches a run, "
+          f"{per_iter:.1f} a While iteration; condition reads on the host "
+          f"{reads['while'] / runs:.0f} a run ({reads['while_iterations'] / runs:.0f} "
+          f"iterations), the host waited {reads['wait_s'] / runs * 1e3:.3f} "
+          f"ms a run in them ({reads['wait_s'] / runs * 1e3 / wall:.3f} of "
+          f"the {wall:.3f} ms wall) {tag}")
+    brk.update(launches_per_iteration=per_iter,
+               condition_reads_per_run=reads["while"] / runs,
+               condition_wait_ms_per_run=reads["wait_s"] / runs * 1e3,
+               wall_ms_unprofiled=wall)
+    return brk
 
 
 def main(argv=None):
@@ -3063,6 +3717,29 @@ def main(argv=None):
 
     # 18. the book's word2vec: float64 card vs CPU, a scheduled SGD run
     results["word2vec"] = word2vec_training(torch, args.seed, tag)
+
+    # 19. the book's label_semantic_roles (db_lstm) at its width
+    t_seq = time.perf_counter()
+    results["srl"], srl_main, srl_scope, srl_feed, srl_loss = srl_training(
+        torch, args.seed, tag)
+
+    # 20. machine_translation at the book's widths, its While decode
+    (results["mt"], mt_main, mt_scope, mt_feed, mt_loss, dec, dfeed,
+     dfetch) = mt_training(torch, args.seed, tag)
+
+    # 21. where the sequence models' time goes
+    results["srl_breakdown"] = training_step_profile(
+        torch, srl_main, srl_scope, srl_feed, srl_loss, tag,
+        label=f"srl db_lstm train step, batch {SRL_BATCH}")
+    results["mt_breakdown"] = training_step_profile(
+        torch, mt_main, mt_scope, mt_feed, mt_loss, tag,
+        label=f"mt train step, batch {MT_BATCH}")
+    results["mt_decode_breakdown"] = decode_profile(
+        torch, dec, dfeed, dfetch, mt_scope, tag)
+    results["sequence_phases_s"] = time.perf_counter() - t_seq
+    print(f"phases 19-21: {results['sequence_phases_s']:.1f} s {tag}")
+    del srl_scope, mt_scope
+    torch.cuda.empty_cache()
 
     results["total_s"] = time.perf_counter() - t_start
     print(f"total: {results['total_s']:.1f} s {tag}")

@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 __all__ = ["normalize_dtype", "dtype_name", "numpy_dtype", "is_floating",
-           "device_dtype", "at_least_f32", "float16",
+           "device_dtype", "at_least_f32", "at_least_f32_dtype", "float16",
            "bfloat16", "float32", "float64", "int8", "uint8", "int16",
            "int32", "int64", "bool_"]
 
@@ -95,3 +95,10 @@ def at_least_f32(t):
     """`t` in float32, or as it is when float64: the arithmetic dtype of
     the ops that compute narrower floats in float32."""
     return t if t.dtype == float64 else t.float()
+
+
+def at_least_f32_dtype(*tensors):
+    """The arithmetic dtype of an op over `tensors` (None skipped):
+    float64 if any is float64, else float32 (`at_least_f32`'s rule)."""
+    return (float64 if any(t is not None and t.dtype == float64
+                           for t in tensors) else float32)

@@ -269,6 +269,19 @@ class Program:
     def current_block(self):
         return self.blocks[self._current_block_idx]
 
+    def _create_block(self, parent_idx=None):
+        """Open a sub-block (a control-flow body) under the current block
+        (or `parent_idx`) and make it current."""
+        parent = self._current_block_idx if parent_idx is None else parent_idx
+        b = Block(self, len(self.blocks), parent)
+        self.blocks.append(b)
+        self._current_block_idx = b.idx
+        return b
+
+    def _rollback(self):
+        """Close the current sub-block: its parent becomes current."""
+        self._current_block_idx = self.current_block().parent_idx
+
     @contextlib.contextmanager
     def op_role_guard(self, role):
         """Ops appended inside carry `role` (op_proto_maker.h OpRole)."""

@@ -20,8 +20,17 @@ are bound under the names the IR records (`w@GRAD`; zeros for a
 parameter the loss does not reach, as `jax.grad` gives), and the ops
 after it (regularization, clip, the optimizer's updates) run on detached
 values, so nothing that reaches the fetches or the new state carries
-the step's graph. Control-flow sub-blocks come with the control-flow
-ops (ROADMAP Queue 1 item 7).
+the step's graph.
+
+Control-flow ops (`while`, `conditional_block`, `scan`) run their
+sub-blocks through `ctx.run_subblock(idx, sub_env)`, as in the JAX
+package: the sub-block's ops run over the enclosing environment updated
+by `sub_env` (the carry, a step's inputs), so values the body only reads
+(weights, outer tensors) need no declaration. A sub-block's ops draw
+their randomness under the op index base `base + 1000 * (i + 1)` of the
+control-flow op at position `i`, the JAX package's numbering. The loops
+run eagerly on the host: `while` reads its condition once an iteration
+(ops/control_flow.py).
 """
 import torch
 
@@ -47,7 +56,12 @@ def run_ops(ops, block, env, seed, training, device, op_index_base=0):
     """Run a straight-line op list into env."""
     for i, op in enumerate(ops):
         impl = get_op(op.type)
-        ctx = OpContext(op.attrs, seed, training, op_index_base + i, device)
+        ctx = OpContext(op.attrs, seed, training, op_index_base + i, device,
+                        block=block)
+        if "sub_block" in op.attrs:
+            ctx.run_subblock = _subblock_runner(
+                block.program, env, seed, training, device,
+                op_index_base + 1000 * (i + 1))
         try:
             args = impl.gather_inputs(op, env)
             result = impl.fn(ctx, *args)
@@ -59,6 +73,16 @@ def run_ops(ops, block, env, seed, training, device, op_index_base=0):
         for n in op.output_names():
             env[n] = _maybe_stop_gradient(block, n, env[n])
     return env
+
+
+def _subblock_runner(program, env, seed, training, device, op_index_base):
+    """`run_subblock(idx, sub_env)` for a control-flow op run over `env`:
+    sub-block `idx` over {**env, **sub_env}, returning that environment."""
+    def run_subblock(idx, sub_env):
+        sub = program.blocks[idx]
+        return run_ops(sub.ops, sub, {**env, **sub_env}, seed, training,
+                       device, op_index_base)
+    return run_subblock
 
 
 def _find_autodiff(ops):

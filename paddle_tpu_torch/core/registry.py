@@ -34,6 +34,10 @@ _OP_MODULES = ("paddle_tpu_torch.ops.tensor", "paddle_tpu_torch.ops.random",
                "paddle_tpu_torch.ops.math", "paddle_tpu_torch.ops.nn",
                "paddle_tpu_torch.ops.metrics", "paddle_tpu_torch.ops.fused",
                "paddle_tpu_torch.ops.optimizer_ops",
+               "paddle_tpu_torch.ops.sequence", "paddle_tpu_torch.ops.rnn",
+               "paddle_tpu_torch.ops.control_flow",
+               "paddle_tpu_torch.ops.beam_search",
+               "paddle_tpu_torch.ops.loss",
                "paddle_tpu_torch.slim.quant_ops")
 _loaded = [False]
 
@@ -55,16 +59,28 @@ def op_generator(seed, op_index, device):
 
 class OpContext:
     """Per-op context handed to compute functions: attrs, the run's
-    randomness, the mode, and the device new tensors are made on."""
+    randomness, the mode, the device new tensors are made on, and for
+    control-flow ops the block being run and `run_subblock(idx, sub_env)`
+    (runs sub-block `idx` over the enclosing environment updated by
+    `sub_env` and returns the resulting environment).
 
-    __slots__ = ("attrs", "_seed", "training", "op_index", "device")
+    `device` is required: the caller names it (the Executor's device,
+    "meta" for shape inference), so no op context, a sub-block's
+    included, can fall back to another device."""
 
-    def __init__(self, attrs, seed, training, op_index, device=None):
+    __slots__ = ("attrs", "_seed", "training", "op_index", "device",
+                 "block", "run_subblock")
+
+    def __init__(self, attrs, seed, training, op_index, device, block=None,
+                 run_subblock=None):
+        enforce(device is not None, "OpContext needs a device")
         self.attrs = attrs
         self._seed = seed
         self.training = training
         self.op_index = op_index
-        self.device = torch.device(device or "cpu")
+        self.device = torch.device(device)
+        self.block = block
+        self.run_subblock = run_subblock
 
     def attr(self, name, default=None):
         return self.attrs.get(name, default)
@@ -75,6 +91,11 @@ class OpContext:
         enforce(self._seed is not None,
                 "op requested randomness but no seed was provided")
         return op_generator(self._seed, self.op_index, self.device)
+
+    def has_rng(self):
+        """False during shape inference (no run seed): a sampling op then
+        makes placeholder draws of the right shape."""
+        return self._seed is not None
 
 
 class _Slot:
@@ -181,6 +202,9 @@ _DYNAMIC_SHAPE_OPS = {
     "dpsgd", "nce", "while", "conditional_block", "scan", "tensor_array_write",
     "tensor_array_read", "autodiff",
 }
+#: the IR records no inferred shapes for these, as in the JAX package;
+#: the control-flow ops still evaluate on meta tensors through
+#: `abstract_eval(op, env, block)` (one body pass, both branches)
 
 
 def skips_inference(op_type):
@@ -203,11 +227,39 @@ def abstract_inputs(op_desc, block):
     return env, any_dynamic
 
 
-def abstract_eval(op_desc, env):
-    """Run the op on meta tensors → {output name: meta tensor}."""
+class _MetaEnv(dict):
+    """An environment of meta tensors that makes a missing name's value
+    from its VarDesc (a sub-block reads the enclosing block's vars)."""
+
+    def __init__(self, block, *args):
+        super().__init__(*args)
+        self.block = block
+
+    def __missing__(self, name):
+        desc = self.block.var(name).desc
+        enforce(desc.shape is not None and desc.dtype is not None,
+                "var %r has no static shape and dtype to evaluate on", name)
+        shape = tuple(_DYN_SENTINEL if d == -1 else d for d in desc.shape)
+        self[name] = torch.empty(shape, dtype=desc.dtype, device="meta")
+        return self[name]
+
+
+def abstract_eval(op_desc, env, block=None):
+    """Run the op on meta tensors → {output name: meta tensor}. Given the
+    op's `block`, a control-flow op evaluates its sub-blocks on meta
+    tensors too (reads of the enclosing block's vars come from their
+    VarDescs); no value is read."""
     impl = get_op(op_desc.type)
+    run_subblock = None
+    if block is not None:
+        from paddle_tpu_torch.core.lowering import run_ops
+
+        def run_subblock(idx, sub_env):
+            sub = block.program.blocks[idx]
+            return run_ops(sub.ops, sub, _MetaEnv(sub, {**env, **sub_env}),
+                           None, True, "meta")
     ctx = OpContext(op_desc.attrs, None, training=True, op_index=0,
-                    device="meta")
+                    device="meta", block=block, run_subblock=run_subblock)
     result = impl.fn(ctx, *impl.gather_inputs(op_desc, env))
     out_env = {}
     impl.bind_outputs(op_desc, out_env, result)

@@ -329,9 +329,17 @@ def _arg_min(ctx, x):
 @register_op("top_k", inputs=["X"], outputs=["Out", "Indices"])
 def _top_k(ctx, x):
     """top_k_op.cc: the k largest along the last dim, sorted, with int64
-    indices."""
-    vals, idx = torch.topk(x, ctx.attr("k", 1), dim=-1)
-    return vals, idx
+    indices; equal values in ascending index order (`top_k_lowest_index`)."""
+    return top_k_lowest_index(x, ctx.attr("k", 1))
+
+
+def top_k_lowest_index(x, k):
+    """(values, indices) of the k largest entries along x's last dim,
+    equal values in ascending index order, as `lax.top_k` orders them: a
+    stable descending sort (`torch.topk` promises no order among equal
+    values on CUDA)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
 
 
 @register_op("argsort", inputs=["X"], outputs=["Out", "Indices"])

@@ -1,11 +1,15 @@
 """Static-graph API — the fluid.layers + Program surface.
 
-Counterpart of paddle_tpu/static/ for the serving and static-training
-slices: the single-op builders (`common.py`), the layers (`nn.py`), the
-composite nets (`nets.py`), `LayerHelper`, `io` (save/load of inference
-models and persistables), `append_backward` / `gradients` and the LR
-schedulers (re-exported from `optimizer.lr`, as in `fluid.layers`).
-Control flow, RNNs, the sequence family and detection are later slices.
+Counterpart of paddle_tpu/static/: the single-op builders (`common.py`),
+the layers (`nn.py`), the composite nets (`nets.py`), `LayerHelper`,
+`io` (save/load of inference models and persistables),
+`append_backward` / `gradients`, the LR schedulers (re-exported from
+`optimizer.lr`, as in `fluid.layers`), control flow
+(`control_flow.py`: While, StaticRNN, DynamicRNN, cond, case, Switch),
+the recurrent layers, tensor arrays and beam-search steps (`rnn.py`),
+the structured losses (`losses.py`), the cell API (`rnn_api.py`) and
+the sequence builders (`extras.py`). Detection, distributions and the
+rest of `extras.py` are later slices.
 """
 from paddle_tpu_torch.core.ir import (  # noqa: F401
     Program, default_main_program, default_startup_program, program_guard,
@@ -25,3 +29,16 @@ from paddle_tpu_torch.static import nets  # noqa: F401,E402
 from paddle_tpu_torch.optimizer.lr import (  # noqa: F401,E402
     cosine_decay, exponential_decay, inverse_time_decay, linear_lr_warmup,
     natural_exp_decay, noam_decay, piecewise_decay, polynomial_decay)
+from paddle_tpu_torch.static.control_flow import (  # noqa: F401,E402
+    DynamicRNN, StaticRNN, Switch, While, case, cond, switch_case,
+)
+from paddle_tpu_torch.static.rnn import (  # noqa: F401,E402
+    array_read, array_write, beam_search, beam_search_decode, create_array,
+    dynamic_gru, dynamic_lstm, dynamic_lstmp, gru_unit, lstm_unit)
+from paddle_tpu_torch.static.losses import (  # noqa: F401,E402
+    crf_decoding, hsigmoid, linear_chain_crf, nce,
+    sampled_softmax_with_cross_entropy, warpctc)
+from paddle_tpu_torch.static.extras import *  # noqa: F401,F403,E402
+from paddle_tpu_torch.static.rnn_api import (  # noqa: F401,E402
+    RNNCell, GRUCell, LSTMCell, rnn, Decoder, BeamSearchDecoder,
+    dynamic_decode)

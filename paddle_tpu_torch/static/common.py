@@ -2,9 +2,9 @@
 
 Counterpart of paddle_tpu/static/common.py (the reference's layers/ops.py,
 layers/tensor.py and math_op_patch.py): thin wrappers over
-`LayerHelper.append_simple`, every builder of the JAX package's module
-but `sequence_conv`, `sequence_pool` and `sequence_mask`, which come
-with the sequence family (ROADMAP Queue 1 item 7). A builder appends
+`LayerHelper.append_simple`, every builder of the JAX package's module.
+The sequence builders (`sequence_mask`, `sequence_conv`,
+`sequence_pool`) take the dense [B, T, ...] + lengths form. A builder appends
 the same op types, slot names and attrs as its JAX twin, so a program
 built in either package is the same program.
 """
@@ -41,7 +41,8 @@ __all__ = ["relu", "sigmoid", "tanh", "exp", "log", "sqrt", "rsqrt",
            "fill_constant_batch_size_like", "assign", "shape", "one_hot",
            "argmax", "argmin", "argsort", "where", "cumsum", "range",
            "linspace", "zeros", "ones", "zeros_like", "ones_like",
-           "increment", "eye", "diag", "uniform_random", "gaussian_random"]
+           "increment", "eye", "diag", "uniform_random", "gaussian_random",
+           "sequence_mask", "sequence_conv", "sequence_pool"]
 
 
 def _simple(op_type, inputs, attrs=None, n_out=1, dtype=None, out_slots=None):
@@ -290,6 +291,13 @@ logical_xor = _make_compare("logical_xor")
 
 def logical_not(x, name=None):
     return _simple("logical_not", {"X": x}, dtype="bool")
+
+
+def sequence_mask(x, maxlen=None, dtype="int64", name=None):
+    """lengths [B] → mask [B, maxlen] (maxlen must be static)."""
+    return _simple("sequence_mask", {"X": x},
+                   {"maxlen": maxlen, "out_dtype": _dt.dtype_name(dtype)},
+                   dtype=dtype, out_slots=["Y"])
 
 
 def isfinite(x, name=None):
@@ -636,3 +644,53 @@ def gaussian_random(shape, mean=0.0, std=1.0, seed=0, dtype="float32",
                     "seed": seed,
                     "dtype": _dt.dtype_name(_dt.normalize_dtype(dtype))},
                    dtype=dtype)
+
+
+def sequence_conv(input, num_filters, filter_size=3, filter_stride=1,
+                  padding=True, lengths=None, param_attr=None,
+                  bias_attr=None, act=None, name=None):
+    """sequence_conv over dense [B, T, D] (+ lengths): a context window of
+    filter_size around each step, one [filter_size * D, num_filters]
+    filter."""
+    helper = LayerHelper("sequence_conv")
+    d = input.shape[-1]
+    w = helper.create_parameter(param_attr, [filter_size * d, num_filters],
+                                input.dtype)
+    b = helper.create_parameter(bias_attr, [num_filters], input.dtype,
+                                is_bias=True)
+    inputs = {"X": input, "Filter": w}
+    if b is not None:
+        inputs["Bias"] = b
+    if lengths is not None:
+        inputs["Length"] = lengths
+    out = helper.create_tmp(dtype=input.dtype)
+    helper.append_op("sequence_conv", inputs, {"Out": out},
+                     {"context_length": filter_size})
+    if act:
+        out = _simple(act, {"X": out})
+    return out
+
+
+def sequence_pool(input, pool_type="max", lengths=None, is_test=False,
+                  name=None, _warn_missing_lengths=True):
+    """sequence_pool over dense [B, T, ...] + lengths. Without lengths
+    every row is full length T (a static T is then required), with a
+    warning: the reference's LoD input is mandatory."""
+    helper = LayerHelper("sequence_pool")
+    if lengths is None:
+        import warnings
+        if _warn_missing_lengths:
+            warnings.warn(
+                "sequence_pool called without lengths=: treating every "
+                "row as full length T (the reference's LoD input is "
+                "mandatory; pass lengths= for ragged batches)",
+                stacklevel=2)
+        b, t = input.shape[0], input.shape[1]
+        enforce(b is not None and b > 0 and t is not None and t > 0,
+                "sequence_pool without lengths= needs static batch AND "
+                "time dims (pass lengths otherwise)")
+        lengths = fill_constant([b], "int64", t)
+    out, _ = helper.append_simple(
+        {"X": input, "Length": lengths}, {"pooltype": pool_type.upper()},
+        n_out=2, out_slots=["Out", "MaxIndex"], op_type="sequence_pool")
+    return out

@@ -3,14 +3,14 @@
 Counterpart of paddle_tpu/static/nets.py (the reference's fluid/nets.py):
 `simple_img_conv_pool`, `img_conv_group` (the VGG block), `glu` and
 `scaled_dot_product_attention`, compositions over the layer library that
-build the same op sequences as the JAX package. `sequence_conv_pool`
-comes with the sequence family (ROADMAP Queue 1 item 7).
+build the same op sequences as the JAX package, and the text CNN block
+`sequence_conv_pool` over padded sequences.
 """
 from paddle_tpu_torch.static import common as _c
 from paddle_tpu_torch.static import nn as _nn
 
-__all__ = ["simple_img_conv_pool", "img_conv_group", "glu",
-           "scaled_dot_product_attention"]
+__all__ = ["simple_img_conv_pool", "img_conv_group", "sequence_conv_pool",
+           "glu", "scaled_dot_product_attention"]
 
 
 def simple_img_conv_pool(input, num_filters, filter_size, pool_size,
@@ -56,6 +56,18 @@ def img_conv_group(input, conv_num_filter, pool_size, conv_padding=1,
                 tmp = _nn.dropout(tmp, dropout_prob=rate)
     return _nn.pool2d(tmp, pool_size=pool_size, pool_type=pool_type,
                       pool_stride=pool_stride)
+
+
+def sequence_conv_pool(input, num_filters, filter_size, lengths=None,
+                       param_attr=None, act="sigmoid", pool_type="max",
+                       bias_attr=None):
+    """Text-CNN block over padded sequences [B, T, D] (+ lengths, which
+    also mask the pooling): sequence_conv, then sequence_pool."""
+    conv = _c.sequence_conv(input, num_filters=num_filters,
+                            filter_size=filter_size, lengths=lengths,
+                            param_attr=param_attr, bias_attr=bias_attr,
+                            act=act)
+    return _c.sequence_pool(conv, pool_type=pool_type, lengths=lengths)
 
 
 def glu(input, dim=-1):

@@ -5,9 +5,11 @@
   inference, slim and analysis subpackages among them) and
   `chip_smoke.py` imports, one CPU decode step runs, and a tiny static
   ResNet is built, saved and served by an int8 Predictor, a
-  fit_a_line program trains three Momentum steps, and the book's
+  fit_a_line program trains three Momentum steps, the book's
   word2vec (shared embedding, concat, reshape, fc) trains one Adam step
-  under `exponential_decay`, its LR counter advanced in the scope.
+  under `exponential_decay`, its LR counter advanced in the scope, and a
+  toy While beam decode (gru_unit, beam_search, array_write,
+  beam_search_decode) runs.
 * A source scan finds no import of jax or of the JAX package in the
   port or in chip_smoke.py.
 * `device=None` means CUDA: without a GPU the entry points raise
@@ -131,6 +133,45 @@ _BLOCKED_RUN = textwrap.dedent("""
     from paddle_tpu_torch.core.scope import global_scope
     assert np.isfinite(lv).all()
     assert float(global_scope().find_np("lr_global_step")[0]) == 1.0
+    # a toy While beam decode: gru_unit, beam_search, array_write,
+    # beam_search_decode, parameters read inside the sub-block
+    B, K, V, H = 2, 3, 7, 8
+    main, startup = ir.Program(), ir.Program()
+    with ir.program_guard(main, startup):
+        h = static.fill_constant([B * K, H], "float32", 0.1)
+        pre_ids = static.fill_constant([B, K], "int32", 1)
+        pre_scores = static.assign(np.array([[0.0] + [-1e9] * (K - 1)] * B,
+                                            np.float32))
+        ids_arr = static.create_array(5, [B, K], "int32")
+        par_arr = static.create_array(5, [B, K], "int32")
+        base = static.reshape(static.range(0, B * K, K, "int32"), [B, 1])
+        i = static.fill_constant([1], "int64", 0)
+        n = static.fill_constant([1], "int64", 5)
+        cond = static.less_than(i, n)
+        w = static.While(cond)
+        with w.block():
+            emb = static.embedding(static.reshape(static.assign(pre_ids),
+                                                  [B * K, 1]), [V, 3 * H])
+            h_new, _, _ = static.gru_unit(emb, static.assign(h), 3 * H)
+            logits = static.reshape(static.fc(h_new, V), [B, K, V])
+            sel, sc, par = static.beam_search(
+                static.assign(pre_ids), static.assign(pre_scores), logits,
+                K, 2)
+            static.assign(static.array_write(sel, i, ids_arr), ids_arr)
+            static.assign(static.array_write(par, i, par_arr), par_arr)
+            static.assign(sel, pre_ids)
+            static.assign(sc, pre_scores)
+            static.assign(static.gather(h_new, static.reshape(
+                static.elementwise_add(par, base), [B * K])), h)
+            ni = static.increment(static.assign(i), value=1)
+            static.assign(ni, i)
+            static.assign(static.less_than(ni, n), cond)
+        sent, scores = static.beam_search_decode(ids_arr, par_arr,
+                                                 pre_scores, end_id=2)
+    exe.run(startup)
+    ids, sc = exe.run(main, fetch_list=[sent, scores])
+    assert ids.shape == (B, K, 5) and np.isfinite(sc).all()
+    assert (sc[:, 0] >= sc[:, -1]).all()
     assert not _build.build_info(), "a CPU step must not build kernels"
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "paddle_tpu"))

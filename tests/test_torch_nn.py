@@ -173,14 +173,33 @@ def test_add_bias_casts_to_the_activation_dtype():
     assert out.dtype == torch.bfloat16
 
 
+def _bf16_ulp(t):
+    """The spacing of bfloat16 (8 significant bits) at each |t|."""
+    mag = t.float().abs().clamp(min=torch.finfo(torch.bfloat16).tiny)
+    return torch.exp2(torch.floor(torch.log2(mag)) - 7)
+
+
 def test_linear_bf16_accumulates_in_f32_and_returns_bf16():
+    """A bf16 GEMM accumulates in f32 but in its own summation order, so
+    an f32 sum within rounding of a bf16 midpoint may round either way:
+    the result is held to one bf16 ulp of the f32-accumulated reference
+    (seeded inputs). A row whose 63 small terms vanish one by one against
+    1.0 in bf16 arithmetic pins the f32 accumulation itself."""
+    gen = torch.Generator().manual_seed(0)
     lin = tnn.Linear(64, 8, device="cpu")
-    lin.load_trainable({"weight": lin.weight.detach().to(torch.bfloat16)})
-    x = torch.randn(4, 64).to(torch.bfloat16)
+    lin.load_trainable({"weight": (0.2 * torch.randn(
+        64, 8, generator=gen)).to(torch.bfloat16)})
+    x = torch.randn(4, 64, generator=gen).to(torch.bfloat16)
     y = lin(x)
     assert y.dtype == torch.bfloat16
     want = (x.float() @ lin.weight.float()).to(torch.bfloat16)
-    torch.testing.assert_close(y, want, atol=0, rtol=0)
+    assert ((y.float() - want.float()).abs() <= _bf16_ulp(want)).all()
+    lin.load_trainable({"weight": torch.ones(64, 8, dtype=torch.bfloat16)})
+    row = torch.full((1, 64), 2.0 ** -9, dtype=torch.bfloat16)
+    row[0, 0] = 1.0
+    out = lin(row)
+    assert out.dtype == torch.bfloat16
+    assert (out.float() == 1.125).all(), out    # 1 + 63/512, rounded once
 
 
 @pytest.mark.parametrize("p", [0.1, 0.5])

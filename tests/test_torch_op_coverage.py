@@ -8,8 +8,9 @@ JAX package's, on the CPU.
   taking it off this list (ROADMAP Queue 1 item 7 carries the same
   list); an op that leaves the port, or a new reference op, fails here.
 * Every op type of paddle_tpu/ops/{tensor,math,nn,random,optimizer_ops,
-  metrics}.py is ported but `sync_batch_norm` (the collectives, Queue 1
-  item 15).
+  metrics,sequence,rnn,control_flow,beam_search,loss}.py is ported but
+  `sync_batch_norm` (the collectives, Queue 1 item 15): 210 of the
+  reference's 338 op types.
 """
 import importlib
 
@@ -20,13 +21,10 @@ from paddle_tpu_torch.core import registry as tregistry
 
 MISSING = {
     "amp.amp_ops": ["check_finite_and_unscale", "update_loss_scaling"],
-    "ops.beam_search": ["beam_search", "beam_search_decode"],
     "ops.collective": ["c_allgather", "c_allreduce_max", "c_allreduce_min",
         "c_allreduce_prod", "c_allreduce_sum", "c_alltoall", "c_broadcast",
         "c_comm_init", "c_gen_unique_id", "c_permute", "c_reducescatter",
         "c_sync_calc_stream", "c_sync_comm_stream"],
-    "ops.control_flow": ["conditional_block", "feed", "fetch", "scan",
-        "tensor_array_read", "tensor_array_write", "while"],
     "ops.ctr": ["cvm", "data_norm", "filter_by_instag",
         "positive_negative_pair"],
     "ops.detection": ["anchor_generator", "bipartite_match", "box_coder",
@@ -46,9 +44,6 @@ MISSING = {
         "fusion_seqpool_concat", "fusion_seqpool_cvm_concat",
         "fusion_squared_mat_sub", "fusion_transpose_flatten_concat",
         "switch_moe"],
-    "ops.loss": ["center_loss", "crf_decoding", "hinge_loss", "hsigmoid",
-        "linear_chain_crf", "modified_huber_loss", "nce",
-        "sampled_softmax_with_cross_entropy", "squared_l2_distance", "warpctc"],
     "ops.misc": ["add_position_encoding", "bilinear_tensor_product",
         "bpr_loss", "brelu", "clip_by_norm", "conv3d_transpose", "cos_sim",
         "crop_tensor", "ctc_greedy_decoder", "dice_loss", "edit_distance",
@@ -63,11 +58,6 @@ MISSING = {
         "thresholded_relu", "unfold", "uniform_random_batch_size_like",
         "unique", "unique_with_counts"],
     "ops.nn": ["sync_batch_norm"],
-    "ops.rnn": ["gru", "gru_unit", "lstm", "lstm_unit", "lstmp"],
-    "ops.sequence": ["im2sequence", "sequence_concat", "sequence_conv",
-        "sequence_erase", "sequence_expand", "sequence_mask", "sequence_pad",
-        "sequence_pool", "sequence_reverse", "sequence_slice",
-        "sequence_softmax", "sequence_topk_avg_pooling", "sequence_unpad"],
     "ops.text": ["chunk_eval", "conv_shift", "match_matrix_tensor",
         "pyramid_hash", "similarity_focus", "tree_conv", "var_conv_2d"],
     "ops.vision": ["affine_grid", "deformable_conv", "deformable_conv_v1",
@@ -78,7 +68,8 @@ MISSING = {
 
 #: the JAX package's op modules that this port covers in full
 FULL_FAMILIES = ("tensor", "math", "nn", "random", "optimizer_ops",
-                 "metrics")
+                 "metrics", "sequence", "rnn", "control_flow", "beam_search",
+                 "loss")
 
 
 def _slots(impl):
@@ -94,6 +85,8 @@ def test_port_op_is_a_reference_op_with_its_slots(op_type):
 
 
 def test_missing_reference_ops_equal_the_list():
+    assert len(tregistry.registered_ops()) == 210
+    assert len(jregistry.registered_ops()) == 338
     missing = set(jregistry.registered_ops()) - set(
         tregistry.registered_ops())
     listed = {op for ops in MISSING.values() for op in ops}

@@ -1,8 +1,11 @@
-"""The op corpus (`tests/test_ops_{tensor,math,nn,optimizer}.py`) run
-through the port's registry, on the CPU.
+"""The op corpus (`tests/test_ops_{tensor,math,nn,optimizer,sequence,
+rnn}.py`) run through the port's registry, on the CPU.
 
 One case for every `OpCase` of those files whose op type the port
-registers, each its own test:
+registers, each its own test (a case the JAX suite marks `slow` for its
+finite-difference gradients runs here unmarked: the gradient here is
+`jax.vjp`), and the sequence ops of `tests/test_ops_text.py`
+(`sequence_topk_avg_pooling`, `sequence_erase`):
 
 * forward: the case's inputs (numpy) through the port's registered
   function, against the case's numpy oracle at the corpus's own
@@ -24,17 +27,41 @@ import torch
 import test_ops_math
 import test_ops_nn
 import test_ops_optimizer
+import test_ops_rnn
+import test_ops_sequence
 import test_ops_tensor
+import test_ops_text
+from op_test import OpCase
 from paddle_tpu.core import registry as jregistry
 from paddle_tpu_torch.core import registry as tregistry
 
 FAMILIES = {"tensor": test_ops_tensor, "math": test_ops_math,
-            "nn": test_ops_nn, "optimizer": test_ops_optimizer}
-CASES = [(fam, case) for fam, mod in FAMILIES.items() for case in mod.CASES
-         if tregistry.has_op(case.op)]
-#: the corpus's op types the port leaves out: `im2sequence` belongs to
-#: the sequence family, `sync_batch_norm` waits for the collectives
-NOT_PORTED = {"im2sequence", "sync_batch_norm"}
+            "nn": test_ops_nn, "optimizer": test_ops_optimizer,
+            "sequence": test_ops_sequence, "rnn": test_ops_rnn}
+
+
+def _unwrap(case):
+    """An OpCase, also from inside a pytest.param."""
+    return case.values[0] if hasattr(case, "values") else case
+
+
+#: the sequence ops of the text corpus
+TEXT_CASES = [c for c in test_ops_text.CASES2
+              if c.op == "sequence_topk_avg_pooling"] + [
+    OpCase("sequence_erase",
+           {"X": np.array([[2, 0, 5, 2, 7], [9, 2, 2, 1, 4]], np.int64),
+            "Lengths": np.array([5, 3], np.int64)},
+           attrs={"tokens": [2, 0]},
+           oracle=lambda X, Lengths, attrs: (
+               np.array([[5, 7, 0, 0, 0], [9, 0, 0, 0, 0]]),
+               np.array([2, 1], np.int32)),
+           check_grad=False)]
+CASES = [(fam, _unwrap(case)) for fam, mod in FAMILIES.items()
+         for case in mod.CASES if tregistry.has_op(_unwrap(case).op)] + [
+    ("text", case) for case in TEXT_CASES]
+#: the corpus's op types the port leaves out: `sync_batch_norm` waits
+#: for the collectives
+NOT_PORTED = {"sync_batch_norm"}
 GRAD_RTOL = 1e-4
 
 
@@ -129,9 +156,11 @@ def _with(inputs, leaves, values):
 
 
 def test_corpus_op_types_are_ported():
-    want = {c.op for mod in FAMILIES.values() for c in mod.CASES}
-    assert {c.op for _, c in CASES} == want - NOT_PORTED
-    assert len(CASES) >= 170
+    want = {_unwrap(c).op for mod in FAMILIES.values() for c in mod.CASES}
+    assert {c.op for fam, c in CASES if fam != "text"} == want - NOT_PORTED
+    assert {c.op for c in TEXT_CASES} == {"sequence_topk_avg_pooling",
+                                          "sequence_erase"}
+    assert len(CASES) >= 200
 
 
 def _float_outputs(case, slots, got):
@@ -170,6 +199,12 @@ def _jax_side(case, np_in, slots, leaves, float_out, cots):
 @pytest.mark.parametrize("fam,case", CASES,
                          ids=[f"{f}-{c.name}" for f, c in CASES])
 def test_op_case(fam, case):
+    check_case(case)
+
+
+def check_case(case):
+    """The port's op against the case's oracle and the JAX op (forward)
+    and against jax.vjp (gradients), as set out above."""
     np_in = {k: [np.asarray(a) for a in v] if isinstance(v, (list, tuple))
              else np.asarray(v) for k, v in case.inputs.items()}
     t_in = {k: [_torch(a) for a in v] if isinstance(v, list) else _torch(v)
