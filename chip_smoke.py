@@ -234,15 +234,59 @@ Phases, each of which raises (exit code != 0) when its check fails:
     update; for the decode, launches a While iteration and the host's
     condition reads (count and the seconds the host waited in them).
 
+22. The flash kernels at the Transformer-big attention shapes (N=16,
+    D=64) against their plain version (`flash_case`), forward and
+    backward, f32 (TF32 off) and bf16, within FLASH_TOL, q and k / v
+    separate tensors (TRANSFORMER_FLASH_CASES): at B=32, self-attention
+    at T=250 with a padding bias (lengths in [16, 250]), causal
+    self-attention at T=231, cross-attention Tq=231 against Tk=250 with
+    the bias and Tq=48 against Tk=64; then every shape the main path
+    launches (self with the bias, causal, cross with the bias at 256 x
+    256, B=32, and 128 x 128, B=64; the decodes' 64 x 64, 48 x 48 and 48
+    x 64 at B=8); each case's forward and forward + backward timed
+    beside SDPA's.
+23. Transformer-big (d_model 1024, 16 heads, FFN 4096, 6 + 6 layers,
+    30000-word vocabularies; Vaswani et al. 2017) trained eagerly through
+    nn.TrainStep (momentum SGD) with attention_impl "flash", f32, TF32
+    off, on seeded synthetic pairs (lengths in [16, 256]) bucketed by
+    io.ragged.RaggedBatcher over bucket_boundaries(256): one warm-up and
+    3 timed steps on one batch of the 256 bucket at B=32, then of the
+    128 bucket at B=64; every step launches the f32 flash kernels 18
+    times forward and 18 backward (6 encoder self-, 6 decoder self- and
+    6 cross-attentions); per step wall ms, target tokens/s and peak
+    memory, per bucket a profiled step (device ms, idle share,
+    launches) beside the bound (6 x tokens x matmul parameters + the
+    attentions, at 67 TFLOP/s); losses finite, falling. (c) One step at
+    batch 4 from the same weights, card against the host CPU
+    (MT_BIG_CHECK): f32 through the flash kernels, float64 through the
+    plain attention, and as the gate's control the card's bf16 step
+    against the CPU's f32 one, which must fail the f32 gate. (d) One
+    bf16 step at B=32: finite loss, the bf16 flash kernels launched 18 +
+    18 times.
+24. The trained model's greedy decode (B=8, sources in the 64 bucket,
+    max_len 48) and beam search (K=4, B=2) through the flash kernels:
+    ids equal to the same decodes through the plain attention on the
+    card; the loops' host reads and the host's wait in them.
+25. The eager zoo at full width: resnet50() at batch 32, 224^2, NCHW and
+    NHWC from the same weights (the logits and the step's loss agree,
+    ZOO_LAYOUT_TOL; the loss after the step is printed); two steps
+    each (the second timed) of vgg16, MobileNetV1 and SE-ResNeXt-50 at
+    batch 16 and of DeepFM at its default config (26 slots x 10000 ids,
+    embedding 16, MLP 400^3) at batch 4096; the ResNet through
+    save_dygraph / load_dygraph bit-exact and through a TracedLayer
+    (torch.export) within TRACED_TOL of the eager eval forward.
+
 Then a `{"kernels": [...]}` line and, last, the device line
 `{"ok": true, "device": {...}}`. Every number is printed beside the
 card's name and power limit.
 
 Launch counters are reset just before each main-path phase (serving,
-training, int8 ResNet serving; phases 14 and 16-21 launch none of the
-kernels)
+training, int8 ResNet serving, Transformer-big training and decoding;
+phases 14, 16-21 and 25 launch none of the kernels)
 and read just after it, so launches made
-to compare kernels with their plain versions do not count; K6's two
+to compare kernels with their plain versions do not count; the flash
+lines' `launches` add phases 23-24's (the Transformer's) to phase 7's
+(BERT's), and their `launches_by_path` keeps the two apart; K6's two
 lines (decode route, chunk route) report phases 4 and 4' together, K7's two
 lines those of its three serving runs (phases 4a and 4b) together.
 
@@ -1174,31 +1218,64 @@ def flash_inputs(torch, dev, dtype, b, t, n, d, pad, mask_grad, seed):
     return qkv, dout, mask
 
 
-def flash_case(torch, tfa, dev, dtype, b, t, n, d, causal=False, pad=False,
-               rate=0.0, mask_grad=False, offset=0, seed=0):
+def attn_inputs(torch, dev, dtype, b, tq, tk, n, d, lengths, seed):
+    """The Transformer's attention inputs: q [B, Tq, N, D] and k, v [B,
+    Tk, N, D] as separate tensors (its separate projections), dO, and
+    with `lengths` [B] its key bias [B, 1, 1, Tk] (-1e9 on the keys at
+    and past each row's length), else None."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v = (torch.randn((b, t, n, d), generator=g, device=dev).to(dtype)
+               for t in (tq, tk, tk))
+    dout = torch.randn((b, tq, n, d), generator=g, device=dev).to(dtype)
+    mask = None
+    if lengths is not None:
+        keep = (torch.arange(tk, device=dev)[None, :]
+                < torch.as_tensor(lengths, device=dev)[:, None])
+        mask = ((1.0 - keep.float()) * -1e9).reshape(b, 1, 1, tk)
+    return dict(q=q, k=k, v=v, dout=dout, mask=mask)
+
+
+def flash_case(torch, tfa, dev, dtype, b, t, n, d, tk=None, lengths=None,
+               causal=False, pad=False, rate=0.0, mask_grad=False, offset=0,
+               seed=0):
     """Kernels and plain version on the same inputs: forward o and lse,
-    and dq/dk/dv (+dmask) from one backward. With `offset`, q, k, v are
-    views of a fused tensor that starts `offset` elements into its
-    buffer (rows not 16-byte aligned for an offset of one float).
-    Returns {output: (max abs err, relative err)}."""
-    qkv, dout, mask = flash_inputs(torch, dev, dtype, b, t, n, d, pad,
-                                   mask_grad, seed)
+    and dq/dk/dv (+dmask) from one backward. Without `tk`, q, k, v are
+    views of a fused [B, T, 3, N, D] tensor (BERT's) that starts `offset`
+    elements into its buffer (rows not 16-byte aligned for an offset of
+    one float); with `tk`, they are the Transformer's separate tensors,
+    q of T rows against Tk keys, under the key bias of `lengths`
+    (`attn_inputs`). Returns ({output: (max abs err, relative err)},
+    {kernel: launches of the kernel side}): one forward for o, one for
+    lse, one backward."""
+    if tk is None:
+        qkv, dout, mask = flash_inputs(torch, dev, dtype, b, t, n, d, pad,
+                                       mask_grad, seed)
+    else:
+        ins = attn_inputs(torch, dev, dtype, b, t, tk, n, d, lengths, seed)
+        dout, mask = ins["dout"], ins["mask"]
     seed_k = SEED_ATTN if rate else None
-    res = {}
+    res, launched = {}, {}
     for side in ("kernel", "plain"):
-        buf = torch.empty(qkv.numel() + offset, dtype=dtype, device=dev)
-        buf[offset:].copy_(qkv.reshape(-1))
-        buf.requires_grad_()
-        x = buf[offset:].view(qkv.shape)
-        m = mask.detach().clone().requires_grad_(mask_grad)
-        q, k, v = x[:, :, 0], x[:, :, 1], x[:, :, 2]
+        if tk is None:
+            buf = torch.empty(qkv.numel() + offset, dtype=dtype, device=dev)
+            buf[offset:].copy_(qkv.reshape(-1))
+            buf.requires_grad_()
+            x = buf[offset:].view(qkv.shape)
+            q, k, v = x[:, :, 0], x[:, :, 1], x[:, :, 2]
+        else:
+            q, k, v = (ins[key].detach().clone().requires_grad_()
+                       for key in "qkv")
+        m = (None if mask is None
+             else mask.detach().clone().requires_grad_(mask_grad))
         if side == "kernel":
+            before = dict(tfa.launch_counts)
             o = tfa.flash_attention(q, k, v, m, causal=causal,
                                     dropout_rate=rate, dropout_seed=seed_k,
                                     mask_grad=mask_grad)
             cfg = (causal, 1.0 / d ** 0.5, rate, seed_k)
+            bias = None if mask is None else mask.reshape(b, -1).contiguous()
             _, lse = tfa._launch_fwd(q.detach(), k.detach(), v.detach(),
-                                     mask.reshape(b, t).contiguous(), cfg)
+                                     bias, cfg)
             lse = lse.permute(0, 2, 1)[..., None]
         else:
             keep = (tfa.batch_keep_masks(SEED_ATTN, b, n, t, t, rate,
@@ -1207,10 +1284,17 @@ def flash_case(torch, tfa, dev, dtype, b, t, n, d, causal=False, pad=False,
                                              keep_masks=keep,
                                              return_lse=True)
         (o.float() * dout.float()).sum().backward()
-        grad = buf.grad[offset:].view(qkv.shape)
+        if side == "kernel":
+            launched = {kn: tfa.launch_counts[kn] - before[kn]
+                        for kn in tfa.launch_counts
+                        if tfa.launch_counts[kn] != before[kn]}
+        if tk is None:
+            grad = buf.grad[offset:].view(qkv.shape)
+            dq, dk, dv = grad[:, :, 0], grad[:, :, 1], grad[:, :, 2]
+        else:
+            dq, dk, dv = q.grad, k.grad, v.grad
         res[side] = {"o": o.detach(), "lse": lse.detach(),
-                     "dq": grad[:, :, 0], "dk": grad[:, :, 1],
-                     "dv": grad[:, :, 2]}
+                     "dq": dq, "dk": dk, "dv": dv}
         if mask_grad:
             res[side]["dmask"] = m.grad
     torch.cuda.synchronize()
@@ -1220,7 +1304,7 @@ def flash_case(torch, tfa, dev, dtype, b, t, n, d, causal=False, pad=False,
         diff = float((got - want).abs().max())
         assert bool(torch.isfinite(got).all()), f"{key}: non-finite values"
         out[key] = (diff, diff / max(float(want.abs().max()), 1e-30))
-    return out
+    return out, launched
 
 
 #: the kernels whose ptxas lines and SASS the build report checks: mangled
@@ -1439,12 +1523,9 @@ def check_flash(torch, tfa, seed, tag):
     ]
     kernels = {k: {"max_abs_err": 0.0, "cases": {}} for k in FLASH_KERNELS}
     for label, dtype, kw in cases:
-        before = dict(tfa.launch_counts)
-        errs = flash_case(torch, tfa, dev, dtype, seed=seed, **kw)
+        errs, launched = flash_case(torch, tfa, dev, dtype, seed=seed, **kw)
         names = FLASH_BF16 if dtype == bf16 else FLASH_F32
-        launched = {k for k in FLASH_KERNELS
-                    if tfa.launch_counts[k] != before[k]}
-        assert launched == set(names), (
+        assert set(launched) == set(names), (
             f"flash {label}: launched {sorted(launched)}, want {names}")
         tol = FLASH_TOL[str(dtype).split(".")[-1]]
         for kname in names:
@@ -3261,6 +3342,615 @@ def decode_profile(torch, dec, dfeed, dfetch, scope, tag, runs=3):
     return brk
 
 
+# ---------------------------------------------------------------------------
+# Fluid's dygraph mode: Transformer-big on the flash kernels, the eager zoo
+# ---------------------------------------------------------------------------
+
+#: phase 22: the Transformer-big attentions (N=16, D=64) as (label, B,
+#: Tq, Tk, causal, key bias): encoder self-attention with the padding
+#: bias, decoder self-attention (causal, no bias) and cross-attention
+#: with the bias; first ragged lengths (T = 250 and 231, Tq != Tk), then
+#: the shapes the main path launches (RaggedBatcher pads each batch to
+#: its bucket: 256 at B=32 and 128 at B=64 in phase 23; phase 24's
+#: encoder over the 64 bucket and its 48-token prefix, at B=8 in both
+#: decodes)
+TRANSFORMER_FLASH_CASES = (
+    ("self-pad", 32, 250, 250, False, True),
+    ("causal", 32, 231, 231, True, False),
+    ("cross-pad", 32, 231, 250, False, True),
+    ("decode", 32, 48, 64, False, True),
+    ("train self-pad", 32, 256, 256, False, True),
+    ("train causal", 32, 256, 256, True, False),
+    ("train cross-pad", 32, 256, 256, False, True),
+    ("train self-pad", 64, 128, 128, False, True),
+    ("train causal", 64, 128, 128, True, False),
+    ("train cross-pad", 64, 128, 128, False, True),
+    ("decode self-pad", 8, 64, 64, False, True),
+    ("decode causal", 8, 48, 48, True, False),
+    ("decode cross-pad", 8, 48, 64, False, True),
+)
+TRANSFORMER_HEADS, TRANSFORMER_HEAD_DIM = 16, 64
+#: phase 23: momentum SGD (the JAX package's TrainStep) on one batch
+#: per bucket; bucket -> batch size
+MT_BIG_LR = 0.05
+#: phase 23's synthetic pairs draw ids in [2, MT_BIG_VOCAB)
+MT_BIG_VOCAB = 30000
+MT_BIG_BUCKETS = {256: 32, 128: 64}
+MT_BIG_TIMED = 3
+#: phase 23's one step at batch 4 (the 32 bucket), card against the host
+#: CPU: the loss (relative) and each parameter's gradient, max |diff| of
+#: its tensor's max, floored at `floor` of the largest gradient (the key
+#: biases' exact gradient is 0, both sides hold rounding noise there):
+#: f32 through the flash kernels (their plain version on the CPU);
+#: float64 through the plain attention on both. The f32 gate's control,
+#: the card's bf16 step (the bf16 flash kernels) against the CPU's f32
+#: one, must read above `f32_grad`. On an H100 80GB HBM3 at 700 W the
+#: f32 step read 4.12e-6 (at a cross-attention's q weight) and the
+#: control 0.2; `f32_grad` is the power of ten at or above 10x the f32
+#: reading.
+MT_BIG_CHECK = dict(batch=4, bucket=32, f32_loss=1e-5, f32_grad=1e-4,
+                    f32_floor=1e-2, f64_loss=1e-12, f64_grad=1e-9,
+                    f64_floor=1e-6)
+#: phase 24: greedy decoding at B=8 of sources in the 64 bucket, beam
+#: search K=4 at B=2, 48 target tokens
+MT_DECODE = dict(greedy_batch=8, beam_batch=2, beam=4, bucket=64,
+                 max_len=48)
+#: phase 25: ResNet-50 NCHW against NHWC from the same weights (cuDNN
+#: picks other algorithms per layout): the first step's loss (relative)
+#: and the logits before it (of their max)
+ZOO_LAYOUT_TOL = dict(loss=1e-4, logits=1e-3)
+#: phase 25: a TracedLayer against the eager eval forward, of its max
+TRACED_TOL = 1e-5
+
+
+def attention_flops(b, n, tq, tk, d, causal):
+    """Forward FLOPs of one attention: QK^T and PV, halved for causal."""
+    f = 4 * b * n * tq * tk * d
+    return f // 2 if causal else f
+
+
+def transformer_lengths(rng, b, tk):
+    """Phase 22's key lengths: [B] drawn in [16, Tk], row 0 full."""
+    lengths = rng.randint(16, tk + 1, b)
+    lengths[0] = tk
+    return lengths
+
+
+def transformer_flash(torch, tfa, seed, tag, n=TRANSFORMER_HEADS,
+                      d=TRANSFORMER_HEAD_DIM, cases=TRANSFORMER_FLASH_CASES,
+                      copies=2, dev="cuda"):
+    """Phase 22. The flash kernels at the Transformer's shapes against
+    their plain version (`flash_case`: forward o and lse, backward dq,
+    dk, dv), f32 and bf16, within FLASH_TOL of the plain version's max;
+    then each case's forward and forward + backward timed beside SDPA's
+    on the same tensors."""
+    import torch.nn.functional as F
+    dev = torch.device(dev)
+    rng = np.random.RandomState(seed + 22)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        fwd_k, (bwd_k,) = tfa.KERNELS[dtype]
+        for label, b, tq, tk, causal, pad in cases:
+            lengths = transformer_lengths(rng, b, tk) if pad else None
+            errs, launched = flash_case(torch, tfa, dev, dtype, b, tq, n, d,
+                                        tk=tk, lengths=lengths,
+                                        causal=causal, seed=seed + tq + tk)
+            assert launched == {fwd_k: 2, bwd_k: 1}, (label, dname,
+                                                      launched)
+            errs = {k: r for k, (_, r) in errs.items()}
+            worst = max(errs.values())
+            sets = [attn_inputs(torch, dev, dtype, b, tq, tk, n, d, lengths,
+                                seed + 100 * i + tq + tk)
+                    for i in range(copies)]
+
+            def fwd(s):
+                return tfa.flash_attention(s["q"], s["k"], s["v"], s["mask"],
+                                           causal=causal)
+
+            def lib(s):
+                return F.scaled_dot_product_attention(
+                    s["q"].transpose(1, 2), s["k"].transpose(1, 2),
+                    s["v"].transpose(1, 2),
+                    attn_mask=(None if s["mask"] is None
+                               else s["mask"].to(dtype)), is_causal=causal)
+
+            def fwd_bwd(attn):
+                def run(s):
+                    x = [s[key].detach().requires_grad_() for key in "qkv"]
+                    o = attn(dict(s, q=x[0], k=x[1], v=x[2]))
+                    if o.shape[1] != tq:        # SDPA's [B, N, T, D]
+                        o = o.transpose(1, 2)
+                    return torch.autograd.grad(o, x, s["dout"])
+                return run
+
+            args = [(t,) for t in sets]
+            row = dict(
+                dtype=dname, b=b, tq=tq, tk=tk, causal=causal, pad=pad,
+                rel_err=errs, fwd_ms=timed_ms(torch, fwd, args),
+                sdpa_fwd_ms=timed_ms(torch, lib, args),
+                fwd_bwd_ms=timed_ms(torch, fwd_bwd(fwd), args),
+                sdpa_fwd_bwd_ms=timed_ms(torch, fwd_bwd(lib), args),
+                flops_fwd=attention_flops(b, n, tq, tk, d, causal))
+            out[f"{label} B={b} {tq}x{tk} {dname}"] = row
+            print(f"phase 22 {label} {dname} B={b} Tq={tq} Tk={tk} N={n} "
+                  f"D={d} causal={causal} pad={pad}: max rel err "
+                  f"{worst:.3g} (o {errs['o']:.3g}, lse {errs['lse']:.3g}, "
+                  f"dq {errs['dq']:.3g}, dk {errs['dk']:.3g}, dv "
+                  f"{errs['dv']:.3g}; tol {FLASH_TOL[dname]}); kernel fwd "
+                  f"{row['fwd_ms']:.5f} ms, fwd+bwd {row['fwd_bwd_ms']:.5f} "
+                  f"ms; SDPA fwd {row['sdpa_fwd_ms']:.5f} ms, fwd+bwd "
+                  f"{row['sdpa_fwd_bwd_ms']:.5f} ms {tag}")
+            assert worst <= FLASH_TOL[dname], (label, dname, errs)
+            del sets
+    torch.cuda.empty_cache()
+    return out
+
+
+def mt_pairs(seed, n, max_len=256, vocab=None):
+    """Seeded synthetic translation pairs: source lengths uniform in
+    [16, max_len], ids in [2, vocab); the target is a fixed permutation
+    of the reversed source (a learnable mapping); (src, trg_in, trg_out)
+    with trg_in = [BOS 0] + trg[:-1]."""
+    vocab = vocab or MT_BIG_VOCAB
+
+    def reader():
+        rng = np.random.RandomState(seed)
+        perm = rng.permutation(vocab - 2) + 2
+        for _ in range(n):
+            t = int(rng.randint(16, max_len + 1))
+            src = rng.randint(2, vocab, t).astype(np.int64)
+            trg = perm[src[::-1] - 2].astype(np.int64)
+            yield src, np.concatenate([[0], trg[:-1]]), trg
+    return reader
+
+
+def mt_bucket_batch(seed, bucket, batch, skip=0, n=4000):
+    """The (skip+1)-th batch of `batch` pairs whose source falls in
+    `bucket` of bucket_boundaries(256), from io.ragged.RaggedBatcher:
+    (src [B, T], src_len [B], trg_in [B, T], trg_out [B, T]) numpy, the
+    targets padded with 0 (the loss's pad id) to the same bucket."""
+    from paddle_tpu_torch.io import ragged
+    batcher = ragged.RaggedBatcher(mt_pairs(seed, n), batch,
+                                   ragged.bucket_boundaries(256),
+                                   ragged_indices=[0, 1, 2], drop_last=True)
+    found = (bt for bt in batcher() if bt[0].shape[1] == bucket)
+    for _ in range(skip):
+        next(found)
+    return next(found)
+
+
+def mt_flops(cfg, b, t):
+    """Training FLOPs of one Transformer step at [b, t] (source and
+    target): 6 x tokens x matmul parameters (the q/k/v/o projections,
+    the FFNs, the output projection) plus the 18 attentions (3 x their
+    forward; the decoder's causal ones halved)."""
+    h, f, v = cfg.d_model, cfg.ffn_dim, cfg.trg_vocab
+    enc = cfg.num_encoder_layers * (4 * h * h + 2 * h * f)
+    dec = cfg.num_decoder_layers * (8 * h * h + 2 * h * f)
+    matmul = 6 * b * t * (enc + dec + h * v)
+    n, d = cfg.num_heads, cfg.d_model // cfg.num_heads
+    attn = 3 * (cfg.num_encoder_layers * attention_flops(b, n, t, t, d, False)
+                + cfg.num_decoder_layers * (
+                    attention_flops(b, n, t, t, d, True)
+                    + attention_flops(b, n, t, t, d, False)))
+    return matmul + attn
+
+
+def _to(torch, batch, device):
+    return tuple(torch.from_numpy(np.asarray(a)).to(device) for a in batch)
+
+
+def mt_big_config():
+    """Phase 23's model: TransformerConfig.big() through the flash
+    kernels."""
+    import dataclasses
+
+    from paddle_tpu_torch.models.transformer import TransformerConfig
+    return dataclasses.replace(TransformerConfig.big(),
+                               attention_impl="flash")
+
+
+def grad_err(got, want, floor):
+    """max over the tensors of max |got - want| / max |want|, that max
+    floored at `floor` of the largest |want|; -> (error, its tensor)."""
+    top = max(float(w.abs().max()) for w in want.values())
+    errs = {k: float((got[k] - w).abs().max())
+            / max(float(w.abs().max()), floor * top)
+            for k, w in want.items()}
+    worst = max(errs, key=errs.get)
+    return errs[worst], worst
+
+
+def mt_step_check(torch, cfg, state, seed, tag, dev="cuda"):
+    """Phase 23(c). One step at batch 4 (the 32 bucket) from the same
+    weights on the card and on the host CPU: in f32 through the flash
+    kernels (the CPU's plain version) and in float64 through the plain
+    attention on both; then the card's bf16 step against the CPU's f32
+    one, the control that the f32 gradient gate must reject; gates
+    MT_BIG_CHECK."""
+    import dataclasses
+
+    from paddle_tpu_torch.models.transformer import Transformer
+    chk = MT_BIG_CHECK
+    batch = mt_bucket_batch(seed + 1, chk["bucket"], chk["batch"])
+
+    def step(impl, dt, where, dtype=None):
+        mcfg = dataclasses.replace(cfg, attention_impl=impl,
+                                   dtype=dtype or str(dt).split(".")[-1])
+        m = Transformer(mcfg, device=where).to(dt)
+        m.load_state_dict(state)
+        loss = m.loss(*_to(torch, batch, where))
+        loss.backward()
+        return float(loss.detach()), {k: p.grad.detach().to("cpu", dt)
+                             for k, p in m.named_parameters()}
+
+    out, f32_cpu = {}, None
+    for label, impl, dt, key in (
+            ("f32 flash", "flash", torch.float32, "f32"),
+            ("float64 plain", "xla", torch.float64, "f64"),
+            ("bf16 flash control", "flash", torch.float32, None)):
+        if key:
+            (lc, gc), (lh, gh) = (step(impl, dt, where)
+                                  for where in (dev, "cpu"))
+        else:   # the control: the card in bf16 against the CPU in f32
+            (lc, gc), (lh, gh) = step(impl, dt, dev, "bfloat16"), f32_cpu
+        if key == "f32":
+            f32_cpu = (lh, gh)
+        floor = chk[f"{key or 'f32'}_floor"]
+        gates = (chk[f"{key or 'f32'}_loss"], chk[f"{key or 'f32'}_grad"])
+        loss_err = abs(lc - lh) / abs(lh)
+        gerr, worst = grad_err(gc, gh, floor)
+        out[label] = dict(loss_card=lc, loss_cpu=lh, loss_rel_err=loss_err,
+                          grad_err=gerr, worst=worst, gates=gates)
+        print(f"phase 23(c) {label}, batch {chk['batch']} x "
+              f"{chk['bucket']}: loss card {lc:.9f} cpu {lh:.9f} (rel "
+              f"{loss_err:.3g}, gate {gates[0]}), gradient err {gerr:.3g} "
+              f"at {worst} (each of its tensor's max floored at {floor} "
+              f"of the largest; gate {gates[1]}"
+              f"{', must fail' if key is None else ''}) {tag}")
+        if key:
+            assert loss_err <= gates[0] and gerr <= gates[1], (label,
+                                                               out[label])
+        else:
+            assert gerr > gates[1], ("the f32 gate passes the bf16 step",
+                                     out[label])
+        del gc
+        torch.cuda.empty_cache()
+    return out
+
+
+def mt_big_training(torch, tfa, seed, tag, dev="cuda"):
+    """Phase 23. Transformer-big (TransformerConfig.big(): d_model 1024,
+    16 heads, FFN 4096, 6 + 6 layers, 30000-word vocabularies),
+    attention_impl "flash", f32 with TF32 off, trained by nn.TrainStep
+    (momentum SGD). One batch per bucket of bucket_boundaries(256) from
+    io.ragged.RaggedBatcher: the 256 bucket at B=32, then the 128 bucket
+    at B=64, each one warm-up step then MT_BIG_TIMED timed steps (the
+    flash launches of every step counted: 18 forward, 18 backward), then
+    one profiled step (device ms, idle share, launches). Then (c) the
+    card against the CPU at batch 4, and (d) one bf16 step at B=32.
+    Returns (results, the trained model, the flash launches of the timed
+    and warm-up steps)."""
+    import dataclasses
+
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.models.transformer import Transformer
+    cfg = mt_big_config()
+    nn.seed(seed)
+    t0 = time.perf_counter()
+    model = Transformer(cfg, device=dev)
+    init_s = time.perf_counter() - t0
+    state0 = {k: v.detach().to("cpu", copy=True)
+              for k, v in model.state_dict().items()}
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"phase 23: Transformer-big {cfg}, {n_params} parameters, init "
+          f"{init_s:.1f} s {tag}")
+    out = {"params": n_params, "buckets": {}}
+    # (c) first, from the initial weights
+    out["check"] = mt_step_check(torch, cfg, state0, seed, tag, dev)
+    step = nn.TrainStep(model, lambda m, *b: m.loss(*b), MT_BIG_LR, 0.9)
+    flash_launches = {k: 0 for k in FLASH_F32}
+    fk, bk = FLASH_F32
+    for bucket, bsz in MT_BIG_BUCKETS.items():
+        batch = _to(torch, mt_bucket_batch(seed, bucket, bsz), dev)
+        tokens = int((batch[3] != 0).sum())
+        flops = mt_flops(cfg, bsz, bucket)
+        bnd = flops / F32_FLOPS * 1e3
+        losses, rows = [], []
+        torch.cuda.reset_peak_memory_stats()
+        for i in range(1 + MT_BIG_TIMED):
+            before = dict(tfa.launch_counts)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = step(*batch)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            launched = {k: tfa.launch_counts[k] - before[k] for k in FLASH_F32}
+            assert launched == {fk: 18, bk: 18}, launched
+            for k in FLASH_F32:
+                flash_launches[k] += launched[k]
+            losses.append(float(loss))
+            if i:
+                rows.append(dict(wall_ms=wall, tokens_per_s=tokens / wall
+                                 * 1e3, flash=launched))
+        assert all(np.isfinite(losses)) and losses[-1] < losses[0], losses
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+        def run(k):
+            for _ in range(k):
+                step(*batch)
+            torch.cuda.synchronize()
+
+        before = dict(tfa.launch_counts)
+        prof = profile_device(torch, run, 1, top=8)
+        for k in FLASH_F32:
+            flash_launches[k] += tfa.launch_counts[k] - before[k]
+        res = dict(batch=bsz, bucket=bucket, target_tokens=tokens,
+                   losses=losses, steps=rows, peak_gib=peak, bound_ms=bnd,
+                   tflop=flops / 1e12, profile=prof)
+        out["buckets"][bucket] = res
+        for i, r in enumerate(rows):
+            print(f"phase 23 bucket {bucket} B={bsz} step {i + 1}: wall "
+                  f"{r['wall_ms']:.3f} ms, {r['tokens_per_s']:.1f} target "
+                  f"tokens/s, flash launches {r['flash'][fk]} forward + "
+                  f"{r['flash'][bk]} backward, peak {peak:.2f} GiB {tag}")
+        dms = ("not measured" if prof["step_device_ms"] is None else
+               f"{prof['step_device_ms']:.3f} ms, idle share "
+               f"{prof['device_idle_share']:.3f}")
+        print(f"phase 23 bucket {bucket} B={bsz}: profiled step wall "
+              f"{prof['step_wall_ms']:.3f} ms, device {dms}, "
+              f"{prof['launches_per_step']:.0f} launches; losses "
+              f"{' '.join(f'{v:.4f}' for v in losses)}; {flops / 1e12:.2f} "
+              f"TFLOP a step, bound {bnd:.3f} ms at 67 TFLOP/s {tag}")
+        print_profile(f"transformer-big step, bucket {bucket} B={bsz}",
+                      prof, tag)
+        del batch
+    # (d) one bf16 step at B=32: the bf16 flash kernels on the path
+    bcfg = dataclasses.replace(cfg, dtype="bfloat16")
+    bmodel = Transformer(bcfg, device=dev)
+    bmodel.load_state_dict(state0)
+    bstep = nn.TrainStep(bmodel, lambda m, *b: m.loss(*b), MT_BIG_LR, 0.9)
+    bucket, bsz = next(iter(MT_BIG_BUCKETS.items()))
+    batch = _to(torch, mt_bucket_batch(seed, bucket, bsz), dev)
+    before = dict(tfa.launch_counts)
+    t0 = time.perf_counter()
+    bl = float(bstep(*batch))
+    torch.cuda.synchronize()
+    bwall = (time.perf_counter() - t0) * 1e3
+    blaunch = {k: tfa.launch_counts[k] - before[k] for k in FLASH_BF16}
+    assert np.isfinite(bl) and blaunch == dict.fromkeys(FLASH_BF16, 18), (
+        bl, blaunch)
+    for k in FLASH_BF16:
+        flash_launches[k] = blaunch[k]
+    out["bf16"] = dict(loss=bl, wall_ms=bwall, flash=blaunch)
+    print(f"phase 23(d) bf16 step B={bsz} x {bucket}: loss {bl:.4f} (f32 "
+          f"step 1: {out['buckets'][bucket]['losses'][0]:.4f}), wall "
+          f"{bwall:.1f} ms "
+          f"(first bf16 call), flash launches {blaunch} {tag}")
+    del bmodel, bstep, batch, step
+    torch.cuda.empty_cache()
+    return out, model, flash_launches
+
+
+def mt_big_decode(torch, tfa, model, seed, tag, dev="cuda"):
+    """Phase 24. Greedy decoding (B=8, sources in the 64 bucket,
+    max_len 48) and beam search (K=4, B=2) of the trained
+    Transformer-big through the flash kernels, against the same decodes
+    through the plain attention on the card (the same weights): the ids
+    must be equal. Host reads of the decode loops and the host's wait in
+    them. Returns (results, flash launches)."""
+    import dataclasses
+
+    from paddle_tpu_torch.models import transformer as T
+    from paddle_tpu_torch.ops import beam_search as bs
+    dc = MT_DECODE
+    plain = T.Transformer(dataclasses.replace(model.cfg,
+                                              attention_impl="xla"),
+                          device=dev)
+    plain.load_state_dict(model.state_dict())
+    model.eval()
+    plain.eval()
+    src, src_len, _, _ = _to(torch, mt_bucket_batch(
+        seed + 2, dc["bucket"], dc["greedy_batch"]), dev)
+    x = torch.tensor([[0.0, 3.0, 1.0, 3.0], [2.0, 2.0, 2.0, -1.0]],
+                     device=dev)
+    assert torch.argmax(x, dim=-1).tolist() == [1, 0], "argmax tie order"
+    out = {}
+    launches = dict.fromkeys(FLASH_F32, 0)
+    for label, fn in (
+            ("greedy", lambda m: m.greedy_decode(src, src_len,
+                                                 max_len=dc["max_len"])),
+            ("beam", lambda m: m.beam_search_decode(
+                src[:dc["beam_batch"]], src_len[:dc["beam_batch"]],
+                max_len=dc["max_len"], beam_size=dc["beam"]))):
+        res = {}
+        for impl, m in (("flash", model), ("plain", plain)):
+            T.reset_host_reads()
+            bs.reset_host_reads()
+            before = dict(tfa.launch_counts)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ids = fn(m)
+            ids = ids[0] if isinstance(ids, tuple) else ids
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            reads = (T.host_reads["greedy_decode"] if label == "greedy"
+                     else bs.host_reads["beam_search"])
+            wait = (T.host_reads["wait_s"] if label == "greedy"
+                    else bs.host_reads["wait_s"])
+            res[impl] = dict(ids=ids.cpu(), wall_s=wall, host_reads=reads,
+                             wait_s=wait, flash={
+                                 k: tfa.launch_counts[k] - before[k]
+                                 for k in FLASH_F32})
+            if impl == "flash":
+                for k in FLASH_F32:
+                    launches[k] += res[impl]["flash"][k]
+        assert torch.equal(res["flash"]["ids"], res["plain"]["ids"]), label
+        assert res["flash"]["flash"][FLASH_F32[0]] > 0
+        assert res["plain"]["flash"][FLASH_F32[0]] == 0
+        f = res["flash"]
+        out[label] = dict(shape=tuple(f["ids"].shape), wall_s=f["wall_s"],
+                          plain_wall_s=res["plain"]["wall_s"],
+                          host_reads=f["host_reads"], wait_s=f["wait_s"],
+                          flash_launches=f["flash"][FLASH_F32[0]])
+        print(f"phase 24 {label} {tuple(f['ids'].shape)}: ids equal to the "
+              f"plain attention's; flash {f['wall_s'] * 1e3:.1f} ms, plain "
+              f"{res['plain']['wall_s'] * 1e3:.1f} ms; {f['host_reads']} "
+              f"host reads, the host waited {f['wait_s'] * 1e3:.3f} ms in "
+              f"them; {f['flash'][FLASH_F32[0]]} flash forward launches "
+              f"{tag}")
+    del plain
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def zoo_step(torch, model, loss_fn, args, lr=0.01):
+    """Two momentum-SGD steps of `model` (nn.TrainStep) on one batch:
+    (first loss, second loss, wall ms of the second step)."""
+    from paddle_tpu_torch import nn
+    step = nn.TrainStep(model, loss_fn, lr, 0.9)
+    first = float(step(*args))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    second = float(step(*args))
+    torch.cuda.synchronize()
+    return first, second, (time.perf_counter() - t0) * 1e3
+
+
+def eager_zoo(torch, seed, tag, image=224, resnet_batch=32, zoo_batch=16,
+              ctr_batch=4096, dev="cuda"):
+    """Phase 25. The eager vision and CTR zoo at full width on the card:
+    (a) resnet50() NCHW and NHWC from the same weights (filters OIHW ->
+    HWIO), the logits and loss before a step, then one step each;
+    (b) one step each of vgg16, MobileNetV1 and SE-ResNeXt-50; (c)
+    DeepFM at its default config; (d) save_dygraph / load_dygraph of the
+    ResNet, bit-exact; (e) a TracedLayer of the ResNet in eval mode
+    against the eager forward."""
+    import tempfile
+
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.models import deepfm, resnet, vision_zoo
+    F = nn.functional
+    rng = np.random.RandomState(seed + 25)
+    out = {}
+
+    def ce(logits, y):
+        return F.softmax_cross_entropy(logits, y).mean()
+
+    x = torch.from_numpy(rng.rand(resnet_batch, 3, image, image).astype(
+        np.float32)).to(dev)
+    y = torch.from_numpy(rng.randint(0, 1000, resnet_batch)).to(dev)
+    nn.seed(seed)
+    nchw = resnet.resnet50(device=dev)
+    nhwc = resnet.resnet50(data_format="NHWC", device=dev)
+    with torch.no_grad():
+        for (k, a), b in zip(nchw.state_dict().items(),
+                             nhwc.state_dict().values()):
+            b.copy_(a.permute(2, 3, 1, 0) if a.dim() == 4 else a)
+    state = {k: v.detach().clone() for k, v in nchw.state_dict().items()}
+    xh = x.permute(0, 2, 3, 1).contiguous()
+    with torch.no_grad():
+        l1, l2 = nchw(x), nhwc(xh)
+    logit_err = float((l1 - l2).abs().max()) / float(l1.abs().max())
+    loss1, after1, ms1 = zoo_step(torch, nchw, lambda m, a, b: ce(m(a), b),
+                                  (x, y))
+    loss2, after2, ms2 = zoo_step(torch, nhwc, lambda m, a, b: ce(m(a), b),
+                                  (xh, y))
+    loss_err = abs(loss1 - loss2) / abs(loss1)
+    after_err = abs(after1 - after2) / abs(after1)
+    out["resnet50"] = dict(logits_rel_err=logit_err, loss_nchw=loss1,
+                           loss_nhwc=loss2, loss_rel_err=loss_err,
+                           after_step_loss_rel_err=after_err,
+                           step_ms_nchw=ms1, step_ms_nhwc=ms2,
+                           images_per_s_nchw=resnet_batch / ms1 * 1e3,
+                           images_per_s_nhwc=resnet_batch / ms2 * 1e3)
+    print(f"phase 25(a) resnet50 batch {resnet_batch} x {image}^2: NHWC vs "
+          f"NCHW from the same weights: logits {logit_err:.3g} of max (gate "
+          f"{ZOO_LAYOUT_TOL['logits']}), step loss {loss1:.6f} vs "
+          f"{loss2:.6f} (rel {loss_err:.3g}, gate "
+          f"{ZOO_LAYOUT_TOL['loss']}), loss after the step {after1:.6f} vs "
+          f"{after2:.6f} (rel {after_err:.3g}); second step {ms1:.1f} ms "
+          f"NCHW, {ms2:.1f} ms NHWC ({resnet_batch / ms1 * 1e3:.1f} / "
+          f"{resnet_batch / ms2 * 1e3:.1f} images/s) {tag}")
+    assert logit_err <= ZOO_LAYOUT_TOL["logits"], logit_err
+    assert loss_err <= ZOO_LAYOUT_TOL["loss"], loss_err
+    del nhwc, xh
+    torch.cuda.empty_cache()
+    # (d) checkpoint round trip, (e) traced layer
+    with tempfile.TemporaryDirectory() as d:
+        path = nn.save_dygraph(nchw.state_dict(), os.path.join(d, "rn50"))
+        fresh = resnet.resnet50(device=dev)
+        params, _ = nn.load_dygraph(path)
+        fresh.set_state_dict(params)
+        exact = all(torch.equal(a, b) for a, b in zip(
+            nchw.state_dict().values(), fresh.state_dict().values()))
+        assert exact, "save_dygraph / load_dygraph changed a tensor"
+        del fresh
+        xe = x[:8]
+        t0 = time.perf_counter()
+        _, traced = nn.TracedLayer.trace(nchw, [xe])
+        traced.save_inference_model(os.path.join(d, "traced"))
+        loaded = nn.TracedLayer.load(os.path.join(d, "traced"))
+        trace_s = time.perf_counter() - t0
+        nchw.eval()
+        with torch.no_grad():
+            want = nchw(xe)
+        got = loaded(xe)
+        traced_err = float((got - want).abs().max()) / float(
+            want.abs().max())
+    out["resnet50"].update(checkpoint_bit_exact=exact,
+                           traced_rel_err=traced_err, trace_s=trace_s)
+    print(f"phase 25(d, e) resnet50: save_dygraph / load_dygraph "
+          f"bit-exact; TracedLayer (torch.export, saved and loaded, "
+          f"{trace_s:.1f} s) vs eager eval forward {traced_err:.3g} of max "
+          f"(gate {TRACED_TOL}) {tag}")
+    assert traced_err <= TRACED_TOL, traced_err
+    del nchw, loaded, traced, state
+    torch.cuda.empty_cache()
+    # (b) the vision zoo at batch 16
+    xs = x[:zoo_batch]
+    ys = y[:zoo_batch]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    for name, build, fwd in (
+            ("vgg16", lambda: vision_zoo.vgg16(image_size=image, device=dev),
+             lambda m, a: m(a, gen)),
+            ("mobilenet_v1", lambda: vision_zoo.MobileNetV1(device=dev),
+             lambda m, a: m(a)),
+            ("se_resnext50", lambda: vision_zoo.SEResNeXt(50, device=dev),
+             lambda m, a: m(a))):
+        m = build()
+        loss, _, ms = zoo_step(torch, m, lambda mm, a, b: ce(fwd(mm, a), b),
+                               (xs, ys))
+        assert np.isfinite(loss), (name, loss)
+        out[name] = dict(loss=loss, step_ms=ms,
+                         images_per_s=zoo_batch / ms * 1e3)
+        print(f"phase 25(b) {name} batch {zoo_batch} x {image}^2: loss "
+              f"{loss:.4f}, step {ms:.1f} ms ({zoo_batch / ms * 1e3:.1f} "
+              f"images/s) {tag}")
+        del m
+        torch.cuda.empty_cache()
+    del x, y, xs, ys
+    # (c) DeepFM at its default config
+    cfg = deepfm.DeepFMConfig()
+    m = deepfm.DeepFM(cfg, device=dev)
+    dense = torch.from_numpy(rng.rand(ctr_batch, cfg.dense_dim).astype(
+        np.float32)).to(dev)
+    ids = torch.from_numpy(rng.randint(0, cfg.vocab_per_slot, (
+        ctr_batch, cfg.num_slots))).to(dev)
+    labels = torch.from_numpy(rng.randint(0, 2, ctr_batch)).to(dev)
+    loss, _, ms = zoo_step(torch, m, lambda mm, *a: mm.loss(*a),
+                           (dense, ids, labels))
+    assert np.isfinite(loss), loss
+    out["deepfm"] = dict(loss=loss, step_ms=ms,
+                         examples_per_s=ctr_batch / ms * 1e3)
+    print(f"phase 25(c) deepfm {cfg}, batch {ctr_batch}: loss {loss:.4f}, "
+          f"step {ms:.2f} ms ({ctr_batch / ms * 1e3:.0f} examples/s) {tag}")
+    del m
+    torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3741,19 +4431,54 @@ def main(argv=None):
     del srl_scope, mt_scope
     torch.cuda.empty_cache()
 
+    # 22. the flash kernels at the Transformer's shapes
+    t_dy = time.perf_counter()
+    results["transformer_flash"] = transformer_flash(torch, tfa, args.seed,
+                                                     tag)
+
+    # 23. Transformer-big training through the flash kernels, the dygraph
+    # slice's main path (launch counts reset just before, read after)
+    tfa.reset_launch_counts()
+    results["transformer_big"], mt_model, mt_launches = mt_big_training(
+        torch, tfa, args.seed, tag)
+
+    # 24. its greedy and beam decodes against the plain attention's
+    results["transformer_decode"], dec_launches = mt_big_decode(
+        torch, tfa, mt_model, args.seed, tag)
+    del mt_model
+    torch.cuda.empty_cache()
+    dygraph = {k: mt_launches.get(k, 0) + dec_launches.get(k, 0)
+               for k in FLASH_KERNELS}
+    assert all(dygraph[k] > 0 for k in FLASH_KERNELS), dygraph
+    for k in FLASH_KERNELS:
+        kernels[k]["launches_by_path"] = {
+            "bert": kernels[k]["launches"], "transformer": dygraph[k]}
+        kernels[k]["launches"] += dygraph[k]
+    results["transformer_launches"] = dygraph
+    print(f"phases 23-24 flash launches (the kernels line's "
+          f"launches_by_path): {dygraph} {tag}")
+
+    # 25. the eager vision and CTR zoo at full width
+    results["eager_zoo"] = eager_zoo(torch, args.seed, tag)
+    results["dygraph_phases_s"] = time.perf_counter() - t_dy
+    print(f"phases 22-25: {results['dygraph_phases_s']:.1f} s {tag}")
+
     results["total_s"] = time.perf_counter() - t_start
     print(f"total: {results['total_s']:.1f} s {tag}")
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
-    line = {"kernels": [{k: kernels[name][k] for k in keys}
-                        for name in ("decode_attention",
-                                     "paged_decode_attention",
-                                     "paged_prefill_attention",
-                                     "quantized_paged_decode_attention",
-                                     "quantized_paged_prefill_attention")
-                        + FLASH_KERNELS + ("quantized_matmul",
-                                           "quantized_matmul_weight_only")]}
+    rows = []
+    for name in (("decode_attention", "paged_decode_attention",
+                  "paged_prefill_attention",
+                  "quantized_paged_decode_attention",
+                  "quantized_paged_prefill_attention")
+                 + FLASH_KERNELS + ("quantized_matmul",
+                                    "quantized_matmul_weight_only")):
+        rows.append({k: kernels[name][k] for k in keys})
+        if "launches_by_path" in kernels[name]:
+            rows[-1]["launches_by_path"] = kernels[name]["launches_by_path"]
+    line = {"kernels": rows}
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)

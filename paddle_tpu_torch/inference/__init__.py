@@ -4,22 +4,24 @@ Counterpart of paddle_tpu/inference/__init__.py (the reference's
 AnalysisPredictor + ZeroCopyRun, api/analysis_predictor.h:47, and
 AnalysisConfig):
 
-* `Config`: the model path and precision (float32, or int8 with
-  post-training quantization at load). `device=None` means the GPU;
+* `Config`: the model path and precision (float32, bfloat16 through
+  the AMP program rewrite at load, or int8 with post-training
+  quantization at load). `device=None` means the GPU;
   `disable_gpu()` selects the CPU, as in the reference API. The device is
   resolved when the predictor is created, which raises without a GPU
   unless the CPU was selected.
 * `Predictor`: loads a saved inference model into a private scope on its
   device, runs the export passes on old (un-optimized) artifacts, applies
-  the precision (int8: the freeze pass on a QAT model, PTQ with the
-  config's calibration loader otherwise) and serves
+  the precision (bfloat16: `amp.rewrite_program`; int8: the freeze pass
+  on a QAT model, PTQ with the config's calibration loader otherwise)
+  and serves
   `get_input_handle` / `run` / `get_output_handle`.
 * `create_predictor`, `Predictor.clone` (shares weights, private
   handles).
 
-Not ported in this slice, and raising NotImplementedError: bfloat16
-precision (the AMP rewrite), the native C++ engine, StableHLO export and
-the AOT bundle (ROADMAP Queue 1 item 9).
+Not ported in this slice, and raising NotImplementedError: the native
+C++ engine, StableHLO export and the AOT bundle (ROADMAP Queue 1 item
+9).
 """
 import numpy as np
 
@@ -31,6 +33,7 @@ __all__ = ["PrecisionType", "Config", "Predictor", "create_predictor"]
 
 class PrecisionType:
     Float32 = "float32"
+    Bfloat16 = "bfloat16"
     Int8 = "int8"
 
 
@@ -63,9 +66,9 @@ class Config:
         self.ir_optim = bool(flag)
 
     def enable_bfloat16(self):
-        raise NotImplementedError(
-            "bfloat16 predictors (the AMP program rewrite) are not ported "
-            "yet (ROADMAP Queue 1 item 9)")
+        """Serve in bfloat16: the AMP rewrite casts around the matmuls
+        and convolutions at load (parameters stay float32)."""
+        self.precision = PrecisionType.Bfloat16
 
     def enable_native_engine(self):
         raise NotImplementedError(
@@ -151,6 +154,10 @@ class Predictor:
         self._program._version += 1
 
     def _apply_precision(self):
+        if self.config.precision == PrecisionType.Bfloat16:
+            from paddle_tpu_torch.amp.decorator import rewrite_program
+            rewrite_program(self._program, dest_dtype="bfloat16")
+            return
         if self.config.precision != PrecisionType.Int8:
             return
         from paddle_tpu_torch import slim

@@ -13,13 +13,19 @@ layer from it (`layer_seeds`): the attention kernel's integer seed in
 [0, 2**23) and the seeds of the two hidden-dropout generators. The draws
 are torch's, not `jax.random`'s.
 
-`param_shardings` (the TP layout) waits for the parallel slice, and
-`remat=True` raises NotImplementedError.
+`remat=True` checkpoints each encoder layer (`torch.utils.checkpoint`,
+non-reentrant): its activations are recomputed in the backward. The
+recomputed forward draws the same dropout masks, since every mask comes
+from the layer's integer seeds (a generator made from a seed on the
+plain path, the counter hash in the flash kernels), so the gradients
+equal those without remat. `param_shardings` (the TP layout) waits for
+the parallel slice.
 """
 import math
 from dataclasses import dataclass
 
 import torch
+import torch.utils.checkpoint
 
 from paddle_tpu_torch import nn
 from paddle_tpu_torch.core.enforce import enforce
@@ -151,10 +157,6 @@ class Bert(nn.Layer):
     def __init__(self, cfg=None, device=None):
         cfg = cfg or BertConfig()
         super().__init__(dtype=cfg.dtype, device=device)
-        if cfg.remat:
-            raise NotImplementedError(
-                "BertConfig.remat (per-layer activation checkpointing) is "
-                "not ported yet")
         self.cfg = cfg
         h = cfg.hidden_size
         # mlm_bias first: the JAX trainable_dict lists a layer's own
@@ -188,7 +190,11 @@ class Bert(nn.Layer):
         seeds = (layer_seeds(rngs, len(self.layers)) if rngs is not None
                  else [None] * len(self.layers))
         for layer, s in zip(self.layers, seeds):
-            x = layer(x, mask, s)
+            if cfg.remat and torch.is_grad_enabled():
+                x = torch.utils.checkpoint.checkpoint(
+                    layer, x, mask, s, use_reentrant=False)
+            else:
+                x = layer(x, mask, s)
         return x
 
     def forward(self, input_ids, token_type_ids=None, attention_mask=None,

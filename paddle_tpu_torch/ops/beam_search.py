@@ -14,15 +14,35 @@ stable descending sort (`torch.topk` promises no order among equal
 values on CUDA; `ops.math.top_k_lowest_index`, also the `top_k` op's).
 Scores are float32, or float64 when the inputs are.
 """
+import time
+
 import torch
 
 from paddle_tpu_torch.core.dtypes import at_least_f32_dtype
 from paddle_tpu_torch.core.registry import register_op
 from paddle_tpu_torch.ops.math import top_k_lowest_index
 
-__all__ = ["NEG_INF", "beam_search", "tile_beam"]
+__all__ = ["NEG_INF", "beam_search", "tile_beam", "host_reads",
+           "reset_host_reads"]
 
 NEG_INF = -1e9
+
+#: the eager decoder's reads of `all(finished)` on the host and the
+#: seconds the host waited in them
+host_reads = {"beam_search": 0, "wait_s": 0.0}
+
+
+def reset_host_reads():
+    for k in host_reads:
+        host_reads[k] = type(host_reads[k])(0)
+
+
+def _all_finished(fin):
+    host_reads["beam_search"] += 1
+    t0 = time.perf_counter()
+    value = bool(fin.all())
+    host_reads["wait_s"] += time.perf_counter() - t0
+    return value
 
 
 def _prune_step(pre_logp, fin, logits, beam_size, eos_id):
@@ -76,7 +96,7 @@ def beam_search(step_fn, init_state, batch_size, beam_size, vocab_size,
     state = init_state
     offsets = torch.arange(B, device=dev)[:, None] * K
     t = 0
-    while t < max_len and not bool(fin.all()):
+    while t < max_len and not _all_finished(fin):
         logits, new_state = step_fn(tokens.reshape(B * K), state)
         tokens, logp, src = _prune_step(logp, fin, logits.reshape(B, K, -1),
                                         K, eos_id)

@@ -7,8 +7,8 @@ Bilinear, NumpyArrayInitializer). An initializer has two uses:
 * `op_spec(shape, dtype)` → (op type, attrs) of the one op it appends to
   a startup program — the static path, the same spec as the JAX package
   emits, so both packages build the same startup programs;
-* `init(tensor, generator)` fills a tensor in place from an explicit
-  `torch.Generator` — the eager layers (those that have one).
+* `init(tensor, generator)` fills a tensor in place as that op would,
+  from an explicit `torch.Generator` — the eager layers.
 
 Bilinear and NumpyArrayInitializer emit `assign_value` with the values
 in the attrs, computed on the host in numpy, as in the JAX package.
@@ -30,8 +30,28 @@ class Initializer:
         raise NotImplementedError
 
     def init(self, tensor, generator=None):
-        """Fill `tensor` in place; returns it."""
-        raise NotImplementedError
+        """Fill `tensor` in place as the startup op of `op_spec` would,
+        drawing from `generator`; returns it."""
+        op, attrs = self.op_spec(tuple(tensor.shape), tensor.dtype)
+        with torch.no_grad():
+            if op == "fill_constant":
+                return tensor.fill_(attrs["value"])
+            if op == "uniform_random":
+                return tensor.uniform_(attrs["min"], attrs["max"],
+                                       generator=generator)
+            if op == "gaussian_random":
+                return tensor.normal_(attrs["mean"], attrs["std"],
+                                      generator=generator)
+            if op == "truncated_gaussian_random":
+                mean, std = attrs["mean"], attrs["std"]
+                return torch.nn.init.trunc_normal_(
+                    tensor, mean, std, mean - 2 * std, mean + 2 * std,
+                    generator=generator)
+            if op == "assign_value":
+                return tensor.copy_(torch.tensor(
+                    attrs["values"], dtype=tensor.dtype).reshape(
+                        tensor.shape))
+        raise ValueError(f"unknown initializer op {op}")
 
     def _fan(self, shape):
         if len(shape) == 0:
@@ -54,10 +74,6 @@ class Constant(Initializer):
     def op_spec(self, shape, dtype):
         return "fill_constant", {"shape": list(shape), "value": self.value}
 
-    def init(self, tensor, generator=None):
-        with torch.no_grad():
-            return tensor.fill_(self.value)
-
 
 class Uniform(Initializer):
     def __init__(self, low=-1.0, high=1.0, seed=0):
@@ -75,10 +91,6 @@ class Normal(Initializer):
     def op_spec(self, shape, dtype):
         return "gaussian_random", {"shape": list(shape), "mean": self.loc,
                                    "std": self.scale, "seed": self.seed}
-
-    def init(self, tensor, generator=None):
-        with torch.no_grad():
-            return tensor.normal_(self.loc, self.scale, generator=generator)
 
 
 class TruncatedNormal(Initializer):

@@ -13,6 +13,12 @@ Bert (`bert_params_from_jax`, `bert_params_to_numpy`): the JAX model's
 `layers.i0.attn.qkv.weight`; the port's `Bert.state_dict()` has the same
 names and `[in, out]` layouts, so the mapping is by name.
 
+Eager layers (`layer_state_from_jax`, `layer_state_to_numpy`): a JAX
+`nn.Layer`'s parameters (`trainable_dict()`) and buffers (the rest of
+its `state_dict()`: batch norm's `mean` / `var`, the Transformer's `pe`,
+SpectralNorm's `u` / `v`) carry flat names that the port's layers share,
+with the same layouts, so both move by name.
+
 KV pools and state documents (`kv_from_numpy`, `kv_to_numpy`,
 `state_doc_to_jax`): the paged engines of both packages keep int8 or
 float8 e4m3 payloads with float32 scales. JAX's float8 arrays are
@@ -40,7 +46,8 @@ from paddle_tpu_torch.core.enforce import enforce
 from paddle_tpu_torch.core.places import resolve_device
 
 __all__ = ["params_from_jax", "params_to_numpy", "bert_params_from_jax",
-           "bert_params_to_numpy", "kv_from_numpy", "kv_to_numpy",
+           "bert_params_to_numpy", "layer_state_from_jax",
+           "layer_state_to_numpy", "kv_from_numpy", "kv_to_numpy",
            "state_doc_to_jax", "scope_from_jax", "scope_to_numpy"]
 
 _TOP = ("tok_emb", "pos_emb", "lnf_g", "lnf_b", "head")
@@ -103,6 +110,43 @@ def bert_params_to_numpy(module):
     `trainable_dict()` layout (bfloat16 values are exact in float32)."""
     return collections.OrderedDict(
         (name, _array(p)) for name, p in module.named_parameters())
+
+
+def layer_state_from_jax(flat_params, flat_buffers, module):
+    """Copy a JAX layer's {name: array} parameters and buffers into the
+    port's `module` in place, by name, each keeping the module's dtype
+    and device (bfloat16 arrays, as `ml_dtypes` gives them, go through
+    float32, which holds them exactly). The names must be exactly the
+    module's parameters and buffers. Returns the module."""
+    params = dict(module.named_parameters())
+    buffers = dict(module.named_buffers())
+    for kind, given, own in (("parameters", flat_params, params),
+                             ("buffers", flat_buffers, buffers)):
+        enforce(set(given) == set(own), "%s differ: JAX only %s, port only "
+                "%s", kind, sorted(set(given) - set(own)),
+                sorted(set(own) - set(given)))
+        with torch.no_grad():
+            for name, a in given.items():
+                a = np.asarray(a)
+                enforce(tuple(a.shape) == tuple(own[name].shape),
+                        "%s: JAX shape %s, port %s", name, a.shape,
+                        tuple(own[name].shape))
+                if a.dtype.name == "bfloat16":
+                    a = a.astype(np.float32)
+                own[name].copy_(torch.from_numpy(np.array(a, copy=True)))
+    return module
+
+
+def layer_state_to_numpy(module):
+    """The port's layer -> ({name: parameter}, {name: buffer}) as numpy
+    copies in their own dtypes (bfloat16 as float32), what a JAX layer's
+    `load_trainable` / `set_state_dict` take after jnp.asarray."""
+    def host(t):
+        t = t.detach().to("cpu")
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy().copy()
+
+    return ({k: host(p) for k, p in module.named_parameters()},
+            {k: host(b) for k, b in module.named_buffers()})
 
 
 def kv_from_numpy(arr, kv_dtype=None):

@@ -228,9 +228,18 @@ def test_layer_seeds_and_step_generator_are_deterministic():
 
 
 def test_remat_is_not_ported():
+    """remat=True, which raised until it was ported, now builds and
+    computes the same loss as remat=False (the gradients' equality is in
+    tests/test_torch_eager_models.py)."""
     cfg = dataclasses.replace(tbert.BertConfig.tiny(), remat=True)
-    with pytest.raises(NotImplementedError):
-        tbert.Bert(cfg, device="cpu")
+    model = tbert.Bert(cfg, device="cpu")
+    plain = tbert.Bert(tbert.BertConfig.tiny(), device="cpu")
+    plain.load_state_dict(model.state_dict())
+    ids, types, attn, labels, nsp = (torch.from_numpy(a).long() for a in
+                                     tbert.synthetic_batch(0, 2, 16, cfg))
+    losses = [m.pretrain_loss(ids, types, attn, labels, nsp).detach()
+              for m in (model, plain)]
+    assert float(losses[0]) == float(losses[1])
 
 
 def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):

@@ -7,9 +7,14 @@
   ResNet is built, saved and served by an int8 Predictor, a
   fit_a_line program trains three Momentum steps, the book's
   word2vec (shared embedding, concat, reshape, fc) trains one Adam step
-  under `exponential_decay`, its LR counter advanced in the scope, and a
+  under `exponential_decay`, its LR counter advanced in the scope, a
+  float16 AMP-decorated step runs with loss scaling, and a
   toy While beam decode (gru_unit, beam_search, array_write,
-  beam_search_decode) runs.
+  beam_search_decode) runs, and the dygraph slice runs eagerly: a tiny
+  Transformer trains a TrainStep and decodes (greedy and beam), a LeNet
+  goes through save_dygraph / load_dygraph and TracedLayer, an NHWC
+  ResNet, the zoo's blocks, DeepFM, the extension layers, the AMP
+  scaler, the grad clips and the ragged batcher take one call each.
 * A source scan finds no import of jax or of the JAX package in the
   port or in chip_smoke.py.
 * `device=None` means CUDA: without a GPU the entry points raise
@@ -110,6 +115,20 @@ _BLOCKED_RUN = textwrap.dedent("""
     losses = [float(exe.run(main, feed=feeder.feed(b), fetch_list=[cost])[0])
               for b in reader.batch(dataset.uci_housing.train(96), 32)()]
     assert len(losses) == 3 and losses[-1] < losses[0], losses
+    # static AMP: a float16 decorated Momentum step with loss scaling
+    from paddle_tpu_torch import amp
+    main, startup = ir.Program(), ir.Program()
+    with ir.program_guard(main, startup):
+        x = static.data("x", [13])
+        y = static.data("y", [1])
+        cost = static.mean(static.square_error_cost(static.fc(x, 1), y))
+        amp.decorate(optimizer.Momentum(0.01), dest_dtype="float16",
+                     init_loss_scaling=64.0).minimize(cost)
+    exe.run(startup)
+    (lv,) = exe.run(main, feed={"x": np.ones((4, 13), np.float32),
+                                "y": np.ones((4, 1), np.float32)},
+                    fetch_list=[cost])
+    assert np.isfinite(lv).all()
     # the book's word2vec: one Adam step under exponential_decay
     from paddle_tpu_torch.utils.param_attr import ParamAttr
     main, startup = ir.Program(), ir.Program()
@@ -172,6 +191,55 @@ _BLOCKED_RUN = textwrap.dedent("""
     ids, sc = exe.run(main, fetch_list=[sent, scores])
     assert ids.shape == (B, K, 5) and np.isfinite(sc).all()
     assert (sc[:, 0] >= sc[:, -1]).all()
+    # the dygraph slice: eager layers, models, checkpoints, AMP, ragged
+    import torch
+    from paddle_tpu_torch import amp, dygraph_grad_clip, nn as tnn
+    from paddle_tpu_torch.io import ragged
+    from paddle_tpu_torch.models import deepfm, lenet, resnet, vision_zoo
+    from paddle_tpu_torch.models.transformer import (
+        Transformer, TransformerConfig)
+    cfg = TransformerConfig.tiny()
+    cfg.attention_impl = "flash"
+    tm = Transformer(cfg, device="cpu")
+    src = torch.randint(2, 100, (2, 12))
+    src_len = torch.tensor([12, 7])
+    trg = torch.randint(2, 100, (2, 10))
+    step = tnn.TrainStep(tm, lambda m, *b: m.loss(*b), 0.01)
+    first = float(step(src, src_len, trg, trg))
+    assert float(step(src, src_len, trg, trg)) < first
+    assert tm.greedy_decode(src, src_len, max_len=5).shape == (2, 5)
+    seqs, _ = tm.beam_search_decode(src, src_len, max_len=4, beam_size=2)
+    assert seqs.shape == (2, 2, 4)
+    net = lenet.LeNet(device="cpu")
+    path = tnn.save_dygraph(net.state_dict(), tempfile.mkdtemp() + "/le")
+    params, _ = tnn.load_dygraph(path)
+    net.set_state_dict(params)
+    img = torch.rand(2, 1, 28, 28)
+    _, traced = tnn.TracedLayer.trace(net, [img])
+    assert traced([img]).shape == (2, 10)
+    rn = resnet.ResNet(50, 4, width=4, blocks=(1, 1), data_format="NHWC",
+                       device="cpu")
+    assert rn(torch.rand(2, 16, 16, 3)).shape == (2, 4)
+    mb = vision_zoo.MobileNetV1(4, scale=0.25, device="cpu")
+    assert mb(torch.rand(2, 3, 32, 32)).shape == (2, 4)
+    fm = deepfm.DeepFM(deepfm.DeepFMConfig.tiny(), device="cpu")
+    assert torch.isfinite(fm.loss(torch.rand(4, 4),
+                                  torch.randint(0, 100, (4, 8)),
+                                  torch.randint(0, 2, (4,))))
+    sn = tnn.SpectralNorm((4, 3), device="cpu")
+    tc = tnn.TreeConv(3, 2, device="cpu")
+    assert sn(torch.rand(4, 3)).shape == (4, 3)
+    assert tc(torch.rand(1, 3, 3), torch.tensor([[[1, 2], [1, 3]]])
+              ).shape == (1, 3, 2, 1)
+    scaler = amp.GradScaler(device="cpu")
+    grads, inf = scaler.unscale_and_update({"w": torch.ones(2)})
+    assert not bool(inf)
+    clip = dygraph_grad_clip.GradClipByGlobalNorm(1.0)
+    assert clip([("w", torch.ones(4))])[0][1].norm() <= 1.0 + 1e-6
+    batches = list(ragged.RaggedBatcher(
+        lambda: ((np.arange(n), n) for n in (3, 20, 5, 17)), 2,
+        ragged.bucket_boundaries(32))())
+    assert [b[0].shape for b in batches] == [(2, 16), (2, 32)]
     assert not _build.build_info(), "a CPU step must not build kernels"
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "paddle_tpu"))

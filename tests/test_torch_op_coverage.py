@@ -9,8 +9,10 @@ JAX package's, on the CPU.
   list); an op that leaves the port, or a new reference op, fails here.
 * Every op type of paddle_tpu/ops/{tensor,math,nn,random,optimizer_ops,
   metrics,sequence,rnn,control_flow,beam_search,loss}.py is ported but
-  `sync_batch_norm` (the collectives, Queue 1 item 15): 210 of the
-  reference's 338 op types.
+  `sync_batch_norm` (the collectives, Queue 1 item 15), and of ops/vision
+  and ops/text the two the eager extension layers run (`spectral_norm`,
+  `tree_conv`), and amp's two loss-scaling ops: 214 of the reference's
+  338 op types.
 """
 import importlib
 
@@ -20,7 +22,6 @@ from paddle_tpu.core import registry as jregistry
 from paddle_tpu_torch.core import registry as tregistry
 
 MISSING = {
-    "amp.amp_ops": ["check_finite_and_unscale", "update_loss_scaling"],
     "ops.collective": ["c_allgather", "c_allreduce_max", "c_allreduce_min",
         "c_allreduce_prod", "c_allreduce_sum", "c_alltoall", "c_broadcast",
         "c_comm_init", "c_gen_unique_id", "c_permute", "c_reducescatter",
@@ -59,10 +60,10 @@ MISSING = {
         "unique", "unique_with_counts"],
     "ops.nn": ["sync_batch_norm"],
     "ops.text": ["chunk_eval", "conv_shift", "match_matrix_tensor",
-        "pyramid_hash", "similarity_focus", "tree_conv", "var_conv_2d"],
+        "pyramid_hash", "similarity_focus", "var_conv_2d"],
     "ops.vision": ["affine_grid", "deformable_conv", "deformable_conv_v1",
         "deformable_psroi_pooling", "max_pool2d_with_index", "prroi_pool",
-        "psroi_pool", "spectral_norm", "spp", "unpool"],
+        "psroi_pool", "spp", "unpool"],
     "parallel.moe": ["moe_switch"],
 }
 
@@ -85,7 +86,7 @@ def test_port_op_is_a_reference_op_with_its_slots(op_type):
 
 
 def test_missing_reference_ops_equal_the_list():
-    assert len(tregistry.registered_ops()) == 210
+    assert len(tregistry.registered_ops()) == 214
     assert len(jregistry.registered_ops()) == 338
     missing = set(jregistry.registered_ops()) - set(
         tregistry.registered_ops())

@@ -4,8 +4,10 @@ rnn}.py`) run through the port's registry, on the CPU.
 One case for every `OpCase` of those files whose op type the port
 registers, each its own test (a case the JAX suite marks `slow` for its
 finite-difference gradients runs here unmarked: the gradient here is
-`jax.vjp`), and the sequence ops of `tests/test_ops_text.py`
-(`sequence_topk_avg_pooling`, `sequence_erase`):
+`jax.vjp`), the sequence ops of `tests/test_ops_text.py`
+(`sequence_topk_avg_pooling`, `sequence_erase`), and the two op types
+of `tests/test_ops_{vision,text}.py` that the eager extension layers run
+(`spectral_norm`, `tree_conv`):
 
 * forward: the case's inputs (numpy) through the port's registered
   function, against the case's numpy oracle at the corpus's own
@@ -31,6 +33,7 @@ import test_ops_rnn
 import test_ops_sequence
 import test_ops_tensor
 import test_ops_text
+import test_ops_vision
 from op_test import OpCase
 from paddle_tpu.core import registry as jregistry
 from paddle_tpu_torch.core import registry as tregistry
@@ -56,9 +59,15 @@ TEXT_CASES = [c for c in test_ops_text.CASES2
                np.array([[5, 7, 0, 0, 0], [9, 0, 0, 0, 0]]),
                np.array([2, 1], np.int32)),
            check_grad=False)]
+#: the layer ops of the vision and text corpora (nn.SpectralNorm,
+#: nn.TreeConv)
+LAYER_CASES = [("vision", _unwrap(c)) for c in test_ops_vision.CASES
+               if _unwrap(c).op == "spectral_norm"] + [
+    ("text", _unwrap(c)) for c in test_ops_text.CASES
+    if _unwrap(c).op == "tree_conv"]
 CASES = [(fam, _unwrap(case)) for fam, mod in FAMILIES.items()
          for case in mod.CASES if tregistry.has_op(_unwrap(case).op)] + [
-    ("text", case) for case in TEXT_CASES]
+    ("text", case) for case in TEXT_CASES] + LAYER_CASES
 #: the corpus's op types the port leaves out: `sync_batch_norm` waits
 #: for the collectives
 NOT_PORTED = {"sync_batch_norm"}
@@ -157,9 +166,12 @@ def _with(inputs, leaves, values):
 
 def test_corpus_op_types_are_ported():
     want = {_unwrap(c).op for mod in FAMILIES.values() for c in mod.CASES}
-    assert {c.op for fam, c in CASES if fam != "text"} == want - NOT_PORTED
+    assert {c.op for fam, c in CASES
+            if fam not in ("text", "vision")} == want - NOT_PORTED
     assert {c.op for c in TEXT_CASES} == {"sequence_topk_avg_pooling",
                                           "sequence_erase"}
+    assert sorted(c.op for _, c in LAYER_CASES) == [
+        "spectral_norm", "tree_conv", "tree_conv"]
     assert len(CASES) >= 200
 
 
