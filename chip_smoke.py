@@ -276,13 +276,40 @@ Phases, each of which raises (exit code != 0) when its check fails:
     save_dygraph / load_dygraph bit-exact and through a TracedLayer
     (torch.export) within TRACED_TOL of the eager eval forward.
 
+26. The detection ops at YOLOv3's full-width shapes (YoloConfig():
+    DarkNet-53, 80 classes, the COCO anchors; batch 8 at 608^2) and at
+    an FPN's (Mask R-CNN's P2, 200 x 272 x 256, 1024 rois): yolo_box on
+    the 19^2, 38^2 and 76^2 heads (255 channels), yolov3_loss with 50
+    ground-truth rows at each scale (1-50 real boxes an image),
+    multiclass_nms over their 22743 boxes x 80 classes (YOLO_NMS),
+    roi_align (7 x 7, sampling ratio 2, scale 1/4) and
+    generate_proposals (2000 before NMS, 1000 after, IoU 0.7), card
+    against the host CPU on seeded inputs: in float64 every continuous
+    output and gradient within DET_F64_TOL of its max, the discrete
+    ones equal; the f32 reading printed; each op timed in f32 (median
+    of 30, L2-cold) with its launches a call.
+27. YOLOv3 training at batch 8 x 608^2 (Fluid's Momentum 0.9, lr 1e-3,
+    L2Decay 5e-4 on the conv filters, as PaddleCV yolov3): (c) one step
+    at batch 2 x 320^2 card against CPU from the same seeded weights,
+    float64 loss and gradients gated (YOLO_CHECK), f32 printed; then
+    warm-up and timed steps on one seeded batch, losses finite and
+    falling; step wall ms, images/s, peak memory and a profiled step
+    (device ms, idle share, launches, top kernels).
+28. YOLOv3 `predict` (yolo_box + multiclass_nms, NMS top-k 400, keep
+    100, IoU 0.45, thresholds 0.005) at batch 8 x 608^2 in eval mode,
+    the batch norms' statistics set from a calibration batch
+    (`precise_bn`): p50 request ms over 10 requests, images/s, launches
+    and host reads (synchronising calls); float64 card against CPU at
+    batch 2, classes and rows equal, values within DET_F64_TOL. Phases
+    26-28 launch none of the kernels of the kernels line (asserted).
+
 Then a `{"kernels": [...]}` line and, last, the device line
 `{"ok": true, "device": {...}}`. Every number is printed beside the
 card's name and power limit.
 
 Launch counters are reset just before each main-path phase (serving,
 training, int8 ResNet serving, Transformer-big training and decoding;
-phases 14, 16-21 and 25 launch none of the kernels)
+phases 14, 16-21 and 25-28 launch none of the kernels)
 and read just after it, so launches made
 to compare kernels with their plain versions do not count; the flash
 lines' `launches` add phases 23-24's (the Transformer's) to phase 7's
@@ -3951,6 +3978,455 @@ def eager_zoo(torch, seed, tag, image=224, resnet_batch=32, zoo_batch=16,
     return out
 
 
+#: phases 26-28: YOLOv3 at YoloConfig() (DarkNet-53, 80 classes, the COCO
+#: anchors and masks; Redmon & Farhadi 2018) with the training and NMS
+#: settings of the Fluid models repo's PaddleCV/yolov3/config.py
+YOLO_IMAGE, YOLO_BATCH, YOLO_MAX_BOXES = 608, 8, 50
+YOLO_LR, YOLO_MOMENTUM, YOLO_L2 = 1e-3, 0.9, 5e-4
+YOLO_NMS = dict(score_threshold=0.005, nms_top_k=400, keep_top_k=100,
+                nms_threshold=0.45)
+YOLO_WARMUP, YOLO_TIMED, YOLO_REQUESTS = 2, 4, 10
+#: phase 27(c): one step at batch 2 x 320^2 (a published YOLOv3 input
+#: size), card against the host CPU: float64 gates on the loss
+#: (relative) and each gradient (of its tensor's max, floored at `floor`
+#: of the largest)
+YOLO_CHECK = dict(batch=2, image=320, loss=1e-12, grad=1e-9, floor=1e-6)
+#: phase 26: float64 card against CPU, each continuous output of its max
+DET_F64_TOL = 1e-9
+#: phase 26's FPN widths: Mask R-CNN's P2 level (stride 4) of an
+#: 800 x 1088 input, 512 sampled rois an image, 7 x 7 bins
+FPN_FEAT, FPN_ROIS, FPN_IM = (2, 256, 200, 272), 512, (800, 1088)
+
+
+def run_op(torch, name, args, attrs, dev):
+    """One op of the port's registry, called as the Executor calls it."""
+    from paddle_tpu_torch.core.registry import OpContext, get_op
+    return get_op(name).fn(OpContext(attrs, None, True, 0, dev), *args)
+
+
+def yolo_gt(rng, batch, max_boxes=YOLO_MAX_BOXES, classes=80):
+    """Synthetic ground truth: 1..max_boxes boxes an image as normalized
+    (cx, cy, w, h) inside the image, then zero rows (yolov3_loss's
+    padding); labels in [0, classes)."""
+    box = np.zeros((batch, max_boxes, 4), np.float32)
+    label = np.zeros((batch, max_boxes), np.int32)
+    for i in range(batch):
+        k = rng.randint(1, max_boxes + 1)
+        wh = rng.uniform(0.02, 0.5, (k, 2))
+        box[i, :k] = np.concatenate([rng.uniform(wh / 2, 1 - wh / 2), wh], 1)
+        label[i, :k] = rng.randint(0, classes, k)
+    return box, label
+
+
+def detection_cases(torch, seed):
+    """Phase 26's cases: dicts of the op, its float64 numpy inputs, its
+    attrs, the input whose gradient is checked (or None) and the
+    outputs that must be equal, not close: {output: column or None}."""
+    from paddle_tpu_torch.models.yolov3 import YoloConfig
+    cfg = YoloConfig()
+    rng = np.random.RandomState(seed + 26)
+    n = YOLO_BATCH
+    img = np.full((n, 2), YOLO_IMAGE, np.int32)
+    gt_box, gt_label = yolo_gt(rng, n)
+    cases, boxes, scores = [], [], []
+    for hi, d in enumerate(cfg.downsamples):
+        s = YOLO_IMAGE // d
+        x = rng.randn(n, 255, s, s)
+        anchors = [cfg.anchors[2 * a + k] for a in cfg.anchor_masks[hi]
+                   for k in (0, 1)]
+        attrs = dict(anchors=anchors, class_num=cfg.num_classes,
+                     conf_thresh=0.005, downsample_ratio=d)
+        cases.append(dict(label=f"yolo_box {s}^2", op="yolo_box",
+                          inputs=[x, img], attrs=attrs, grad=None, exact={}))
+        b, sc = run_op(torch, "yolo_box", [torch.from_numpy(x),
+                                           torch.from_numpy(img)], attrs,
+                       "cpu")
+        boxes.append(b.numpy())
+        scores.append(sc.numpy())
+        cases.append(dict(
+            label=f"yolov3_loss {s}^2", op="yolov3_loss",
+            inputs=[x, gt_box.astype(np.float64), gt_label, None],
+            attrs=dict(anchors=list(cfg.anchors),
+                       anchor_mask=list(cfg.anchor_masks[hi]),
+                       class_num=cfg.num_classes,
+                       ignore_thresh=cfg.ignore_thresh, downsample_ratio=d,
+                       use_label_smooth=True),
+            grad=0, exact={1: None, 2: None}))
+    cases.append(dict(
+        label=f"multiclass_nms {sum(b.shape[1] for b in boxes)} x "
+              f"{cfg.num_classes}", op="multiclass_nms",
+        inputs=[np.concatenate(boxes, 1),
+                np.concatenate(scores, 1).transpose(0, 2, 1)],
+        attrs=dict(YOLO_NMS, background_label=-1), grad=None,
+        exact={0: 0}))
+    bsz, c, h, w = FPN_FEAT
+    feat = rng.randn(*FPN_FEAT)
+    wh = rng.uniform(16, 400, (bsz * FPN_ROIS, 2))
+    xy = rng.uniform(0, 1, (bsz * FPN_ROIS, 2)) * (
+        np.array(FPN_IM[::-1]) - wh)
+    rois = np.concatenate([np.repeat(np.arange(bsz), FPN_ROIS)[:, None],
+                           xy, xy + wh], 1)
+    cases.append(dict(label=f"roi_align {bsz * FPN_ROIS} rois",
+                      op="roi_align", inputs=[feat, rois, None],
+                      attrs=dict(pooled_height=7, pooled_width=7,
+                                 spatial_scale=0.25, sampling_ratio=2),
+                      grad=0, exact={}))
+    anchors, _ = run_op(torch, "anchor_generator",
+                        [torch.zeros((1, 1, h, w), dtype=torch.float64)],
+                        dict(anchor_sizes=[32.0], aspect_ratios=[0.5, 1.0,
+                                                                 2.0],
+                             stride=[4.0, 4.0]), "cpu")
+    cases.append(dict(
+        label=f"generate_proposals {h}x{w}x3", op="generate_proposals",
+        inputs=[rng.uniform(0, 1, (bsz, 3, h, w)),
+                0.1 * rng.randn(bsz, 12, h, w),
+                np.array([[*FPN_IM, 1.0]] * bsz), anchors.numpy(),
+                np.ones(anchors.shape)],
+        attrs=dict(pre_nms_topN=2000, post_nms_topN=1000, nms_thresh=0.7,
+                   min_size=0.0), grad=None, exact={1: None}))
+    return cases
+
+
+def det_run(torch, case, dev, dtype):
+    """The case's outputs (and, with a gradient input, that input's
+    gradient of sum(output 0 x cotangent) last) on `dev` in `dtype`."""
+    args = []
+    for a in case["inputs"]:
+        t = None if a is None else torch.from_numpy(np.asarray(a))
+        if t is not None and t.is_floating_point():
+            t = t.to(dtype)
+        args.append(None if t is None else t.to(dev))
+    g = case["grad"]
+    if g is not None:
+        args[g].requires_grad_(True)
+    with torch.enable_grad():
+        outs = run_op(torch, case["op"], args, case["attrs"], dev)
+        outs = list(outs) if isinstance(outs, (tuple, list)) else [outs]
+        if g is not None:
+            cot = torch.from_numpy(np.random.RandomState(0).uniform(
+                0.5, 1.5, tuple(outs[0].shape))).to(dev, outs[0].dtype)
+            outs.append(torch.autograd.grad((outs[0] * cot).sum(),
+                                            [args[g]])[0])
+    return [o.detach().to("cpu") for o in outs]
+
+
+def det_errors(got, want, exact):
+    """(max over outputs of max |got - want| / max |want|, whether every
+    `exact` part is equal in got's dtype, the fraction of its entries
+    that are)."""
+    err, equal, agree = 0.0, True, []
+    for i, (a, b) in enumerate(zip(got, want)):
+        if i in exact:
+            col = exact[i]
+            pa, pb = (a, b) if col is None else (a[..., col], b[..., col])
+            same = pa == pb.to(pa.dtype)
+            equal = equal and bool(same.all())
+            agree.append(float(same.double().mean()))
+        if b.is_floating_point():
+            scale = max(float(b.abs().max()), 1e-300)
+            err = max(err, float((a.double() - b.double()).abs().max())
+                      / scale)
+    return err, equal, (min(agree) if agree else 1.0)
+
+
+def detection_ops(torch, seed, tag, dev="cuda"):
+    """Phase 26. The detection ops at YOLOv3's full-width shapes and an
+    FPN's, card against the host CPU: in float64 every continuous output
+    (and gradient) within DET_F64_TOL of its max and the discrete ones
+    (NMS classes and row order, the objectness and match masks, the
+    proposals' scores) equal; the f32 reading beside it; each op timed
+    in f32 (median of 30, inputs L2-cold) with its launches a call."""
+    out = {}
+    for case in detection_cases(torch, seed):
+        label = case["label"]
+        t0 = time.perf_counter()
+        want = det_run(torch, case, "cpu", torch.float64)
+        cpu_s = time.perf_counter() - t0
+        got = det_run(torch, case, dev, torch.float64)
+        err, equal, _ = det_errors(got, want, case["exact"])
+        err32, _, agree32 = det_errors(det_run(torch, case, dev,
+                                               torch.float32), want,
+                                       case["exact"])
+        argsets = []
+        for _ in range(2):
+            a = [None if v is None else torch.from_numpy(np.asarray(v))
+                 for v in case["inputs"]]
+            argsets.append([None if t is None else
+                            t.to(dev, torch.float32 if t.is_floating_point()
+                                 else t.dtype) for t in a])
+
+        def call(*args):
+            return run_op(torch, case["op"], list(args), case["attrs"], dev)
+
+        ms = timed_ms(torch, call, argsets)
+        launches = sum(r["launches_per_call"]
+                       for r in kernel_rows(torch, call, argsets, calls=3))
+        row = dict(f64_err=err, f64_discrete_equal=equal, f32_err=err32,
+                   f32_discrete_agreement=agree32, ms=ms, launches=launches,
+                   cpu_reference_s=cpu_s, case_s=time.perf_counter() - t0)
+        extra = ""
+        if case["grad"] is not None:
+            g = case["grad"]
+
+            def fwd_bwd(*args):
+                args = list(args)
+                args[g] = args[g].detach().requires_grad_(True)
+                with torch.enable_grad():
+                    o = call(*args)
+                    o = o[0] if isinstance(o, (tuple, list)) else o
+                    return torch.autograd.grad(o.sum(), [args[g]])
+
+            row["fwd_bwd_ms"] = timed_ms(torch, fwd_bwd, argsets)
+            row["fwd_bwd_launches"] = sum(
+                r["launches_per_call"]
+                for r in kernel_rows(torch, fwd_bwd, argsets, calls=3))
+            extra = (f"; forward + backward {row['fwd_bwd_ms']:.3f} ms, "
+                     f"{row['fwd_bwd_launches']:.0f} launches")
+        out[label] = row
+        print(f"phase 26 {label}: float64 card vs CPU {err:.3g} of max (gate "
+              f"{DET_F64_TOL}), discrete outputs "
+              f"{'equal' if equal else 'DIFFER'}; f32 card vs float64 CPU "
+              f"{err32:.3g}, discrete agreement {agree32:.4f}; f32 "
+              f"{ms:.3f} ms (median of 30, L2-cold), {launches:.0f} "
+              f"launches a call{extra}; {row['case_s']:.1f} s, the CPU's "
+              f"float64 reference {cpu_s:.1f} s {tag}")
+        assert err <= DET_F64_TOL and equal, (label, row)
+        del argsets
+        torch.cuda.empty_cache()
+    return out
+
+
+def yolo_batch(torch, rng, batch, image, dev):
+    """Seeded images (uniform [0, 1)) and yolo_gt ground truth on `dev`."""
+    box, label = yolo_gt(rng, batch)
+    x = rng.rand(batch, 3, image, image).astype(np.float32)
+    return _to(torch, (x, box, label), dev)
+
+
+def yolo_step(torch, model, vel, batch):
+    """One training step: the loss, its backward, then Fluid's Momentum
+    (v = mu v + g; p -= lr v) with L2Decay (g += coeff p) on the conv
+    filters (PaddleCV yolov3 gives the batch norms' scale and offset and
+    the heads' biases L2Decay(0.)). Returns the loss, on the device."""
+    params = list(model.parameters())
+    for p in params:
+        p.grad = None
+    loss = model.loss(*batch)
+    loss.backward()
+    with torch.no_grad():
+        grads = [p.grad for p in params]
+        filters = [i for i, p in enumerate(params) if p.dim() == 4]
+        torch._foreach_add_([grads[i] for i in filters],
+                            [params[i] for i in filters], alpha=YOLO_L2)
+        torch._foreach_mul_(vel, YOLO_MOMENTUM)
+        torch._foreach_add_(vel, grads)
+        torch._foreach_add_(params, vel, alpha=-YOLO_LR)
+    return loss.detach()
+
+
+def yolo_copy(cfg, state, dev, dtype):
+    from paddle_tpu_torch.models.yolov3 import YOLOv3
+    m = YOLOv3(cfg, device=dev).to(dtype)
+    m.load_state_dict(state)
+    return m
+
+
+def yolo_step_check(torch, cfg, state, seed, tag, dev="cuda"):
+    """Phase 27(c). One step's loss and gradients at batch 2 x 320^2 from
+    the same weights on the card and on the host CPU (training mode):
+    float64 gated by YOLO_CHECK, float32 printed."""
+    chk = YOLO_CHECK
+    rng = np.random.RandomState(seed + 270)
+    box, label = yolo_gt(rng, chk["batch"])
+    x = rng.rand(chk["batch"], 3, chk["image"], chk["image"])
+    out = {}
+    for dt in (torch.float64, torch.float32):
+        res = []
+        for where in (dev, "cpu"):
+            m = yolo_copy(cfg, state, where, dt)
+            batch = _to(torch, (x, box, label), where)
+            loss = m.loss(batch[0].to(dt), *batch[1:])
+            loss.backward()
+            res.append((float(loss.detach()),
+                        {k: p.grad.detach().to("cpu", torch.float64)
+                         for k, p in m.named_parameters()}))
+            del m, loss
+        (lc, gc), (lh, gh) = res
+        loss_err = abs(lc - lh) / abs(lh)
+        gerr, worst = grad_err(gc, gh, chk["floor"])
+        name = str(dt).split(".")[-1]
+        out[name] = dict(loss_card=lc, loss_cpu=lh, loss_rel_err=loss_err,
+                         grad_err=gerr, worst=worst)
+        gate = (f"gates {chk['loss']}, {chk['grad']}" if dt == torch.float64
+                else "not gated")
+        print(f"phase 27(c) {name}, batch {chk['batch']} x {chk['image']}^2: "
+              f"loss card {lc:.12f} cpu {lh:.12f} (rel {loss_err:.3g}), "
+              f"gradient err {gerr:.3g} at {worst} (each of its tensor's "
+              f"max floored at {chk['floor']} of the largest; {gate}) {tag}")
+        if dt == torch.float64:
+            assert loss_err <= chk["loss"] and gerr <= chk["grad"], out[name]
+        del gc, gh
+        torch.cuda.empty_cache()
+    return out
+
+
+def yolo_training(torch, seed, tag, dev="cuda"):
+    """Phase 27. YOLOv3 at YoloConfig() trained at batch 8 x 608^2 (f32,
+    TF32 off) on one seeded batch (1-50 boxes an image): (c) first, one
+    step card against CPU; then YOLO_WARMUP + YOLO_TIMED steps, losses
+    finite and falling; step wall ms, images/s, peak memory; a profiled
+    step (device ms, idle share, launches, top kernels). Returns the
+    numbers and the seeded initial weights (phase 28's)."""
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.models.yolov3 import YOLOv3, YoloConfig
+    cfg = YoloConfig()
+    nn.seed(seed)
+    t0 = time.perf_counter()
+    model = YOLOv3(cfg, device=dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"phase 27: YOLOv3 {cfg}, {n_params} parameters, init "
+          f"{time.perf_counter() - t0:.1f} s {tag}")
+    state = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    out = {"params": n_params,
+           "check": yolo_step_check(torch, cfg, state, seed, tag, dev)}
+    batch = yolo_batch(torch, np.random.RandomState(seed + 27), YOLO_BATCH,
+                       YOLO_IMAGE, dev)
+    vel = [torch.zeros_like(p) for p in model.parameters()]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses = [yolo_step(torch, model, vel, batch)
+              for _ in range(YOLO_WARMUP)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses += [yolo_step(torch, model, vel, batch)
+               for _ in range(YOLO_TIMED)]
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / YOLO_TIMED * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = [float(v) for v in losses]
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0], losses
+
+    def train(k):
+        for _ in range(k):
+            yolo_step(torch, model, vel, batch)
+        torch.cuda.synchronize()
+
+    brk = profile_device(torch, train, 2, top=8)
+    out.update(losses=losses, step_ms=step_ms,
+               images_per_s=YOLO_BATCH / step_ms * 1e3, peak_mem_gib=peak,
+               breakdown=brk)
+    print(f"phase 27 batch {YOLO_BATCH} x {YOLO_IMAGE}^2: losses "
+          f"{', '.join(f'{v:.4f}' for v in losses)}; step {step_ms:.1f} ms "
+          f"wall ({YOLO_BATCH / step_ms * 1e3:.1f} images/s), peak memory "
+          f"{peak:.2f} GiB {tag}")
+    print_profile(f"yolov3 train step, batch {YOLO_BATCH} x {YOLO_IMAGE}^2",
+                  brk, tag)
+    print(f"  launches a step: {brk['launches_per_step']:.0f} {tag}")
+    del vel, batch, model
+    torch.cuda.empty_cache()
+    return out, state
+
+
+def precise_bn(torch, model, x):
+    """Set every batch norm's running statistics to those of the batch x
+    (one forward in training mode at momentum 0, Detectron's PreciseBN):
+    a few training steps leave them far from the weights' own, and the
+    eval-mode activations of 75 layers then grow past exp's range in the
+    box decode."""
+    from paddle_tpu_torch import nn
+    bns = [m for m in model.modules() if isinstance(m, nn.BatchNorm)]
+    saved = [b.momentum for b in bns]
+    for b in bns:
+        b.momentum = 0.0
+    model.train()
+    with torch.no_grad():
+        model(x)
+    for b, momentum in zip(bns, saved):
+        b.momentum = momentum
+    model.eval()
+
+
+def yolo_predict(torch, state, seed, tag, dev="cuda"):
+    """Phase 28. `predict` (yolo_box + multiclass_nms at YOLO_NMS) of
+    YOLOv3 at phase 27's seeded initial weights (a few training steps
+    teach it only that no cell holds an object: every objectness falls
+    under 0.005 and NMS keeps no row) in eval mode, its batch-norm
+    statistics those of a seeded calibration batch (`precise_bn`), at
+    batch 8 x 608^2: [8, 100, 6] finite, rows kept;
+    p50 request ms over YOLO_REQUESTS, images/s, launches, idle share and
+    the request's host reads (synchronising calls, counted by
+    torch.cuda.set_sync_debug_mode); then float64 card against CPU on the
+    same weights at batch 2, classes and row order equal and values
+    within DET_F64_TOL of their max, and the f32 rows' agreement."""
+    import warnings
+
+    from paddle_tpu_torch.models.yolov3 import YoloConfig
+    model = yolo_copy(YoloConfig(), state, dev, torch.float32)
+    rng = np.random.RandomState(seed + 28)
+    cal, x = (torch.from_numpy(rng.rand(YOLO_BATCH, 3, YOLO_IMAGE,
+                                        YOLO_IMAGE).astype(np.float32))
+              .to(dev) for _ in range(2))
+    precise_bn(torch, model, cal)
+    del cal
+    im = torch.full((YOLO_BATCH, 2), YOLO_IMAGE, dtype=torch.int32,
+                    device=dev)
+
+    def request(m=model, xs=x, ims=im):
+        with torch.no_grad():
+            return m.predict(xs, ims, **YOLO_NMS)
+
+    first = request()
+    torch.cuda.synchronize()
+    assert tuple(first.shape) == (YOLO_BATCH, 100, 6), first.shape
+    assert bool(torch.isfinite(first).all())
+    kept = int((first[..., 0] >= 0).sum())
+    assert kept > 0, "NMS kept no row"
+    torch.cuda.set_sync_debug_mode("warn")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        request()
+    torch.cuda.set_sync_debug_mode(0)
+    host_reads = sum("synchroniz" in str(w.message) for w in caught)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(YOLO_REQUESTS):
+        t0 = time.perf_counter()
+        request()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    p50 = float(np.median(times))
+
+    def serve(k):
+        for _ in range(k):
+            request()
+        torch.cuda.synchronize()
+
+    brk = profile_device(torch, serve, 2, top=8)
+    state = model.state_dict()
+    got, want = (request(yolo_copy(model.cfg, state, where,
+                                   torch.float64).eval(),
+                         x[:2].to(where, torch.float64), im[:2].to(where))
+                 .to("cpu") for where in (dev, "cpu"))
+    err, equal, _ = det_errors([got], [want], {0: 0})
+    _, _, agree32 = det_errors([first[:2].to("cpu")], [want], {0: 0})
+    out = dict(p50_request_ms=p50, images_per_s=YOLO_BATCH / p50 * 1e3,
+               host_reads=host_reads, breakdown=brk, f64_err=err,
+               f64_classes_equal=equal, f32_class_agreement=agree32,
+               kept_rows=kept)
+    print(f"phase 28 predict batch {YOLO_BATCH} x {YOLO_IMAGE}^2 "
+          f"({YOLO_NMS}): p50 {p50:.2f} ms over {YOLO_REQUESTS} requests "
+          f"({YOLO_BATCH / p50 * 1e3:.1f} images/s), "
+          f"{brk['launches_per_step']:.0f} launches a request, host reads "
+          f"{host_reads}, {out['kept_rows']} rows kept; float64 card vs "
+          f"CPU at batch 2: classes and rows "
+          f"{'equal' if equal else 'DIFFER'}, values {err:.3g} of max "
+          f"(gate {DET_F64_TOL}); f32 card vs float64 CPU class agreement "
+          f"{agree32:.4f} {tag}")
+    print_profile(f"yolov3 predict request, batch {YOLO_BATCH}", brk, tag)
+    assert equal and err <= DET_F64_TOL, out
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4462,6 +4938,22 @@ def main(argv=None):
     results["eager_zoo"] = eager_zoo(torch, args.seed, tag)
     results["dygraph_phases_s"] = time.perf_counter() - t_dy
     print(f"phases 22-25: {results['dygraph_phases_s']:.1f} s {tag}")
+
+    # 26-28. the detection ops and YOLOv3, which launch none of the
+    # kernels: every count stays 0
+    t_det = time.perf_counter()
+    for mod in (da, tfa, k8):
+        mod.reset_launch_counts()
+    results["detection_ops"] = detection_ops(torch, args.seed, tag)
+    results["yolov3_train"], yolo = yolo_training(torch, args.seed, tag)
+    results["yolov3_predict"] = yolo_predict(torch, yolo, args.seed, tag)
+    del yolo
+    torch.cuda.empty_cache()
+    counts = {**da.launch_counts, **tfa.launch_counts, **k8.launch_counts}
+    assert not any(counts.values()), counts
+    results["detection_phases_s"] = time.perf_counter() - t_det
+    print(f"phases 26-28: {results['detection_phases_s']:.1f} s (no kernel "
+          f"of the kernels line launched) {tag}")
 
     results["total_s"] = time.perf_counter() - t_start
     print(f"total: {results['total_s']:.1f} s {tag}")

@@ -39,6 +39,8 @@ _OP_MODULES = ("paddle_tpu_torch.ops.tensor", "paddle_tpu_torch.ops.random",
                "paddle_tpu_torch.ops.beam_search",
                "paddle_tpu_torch.ops.loss",
                "paddle_tpu_torch.ops.vision", "paddle_tpu_torch.ops.text",
+               "paddle_tpu_torch.ops.detection",
+               "paddle_tpu_torch.ops.detection_train",
                "paddle_tpu_torch.amp.amp_ops",
                "paddle_tpu_torch.slim.quant_ops")
 _loaded = [False]

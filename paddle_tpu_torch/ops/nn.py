@@ -181,9 +181,13 @@ def _square_error_cost(ctx, x, y):
 
 def stable_sigmoid_ce(logit, target):
     """max(x, 0) - x t + log1p(exp(-|x|)): the numerically stable sigmoid
-    cross-entropy."""
-    return (torch.clamp(logit, min=0) - logit * target
-            + torch.log1p(torch.exp(-torch.abs(logit))))
+    cross-entropy. At x = 0 exactly (a logit a batch norm over one value
+    makes) its gradient is the JAX package's, -t: jnp.maximum's
+    derivative there is 1/2 and jnp.abs's is 1."""
+    zero = torch.zeros((), dtype=logit.dtype, device=logit.device)
+    return (torch.maximum(logit, zero) - logit * target
+            + torch.log1p(torch.exp(-torch.where(logit >= 0, logit,
+                                                 -logit))))
 
 
 @register_op("conv2d_transpose", inputs=["Input", "Filter", "Bias?"],

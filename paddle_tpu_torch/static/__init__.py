@@ -7,9 +7,10 @@ the layers (`nn.py`), the composite nets (`nets.py`), `LayerHelper`,
 `optimizer.lr`, as in `fluid.layers`), control flow
 (`control_flow.py`: While, StaticRNN, DynamicRNN, cond, case, Switch),
 the recurrent layers, tensor arrays and beam-search steps (`rnn.py`),
-the structured losses (`losses.py`), the cell API (`rnn_api.py`) and
-the sequence builders (`extras.py`). Detection, distributions and the
-rest of `extras.py` are later slices.
+the structured losses (`losses.py`), the cell API (`rnn_api.py`), the
+sequence and vision builders (`extras.py`) and the detection layers
+(`detection.py`, also exported flat, as `fluid.layers` does).
+Distributions and the rest of `extras.py` are later slices.
 """
 from paddle_tpu_torch.core.ir import (  # noqa: F401
     Program, default_main_program, default_startup_program, program_guard,
@@ -42,3 +43,14 @@ from paddle_tpu_torch.static.extras import *  # noqa: F401,F403,E402
 from paddle_tpu_torch.static.rnn_api import (  # noqa: F401,E402
     RNNCell, GRUCell, LSTMCell, rnn, Decoder, BeamSearchDecoder,
     dynamic_decode)
+from paddle_tpu_torch.static import detection  # noqa: F401,E402
+from paddle_tpu_torch.static.detection import (  # noqa: F401,E402
+    anchor_generator, bipartite_match, box_clip, box_coder,
+    box_decoder_and_assign, collect_fpn_proposals, density_prior_box,
+    detection_map, detection_output, distribute_fpn_proposals,
+    generate_mask_labels, generate_proposal_labels, generate_proposals,
+    iou_similarity, multi_box_head, multiclass_nms,
+    polygon_box_transform, prior_box, retinanet_detection_output,
+    retinanet_target_assign, roi_align, roi_perspective_transform,
+    roi_pool, rpn_target_assign, sigmoid_focal_loss, ssd_loss,
+    target_assign, yolo_box, yolov3_loss)

@@ -14,13 +14,15 @@
   Transformer trains a TrainStep and decodes (greedy and beam), a LeNet
   goes through save_dygraph / load_dygraph and TracedLayer, an NHWC
   ResNet, the zoo's blocks, DeepFM, the extension layers, the AMP
-  scaler, the grad clips and the ragged batcher take one call each.
+  scaler, the grad clips and the ragged batcher take one call each, and
+  the detection slice runs: a tiny YOLOv3's loss and predict and a
+  static multi_box_head -> ssd_loss Momentum step.
 * A source scan finds no import of jax or of the JAX package in the
   port or in chip_smoke.py.
 * `device=None` means CUDA: without a GPU the entry points raise
   (`Executor()`, a Predictor from a default `Config`,
-  `weights.scope_from_jax`), and chip_smoke.py
-  exits non-zero without printing a result.
+  `weights.scope_from_jax`, `YOLOv3`, `DetectionMAP.eval`), and
+  chip_smoke.py exits non-zero without printing a result.
 """
 import ast
 import os
@@ -240,6 +242,43 @@ _BLOCKED_RUN = textwrap.dedent("""
         lambda: ((np.arange(n), n) for n in (3, 20, 5, 17)), 2,
         ragged.bucket_boundaries(32))())
     assert [b[0].shape for b in batches] == [(2, 16), (2, 32)]
+    # the detection slice: a tiny YOLOv3's loss and predict, a static
+    # multi_box_head -> ssd_loss step
+    from paddle_tpu_torch.models.yolov3 import YOLOv3, YoloConfig
+    yolo = YOLOv3(YoloConfig.tiny(), device="cpu")
+    gt = torch.zeros(1, 4, 4)
+    gt[0, :2] = torch.tensor([[0.3, 0.4, 0.2, 0.3], [0.7, 0.6, 0.4, 0.2]])
+    assert torch.isfinite(yolo.loss(torch.rand(1, 3, 32, 32), gt,
+                                    torch.zeros(1, 4, dtype=torch.int32)))
+    yolo.eval()
+    with torch.no_grad():
+        det = yolo.predict(torch.rand(1, 3, 32, 32),
+                           torch.tensor([[32, 32]], dtype=torch.int32))
+    assert det.shape == (1, 100, 6)
+    main, startup = ir.Program(), ir.Program()
+    with ir.program_guard(main, startup):
+        img = static.data("s_img", [2, 3, 32, 32], append_batch_size=False)
+        gtb = static.data("s_gtb", [2, 2, 4], append_batch_size=False)
+        gtl = static.data("s_gtl", [2, 2, 1], "int64",
+                          append_batch_size=False)
+        f1 = static.conv2d(img, 4, 3, padding=1, stride=8, act="relu")
+        f2 = static.conv2d(f1, 4, 3, padding=1, stride=2, act="relu")
+        f3 = static.conv2d(f2, 4, 3, padding=1, stride=2, act="relu")
+        locs, confs, box, var = static.multi_box_head(
+            [f1, f2, f3], img, base_size=32, num_classes=3,
+            aspect_ratios=[[2.0]] * 3, min_ratio=20, max_ratio=90,
+            flip=True)
+        loss = static.reduce_mean(static.ssd_loss(locs, confs, gtb, gtl,
+                                                  box, var))
+        optimizer.Momentum(0.01, 0.9).minimize(loss)
+    exe.run(startup)
+    gtb_v = np.tile(np.array([[0.2, 0.2, 0.6, 0.6], [0.5, 0.1, 0.9, 0.4]],
+                             np.float32), (2, 1, 1))
+    (lv,) = exe.run(main, feed={"s_img": np.random.rand(2, 3, 32, 32)
+                                .astype(np.float32), "s_gtb": gtb_v,
+                                "s_gtl": np.ones((2, 2, 1), np.int64)},
+                    fetch_list=[loss])
+    assert np.isfinite(lv).all()
     assert not _build.build_info(), "a CPU step must not build kernels"
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "paddle_tpu"))
@@ -307,6 +346,14 @@ def test_default_device_is_cuda_and_raises_without_it(monkeypatch):
         Executor()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         inference.create_predictor(inference.Config("unused_model_dir"))
+    from paddle_tpu_torch.models.yolov3 import YOLOv3, YoloConfig
+    from paddle_tpu_torch.utils.metrics import DetectionMAP
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        YOLOv3(YoloConfig.tiny())
+    det_map = DetectionMAP(class_num=2)
+    det_map.update([[[1, 0.9, 0, 0, 4, 4]]], [[[1, 0, 0, 4, 4]]])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        det_map.eval()
     assert Executor("cpu").device == torch.device("cpu")
     assert resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(ValueError):

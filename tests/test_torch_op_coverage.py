@@ -8,11 +8,11 @@ JAX package's, on the CPU.
   taking it off this list (ROADMAP Queue 1 item 7 carries the same
   list); an op that leaves the port, or a new reference op, fails here.
 * Every op type of paddle_tpu/ops/{tensor,math,nn,random,optimizer_ops,
-  metrics,sequence,rnn,control_flow,beam_search,loss}.py is ported but
-  `sync_batch_norm` (the collectives, Queue 1 item 15), and of ops/vision
-  and ops/text the two the eager extension layers run (`spectral_norm`,
-  `tree_conv`), and amp's two loss-scaling ops: 214 of the reference's
-  338 op types.
+  metrics,sequence,rnn,control_flow,beam_search,loss,detection,
+  detection_train,vision}.py is ported but `sync_batch_norm` (the
+  collectives, Queue 1 item 15), and of ops/text the one the eager
+  extension layers run (`tree_conv`), and amp's two loss-scaling ops:
+  249 of the reference's 338 op types.
 """
 import importlib
 
@@ -28,16 +28,6 @@ MISSING = {
         "c_sync_calc_stream", "c_sync_comm_stream"],
     "ops.ctr": ["cvm", "data_norm", "filter_by_instag",
         "positive_negative_pair"],
-    "ops.detection": ["anchor_generator", "bipartite_match", "box_coder",
-        "density_prior_box", "generate_proposals", "iou_similarity",
-        "multiclass_nms", "prior_box", "roi_align", "roi_pool", "ssd_loss",
-        "yolo_box", "yolov3_loss"],
-    "ops.detection_train": ["box_clip", "box_decoder_and_assign",
-        "collect_fpn_proposals", "detection_map", "distribute_fpn_proposals",
-        "generate_mask_labels", "generate_proposal_labels",
-        "polygon_box_transform", "retinanet_target_assign",
-        "roi_perspective_transform", "rpn_target_assign",
-        "sigmoid_focal_loss", "target_assign"],
     "ops.fused": ["attention_lstm", "fused_elemwise_activation",
         "fused_embedding_fc_lstm", "fused_embedding_seq_pool",
         "fused_fc_elementwise_layernorm", "fusion_gru", "fusion_lstm",
@@ -61,16 +51,13 @@ MISSING = {
     "ops.nn": ["sync_batch_norm"],
     "ops.text": ["chunk_eval", "conv_shift", "match_matrix_tensor",
         "pyramid_hash", "similarity_focus", "var_conv_2d"],
-    "ops.vision": ["affine_grid", "deformable_conv", "deformable_conv_v1",
-        "deformable_psroi_pooling", "max_pool2d_with_index", "prroi_pool",
-        "psroi_pool", "spp", "unpool"],
     "parallel.moe": ["moe_switch"],
 }
 
 #: the JAX package's op modules that this port covers in full
 FULL_FAMILIES = ("tensor", "math", "nn", "random", "optimizer_ops",
                  "metrics", "sequence", "rnn", "control_flow", "beam_search",
-                 "loss")
+                 "loss", "detection", "detection_train", "vision")
 
 
 def _slots(impl):
@@ -86,7 +73,7 @@ def test_port_op_is_a_reference_op_with_its_slots(op_type):
 
 
 def test_missing_reference_ops_equal_the_list():
-    assert len(tregistry.registered_ops()) == 214
+    assert len(tregistry.registered_ops()) == 249
     assert len(jregistry.registered_ops()) == 338
     missing = set(jregistry.registered_ops()) - set(
         tregistry.registered_ops())

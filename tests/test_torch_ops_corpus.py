@@ -1,13 +1,14 @@
 """The op corpus (`tests/test_ops_{tensor,math,nn,optimizer,sequence,
-rnn}.py`) run through the port's registry, on the CPU.
+rnn,detection,detection3,vision}.py`) run through the port's registry,
+on the CPU.
 
 One case for every `OpCase` of those files whose op type the port
 registers, each its own test (a case the JAX suite marks `slow` for its
 finite-difference gradients runs here unmarked: the gradient here is
 `jax.vjp`), the sequence ops of `tests/test_ops_text.py`
-(`sequence_topk_avg_pooling`, `sequence_erase`), and the two op types
-of `tests/test_ops_{vision,text}.py` that the eager extension layers run
-(`spectral_norm`, `tree_conv`):
+(`sequence_topk_avg_pooling`, `sequence_erase`), `tree_conv` of the
+text corpus (the eager TreeConv layer runs it), and `unpool` as
+`tests/test_ops_vision.py::test_unpool_values` builds its case:
 
 * forward: the case's inputs (numpy) through the port's registered
   function, against the case's numpy oracle at the corpus's own
@@ -26,6 +27,8 @@ import numpy as np
 import pytest
 import torch
 
+import test_ops_detection
+import test_ops_detection3
 import test_ops_math
 import test_ops_nn
 import test_ops_optimizer
@@ -40,7 +43,9 @@ from paddle_tpu_torch.core import registry as tregistry
 
 FAMILIES = {"tensor": test_ops_tensor, "math": test_ops_math,
             "nn": test_ops_nn, "optimizer": test_ops_optimizer,
-            "sequence": test_ops_sequence, "rnn": test_ops_rnn}
+            "sequence": test_ops_sequence, "rnn": test_ops_rnn,
+            "detection": test_ops_detection,
+            "detection3": test_ops_detection3}
 
 
 def _unwrap(case):
@@ -59,10 +64,24 @@ TEXT_CASES = [c for c in test_ops_text.CASES2
                np.array([[5, 7, 0, 0, 0], [9, 0, 0, 0, 0]]),
                np.array([2, 1], np.int32)),
            check_grad=False)]
-#: the layer ops of the vision and text corpora (nn.SpectralNorm,
-#: nn.TreeConv)
-LAYER_CASES = [("vision", _unwrap(c)) for c in test_ops_vision.CASES
-               if _unwrap(c).op == "spectral_norm"] + [
+def _unpool_values_case():
+    """tests/test_ops_vision.py::test_unpool_values's case."""
+    x = np.random.RandomState(5).uniform(-1, 1, (1, 1, 2, 2)).astype(
+        np.float32)
+    idx = np.array([[[[0, 5], [10, 15]]]], np.int32)
+    exp = np.zeros((1, 1, 4, 4), np.float32)
+    for i, (r, c) in enumerate(((0, 0), (1, 1), (2, 2), (3, 3))):
+        exp[0, 0, r, c] = x.reshape(-1)[i]
+    return OpCase("unpool", {"X": x, "Indices": idx},
+                  attrs={"ksize": [2, 2], "strides": [2, 2],
+                         "paddings": [0, 0]},
+                  oracle=lambda X, Indices, attrs: exp, name="unpool_values")
+
+
+#: the vision corpus (every case, the slow-marked one too), unpool, and
+#: the text corpus's tree_conv (nn.TreeConv)
+LAYER_CASES = [("vision", _unwrap(c)) for c in test_ops_vision.CASES] + [
+    ("vision", _unpool_values_case())] + [
     ("text", _unwrap(c)) for c in test_ops_text.CASES
     if _unwrap(c).op == "tree_conv"]
 CASES = [(fam, _unwrap(case)) for fam, mod in FAMILIES.items()
@@ -170,8 +189,12 @@ def test_corpus_op_types_are_ported():
             if fam not in ("text", "vision")} == want - NOT_PORTED
     assert {c.op for c in TEXT_CASES} == {"sequence_topk_avg_pooling",
                                           "sequence_erase"}
-    assert sorted(c.op for _, c in LAYER_CASES) == [
-        "spectral_norm", "tree_conv", "tree_conv"]
+    assert sorted({c.op for f, c in LAYER_CASES if f == "vision"}) == [
+        "affine_grid", "deformable_conv", "deformable_conv_v1",
+        "deformable_psroi_pooling", "max_pool2d_with_index", "prroi_pool",
+        "psroi_pool", "spectral_norm", "spp", "unpool"]
+    assert sorted(c.op for f, c in LAYER_CASES if f == "text") == [
+        "tree_conv", "tree_conv"]
     assert len(CASES) >= 200
 
 
