@@ -302,6 +302,26 @@ Phases, each of which raises (exit code != 0) when its check fails:
     and host reads (synchronising calls); float64 card against CPU at
     batch 2, classes and rows equal, values within DET_F64_TOL. Phases
     26-28 launch none of the kernels of the kernels line (asserted).
+29. CRNN-CTC (PaddleCV/ocr_recognition's crnn_ctc_model.py: 1 x 48 x
+    512 grey images, conv groups of 16 / 32 / 64 / 128, im2sequence to
+    64 steps of 768, two GRUs of 200, 95 + 1 classes, warpctc,
+    ctc_greedy_decoder, edit_distance; Momentum 0.9, lr 1e-3,
+    L2Decay(4e-4)) through the static Executor, f32, TF32 off: (c) one
+    step at batch 2 in float64 card against CPU (CRNN_CHECK: loss,
+    gradients; decoded ids, lengths and distances equal); 20 steps at
+    batch 32 on one seeded batch, losses finite and falling; step wall
+    ms, images/s, a profiled step; (b) the decode: the test program
+    through Executor.run (forward, ctc_greedy_decoder, edit_distance),
+    0 host reads (torch.cuda.set_sync_debug_mode), p50 ms.
+30. Every op type of ops.{misc,text,ctr,fused} once (`misc_op_cases`),
+    card against CPU in float64: continuous outputs and gradients within
+    MISC_F64_TOL of their max, integer outputs equal, the random ops by
+    their contract; the CTR ops and seqpool fusions at CTR-DNN's widths
+    (26 slots, embedding 10, a 1,000,001-row table, batch 512), the
+    recurrent fusions at db_lstm's (hidden 512), the rest at their
+    reference cases at batch 64; each op's f32 ms and launches a call.
+    Phases 29-30 launch none of the kernels of the kernels line
+    (asserted).
 
 Then a `{"kernels": [...]}` line and, last, the device line
 `{"ok": true, "device": {...}}`. Every number is printed beside the
@@ -309,7 +329,7 @@ card's name and power limit.
 
 Launch counters are reset just before each main-path phase (serving,
 training, int8 ResNet serving, Transformer-big training and decoding;
-phases 14, 16-21 and 25-28 launch none of the kernels)
+phases 14, 16-21 and 25-30 launch none of the kernels)
 and read just after it, so launches made
 to compare kernels with their plain versions do not count; the flash
 lines' `launches` add phases 23-24's (the Transformer's) to phase 7's
@@ -397,6 +417,10 @@ def bound_ms(nbytes, flops, peak_flops=F32_FLOPS):
 K5_CASE = (8, 1024, 12, 64)
 
 
+#: phase 2's K5 case with a softmax scale that is not 1/sqrt(D)
+K5_SM_SCALE = 0.3
+
+
 def k5_lengths(rng, b, s):
     """Phase 2's K5 lengths: an empty window, one key, 511, a full
     window, then random ones."""
@@ -450,6 +474,16 @@ def check_contiguous_kernel(torch, da, seed, tag, copies=4):
     err5 = float((got - want).abs().max())
     assert got.shape == (b, n, d) and bool(torch.isfinite(got).all())
     assert err5 <= TOL, f"K5 max |kernel - plain| {err5} > {TOL}"
+    # an sm_scale that is not 1/sqrt(D), as flash_decode_attention takes
+    got = da.decode_attention(*sets[1], sm_scale=K5_SM_SCALE)
+    want = da.decode_attention_reference(*sets[1], sm_scale=K5_SM_SCALE)
+    torch.cuda.synchronize()
+    err_scaled = float((got - want).abs().max())
+    assert err_scaled <= TOL, (
+        f"K5 sm_scale={K5_SM_SCALE}: max |kernel - plain| {err_scaled} > "
+        f"{TOL}")
+    print(f"K5 B={b} S={s} N={n} D={d} sm_scale={K5_SM_SCALE}: "
+          f"max_abs_err={err_scaled:.3g} (gate {TOL}) {tag}")
 
     def k5_library(q, k, v, ln):
         mask = (torch.arange(s, device=dev)[None, :] < ln[:, None])
@@ -465,7 +499,7 @@ def check_contiguous_kernel(torch, da, seed, tag, copies=4):
     k5 = {"name": "K5 decode_attention", "route": "cuda",
           "source": "paddle_tpu_torch/csrc/decode_attention.cu",
           "replaces": "paddle_tpu/ops/pallas/flash_attention.py:954",
-          "max_abs_err": err5,
+          "max_abs_err": err5, "max_abs_err_sm_scale": err_scaled,
           "ms": timed_ms(torch, da.decode_attention, sets),
           "plain_ms": timed_ms(torch, da.decode_attention_reference, sets),
           "bound_ms": bnd, "bound_by": by,
@@ -876,6 +910,30 @@ def kernel_rows(torch, fn, argsets, calls=20):
     return [{"name": e.key, "launches_per_call": e.count / calls,
              "us_per_call": dev_us(e) / calls}
             for e in device_rows(torch, run)]
+
+
+#: the CUDA runtime / driver calls that launch a kernel, as the
+#: profiler's host rows name them
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx", "cudaLaunchCooperativeKernel")
+
+
+def host_launches(torch, fn, argsets, calls=4):
+    """Kernel launches a call of `fn`, counted on the host: the
+    profiler's rows of the launch calls over `calls` calls (each argset
+    warmed once). Unlike the device rows it does not depend on the
+    activity records of short kernels reaching the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    for a in argsets:
+        fn(*a)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(calls):
+            fn(*argsets[i % len(argsets)])
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.key in LAUNCH_CALLS) / calls
 
 
 def profile_device(torch, run, steps, top=8):
@@ -4159,8 +4217,7 @@ def detection_ops(torch, seed, tag, dev="cuda"):
             return run_op(torch, case["op"], list(args), case["attrs"], dev)
 
         ms = timed_ms(torch, call, argsets)
-        launches = sum(r["launches_per_call"]
-                       for r in kernel_rows(torch, call, argsets, calls=3))
+        launches = host_launches(torch, call, argsets, calls=3)
         row = dict(f64_err=err, f64_discrete_equal=equal, f32_err=err32,
                    f32_discrete_agreement=agree32, ms=ms, launches=launches,
                    cpu_reference_s=cpu_s, case_s=time.perf_counter() - t0)
@@ -4177,9 +4234,8 @@ def detection_ops(torch, seed, tag, dev="cuda"):
                     return torch.autograd.grad(o.sum(), [args[g]])
 
             row["fwd_bwd_ms"] = timed_ms(torch, fwd_bwd, argsets)
-            row["fwd_bwd_launches"] = sum(
-                r["launches_per_call"]
-                for r in kernel_rows(torch, fwd_bwd, argsets, calls=3))
+            row["fwd_bwd_launches"] = host_launches(torch, fwd_bwd,
+                                                    argsets, calls=3)
             extra = (f"; forward + backward {row['fwd_bwd_ms']:.3f} ms, "
                      f"{row['fwd_bwd_launches']:.0f} launches")
         out[label] = row
@@ -4424,6 +4480,531 @@ def yolo_predict(torch, state, seed, tag, dev="cuda"):
           f"{agree32:.4f} {tag}")
     print_profile(f"yolov3 predict request, batch {YOLO_BATCH}", brk, tag)
     assert equal and err <= DET_F64_TOL, out
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the rest of Fluid's op library (ops.misc, text, ctr, fused) and the
+# CRNN-CTC text recogniser
+# ---------------------------------------------------------------------------
+
+#: phase 29: crnn_ctc_model.py at its widths, batch 32; warm-up and
+#: timed steps on one seeded batch
+CRNN_BATCH, CRNN_WARMUP, CRNN_TIMED, CRNN_DECODES = 32, 4, 16, 20
+#: phase 29(c): one step at batch 2 in float64, card against CPU: the
+#: loss (relative), each gradient of its max floored at `floor` of the
+#: largest; decoded ids, lengths and edit distances equal
+CRNN_CHECK = dict(batch=2, loss=1e-12, grad=1e-9, floor=1e-6)
+#: phase 30: float64 card against CPU, each continuous output and
+#: gradient of its max
+MISC_F64_TOL = 1e-9
+#: phase 30's widths: the CTR ops and the seqpool fusions at the PaddleRec
+#: CTR-DNN's (26 sparse slots, embedding 10, a 1,000,001-row table, 13
+#: dense features, batch 512; `seq` ids a slot), the recurrent fusions
+#: at phase 19's db_lstm (word_dim 32, hidden 512, batch 10; `steps` a
+#: sentence), the rest at their reference test cases with the batch
+#: raised to 64
+MISC_WIDTHS = dict(batch=64, ctr_batch=512, slots=26, emb=10,
+                   table=1_000_001, dense=13, seq=8, rnn_batch=SRL_BATCH,
+                   steps=32, word=SRL_WORD_DIM, hidden=SRL_HIDDEN)
+
+
+def misc_op_cases(seed, w=MISC_WIDTHS):
+    """Phase 30's cases, one an op type of ops.{misc,text,ctr,fused}:
+    dicts of the label, the op, its {slot: numpy} inputs (float64), its
+    attrs, the float slots whose gradient is checked (of the output
+    `grad_out`) and, for a random op, its contract ("gauss", "uniform",
+    "crop") instead of an agreement."""
+    rng = np.random.RandomState(seed + 30)
+    b, cb, rb, t = w["batch"], w["ctr_batch"], w["rnn_batch"], w["steps"]
+    emb, d, h = w["emb"], w["word"], w["hidden"]
+
+    def f(*shape, lo=-1.0, hi=1.0):
+        return rng.uniform(lo, hi, size=shape)
+
+    def ids(hi, *shape):
+        return rng.randint(0, hi, size=shape).astype(np.int64)
+
+    def case(op, inputs, attrs=None, grad=(), contract=None, grad_out=0):
+        return dict(label=op, op=op, inputs=inputs, attrs=attrs or {},
+                    grad=list(grad), grad_out=grad_out, contract=contract)
+
+    lens = rng.randint(1, 9, b).astype(np.int64)
+    cases = [
+        case("brelu", {"X": f(b, 4, lo=-30, hi=30)},
+             {"t_min": 1.0, "t_max": 20.0}, ["X"]),
+        case("soft_relu", {"X": f(b, 4)}, {"threshold": 0.8}, ["X"]),
+        case("selu", {"X": f(b, 4)}, {}, ["X"]),
+        case("stanh", {"X": f(b, 4)}, {}, ["X"]),
+        case("maxout", {"X": f(b, 6, 3)}, {"groups": 3}, ["X"]),
+        case("lrn", {"X": f(b, 6, 3, 3)},
+             {"n": 3, "k": 1.0, "alpha": 1e-2, "beta": 0.75}, ["X"]),
+        case("hard_shrink", {"X": f(b, 7)}, {"threshold": 0.3}, ["X"]),
+        case("softshrink", {"X": f(b, 7)}, {"lambda": 0.4}, ["X"]),
+        case("thresholded_relu", {"X": f(b, 7)}, {"threshold": 0.2}, ["X"]),
+        case("clip_by_norm", {"X": f(b, 4, lo=1, hi=2)}, {"max_norm": 1.0},
+             ["X"]),
+        case("l2_normalize", {"X": f(b, 4)}, {"axis": 1}, ["X"]),
+        case("cos_sim", {"X": f(b, 5), "Y": f(b, 5)}, {}, ["X", "Y"]),
+        case("log_loss", {"Predicted": f(b, 1, lo=0.1, hi=0.9),
+                          "Labels": (f(b, 1) > 0) * 1.0}, {}, ["Predicted"]),
+        case("rank_loss", {"Label": (f(b, 1) > 0) * 1.0, "Left": f(b, 1),
+                           "Right": f(b, 1)}, {}, ["Left", "Right"]),
+        case("margin_rank_loss", {"Label": np.sign(f(b, 1)),
+                                  "X1": f(b, 1), "X2": f(b, 1)},
+             {"margin": 0.1}, ["X1", "X2"]),
+        case("bpr_loss", {"X": f(b, 5), "Label": ids(5, b, 1)}, {}, ["X"]),
+        case("dice_loss", {"X": f(b, 8, lo=0, hi=1),
+                           "Label": (f(b, 8) > 0) * 1.0}, {}, ["X"]),
+        case("npair_loss", {"Anchor": f(b, 6), "Positive": f(b, 6),
+                            "Labels": ids(8, b)}, {}, ["Anchor", "Positive"]),
+        case("teacher_student_sigmoid_loss",
+             {"X": f(b, 1), "Label": rng.choice([-2.0, -1.0, 0.3, 1.6],
+                                                (b, 1))}, {}, ["X"]),
+        case("fsp", {"X": f(b, 3, 4, 4), "Y": f(b, 5, 4, 4)}, {},
+             ["X", "Y"]),
+        case("multiplex", {"X": [f(b, 3), f(b, 3)], "Ids": ids(2, b, 1)}),
+        case("scatter_nd_add", {"X": f(b, 3), "Index": ids(b, 16, 1),
+                                "Updates": f(16, 3)}, {}, ["X", "Updates"]),
+        case("scatter_nd", {"Index": ids(3, 16, 2), "Updates": f(16)},
+             {"shape": [3, 3]}, ["Updates"]),
+        case("shard_index", {"X": ids(w["table"], cb, w["slots"])},
+             {"index_num": w["table"], "nshards": 8, "shard_id": 3}),
+        case("space_to_depth", {"X": f(b, 2, 4, 4)}, {"blocksize": 2},
+             ["X"]),
+        case("shuffle_channel", {"X": f(b, 6, 2, 2)}, {"group": 2}, ["X"]),
+        case("unfold", {"X": f(b, 2, 4, 4)},
+             {"kernel_sizes": [2, 2], "strides": [2, 2], "paddings": [1, 0],
+              "dilations": [1, 1]}, ["X"]),
+        case("crop_tensor", {"X": f(b, 5)},
+             {"shape": [b // 2, 3], "offsets": [1, 1]}, ["X"]),
+        case("pad_constant_like", {"X": f(b, 5), "Y": f(b // 2, 3)},
+             {"pad_value": 0.5}, ["Y"]),
+        case("reverse", {"X": f(b, 4)}, {"axis": [0, 1]}, ["X"]),
+        case("add_position_encoding", {"X": f(b, 3, 6)},
+             {"alpha": 1.0, "beta": 1.0}, ["X"]),
+        case("bilinear_tensor_product",
+             {"X": f(b, 4), "Y": f(b, 5), "Weight": f(2, 4, 5),
+              "Bias": f(2)}, {}, ["X", "Y", "Weight"]),
+        case("gather_tree", {"Ids": ids(100, 8, b, 4),
+                             "Parents": ids(4, 8, b, 4)}),
+        case("conv3d_transpose", {"Input": f(b, 2, 3, 3, 3),
+                                  "Filter": f(2, 3, 2, 2, 2, lo=-0.5,
+                                              hi=0.5)},
+             {"strides": [2, 2, 2], "paddings": [1, 1, 1]},
+             ["Input", "Filter"]),
+        case("gaussian_random_batch_size_like", {"Input": f(b, 2)},
+             {"shape": [-1, 4096], "mean": 1.5, "std": 2.0},
+             contract="gauss"),
+        case("uniform_random_batch_size_like", {"Input": f(b, 2)},
+             {"shape": [-1, 4096], "min": -3.0, "max": 5.0},
+             contract="uniform"),
+        case("random_crop", {"X": np.arange(b * 9 * 11, dtype=np.float64)
+                             .reshape(b, 9, 11)}, {"shape": [4, 5]},
+             contract="crop"),
+        case("mean_iou", {"Predictions": ids(10, b, 32),
+                          "Labels": ids(10, b, 32)}, {"num_classes": 10}),
+        case("edit_distance", {"Hyps": ids(6, b, 24), "Refs": ids(6, b, 24),
+                               "HypsLength": rng.randint(0, 25, b),
+                               "RefsLength": rng.randint(1, 25, b)},
+             {"normalized": True}),
+        case("ctc_greedy_decoder",
+             {"Input": rng.randint(0, 3, (b, 64, 6)) * 1.0,
+              "Length": rng.randint(1, 65, b)}, {"blank": 5}),
+        case("has_inf", {"X": np.append(f(b * 4), np.inf)}),
+        case("has_nan", {"X": np.append(f(b * 4), np.nan)}),
+        case("is_empty", {"X": f(b)}),
+        case("size", {"Input": f(b, 4)}),
+        case("sequence_enumerate", {"X": ids(50, b, 8), "Length": lens},
+             {"win_size": 3, "pad_value": 0}),
+        case("sequence_scatter", {"X": f(b, 9), "Ids": ids(9, b, 4),
+                                  "Updates": f(b, 4), "Length": lens % 5},
+             {}, ["X", "Updates"]),
+        case("sequence_reshape", {"X": f(b, 4, 3)}, {"new_dim": 6}, ["X"]),
+        case("hash", {"X": ids(2 ** 31 - 1, cb, w["slots"])},
+             {"mod_by": w["table"], "num_hash": 2}),
+        case("unique_with_counts", {"X": ids(64, cb, w["slots"])}),
+        case("unique", {"X": ids(64, cb, w["slots"])}),
+        # ops.text
+        case("conv_shift", {"X": f(b, 7), "Y": f(b, 3)}, {}, ["X", "Y"]),
+        case("similarity_focus", {"X": f(b, 3, 4, 5)},
+             {"axis": 1, "indexes": [0, 2]}),
+        case("chunk_eval", {"Inference": ids(5, b, 8),
+                            "Label": ids(5, b, 8), "SeqLength": lens},
+             {"num_chunk_types": 2, "chunk_scheme": "IOB"}),
+        case("match_matrix_tensor", {"X": f(b, 3, 4), "Y": f(b, 4, 4),
+                                     "W": f(4, 2, 4),
+                                     "LengthsX": rng.randint(1, 4, b),
+                                     "LengthsY": rng.randint(1, 5, b)},
+             {"dim_t": 2}, ["X", "Y", "W"]),
+        case("var_conv_2d", {"X": f(b, 2, 5, 6), "W": f(3, 2 * 3 * 3),
+                             "ROW": rng.randint(1, 6, b),
+                             "COLUMN": rng.randint(1, 7, b)},
+             {"InputChannel": 2, "OutputChannel": 3, "KernelH": 3,
+              "KernelW": 3, "StrideH": 1, "StrideW": 2}, ["X", "W"]),
+        case("tree_conv", {"NodesVector": f(b, 5, 3),
+                           "EdgeSet": np.tile(np.array(
+                               [[1, 2], [1, 3], [2, 4], [2, 5]]), (b, 1, 1)),
+                           "Filter": f(3, 3, 2, 2)}, {"max_depth": 2},
+             ["NodesVector", "Filter"]),
+        case("pyramid_hash", {"X": ids(2 ** 31 - 1, b, 12),
+                              "W": f(1000, 4), "Lengths": lens + 4},
+             {"num_emb": 8, "rand_len": 4, "space_len": 1000,
+              "pyramid_layer": 4, "drop_out_percent": 0.0,
+              "is_training": 0}, ["W"]),
+        # ops.ctr at the CTR-DNN's widths
+        case("cvm", {"X": f(cb, 2 + emb, lo=0.2, hi=3.0),
+                     "CVM": f(cb, 2, lo=0.0, hi=1.0)}, {"use_cvm": True},
+             ["X"]),
+        case("data_norm", {"X": f(cb, w["dense"], lo=0.5, hi=2.0),
+                           "BatchSize": np.full(w["dense"], 1e4),
+                           "BatchSum": f(w["dense"], lo=10, hi=30),
+                           "BatchSquareSum": np.full(w["dense"], 1e4)},
+             {"epsilon": 1e-4}, ["X", "BatchSize", "BatchSum",
+                                 "BatchSquareSum"]),
+        case("filter_by_instag", {"Ins": f(cb, w["slots"] * emb),
+                                  "Ins_tag": ids(20, cb, 4),
+                                  "Filter_tag": np.arange(1, 9)},
+             {}, ["Ins"]),
+        case("positive_negative_pair",
+             {"Score": np.round(f(cb, 1), 2), "Label": ids(3, cb, 1) * 1.0,
+              "QueryID": ids(32, cb, 1)}, {"column": 0}),
+        # ops.fused: the CTR family at its widths, the recurrent ones at
+        # db_lstm's
+        case("fc", {"Input": f(cb, w["slots"] * emb), "W": f(w["slots"]
+                                                              * emb, 400),
+                    "Bias": f(400)}, {"activation": "relu"},
+             ["Input", "W"]),
+        case("fused_elemwise_activation", {"X": f(b, 4), "Y": f(b, 4)},
+             {"functor_list": ["relu", "elementwise_add"]}, ["X", "Y"]),
+        case("fused_embedding_seq_pool",
+             {"Ids": ids(w["table"], cb, w["seq"]),
+              "W": f(w["table"], emb), "Lengths": rng.randint(
+                  1, w["seq"] + 1, cb)},
+             {"combiner": "sum", "padding_idx": 0}, ["W"]),
+        case("fusion_seqpool_concat",
+             {"X": [f(cb, w["seq"], emb) for _ in range(w["slots"])]},
+             {"pooltype": "SUM"}),
+        case("fusion_seqpool_cvm_concat",
+             {"X": [f(cb, w["seq"], 2 + emb, lo=0.0, hi=1.0)
+                    for _ in range(w["slots"])],
+              "CVM": f(cb, 2, lo=0.0, hi=1.0)},
+             {"pooltype": "SUM", "use_cvm": True}),
+        case("fusion_squared_mat_sub", {"X": f(cb, w["slots"] * emb),
+                                        "Y": f(w["slots"] * emb, emb)},
+             {"scalar": 0.5}, ["X", "Y"], grad_out=3),
+        case("fusion_repeated_fc_relu",
+             {"X": f(cb, w["slots"] * emb),
+              "W": [f(w["slots"] * emb, 400) * 0.1, f(400, 400) * 0.1,
+                    f(400, 400) * 0.1],
+              "Bias": [f(400), f(400), f(400)]}, {}, ["X"]),
+        case("fusion_transpose_flatten_concat",
+             {"X": [f(b, 3, 4, 5), f(b, 6, 4, 5)]},
+             {"trans_axis": [0, 2, 3, 1], "flatten_axis": 1,
+              "concat_axis": 1}),
+        case("fused_fc_elementwise_layernorm",
+             {"X": f(b, 6), "W": f(6, 8), "Y": f(b, 8), "Scale": f(8),
+              "Bias1": f(8)}, {"epsilon": 1e-5}, ["X", "W", "Y"]),
+        case("fusion_lstm", {"X": f(rb, t, d), "WeightX": f(d, 4 * h) * 0.1,
+                             "WeightH": f(h, 4 * h) * 0.1,
+                             "Bias": f(1, 4 * h) * 0.1},
+             {"use_peepholes": False}, ["X", "WeightX", "WeightH"]),
+        case("fusion_gru", {"X": f(rb, t, d), "WeightX": f(d, 3 * h) * 0.1,
+                            "WeightH": f(h, 3 * h) * 0.1,
+                            "Bias": f(1, 3 * h) * 0.1}, {},
+             ["X", "WeightX", "WeightH"]),
+        case("fused_embedding_fc_lstm",
+             {"Ids": ids(1000, rb, t), "Embeddings": f(1000, 4 * h) * 0.2,
+              "WeightH": f(h, 4 * h) * 0.1, "Bias": f(1, 4 * h) * 0.1},
+             {"use_peepholes": False}, ["Embeddings", "WeightH"]),
+        case("fusion_seqconv_eltadd_relu",
+             {"X": f(rb, t, d), "Filter": f(3 * d, h) * 0.3,
+              "Bias": f(1, h) * 0.3, "Length": rng.randint(1, t + 1, rb)},
+             {"contextLength": 3}, ["X", "Filter"]),
+        case("attention_lstm",
+             {"X": f(rb, t, d), "C0": f(rb, h) * 0.1,
+              "AttentionWeight": f(d + h, 1) * 0.1,
+              "LSTMWeight": f(d + h, 4 * h) * 0.05, "LSTMBias": f(4 * h)},
+             {}, ["X", "LSTMWeight"]),
+    ]
+    return cases
+
+
+def misc_args(torch, case, dev, dtype):
+    """The case's inputs as the op's positional arguments on `dev`, the
+    float ones in `dtype`; -> (args, {slot: tensor} of the gradient
+    slots, made leaves)."""
+    from paddle_tpu_torch.core.registry import get_op
+
+    def tensor(a):
+        t = torch.from_numpy(np.array(a, copy=True))
+        return (t.to(dtype) if t.is_floating_point() else t).to(dev)
+
+    args, leaves = [], {}
+    for slot in get_op(case["op"]).in_slots:
+        v = case["inputs"].get(slot.name)
+        if v is None:
+            args.append([] if slot.variadic else None)
+            continue
+        t = [tensor(a) for a in v] if slot.variadic else tensor(v)
+        if slot.name in case["grad"]:
+            t.requires_grad_(True)
+            leaves[slot.name] = t
+        args.append(t)
+    return args, leaves
+
+
+def misc_run(torch, case, dev, dtype):
+    """The case's outputs (flattened) and, with gradient slots, their
+    gradients of sum(output `grad_out` x cotangent), on the CPU."""
+    from paddle_tpu_torch.core.registry import OpContext, get_op
+    args, leaves = misc_args(torch, case, dev, dtype)
+    with torch.enable_grad():
+        outs = get_op(case["op"]).fn(OpContext(dict(case["attrs"]), 0, True,
+                                               0, dev), *args)
+        outs = list(outs) if isinstance(outs, (tuple, list)) else [outs]
+        flat = [o for out in outs
+                for o in (out if isinstance(out, list) else [out])]
+        grads = []
+        if leaves:
+            first = flat[case["grad_out"]]
+            cot = torch.from_numpy(np.random.RandomState(0).uniform(
+                0.5, 1.5, tuple(first.shape))).to(dev, first.dtype)
+            grads = list(torch.autograd.grad((first * cot).sum(),
+                                             list(leaves.values())))
+    return [o.detach().to("cpu") for o in flat + grads]
+
+
+def misc_contract(torch, case, out):
+    """A random op's contract on its output (float64): shape, range,
+    moments within 5 sigma, or a crop that is a window of the input."""
+    kind, x = case["contract"], out[0].double().numpy()
+    if kind == "crop":
+        src = case["inputs"]["X"]
+        h, w = case["attrs"]["shape"]
+        r0, c0 = divmod(int(x[0, 0, 0]), src.shape[2])
+        return bool(np.array_equal(x, src[:, r0:r0 + h, c0:c0 + w]))
+    a = case["attrs"]
+    if kind == "gauss":
+        mean, std = a["mean"], a["std"]
+        ok = True
+    else:
+        ok = bool(x.min() >= a["min"] and x.max() < a["max"])
+        mean, std = (a["min"] + a["max"]) / 2, (a["max"] - a["min"]) / 12 ** .5
+    n = x.size
+    return ok and abs(x.mean() - mean) < 5 * std / n ** .5 and \
+        abs(x.var() - std ** 2) < 5 * std ** 2 * (2.0 / n) ** .5
+
+
+def misc_ops(torch, seed, tag, dev="cuda"):
+    """Phase 30. Every op type of ops.{misc,text,ctr,fused} once on its
+    case (`misc_op_cases`), card against the host CPU in float64: the
+    continuous outputs and the gradients within MISC_F64_TOL of their
+    max, the integer outputs equal, a random op by its contract on the
+    card; each op's f32 ms (median of 10, L2-cold) and launches a call
+    (`host_launches`) printed."""
+    from paddle_tpu_torch.core.registry import OpContext, get_op
+    out = {}
+    for case in misc_op_cases(seed):
+        label = case["label"]
+        t0 = time.perf_counter()
+        got = misc_run(torch, case, dev, torch.float64)
+        if case["contract"] is not None:
+            ok = misc_contract(torch, case, got)
+            err, equal = 0.0, ok
+        else:
+            want = misc_run(torch, case, "cpu", torch.float64)
+            err, equal, _ = det_errors(got, want, {
+                i: None for i, w in enumerate(want)
+                if not w.is_floating_point()})
+            ok = err <= MISC_F64_TOL and equal
+        argsets = [misc_args(torch, case, dev, torch.float32)[0]
+                   for _ in range(2)]
+
+        def call(*args, _c=case):
+            with torch.no_grad():
+                return get_op(_c["op"]).fn(
+                    OpContext(dict(_c["attrs"]), seed, True, 0, dev), *args)
+
+        row = dict(f64_err=err, discrete_equal=equal,
+                   contract=case["contract"],
+                   ms=timed_ms(torch, call, argsets, iters=10),
+                   launches=host_launches(torch, call, argsets))
+        del argsets
+        row["case_s"] = time.perf_counter() - t0
+        out[label] = row
+        timing = (f"; f32 {row['ms']:.4f} ms (median of 10, L2-cold), "
+                  f"{row['launches']:g} launches a call")
+        check = (f"contract {'held' if ok else 'BROKEN'} on the card"
+                 if case["contract"] else
+                 f"float64 card vs CPU {err:.3g} of max, integer outputs "
+                 f"{'equal' if equal else 'DIFFER'}")
+        print(f"phase 30 {label}: {check}{timing} {tag}")
+        assert ok, (label, row)
+    torch.cuda.empty_cache()
+    return out
+
+
+def crnn_programs(cfg, batch, seed):
+    """crnn_ctc_programs with fresh unique names, so every build names
+    its parameters alike."""
+    from paddle_tpu_torch.core import ir
+    from paddle_tpu_torch.models import crnn_ctc
+    ir.reset_unique_names()
+    return crnn_ctc.crnn_ctc_programs(cfg, batch, seed=seed)
+
+
+def crnn_feed(torch, cfg, batch, seed, dev):
+    """A seeded synthetic batch (models.crnn_ctc.synthetic_batch) as
+    tensors on `dev`, by feed name."""
+    from paddle_tpu_torch.models import crnn_ctc
+    return {k: torch.from_numpy(v).to(dev) for k, v in
+            crnn_ctc.synthetic_batch(cfg, batch, seed).items()}
+
+
+def crnn_step_check(torch, cfg, state, seed, tag, dev="cuda"):
+    """Phase 29(c). One training step at batch 2 from the same weights,
+    float64 (`fully_widened`), on the card and on the host CPU: the loss,
+    the gradients (CRNN_CHECK), and the decoded ids, their lengths and
+    the edit distances equal."""
+    chk = CRNN_CHECK
+    main, _, _, names = crnn_programs(cfg, chk["batch"], seed)
+    main = fully_widened(torch, main)
+    params = [v.name for v in main.all_parameters() if v.desc.trainable]
+    feed = crnn_feed(torch, cfg, chk["batch"], seed + 290, "cpu")
+    feed["pixel"] = feed["pixel"].double()
+    fetch = [names[k] for k in ("loss", "decoded", "decoded_length",
+                                "distance")] + [p + "@GRAD" for p in params]
+    state64 = widen_state({n: a for n, a in state.items()})
+    res = {}
+    for where in (dev, "cpu"):
+        outs, _ = one_step(torch, main, state64,
+                           {k: v.to(where) for k, v in feed.items()}, fetch,
+                           where)
+        res[where] = outs
+    card, cpu = res[dev], res["cpu"]
+    loss_err = abs(float(card[0]) - float(cpu[0])) / abs(float(cpu[0]))
+    gc = {p: torch.from_numpy(np.asarray(g)) for p, g in zip(params,
+                                                              card[4:])}
+    gh = {p: torch.from_numpy(np.asarray(g)) for p, g in zip(params,
+                                                              cpu[4:])}
+    gerr, worst = grad_err(gc, gh, chk["floor"])
+    equal = all(np.array_equal(np.asarray(a), np.asarray(b))
+                for a, b in zip(card[1:4], cpu[1:4]))
+    print(f"phase 29(c) crnn-ctc step, batch {chk['batch']} x "
+          f"{'x'.join(map(str, cfg.image_shape))}, float64 card vs CPU: loss "
+          f"{float(card[0]):.10f} vs {float(cpu[0]):.10f} (rel "
+          f"{loss_err:.3g}, gate {chk['loss']}), gradients {gerr:.3g} of "
+          f"max (worst {worst}, gate {chk['grad']}), decoded ids, lengths "
+          f"and edit distances {'equal' if equal else 'DIFFER'} {tag}")
+    assert loss_err <= chk["loss"] and gerr <= chk["grad"] and equal, (
+        loss_err, gerr, worst, equal)
+    return dict(loss_rel_err=loss_err, grad_err=gerr, worst=worst,
+                decode_equal=equal)
+
+
+def crnn_training(torch, seed, tag, dev="cuda"):
+    """Phase 29. crnn_ctc_model.py at its widths (1 x 48 x 512 images,
+    95 + 1 classes, GRU 200) through the static Executor on the card,
+    f32, TF32 off: (c) first, the float64 step against the CPU; then
+    CRNN_WARMUP + CRNN_TIMED Momentum steps at batch 32 on one seeded
+    batch (labels of 1-24), losses finite and falling; step wall ms,
+    images/s and a profiled step; (b) the decode — the test program
+    through Executor.run, fetching ctc_greedy_decoder's ids and lengths
+    and edit_distance's distances — with its host reads
+    (torch.cuda.set_sync_debug_mode) and p50 ms over CRNN_DECODES."""
+    import warnings
+
+    from paddle_tpu_torch.core.executor import Executor
+    from paddle_tpu_torch.core.scope import Scope
+    from paddle_tpu_torch.models import crnn_ctc
+    cfg = crnn_ctc.CRNNConfig()
+    main, test, startup, names = crnn_programs(cfg, CRNN_BATCH, seed)
+    scope = Scope()
+    exe = Executor(dev)
+    exe.run(startup, scope=scope)
+    state = {v.name: scope.find_np(v.name) for v in main.list_vars()
+             if v.persistable and scope.has(v.name)}
+    n_params = sum(int(np.prod(v.shape)) for v in main.all_parameters())
+    out = {"params": n_params,
+           "check": crnn_step_check(torch, cfg, state, seed, tag, dev)}
+    feed = crnn_feed(torch, cfg, CRNN_BATCH, seed + 29, dev)
+    loss = names["loss"]
+
+    def step():
+        return exe.run(main, feed=feed, fetch_list=[loss], scope=scope,
+                       return_numpy=False)[0]
+
+    losses = [step() for _ in range(CRNN_WARMUP)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses += [step() for _ in range(CRNN_TIMED)]
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / CRNN_TIMED * 1e3
+    losses = [float(v) for v in losses]
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0], losses
+
+    def train(k):
+        for _ in range(k):
+            step()
+        torch.cuda.synchronize()
+
+    brk = profile_device(torch, train, 2, top=8)
+    print(f"phase 29 crnn-ctc {n_params} parameters, batch {CRNN_BATCH} x "
+          f"{'x'.join(map(str, cfg.image_shape))}: losses "
+          f"{', '.join(f'{v:.3f}' for v in losses)}; step {step_ms:.2f} ms "
+          f"wall ({CRNN_BATCH / step_ms * 1e3:.1f} images/s) {tag}")
+    print_profile(f"crnn-ctc train step, batch {CRNN_BATCH}", brk, tag)
+    print(f"  launches a step: {brk['launches_per_step']:.0f} {tag}")
+    # (b) the served program: the test clone through the Executor,
+    # fetching the decode and its edit distance, no host read
+    fetch = [names[k] for k in ("distance", "decoded", "decoded_length")]
+
+    def decode():
+        return exe.run(test, feed=feed, fetch_list=fetch, scope=scope,
+                       return_numpy=False)
+
+    decode()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        dist, ids, n = decode()
+    torch.cuda.set_sync_debug_mode(0)
+    host_reads = sum("synchroniz" in str(w.message) for w in caught)
+    times = []
+    for _ in range(CRNN_DECODES):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        decode()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    p50 = float(np.median(times))
+    dist, ids, n = (t.cpu().numpy() for t in (dist, ids, n))
+    assert dist.shape == (CRNN_BATCH, 1) and np.isfinite(dist).all()
+    assert ids.shape == (CRNN_BATCH, cfg.steps) and n.shape == (
+        CRNN_BATCH,) and ((n >= 0) & (n <= cfg.steps)).all()
+    assert host_reads == 0, f"the decode read the device {host_reads} times"
+
+    def decodes(k):
+        for _ in range(k):
+            decode()
+        torch.cuda.synchronize()
+
+    dbrk = profile_device(torch, decodes, 3, top=4)
+    out.update(losses=losses, step_ms=step_ms,
+               images_per_s=CRNN_BATCH / step_ms * 1e3, breakdown=brk,
+               decode_p50_ms=p50, decode_host_reads=host_reads,
+               decode_launches=dbrk["launches_per_step"],
+               mean_edit_distance=float(dist.mean()))
+    print(f"phase 29(b) decode (the test program through Executor.run: "
+          f"forward, ctc_greedy_decoder, edit_distance; batch {CRNN_BATCH} "
+          f"x {cfg.steps} steps): p50 {p50:.3f} ms over {CRNN_DECODES}, "
+          f"{dbrk['launches_per_step']:.0f} launches, host reads "
+          f"{host_reads}; mean normalized edit distance "
+          f"{float(dist.mean()):.4f} {tag}")
+    del scope
+    torch.cuda.empty_cache()
     return out
 
 
@@ -4954,6 +5535,22 @@ def main(argv=None):
     results["detection_phases_s"] = time.perf_counter() - t_det
     print(f"phases 26-28: {results['detection_phases_s']:.1f} s (no kernel "
           f"of the kernels line launched) {tag}")
+
+    # 29-30. the CRNN-CTC recogniser and the rest of the op library,
+    # which launch none of the kernels: every count stays 0
+    t_crnn = time.perf_counter()
+    for mod in (da, tfa, k8):
+        mod.reset_launch_counts()
+    results["crnn_ctc"] = crnn_training(torch, args.seed, tag)
+    results["crnn_phase_s"] = time.perf_counter() - t_crnn
+    t_misc = time.perf_counter()
+    results["misc_ops"] = misc_ops(torch, args.seed, tag)
+    results["misc_phase_s"] = time.perf_counter() - t_misc
+    counts = {**da.launch_counts, **tfa.launch_counts, **k8.launch_counts}
+    assert not any(counts.values()), counts
+    print(f"phase 29: {results['crnn_phase_s']:.1f} s, phase 30: "
+          f"{results['misc_phase_s']:.1f} s (no kernel of the kernels line "
+          f"launched) {tag}")
 
     results["total_s"] = time.perf_counter() - t_start
     print(f"total: {results['total_s']:.1f} s {tag}")

@@ -24,6 +24,7 @@ dynamic scaling from 2**15.
 import paddle_tpu_torch.amp.amp_ops  # noqa: F401  (registers the ops)
 from paddle_tpu_torch.amp.fp16_lists import AutoMixedPrecisionLists
 from paddle_tpu_torch.core import dtypes as _dt
+from paddle_tpu_torch.core import flags
 from paddle_tpu_torch.core.ir import (
     OpDesc, OpRole, default_main_program, unique_name,
 )
@@ -45,10 +46,12 @@ def _is_float(name, block, cur_dtype):
     return d is None or d.startswith("float") or d == "bfloat16"
 
 
-def rewrite_program(program, amp_lists=None, dest_dtype="bfloat16"):
+def rewrite_program(program, amp_lists=None, dest_dtype=None):
     """Insert cast ops into the program's global block so white-listed ops
     compute in `dest_dtype` and black-listed ops in float32
-    (fp16_utils.py:158). Returns the program (modified in place)."""
+    (fp16_utils.py:158); `dest_dtype` None reads the amp_dtype flag.
+    Returns the program (modified in place)."""
+    dest_dtype = dest_dtype or flags.get_flag("amp_dtype")
     amp_lists = amp_lists or AutoMixedPrecisionLists()
     block = program.global_block()
     cur_dtype = {}       # var name -> current dtype string as the walk sees it
@@ -120,10 +123,11 @@ class OptimizerWithMixedPrecision(Optimizer):
     def __init__(self, optimizer, amp_lists=None, init_loss_scaling=None,
                  incr_every_n_steps=1000, decr_every_n_nan_or_inf=2,
                  incr_ratio=2.0, decr_ratio=0.5,
-                 use_dynamic_loss_scaling=None, dest_dtype="bfloat16"):
+                 use_dynamic_loss_scaling=None, dest_dtype=None):
         super().__init__(learning_rate=optimizer._lr)
         self._optimizer = optimizer
         self._amp_lists = amp_lists or AutoMixedPrecisionLists()
+        dest_dtype = dest_dtype or flags.get_flag("amp_dtype")
         # bfloat16 has float32's exponent range: no scaling needed, and
         # the default path pays for no isfinite sweep a step. float16
         # keeps the reference's dynamic-loss-scaling defaults.
@@ -243,9 +247,10 @@ class OptimizerWithMixedPrecision(Optimizer):
 def decorate(optimizer, amp_lists=None, init_loss_scaling=None,
              incr_every_n_steps=1000, decr_every_n_nan_or_inf=2,
              incr_ratio=2.0, decr_ratio=0.5, use_dynamic_loss_scaling=None,
-             dest_dtype="bfloat16"):
-    """mixed_precision.decorate (decorator.py:216). Defaults follow
-    dest_dtype: bfloat16, no loss scaling; float16, dynamic loss scaling
+             dest_dtype=None):
+    """mixed_precision.decorate (decorator.py:216). dest_dtype None reads
+    the amp_dtype flag. Defaults follow dest_dtype: bfloat16, no loss
+    scaling; float16, dynamic loss scaling
     from 2**15 (the reference's defaults)."""
     return OptimizerWithMixedPrecision(
         optimizer, amp_lists, init_loss_scaling, incr_every_n_steps,

@@ -19,6 +19,7 @@ import torch
 
 from paddle_tpu_torch.amp import schedule
 from paddle_tpu_torch.core import dtypes as _dt
+from paddle_tpu_torch.core import flags
 
 __all__ = ["auto_cast", "get_compute_dtype", "cast_compute",
            "bf16_compute_params", "GradScaler"]
@@ -33,8 +34,9 @@ def _ambient():
 class auto_cast:
     """with amp.auto_cast(): ... sets the ambient low-precision dtype."""
 
-    def __init__(self, enable=True, dtype="bfloat16"):
-        self._dtype = _dt.normalize_dtype(dtype) if enable else None
+    def __init__(self, enable=True, dtype=None):
+        self._dtype = _dt.normalize_dtype(
+            dtype or flags.get_flag("amp_dtype")) if enable else None
 
     def __enter__(self):
         self._prev = _ambient()

@@ -98,6 +98,9 @@ class Executor:
             self._step_counter += 1
         else:
             seed = program.random_seed
+        if flags.get_flag("deterministic"):   # FLAGS_cudnn_deterministic
+            torch.backends.cudnn.deterministic = True
+            torch.backends.cudnn.benchmark = False
         state = {n: scope.tensor_on(n, self.device) for n in state_names}
         with torch.no_grad():     # the autodiff segment turns grad on
             fetches, new_state = step(state, feed_vals, seed)

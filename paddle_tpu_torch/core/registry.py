@@ -41,6 +41,7 @@ _OP_MODULES = ("paddle_tpu_torch.ops.tensor", "paddle_tpu_torch.ops.random",
                "paddle_tpu_torch.ops.vision", "paddle_tpu_torch.ops.text",
                "paddle_tpu_torch.ops.detection",
                "paddle_tpu_torch.ops.detection_train",
+               "paddle_tpu_torch.ops.misc", "paddle_tpu_torch.ops.ctr",
                "paddle_tpu_torch.amp.amp_ops",
                "paddle_tpu_torch.slim.quant_ops")
 _loaded = [False]

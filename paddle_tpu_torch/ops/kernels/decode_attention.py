@@ -100,14 +100,15 @@ def reset_launch_counts():
 # plain PyTorch versions (the CPU path and the kernels' yardstick)
 # ---------------------------------------------------------------------------
 
-def decode_attention_reference(q, k_cache, v_cache, lengths):
+def decode_attention_reference(q, k_cache, v_cache, lengths, sm_scale=None):
     """Masked decode attention. q [B, N, D]: one query row per slot;
     k_cache/v_cache [B, S, N, D]; lengths [B] valid entries per slot.
-    Logits are scaled by 1/sqrt(D). Rows with lengths == 0 return
-    zeros."""
+    Logits are scaled by `sm_scale` (1/sqrt(D) when None). Rows with
+    lengths == 0 return zeros."""
     s_len = k_cache.shape[1]
-    logits = (torch.einsum("bnd,bsnd->bns", q, k_cache)
-              * (1.0 / math.sqrt(q.shape[-1])))
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    logits = torch.einsum("bnd,bsnd->bns", q, k_cache) * sm_scale
     lengths = lengths.to(torch.int32)
     valid = (torch.arange(s_len, dtype=torch.int32, device=q.device)[None, :]
              < lengths[:, None])                          # [B, S]
@@ -312,13 +313,16 @@ def _stream(device):
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def decode_attention(q, k_cache, v_cache, lengths):
+def decode_attention(q, k_cache, v_cache, lengths, sm_scale=None):
     """K5: single-step cached attention, q [B, N, D] against a
     contiguous cache [B, S, N, D] (read through its strides, so a layer's
     view of a stacked [L, B, S, N, D] cache needs no copy) with per-slot
-    validity `lengths` [B] int32. Returns [B, N, D]."""
+    validity `lengths` [B] int32; logits scaled by `sm_scale` (1/sqrt(D)
+    when None, as the JAX package's flash_decode_attention). Returns
+    [B, N, D]."""
     if q.device.type == "cpu":
-        return decode_attention_reference(q, k_cache, v_cache, lengths)
+        return decode_attention_reference(q, k_cache, v_cache, lengths,
+                                          sm_scale)
     _check_operand("q", q, 3)
     _check_operand("k_cache", k_cache, 4)
     _check_operand("v_cache", v_cache, 4)
@@ -335,10 +339,10 @@ def decode_attention(q, k_cache, v_cache, lengths):
     _check_index("lengths", lengths, 1, q.device)
     enforce(lengths.shape[0] == b, "lengths %s != batch %d",
             tuple(lengths.shape), b)
-    return _launch_contiguous(q, k_cache, v_cache, lengths)
+    return _launch_contiguous(q, k_cache, v_cache, lengths, sm_scale)
 
 
-def _launch_contiguous(q, k_cache, v_cache, lengths):
+def _launch_contiguous(q, k_cache, v_cache, lengths, sm_scale=None):
     """One K5 launch on checked operands, counted. Returns [B, N, D]
     float32."""
     from paddle_tpu_torch.ops.kernels import _build
@@ -354,7 +358,8 @@ def _launch_contiguous(q, k_cache, v_cache, lengths):
         b, s_len, n, d, q.stride(0), q.stride(1),
         k_cache.stride(0), k_cache.stride(1), k_cache.stride(2),
         v_cache.stride(0), v_cache.stride(1), v_cache.stride(2),
-        f32_decode_split_count(s_len, d), 1.0 / math.sqrt(d),
+        f32_decode_split_count(s_len, d),
+        1.0 / math.sqrt(d) if sm_scale is None else float(sm_scale),
         _stream(q.device))
     _raise_on(err, "decode_attention")
     launch_counts["decode_attention"] += 1

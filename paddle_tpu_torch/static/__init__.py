@@ -8,12 +8,15 @@ the layers (`nn.py`), the composite nets (`nets.py`), `LayerHelper`,
 (`control_flow.py`: While, StaticRNN, DynamicRNN, cond, case, Switch),
 the recurrent layers, tensor arrays and beam-search steps (`rnn.py`),
 the structured losses (`losses.py`), the cell API (`rnn_api.py`), the
-sequence and vision builders (`extras.py`) and the detection layers
-(`detection.py`, also exported flat, as `fluid.layers` does).
-Distributions and the rest of `extras.py` are later slices.
+long-tail builders (`extras.py`), the compatibility surface
+(`compat.py`), the detection layers (`detection.py`, also exported
+flat, as `fluid.layers` does), `distributions` and `save` / `load`.
+Of the JAX package's names only `switch_moe` is missing: it comes with
+the parallelism slice (ROADMAP Queue 1 item 15).
 """
 from paddle_tpu_torch.core.ir import (  # noqa: F401
-    Program, default_main_program, default_startup_program, program_guard,
+    Program, Variable, default_main_program, default_startup_program,
+    program_guard,
 )
 from paddle_tpu_torch.static.backward import (  # noqa: F401
     append_backward, gradients,
@@ -40,6 +43,7 @@ from paddle_tpu_torch.static.losses import (  # noqa: F401,E402
     crf_decoding, hsigmoid, linear_chain_crf, nce,
     sampled_softmax_with_cross_entropy, warpctc)
 from paddle_tpu_torch.static.extras import *  # noqa: F401,F403,E402
+from paddle_tpu_torch.static.compat import *  # noqa: F401,F403,E402
 from paddle_tpu_torch.static.rnn_api import (  # noqa: F401,E402
     RNNCell, GRUCell, LSTMCell, rnn, Decoder, BeamSearchDecoder,
     dynamic_decode)
@@ -54,3 +58,5 @@ from paddle_tpu_torch.static.detection import (  # noqa: F401,E402
     retinanet_target_assign, roi_align, roi_perspective_transform,
     roi_pool, rpn_target_assign, sigmoid_focal_loss, ssd_loss,
     target_assign, yolo_box, yolov3_loss)
+from paddle_tpu_torch.static import distributions  # noqa: F401,E402
+from paddle_tpu_torch.static.io import load, save  # noqa: F401,E402

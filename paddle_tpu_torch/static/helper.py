@@ -6,6 +6,7 @@ program, mirrored into the startup program with its init op), creates
 temporaries, appends the layer's op and runs shape inference on it.
 """
 from paddle_tpu_torch.core import dtypes as _dt
+from paddle_tpu_torch.core import flags
 from paddle_tpu_torch.core.enforce import enforce
 from paddle_tpu_torch.core.ir import (Variable, default_main_program,
                                       default_startup_program, unique_name)
@@ -41,7 +42,7 @@ class LayerHelper:
         attr = ParamAttr.to_attr(attr)
         if attr is False:
             return None
-        dtype = _dt.normalize_dtype(dtype or "float32")
+        dtype = _dt.normalize_dtype(dtype or flags.get_flag("default_dtype"))
         name = attr.name or unique_name(
             f"{self.layer_type}_{'b' if is_bias else 'w'}")
         init = attr.initializer or default_initializer or \

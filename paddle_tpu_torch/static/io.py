@@ -28,7 +28,7 @@ from paddle_tpu_torch.reliability.faults import inject_point
 
 __all__ = ["MODEL_FILENAME", "PARAMS_FILENAME", "CheckpointError",
            "save_persistables", "load_persistables", "prune",
-           "save_inference_model", "load_inference_model"]
+           "save_inference_model", "load_inference_model", "save", "load"]
 
 MODEL_FILENAME = "__model__.json"
 PARAMS_FILENAME = "params.npz"
@@ -197,3 +197,35 @@ def load_inference_model(dirname, executor, model_filename=None,
     fetches = [program.global_block().var(n)
                for n in program.meta.get("fetch_targets", [])]
     return program, feeds, fetches
+
+
+def save(program, model_path):
+    """fluid.save (io.py:1493): the program's persistables to
+    `model_path`.npz and the program to `model_path`.json, each
+    published atomically; the JAX package's two files."""
+    os.makedirs(os.path.dirname(model_path) or ".", exist_ok=True)
+    arrs = _collect_persistables(program, global_scope())
+    _atomic_write(model_path + ".npz", "wb", lambda f: np.savez(f, **arrs),
+                  params_file=True)
+    _atomic_write(model_path + ".json", "w",
+                  lambda f: json.dump(program.to_dict(), f))
+
+
+def load(program, model_path, executor=None):
+    """fluid.load: every array of `model_path`.npz into the current
+    scope, on the executor's device (None: CUDA, as
+    `core.places.resolve_device`)."""
+    device = (executor.device if executor is not None
+              else resolve_device(None))
+    path = model_path + ".npz"
+    try:
+        with np.load(path) as data:
+            loaded = {name: np.asarray(data[name]) for name in data.files}
+    except OSError as e:
+        raise CheckpointError(
+            f"state file {path} missing or unreadable: {e}") from e
+    except (ValueError, zipfile.BadZipFile) as e:
+        raise CheckpointError(f"state file {path} is corrupt: {e}") from e
+    scope = global_scope()
+    for name, arr in loaded.items():
+        scope.set(name, torch.from_numpy(arr).to(device))

@@ -90,6 +90,24 @@ def test_k5_plain_matches_interpreted_pallas_kernel(block_k):
     np.testing.assert_allclose(want[0], v_sum / padded, **TOL)
 
 
+@pytest.mark.parametrize("sm_scale", [0.3, 1.7])
+def test_k5_sm_scale_matches_flash_decode_attention(sm_scale):
+    """An sm_scale that is not 1/sqrt(D) reaches the plain version, as
+    flash_decode_attention's (reference and interpreted kernel) take it;
+    None keeps 1/sqrt(D)."""
+    arrays = _k5_inputs(8, 3, 24, 4, 16, [5, 13, 24])
+    got = tda.decode_attention(*_torch(*arrays), sm_scale=sm_scale).numpy()
+    for use_kernel in (False, True):
+        want = np.asarray(jfa.flash_decode_attention(
+            *_jax(*arrays), sm_scale=sm_scale, use_kernel=use_kernel,
+            interpret=True, block_k=8))
+        np.testing.assert_allclose(got, want, **TOL)
+    default = tda.decode_attention(*_torch(*arrays)).numpy()
+    np.testing.assert_allclose(default, tda.decode_attention(
+        *_torch(*arrays), sm_scale=0.25).numpy(), **TOL)
+    assert np.abs(got - default).max() > 1e-3
+
+
 def test_k5_reads_a_strided_layer_view():
     """The engine hands K5 `cache[li]` of a stacked [L, B, S, N, D]
     cache and q as a view of the fused QKV projection."""

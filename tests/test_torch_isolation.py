@@ -16,12 +16,15 @@
   ResNet, the zoo's blocks, DeepFM, the extension layers, the AMP
   scaler, the grad clips and the ragged batcher take one call each, and
   the detection slice runs: a tiny YOLOv3's loss and predict and a
-  static multi_box_head -> ssd_loss Momentum step.
+  static multi_box_head -> ssd_loss Momentum step, and a tiny CRNN-CTC
+  Momentum step, save / load, a distribution, contrib, WeightedAverage
+  and the top-level surface.
 * A source scan finds no import of jax or of the JAX package in the
   port or in chip_smoke.py.
 * `device=None` means CUDA: without a GPU the entry points raise
   (`Executor()`, a Predictor from a default `Config`,
-  `weights.scope_from_jax`, `YOLOv3`, `DetectionMAP.eval`), and
+  `weights.scope_from_jax`, `YOLOv3`, `DetectionMAP.eval`, a
+  distribution over arrays, `static.load`), and
   chip_smoke.py exits non-zero without printing a result.
 """
 import ast
@@ -279,6 +282,29 @@ _BLOCKED_RUN = textwrap.dedent("""
                                 "s_gtl": np.ones((2, 2, 1), np.int64)},
                     fetch_list=[loss])
     assert np.isfinite(lv).all()
+    # the rest of the op library and the static API: a tiny CRNN-CTC
+    # Momentum step (conv, im2sequence, GRUs, warpctc, greedy decode,
+    # edit distance), save / load, distributions, contrib, the surface
+    from paddle_tpu_torch import average, contrib
+    from paddle_tpu_torch.models import crnn_ctc
+    from paddle_tpu_torch.static import distributions
+    ccfg = crnn_ctc.CRNNConfig.tiny()
+    ir.reset_unique_names()
+    main, _, startup, names = crnn_ctc.crnn_ctc_programs(ccfg, 2)
+    exe.run(startup)
+    lv, dec = exe.run(main, feed=crnn_ctc.synthetic_batch(ccfg, 2, 0),
+                      fetch_list=[names["loss"], names["decoded"]])
+    assert np.isfinite(lv).all() and dec.shape == (2, ccfg.steps)
+    d = tempfile.mkdtemp()
+    static.save(main, d + "/crnn")
+    static.load(main, d + "/crnn", exe)
+    assert contrib.op_freq_statistic(main)[0]["gru"] == 2
+    nrm = distributions.Normal(np.zeros(2), np.ones(2), device="cpu")
+    assert tuple(nrm.sample([3]).shape) == (3, 2)
+    wavg = average.WeightedAverage()
+    wavg.add(2.0, 1)
+    assert wavg.eval() == 2.0
+    assert paddle_tpu_torch.Executor is Executor
     assert not _build.build_info(), "a CPU step must not build kernels"
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "paddle_tpu"))
@@ -354,6 +380,12 @@ def test_default_device_is_cuda_and_raises_without_it(monkeypatch):
     det_map.update([[[1, 0.9, 0, 0, 4, 4]]], [[[1, 0, 0, 4, 4]]])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         det_map.eval()
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.static import distributions
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        distributions.Normal([0.0], [1.0])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        static.load(None, "unused_model_path_never_read")
     assert Executor("cpu").device == torch.device("cpu")
     assert resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(ValueError):

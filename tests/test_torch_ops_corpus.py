@@ -1,6 +1,6 @@
 """The op corpus (`tests/test_ops_{tensor,math,nn,optimizer,sequence,
-rnn,detection,detection3,vision}.py`) run through the port's registry,
-on the CPU.
+rnn,detection,detection3,vision,misc2}.py`) run through the port's
+registry, on the CPU.
 
 One case for every `OpCase` of those files whose op type the port
 registers, each its own test (a case the JAX suite marks `slow` for its
@@ -8,7 +8,11 @@ finite-difference gradients runs here unmarked: the gradient here is
 `jax.vjp`), the sequence ops of `tests/test_ops_text.py`
 (`sequence_topk_avg_pooling`, `sequence_erase`), `tree_conv` of the
 text corpus (the eager TreeConv layer runs it), and `unpool` as
-`tests/test_ops_vision.py::test_unpool_values` builds its case:
+`tests/test_ops_vision.py::test_unpool_values` builds its case, every
+other case of `tests/test_ops_text.py` (`CASES`: the CTR, text and loss
+ops; `CASES2`: the fused ones), and the fused cases that
+`tests/test_ops_coverage.py`'s test functions build (captured by
+running those functions with its `check_output` recording the case):
 
 * forward: the case's inputs (numpy) through the port's registered
   function, against the case's numpy oracle at the corpus's own
@@ -29,7 +33,9 @@ import torch
 
 import test_ops_detection
 import test_ops_detection3
+import test_ops_coverage
 import test_ops_math
+import test_ops_misc2
 import test_ops_nn
 import test_ops_optimizer
 import test_ops_rnn
@@ -45,7 +51,7 @@ FAMILIES = {"tensor": test_ops_tensor, "math": test_ops_math,
             "nn": test_ops_nn, "optimizer": test_ops_optimizer,
             "sequence": test_ops_sequence, "rnn": test_ops_rnn,
             "detection": test_ops_detection,
-            "detection3": test_ops_detection3}
+            "detection3": test_ops_detection3, "misc2": test_ops_misc2}
 
 
 def _unwrap(case):
@@ -78,12 +84,40 @@ def _unpool_values_case():
                   oracle=lambda X, Indices, attrs: exp, name="unpool_values")
 
 
-#: the vision corpus (every case, the slow-marked one too), unpool, and
-#: the text corpus's tree_conv (nn.TreeConv)
+def _coverage_fused_cases():
+    """The OpCases of tests/test_ops_coverage.py's fused tests, recorded
+    by running each with its `check_output` capturing the case (no
+    result is read by these tests)."""
+    cases = []
+    saved = test_ops_coverage.check_output
+    test_ops_coverage.check_output = cases.append
+    try:
+        for name in ("test_fusion_seqpool_concat",
+                     "test_fusion_seqpool_concat_sqrt",
+                     "test_fusion_transpose_flatten_concat",
+                     "test_fusion_lstm_numpy_recurrence",
+                     "test_fusion_seqconv_eltadd_relu",
+                     "test_fusion_seqpool_cvm_concat",
+                     "test_fused_embedding_fc_lstm"):
+            getattr(test_ops_coverage, name)()
+    finally:
+        test_ops_coverage.check_output = saved
+    for c in cases:
+        c.name = c.name + "_coverage"
+    return cases
+
+
+#: the text corpus's fused cases (CASES2) but the sequence op above
+FUSED_CASES = [c for c in test_ops_text.CASES2
+               if c.op != "sequence_topk_avg_pooling"] + \
+    _coverage_fused_cases()
+#: the vision corpus (every case, the slow-marked one too), unpool, the
+#: text corpus's CTR, text and loss cases (tree_conv for nn.TreeConv),
+#: and the fused ones
 LAYER_CASES = [("vision", _unwrap(c)) for c in test_ops_vision.CASES] + [
     ("vision", _unpool_values_case())] + [
-    ("text", _unwrap(c)) for c in test_ops_text.CASES
-    if _unwrap(c).op == "tree_conv"]
+    ("text", _unwrap(c)) for c in test_ops_text.CASES] + [
+    ("fused", c) for c in FUSED_CASES]
 CASES = [(fam, _unwrap(case)) for fam, mod in FAMILIES.items()
          for case in mod.CASES if tregistry.has_op(_unwrap(case).op)] + [
     ("text", case) for case in TEXT_CASES] + LAYER_CASES
@@ -186,16 +220,21 @@ def _with(inputs, leaves, values):
 def test_corpus_op_types_are_ported():
     want = {_unwrap(c).op for mod in FAMILIES.values() for c in mod.CASES}
     assert {c.op for fam, c in CASES
-            if fam not in ("text", "vision")} == want - NOT_PORTED
+            if fam not in ("text", "vision", "fused")} == want - NOT_PORTED
     assert {c.op for c in TEXT_CASES} == {"sequence_topk_avg_pooling",
                                           "sequence_erase"}
     assert sorted({c.op for f, c in LAYER_CASES if f == "vision"}) == [
         "affine_grid", "deformable_conv", "deformable_conv_v1",
         "deformable_psroi_pooling", "max_pool2d_with_index", "prroi_pool",
         "psroi_pool", "spectral_norm", "spp", "unpool"]
-    assert sorted(c.op for f, c in LAYER_CASES if f == "text") == [
-        "tree_conv", "tree_conv"]
-    assert len(CASES) >= 200
+    assert {c.op for f, c in LAYER_CASES if f == "text"} == {
+        _unwrap(c).op for c in test_ops_text.CASES}
+    assert {c.op for f, c in LAYER_CASES if f == "fused"} == {
+        "fused_elemwise_activation", "fused_embedding_seq_pool",
+        "fusion_seqpool_concat", "fusion_transpose_flatten_concat",
+        "fusion_lstm", "fusion_seqconv_eltadd_relu",
+        "fusion_seqpool_cvm_concat", "fused_embedding_fc_lstm"}
+    assert len(CASES) >= 290
 
 
 def _float_outputs(case, slots, got):
