@@ -5,6 +5,7 @@
     python3 chip_smoke.py --latency [ROOT]
     python3 chip_smoke.py --decode-rows [ROOT]
     python3 chip_smoke.py --flash-sweep [ROOT]
+    python3 chip_smoke.py --capture
 
 Phases, each of which raises (exit code != 0) when its check fails:
 
@@ -323,6 +324,38 @@ Phases, each of which raises (exit code != 0) when its check fails:
     Phases 29-30 launch none of the kernels of the kernels line
     (asserted).
 
+31. (Run right after phase 5, while phase 3's model is alive.) The
+    captured rungs against eager ones. Every engine rung and every
+    nn.TrainStep signature is one captured CUDA graph
+    (`observability.profile.profiled_graph`), so phases 3-4c and 23 run
+    captured; their launch counts hold because each graph adds the
+    launches its capture saw on every replay. Phase 31 turns the
+    compile cache on in a temporary directory and holds the captured
+    path against `disable_capture()`: (a) GPT-2-small with phase 3's 16
+    greedy requests on 8 slots through DecodeEngine and through
+    PagedDecodeEngine (spec_k 4, a draft distilled from the eager
+    contiguous run) with f32 and int8 pools, each engine once eager and
+    once captured: the tokens equal (near-tie rule with phase 3's
+    gaps), compile_count() equal to the rung count after warmup() and
+    unchanged after the requests (= stats()["compiled_signatures"]),
+    and every rung's logits on the same live state within
+    CAPTURE_LOGIT_TOL of max |eager|, each rung's capture ms, pool
+    bytes, GFLOP and launches a replay printed; (b) a second contiguous
+    engine warm-starts from the first one's manifest: every rung a hit,
+    compile_count() 0 after warmup() and after the requests, tokens
+    equal; (c) the decode tick at 8 slots, f32 contiguous and int8
+    paged, eager and captured: wall ms, device ms, idle share, kernels
+    and host launch calls a tick; (d) Transformer-big TrainStep at the
+    128 bucket (B=64), two captured steps against two eager ones from
+    the same weights: losses within CAPTURE_LOSS_TOL, each update within
+    CAPTURE_UPDATE_TOL of its max floored at CAPTURE_UPDATE_FLOOR of the
+    largest, an eager-vs-eager control printed beside; 18 + 18 flash
+    launches a step. Then profile_snapshot()'s ledger size and a Chrome
+    trace (CAPTURE_TRACE, beside --out's file or in the temporary
+    directory). `--capture` builds the kernels, makes phase
+    3's references and runs phase 31 alone, then prints one CAPTURE line
+    and the device line.
+
 Then a `{"kernels": [...]}` line and, last, the device line
 `{"ok": true, "device": {...}}`. Every number is printed beside the
 card's name and power limit.
@@ -353,6 +386,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -880,17 +914,25 @@ def dev_us(e):
                    getattr(e, "self_cuda_time_total", 0.0))
 
 
-def device_rows(torch, run):
+def device_rows(torch, run, host=None):
     """torch.profiler's device-side rows over `run()`: a CPU op's row
     also carries the device time of the kernels it launched, which would
-    count them twice."""
+    count them twice. With a dict `host`, also the host's launch calls
+    over the run: host["launches"] (kernel launch calls and graph
+    launches) and host["graph_launches"]."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA],
                  acc_events=True) as prof:
         run()
-    return [e for e in prof.key_averages()
+    rows = prof.key_averages()
+    if host is not None:
+        graphs = sum(e.count for e in rows if e.key in GRAPH_LAUNCH_CALLS)
+        host["graph_launches"] = graphs
+        host["launches"] = graphs + sum(e.count for e in rows
+                                        if e.key in LAUNCH_CALLS)
+    return [e for e in rows
             if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
 
 
@@ -916,6 +958,8 @@ def kernel_rows(torch, fn, argsets, calls=20):
 #: profiler's host rows name them
 LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
                 "cuLaunchKernelEx", "cudaLaunchCooperativeKernel")
+#: the calls that launch a captured CUDA graph
+GRAPH_LAUNCH_CALLS = ("cudaGraphLaunch", "cuGraphLaunch")
 
 
 def host_launches(torch, fn, argsets, calls=4):
@@ -944,12 +988,15 @@ def profile_device(torch, run, steps, top=8):
     t0 = time.perf_counter()
     run(steps)
     wall_ms = (time.perf_counter() - t0) / steps * 1e3
-    events = device_rows(torch, lambda: run(steps))
+    host = {}
+    events = device_rows(torch, lambda: run(steps), host)
     device_ms = sum(dev_us(e) for e in events) / steps / 1e3
     ranked = sorted(events, key=dev_us, reverse=True)[:top]
     return {"step_wall_ms": wall_ms,
             "step_device_ms": device_ms if events else None,
             "launches_per_step": sum(e.count for e in events) / steps,
+            "host_launches_per_step": host["launches"] / steps,
+            "graph_launches_per_step": host["graph_launches"] / steps,
             "device_idle_share": (1.0 - device_ms / wall_ms
                                   if events else None),
             "top_kernels": [{"name": e.key[:80],
@@ -976,9 +1023,11 @@ def step_breakdown(torch, gen, model, prompts, steps=20, kv_dtype=None):
     time per step and the top kernels from torch.profiler, and the
     device's idle share."""
     if kv_dtype is None:
-        eng = gen.DecodeEngine(model, batch_size=8, max_len=1024)
+        eng = gen.DecodeEngine(model, batch_size=8,
+                               max_len=model.config.max_len)
     else:
-        eng = gen.PagedDecodeEngine(model, batch_size=8, max_len=1024,
+        eng = gen.PagedDecodeEngine(model, batch_size=8,
+                                    max_len=model.config.max_len,
                                     block_size=8, spec_k=0,
                                     kv_dtype=kv_dtype)
     state = eng.init_state()
@@ -3996,17 +4045,20 @@ def eager_zoo(torch, seed, tag, image=224, resnet_batch=32, zoo_batch=16,
     # (b) the vision zoo at batch 16
     xs = x[:zoo_batch]
     ys = y[:zoo_batch]
+    # the dropout generator is a step argument: a captured step draws
+    # fresh masks from it on every replay
     gen = torch.Generator(device=dev).manual_seed(seed)
     for name, build, fwd in (
             ("vgg16", lambda: vision_zoo.vgg16(image_size=image, device=dev),
-             lambda m, a: m(a, gen)),
+             lambda m, a, g: m(a, g)),
             ("mobilenet_v1", lambda: vision_zoo.MobileNetV1(device=dev),
-             lambda m, a: m(a)),
+             lambda m, a, g: m(a)),
             ("se_resnext50", lambda: vision_zoo.SEResNeXt(50, device=dev),
-             lambda m, a: m(a))):
+             lambda m, a, g: m(a))):
         m = build()
-        loss, _, ms = zoo_step(torch, m, lambda mm, a, b: ce(fwd(mm, a), b),
-                               (xs, ys))
+        loss, _, ms = zoo_step(torch, m,
+                               lambda mm, a, b, g: ce(fwd(mm, a, g), b),
+                               (xs, ys, gen))
         assert np.isfinite(loss), (name, loss)
         out[name] = dict(loss=loss, step_ms=ms,
                          images_per_s=zoo_batch / ms * 1e3)
@@ -5008,6 +5060,376 @@ def crnn_training(torch, seed, tag, dev="cuda"):
     return out
 
 
+def check_kernels(torch, da, gen, seed, tag):
+    """Phase 2: K5, K6 and K7 against their plain versions; the summary
+    dict of each kernel, launches zeroed for the serving phases."""
+    kernels = {"decode_attention": check_contiguous_kernel(
+        torch, da, seed, tag)}
+    (kernels["paged_decode_attention"],
+     kernels["paged_prefill_attention"]) = check_paged_kernel(
+        torch, da, seed, tag)
+    (kernels["quantized_paged_decode_attention"],
+     kernels["quantized_paged_prefill_attention"]) = check_quantized_kernel(
+        torch, da, gen, seed, tag)
+    for k in CHUNK_ROUTES.keys() | CHUNK_ROUTES.values():
+        kernels[k]["launches"] = 0
+    return kernels
+
+
+# ---------------------------------------------------------------------------
+# phase 31: the captured rungs (one CUDA graph per signature) against eager
+# ---------------------------------------------------------------------------
+
+#: each rung's captured logits against its eager logits on the same state,
+#: relative to max |eager|: the same kernels in the same order, so only
+#: the summation order of a library GEMM could differ
+CAPTURE_LOGIT_TOL = 1e-6
+#: Transformer-big's captured steps against eager ones from the same
+#: weights: the loss (relative) and each parameter's update within
+#: CAPTURE_UPDATE_TOL of its max, floored at CAPTURE_UPDATE_FLOOR of the
+#: largest (dQ and dbias are summed with f32 atomics, in an order that
+#: changes between runs: the eager-vs-eager control is printed beside)
+CAPTURE_LOSS_TOL = 1e-6
+CAPTURE_UPDATE_TOL = 1e-4
+CAPTURE_UPDATE_FLOOR = 1e-2
+CAPTURE_MT_BUCKET = (128, 64)
+#: phase 31's Chrome trace (spans, captures, executable runs), written
+#: beside --out's file, or in the temporary directory
+CAPTURE_TRACE = "phase31_trace.json"
+
+
+def rung_ladder(gen, eng):
+    """The ledger keys warmup() captures, in its order."""
+    if isinstance(eng, gen.PagedDecodeEngine):
+        chunks = [1] + ([eng.spec_k + 1] if eng.spec_k > 0 else [])
+        return ([f"paged_prefill[bucket={b}]" for b in eng.buckets]
+                + [f"paged_step[chunk={c}]" for c in chunks])
+    return ([f"prefill[bucket={b}]" for b in eng.buckets]
+            + [f"decode[{eng.batch_size}x{eng.max_len}]"])
+
+
+def _host(x):
+    return x if isinstance(x, np.ndarray) else x.detach().cpu().numpy()
+
+
+def rung_logits(gen, prof, eng, state, vocab):
+    """Every rung of `eng` once captured and once eager (disable_capture)
+    on the same state, the pools restored after each run: [(key, max
+    |captured - eager|, max |eager|)]."""
+    pools = [t for t in state if t is not None]
+    saved = [t.clone() for t in pools]
+
+    def restore():
+        for t, s in zip(pools, saved):
+            t.copy_(s)
+
+    def toks(*shape):
+        return (np.arange(int(np.prod(shape))) * 7919 % vocab).astype(
+            np.int32).reshape(shape)
+
+    b = eng.batch_size
+    calls = []
+    if isinstance(eng, gen.PagedDecodeEngine):
+        # a prefill from position 0 over distinct blocks (the other
+        # slots', restored after): no two rows scatter to one place
+        table = np.arange(1, eng.blocks_per_slot + 1, dtype=np.int32)[None]
+        for bk in eng.buckets:
+            calls.append((f"paged_prefill[bucket={bk}]", lambda bk=bk:
+                          eng._chunk(state, toks(1, bk), table, [0],
+                                     np.ones((1, bk), bool), bucket=bk)))
+        for c in [1] + ([eng.spec_k + 1] if eng.spec_k > 0 else []):
+            calls.append((f"paged_step[chunk={c}]", lambda c=c:
+                          eng._chunk(state, toks(b, c), eng.tables,
+                                     eng.lengths, np.ones((b, c), bool),
+                                     chunk=c)))
+    else:
+        for bk in eng.buckets:
+            calls.append((f"prefill[bucket={bk}]", lambda bk=bk:
+                          eng.prefill(state, 0, toks(bk))[1]))
+        calls.append((f"decode[{b}x{eng.max_len}]", lambda:
+                      eng.step(state, toks(b), np.ones(b, bool))[1]))
+    out = []
+    for key, fn in calls:
+        got = _host(fn())
+        restore()
+        with prof.disable_capture():
+            want = _host(fn())
+        restore()
+        out.append((key, float(np.abs(got - want).max()),
+                    float(np.abs(want).max())))
+    return out
+
+
+def live_state(eng, prompts, budgets):
+    """The engine's pools with the first batch_size prompts admitted."""
+    state = eng.init_state()
+    for i in range(eng.batch_size):
+        p = prompts[i]
+        if hasattr(eng, "admit"):
+            state, _, _ = eng.admit(state, i, p, p.size + budgets[i])
+        else:
+            state, _ = eng.prefill(state, i, p)
+    return state
+
+
+def capture_serving(torch, gen, prof, model, prompts, budgets, gaps, tag):
+    """Phase 31(a) and (b). Each engine serves phase 3's 16 requests
+    eagerly (disable_capture) and captured; the tokens must be equal
+    (near-tie rule), compile_count() must equal the rung count after
+    warmup() and after the requests, every rung's logits must agree on
+    the same state. Then (b): a second contiguous engine warm-starts
+    from the first one's manifest."""
+    from paddle_tpu_torch.serving.generation import GenerationServer
+    led = prof.compile_ledger()
+    out, draft, first = {}, None, None
+    s = model.config.max_len
+    engines = (
+        ("contiguous f32", lambda: gen.DecodeEngine(model, batch_size=8,
+                                                    max_len=s)),
+        ("paged f32", lambda: gen.PagedDecodeEngine(
+            model, batch_size=8, max_len=s, block_size=8, spec_k=4)),
+        ("paged int8", lambda: gen.PagedDecodeEngine(
+            model, batch_size=8, max_len=s, block_size=8, spec_k=4,
+            kv_dtype="int8")))
+    for label, make in engines:
+        kw = {} if label.startswith("contiguous") else {"draft": draft}
+        eng = make()
+        with prof.disable_capture():
+            eng.warmup()
+            eager, _, eager_wall, _ = serve(GenerationServer, eng, prompts,
+                                            budgets, **kw)
+        del eng
+        torch.cuda.empty_cache()
+        if draft is None:
+            draft = gen.NgramDraft(model.config.vocab_size)
+            for p, t in zip(prompts, eager):
+                draft.observe(list(p) + t)
+        eng = make()
+        t0 = time.perf_counter()
+        rep = eng.warmup()
+        warm_s = time.perf_counter() - t0
+        ladder = rung_ladder(gen, eng)
+        recs = led.entries(scope=eng.ledger_scope, kind=(
+            "graph" if eng.device.type == "cuda" else "eager"))
+        assert sorted(r.key for r in recs) == sorted(ladder), (
+            label, [r.key for r in recs], ladder)
+        assert eng.compile_count() == len(ladder), (label,
+                                                    eng.compile_count())
+        got, _, wall, stats = serve(GenerationServer, eng, prompts, budgets,
+                                    **kw)
+        assert eng.compile_count() == stats["compiled_signatures"] == len(
+            ladder), (label, eng.compile_count(), stats)
+        ties = sum(compare(f"31(a) {label} request {i}", g, e, gp)
+                   for i, (g, e, gp) in enumerate(zip(got, eager, gaps)))
+        errs = rung_logits(gen, prof, eng, live_state(eng, prompts, budgets),
+                           model.config.vocab_size)
+        worst = max(errs, key=lambda r: r[1] / r[2])
+        for key, err, top in errs:
+            assert err <= CAPTURE_LOGIT_TOL * top, (label, key, err, top)
+        rungs = {r.key: {"capture_ms": r.compile_s * 1e3,
+                         "warmup_ms": (r.memory or {}).get("warmup_s", 0.0)
+                         * 1e3,
+                         "pool_bytes": (r.memory or {}).get("pool_bytes"),
+                         "peak_bytes": (r.memory or {}).get("peak_bytes"),
+                         "launches": r.launches,
+                         "gflop": r.flops / 1e9} for r in recs}
+        n_tok = sum(map(len, got))
+        out[label] = dict(
+            rungs=rungs, warmup_s=warm_s, compile_count=len(ladder),
+            eager_tokens_per_s=sum(map(len, eager)) / eager_wall,
+            tokens_per_s=n_tok / wall, near_ties=ties,
+            logits_max_rel=worst[1] / worst[2], logits_worst_rung=worst[0],
+            warm_start=rep["warm_start"])
+        print(f"phase 31(a) {label}: {n_tok} tokens captured "
+              f"{n_tok / wall:.1f} tokens/s, eager "
+              f"{out[label]['eager_tokens_per_s']:.1f} tokens/s, equal "
+              f"(near-ties {ties}); compile_count {len(ladder)} after "
+              f"warmup ({warm_s:.2f} s) and after the requests; rung "
+              f"logits max |captured - eager| / max |eager| "
+              f"{worst[1] / worst[2]:.3g} at {worst[0]} (gate "
+              f"{CAPTURE_LOGIT_TOL}) {tag}")
+        for key in ladder:
+            r = rungs[key]
+            print(f"  {key}: capture {r['capture_ms']:.1f} ms (warm-up "
+                  f"{r['warmup_ms']:.1f}), pool {r['pool_bytes']} bytes, "
+                  f"peak {r['peak_bytes']} bytes, {r['gflop']:.3f} GFLOP, "
+                  f"launches a replay {r['launches']}")
+        if first is None:
+            first = got
+            out["warm_start"] = warm_start_check(
+                torch, gen, prof, make, prompts, budgets, got, gaps,
+                len(ladder), tag)
+        del eng
+        torch.cuda.empty_cache()
+    return out
+
+
+def warm_start_check(torch, gen, prof, make, prompts, budgets, want, gaps,
+                     n_rungs, tag):
+    """Phase 31(b): a second engine reads the first one's manifest:
+    every rung a warm-start hit, and traffic captures nothing."""
+    from paddle_tpu_torch.serving.generation import GenerationServer
+    eng = make()
+    t0 = time.perf_counter()
+    rep = eng.warmup()
+    warm_s = time.perf_counter() - t0
+    ws = rep["warm_start"]
+    hits = prof.compile_ledger().cache_entries(event="hit",
+                                               scope=eng.ledger_scope)
+    assert ws and ws["found"] and ws["requested"] == ws["loaded"] == \
+        ws["captured"] == n_rungs == len(hits), (ws, len(hits))
+    assert eng.compile_count() == 0, eng.compile_count()
+    got, _, _, stats = serve(GenerationServer, eng, prompts, budgets)
+    assert eng.compile_count() == stats["compiled_signatures"] == 0
+    ties = sum(compare(f"31(b) request {i}", g, w, gp)
+               for i, (g, w, gp) in enumerate(zip(got, want, gaps)))
+    print(f"phase 31(b) warm start: manifest {ws['manifest']}, "
+          f"{ws['loaded']} of {ws['requested']} rungs hits, captured in "
+          f"{ws['seconds']:.2f} s (warmup {warm_s:.2f} s); traffic "
+          f"captured nothing (compile_count 0), tokens equal to 31(a)'s "
+          f"(near-ties {ties}) {tag}")
+    return dict(ws, warmup_s=warm_s, near_ties=ties)
+
+
+def capture_ticks(torch, gen, prof, model, prompts, tag):
+    """Phase 31(c): the decode tick at 8 slots, f32 contiguous and int8
+    paged, eager and captured: wall, device, idle share, kernels and
+    host launch calls per tick."""
+    import contextlib
+    out = {}
+    for kv in (None, "int8"):
+        for mode in ("eager", "captured"):
+            ctx = (prof.disable_capture() if mode == "eager"
+                   else contextlib.nullcontext())
+            with ctx:
+                brk = step_breakdown(torch, gen, model, prompts, kv_dtype=kv)
+            label = f"{'f32 contiguous' if kv is None else 'int8 paged'} " \
+                    f"{mode}"
+            out[label] = brk
+            dms = ("not measured" if brk["step_device_ms"] is None else
+                   f"{brk['step_device_ms']:.3f} ms, idle share "
+                   f"{brk['device_idle_share']:.3f}")
+            print(f"phase 31(c) decode tick, 8 slots, {label}: wall "
+                  f"{brk['step_wall_ms']:.3f} ms, device {dms}, "
+                  f"{brk['launches_per_step']:.0f} kernels and "
+                  f"{brk['host_launches_per_step']:.0f} host launch calls "
+                  f"({brk['graph_launches_per_step']:.0f} graph launches) "
+                  f"a tick {tag}")
+            torch.cuda.empty_cache()
+    return out
+
+
+def capture_training(torch, tfa, prof, seed, tag, dev="cuda"):
+    """Phase 31(d): Transformer-big through nn.TrainStep at the 128 bucket
+    (B=64), two captured steps against two eager ones from the same
+    weights, and two more eager ones as the control; each run launches
+    the f32 flash kernels 18 + 18 times a step."""
+    import contextlib
+
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.models.transformer import Transformer
+    cfg = mt_big_config()
+    nn.seed(seed)
+    init = Transformer(cfg, device=dev)
+    state0 = {k: v.detach().to("cpu", copy=True)
+              for k, v in init.state_dict().items()}
+    del init
+    bucket, bsz = CAPTURE_MT_BUCKET
+    batch = _to(torch, mt_bucket_batch(seed, bucket, bsz), dev)
+
+    def run(eager):
+        m = Transformer(cfg, device=dev)
+        m.load_state_dict(state0)
+        step = nn.TrainStep(m, lambda mm, *b: mm.loss(*b), MT_BIG_LR, 0.9)
+        before = dict(tfa.launch_counts)
+        losses, walls = [], []
+        with (prof.disable_capture() if eager
+              else contextlib.nullcontext()):
+            for _ in range(2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                losses.append(float(step(*batch)))
+                walls.append((time.perf_counter() - t0) * 1e3)
+        launched = {k: tfa.launch_counts[k] - before[k] for k in FLASH_F32}
+        assert dev == "cpu" or launched == dict.fromkeys(FLASH_F32,
+                                                         36), launched
+        upd = {k: p.detach().to("cpu") - state0[k]
+               for k, p in m.named_parameters()}
+        del m, step
+        torch.cuda.empty_cache()
+        return losses, upd, walls
+
+    prof.reset_profile()
+    cl, cu, cw = run(False)
+    rec = prof.compile_ledger().entries(
+        component="train", kind="graph" if dev == "cuda" else "eager")
+    assert len(rec) == 1, [r.key for r in rec]
+    el, eu, ew = run(True)
+    kl, ku, _ = run(True)
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(cl, el))
+    upd_err, worst = grad_err(cu, eu, CAPTURE_UPDATE_FLOOR)
+    ctl_loss = max(abs(a - b) / abs(b) for a, b in zip(kl, el))
+    ctl_upd, ctl_worst = grad_err(ku, eu, CAPTURE_UPDATE_FLOOR)
+    r = rec[0]
+    mem = r.memory or {"warmup_s": 0.0, "pool_bytes": None}
+    print(f"phase 31(d) Transformer-big TrainStep, bucket {bucket} B={bsz}, "
+          f"two steps: captured losses {cl}, eager {el}: loss rel err "
+          f"{loss_err:.3g} (gate {CAPTURE_LOSS_TOL}), update err "
+          f"{upd_err:.3g} at {worst} (each tensor's max floored at "
+          f"{CAPTURE_UPDATE_FLOOR} of the largest; gate "
+          f"{CAPTURE_UPDATE_TOL}); control eager vs eager: loss "
+          f"{ctl_loss:.3g}, update {ctl_upd:.3g} at {ctl_worst}; capture "
+          f"{r.key}: {r.compile_s * 1e3:.1f} ms (warm-up "
+          f"{mem['warmup_s'] * 1e3:.1f}), pool "
+          f"{mem['pool_bytes']} bytes, {r.flops / 1e12:.3f} TFLOP; "
+          f"step walls captured {cw[0]:.1f} / {cw[1]:.1f} ms, eager "
+          f"{ew[0]:.1f} / {ew[1]:.1f} ms {tag}")
+    assert loss_err <= CAPTURE_LOSS_TOL and upd_err <= CAPTURE_UPDATE_TOL, (
+        loss_err, upd_err, worst)
+    return dict(captured_losses=cl, eager_losses=el, loss_rel_err=loss_err,
+                update_err=upd_err, worst=worst, control_loss=ctl_loss,
+                control_update=ctl_upd, capture_ms=r.compile_s * 1e3,
+                pool_bytes=mem["pool_bytes"], tflop=r.flops / 1e12,
+                captured_wall_ms=cw, eager_wall_ms=ew)
+
+
+def capture_phase(torch, gen, tfa, model, prompts, budgets, gaps, seed, tag,
+                  out_dir=None):
+    """Phase 31: the captured path against eager runs (see the module
+    docstring). The compile cache lives in a temporary directory for the
+    phase; the Chrome trace goes to `out_dir` (default: the temporary
+    directory)."""
+    from paddle_tpu_torch.core import compile_cache as cc
+    from paddle_tpu_torch.core import flags
+    from paddle_tpu_torch.observability import profile as prof
+    from paddle_tpu_torch.observability import trace
+    t0 = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory() as cache_dir:
+        flags.set_flag("compile_cache_dir", cache_dir)
+        cc.reset_compile_cache()
+        try:
+            out["serving"] = capture_serving(torch, gen, prof, model,
+                                             prompts, budgets, gaps, tag)
+            out["cache"] = cc.compile_cache().stats()
+        finally:
+            flags.set_flag("compile_cache_dir", "")
+            cc.reset_compile_cache()
+    out["ticks"] = capture_ticks(torch, gen, prof, model, prompts, tag)
+    out["training"] = capture_training(torch, tfa, prof, seed, tag)
+    snap = prof.profile_snapshot()
+    trace_path = os.path.join(out_dir or tempfile.gettempdir(),
+                              CAPTURE_TRACE)
+    trace.export_chrome_trace(trace_path, extra_events=prof.chrome_events())
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 31: {out['seconds']:.1f} s; profile_snapshot ledger "
+          f"{snap['ledger']['events']} records since the last reset, "
+          f"{len(snap['executables'])} executables; Chrome trace "
+          f"{trace_path}; compile cache {out['cache']['entries']} "
+          f"entries, events {out['cache']['events']} {tag}")
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5030,7 +5452,14 @@ def main(argv=None):
                          "at FLASH_SWEEP_T with the port under ROOT "
                          "(default: this checkout); print one FLASH_SWEEP "
                          "line")
+    ap.add_argument("--capture", action="store_true",
+                    help="only build the kernels, make phase 3's "
+                         "references and run phase 31 (the captured "
+                         "rungs against eager runs); print one CAPTURE "
+                         "line")
     args = ap.parse_args(argv)
+    out_dir = (os.path.dirname(os.path.abspath(args.out)) if args.out
+               else None)
 
     import torch
     if not torch.cuda.is_available():
@@ -5077,16 +5506,8 @@ def main(argv=None):
     build = build_report(info, tag)
 
     # 2. kernels against their plain versions
-    kernels = {"decode_attention": check_contiguous_kernel(
-        torch, da, args.seed, tag)}
-    (kernels["paged_decode_attention"],
-     kernels["paged_prefill_attention"]) = check_paged_kernel(
-        torch, da, args.seed, tag)
-    (kernels["quantized_paged_decode_attention"],
-     kernels["quantized_paged_prefill_attention"]) = check_quantized_kernel(
-        torch, da, gen, args.seed, tag)
-    for k in CHUNK_ROUTES.keys() | CHUNK_ROUTES.values():
-        kernels[k]["launches"] = 0
+    if not args.capture:
+        kernels = check_kernels(torch, da, gen, args.seed, tag)
 
     # 3. contiguous serving
     cfg = gen.LMConfig(**GPT2_SMALL)
@@ -5110,6 +5531,14 @@ def main(argv=None):
           f"{time.perf_counter() - t0:.1f} s; smallest top-2 gap "
           f"{min(min(g) for g in gaps):.3g} {tag}")
 
+    if args.capture:
+        out = capture_phase(torch, gen, tfa, model, prompts, budgets, gaps,
+                            args.seed, tag, out_dir)
+        print("CAPTURE " + json.dumps(out, default=str))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     results = {"card": card, "seed": args.seed, "config": cfg._asdict(),
                "kernels": kernels, "phases": {}, "build_report": build}
 
@@ -5376,6 +5805,12 @@ def main(argv=None):
     brk = step_breakdown(torch, gen, model, prompts, kv_dtype="int8")
     results["step_breakdown_int8"] = brk
     print_profile("int8 paged decode step, 8 live slots", brk, tag)
+
+    # 31. the captured rungs against eager runs (while phase 3's model
+    # and references are alive)
+    results["capture"] = capture_phase(torch, gen, tfa, model, prompts,
+                                       budgets, gaps, args.seed, tag,
+                                       out_dir)
     del model
     torch.cuda.empty_cache()
 

@@ -5,8 +5,14 @@ Executor, executor.py:418, run :672). `run()` validates the feed against
 the program's VarDescs, builds the program's step function once per
 (program identity and version, feed signature, fetch list, state names,
 mode) and runs it eagerly on the executor's device (core/lowering.py).
-There is no jit, no compile ledger and no persistent compile cache: what
-replaces them is an open decision (ROADMAP Queue 1 item 13).
+Each cache entry goes through `observability.profile.ledger_jit` (the
+JAX Executor's `LedgerJit` sites, executor.py:209-248): its first run is
+recorded in the CompileLedger with kind "eager" at the site of the
+program, its fetches and mode, so a feed whose shape changes is a second
+signature whose forensics name the feed. No program is captured into a
+CUDA graph yet: its state round-trips through the scope between runs
+and a `while` reads its condition on the host (ROADMAP Queue 1 item
+13a).
 
 `Executor(place=None)` runs on the GPU and raises without one; pass
 `place="cpu"` (or `CPUPlace()`) for the CPU.
@@ -23,6 +29,7 @@ from paddle_tpu_torch.core.ir import Variable, default_main_program
 from paddle_tpu_torch.core.lowering import make_step_fn, referenced_state
 from paddle_tpu_torch.core.places import resolve_device
 from paddle_tpu_torch.core.scope import global_scope, to_numpy
+from paddle_tpu_torch.observability import profile as obs_profile
 
 __all__ = ["Executor"]
 
@@ -88,9 +95,14 @@ class Executor:
                 logger.info("new step function: program v%s feeds=%s "
                             "fetches=%s", program._version,
                             sorted(feed_vals), fetch_names)
-            step = make_step_fn(program, feed_vals.keys(), fetch_names,
-                                state_names, training=training,
-                                device=self.device)
+            step = obs_profile.ledger_jit(
+                make_step_fn(program, feed_vals.keys(), fetch_names,
+                             state_names, training=training,
+                             device=self.device),
+                site=(f"executor/{id(program):x}v{program._version}/"
+                      f"{','.join(fetch_names)}/"
+                      f"{'train' if training else 'infer'}"),
+                arg_names=("state", "feed", "rng"))
             self._cache[key] = (program, step)
 
         if training or self._consumes_rng(program):

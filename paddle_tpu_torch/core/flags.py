@@ -5,7 +5,11 @@ from `PT_FLAGS_<name>` environment variables (the reference's gflags
 whitelist, python/paddle/fluid/__init__.py:162-189), with every flag of
 the JAX package under its name, type and default. The port reads
 check_nan_inf, executor_log_level, verify_program and deterministic (the
-Executor), default_dtype (static parameters) and amp_dtype (`amp`). The
+Executor), default_dtype (static parameters), amp_dtype (`amp`), the
+profile_* flags (`observability.profile`) and the compile_cache_* flags
+(`core.compile_cache`). The JAX package's compile_cache_jax_cache has no
+counterpart: it plumbs the cache directory into jax's own compilation
+cache, and a captured CUDA graph has no compiler cache beneath it. The
 others name the module of a later slice that will read them (`unread`);
 until then a value other than the default warns once that it has no
 effect. No flag picks the device: that is `core.places.resolve_device`'s.
@@ -89,6 +93,29 @@ define_flag("deterministic", False,
             "Executor.run puts cuDNN in deterministic mode "
             "(torch.backends.cudnn.deterministic, benchmark off; "
             "flags.cc:98 cudnn_deterministic)")
+define_flag("profile_compile_ledger", True,
+            "record every capture and every first eager run of a "
+            "signature (signature, wall time, static flops, memory, "
+            "recompile forensics) in the process-wide CompileLedger; "
+            "False turns the ledger off, never the capture")
+define_flag("profile_memory_sample_every", 0,
+            "sample the device allocator into the memory ledger every N "
+            "observed executable runs; 0 samples only on explicit "
+            "MemoryLedger.sample() calls")
+define_flag("profile_peak_flops", 0.0,
+            "roofline peak FLOP/s used for the MFU derivation; 0 "
+            "resolves from the device-name table (GPU) or a one-time "
+            "matmul calibration (CPU)")
+define_flag("compile_cache_dir", "",
+            "root directory of the persistent signature cache (entries "
+            "and warm-start manifests); empty disables it")
+define_flag("compile_cache_keep", 256,
+            "keep-last-N GC bound on cache entries (by publish time); 0 "
+            "disables GC")
+define_flag("compile_cache_slow_compile_s", 10.0,
+            "captures slower than this are recorded in the cache's "
+            "PATHOLOGY.json, so a known-slow signature is flagged on "
+            "every later cold start")
 define_flag("eager_delete_tensor_gb", 0.0,
             "not read: torch's caching allocator frees tensors "
             "(flags.cc eager_delete_tensor_gb)", unread=_PARITY)

@@ -38,7 +38,7 @@ import threading
 import numpy as np
 
 __all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry",
-           "registry"]
+           "registry", "compile_series", "run_series"]
 
 _NAME_RE = re.compile(r"^[a-zA-Z_:][a-zA-Z0-9_:]*$")
 _LABEL_RE = re.compile(r"^[a-zA-Z_][a-zA-Z0-9_]*$")
@@ -429,3 +429,34 @@ def registry():
     """The process-wide default registry every shimmed counter site and
     the gateway's /metrics route share."""
     return _default
+
+
+# -- the executable series (observability/profile.py records them) ---------
+
+def compile_series(component, reg=None):
+    """(pt_compile_events_total, pt_compile_seconds_total) children of
+    `component`: one event and its wall seconds per ledger record that
+    paid a capture or a first eager run."""
+    reg = reg or _default
+    events = reg.counter("pt_compile_events_total",
+                         "compile events recorded in the ledger",
+                         labels=("component",))
+    seconds = reg.counter("pt_compile_seconds_total",
+                          "wall seconds spent compiling, per component",
+                          labels=("component",))
+    return (events.labels(component=component),
+            seconds.labels(component=component))
+
+
+def run_series(component, key, reg=None):
+    """(pt_executable_runs_total, pt_executable_run_seconds) children of
+    one executable (a captured graph, or an eager rung on the CPU)."""
+    reg = reg or _default
+    runs = reg.counter("pt_executable_runs_total",
+                       "executable invocations, per attributed executable",
+                       labels=("component", "key"))
+    hist = reg.histogram("pt_executable_run_seconds",
+                         "per-call executable wall time",
+                         labels=("component", "key"))
+    return (runs.labels(component=component, key=key),
+            hist.labels(component=component, key=key))

@@ -21,18 +21,29 @@ Counterpart of paddle_tpu/ops/generation.py, in PyTorch:
   prefix hit; a live slot exports as a CRC'd v2 state document that
   either package imports.
 
-The JAX engines donate their cache buffers to jit so XLA updates them in
-place; here the engines run eagerly and write the caches in place
-explicitly (`index_put_` / slice assignment). The state tuples the
-methods return hold the same tensors they were given.
-
-The reference's jit ladder, CompileLedger, persistent compile cache and
-planner estimates have no counterpart: `warmup()` runs every rung once
-to build the kernels and warm the allocator.
+The JAX engines jit one executable per rung and donate their cache
+buffers so XLA updates them in place. Here each rung is one captured
+CUDA graph (`observability.profile.profiled_graph`, the port's
+`jax.jit`) under the JAX ledger keys: `decode[BxS]` and
+`prefill[bucket=b]` for `DecodeEngine`, `paged_step[chunk=C]` and
+`paged_prefill[bucket=b]` for `PagedDecodeEngine`. An engine owns its
+pools: `init_state()` zeroes them and returns them, every rung is bound
+to them (a replay with another state raises), and the graphs write them
+in place. A rung's host inputs (tokens, slot, lengths, block tables,
+masks) are copied into the graph's static buffers before each replay;
+no Python value is baked into a graph. `warmup()` captures the whole
+ladder (restoring it from the compile cache's manifest when
+PT_FLAGS_compile_cache_dir is set), `compile_count()` and
+`stats()["compiled_signatures"]` are views over the CompileLedger, and
+`observability.profile.disable_capture()` runs the rungs eagerly. On the
+CPU the rungs run eagerly and the ledger records their first sights.
+The reference's planner estimates have no counterpart (ROADMAP Queue 1
+item 17).
 """
 import collections
 import hashlib
 import json
+import itertools
 import math
 import warnings
 import zlib
@@ -46,6 +57,7 @@ from torch import nn
 from paddle_tpu_torch.core.enforce import enforce
 from paddle_tpu_torch.core.places import resolve_device
 from paddle_tpu_torch.observability import metrics as obs_metrics
+from paddle_tpu_torch.observability import profile as obs_profile
 from paddle_tpu_torch.ops.kernels.decode_attention import (
     NEG_INF, decode_attention, paged_decode_attention,
     quantized_paged_decode_attention,
@@ -345,13 +357,14 @@ class DecodeEngine:
     """KV-cached incremental decode over a fixed slot bank.
 
     One engine = one (batch_size, max_len) decode rung plus one prefill
-    rung per prompt-length bucket. The host drives it slot-wise:
-    `prefill()` admits a prompt into a free slot mid-flight (other
-    slots' rows untouched), `step()` advances every slot one token and
-    returns the full logits rows so the caller owns token selection and
-    termination."""
+    rung per prompt-length bucket, each a captured CUDA graph on the card.
+    The host drives it slot-wise: `prefill()` admits a prompt into a free
+    slot mid-flight (other slots' rows untouched), `step()` advances every
+    slot one token and returns the full logits rows so the caller owns
+    token selection and termination."""
 
-    def __init__(self, model, batch_size, max_len, device=None):
+    def __init__(self, model, batch_size, max_len, device=None,
+                 cache_token=None):
         cfg = model.config
         enforce(max_len <= cfg.max_len,
                 "engine max_len %d exceeds the model's positional table "
@@ -362,18 +375,78 @@ class DecodeEngine:
         self.batch_size = int(batch_size)
         self.max_len = int(max_len)
         self.buckets = prompt_buckets(max_len)
+        self.cache_token = (cache_token if cache_token is not None
+                            else self._default_cache_token())
+        self.ledger_scope = f"generation@{next(_scope_ids)}"
+        self._state = None
+        self._step = _rung(self, self._step_body,
+                           f"decode[{self.batch_size}x{self.max_len}]",
+                           "decode",
+                           ("cache_k", "cache_v", "lengths", "tokens",
+                            "active"), ())
+        self._prefill = _rung(self, self._prefill_body, "prefill",
+                              "prefill",
+                              ("cache_k", "cache_v", "lengths", "tokens",
+                               "length", "slot"), ("bucket",))
 
+    def _default_cache_token(self):
+        """Model identity for the compile cache: class, config, the
+        parameters' names, shapes and dtypes, and the engine geometry."""
+        return _model_token(self.model) + (
+            f"/B{self.batch_size}xS{self.max_len}"
+            f"/buckets:{','.join(map(str, self.buckets))}")
+
+    def _bound(self):
+        st = self._state
+        return {"cache_k": st.cache_k, "cache_v": st.cache_v,
+                "lengths": st.lengths}
+
+    # -- the rung bodies -----------------------------------------------
+    @torch.no_grad()
+    def _step_body(self, cache_k, cache_v, lengths, tokens, active):
+        logits, new_lengths = self.model.forward_step(
+            tokens.long(), cache_k, cache_v, lengths, active)
+        lengths.copy_(new_lengths)
+        return logits
+
+    @torch.no_grad()
+    def _prefill_body(self, cache_k, cache_v, lengths, tokens, length, slot,
+                      *, bucket):
+        """Prefill one slot: full forward over the [1, bucket]-padded
+        prompt, its k/v rows into the slot's cache rows [0, bucket),
+        lengths[slot] = length, and the logits row at the last valid
+        position, all indexed on the device."""
+        length = length.reshape(1)
+        slot = slot.reshape(1).long()
+        logits, ks, vs = self.model.forward_full(tokens.long(), length)
+        rows = torch.arange(bucket, device=tokens.device)
+        for li in range(len(ks)):
+            cache_k[li].index_put_((slot, rows), ks[li][0])
+            cache_v[li].index_put_((slot, rows), vs[li][0])
+        lengths.index_copy_(0, slot, length)
+        last = torch.clamp(length.long() - 1, min=0)
+        return logits[0].index_select(0, last)[0]
+
+    # -- host surface --------------------------------------------------
     def init_state(self):
-        cfg = self.model.config
-        shape = (cfg.num_layers, self.batch_size, self.max_len,
-                 cfg.num_heads, cfg.head_dim)
-        return DecodeState(
-            cache_k=torch.zeros(shape, dtype=torch.float32,
-                                device=self.device),
-            cache_v=torch.zeros(shape, dtype=torch.float32,
-                                device=self.device),
-            lengths=torch.zeros((self.batch_size,), dtype=torch.int32,
-                                device=self.device))
+        """The engine's pools, zeroed: caches [L, B, S, N, Dh] and lengths
+        [B]. They are allocated once; every call zeroes the same tensors
+        (an engine serves one state at a time)."""
+        if self._state is None:
+            cfg = self.model.config
+            shape = (cfg.num_layers, self.batch_size, self.max_len,
+                     cfg.num_heads, cfg.head_dim)
+            self._state = DecodeState(
+                cache_k=torch.zeros(shape, dtype=torch.float32,
+                                    device=self.device),
+                cache_v=torch.zeros(shape, dtype=torch.float32,
+                                    device=self.device),
+                lengths=torch.zeros((self.batch_size,), dtype=torch.int32,
+                                    device=self.device))
+        else:
+            for t in self._state:
+                t.zero_()
+        return self._state
 
     def bucket_for(self, prompt_len):
         for b in self.buckets:
@@ -383,19 +456,39 @@ class DecodeEngine:
             f"prompt length {prompt_len} exceeds the largest prefill "
             f"bucket {self.buckets[-1]}")
 
+    def compile_count(self):
+        """Signatures captured (on the CPU: first run) so far by this
+        engine's rungs, a CompileLedger query; rungs warm_start captured
+        from a manifest are hits and do not count, nor do eager runs
+        under disable_capture() on the card."""
+        return _compile_count(self)
+
+    def warm_manifest_name(self):
+        """The compile cache's manifest name for this engine's ladder."""
+        h = hashlib.sha256(self.cache_token.encode()).hexdigest()[:16]
+        return f"generation-{h}"
+
     def warmup(self):
-        """Run every prefill bucket and the decode step once on a
-        throwaway state (builds the kernels, warms the allocator).
-        Returns {"prefill_buckets", "decode"}."""
+        """Capture the whole rung ladder off the request path (every
+        prefill bucket, then the decode step), first from the compile
+        cache's manifest when there is one, then write the manifest.
+        The rungs run on the engine's own pools, which are zeroed again
+        at the end. Returns {"prefill_buckets", "decode",
+        "warm_start"}."""
+        pcache, manifest, warm_report = _warm_start(
+            self, (self._step, self._prefill))
         state = self.init_state()
         for b in self.buckets:
             prompt = np.zeros((min(b, self.max_len),), np.int32)
             state, _ = self.prefill(state, 0, prompt)
         self.step(state, np.zeros((self.batch_size,), np.int32),
                   np.zeros((self.batch_size,), bool))
-        return {"prefill_buckets": list(self.buckets), "decode": True}
+        if manifest is not None:
+            pcache.write_manifest(manifest, scope=self.ledger_scope)
+        self.init_state()
+        return {"prefill_buckets": list(self.buckets), "decode": True,
+                "warm_start": warm_report}
 
-    @torch.no_grad()
     def prefill(self, state, slot, prompt):
         """Admit `prompt` (1-D int sequence) into `slot`. Returns
         (state, logits row [V] as np.ndarray). Other slots' cache rows
@@ -409,31 +502,74 @@ class DecodeEngine:
                 "prompt length %d exceeds max_len %d",
                 prompt.size, self.max_len)
         bucket = self.bucket_for(prompt.size)
-        padded = np.zeros((1, bucket), np.int64)
+        padded = np.zeros((1, bucket), np.int32)
         padded[0, :prompt.size] = prompt
-        tokens = torch.from_numpy(padded).to(self.device)
-        length = torch.tensor([prompt.size], dtype=torch.int32,
-                              device=self.device)
-        logits, ks, vs = self.model.forward_full(tokens, length)
-        for li in range(len(ks)):
-            state.cache_k[li, slot, :bucket] = ks[li][0]
-            state.cache_v[li, slot, :bucket] = vs[li][0]
-        state.lengths[slot] = prompt.size
-        return state, _to_numpy(logits[0, prompt.size - 1])
+        last = self._prefill(
+            state.cache_k, state.cache_v, state.lengths,
+            torch.from_numpy(padded),
+            torch.tensor(prompt.size, dtype=torch.int32),
+            torch.tensor(int(slot), dtype=torch.int32), bucket=bucket)
+        return state, _to_numpy(last)
 
-    @torch.no_grad()
     def step(self, state, tokens, active):
         """One decode tick for all slots. tokens [B] int, active [B]
         bool. Returns (state, logits [B, V] np.ndarray). Each active
         slot's row is the distribution for its next token at position
         lengths[b]."""
-        tok = torch.from_numpy(np.asarray(tokens, np.int64)).to(
-            self.device)
-        act = torch.from_numpy(np.asarray(active, bool)).to(self.device)
-        logits, lengths = self.model.forward_step(
-            tok, state.cache_k, state.cache_v, state.lengths, act)
-        state.lengths.copy_(lengths)
+        logits = self._step(
+            state.cache_k, state.cache_v, state.lengths,
+            torch.from_numpy(np.asarray(tokens, np.int32)),
+            torch.from_numpy(np.asarray(active, bool)))
         return state, _to_numpy(logits)
+
+
+#: engine ledger scopes: never reused (an id() can recycle after a dead
+#: engine is collected, and its ledger records would count for the new one)
+_scope_ids = itertools.count(1)
+
+
+def _model_token(model):
+    """Class, config and the parameters' (name, shape, dtype) hash:
+    weight values stay out, as in the JAX package's token."""
+    sig = ";".join(f"{k}:{tuple(p.shape)}:{p.dtype}"
+                   for k, p in model.named_parameters())
+    h = hashlib.sha256(sig.encode()).hexdigest()[:16]
+    return f"{type(model).__qualname__}:{model.config}/params:{h}"
+
+
+def _rung(engine, body, name, kind, arg_names, static_argnames):
+    """A rung of `engine`: a profiled_graph in the "generation" component,
+    scoped to the engine, bound to its pools, counted into
+    pt_generation_compiles_total{kind} on each capture."""
+    counter = obs_metrics.registry().counter(
+        "pt_generation_compiles_total",
+        "decode-engine executable signatures compiled",
+        labels=("kind",)).labels(kind=kind)
+    return obs_profile.profiled_graph(
+        body, component="generation", name=name,
+        static_argnames=static_argnames, scope=engine.ledger_scope,
+        on_compile=lambda rec: counter.inc(), arg_names=arg_names,
+        cache_token=f"{engine.cache_token}/{name.split('[')[0]}",
+        bound=engine._bound, device=engine.device)
+
+
+def _compile_count(engine):
+    kind = "graph" if engine.device.type == "cuda" else "eager"
+    return len(obs_profile.compile_ledger().compile_events(
+        component="generation", scope=engine.ledger_scope, kind=kind))
+
+
+def _warm_start(engine, rungs):
+    """(cache, manifest name, warm_start report) for an engine's warmup:
+    the rungs its manifest lists captured before traffic (None, None,
+    None without PT_FLAGS_compile_cache_dir)."""
+    from paddle_tpu_torch.core import compile_cache as _cc
+    pcache = _cc.compile_cache()
+    if pcache is None:
+        return None, None, None
+    manifest = engine.warm_manifest_name()
+    engine.init_state()
+    return pcache, manifest, pcache.warm_start(manifest, rungs)
 
 
 # ---------------------------------------------------------------------------
@@ -942,7 +1078,7 @@ class PagedDecodeEngine:
 
     def __init__(self, model, batch_size, max_len, block_size=8,
                  num_blocks=None, spec_k=4, spill_blocks=None,
-                 kv_dtype="f32", device=None):
+                 kv_dtype="f32", device=None, cache_token=None):
         cfg = model.config
         enforce(max_len <= cfg.max_len,
                 "engine max_len %d exceeds the model's positional table "
@@ -996,6 +1132,36 @@ class PagedDecodeEngine:
                         labels=("requested", "effective")).labels(
                             requested=self.kv_dtype_requested,
                             effective=self.kv_dtype).inc()
+        self.cache_token = (cache_token if cache_token is not None
+                            else self._default_cache_token())
+        self.ledger_scope = f"generation-paged@{next(_scope_ids)}"
+        self._state = None
+        names = ("cache_k", "cache_v", "scale_k", "scale_v", "tokens",
+                 "tables", "lengths", "wmask")
+        self._step_fn = _rung(self, self._chunk_body, "paged_step",
+                              "paged_step", names, ("chunk",))
+        self._prefill_fn = _rung(self, self._chunk_body, "paged_prefill",
+                                 "paged_prefill", names, ("bucket",))
+
+    def _default_cache_token(self):
+        return _model_token(self.model) + (
+            f"/paged:B{self.batch_size}xS{self.max_len}"
+            f"/bs{self.block_size}xNB{self.num_blocks}/kv:{self.kv_dtype}"
+            f"/buckets:{','.join(map(str, self.buckets))}")
+
+    def _bound(self):
+        st = self._state
+        return {"cache_k": st.cache_k, "cache_v": st.cache_v,
+                "scale_k": st.scale_k, "scale_v": st.scale_v}
+
+    @torch.no_grad()
+    def _chunk_body(self, cache_k, cache_v, scale_k, scale_v, tokens,
+                    tables, lengths, wmask, *, chunk=None, bucket=None):
+        """The one body of every paged rung (the static argument is the
+        ledger key; the shapes carry it)."""
+        return self.model.forward_chunk(tokens.long(), cache_k, cache_v,
+                                        tables, lengths, wmask,
+                                        scale_k=scale_k, scale_v=scale_v)
 
     def kv_pool_bytes(self):
         """Device bytes of one init_state() KV carry: the payload pools
@@ -1008,22 +1174,24 @@ class PagedDecodeEngine:
         scales = 2 * rows * 4 if self._kv_quantized else 0
         return payload + scales
 
-    def _chunk(self, state, tokens, tables, lengths, wmask):
-        """Run the chunk forward on host arrays; returns logits
-        [R, C, V] as a device tensor (the pools are written in place)."""
-        dev = self.device
-        return self.model.forward_chunk(
-            torch.from_numpy(np.asarray(tokens, np.int64)).to(dev),
-            state.cache_k, state.cache_v,
-            torch.from_numpy(np.ascontiguousarray(tables, np.int32)).to(dev),
-            torch.from_numpy(np.asarray(lengths, np.int32)).to(dev),
-            torch.from_numpy(np.asarray(wmask, bool)).to(dev),
-            scale_k=state.scale_k, scale_v=state.scale_v)
+    def _chunk(self, state, tokens, tables, lengths, wmask, **static):
+        """Run a rung on host arrays: `chunk=C` (the decode and verify
+        ticks) or `bucket=b` (a prefill). The arrays are copied to the
+        rung's device buffers, then the rung runs; returns logits
+        [R, C, V] (the pools are written in place)."""
+        fn = self._prefill_fn if "bucket" in static else self._step_fn
+        return fn(state.cache_k, state.cache_v, state.scale_k,
+                  state.scale_v,
+                  torch.from_numpy(np.asarray(tokens, np.int32)),
+                  torch.from_numpy(np.ascontiguousarray(tables, np.int32)),
+                  torch.from_numpy(np.asarray(lengths, np.int32)),
+                  torch.from_numpy(np.asarray(wmask, bool)), **static)
 
     def init_state(self):
-        """Fresh device pools AND fresh host accounting (pool, tables,
-        lengths) — a paged state and its block bookkeeping are one
-        unit."""
+        """Zeroed device pools AND fresh host accounting (pool, tables,
+        lengths) — a paged state and its block bookkeeping are one unit.
+        The pools are allocated once; every call zeroes the same
+        tensors, which every rung is bound to."""
         cfg = self.model.config
         shape = (cfg.num_layers, self.num_blocks, self.block_size,
                  cfg.num_heads, cfg.head_dim)
@@ -1032,6 +1200,11 @@ class PagedDecodeEngine:
         self.lengths[:] = 0
         self._slot_blocks.clear()
         self._slot_capacity.clear()
+        if self._state is not None:
+            for t in self._state:
+                if t is not None:
+                    _bytes(t).zero_()    # float8 zeros as zero bytes
+            return self._state
         dt = kv_torch_dtype(self.kv_dtype)
 
         def pool():
@@ -1041,14 +1214,16 @@ class PagedDecodeEngine:
             return raw.view(dt)
 
         if not self._kv_quantized:
-            return PagedDecodeState(cache_k=pool(), cache_v=pool())
+            self._state = PagedDecodeState(cache_k=pool(), cache_v=pool())
+            return self._state
         sshape = shape[:3]              # [L, NB, bs] per-row scales
-        return PagedDecodeState(
+        self._state = PagedDecodeState(
             cache_k=pool(), cache_v=pool(),
             scale_k=torch.zeros(sshape, dtype=torch.float32,
                                 device=self.device),
             scale_v=torch.zeros(sshape, dtype=torch.float32,
                                 device=self.device))
+        return self._state
 
     def bucket_for(self, prompt_len):
         for b in self.buckets:
@@ -1126,7 +1301,7 @@ class PagedDecodeEngine:
         wmask = np.zeros((1, bucket), bool)
         wmask[0, :tail.size] = True
         logits = self._chunk(state, tokens, self.tables[slot:slot + 1],
-                             [shared_tokens], wmask)
+                             [shared_tokens], wmask, bucket=bucket)
         self.lengths[slot] = prompt.size
         # publish the COMPLETE prompt blocks (decode writes start at
         # prompt.size, outside every one of them); restored blocks
@@ -1146,7 +1321,8 @@ class PagedDecodeEngine:
         committed lengths for active slots."""
         active = np.asarray(active, bool)
         logits = self._chunk(state, np.asarray(tokens)[:, None],
-                             self.tables, self.lengths, active[:, None])
+                             self.tables, self.lengths, active[:, None],
+                             chunk=1)
         self.lengths = np.where(active, self.lengths + 1,
                                 self.lengths).astype(np.int32)
         return state, _to_numpy(logits[:, 0])
@@ -1171,7 +1347,7 @@ class PagedDecodeEngine:
         wmask = (np.arange(c, dtype=np.int32)[None, :]
                  < counts[:, None])
         logits = self._chunk(state, tokens, self.tables, self.lengths,
-                             wmask)
+                             wmask, chunk=c)
         return state, _to_numpy(logits)
 
     def advance(self, slot, n):
@@ -1334,16 +1510,29 @@ class PagedDecodeEngine:
                 "length": int(doc["length"]),
                 "spilled_blocks": len(entries)}
 
+    def compile_count(self):
+        """As DecodeEngine.compile_count."""
+        return _compile_count(self)
+
+    def warm_manifest_name(self):
+        h = hashlib.sha256(self.cache_token.encode()).hexdigest()[:16]
+        return f"generation-paged-{h}"
+
     def warmup(self):
-        """Run every prefill bucket, the plain chunk=1 decode and the
-        chunk=spec_k+1 verify once against an all-garbage table (builds
-        the kernels, warms the allocator), then reset the host
-        accounting. Returns {"prefill_buckets", "step_chunks"}."""
+        """Capture the full paged rung ladder off the request path (every
+        prefill bucket, the plain chunk=1 decode and the chunk=spec_k+1
+        verify), first from the compile cache's manifest when there is
+        one, then write the manifest. The rungs run against an
+        all-garbage table (block 0) on the engine's own pools, then the
+        pools and the host accounting are reset. Returns
+        {"prefill_buckets", "step_chunks", "warm_start"}."""
+        pcache, manifest, warm_report = _warm_start(
+            self, (self._step_fn, self._prefill_fn))
         state = self.init_state()
         zt = np.zeros((1, self.blocks_per_slot), np.int32)
         for b in self.buckets:
             self._chunk(state, np.zeros((1, b), np.int32), zt, [0],
-                        np.ones((1, b), bool))
+                        np.ones((1, b), bool), bucket=b)
         chunks = [1]
         if self.spec_k > 0:
             chunks.append(self.spec_k + 1)
@@ -1352,11 +1541,12 @@ class PagedDecodeEngine:
         for c in chunks:
             self._chunk(state, np.zeros((self.batch_size, c), np.int32),
                         tables, np.zeros(self.batch_size, np.int32),
-                        np.ones((self.batch_size, c), bool))
-        del state
-        self.init_state()             # reset host accounting
+                        np.ones((self.batch_size, c), bool), chunk=c)
+        if manifest is not None:
+            pcache.write_manifest(manifest, scope=self.ledger_scope)
+        self.init_state()
         return {"prefill_buckets": list(self.buckets),
-                "step_chunks": chunks}
+                "step_chunks": chunks, "warm_start": warm_report}
 
 
 # ---------------------------------------------------------------------------

@@ -30,13 +30,19 @@ A wrapper takes the plain version only because the tensors it was given
 lie on the CPU. On a CUDA tensor it launches the kernel or raises: a
 failed build or a refused launch is an error, never a fallback.
 `launch_counts` counts kernel launches per wrapper, so a run can show
-that its main path went through the kernels.
+that its main path went through the kernels. The dict is registered with
+`observability.profile`, so a captured CUDA graph adds the launches its
+capture saw on every replay; each launch also reports its operations
+(4 per (row, key) pair per head element, keys counted at the window's
+capacity, the static count) to the profile's cost of the run that
+measures it.
 """
 import math
 
 import torch
 
 from paddle_tpu_torch.core.enforce import enforce
+from paddle_tpu_torch.observability import profile as _profile
 
 __all__ = [
     "NEG_INF", "decode_attention", "paged_decode_attention",
@@ -78,14 +84,20 @@ PAGED_TC_MIN_C = 8
 #: "paged_prefill_attention" the chunks (C >= PAGED_TC_MIN_C) among them;
 #: "quantized_paged_decode_attention" counts every K7 call, and
 #: "quantized_paged_prefill_attention" the chunks (C > 1) among them
-launch_counts = {"decode_attention": 0, "paged_decode_attention": 0,
-                 "paged_prefill_attention": 0,
-                 "quantized_paged_decode_attention": 0,
-                 "quantized_paged_prefill_attention": 0}
+launch_counts = _profile.register_launch_counts(
+    {"decode_attention": 0, "paged_decode_attention": 0,
+     "paged_prefill_attention": 0,
+     "quantized_paged_decode_attention": 0,
+     "quantized_paged_prefill_attention": 0})
 
 #: workspaces of K7's decode kernel, one per (device, stream): int32
-#: zeros, zeroed once here; each launch leaves what it used zero again
+#: zeros, zeroed once here; each launch leaves what it used zero again.
+#: A captured graph holds the pointer of the workspace it was captured
+#: with, so one that is outgrown stays alive in _retired_workspaces, and
+#: growing one while a capture runs raises (the capture's warm-up run
+#: sizes it first)
 _workspaces = {}
+_retired_workspaces = []
 
 #: payload dtypes of K7 and the kernel's fp8 flag for each
 _PAYLOAD_FP8 = {torch.int8: 0, torch.float8_e4m3fn: 1}
@@ -363,6 +375,7 @@ def _launch_contiguous(q, k_cache, v_cache, lengths, sm_scale=None):
         _stream(q.device))
     _raise_on(err, "decode_attention")
     launch_counts["decode_attention"] += 1
+    _profile.note_kernel_flops(4.0 * b * s_len * n * d)
     return out
 
 
@@ -432,6 +445,7 @@ def _launch_paged(q, k_pool, v_pool, tables, lengths):
     launch_counts["paged_decode_attention"] += 1
     if chunk:
         launch_counts["paged_prefill_attention"] += 1
+    _profile.note_kernel_flops(4.0 * b * c * m * bs * n * d)
     return out
 
 
@@ -480,6 +494,7 @@ def _launch_quantized(q, k_pool, v_pool, k_scale, v_scale, tables,
     launch_counts["quantized_paged_decode_attention"] += 1
     if c > 1:
         launch_counts["quantized_paged_prefill_attention"] += 1
+    _profile.note_kernel_flops(4.0 * b * c * m * bs * n * d)
     return out
 
 
@@ -491,6 +506,14 @@ def _workspace(size, device):
     key = (device, _stream(device))
     work = _workspaces.get(key)
     if work is None or work.numel() < size:
+        enforce(device.type != "cuda"
+                or not torch.cuda.is_current_stream_capturing(),
+                "K7's decode workspace would grow from %s to %s int32 "
+                "while a CUDA graph is being captured; run the rung once "
+                "on the capture stream first", 0 if work is None
+                else work.numel(), size)
+        if work is not None:
+            _retired_workspaces.append(work)
         work = _workspaces[key] = torch.zeros(size, dtype=torch.int32,
                                               device=device)
     return work

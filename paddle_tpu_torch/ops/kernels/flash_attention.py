@@ -29,7 +29,9 @@ on a CUDA tensor it launches the kernels of its dtype or raises (a failed
 build, a refused launch, an unsupported head dim or dtype, a bfloat16
 view whose rows are not 16-byte aligned; a float32 view of any stride
 is taken); no call reaches a CUDA-core kernel.
-`launch_counts` counts launches per kernel.
+`launch_counts` counts launches per kernel (registered with
+`observability.profile`, so a captured graph adds its launches on every
+replay); each launch reports its operations to the profile.
 
 Differences from the JAX signature: the `dropout_rng` key becomes an
 integer `dropout_seed` in [0, 2**23) (the value the JAX wrapper draws
@@ -44,6 +46,7 @@ import numpy as np
 import torch
 
 from paddle_tpu_torch.core.enforce import enforce
+from paddle_tpu_torch.observability import profile as _profile
 
 __all__ = [
     "NEG_INF", "SEED_LIMIT", "flash_attention", "flash_attention_lse",
@@ -66,8 +69,8 @@ _M1, _M2, _GOLD = 0x85EBCA6B, 0xC2B2AE35, 0x9E3779B9
 _U32 = 0xFFFFFFFF
 
 #: kernel launches per kernel (bumped once per launched call)
-launch_counts = {name: 0 for fwd, bwd in KERNELS.values()
-                 for name in (fwd, *bwd)}
+launch_counts = _profile.register_launch_counts(
+    {name: 0 for fwd, bwd in KERNELS.values() for name in (fwd, *bwd)})
 
 
 def reset_launch_counts():
@@ -240,10 +243,19 @@ def _shape_args(q, k):
     return (b, n, tq, k.shape[1], d)
 
 
-def _launch(name, *args):
+def _attention_flops(q, k, cfg):
+    """Forward operations of one attention (QK^T and PV), halved for
+    causal: the count PERF.md's bounds use."""
+    b, tq, n, d = q.shape
+    f = 4.0 * b * n * tq * k.shape[1] * d
+    return f / 2 if cfg[0] else f
+
+
+def _launch(name, flops, *args):
     from paddle_tpu_torch.ops.kernels import _build
     _raise_on(getattr(_build.load_library(), "ptt_" + name)(*args), name)
     launch_counts[name] += 1
+    _profile.note_kernel_flops(flops)
 
 
 def _launch_fwd(q, k, v, bias, cfg):
@@ -251,7 +263,7 @@ def _launch_fwd(q, k, v, bias, cfg):
     b, tq, n, d = q.shape
     out = torch.empty((b, tq, n, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, n, tq), dtype=torch.float32, device=q.device)
-    _launch(KERNELS[q.dtype][0],
+    _launch(KERNELS[q.dtype][0], _attention_flops(q, k, cfg),
             q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias),
             out.data_ptr(), lse.data_ptr(), *_shape_args(q, k),
             _strides(q, k, v, None, out), *_tail(q, cfg))
@@ -278,7 +290,9 @@ def _launch_bwd_tc(q, k, v, bias, dout, lse, delta, cfg, want_dbias):
     dv = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dbias = (torch.zeros((q.shape[0], k.shape[1]), dtype=torch.float32,
                          device=q.device) if want_dbias else None)
-    _launch(KERNELS[q.dtype][1][0],
+    # the backward's five products against the forward's two (dQ, dK, dV
+    # and the recomputed S and dP): twice the forward's operations
+    _launch(KERNELS[q.dtype][1][0], 2 * _attention_flops(q, k, cfg),
             q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias),
             dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
             dq_acc.data_ptr(), dk.data_ptr(), dv.data_ptr(), _ptr(dbias),

@@ -29,7 +29,8 @@ The wrapper takes the plain version only for tensors that lie on the
 CPU (or on the meta device, where shape inference evaluates ops without
 data). On a CUDA tensor it launches the kernel or raises: a failed build
 or a refused launch is an error, never a fallback. `launch_counts`
-counts kernel launches.
+counts kernel launches (registered with `observability.profile`); each
+launch reports its 2 M K N operations to the profile.
 
 Scalars enter divisions as float32 tensors on the operand's device:
 PyTorch's CUDA division by a Python scalar multiplies by its reciprocal,
@@ -38,6 +39,7 @@ which is not the IEEE quotient the JAX package (and the kernel) compute.
 import torch
 
 from paddle_tpu_torch.core.enforce import enforce
+from paddle_tpu_torch.observability import profile as _profile
 
 __all__ = ["qmax", "dequant_matmul_reference", "fused_dequant_matmul",
            "launch_counts", "reset_launch_counts", "k8_tile",
@@ -46,7 +48,8 @@ __all__ = ["qmax", "dequant_matmul_reference", "fused_dequant_matmul",
 #: kernel launches: every launched call counts under "quantized_matmul";
 #: weight-only calls (their own kernel) also under
 #: "quantized_matmul_weight_only"
-launch_counts = {"quantized_matmul": 0, "quantized_matmul_weight_only": 0}
+launch_counts = _profile.register_launch_counts(
+    {"quantized_matmul": 0, "quantized_matmul_weight_only": 0})
 
 #: split-K workspaces, one per (device, stream) and mode: int32 zeros,
 #: zeroed once here; each launch leaves what must be zero zero again
@@ -250,6 +253,7 @@ def _launch(x, w_q, w_scale, x_scale, bits, return_acc):
     launch_counts["quantized_matmul"] += 1
     if not int8_mode:
         launch_counts["quantized_matmul_weight_only"] += 1
+    _profile.note_kernel_flops(2.0 * m * k * n)
     return (out, acc) if return_acc else out
 
 

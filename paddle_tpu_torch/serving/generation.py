@@ -519,6 +519,7 @@ class ContinuousBatcher:
             "slot_bank": self.engine.batch_size,
             "max_len": self.engine.max_len,
             "prompt_buckets": list(self.engine.buckets),
+            "compiled_signatures": self.engine.compile_count(),
             "counters": self.counters.eval(),
             "ttft_s": self._ttft.eval(),
             "step_s": self._step_lat.eval(),

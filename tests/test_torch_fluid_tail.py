@@ -374,14 +374,27 @@ def test_importing_the_package_builds_no_kernel():
     assert "LIGHT-OK" in proc.stdout
 
 
+#: the flags paddle_tpu/observability/profile.py and
+#: paddle_tpu/core/compile_cache.py define that the port keeps in its
+#: core/flags.py (compile_cache_jax_cache has no counterpart)
+PROFILE_FLAGS = ("profile_compile_ledger", "profile_memory_sample_every",
+                 "profile_peak_flops", "compile_cache_dir",
+                 "compile_cache_keep", "compile_cache_slow_compile_s")
+
+
 def test_flags_are_the_references():
     """Every flag paddle_tpu/core/flags.py defines, same default and
-    type (other JAX modules add their own flags to the registry)."""
+    type (other JAX modules add their own flags to the registry), plus
+    the profile and compile-cache flags."""
     import re
+
+    import paddle_tpu.core.compile_cache  # noqa: F401  (defines flags)
+    import paddle_tpu.observability.profile  # noqa: F401
     with open(os.path.join(REPO, "paddle_tpu", "core", "flags.py")) as f:
         names = set(re.findall(r'define_flag\("(\w+)"', f.read()))
     ref = {k: v for k, v in jflags.all_flags().items() if k in names}
     assert len(ref) == len(names) == 34
+    ref.update({k: jflags._REGISTRY[k].default for k in PROFILE_FLAGS})
     assert tflags.all_flags() == ref
     for name in ref:
         assert type(tflags._REGISTRY[name].default) is type(
@@ -395,7 +408,8 @@ def test_flags_are_the_references():
 
 #: the flags a module of the port reads; every other flag names why not
 READ_FLAGS = {"check_nan_inf", "executor_log_level", "verify_program",
-              "deterministic", "default_dtype", "amp_dtype"}
+              "deterministic", "default_dtype", "amp_dtype",
+              *PROFILE_FLAGS}
 
 
 def test_unread_flags_warn_once_and_read_flags_take_effect(monkeypatch):
