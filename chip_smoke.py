@@ -266,8 +266,16 @@ Phases, each of which raises (exit code != 0) when its check fails:
     18 times.
 24. The trained model's greedy decode (B=8, sources in the 64 bucket,
     max_len 48) and beam search (K=4, B=2) through the flash kernels:
-    ids equal to the same decodes through the plain attention on the
-    card; the loops' host reads and the host's wait in them.
+    greedy ids equal to the same decode through the plain attention on
+    the card; beam ids too, where a row that differs is excused only by
+    measured ties (`beam_near_ties`: the flash model teacher forced on
+    the plain run's beams may choose other candidates only where their
+    plain scores lie within NEAR_TIE of the plain run's own choices at
+    the same slots, each such step printed with its gap), and the
+    plain model with its attention logits scaled by 1.01 (or, where that
+    moves no beam past a tie, the next of BEAM_CONTROL_SCALES that does),
+    the rule's control, must be refused; the loops' host reads and the
+    host's wait in them.
 25. The eager zoo at full width: resnet50() at batch 32, 224^2, NCHW and
     NHWC from the same weights (the logits and the step's loss agree,
     ZOO_LAYOUT_TOL; the loss after the step is printed); two steps
@@ -353,8 +361,29 @@ Phases, each of which raises (exit code != 0) when its check fails:
     launches a step. Then profile_snapshot()'s ledger size and a Chrome
     trace (CAPTURE_TRACE, beside --out's file or in the temporary
     directory). `--capture` builds the kernels, makes phase
-    3's references and runs phase 31 alone, then prints one CAPTURE line
-    and the device line.
+    3's references and runs phases 31 and 32 alone, then prints one
+    CAPTURE line and the device line.
+
+32. The Executor's programs, captured against `disable_capture()`
+    from the same state (on the card every `Executor.run` signature
+    replays one CUDA graph per segment of its capture plan, so phases
+    12-21 and 27-29 run captured too): ResNet-50 static training at
+    batch 32 x 224^2 (phase 14's program), VGG-16-BN with dropout at
+    batch 128 (phase 16's) and CRNN-CTC at batch 32 (phase 29's): from
+    the state after one captured step, two replayed steps against two
+    eager ones, losses within CAPTURE_LOSS_TOL, each update within
+    CAPTURE_UPDATE_TOL of its max floored at CAPTURE_UPDATE_FLOOR of the
+    largest, an eager-vs-eager control printed, VGG's dropout masks
+    bit-equal; CRNN-CTC's test program: decoded ids, lengths and edit
+    distances equal; the f32 and int8 ResNet-50 Predictors (phase 12's)
+    at batch 1, 8 and 32, EXEC_REQUESTS requests each: logits within
+    CAPTURE_LOGIT_TOL of max |eager|, no ledger record after the first
+    request of a batch size, K8 launched once per int8 request under
+    replay and the replayed fc = plain K8 + bias within 1 ulp; the MT
+    While decode (phase 20's program): ids equal, condition reads a
+    run unchanged. For each program: step or request wall against
+    device ms, idle share, host launch calls against device launches,
+    segments, graphs, capture ms and pool bytes.
 
 Then a `{"kernels": [...]}` line and, last, the device line
 `{"ok": true, "device": {...}}`. Every number is printed beside the
@@ -382,6 +411,7 @@ prints `FLASH_SWEEP {...}`. Run any of them on two checkouts in one call
 (parent, change, change, parent) to compare them on the same card.
 """
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -906,6 +936,126 @@ def compare(label, got, want, gaps):
     assert len(got) == len(want), (
         f"{label}: {len(got)} tokens, expected {len(want)}")
     return 0
+
+
+#: phase 24's control: the plain model with every attention's logits
+#: scaled by 1.01 (its q projections), a change the near-tie rule must
+#: refuse; where 1% moves no beam of a lightly trained model past a tie,
+#: the next scale that does is the control
+BEAM_CONTROL_SCALES = (1.01, 1.02, 1.05, 1.1)
+
+
+def recorded_beam(m, fn):
+    """`fn(m)` with each beam-search step recorded (the model's `decode`
+    wrapped): (fn's result, {"steps": [logits [B*K, V] a step],
+    "prefixes": [the [B*K, T] prefix each step decoded], "enc", "mask":
+    the encoder output and cross mask it decoded against})."""
+    rec = {"steps": [], "prefixes": [], "enc": None, "mask": None}
+    decode = m.decode
+
+    def record(prefix, enc, mask):
+        out = decode(prefix, enc, mask)
+        t = len(rec["steps"])
+        rec["steps"].append(out[:, t].detach().clone())
+        rec["prefixes"].append(prefix.clone())
+        rec["enc"], rec["mask"] = enc, mask
+        return out
+    m.decode = record
+    try:
+        return fn(m), rec
+    finally:
+        del m.decode
+
+
+def forced_steps(torch, m, ref, own):
+    """Model `m`'s logits at each step of the reference run `ref` (a
+    `recorded_beam` record), decoding the reference's prefixes against
+    m's own encoder output (`own`, m's record): the beam steps teacher
+    forced on the reference's beams."""
+    with torch.no_grad():
+        return [m.decode(prefix, own["enc"], own["mask"])[:, t]
+                for t, prefix in enumerate(ref["prefixes"])]
+
+
+def beam_choices(torch, steps, batch, beam, eos, other=None):
+    """Replay ops.beam_search's pruning over the reference's recorded
+    logits: per step, the candidates it chose ([B, K], source beam * V +
+    token, best first) with their scores ([B, K]) and, given `other`
+    logits of the same steps (teacher forced), the candidates they choose
+    from the reference's beams with the reference's scores of them."""
+    from paddle_tpu_torch.ops import beam_search as bs
+    dev = steps[0].device
+    logp = torch.full((batch, beam), bs.NEG_INF, dtype=torch.float32,
+                      device=dev)
+    logp[:, 0] = 0.0
+    fin = torch.zeros((batch, beam), dtype=torch.bool, device=dev)
+    out = []
+    for t, lg in enumerate(steps):
+        lg = lg.reshape(batch, beam, -1).to(torch.float32)
+        v = lg.shape[-1]
+        step_logp = torch.log_softmax(lg, dim=-1)
+        eos_row = torch.full((v,), bs.NEG_INF, dtype=torch.float32,
+                             device=dev)
+        eos_row[eos] = 0.0
+        cand = (logp[..., None] + torch.where(fin[..., None], eos_row,
+                                              step_logp)).reshape(batch, -1)
+        chosen = scores = None
+        if other is not None:
+            o_tok, _, o_src = bs._prune_step(
+                logp, fin, other[t].reshape(batch, beam, -1).to(dev), beam,
+                eos)
+            chosen = (o_src.to(torch.int64) * v + o_tok.to(torch.int64))
+            scores = cand.gather(1, chosen).cpu()
+            chosen = chosen.cpu()
+        tokens, logp, src = bs._prune_step(logp, fin, lg, beam, eos)
+        src = src.to(torch.int64)
+        mine = src * v + tokens.to(torch.int64)
+        out.append((mine.cpu(), cand.gather(1, mine).cpu(), chosen, scores))
+        fin = torch.take_along_dim(fin, src, dim=1) | (tokens == eos)
+    return out
+
+
+def beam_near_ties(torch, label, got, want, forced, want_steps, batch,
+                   beam, eos):
+    """Phase 24's rule for beam ids ([B, K, T] against the reference's):
+    rows whose ids are equal are held to bit equality; a row whose ids
+    differ is excused only when the other model, teacher forced on the
+    reference's beams (`forced`, its logits on the reference's prefixes),
+    chooses otherwise than the reference only inside groups of tied
+    candidates: at every step and every slot where the two choices
+    differ, the reference's score of the other model's candidate lies
+    within NEAR_TIE of the reference's score of its own candidate there.
+    Each such step is printed with its largest gap; a slot without a tie
+    raises. Returns [(row, step, gap)]."""
+    steps = beam_choices(torch, want_steps, batch, beam, eos, forced)
+    excused = []
+    for r in range(batch):
+        if torch.equal(got[r], want[r]):
+            continue
+        ties = []
+        for t, (cw, sw, co, so) in enumerate(steps):
+            diff = torch.nonzero(co[r] != cw[r]).flatten()
+            if not len(diff):
+                continue
+            gaps = (sw[r, diff] - so[r, diff]).abs()
+            worst = int(torch.argmax(gaps))
+            gap = float(gaps[worst])
+            if not gap < NEAR_TIE:
+                raise AssertionError(
+                    f"{label} row {r}: at step {t} the candidate chosen "
+                    f"from the same beams at slot {int(diff[worst])} scores "
+                    f"{gap:.3g} >= {NEAR_TIE} away from the reference's "
+                    f"there: no tie")
+            ties.append((r, t, gap))
+        if not ties:
+            raise AssertionError(f"{label} row {r}: the ids differ where "
+                                 f"every step chose the same candidates")
+        for _, t, gap in ties:
+            print(f"near-tie: {label} row {r}: step {t} chose otherwise "
+                  f"from the same beams at a score gap of {gap:.3g} < "
+                  f"{NEAR_TIE}")
+        excused += ties
+    return excused
 
 
 def dev_us(e):
@@ -3892,6 +4042,7 @@ def mt_big_decode(torch, tfa, model, seed, tag, dev="cuda"):
     assert torch.argmax(x, dim=-1).tolist() == [1, 0], "argmax tie order"
     out = {}
     launches = dict.fromkeys(FLASH_F32, 0)
+    eos = 1                           # beam_search_decode's default
     for label, fn in (
             ("greedy", lambda m: m.greedy_decode(src, src_len,
                                                  max_len=dc["max_len"])),
@@ -3905,8 +4056,10 @@ def mt_big_decode(torch, tfa, model, seed, tag, dev="cuda"):
             before = dict(tfa.launch_counts)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            ids = fn(m)
-            ids = ids[0] if isinstance(ids, tuple) else ids
+            if label == "beam":
+                (ids, _), rec = recorded_beam(m, fn)
+            else:
+                ids, rec = fn(m), None
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             reads = (T.host_reads["greedy_decode"] if label == "greedy"
@@ -3914,22 +4067,39 @@ def mt_big_decode(torch, tfa, model, seed, tag, dev="cuda"):
             wait = (T.host_reads["wait_s"] if label == "greedy"
                     else bs.host_reads["wait_s"])
             res[impl] = dict(ids=ids.cpu(), wall_s=wall, host_reads=reads,
-                             wait_s=wait, flash={
+                             wait_s=wait, rec=rec, flash={
                                  k: tfa.launch_counts[k] - before[k]
                                  for k in FLASH_F32})
             if impl == "flash":
                 for k in FLASH_F32:
                     launches[k] += res[impl]["flash"][k]
-        assert torch.equal(res["flash"]["ids"], res["plain"]["ids"]), label
+        excused = []
+        if label == "greedy":
+            assert torch.equal(res["flash"]["ids"], res["plain"]["ids"]), label
+        else:
+            bk = (dc["beam_batch"], dc["beam"], eos)
+            ref = res["plain"]["rec"]
+            excused = beam_near_ties(
+                torch, "phase 24 beam", res["flash"]["ids"],
+                res["plain"]["ids"],
+                forced_steps(torch, model, ref, res["flash"]["rec"]),
+                ref["steps"], *bk)
+            control = beam_control(torch, T, plain, fn, res["plain"], bk,
+                                   dev)
         assert res["flash"]["flash"][FLASH_F32[0]] > 0
         assert res["plain"]["flash"][FLASH_F32[0]] == 0
         f = res["flash"]
         out[label] = dict(shape=tuple(f["ids"].shape), wall_s=f["wall_s"],
                           plain_wall_s=res["plain"]["wall_s"],
                           host_reads=f["host_reads"], wait_s=f["wait_s"],
-                          flash_launches=f["flash"][FLASH_F32[0]])
+                          flash_launches=f["flash"][FLASH_F32[0]],
+                          near_ties=excused)
+        if label == "beam":
+            out[label]["control"] = control
         print(f"phase 24 {label} {tuple(f['ids'].shape)}: ids equal to the "
-              f"plain attention's; flash {f['wall_s'] * 1e3:.1f} ms, plain "
+              f"plain attention's"
+              f"{'' if label == 'greedy' else ' (near-tie rule: %d rows excused)' % len(excused)}; "
+              f"flash {f['wall_s'] * 1e3:.1f} ms, plain "
               f"{res['plain']['wall_s'] * 1e3:.1f} ms; {f['host_reads']} "
               f"host reads, the host waited {f['wait_s'] * 1e3:.3f} ms in "
               f"them; {f['flash'][FLASH_F32[0]]} flash forward launches "
@@ -3937,6 +4107,43 @@ def mt_big_decode(torch, tfa, model, seed, tag, dev="cuda"):
     del plain
     torch.cuda.empty_cache()
     return out, launches
+
+
+def beam_control(torch, T, plain, fn, ref, bk, dev):
+    """Phase 24's control: the plain model with its attention logits
+    scaled by the first of BEAM_CONTROL_SCALES that moves a beam past a
+    tie decodes the same rows; against the plain decode the near-tie
+    rule must refuse it. A scale whose beams part only at ties of the
+    plain scores (the rule excuses every row: no divergence to refuse)
+    is passed over like one that moves no beam. Returns the refusal."""
+    ctl = T.Transformer(plain.cfg, device=dev)
+    for scale in BEAM_CONTROL_SCALES:
+        ctl.load_state_dict(plain.state_dict())
+        ctl.eval()
+        with torch.no_grad():
+            for mod in ctl.modules():
+                if isinstance(mod, T.MultiHeadAttention):
+                    mod.q.weight.mul_(scale)
+                    mod.q.bias.mul_(scale)
+        (ids, _), rec = recorded_beam(ctl, fn)
+        ids = ids.cpu()
+        if torch.equal(ids, ref["ids"]):
+            print(f"phase 24 control: attention logits x {scale} move no "
+                  f"beam")
+            continue
+        try:
+            ties = beam_near_ties(torch, "phase 24 control", ids, ref["ids"],
+                                  forced_steps(torch, ctl, ref["rec"], rec),
+                                  ref["rec"]["steps"], *bk)
+        except AssertionError as e:
+            print(f"phase 24 control (attention logits x {scale}) refused, "
+                  f"as it must be: {e}")
+            return str(e)
+        print(f"phase 24 control: attention logits x {scale} part beams "
+              f"only at ties ({len(ties)} steps, largest gap "
+              f"{max(g for _, _, g in ties):.3g})")
+    raise AssertionError(f"phase 24: no control scale in "
+                         f"{BEAM_CONTROL_SCALES} moved a beam past a tie")
 
 
 def zoo_step(torch, model, loss_fn, args, lr=0.01):
@@ -5430,6 +5637,420 @@ def capture_phase(torch, gen, tfa, model, prompts, budgets, gaps, seed, tag,
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 32: the Executor's programs captured against eager
+# ---------------------------------------------------------------------------
+
+#: phase 32's requests per Predictor and batch size (the first captures)
+EXEC_REQUESTS = 4
+
+
+def executor_records(prof, program, since=0):
+    """The ledger's "graph" records of `program`'s Executor entries
+    (those after record `since`)."""
+    site = f"executor/{id(program):x}v{program._version}/"
+    return [r for r in prof.compile_ledger().entries(kind="graph")
+            if r.site.startswith(site) and r.seq > since]
+
+
+def entry_stats(prof, program, since=0):
+    """Segments, graphs captured, capture ms, pool bytes and launches a
+    replay adds over `program`'s Executor entries (recorded after record
+    `since`)."""
+    recs = executor_records(prof, program, since)
+    assert recs, f"no captured entry for {program}"
+    launches = {}
+    for r in recs:
+        for k, v in (r.launches or {}).items():
+            launches[k] = launches.get(k, 0) + v
+    return dict(entries=len(recs),
+                segments=max(r.tags["segments"] for r in recs),
+                graphs=sum(r.tags["captured"] for r in recs),
+                host_ops=recs[0].tags["host_ops"],
+                capture_ms=sum(r.compile_s for r in recs) * 1e3,
+                pool_bytes=max(r.memory["pool_bytes"] for r in recs),
+                gflop=sum(r.flops for r in recs) / 1e9,
+                kernel_launches=launches)
+
+
+def exec_profiles(torch, prof, label, runs, steps, stats, tag):
+    """Profile `runs[mode](k)` (k steps or requests, ending in a
+    synchronisation) captured and under disable_capture(): wall and
+    device ms, idle share, host launch calls (kernels plus graphs)
+    against device launches."""
+    rows = {}
+    for mode in ("captured", "eager"):
+        with (prof.disable_capture() if mode == "eager"
+              else contextlib.nullcontext()):
+            runs[mode](1)
+            brk = profile_device(torch, runs[mode], steps, top=3)
+        rows[mode] = {k: brk[k] for k in (
+            "step_wall_ms", "step_device_ms", "device_idle_share",
+            "launches_per_step", "host_launches_per_step",
+            "graph_launches_per_step")}
+    c, e = rows["captured"], rows["eager"]
+    print(f"phase 32 {label}: wall {e['step_wall_ms']:.3f} eager -> "
+          f"{c['step_wall_ms']:.3f} ms captured, device "
+          f"{e['step_device_ms']:.3f} -> {c['step_device_ms']:.3f} ms, idle "
+          f"{e['device_idle_share']:.3f} -> {c['device_idle_share']:.3f}; "
+          f"host launch calls {e['host_launches_per_step']:.0f} + "
+          f"{e['graph_launches_per_step']:.0f} graphs -> "
+          f"{c['host_launches_per_step']:.0f} + "
+          f"{c['graph_launches_per_step']:.0f} graphs, device launches "
+          f"{e['launches_per_step']:.0f} / {c['launches_per_step']:.0f}; "
+          f"segments {stats['segments']}, graphs {stats['graphs']}, capture "
+          f"{stats['capture_ms']:.1f} ms, pool {stats['pool_bytes']} bytes "
+          f"{tag}")
+    return dict(rows, **stats)
+
+
+def deterministic_cudnn(torch, flags, on):
+    """FLAGS_cudnn_deterministic on (the Executor then asks cuDNN for
+    deterministic algorithms) or back off with cuDNN's defaults."""
+    flags.set_flag("deterministic", on)
+    if not on:
+        torch.backends.cudnn.deterministic = False
+        torch.backends.cudnn.benchmark = False
+
+
+def exec_training(torch, prof, label, main, startup, feed, loss, tag,
+                  masks=(), steps=3):
+    """Phase 32, a training program: from the state after one captured
+    step (the warm-up and capture), two replayed steps against two eager
+    ones and, as the control, two more eager ones, all with cuDNN's
+    deterministic algorithms (its default backward sums with atomics,
+    so two eager runs differ): losses within CAPTURE_LOSS_TOL, each
+    update within CAPTURE_UPDATE_TOL of its max floored at
+    CAPTURE_UPDATE_FLOOR of the largest, the `masks` fetched (dropout
+    masks) bit-equal. Then the profiles with cuDNN's defaults, on a
+    captured entry of their own. Returns the row and the captured run's
+    (executor, scope)."""
+    from paddle_tpu_torch.core import flags
+    deterministic_cudnn(torch, flags, True)
+    try:
+        return _exec_training(torch, prof, flags, label, main, startup,
+                              feed, loss, tag, masks, steps)
+    finally:
+        deterministic_cudnn(torch, flags, False)
+
+
+def _exec_training(torch, prof, flags, label, main, startup, feed, loss,
+                   tag, masks, steps):
+    from paddle_tpu_torch.core.executor import Executor
+    from paddle_tpu_torch.core.scope import Scope
+    from paddle_tpu_torch.weights import scope_from_jax, scope_to_numpy
+    exe, scope = Executor(), Scope()
+    exe.run(startup, scope=scope)
+    names = sorted(v.name for v in main.list_vars()
+                   if v.persistable and scope.has(v.name))
+    fetch = [loss, *masks]
+    exe.run(main, feed=feed, fetch_list=fetch, scope=scope)
+    start, counter = scope_to_numpy(scope, names), exe._step_counter
+
+    def two(e, sc, eager):
+        with (prof.disable_capture() if eager else contextlib.nullcontext()):
+            outs = [e.run(main, feed=feed, fetch_list=fetch, scope=sc,
+                          return_numpy=False) for _ in range(2)]
+        upd = {n: torch.from_numpy(a - start[n]) for n, a in
+               scope_to_numpy(sc, names).items()
+               if np.issubdtype(a.dtype, np.floating)}
+        return ([float(o[0]) for o in outs],
+                [[m.cpu() for m in o[1:]] for o in outs], upd)
+
+    runs = {"captured": two(exe, scope, False)}
+    for k in ("eager", "control"):
+        e = Executor()
+        e._step_counter = counter            # the same run seeds
+        runs[k] = two(e, scope_from_jax(start, Scope()), True)
+    (cl, cm, cu), (el, em, eu), (kl, _, ku) = (runs[k] for k in (
+        "captured", "eager", "control"))
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(cl, el))
+    upd_err, worst = grad_err(cu, eu, CAPTURE_UPDATE_FLOOR)
+    ctl_loss = max(abs(a - b) / abs(b) for a, b in zip(kl, el))
+    ctl_upd, ctl_worst = grad_err(ku, eu, CAPTURE_UPDATE_FLOOR)
+    masks_equal = all(torch.equal(a, b) for x, y in zip(cm, em)
+                      for a, b in zip(x, y))
+    print(f"phase 32 {label}: two replayed steps vs two eager from the same "
+          f"state: losses {cl} vs {el}, rel err {loss_err:.3g} (gate "
+          f"{CAPTURE_LOSS_TOL}); update err {upd_err:.3g} at {worst} (gate "
+          f"{CAPTURE_UPDATE_TOL}, floor {CAPTURE_UPDATE_FLOOR}); control "
+          f"eager vs eager: loss {ctl_loss:.3g}, update {ctl_upd:.3g} at "
+          f"{ctl_worst}" + (f"; {len(masks)} dropout masks a step "
+                            f"{'bit-equal' if masks_equal else 'DIFFER'}"
+                            if masks else "") + f" {tag}")
+    assert loss_err <= CAPTURE_LOSS_TOL and upd_err <= CAPTURE_UPDATE_TOL, (
+        label, loss_err, upd_err, worst)
+    assert masks_equal, f"{label}: dropout masks differ"
+    deterministic_cudnn(torch, flags, False)
+    seq0 = max([r.seq for r in prof.compile_ledger().entries()], default=0)
+    exe, scope = Executor(), scope_from_jax(start, Scope())
+    eager_exe, eager_scope = Executor(), scope_from_jax(start, Scope())
+
+    def steps_on(e, sc):
+        def run(k):
+            for _ in range(k):
+                e.run(main, feed=feed, fetch_list=fetch, scope=sc,
+                      return_numpy=False)
+            torch.cuda.synchronize()
+        return run
+
+    runs = {"captured": steps_on(exe, scope),
+            "eager": steps_on(eager_exe, eager_scope)}
+    runs["captured"](1)                 # the profiled entry's capture
+    row = exec_profiles(torch, prof, f"{label} step", runs, steps,
+                        entry_stats(prof, main, seq0), tag)
+    row.update(captured_losses=cl, eager_losses=el, loss_rel_err=loss_err,
+               update_err=upd_err, worst=worst, control_loss=ctl_loss,
+               control_update=ctl_upd, masks_equal=masks_equal)
+    return row, exe, scope
+
+
+def exec_predictors(torch, prof, k8, seed, tag, image_size=224):
+    """Phase 32, the f32 and int8 ResNet-50 Predictors (phase 12's): at
+    batch 1, 8 and 32, EXEC_REQUESTS requests captured (the first of
+    each batch size captures; no ledger record after it) against the
+    same requests eager: logits within CAPTURE_LOGIT_TOL of max |eager|;
+    K8 launched once per captured int8 request; the int8 fc under replay
+    still K8's plain version + bias within 1 ulp."""
+    import shutil
+    from paddle_tpu_torch import inference, static
+    from paddle_tpu_torch.core import ir
+    from paddle_tpu_torch.core.executor import Executor
+    from paddle_tpu_torch.core.scope import Scope, scope_guard
+    from paddle_tpu_torch.models.resnet import build_static
+
+    rng = np.random.RandomState(seed + 32)
+    ir.reset_unique_names()
+    main, startup = ir.Program(), ir.Program()
+    startup.random_seed = seed
+    with ir.program_guard(main, startup):
+        img = static.data("img", [3, image_size, image_size], "float32")
+        label = static.data("label", [1], "int64")
+        logits, _, _ = build_static(img, label, depth=50)
+    model_dir = tempfile.mkdtemp(prefix="resnet50_exec_")
+    try:
+        exe = Executor()
+        with scope_guard(Scope()):
+            exe.run(startup)
+            static.io.save_inference_model(model_dir, ["img"], [logits], exe,
+                                           main_program=main)
+        preds = {"f32": inference.create_predictor(
+            inference.Config(model_dir))}
+        cfg = inference.Config(model_dir)
+        cfg.enable_int8([{"img": resnet_images(rng, 8, image_size)}
+                         for _ in range(4)])
+        preds["int8"] = inference.create_predictor(cfg)
+    finally:
+        shutil.rmtree(model_dir, ignore_errors=True)
+    out = {}
+    for name, pred in preds.items():
+        row = {}
+        k8n = 0
+        for b in RESNET_BATCHES:
+            reqs = [resnet_images(rng, b, image_size)
+                    for _ in range(EXEC_REQUESTS)]
+            k8.reset_launch_counts()
+            seq0 = max([r.seq for r in prof.compile_ledger().entries()],
+                       default=0)
+            got, _ = serve_requests(pred, reqs[:1])
+            n0 = prof.compile_ledger().count()
+            more, _ = serve_requests(pred, reqs[1:])
+            new = prof.compile_ledger().count() - n0
+            k8n += k8.launch_counts["quantized_matmul"]
+            with prof.disable_capture():
+                want, _ = serve_requests(pred, reqs)
+            err = max(float(np.abs(g - w).max()) / float(np.abs(w).max())
+                      for g, w in zip(got + more, want))
+            assert err <= CAPTURE_LOGIT_TOL and new == 0, (name, b, err,
+                                                          new)
+
+            def requests(k, x=reqs[0]):
+                for _ in range(k):
+                    pred.run({"img": x})
+                torch.cuda.synchronize()
+
+            row[b] = exec_profiles(
+                torch, prof, f"{name} ResNet-50 Predictor, batch {b}",
+                {"captured": requests, "eager": requests}, 3,
+                entry_stats(prof, pred._program, seq0), tag)
+            row[b].update(logits_err=err, new_records=new)
+            print(f"phase 32 {name} Predictor batch {b}: {EXEC_REQUESTS} "
+                  f"requests captured vs eager, logits max |d| / max |eager| "
+                  f"{err:.3g} (gate {CAPTURE_LOGIT_TOL}); ledger records "
+                  f"after the first request: {new} {tag}")
+        if name == "int8":
+            want_k8 = EXEC_REQUESTS * len(RESNET_BATCHES)
+            assert k8n == want_k8, (k8n, want_k8)
+            row["k8_launches"] = k8n
+            row["fc_ulps"] = exec_fc_check(torch, k8, pred,
+                                           resnet_images(rng, 32,
+                                                         image_size))
+            print(f"phase 32 int8 Predictor: K8 launched {k8n} times over "
+                  f"{want_k8} int8 requests (one a request, replays "
+                  f"included); the replayed fc = plain K8 + bias within "
+                  f"{row['fc_ulps']} ulp {tag}")
+        out[name] = row
+    del preds
+    torch.cuda.empty_cache()
+    return out
+
+
+def exec_fc_check(torch, k8, pred, x32):
+    """The int8 Predictor's fc, fetched under replay (the second run of
+    that fetch list), against K8's plain version on its input + bias."""
+    ops = pred._program.global_block().ops
+    qmul = next(op for op in ops if op.type == "quantized_mul")
+    add = next(op for op in ops if op.type == "elementwise_add"
+               and op.inputs["X"] == qmul.outputs["Out"])
+    for _ in range(2):
+        served, fc_in = pred.run({"img": x32},
+                                 fetch_list=[qmul.inputs["X"][0]])
+    sc = pred._scope
+    fc_x = torch.from_numpy(fc_in).cuda()
+    plain = k8.dequant_matmul_reference(
+        fc_x.reshape(fc_x.shape[0], -1), sc.get(qmul.inputs["Y"][0]),
+        sc.get(qmul.inputs["YScale"][0]).reshape(-1),
+        x_scale=qmul.attrs["x_scale"]) + sc.get(add.inputs["Y"][0])
+    fc_ulps = ulps(torch, torch.from_numpy(served).cuda(), plain)
+    assert fc_ulps <= 1, f"replayed fc vs plain K8 + bias: {fc_ulps} ulps"
+    return fc_ulps
+
+
+def exec_crnn(torch, prof, seed, tag):
+    """Phase 32, CRNN-CTC at batch CRNN_BATCH (phase 29's programs): the
+    training step (`exec_training`) and the test program, captured
+    against eager from the same state: decoded ids, lengths and edit
+    distances equal."""
+    from paddle_tpu_torch.core.executor import Executor
+    from paddle_tpu_torch.models import crnn_ctc
+    cfg = crnn_ctc.CRNNConfig()
+    main, test, startup, names = crnn_programs(cfg, CRNN_BATCH, seed)
+    feed = crnn_feed(torch, cfg, CRNN_BATCH, seed + 32, "cuda")
+    row, exe, scope = exec_training(torch, prof, "crnn-ctc train",
+                                    main, startup, feed, names["loss"], tag)
+    fetch = [names[k] for k in ("decoded", "decoded_length", "distance")]
+    got = [exe.run(test, feed=feed, fetch_list=fetch, scope=scope)
+           for _ in range(3)]
+    with prof.disable_capture():
+        want = Executor().run(test, feed=feed, fetch_list=fetch, scope=scope)
+    equal = all(np.array_equal(a, b) for g in got for a, b in zip(g, want))
+    print(f"phase 32 crnn-ctc test program: decoded ids, lengths and edit "
+          f"distances of 3 captured runs (1 warm-up, 2 replays) "
+          f"{'equal' if equal else 'DIFFER'} to the eager run's {tag}")
+    assert equal, "crnn-ctc decode: captured differs from eager"
+
+    def decodes(e):
+        def run(k):
+            for _ in range(k):
+                e.run(test, feed=feed, fetch_list=fetch, scope=scope,
+                      return_numpy=False)
+            torch.cuda.synchronize()
+        return run
+
+    row["decode"] = exec_profiles(
+        torch, prof, "crnn-ctc decode (test program)",
+        {"captured": decodes(exe), "eager": decodes(Executor())}, 3,
+        entry_stats(prof, test), tag)
+    row["decode"]["equal"] = equal
+    del scope
+    torch.cuda.empty_cache()
+    return row
+
+
+def exec_mt_decode(torch, prof, control_flow, seed, tag):
+    """Phase 32, the machine_translation While decode (phase 20's
+    program, MT_DECODE_STEPS iterations) from the startup weights:
+    captured (the plan's segments, the body one graph replayed an
+    iteration) against eager, ids equal and the condition reads a run
+    unchanged."""
+    from paddle_tpu_torch.core.executor import Executor
+    from paddle_tpu_torch.core.scope import Scope
+    _, startup, _ = mt_programs(seed)
+    scope = Scope()
+    Executor().run(startup, scope=scope)
+    dec, dfetch = mt_decode_program()
+    dfeed = {k: v for k, v in mt_batch(
+        np.random.RandomState(seed + 32), MT_DECODE_BATCH).items()
+        if k in ("src", "src_len")}
+    res = {}
+    for mode, exe in (("captured", Executor()), ("eager", Executor())):
+        with (prof.disable_capture() if mode == "eager"
+              else contextlib.nullcontext()):
+            runs = []
+            for _ in range(3):
+                control_flow.reset_host_reads()
+                runs.append((exe.run(dec, feed=dfeed, fetch_list=dfetch,
+                                     scope=scope),
+                             dict(control_flow.host_reads)))
+        res[mode] = (runs, exe)
+    (cruns, cexe), (eruns, eexe) = res["captured"], res["eager"]
+    ids_equal = all(np.array_equal(c[0][0], eruns[0][0][0]) for c in cruns)
+    reads = [(c[1]["while"], c[1]["while_iterations"]) for c in cruns]
+    want_reads = (eruns[0][1]["while"], eruns[0][1]["while_iterations"])
+    verdict = "equal" if ids_equal else "DIFFER"
+    print(f"phase 32 mt While decode, batch {MT_DECODE_BATCH}, beam "
+          f"{MT_BEAM}: ids of 3 captured runs {verdict} to the eager run's; "
+          f"condition reads and iterations a run {reads} captured, "
+          f"{want_reads} eager {tag}")
+    assert ids_equal and all(r == want_reads for r in reads), (ids_equal,
+                                                              reads)
+
+    def decodes(e):
+        def run(k):
+            for _ in range(k):
+                e.run(dec, feed=dfeed, fetch_list=dfetch, scope=scope,
+                      return_numpy=False)
+            torch.cuda.synchronize()
+        return run
+
+    stats = entry_stats(prof, dec)
+    row = exec_profiles(torch, prof, "mt While decode",
+                        {"captured": decodes(cexe),
+                         "eager": decodes(eexe)}, 3, stats, tag)
+    row.update(ids_equal=ids_equal, host_reads=reads)
+    del scope
+    torch.cuda.empty_cache()
+    return row
+
+
+def executor_phase(torch, seed, tag):
+    """Phase 32: each Executor program of phases 12, 14, 16, 20 and 29
+    captured against `disable_capture()` from the same state (see the
+    module docstring)."""
+    from paddle_tpu_torch.io import dataset, reader
+    from paddle_tpu_torch.observability import profile as prof
+    from paddle_tpu_torch.ops import control_flow
+    from paddle_tpu_torch.ops.kernels import quantized_matmul as k8
+    t0 = time.perf_counter()
+    out = {}
+    main, startup, _, _, loss = resnet_train_programs(seed)
+    rng = np.random.RandomState(seed + 320)
+    batch = {"img": resnet_images(rng, TRAIN_BATCH),
+             "label": rng.randint(0, 1000, (TRAIN_BATCH, 1)).astype(
+                 np.int64)}
+    out["resnet50_train"], _, _ = exec_training(
+        torch, prof, f"resnet-50 train, batch {TRAIN_BATCH}", main, startup,
+        batch, loss, tag)
+    torch.cuda.empty_cache()
+    main, startup, _, _, loss, _ = vgg_programs(seed, True)
+    samples = next(reader.batch(dataset.cifar.train10(VGG_BATCH),
+                                VGG_BATCH)())
+    feed = {"img": np.stack([s[0] for s in samples]),
+            "label": np.stack([s[1] for s in samples]).reshape(-1, 1)}
+    masks = [op.outputs["Mask"][0] for op in main.global_block().ops
+             if op.type == "dropout"]
+    out["vgg16_bn_train"], _, _ = exec_training(
+        torch, prof, f"vgg-16-bn train (dropout), batch {VGG_BATCH}", main,
+        startup, feed, loss, tag, masks=masks)
+    torch.cuda.empty_cache()
+    out["crnn_ctc"] = exec_crnn(torch, prof, seed, tag)
+    out["predictors"] = exec_predictors(torch, prof, k8, seed, tag)
+    out["mt_decode"] = exec_mt_decode(torch, prof, control_flow, seed, tag)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 32: {out['seconds']:.1f} s {tag}")
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5454,9 +6075,9 @@ def main(argv=None):
                          "line")
     ap.add_argument("--capture", action="store_true",
                     help="only build the kernels, make phase 3's "
-                         "references and run phase 31 (the captured "
-                         "rungs against eager runs); print one CAPTURE "
-                         "line")
+                         "references and run phases 31 and 32 (the "
+                         "captured rungs and Executor programs against "
+                         "eager runs); print one CAPTURE line")
     args = ap.parse_args(argv)
     out_dir = (os.path.dirname(os.path.abspath(args.out)) if args.out
                else None)
@@ -5534,6 +6155,9 @@ def main(argv=None):
     if args.capture:
         out = capture_phase(torch, gen, tfa, model, prompts, budgets, gaps,
                             args.seed, tag, out_dir)
+        del model
+        torch.cuda.empty_cache()
+        out["executor"] = executor_phase(torch, args.seed, tag)
         print("CAPTURE " + json.dumps(out, default=str))
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -5986,6 +6610,9 @@ def main(argv=None):
     print(f"phase 29: {results['crnn_phase_s']:.1f} s, phase 30: "
           f"{results['misc_phase_s']:.1f} s (no kernel of the kernels line "
           f"launched) {tag}")
+
+    # 32. the Executor's programs captured against eager runs
+    results["executor_capture"] = executor_phase(torch, args.seed, tag)
 
     results["total_s"] = time.perf_counter() - t_start
     print(f"total: {results['total_s']:.1f} s {tag}")

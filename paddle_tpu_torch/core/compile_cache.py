@@ -35,10 +35,13 @@ reason). A truncated entry, a bad CRC, another format or another stamp
 is a miss with the reason named, never an exception. Kept from the JAX
 module: the pathology ledger for slow captures
 (PT_FLAGS_compile_cache_slow_compile_s), keep-last-N `gc`
-(PT_FLAGS_compile_cache_keep) and `stats()`. Not kept:
-`LoadedArtifact`, `program_cache_token` and `preload_component` (no
-executable to load, and the Executor does not capture yet), and the
-jax compilation-cache plumbing (no compiler cache beneath a graph).
+(PT_FLAGS_compile_cache_keep), `stats()` and `program_cache_token`,
+the content identity of an Executor entry's program. Not kept:
+`LoadedArtifact` and `preload_component` (no executable to load), and
+the jax compilation-cache plumbing (no compiler cache beneath a graph).
+A graph is captured in every process, an Executor entry's too: the
+cache records its signature (hit, miss and store events), never the
+graph.
 """
 import hashlib
 import json
@@ -53,7 +56,7 @@ from paddle_tpu_torch.core import flags as _flags
 logger = logging.getLogger("paddle_tpu_torch.compile_cache")
 
 __all__ = ["CompileCache", "compile_cache", "device_stamp",
-           "reset_compile_cache"]
+           "program_cache_token", "reset_compile_cache"]
 
 ENTRY_FORMAT = 1
 _STAMP_FIELDS = ("platform", "device_kind", "capability", "driver")
@@ -91,6 +94,19 @@ def device_stamp():
     return {"platform": "cpu", "device_kind": "cpu", "capability": None,
             "driver": None, "torch": torch.__version__, "cuda": None,
             "kernels": kernels}
+
+
+def program_cache_token(program):
+    """Stable cross-process identity of a Program's content (not its
+    id()): SHA-256 of its sorted-key `to_dict()` JSON, memoised per
+    program version (the JAX package's token, compile_cache.py:134)."""
+    cached = getattr(program, "_cache_token_memo", None)
+    if cached is not None and cached[0] == program._version:
+        return cached[1]
+    text = json.dumps(program.to_dict(), sort_keys=True, default=str)
+    h = hashlib.sha256(text.encode()).hexdigest()
+    program._cache_token_memo = (program._version, h)
+    return h
 
 
 def _canonical(doc):

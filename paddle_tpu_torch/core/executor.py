@@ -1,21 +1,36 @@
-"""Executor — run programs.
+"""Executor — capture and run programs.
 
 Counterpart of paddle_tpu/core/executor.py (the reference's Python
 Executor, executor.py:418, run :672). `run()` validates the feed against
-the program's VarDescs, builds the program's step function once per
+the program's VarDescs and builds the program's step function once per
 (program identity and version, feed signature, fetch list, state names,
-mode) and runs it eagerly on the executor's device (core/lowering.py).
-Each cache entry goes through `observability.profile.ledger_jit` (the
-JAX Executor's `LedgerJit` sites, executor.py:209-248): its first run is
-recorded in the CompileLedger with kind "eager" at the site of the
-program, its fetches and mode, so a feed whose shape changes is a second
-signature whose forensics name the feed. No program is captured into a
-CUDA graph yet: its state round-trips through the scope between runs
-and a `while` reads its condition on the host (ROADMAP Queue 1 item
-13a).
+mode), as the JAX Executor jit-compiles once per signature. Each cache
+entry is an `observability.profile.LedgerJit` at the JAX site name
+(`executor/{id:x}v{version}/{fetches}/{train|infer}`, executor.py:
+209-248) with the JAX cache token (`prog:<content hash>/fetch:.../
+state:.../train|infer`, :99-123):
 
-`Executor(place=None)` runs on the GPU and raises without one; pass
-`place="cpu"` (or `CPUPlace()`) for the CPU.
+* On the card the entry replays one captured CUDA graph per segment of
+  the program's capture plan (core/lowering.py): a program without host
+  ops is one graph, a `while` body one graph replayed per iteration
+  with its condition read on the host. The graphs of all entries share
+  the Executor's memory pool, and their replays are serialised. The
+  first run of a signature is its eager warm-up.
+* The graphs hold the scope's state tensors: a training run writes the
+  new state into them in place, the counterpart of the JAX Executor's
+  donation (`donate_argnums=(0,)`, :195-201); an inference run writes
+  none (Predictor clones run over one scope). A tensor taken from the
+  scope with `get` and held across a training run therefore changes
+  (core/scope.py); a value set between runs is copied in.
+* Fetches are copied out before `run` returns: with `return_numpy=False`
+  every call returns fresh tensors.
+* The run seed (program.random_seed and the step counter, :254-270)
+  re-seeds each draw site's persistent generator before a replay, so a
+  captured run draws what an eager run draws.
+
+On the CPU, and on the card inside `profile.disable_capture()`, the same
+segments run eagerly. `Executor(place=None)` runs on the GPU and raises
+without one; pass `place="cpu"` (or `CPUPlace()`) for the CPU.
 """
 import logging
 
@@ -58,6 +73,17 @@ class Executor:
         self._cache = {}
         self._rng_scan = {}   # (id(program), version) -> (program, has rng ops)
         self._step_counter = 0
+        self._pool = obs_profile.ExecutorPool()
+
+    @staticmethod
+    def _cache_token(program, fetch_names, state_names, training):
+        """The persistent cache's identity of one entry: the program's
+        content hash, fetches, state names and mode (the JAX token)."""
+        from paddle_tpu_torch.core.compile_cache import program_cache_token
+        return (f"prog:{program_cache_token(program)}"
+                f"/fetch:{','.join(fetch_names)}"
+                f"/state:{','.join(state_names)}"
+                f"/{'train' if training else 'infer'}")
 
     def _consumes_rng(self, program):
         key = (id(program), program._version)
@@ -95,14 +121,16 @@ class Executor:
                 logger.info("new step function: program v%s feeds=%s "
                             "fetches=%s", program._version,
                             sorted(feed_vals), fetch_names)
-            step = obs_profile.ledger_jit(
+            step = obs_profile.LedgerJit(
                 make_step_fn(program, feed_vals.keys(), fetch_names,
                              state_names, training=training,
                              device=self.device),
                 site=(f"executor/{id(program):x}v{program._version}/"
                       f"{','.join(fetch_names)}/"
                       f"{'train' if training else 'infer'}"),
-                arg_names=("state", "feed", "rng"))
+                cache_token=self._cache_token(program, fetch_names,
+                                              state_names, training),
+                device=self.device, pool=self._pool)
             self._cache[key] = (program, step)
 
         if training or self._consumes_rng(program):
@@ -113,11 +141,7 @@ class Executor:
         if flags.get_flag("deterministic"):   # FLAGS_cudnn_deterministic
             torch.backends.cudnn.deterministic = True
             torch.backends.cudnn.benchmark = False
-        state = {n: scope.tensor_on(n, self.device) for n in state_names}
-        with torch.no_grad():     # the autodiff segment turns grad on
-            fetches, new_state = step(state, feed_vals, seed)
-        for n, v in new_state.items():
-            scope.set(n, v)
+        fetches = step(scope, state_names, feed_vals, seed)
 
         if flags.get_flag("check_nan_inf"):
             for n, v in zip(fetch_names, fetches):

@@ -4,7 +4,14 @@ Counterpart of paddle_tpu/core/registry.py (the reference's
 REGISTER_OPERATOR / REGISTER_OP_*_KERNEL, op_registry.h:199). An op
 implementation is one PyTorch function `fn(ctx, *inputs) -> outputs`
 registered under the JAX package's op type and slot names; the Executor
-calls it eagerly on tensors of its device.
+calls it on tensors of its device, eagerly or inside a captured CUDA
+graph (core/lowering.py's capture plan).
+
+An op that must read the device from the host, or run host code, while
+it runs (a `while` condition, a `py_func` callback) says so when it is
+registered: `register_op(..., host=reason)`, where `reason` is a string
+or a function of the OpDesc giving one (None when that op runs on the
+device alone). The capture plan ends a graph segment at each such op.
 
 Slot-spec syntax for register_op(inputs=[...], outputs=[...]):
     "X"     required single variable
@@ -18,14 +25,18 @@ the counterpart of the JAX package's `jax.eval_shape`.
 The op library registers itself on first lookup (`_load_op_library`), so
 a program loaded from disk runs without its builders being imported.
 """
+import contextlib
 import importlib
+import threading
 
+import numpy as np
 import torch
 
 from paddle_tpu_torch.core.enforce import OpRunError, enforce
 
 __all__ = ["OpContext", "OpImpl", "register_op", "get_op", "has_op",
-           "registered_ops", "infer_shapes", "op_generator"]
+           "registered_ops", "infer_shapes", "op_generator", "host_reason",
+           "RunGenerators", "constant", "constants_kept"]
 
 _OPS = {}
 
@@ -54,12 +65,108 @@ def _load_op_library():
             importlib.import_module(name)
 
 
+def _mixed_seed(seed, op_index):
+    return (int(seed) * 1_000_003 + int(op_index) * 7_919) % (2 ** 63 - 1)
+
+
+_kept = threading.local()
+
+
+@contextlib.contextmanager
+def constants_kept(store):
+    """While the block is open on this thread, `constant` keeps its device
+    copies in the dict `store`, one per (value, dtype, device): a graph's
+    warm-up makes them, its capture reads them, and the graph holds
+    `store` for as long as its replays read them."""
+    prev = getattr(_kept, "store", None)
+    _kept.store = store
+    try:
+        yield store
+    finally:
+        _kept.store = prev
+
+
+def constant(values, dtype, device):
+    """A new tensor on `device` holding host `values` (a number, list or
+    numpy array) as `dtype`. Inside `constants_kept` the copy from the
+    host is made once per value, never while a CUDA graph is being
+    captured (where a copy from pageable host memory is not permitted),
+    and each call returns a device-side copy of it, which a capture
+    records; elsewhere each call copies from the host."""
+    arr = np.asarray(values)
+    device = torch.device(device)
+    store = getattr(_kept, "store", None)
+    if store is not None:
+        key = (arr.dtype.str, arr.shape, arr.tobytes(), dtype, device)
+        if key in store:
+            return store[key].clone()
+    enforce(device.type != "cuda"
+            or not torch.cuda.is_current_stream_capturing(),
+            "a constant of shape %s was first asked for while a CUDA "
+            "graph was being captured", arr.shape)
+    t = torch.from_numpy(np.array(arr)).to(dtype).to(device)
+    if store is None:
+        return t
+    store[key] = t
+    return t.clone()
+
+
 def op_generator(seed, op_index, device):
     """The torch.Generator of one op in one run: seeded from the run's
     seed and the op's index (the JAX package folds the op index into the
     run's PRNG key), so a program's randomness is reproducible."""
-    mixed = (int(seed) * 1_000_003 + int(op_index) * 7_919) % (2 ** 63 - 1)
-    return torch.Generator(device=device).manual_seed(mixed)
+    return torch.Generator(device=device).manual_seed(
+        _mixed_seed(seed, op_index))
+
+
+class RunGenerators:
+    """The persistent torch.Generators of one step function's draw sites.
+
+    Eagerly, `draw` re-seeds the site's generator from the run seed and
+    the op index (or the op's own `seed` attr) on every call: the numbers
+    `op_generator` gives. A captured graph cannot make or seed a generator
+    while it is captured, so each draw of a segment run (`begin` starts
+    one) has a generator of its own, keyed by (op index, how many draws
+    the site made before in this segment run): the segment's graph
+    registers them and `reseed` sets each one before every replay, so a
+    replay draws what an eager run at the same seed draws, a site drawn
+    twice in one run (a `scan` body) included. The Executor's entry calls
+    `begin` at the start of every run too, so the keys of an eager run
+    stay (op index, 0..n) and its generators are reused run after run."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self._gens = {}
+        self._counts = {}
+        self._used = None
+        self.capturing = False
+
+    def begin(self):
+        """Start a run or a segment's capture: returns the list that
+        collects its draws as (generator, op index, fixed seed)."""
+        self._counts = {}
+        self._used = []
+        return self._used
+
+    def draw(self, seed, op_index, fixed=None):
+        k = self._counts.get(op_index, 0)
+        self._counts[op_index] = k + 1
+        gen = self._gens.get((op_index, k))
+        if gen is None:
+            gen = self._gens[(op_index, k)] = torch.Generator(
+                device=self.device)
+        if not self.capturing:
+            gen.manual_seed(fixed if fixed else _mixed_seed(seed, op_index))
+        if self._used is not None:
+            self._used.append((gen, op_index, fixed))
+        return gen
+
+    @staticmethod
+    def reseed(used, seed):
+        """Seed a segment's generators for a run at `seed` (on the host,
+        before its graph replays)."""
+        for gen, op_index, fixed in used:
+            gen.manual_seed(fixed if fixed else _mixed_seed(seed, op_index))
 
 
 class OpContext:
@@ -74,10 +181,10 @@ class OpContext:
     included, can fall back to another device."""
 
     __slots__ = ("attrs", "_seed", "training", "op_index", "device",
-                 "block", "run_subblock")
+                 "block", "run_subblock", "_rngs")
 
     def __init__(self, attrs, seed, training, op_index, device, block=None,
-                 run_subblock=None):
+                 run_subblock=None, rngs=None):
         enforce(device is not None, "OpContext needs a device")
         self.attrs = attrs
         self._seed = seed
@@ -86,15 +193,22 @@ class OpContext:
         self.device = torch.device(device)
         self.block = block
         self.run_subblock = run_subblock
+        self._rngs = rngs
 
     def attr(self, name, default=None):
         return self.attrs.get(name, default)
 
-    def rng(self):
+    def rng(self, fixed=None):
         """A torch.Generator for this op, seeded from the run's seed and
-        the op index."""
+        the op index, or from `fixed` (an op's own non-zero `seed` attr);
+        the step function's persistent generator for the site when the
+        run has one (RunGenerators)."""
         enforce(self._seed is not None,
                 "op requested randomness but no seed was provided")
+        if self._rngs is not None:
+            return self._rngs.draw(self._seed, self.op_index, fixed)
+        if fixed:
+            return torch.Generator(device=self.device).manual_seed(fixed)
         return op_generator(self._seed, self.op_index, self.device)
 
     def has_rng(self):
@@ -113,11 +227,12 @@ class _Slot:
 
 
 class OpImpl:
-    def __init__(self, type_, fn, in_slots, out_slots):
+    def __init__(self, type_, fn, in_slots, out_slots, host=None):
         self.type = type_
         self.fn = fn
         self.in_slots = [_Slot(s) for s in in_slots]
         self.out_slots = [_Slot(s) for s in out_slots]
+        self.host = host
 
     def gather_inputs(self, op_desc, env):
         """Map an OpDesc's named input slots to positional compute args."""
@@ -159,15 +274,25 @@ class OpImpl:
                 ri += 1
 
 
-def register_op(type_, inputs, outputs):
-    """Decorator: register `fn(ctx, *inputs) -> outputs` under `type_`."""
+def register_op(type_, inputs, outputs, host=None):
+    """Decorator: register `fn(ctx, *inputs) -> outputs` under `type_`.
+    `host`: why the op needs the host while it runs (a string, or a
+    function of the OpDesc returning one or None), for the capture
+    plan."""
 
     def deco(fn):
         enforce(type_ not in _OPS, "op %r registered twice", type_)
-        _OPS[type_] = OpImpl(type_, fn, inputs, outputs)
+        _OPS[type_] = OpImpl(type_, fn, inputs, outputs, host=host)
         return fn
 
     return deco
+
+
+def host_reason(op_desc):
+    """Why `op_desc` needs the host while it runs (its registration's
+    `host`), or None when it runs on the device alone."""
+    host = get_op(op_desc.type).host
+    return host(op_desc) if callable(host) else host
 
 
 def get_op(type_):
@@ -198,7 +323,8 @@ _DYN_SENTINEL = 12289
 #: ops that skip construction-time inference, as in the JAX package:
 #: random ops (no run seed exists yet), control flow and collectives.
 #: An op whose function needs real values (`.item()`, host numpy) would
-#: have to be listed here too; none of the ported ops does.
+#: have to be listed here too; the host ops (`host=`) return meta
+#: tensors on meta inputs instead.
 _DYNAMIC_SHAPE_OPS = {
     "gaussian_random", "uniform_random", "truncated_gaussian_random",
     "gaussian_random_batch_size_like", "uniform_random_batch_size_like",
@@ -259,7 +385,7 @@ def abstract_eval(op_desc, env, block=None):
     if block is not None:
         from paddle_tpu_torch.core.lowering import run_ops
 
-        def run_subblock(idx, sub_env):
+        def run_subblock(idx, sub_env, carry=()):
             sub = block.program.blocks[idx]
             return run_ops(sub.ops, sub, _MetaEnv(sub, {**env, **sub_env}),
                            None, True, "meta")

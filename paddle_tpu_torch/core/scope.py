@@ -7,6 +7,18 @@ the first time a program reads it and stores it back there, so a value
 loaded or rewritten on the host (a params file, a freeze pass's int8
 weights) lives on the card from then on.
 
+**Bound state.** On the card an Executor entry's captured graphs hold
+the state tensors they read (`bind`): a training run writes the new
+values into them in place, the counterpart of the JAX Executor's
+donated state. A value `set` under a bound name between runs
+(`load_persistables`, `static.load`, a freeze pass, a user) is copied
+into the bound tensor by the next run, which puts the bound tensor back
+(`refresh`). So a tensor taken with `get` and held across a training
+run changes under its holder (where the JAX package's donated buffer
+would be invalid): copy it (`find_np`, `.clone()`) to keep a value. No
+tensor is bound under two names, and no scope value points into a
+graph's memory pool.
+
 `find_np` always returns a copy: on a CPU tensor `.cpu()` and
 `.numpy()` share its storage, and a host copy must not change when the
 tensor is later updated in place.
@@ -29,6 +41,7 @@ def to_numpy(value):
 class Scope:
     def __init__(self):
         self._vars = {}
+        self._bound = {}      # id(tensor) -> (name, tensor): bound state
         self._lock = threading.Lock()
 
     def set(self, name, value):
@@ -61,6 +74,37 @@ class Scope:
                 v = v.to(device)
             self._vars[name] = v
             return v
+
+    def bind(self, name, device):
+        """The tensor a captured graph holds for `name`: the value on
+        `device` (as `tensor_on`), or a copy of it when that tensor is
+        already bound under another name."""
+        v = self.tensor_on(name, device)
+        with self._lock:
+            owner = self._bound.get(id(v))
+            if owner is not None and owner[0] != name:
+                v = v.clone()
+                self._vars[name] = v
+            self._bound[id(v)] = (name, v)
+            return v
+
+    def refresh(self, name, bound):
+        """Before a run: when `name` holds another value than its bound
+        tensor (of the same shape and dtype), copy the value in and put
+        the bound tensor back; another name holding the bound tensor
+        keeps its value in a copy. Returns whether it copied."""
+        with self._lock:
+            v = self._vars.get(name)
+            if v is bound:
+                return False
+            for n, other in self._vars.items():
+                if other is bound and n != name:
+                    self._vars[n] = bound.clone()
+            if not isinstance(v, torch.Tensor):
+                v = torch.from_numpy(np.array(v, copy=True))
+            bound.copy_(v)
+            self._vars[name] = bound
+            return True
 
     def __repr__(self):
         return f"<Scope vars={len(self._vars)}>"

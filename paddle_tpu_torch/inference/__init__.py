@@ -19,6 +19,13 @@ AnalysisConfig):
 * `create_predictor`, `Predictor.clone` (shares weights, private
   handles).
 
+On the card a Predictor's requests replay its Executor's captured
+graphs, one entry per feed signature (batch 1, 8 and 32 are three); the
+first request of a signature captures it. A clone shares the Executor,
+so its requests and the original's are serialised on the Executor's
+graphs: two threads never interleave one entry's input copies, replays
+and output copies.
+
 Not ported in this slice, and raising NotImplementedError: the native
 C++ engine, StableHLO export and the AOT bundle (ROADMAP Queue 1 item
 9).
@@ -104,7 +111,7 @@ class _Handle:
 
 class Predictor:
     """AnalysisPredictor parity: one loaded model, persistent state on the
-    device, eager execution through an Executor."""
+    device, run through an Executor (captured graphs on the card)."""
 
     def __init__(self, config):
         from paddle_tpu_torch.core.executor import Executor

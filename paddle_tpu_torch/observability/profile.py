@@ -43,8 +43,13 @@ is launched once.
   capture (the peak statistics are reset just before it), `pool_bytes`
   the bytes the wrapper's graph pool holds after it (its graphs share
   one pool); None on the CPU.
-* `ledger_jit(fn, site=)` records the first call of a one-signature site
-  (the Executor's cache entries) with kind "eager" and runs `fn`.
+* **`LedgerJit`**: the Executor's entries (`executor/...` sites). On the
+  card each segment of a program's capture plan (core/lowering.py) is
+  one graph per input signature, bound to the scope's state tensors,
+  which a training run updates in place; one "graph" record per run
+  that captured. On the CPU the step runs eagerly, recorded as "eager".
+  `ledger_jit(fn, site=)`, the JAX package's name, is
+  `profiled_graph(fn, "executor", site)`.
 * **MemoryLedger** samples `torch.cuda.memory_stats` (an injectable
   reader for tests), keeps the peak watermark, per-tag deltas and a
   monotonic-growth leak detector.
@@ -57,15 +62,18 @@ snapshot's "concurrency" and "plan_check" sections have no counterpart.
 import collections
 import contextlib
 import contextvars
+import gc
 import math
 import os
 import threading
 import time
+import weakref
 
 import numpy as np
 from torch import Generator as _Generator
+from torch import Tensor as _Tensor
 
-from paddle_tpu_torch.analysis.concurrency import make_lock
+from paddle_tpu_torch.analysis.concurrency import make_lock, make_rlock
 from paddle_tpu_torch.core import flags as _flags
 
 __all__ = [
@@ -73,6 +81,7 @@ __all__ = [
     "MemoryLedger", "memory_ledger",
     "attribution", "current_attribution",
     "ProfiledGraph", "profiled_graph", "profiled_jit", "LedgerJit",
+    "ExecutorPool",
     "ledger_jit", "CaptureError", "disable_capture", "capture_disabled",
     "observe_run", "executable_stats", "signature_of", "dispatch_key",
     "diff_signatures", "peak_flops", "note_kernel_flops",
@@ -197,7 +206,7 @@ _attr_var = contextvars.ContextVar("pt_profile_attr", default=None)
 @contextlib.contextmanager
 def attribution(component, key=None, scope=None, **tags):
     """Attribute records made inside the block (however deep: the
-    Executor's ledger_jit reads this at its first call) to a logical
+    Executor's entries read this at their first call) to a logical
     owner. `scope` partitions ledger queries per instance."""
     if not enabled():
         yield
@@ -726,17 +735,76 @@ def _cache_for(token):
     return cc.compile_cache()
 
 
+#: what `_capture_graph` made
+_Capture = collections.namedtuple(
+    "_Capture", "out graph outputs launched cost warm_s peak_bytes constants")
+
+
+def _capture_graph(fn, dev, pool, prepare, failed):
+    """Warm up and capture `fn()` on the device's capture stream: run it
+    once eagerly (the warm-up: its outputs are the call's result, and it
+    sizes the kernels' per-stream workspaces), call `prepare(graph)`
+    (which registers the generators the graph draws from), then capture
+    a second run into a CUDA graph in memory pool `pool`. Host values
+    the runs copy to the device (registry.constant) are kept in
+    `.constants`, which must live as long as the graph. A garbage
+    collection is held off during the capture (one could free another
+    graph, which a capture does not permit), and the launch counts of
+    the captured run, which ran nothing, are taken back. An error of the
+    capture raises CaptureError with the message `failed(error)`; an
+    error of the warm-up is the call's own and propagates as it is."""
+    import torch
+
+    from paddle_tpu_torch.core.registry import constants_kept
+    stream = _capture_stream(dev)
+    cur = torch.cuda.current_stream(dev)
+    stream.wait_stream(cur)
+    graph = torch.cuda.CUDAGraph()
+    constants = {}
+    with constants_kept(constants):
+        t0 = _clock()
+        with torch.cuda.stream(stream):
+            with _CostScope() as cost:
+                out = fn()
+        stream.synchronize()
+        warm_s = _clock() - t0
+        prepare(graph)
+        m0 = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        counts = _launch_snapshot()
+        gc_was_on = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, pool=pool, stream=stream):
+                outputs = fn()
+        except Exception as e:
+            raise CaptureError(f"{failed(e)}: {type(e).__name__}: "
+                               f"{e}") from e
+        finally:
+            if gc_was_on:
+                gc.enable()
+            launched = _launch_delta(counts, _launch_snapshot())
+            _add_launches(launched, -1)
+    peak = int(torch.cuda.max_memory_allocated(dev) - m0)
+    cur.wait_stream(stream)
+    _record_stream(out, cur)
+    return _Capture(out=out, graph=graph, outputs=outputs,
+                    launched=launched, cost=cost.cost(), warm_s=warm_s,
+                    peak_bytes=peak, constants=constants)
+
+
 class _Graph:
     __slots__ = ("graph", "key", "copies", "bound_ptrs", "outputs",
-                 "launches")
+                 "launches", "constants")
 
-    def __init__(self, graph, key, copies, bound_ptrs, outputs, launches):
-        self.graph = graph
+    def __init__(self, key, copies, bound_ptrs, cap):
+        self.graph = cap.graph
         self.key = key
         self.copies = copies          # [(arg index, static tensor)]
         self.bound_ptrs = bound_ptrs  # [(arg index, (data_ptr, ...))]
-        self.outputs = outputs
-        self.launches = launches
+        self.outputs = cap.outputs
+        self.launches = cap.launched
+        self.constants = cap.constants
 
 
 def _pool_bytes(pool):
@@ -906,51 +974,30 @@ class ProfiledGraph:
                                   self.scope, reason="not_warm")
             if self._pool is None:
                 self._pool = torch.cuda.graph_pool_handle()
-            stream = _capture_stream(dev)
-            cur = torch.cuda.current_stream(dev)
-            stream.wait_stream(cur)
-            graph = torch.cuda.CUDAGraph()
-            for _, a in bound_ptrs:
-                if isinstance(a, _Generator):
-                    graph.register_generator_state(a)
+            gens = [a for _, a in bound_ptrs if isinstance(a, _Generator)]
+
+            def prepare(graph):
+                for gen in gens:
+                    graph.register_generator_state(gen)
+
             t0 = _clock()
-            try:
-                with torch.cuda.stream(stream):
-                    with _CostScope() as cost:
-                        out = self._fn(*static_in, **static_kw)
-                stream.synchronize()
-                warm_s = _clock() - t0
-                m0 = torch.cuda.memory_allocated(dev)
-                torch.cuda.reset_peak_memory_stats(dev)
-                counts1 = _launch_snapshot()
-                try:
-                    with torch.cuda.graph(graph, pool=self._pool,
-                                          stream=stream):
-                        outputs = self._fn(*static_in, **static_kw)
-                finally:
-                    counts2 = _launch_snapshot()
-                    launched = _launch_delta(counts1, counts2)
-                    # the captured launches did not run
-                    _add_launches(launched, -1)
-            except Exception as e:
-                raise CaptureError(
+            cap = _capture_graph(
+                lambda: self._fn(*static_in, **static_kw), dev, self._pool,
+                prepare, lambda e: (
                     f"capture of {self.component}/{key} (signature "
                     f"{[f'{lb}{tuple(s)}/{d}' for lb, s, d in sig]}) "
-                    f"failed: {type(e).__name__}: {e}") from e
+                    f"failed"))
             capture_s = _clock() - t0
-            memory = {
-                "peak_bytes": int(torch.cuda.max_memory_allocated(dev) - m0),
-                "pool_bytes": _pool_bytes(self._pool),
-                "warmup_s": warm_s}
-            cur.wait_stream(stream)
-            _record_stream(out, cur)
-            launches = {k: v for _, d in launched for k, v in d.items()}
+            memory = {"peak_bytes": cap.peak_bytes,
+                      "pool_bytes": _pool_bytes(self._pool),
+                      "warmup_s": cap.warm_s}
+            launches = {k: v for _, d in cap.launched for k, v in d.items()}
             cache_field = cache
             if key_hash is not None:
                 event, reason = pcache.store(
                     key_hash, self.cache_token, sig, statics, len(args),
                     capture_s, component=self.component, key=key,
-                    scope=self.scope, cost=cost.cost(), memory=memory)
+                    scope=self.scope, cost=cap.cost, memory=memory)
                 cache_field = {"event": event, "tier": "signature"}
                 if reason:
                     cache_field["reason"] = reason
@@ -961,14 +1008,13 @@ class ProfiledGraph:
                     signature=sig, static_args=statics,
                     compile_s=capture_s,
                     site=f"{self.component}/{self.name}", scope=self.scope,
-                    cache=cache_field, cost=cost.cost(), memory=memory,
+                    cache=cache_field, cost=cap.cost, memory=memory,
                     launches=launches)
-            self._graphs[sig_key] = _Graph(graph, key, copies, bound_ptrs,
-                                           outputs, launched)
+            self._graphs[sig_key] = _Graph(key, copies, bound_ptrs, cap)
         if rec is not None and cache is None and self._on_compile:
             self._on_compile(rec)
-        observe_run(self.component, key, warm_s)
-        return out
+        observe_run(self.component, key, cap.warm_s)
+        return cap.out
 
     def warm(self, meta, load_s=0.0):
         """Capture the signature a compile-cache entry describes, before
@@ -1029,44 +1075,355 @@ def profiled_graph(fn, component, name, **kwargs):
 profiled_jit = profiled_graph
 
 
+#: the Executor's arguments, as the JAX Executor names them
+_EXECUTOR_ARGS = ("state", "feed", "rng")
+
+
+class ExecutorPool:
+    """An Executor's graph memory pool, shared by every graph of its
+    entries, and the lock that serialises their captures and replays
+    (Predictor clones share the Executor, and a graph's buffers must not
+    take two calls' inputs at once)."""
+
+    def __init__(self):
+        self.mu = make_rlock("profile.executor_pool")
+        self._handle = None
+
+    def handle(self):
+        import torch
+        if self._handle is None:
+            self._handle = torch.cuda.graph_pool_handle()
+        return self._handle
+
+
+def _storage(t):
+    return t.untyped_storage().data_ptr()
+
+
+def _write_into(out, dests):
+    """Write each `out[name]` whose name `dests` lists into that tensor in
+    place and return the outputs with those names bound to it. A value
+    that shares memory with a destination is cloned first, so no write
+    changes another output (a fetch of `assign(w)` keeps the old w)."""
+    ptrs = {_storage(d) for d in dests.values()}
+    out = {n: (v.clone() if isinstance(v, _Tensor) and _storage(v) in ptrs
+               and v is not dests.get(n) else v)
+           for n, v in out.items()}
+    for n, d in dests.items():
+        if n in out and out[n] is not d:
+            d.copy_(out[n])
+            out[n] = d
+    return out
+
+
+def _failed_op(exc):
+    """The OpRunError carrying an op index in an exception's chain."""
+    seen = set()
+    while exc is not None and id(exc) not in seen:
+        seen.add(id(exc))
+        if getattr(exc, "op_index", None) is not None:
+            return exc
+        exc = exc.__cause__ or exc.__context__
+    return None
+
+
+class _SegmentGraph:
+    __slots__ = ("graph", "copies", "outputs", "launches", "gens",
+                 "constants")
+
+    def __init__(self, copies, gens, cap):
+        self.graph = cap.graph
+        self.copies = copies          # [(name, static input buffer)]
+        self.outputs = cap.outputs    # {name: static output}
+        self.launches = cap.launched
+        self.gens = gens              # [(generator, op index, fixed)]
+        self.constants = cap.constants
+
+
+class _BoundRun:
+    """One Executor entry's graphs over one scope: the state tensors they
+    hold (`bound`), one graph per (segment, input signature), and what
+    the current run captured. The capturing runner core/lowering.py's
+    `run_block` calls (`segment`). It holds no reference back to its
+    entry or its scope, so a dropped Executor or scope frees its graphs
+    at once, never in a garbage collection that could fall inside
+    another capture."""
+
+    def __init__(self, site, device, pool, rngs):
+        self.site = site
+        self.device = device
+        self.pool = pool
+        self.rngs = rngs
+        self.bound = {}
+        self.graphs = {}
+        self._owned = set()
+        self.reset_run()
+
+    def reset_run(self):
+        self.new_graphs = []
+        self.flops = 0.0
+        self.peak_bytes = 0
+
+    def own(self, tree):
+        for leaf in _leaves(tree):
+            if isinstance(leaf, _Tensor):
+                self._owned.add(_storage(leaf))
+
+    def fresh(self, v):
+        """`v`, or a copy of it where it lies in memory the graphs keep
+        (bound state, static buffers and outputs)."""
+        if isinstance(v, _Tensor) and _storage(v) in self._owned:
+            return v.clone()
+        return v
+
+    def segment(self, key, fn, vals, seed, carry=(), write_back=False):
+        """Run one graph segment: `fn(vals) -> {name: value}` is its ops
+        run eagerly. A known signature replays its graph; a new one runs
+        `fn` once eagerly (the call's result) and captures it."""
+        from paddle_tpu_torch.core.registry import RunGenerators
+        bound = self.bound
+        sig = []
+        for n, v in vals.items():
+            if not isinstance(v, _Tensor):
+                raise CaptureError(
+                    f"capture of {self.site}: {n!r} is a "
+                    f"{type(v).__name__}, not a tensor")
+            sig.append((n, v.shape, v.dtype, v is bound.get(n)))
+        gkey = (key, tuple(sig))
+        g = self.graphs.get(gkey)
+        if g is None:
+            return self._capture(gkey, fn, vals, seed, carry, write_back)
+        for n, buf in g.copies:
+            v = vals[n]
+            if v is not buf:
+                buf.copy_(v)
+        RunGenerators.reseed(g.gens, seed)
+        g.graph.replay()
+        _add_launches(g.launches)
+        return g.outputs
+
+    def _capture(self, gkey, fn, vals, seed, carry, write_back):
+        import torch
+
+        from paddle_tpu_torch.core.registry import RunGenerators
+        dev = self.device
+        statics, copies = {}, []
+        for n, v in vals.items():
+            if v is self.bound.get(n):
+                statics[n] = v
+            else:
+                buf = torch.empty(v.shape, dtype=v.dtype, device=dev)
+                buf.copy_(v)
+                statics[n] = buf
+                copies.append((n, buf))
+        self.own([b for _, b in copies])
+        carried = {n: statics[n] for n, _ in copies if n in carry}
+
+        def body():
+            out = fn(statics)
+            dests = dict((n, b) for n, b in carried.items() if n in out)
+            if write_back:
+                dests.update((n, self.bound[n]) for n in out
+                             if n in self.bound)
+            return _write_into(out, dests)
+
+        rngs = self.rngs
+        used = rngs.begin()
+
+        def prepare(graph):
+            # the warm-up's draws name the generators the graph draws from
+            for gen, _, _ in used:
+                graph.register_generator_state(gen)
+            RunGenerators.reseed(used, seed)
+            rngs.begin()
+            rngs.capturing = True
+
+        def failed(e):
+            op = _failed_op(e)
+            where = (f"block {op.block_idx}, op {op.op_index} "
+                     f"({op.op_type!r})" if op is not None else
+                     f"block {gkey[0][0]}, the segment from op {gkey[0][1]}")
+            return f"capture of {self.site} failed in {where}"
+
+        try:
+            cap = _capture_graph(body, dev, self.pool.handle(), prepare,
+                                 failed)
+        finally:
+            rngs.capturing = False
+        self.flops += cap.cost["flops"]
+        self.peak_bytes = max(self.peak_bytes, cap.peak_bytes)
+        self.own(cap.outputs)
+        g = _SegmentGraph(copies, list(used), cap)
+        self.graphs[gkey] = g
+        self.new_graphs.append(g)
+        return cap.out
+
+
 class LedgerJit:
-    """One-signature variant for call sites that already key their own
-    cache per signature (the Executor: its cache key pins the feed
-    shapes, so each entry runs one signature). The first call records a
-    kind "eager" entry, reading the attribution context at that moment;
-    every call runs `fn` eagerly (the Executor has no capture yet)."""
+    """One Executor entry: a program's step function (core.lowering's
+    StepFn) for one (program version, feed signature, fetches, state
+    names, mode), under the JAX Executor's site name
+    `executor/{id:x}v{version}/{fetches}/{train|infer}` (`LedgerJit`
+    :858 there).
 
-    __slots__ = ("_fn", "_site", "_arg_names", "_seen", "_mu")
+    On the card each graph segment of the step's capture plan is captured
+    into a CUDA graph on first use (per scope and input signature) and
+    replayed after; host ops run eagerly, and a `while` body or a taken
+    branch is a graph of its own. The first run is the eager warm-up and
+    is the call, as for `ProfiledGraph`. The graphs hold the scope's state
+    tensors (`Scope.bind`): a training run writes the new state into them
+    in place (the JAX Executor's donation), an inference run writes none;
+    a value set in the scope between runs is copied in first
+    (`Scope.refresh`), and a changed shape or dtype is a new signature.
+    Draws come from persistent generators re-seeded before each replay
+    (registry.RunGenerators). Fetches, and state the program creates,
+    are copied out of the graphs' memory before `__call__` returns. A run
+    that captured records one CompileRecord of kind "graph": its wall
+    time, graphs, flops (the warm-ups', kernels' reports included), peak
+    and pool bytes and the launches its replays add. A capture that fails
+    raises CaptureError naming the block, op index and type; only
+    `disable_capture()` runs eagerly on the card.
 
-    def __init__(self, fn, site, arg_names=None):
-        self._fn = fn
-        self._site = site
-        self._arg_names = arg_names
+    On the CPU the step runs eagerly and its first call is recorded with
+    kind "eager". `pool` is the Executor's ExecutorPool."""
+
+    def __init__(self, step, site, cache_token=None, device=None, pool=None):
+        from paddle_tpu_torch.core.places import resolve_device
+        from paddle_tpu_torch.core.registry import RunGenerators
+        self._step = step
+        self.site = site
+        self.cache_token = cache_token
+        self.device = resolve_device(device)
+        self.pool = pool or ExecutorPool()
+        self.rngs = RunGenerators(self.device)
+        self._mu = make_rlock("profile.ledger_jit")
         self._seen = False
-        self._mu = make_lock("profile.ledger_jit")
+        self._runs = weakref.WeakKeyDictionary()    # scope -> _BoundRun
 
-    def __call__(self, *args):
-        if self._seen:
-            return self._fn(*args)
-        with self._mu:
-            first = not self._seen
-            self._seen = True
-        if not first:
-            return self._fn(*args)
+    def __call__(self, scope, state_names, feed, seed):
+        """Run the step over `scope`'s state: returns the fetches and
+        updates the scope."""
+        if not _captures_on(self.device):
+            with self._mu:
+                self.rngs.begin()
+                return self._eager(scope, state_names, feed, seed)
+        with self.pool.mu:
+            self.rngs.begin()
+            return self._captured(scope, state_names, feed, seed)
+
+    def _eager(self, scope, state_names, feed, seed):
+        import torch
+        state = {n: scope.tensor_on(n, self.device) for n in state_names}
+        first = not self._seen
+        self._seen = True
         t0 = _clock()
-        out = self._fn(*args)
-        compile_ledger().record(
-            kind="eager", signature=signature_of(args, self._arg_names),
-            compile_s=0.0, site=self._site, start=t0)
-        return out
+        with torch.no_grad():     # the autodiff segment turns grad on
+            fetches, new_state = self._step(state, feed, seed,
+                                            rngs=self.rngs)
+        for n, v in new_state.items():
+            scope.set(n, v)
+        if first and enabled():
+            compile_ledger().record(
+                kind="eager",
+                signature=signature_of((state, feed, seed), _EXECUTOR_ARGS),
+                compile_s=0.0, site=self.site, start=t0,
+                tags={"segments": len(self._step.plan)})
+        return fetches
+
+    def _bind(self, scope, state_names):
+        """This scope's _BoundRun with every state name bound and
+        refreshed."""
+        run = self._runs.get(scope)
+        if run is None:
+            run = self._runs[scope] = _BoundRun(
+                self.site, self.device, self.pool, self.rngs)
+        for n in state_names:
+            b = run.bound.get(n)
+            if b is None:
+                run.bound[n] = b = scope.bind(n, self.device)
+                run.own(b)
+                continue
+            v = scope.get(n)
+            if v is b:
+                continue
+            if (tuple(v.shape) != tuple(b.shape)
+                    or _dtype_name(v.dtype) != _dtype_name(b.dtype)):
+                # a new state signature: bind and capture anew
+                del self._runs[scope]
+                return self._bind(scope, state_names)
+            scope.refresh(n, b)
+        return run
+
+    def _captured(self, scope, state_names, feed, seed):
+        import torch
+        run = self._bind(scope, state_names)
+        state = {n: run.bound[n] for n in state_names}
+        run.reset_run()
+        t0 = _clock()
+        with torch.no_grad():
+            fetches, new_state = self._step(state, feed, seed,
+                                             rngs=self.rngs, session=run)
+        training = self._step.training
+        for n, v in new_state.items():
+            b = run.bound.get(n)
+            if v is b:
+                continue
+            if b is not None and training and v.shape == b.shape \
+                    and v.dtype == b.dtype:
+                b.copy_(v)        # written by a host segment
+            else:
+                scope.set(n, run.fresh(v))
+        fetches = [run.fresh(v) for v in fetches]
+        if run.new_graphs:
+            self._record(run, state, feed, seed, _clock() - t0)
+        return fetches
+
+    def _record(self, run, state, feed, seed, seconds):
+        sig = signature_of((state, feed, seed), _EXECUTOR_ARGS)
+        launches = {}
+        for g in run.new_graphs:
+            for _, d in g.launches:
+                for k, v in d.items():
+                    launches[k] = launches.get(k, 0) + v
+        memory = {"peak_bytes": run.peak_bytes,
+                  "pool_bytes": _pool_bytes(self.pool.handle()),
+                  "graphs": len(run.graphs)}
+        cost = {"flops": run.flops, "bytes accessed": None}
+        cache = None
+        pcache = _cache_for(self.cache_token) if enabled() else None
+        if pcache is not None:
+            key_hash = pcache.key_for(self.cache_token,
+                                      dispatch_key((state, feed)))
+            pcache.note_event("miss", key_hash, "executor", self.site,
+                              reason="not_warm")
+            event, reason = pcache.store(
+                key_hash, self.cache_token, sig, (), len(sig), seconds,
+                component="executor", key=self.site, cost=cost,
+                memory=memory)
+            cache = {"event": event, "tier": "signature"}
+            if reason:
+                cache["reason"] = reason
+        if enabled():
+            plan = self._step.plan
+            compile_ledger().record(
+                kind="graph", signature=sig, compile_s=seconds,
+                site=self.site, cost=cost, memory=memory,
+                launches=launches, cache=cache,
+                tags={"segments": len(plan),
+                      "captured": len(run.new_graphs),
+                      "host_ops": [f"op {s.start}: {s.reason}"
+                                   for s in plan if s.kind != "graph"]})
 
 
-def ledger_jit(fn, site, arg_names=None):
-    """Wrap a one-signature callable for the ledger (see LedgerJit);
-    identity when the ledger is off."""
+def ledger_jit(fn, site, arg_names=None, device=None):
+    """The JAX package's public name for wrapping a one-signature callable
+    for the ledger, kept for API parity: `profiled_graph(fn, "executor",
+    site)` (identity when the ledger is off). The Executor's entries are
+    LedgerJit objects."""
     if not enabled():
         return fn
-    return LedgerJit(fn, site, arg_names=arg_names)
+    return profiled_graph(fn, "executor", site, arg_names=arg_names,
+                          device=device)
 
 
 # ---------------------------------------------------------------------------

@@ -54,7 +54,9 @@ def _prune_step(pre_logp, fin, logits, beam_size, eos_id):
     dt = at_least_f32_dtype(pre_logp, logits)
     step_logp = torch.log_softmax(logits.to(dt), dim=-1)
     eos_row = torch.full((v,), NEG_INF, dtype=dt, device=logits.device)
-    eos_row[eos_id] = 0.0
+    # a fill, not an assignment of a Python float (a copy from the host,
+    # which a CUDA graph capture refuses)
+    eos_row.narrow(0, eos_id, 1).fill_(0.0)
     step_logp = torch.where(fin[..., None], eos_row, step_logp)
     cand = pre_logp.to(dt)[..., None] + step_logp                # [B, K, V]
     top_logp, top_idx = top_k_lowest_index(cand.reshape(b, beam_size * v),

@@ -3,13 +3,17 @@ feed and fetch.
 
 Counterpart of paddle_tpu/ops/control_flow.py, with its slots and
 attrs. The JAX package lowers a sub-block to `lax.while_loop` /
-`lax.cond` / `lax.scan`; here the sub-block's ops run eagerly through
+`lax.cond` / `lax.scan`; here the sub-block runs through
 `ctx.run_subblock` (core/lowering.py), once an iteration, a branch or a
-time step. Where the two differ:
+time step: on the card a `while` body is one captured graph per carry
+signature, replayed each iteration, and `conditional_block` replays the
+graph of the branch it takes; `scan` has no host read and runs inside
+the graph of its enclosing segment. Where the two packages differ:
 
 * `while` reads its condition on the host once an iteration (and
   `conditional_block` its predicate once): a scalar `.item()`, the one
-  device-to-host read of these ops (`host_reads` counts them). The JAX
+  device-to-host read of these ops (`host_reads` counts them), which
+  the registry records as the reason each is a host op. The JAX
   package's loop stays on the device.
 * The carry stays shape-stable, `lax.while_loop`'s rule: an iteration
   that changes a carried var's shape or dtype raises.
@@ -95,7 +99,8 @@ def _guard_reverse_mode(names, vals):
     return out
 
 
-@register_op("while", inputs=["Condition", "Carry[]"], outputs=["CarryOut[]"])
+@register_op("while", inputs=["Condition", "Carry[]"], outputs=["CarryOut[]"],
+             host="reads its condition on the host once an iteration")
 def _while(ctx, cond0, carry):
     """while_op.cc: run the sub-block while the condition holds; the
     sub-block computes the new carry and the new condition (attr
@@ -112,7 +117,10 @@ def _while(ctx, cond0, carry):
     cond = cond0
     it = 0
     while _scalar_bool(cond, "while"):
-        env = ctx.run_subblock(sub_idx, dict(zip(carry_names, vals)))
+        # captured, the body's graph writes the new carry back into its
+        # own input buffers, so the next iteration copies nothing
+        env = ctx.run_subblock(sub_idx, dict(zip(carry_names, vals)),
+                               carry=carry_names)
         new = [env[n] for n in carry_names]
         _check_same(f"while iteration {it}", carry_names, vals, new)
         vals, cond = new, env[cond_name]
@@ -122,7 +130,8 @@ def _while(ctx, cond0, carry):
 
 
 @register_op("conditional_block", inputs=["Cond", "Input[]"],
-             outputs=["Out[]"])
+             outputs=["Out[]"],
+             host="reads its predicate on the host to pick a branch")
 def _conditional_block(ctx, cond, inputs):
     """conditional_block_op.cc: the sub-block when Cond holds, else the
     else-block (attr else_block) or the inputs unchanged."""

@@ -24,7 +24,7 @@ import torch.nn.functional as F
 
 from paddle_tpu_torch.core.dtypes import at_least_f32_dtype
 from paddle_tpu_torch.core.enforce import enforce
-from paddle_tpu_torch.core.registry import register_op
+from paddle_tpu_torch.core.registry import constant, register_op
 from paddle_tpu_torch.ops.math import top_k_lowest_index
 from paddle_tpu_torch.ops.nn import stable_sigmoid_ce
 
@@ -53,8 +53,9 @@ def float_dtype(t):
 
 
 def const(values, dtype, device):
-    """A small constant on `device` without a synchronising copy."""
-    return torch.tensor(values, dtype=dtype).to(device, non_blocking=True)
+    """A small constant on `device` without a synchronising copy, nor a
+    copy from the host inside a CUDA graph capture."""
+    return constant(values, dtype, device)
 
 
 def scatter_last(dst, idx, vals):

@@ -24,7 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from paddle_tpu_torch.core.dtypes import at_least_f32_dtype
-from paddle_tpu_torch.core.registry import register_op
+from paddle_tpu_torch.core.registry import constant, register_op
 from paddle_tpu_torch.ops.detection import const, float_dtype, iou
 from paddle_tpu_torch.ops.math import top_k_lowest_index
 
@@ -390,8 +390,7 @@ def _sample_keys(ctx, use_random, n, device):
         gen = ctx.rng()
         return [torch.rand(n, generator=gen, device=device)
                 for _ in range(2)]
-    return [torch.from_numpy(jax_key0_uniform(i, n)).to(device,
-                                                        non_blocking=True)
+    return [constant(jax_key0_uniform(i, n), torch.float32, device)
             for i in range(2)]
 
 

@@ -75,7 +75,7 @@ def _call(ctx, op, attrs, *args):
     """A registered op's function with other attrs, in the caller's
     context (its run seed, mode, op index and device)."""
     sub = _registry.OpContext(attrs, ctx._seed, ctx.training, ctx.op_index,
-                              ctx.device)
+                              ctx.device, rngs=ctx._rngs)
     return _registry.get_op(op).fn(sub, *args)
 
 

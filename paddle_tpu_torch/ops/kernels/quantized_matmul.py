@@ -52,9 +52,14 @@ launch_counts = _profile.register_launch_counts(
     {"quantized_matmul": 0, "quantized_matmul_weight_only": 0})
 
 #: split-K workspaces, one per (device, stream) and mode: int32 zeros,
-#: zeroed once here; each launch leaves what must be zero zero again
+#: zeroed once here; each launch leaves what must be zero zero again. A
+#: captured graph holds the pointer of the workspace it was captured
+#: with (an int8 Predictor's graph per batch size), so one that is
+#: outgrown stays alive in _retired_workspaces, and growing one while a
+#: capture runs raises (the capture's warm-up run sizes it first)
 _workspaces = {}
 _wo_workspaces = {}
+_retired_workspaces = []
 
 #: streaming multiprocessors of an H100 SXM: split-K aims to fill them
 _SMS = 132
@@ -247,7 +252,9 @@ def _launch(x, w_q, w_scale, x_scale, bits, return_acc):
         m, k, n, int(int8_mode), splits, s, qm, xs_over_qm,
         _stream(x.device))
     if err != 0:
-        cache.pop((x.device, _stream(x.device)), None)
+        dropped = cache.pop((x.device, _stream(x.device)), None)
+        if dropped is not None:
+            _retired_workspaces.append(dropped)
         raise RuntimeError(
             f"quantized_matmul kernel launch failed: cudaError_t {err}")
     launch_counts["quantized_matmul"] += 1
@@ -265,6 +272,14 @@ def _workspace(size, device, cache):
     key = (device, _stream(device))
     work = cache.get(key)
     if work is None or work.numel() < size:
+        enforce(device.type != "cuda"
+                or not torch.cuda.is_current_stream_capturing(),
+                "K8's split-K workspace would grow from %s to %s int32 "
+                "while a CUDA graph is being captured; run the call once "
+                "on the capture stream first", 0 if work is None
+                else work.numel(), size)
+        if work is not None:
+            _retired_workspaces.append(work)
         work = cache[key] = torch.zeros(size, dtype=torch.int32,
                                         device=device)
     return work

@@ -21,7 +21,7 @@ import torch
 
 from paddle_tpu_torch.core.dtypes import at_least_f32_dtype
 from paddle_tpu_torch.core.enforce import enforce
-from paddle_tpu_torch.core.registry import register_op
+from paddle_tpu_torch.core.registry import constant, register_op
 
 _NEG = -1e30
 
@@ -206,8 +206,8 @@ def _nce(ctx, x, label, weight, bias, sample_weight):
     label = label.reshape(b, -1).to(torch.int64)
     num_true = label.shape[1]
     if custom:
-        negs = torch.tensor(custom, dtype=torch.int64, device=dev)[
-            None, :].expand(b, len(custom))
+        negs = constant(custom, torch.int64, dev)[None, :].expand(
+            b, len(custom))
         num_neg = len(custom)
     elif sampler == "log_uniform":
         u = torch.rand((b, num_neg), generator=ctx.rng(), device=dev)

@@ -596,8 +596,13 @@ def _hash(ctx, x):
 
 
 # ----------------------------------------------------------------- unique
+#: torch.unique's output length is data-dependent: it waits for the
+#: device and reads the count on the host
+_UNIQUE_HOST = "torch.unique reads its output length on the host"
+
+
 @register_op("unique_with_counts", inputs=["X"],
-             outputs=["Out", "Index", "Count"])
+             outputs=["Out", "Index", "Count"], host=_UNIQUE_HOST)
 def _unique_with_counts(ctx, x):
     """unique_with_counts_op.cc under the static-shape contract: Out is
     the sorted unique values padded to len(X) with X's first value;
@@ -622,7 +627,8 @@ def _unique_with_counts(ctx, x):
     return out, idx.reshape(x.shape).long(), counts.long()
 
 
-@register_op("unique", inputs=["X"], outputs=["Out", "Index"])
+@register_op("unique", inputs=["X"], outputs=["Out", "Index"],
+             host=_UNIQUE_HOST)
 def _unique(ctx, x):
     """unique_op.cc: unique_with_counts without Count."""
     out, idx, _ = _unique_with_counts(ctx, x)

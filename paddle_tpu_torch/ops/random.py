@@ -19,9 +19,7 @@ from paddle_tpu_torch.core.registry import register_op
 
 def _op_generator(ctx):
     seed = ctx.attr("seed", 0)
-    if seed:
-        return torch.Generator(device=ctx.device).manual_seed(int(seed))
-    return ctx.rng()
+    return ctx.rng(int(seed) if seed else None)
 
 
 @register_op("gaussian_random", inputs=[], outputs=["Out"])

@@ -23,7 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from paddle_tpu_torch.core.dtypes import device_dtype
-from paddle_tpu_torch.core.registry import register_op
+from paddle_tpu_torch.core.registry import constant, register_op
 
 
 def _axis(ax, ndim):
@@ -100,9 +100,8 @@ def _slice_axis(x, ax, start, stop, step):
         idx[ax] = slice(start, stop, step)
         return x[tuple(idx)]
     rows = range(*slice(start, stop, step).indices(int(x.shape[ax])))
-    return torch.index_select(x, ax, torch.tensor(list(rows),
-                                                  dtype=torch.int64,
-                                                  device=x.device))
+    return torch.index_select(x, ax, constant(list(rows), torch.int64,
+                                              x.device))
 
 
 @register_op("slice", inputs=["X"], outputs=["Out"])
@@ -258,14 +257,13 @@ def _assign_value(ctx):
     shape = tuple(ctx.attr("shape"))
     if ctx.device.type == "meta":
         return torch.empty(shape, dtype=dtype, device="meta")
-    vals = torch.from_numpy(np.asarray(ctx.attr("values")))
-    return vals.to(dtype).reshape(shape).to(ctx.device)
+    return constant(np.asarray(ctx.attr("values")), dtype,
+                    ctx.device).reshape(shape)
 
 
 @register_op("shape", inputs=["Input"], outputs=["Out"])
 def _shape(ctx, x):
-    return torch.tensor([int(d) for d in x.shape], dtype=torch.int32,
-                        device=x.device)
+    return constant([int(d) for d in x.shape], torch.int32, x.device)
 
 
 @register_op("one_hot", inputs=["X"], outputs=["Out"])

@@ -47,8 +47,14 @@ def _pair(v):
     return (int(v), int(v))
 
 
+def _affine_grid_host(op):
+    if op.attrs.get("output_shape") is None and op.inputs.get("OutputShape"):
+        return "reads its OutputShape tensor on the host (.tolist())"
+    return None
+
+
 @register_op("affine_grid", inputs=["Theta", "OutputShape?"],
-             outputs=["Output"])
+             outputs=["Output"], host=_affine_grid_host)
 def _affine_grid(ctx, theta, output_shape):
     shape = ctx.attr("output_shape", None)
     if shape is None:

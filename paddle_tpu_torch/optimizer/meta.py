@@ -10,8 +10,15 @@ the host (`sync()` after each run), as the JAX package does.
 RecomputeOptimizer records its checkpoints on the `autodiff` op; the
 port's lowering, like the JAX one, recomputes nothing (autograd keeps
 the forward's tensors), so its numbers equal the inner optimizer's.
+
+The values they keep across runs (the parameters `apply()` restores,
+Lookahead's slow weights) are copies: on the card a run writes the
+scope's bound state in place (core/scope.py).
 """
 import contextlib
+
+import numpy as np
+import torch
 
 from paddle_tpu_torch.core import dtypes as _dt
 from paddle_tpu_torch.core.ir import (OpRole, default_main_program,
@@ -24,6 +31,13 @@ __all__ = ["ExponentialMovingAverage", "ModelAverage", "LookaheadOptimizer",
 
 def _trainable(program):
     return [v for v in program.all_parameters() if v.desc.trainable]
+
+
+def _kept(value):
+    """A copy of a scope value that later runs cannot change."""
+    if isinstance(value, torch.Tensor):
+        return value.clone()
+    return np.array(value, copy=True)
 
 
 class ExponentialMovingAverage:
@@ -57,7 +71,7 @@ class ExponentialMovingAverage:
     @contextlib.contextmanager
     def apply(self, executor=None, need_restore=True):
         scope = global_scope()
-        saved = {p: scope.get(p) for p, _ in self._pairs}
+        saved = {p: _kept(scope.get(p)) for p, _ in self._pairs}
         for p, e in self._pairs:
             scope.set(p, scope.get(e))
         try:
@@ -99,7 +113,7 @@ class ModelAverage:
     @contextlib.contextmanager
     def apply(self, executor=None, need_restore=True):
         scope = global_scope()
-        saved = {p: scope.get(p) for p, _, _ in self._pairs}
+        saved = {p: _kept(scope.get(p)) for p, _, _ in self._pairs}
         for p, acc, cnt in self._pairs:
             n = max(float(scope.find_np(cnt).reshape(-1)[0]), 1.0)
             scope.set(p, scope.get(acc) / n)
@@ -134,7 +148,7 @@ class LookaheadOptimizer:
         scope = global_scope()
         if not self._slow:
             for p in self._params:
-                self._slow[p] = scope.get(p)
+                self._slow[p] = _kept(scope.get(p))
         if self._step % self.k == 0:
             for p in self._params:
                 slow = self._slow[p] + self.alpha * (scope.get(p)

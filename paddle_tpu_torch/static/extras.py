@@ -589,7 +589,8 @@ def py_func(func, x, out, backward_func=None, skip_vars_in_backward_input=None):
         specs = [(tuple(o.shape), _dt.normalize_dtype(o.dtype))
                  for o in outs]
 
-        @register_op(tag, inputs=["X[]"], outputs=["Out[]"])
+        @register_op(tag, inputs=["X[]"], outputs=["Out[]"],
+                     host="runs a Python callback on the inputs as numpy")
         def _impl(ctx, vals):
             if ctx.device.type == "meta":
                 return ([torch.empty(s, dtype=d, device="meta")
@@ -611,7 +612,8 @@ def Print(input, first_n=-1, message=None, summarize=20,  # noqa: N802
     """fluid.layers.Print: the op prints its message and the tensor when
     the Executor runs it, and passes the tensor on."""
     if not has_op("print"):
-        @register_op("print", inputs=["X"], outputs=["Out"])
+        @register_op("print", inputs=["X"], outputs=["Out"],
+                     host="prints the tensor's values from the host")
         def _impl(ctx, x):
             if ctx.device.type != "meta":
                 print((ctx.attr("message") or "") + " " + str(x))
