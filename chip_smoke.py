@@ -6,6 +6,7 @@
     python3 chip_smoke.py --decode-rows [ROOT]
     python3 chip_smoke.py --flash-sweep [ROOT]
     python3 chip_smoke.py --capture
+    python3 chip_smoke.py --serving
 
 Phases, each of which raises (exit code != 0) when its check fails:
 
@@ -385,6 +386,35 @@ Phases, each of which raises (exit code != 0) when its check fails:
     device ms, idle share, host launch calls against device launches,
     segments, graphs, capture ms and pool bytes.
 
+33. The serving front end (`serving.ServingGateway` over `ModelRegistry`
+    over `InferenceServer`): phase 12's ResNet-50 saved, loaded as an f32
+    and an int8 (PTQ) Predictor; f32 deployed as resnet50:v1 behind the
+    gateway on 127.0.0.1 with SERVE_REPLICAS replicas and the bucket
+    ladder SERVE_BUCKETS, captured in warmup (its time printed); 8 PTGW
+    clients x 32 one-row requests, every response within LOGITS_TOL of
+    the same row through the f32 Predictor alone, no capture during the
+    traffic, wire p50 / p99, batches per bucket, occupancy and the serial
+    loop's p50 printed; a hot swap to resnet50:v2 = int8 (quality gate
+    against the f32 Predictor, INT8_FIDELITY_GATE) under the same
+    traffic, which goes on past the cutover: no request fails, both
+    versions answer, rows within their version's tolerance
+    (SERVE_INT8_ROW_TOL for int8), the pause at the capture gate printed;
+    K8's launches over an int8 burst equal its batches; a deploy with a
+    1 MiB budget refused at stage "verify" while v2 serves; a second
+    server over a fresh f32 Predictor restores the ladder from the
+    compile cache's manifest (loaded = captured = the ladder's length, no
+    capture paid, the first request captures nothing); the planner's
+    capture-peak estimates against the measured capture peaks per bucket
+    (printed; a leg outside 0.25 fails nothing); /healthz and /slo. Then
+    a GenerationServer at GPT-2-small widths behind the gateway, int8
+    pools (K7) then f32 pools (K6), spec_k 0: SERVE_GEN_REQUESTS of phase
+    3's prompts in process, then 4 concurrent PTGW streams and 1 chunked
+    HTTP stream, tokens against single-request references under the
+    near-tie rule, the chunk route once per layer on every admission and
+    the decode route once per layer on every tick over the wire window.
+    `--serving` builds the kernels and runs phase 33 alone, then prints
+    one SERVING line and the device line.
+
 Then a `{"kernels": [...]}` line and, last, the device line
 `{"ok": true, "device": {...}}`. Every number is printed beside the
 card's name and power limit.
@@ -397,7 +427,10 @@ to compare kernels with their plain versions do not count; the flash
 lines' `launches` add phases 23-24's (the Transformer's) to phase 7's
 (BERT's), and their `launches_by_path` keeps the two apart; K6's two
 lines (decode route, chunk route) report phases 4 and 4' together, K7's two
-lines those of its three serving runs (phases 4a and 4b) together.
+lines those of its three serving runs (phases 4a and 4b) together; phase
+33's gateway windows add to K6's, K7's and K8's lines, and their
+`launches_by_path` keeps them apart ("in_process" or "predictor", and
+"gateway").
 
 `--latency [ROOT]` runs none of the phases: it measures, with the port
 found under ROOT (default: this checkout), one prompt's prefill latency
@@ -6051,6 +6084,540 @@ def executor_phase(torch, seed, tag):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 33: the serving front end on the card
+# ---------------------------------------------------------------------------
+
+#: phase 33's bucket ladder, replicas and traffic (clients x requests a
+#: client, one row a request)
+SERVE_BUCKETS = (1, 2, 4, 8, 16, 32)
+#: phase 33's ResNet-50 input side (phase 12's)
+SERVE_IMAGE = 224
+SERVE_REPLICAS = 2
+SERVE_CLIENTS, SERVE_REQUESTS = 8, 32
+#: a batched int8 response against the same row through the int8
+#: Predictor alone: a batch's float32 convolutions may sum in another
+#: order than batch 1's and move an activation across the rounding
+#: boundary of its int8 code, so int8 rows are held to the phase-12
+#: int8 gate's scale; f32 rows to LOGITS_TOL
+SERVE_INT8_ROW_TOL = 1e-2
+#: the swap window's clients pause this long between requests: at full
+#: load the 18 busy threads of one process starve the prewarm's eager
+#: warm-ups of the GIL (27 s to prewarm the int8 ladder unpaced, H100
+#: 80GB HBM3)
+SERVE_SWAP_PACE_S = 0.002
+#: phase 33's generation: requests and new tokens each (phase 3's
+#: prompts, budgets cut to this)
+SERVE_GEN_REQUESTS, SERVE_GEN_TOKENS = 5, 24
+
+
+def _row_err(got, want):
+    return float(np.abs(got - want).max()) / float(np.abs(want).max())
+
+
+def _traffic(client_cls, host, port, images, clients, per_client,
+             on_start=None, until=None, pace_s=0.0):
+    """`clients` threads, each with its own PTGW connection, send
+    `per_client` one-row requests of `images` (thread c takes rows
+    c, c + clients, ...), `pace_s` apart, and go on while `until()` is
+    false. Returns (per request: (row, output, version, wall seconds,
+    start, end)), errors)."""
+    import threading
+    out, errors = [], []
+    lock = threading.Lock()
+    started = threading.Barrier(clients + 1)
+
+    def run(c):
+        try:
+            with client_cls(host, port, tenant=f"c{c}",
+                            timeout_s=120.0) as cli:
+                started.wait()
+                k = 0
+                while k < per_client or (until is not None and not until()):
+                    row = (c + k * clients) % len(images)
+                    k += 1
+                    t0 = time.perf_counter()
+                    outs, resp = cli.infer("resnet50",
+                                           {"img": images[row:row + 1]})
+                    t1 = time.perf_counter()
+                    with lock:
+                        out.append((row, outs[0], resp["version"], t1 - t0,
+                                    t0, t1))
+                    if pace_s:
+                        time.sleep(pace_s)
+        except Exception as e:           # every request must complete
+            with lock:
+                errors.append(f"client {c}: {type(e).__name__}: {e}")
+
+    threads = [threading.Thread(target=run, args=(c,))
+               for c in range(clients)]
+    for t in threads:
+        t.start()
+    started.wait()
+    if on_start is not None:
+        on_start()
+    for t in threads:
+        t.join(600)
+    return out, errors
+
+
+def _gen_launches(da, kname, before, after, layers):
+    """Launch counts of K6's or K7's two routes over a window of a paged
+    GenerationServer with spec_k = 0: the chunk route once per layer on
+    every admission, the decode route once per layer on every tick."""
+    chunk = CHUNK_ROUTES[kname]
+    steps = after["counters"]["steps"] - before["counters"]["steps"]
+    refills = after["counters"]["refills"] - before["counters"]["refills"]
+    pre = da.launch_counts[chunk]
+    dec = da.launch_counts[kname] - pre
+    assert pre == layers * refills > 0, (kname, pre, refills)
+    assert dec == layers * steps > 0, (kname, dec, steps)
+    return {chunk: pre, kname: dec, "ticks": steps, "admissions": refills}
+
+
+def serving_generation(torch, gen, seed, tag):
+    """Phase 33(h): a GenerationServer over PagedDecodeEngine at phase
+    3's GPT-2-small widths behind the gateway, int8 pools (K7) then f32
+    pools (K6): SERVE_GEN_REQUESTS of phase 3's prompts in process, then
+    over the wire (four concurrent PTGW streams and one chunked HTTP
+    stream), tokens against single-request greedy references under the
+    near-tie rule, the routes' launches counted over the wire window."""
+    import threading
+    from paddle_tpu_torch.ops.kernels import decode_attention as da
+    from paddle_tpu_torch.serving import GatewayClient, ServingGateway, wire
+    from paddle_tpu_torch.serving.generation import GenerationServer
+    cfg = gen.LMConfig(**GPT2_SMALL)
+    model = gen.TinyDecoderLM(cfg).init_params(seed)
+    rng = np.random.RandomState(seed)
+    prompts, budgets = make_prompts(rng, cfg.vocab_size, 16)
+    prompts = prompts[:SERVE_GEN_REQUESTS]
+    budgets = [min(b, SERVE_GEN_TOKENS) for b in budgets][
+        :SERVE_GEN_REQUESTS]
+    out, launches = {}, {}
+    for kv, kname in (("int8", "quantized_paged_decode_attention"),
+                      ("f32", "paged_decode_attention")):
+        t0 = time.perf_counter()
+        refs, gaps, _ = paged_greedy(gen, model, prompts, budgets, kv)
+        ref_s = time.perf_counter() - t0
+        eng = gen.PagedDecodeEngine(model, batch_size=8, max_len=1024,
+                                    block_size=8, spec_k=0, kv_dtype=kv)
+        eng.warmup()
+        srv = GenerationServer(eng)
+        gw = ServingGateway(read_timeout_s=600.0, write_timeout_s=60.0)
+        gw.deploy_generator("gpt2", srv)
+        host, port = gw.start()
+        try:
+            reqs = [srv.submit(p, n) for p, n in zip(prompts, budgets)]
+            local = [r.result(timeout=600)["tokens"] for r in reqs]
+            near = sum(compare(f"phase 33 {kv} in-process request {i}", t,
+                               r, g) for i, (t, r, g) in
+                       enumerate(zip(local, refs, gaps)))
+            before = srv.stats()
+            da.reset_launch_counts()
+            got = [None] * len(prompts)
+
+            def stream(i):
+                with GatewayClient(host, port, timeout_s=600.0) as c:
+                    got[i] = c.generate("gpt2", prompts[i], budgets[i])[
+                        "tokens"]
+
+            t0 = time.perf_counter()
+            threads = [threading.Thread(target=stream, args=(i,))
+                       for i in range(len(prompts) - 1)]
+            for t in threads:
+                t.start()
+            chunks = _http_stream(wire, host, port, prompts[-1],
+                                  budgets[-1])
+            for t in threads:
+                t.join(600)
+            wall = time.perf_counter() - t0
+            after = srv.stats()
+            row = _gen_launches(da, kname, before, after, cfg.num_layers)
+            got[-1] = chunks[-1]["tokens"]
+            assert [c["token"] for c in chunks[:-1]] == got[-1], chunks
+            assert all(g is not None for g in got), got
+            near += sum(compare(f"phase 33 {kv} wire request {i}", t, r, g)
+                        for i, (t, r, g) in enumerate(zip(got, refs, gaps)))
+        finally:
+            gw.shutdown(timeout_s=60.0)
+        for k in (kname, CHUNK_ROUTES[kname]):
+            launches[k] = row[k]
+        n_tok = sum(map(len, got))
+        out[kv] = dict(row, tokens=n_tok, wall_s=wall,
+                       tokens_per_s=n_tok / wall, near_ties=near,
+                       reference_s=ref_s,
+                       wire_equals_in_process=got == local)
+        print(f"phase 33(h) generation, {kv} pools, over the gateway: "
+              f"{len(prompts) - 1} PTGW streams + 1 chunked HTTP, "
+              f"{n_tok} tokens in {wall:.2f} s ({n_tok / wall:.1f} "
+              f"tokens/s); tokens equal the single-request references "
+              f"(near-ties {near}), wire == in-process: "
+              f"{got == local}; {kname} decode route {row[kname]} over "
+              f"{row['ticks']} ticks, {CHUNK_ROUTES[kname]} "
+              f"{row[CHUNK_ROUTES[kname]]} over {row['admissions']} "
+              f"admissions ({cfg.num_layers} layers) {tag}")
+        del eng, srv
+        torch.cuda.empty_cache()
+    del model
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def _http_stream(wire, host, port, prompt, n):
+    """POST /v1/models/gpt2:generate: the chunked stream's JSON lines."""
+    import socket
+    with socket.create_connection((host, port), timeout=600) as s:
+        body = json.dumps({"inputs": [int(t) for t in prompt],
+                           "max_new_tokens": int(n)}).encode()
+        s.sendall(f"POST /v1/models/gpt2:generate HTTP/1.1\r\nHost: x\r\n"
+                  f"Content-Length: {len(body)}\r\n\r\n".encode() + body)
+        buf = b""
+        while b"\r\n\r\n" not in buf:
+            chunk = s.recv(4096)
+            assert chunk, "connection closed before the response head"
+            buf += chunk
+        head, _, rest = buf.partition(b"\r\n\r\n")
+        assert head.startswith(b"HTTP/1.1 200"), head
+
+        class _Sock:
+            pre = rest
+
+            def recv(self, k):
+                if self.pre:
+                    got, self.pre = self.pre, b""
+                    return got
+                return s.recv(k)
+
+        return list(wire.iter_http_chunks(_Sock()))
+
+
+def serving_phase(torch, gen, seed, tag):
+    """Phase 33: the serving front end on the card (see the module
+    docstring). Returns (results, launches by kernel over the gateway
+    windows)."""
+    import shutil
+    from paddle_tpu_torch import inference, static
+    from paddle_tpu_torch.analysis import planner
+    from paddle_tpu_torch.core import compile_cache, flags, ir
+    from paddle_tpu_torch.core.executor import Executor
+    from paddle_tpu_torch.core.scope import Scope, scope_guard
+    from paddle_tpu_torch.models.resnet import build_static
+    from paddle_tpu_torch.observability import profile as prof
+    from paddle_tpu_torch.ops.kernels import quantized_matmul as k8
+    from paddle_tpu_torch.serving import (
+        GatewayClient, InferenceServer, ModelRegistry, ServingGateway, wire)
+    from paddle_tpu_torch.serving.registry import SwapError
+    t_phase = time.perf_counter()
+    out = {}
+    rng = np.random.RandomState(seed + 33)
+    cache_dir = tempfile.mkdtemp(prefix="phase33_cache_")
+    model_dir = tempfile.mkdtemp(prefix="phase33_resnet50_")
+    flags.set_flag("compile_cache_dir", cache_dir)
+    compile_cache.reset_compile_cache()
+    gw = None
+    try:
+        # (a) phase 12's ResNet-50, saved; f32 and int8 (PTQ) Predictors
+        ir.reset_unique_names()
+        main, startup = ir.Program(), ir.Program()
+        startup.random_seed = seed
+        with ir.program_guard(main, startup):
+            img = static.data("img", [3, SERVE_IMAGE, SERVE_IMAGE],
+                              "float32")
+            label = static.data("label", [1], "int64")
+            logits, _, _ = build_static(img, label, depth=50)
+        exe = Executor()
+        with scope_guard(Scope()):
+            exe.run(startup)
+            static.io.save_inference_model(model_dir, ["img"], [logits],
+                                           exe, main_program=main)
+        f32 = inference.create_predictor(inference.Config(model_dir))
+        cfg8 = inference.Config(model_dir)
+        cfg8.enable_int8([{"img": resnet_images(rng, 8, SERVE_IMAGE)}
+                          for _ in range(4)])
+        int8 = inference.create_predictor(cfg8)
+        images = resnet_images(rng, SERVE_CLIENTS * SERVE_REQUESTS,
+                               SERVE_IMAGE)
+        ex = {"img": images[:1]}
+
+        # (b) v1 = f32 behind the gateway, the ladder captured in warmup
+        registry = ModelRegistry(num_replicas=SERVE_REPLICAS,
+                                 buckets=list(SERVE_BUCKETS),
+                                 max_wait_ms=2.0, max_queue=1024,
+                                 drain_timeout_s=120.0)
+        gw = ServingGateway(registry=registry, read_timeout_s=600.0,
+                            write_timeout_s=60.0, max_in_flight=4096)
+        ledger = prof.compile_ledger()
+        entry = registry.deploy("resnet50", "v1", f32, prewarm_feed=ex,
+                                tier="fp32")
+        v1 = registry.resolve("resnet50").server
+        caps = {e.key: e.compile_s for e in ledger.entries(
+            scope=v1.ledger_scope, kind="graph")}
+        assert sorted(caps) == sorted(f"bucket{b}" for b in SERVE_BUCKETS), \
+            caps
+        out["ladder_capture"] = {"prewarm_s": entry["prewarm_s"],
+                                 "per_bucket_s": caps}
+        print(f"phase 33(b) v1 (f32) ladder {list(SERVE_BUCKETS)} captured "
+              f"in warmup: {entry['prewarm_s']:.2f} s; per bucket (warm-up "
+              f"+ capture) {json.dumps({k: round(v, 3) for k, v in caps.items()})} "
+              f"{tag}")
+        legs = planner.cross_check()["legs"]
+        out["cross_check_f32"] = [
+            {"bucket": g["detail"]["bucket"], "estimate": g["estimate_bytes"],
+             "measured": g["measured_bytes"], "ratio": g["ratio"],
+             "status": g["status"]}
+            for g in legs if g["scope"] == v1.ledger_scope]
+        host, port = gw.start()
+
+        # (c) the serial reference: each row through the f32 Predictor
+        ref = f32.clone()
+        secs, f32_rows = [], []
+        for i in range(len(images)):
+            t0 = time.perf_counter()
+            f32_rows.append(ref.run(feed={"img": images[i:i + 1]})[0])
+            secs.append(time.perf_counter() - t0)
+        serial_p50 = float(np.median(secs)) * 1e3
+
+        # (d) traffic: 8 clients x 32 one-row requests over PTGW
+        n0 = len(ledger.compile_events())
+        st0 = v1.stats()
+        got, errors = _traffic(GatewayClient, host, port, images,
+                               SERVE_CLIENTS, SERVE_REQUESTS)
+        assert not errors, errors[:3]
+        assert len(got) == SERVE_CLIENTS * SERVE_REQUESTS
+        new = len(ledger.compile_events()) - n0
+        assert new == 0, f"{new} captures during traffic"
+        err = max(_row_err(o, f32_rows[r]) for r, o, *_ in got)
+        assert err <= LOGITS_TOL, err
+        st1 = v1.stats()
+        lat = np.asarray([g[3] for g in got]) * 1e3
+        per_bucket = {b: st1["batches"]["per_bucket"].get(b, 0)
+                      - st0["batches"]["per_bucket"].get(b, 0)
+                      for b in SERVE_BUCKETS}
+        wall = max(g[5] for g in got) - min(g[4] for g in got)
+        out["traffic"] = {
+            "requests": len(got), "p50_ms": float(np.median(lat)),
+            "p99_ms": float(np.percentile(lat, 99)),
+            "rows_per_s": len(got) / wall,
+            "serial_p50_ms": serial_p50, "max_row_err": err,
+            "server_p50_ms": st1["latency_ms"]["p50"],
+            "batch_exec_p50_ms": st1["batches"]["exec_ms_p50"],
+            "batches_per_bucket": per_bucket,
+            "mean_occupancy": st1["batches"]["mean_occupancy"],
+            "captures_during_traffic": new}
+        print(f"phase 33(d) {SERVE_CLIENTS} PTGW clients x "
+              f"{SERVE_REQUESTS} one-row requests to v1 (f32): wire p50 "
+              f"{out['traffic']['p50_ms']:.2f} ms, p99 "
+              f"{out['traffic']['p99_ms']:.2f} ms, "
+              f"{out['traffic']['rows_per_s']:.1f} rows/s (in the server: "
+              f"submit to answer p50 {st1['latency_ms']['p50']:.2f} ms, a "
+              f"batch's run p50 {st1['batches']['exec_ms_p50']:.2f} ms); "
+              f"serial Predictor.run p50 {serial_p50:.2f} ms at batch 1; "
+              f"batches "
+              f"per bucket {per_bucket}, mean occupancy "
+              f"{st1['batches']['mean_occupancy']:.3f}; rows vs serial "
+              f"max |d| / max |ref| {err:.3g} (gate {LOGITS_TOL}); "
+              f"captures during traffic {new} {tag}")
+
+        # (e) hot swap to v2 = int8 under the same traffic
+        gate = prof.capture_gate()
+        gate.reset_stats()
+        swap = {}
+
+        def do_swap():
+            time.sleep(0.05)
+            try:
+                swap.update(registry.deploy(
+                    "resnet50", "v2", int8, prewarm_feed=ex, tier="int8",
+                    quality_gate={"feed": {"img": images[:3]},
+                                  "reference": f32.clone(),
+                                  "threshold": INT8_FIDELITY_GATE}))
+            except Exception as e:
+                swap["error"] = f"{type(e).__name__}: {e}"
+
+        import threading
+        swapper = threading.Thread(target=do_swap)
+        swapped = []
+
+        def after_swap():
+            # traffic goes on past the cutover: 0.2 s after the deploy
+            # returned, every client stops
+            if swapper.is_alive():
+                return False
+            swapped.append(time.perf_counter())
+            return swapped[-1] - swapped[0] > 0.2
+
+        got, errors = _traffic(GatewayClient, host, port, images,
+                               SERVE_CLIENTS, SERVE_REQUESTS,
+                               on_start=swapper.start, until=after_swap,
+                               pace_s=SERVE_SWAP_PACE_S)
+        swapper.join(600)
+        assert swap.get("ok") and swap["replaced"] == "v1", swap
+        assert not errors, errors[:3]
+        assert len(got) >= SERVE_CLIENTS * SERVE_REQUESTS
+        pause = gate.stats()
+        v2 = registry.resolve("resnet50").server
+        int8_ref = int8.clone()
+        # the response's "version" names the active version when the
+        # answer is written (the JAX gateway's rule), so a request in
+        # flight at the cutover computed by v1 may say v2: each row is
+        # held to whichever version's serial run it matches, and must
+        # match one
+        by_version, labels, int8_rows = {}, {}, {}
+        worst = {"v1": 0.0, "v2": 0.0}
+        for r, o, version, *_ in got:
+            labels[version] = labels.get(version, 0) + 1
+            if r not in int8_rows:
+                int8_rows[r] = int8_ref.run(
+                    feed={"img": images[r:r + 1]})[0]
+            e1, e2 = _row_err(o, f32_rows[r]), _row_err(o, int8_rows[r])
+            computed = "v1" if e1 <= LOGITS_TOL else "v2"
+            err = e1 if computed == "v1" else e2
+            assert err <= (LOGITS_TOL if computed == "v1"
+                           else SERVE_INT8_ROW_TOL), (r, version, e1, e2)
+            by_version[computed] = by_version.get(computed, 0) + 1
+            worst[computed] = max(worst[computed], err)
+        assert by_version.get("v1") and by_version.get("v2"), by_version
+        lat = np.asarray([g[3] for g in got]) * 1e3
+        legs = planner.cross_check()["legs"]
+        out["cross_check_int8"] = [
+            {"bucket": g["detail"]["bucket"], "estimate": g["estimate_bytes"],
+             "measured": g["measured_bytes"], "ratio": g["ratio"],
+             "status": g["status"]}
+            for g in legs if g["scope"] == v2.ledger_scope]
+        out["swap"] = {
+            "requests": len(got), "failed": 0, "by_version": by_version,
+            "labels": labels,
+            "max_row_err": worst, "prewarm_s": swap["prewarm_s"],
+            "quality_rel_err": swap["quality_rel_err"],
+            "drain_report": swap["drain_report"], "gate": pause,
+            "p50_ms": float(np.median(lat)), "max_ms": float(lat.max())}
+        print(f"phase 33(e) hot swap v1 (f32) -> v2 (int8) under "
+              f"{SERVE_CLIENTS} clients x {SERVE_REQUESTS}: {len(got)} "
+              f"requests, 0 failed, computed by {by_version} (labelled "
+              f"{labels}); rows vs that version's serial run {worst} "
+              f"(gates f32 "
+              f"{LOGITS_TOL}, int8 {SERVE_INT8_ROW_TOL}); quality gate "
+              f"rel err {swap['quality_rel_err']:.4f} (threshold "
+              f"{INT8_FIDELITY_GATE}); prewarm {swap['prewarm_s']:.2f} s; "
+              f"traffic paused at the capture gate {pause['shared_waits']} "
+              f"times, longest {pause['max_shared_wait_s'] * 1e3:.1f} ms, "
+              f"{pause['captures']} captures held it "
+              f"{pause['held_s'] * 1e3:.1f} ms in all (longest "
+              f"{pause['max_held_s'] * 1e3:.1f} ms); request latency p50 "
+              f"{out['swap']['p50_ms']:.2f} ms, max "
+              f"{out['swap']['max_ms']:.2f} ms; v1 drained "
+              f"{swap['drain_report']} {tag}")
+
+        # K8 in the int8 requests' graphs: launches counted over a burst
+        stb = v2.stats()["batches"]["count"]
+        k8.reset_launch_counts()
+        got, errors = _traffic(GatewayClient, host, port, images,
+                               SERVE_CLIENTS, 8)
+        assert not errors, errors[:3]
+        batches = v2.stats()["batches"]["count"] - stb
+        k8n = k8.launch_counts["quantized_matmul"]
+        assert k8n == batches > 0, (k8n, batches)
+        assert all(g[2] == "v2" for g in got)
+        out["k8_gateway"] = {"launches": k8n, "batches": batches,
+                             "requests": len(got)}
+        print(f"phase 33(e) K8 over the gateway: {k8n} launches for "
+              f"{batches} int8 batches ({len(got)} requests; the fc's "
+              f"quantized_mul, one launch a replay) {tag}")
+
+        # (f) the fit gate refuses a deploy at 1 MiB; v2 keeps serving
+        try:
+            registry.deploy("resnet50", "v3",
+                            inference.create_predictor(
+                                inference.Config(model_dir)),
+                            hbm_budget_bytes=1 << 20)
+        except SwapError as e:
+            refusal = {"stage": e.stage, "error": str(e)[:160]}
+        else:
+            raise AssertionError("a 1 MiB budget did not refuse the deploy")
+        assert refusal["stage"] == "verify" and \
+            "model-does-not-fit" in refusal["error"], refusal
+        with GatewayClient(host, port) as c:
+            _, resp = c.infer("resnet50", {"img": images[:1]})
+        assert resp["version"] == "v2", resp
+        out["refusal"] = refusal
+        print(f"phase 33(f) deploy of v3 with hbm_budget_bytes 1 MiB "
+              f"refused at stage {refusal['stage']!r} "
+              f"(model-does-not-fit); v2 still serving {tag}")
+
+        # (g) warm start: a second server over a fresh f32 Predictor
+        # restores v1's ladder from the manifest before traffic
+        fresh = InferenceServer(
+            inference.create_predictor(inference.Config(model_dir)),
+            buckets=list(SERVE_BUCKETS), max_wait_ms=2.0)
+        try:
+            t0 = time.perf_counter()
+            fresh.warmup(ex)
+            warm_s = time.perf_counter() - t0
+            ws = fresh.stats()["warm_start"]
+            assert ws["found"] and ws["loaded"] == len(SERVE_BUCKETS) == \
+                ws["captured"], ws
+            paid = ledger.compile_events(scope=fresh.ledger_scope)
+            assert paid == [], [e.key for e in paid]
+            n0 = ledger.count()
+            first = fresh.infer({"img": images[:3]}, timeout_ms=60000)[0]
+            assert ledger.count() == n0, "the first request captured"
+            werr = max(_row_err(first[i], f32_rows[i]) for i in range(3))
+            assert werr <= LOGITS_TOL, werr
+        finally:
+            fresh.shutdown(timeout=60)
+        out["warm_start"] = dict(ws, warmup_s=warm_s, row_err=werr)
+        print(f"phase 33(g) warm start: manifest {ws['manifest']} found, "
+              f"{ws['loaded']} of {ws['requested']} entries loaded and "
+              f"captured before traffic in {warm_s:.2f} s (cache hits, no "
+              f"capture paid); first request captured nothing, rows vs "
+              f"serial {werr:.3g} {tag}")
+
+        # the planner's estimates against the captures' peaks
+        for label, key in (("f32", "cross_check_f32"),
+                           ("int8", "cross_check_int8")):
+            text = ", ".join(
+                f"b{g['bucket']}: {g['estimate']} vs "
+                f"{None if g['measured'] is None else int(g['measured'])} "
+                f"({g['ratio']}, {g['status']})"
+                for g in sorted(out[key], key=lambda g: g["bucket"]))
+            print(f"phase 33 cross-check {label} (capture-peak estimate vs "
+                  f"measured capture peak, bytes; tolerance 0.25): {text} "
+                  f"{tag}")
+
+        st, health, _ = wire.http_request(host, port, "GET", "/healthz")
+        st2, slo, _ = wire.http_request(host, port, "GET", "/slo")
+        assert st == 200 and health["status"] in ("healthy", "degraded"), \
+            health
+        assert st2 == 200, slo
+        out["healthz"] = {"status": health["status"],
+                          "score": health["score"],
+                          "models": {n: m["verdict"] for n, m in
+                                     health["models"].items()}}
+        out["slo"] = {"firing": slo["firing"], "error_budget_remaining": {
+            n: s.get("error_budget_remaining")
+            for n, s in slo["slos"].items()}}
+        print(f"phase 33 /healthz {st}: {json.dumps(out['healthz'])}; /slo "
+              f"{st2}: {json.dumps(out['slo'])} {tag}")
+    finally:
+        if gw is not None:
+            gw.shutdown(timeout_s=120.0)
+        flags.set_flag("compile_cache_dir", "")
+        compile_cache.reset_compile_cache()
+        shutil.rmtree(model_dir, ignore_errors=True)
+        shutil.rmtree(cache_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    launches = {"quantized_matmul": out["k8_gateway"]["launches"]}
+
+    # (h) streamed generation over the gateway (K7, then K6)
+    out["generation"], gen_launches = serving_generation(torch, gen, seed,
+                                                        tag)
+    launches.update(gen_launches)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 33: {out['seconds']:.1f} s; gateway launches {launches} "
+          f"{tag}")
+    return out, launches
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6078,6 +6645,11 @@ def main(argv=None):
                          "references and run phases 31 and 32 (the "
                          "captured rungs and Executor programs against "
                          "eager runs); print one CAPTURE line")
+    ap.add_argument("--serving", action="store_true",
+                    help="only build the kernels and run phase 33 (the "
+                         "serving front end: gateway, registry, hot swap, "
+                         "warm start, streamed generation); print one "
+                         "SERVING line")
     args = ap.parse_args(argv)
     out_dir = (os.path.dirname(os.path.abspath(args.out)) if args.out
                else None)
@@ -6125,6 +6697,15 @@ def main(argv=None):
           f"{'built' if info['built'] else 'already built'}) {tag}")
     # the tensor-core kernels' ptxas lines and SASS
     build = build_report(info, tag)
+
+    if args.serving:
+        out, launches = serving_phase(torch, gen, args.seed, tag)
+        print("SERVING " + json.dumps(dict(out, launches=launches),
+                                      default=str))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
 
     # 2. kernels against their plain versions
     if not args.capture:
@@ -6613,6 +7194,17 @@ def main(argv=None):
 
     # 32. the Executor's programs captured against eager runs
     results["executor_capture"] = executor_phase(torch, args.seed, tag)
+
+    # 33. the serving front end: the gateway's launches of K6, K7 and K8
+    # (counts reset just before each gateway window, read just after)
+    results["serving"], gw_launches = serving_phase(torch, gen, args.seed,
+                                                    tag)
+    for k, n in gw_launches.items():
+        assert n > 0, (k, gw_launches)
+        first = ("predictor" if k == "quantized_matmul" else "in_process")
+        kernels[k]["launches_by_path"] = {first: kernels[k]["launches"],
+                                          "gateway": n}
+        kernels[k]["launches"] += n
 
     results["total_s"] = time.perf_counter() - t_start
     print(f"total: {results['total_s']:.1f} s {tag}")

@@ -6,8 +6,10 @@ whitelist, python/paddle/fluid/__init__.py:162-189), with every flag of
 the JAX package under its name, type and default. The port reads
 check_nan_inf, executor_log_level, verify_program and deterministic (the
 Executor), default_dtype (static parameters), amp_dtype (`amp`), the
-profile_* flags (`observability.profile`) and the compile_cache_* flags
-(`core.compile_cache`). The JAX package's compile_cache_jax_cache has no
+profile_* flags (`observability.profile`), the compile_cache_* flags
+(`core.compile_cache`), trace_sample_every (`serving.gateway`), the
+slo_* flags (`observability.slo` and `observability.health`) and
+plan_hbm_bytes and plan_fusion_discount (`analysis.planner`). The JAX package's compile_cache_jax_cache has no
 counterpart: it plumbs the cache directory into jax's own compilation
 cache, and a captured CUDA graph has no compiler cache beneath it. The
 others name the module of a later slice that will read them (`unread`);
@@ -73,7 +75,8 @@ def all_flags():
 
 #: the reasons of the flags no module of the port reads yet
 _PARITY = "kept for API parity, no counterpart in the port"
-_ITEM12 = "read by the serving gateway, ROADMAP Queue 1 item 12"
+_ITEM15_PLAN = "read by the planner's sharding half, ROADMAP Queue 1 " \
+               "item 15"
 _ITEM14 = "read by the reliability / SLO / fleet services, ROADMAP " \
           "Queue 1 item 14"
 _ITEM15 = "read by the parameter-server client, ROADMAP Queue 1 item 15"
@@ -152,23 +155,20 @@ define_flag("watchdog_deadline_s", 0.0,
             "not read yet: the hung-step watchdog's deadline around "
             "resilient_train_loop steps (0 disables)", unread=_ITEM14)
 define_flag("slo_eval_interval_s", 0.5,
-            "not read yet: SLO engine background evaluation period in "
-            "seconds", unread=_ITEM14)
+            "SLO engine background evaluation period in "
+            "seconds")
 define_flag("slo_availability_objective", 0.999,
-            "not read yet: serving-availability SLO target fraction",
-            unread=_ITEM14)
+            "serving-availability SLO target fraction")
 define_flag("slo_latency_objective", 0.99,
-            "not read yet: wire-latency SLO target fraction",
-            unread=_ITEM14)
+            "wire-latency SLO target fraction")
 define_flag("slo_wire_p99_threshold_s", 0.25,
-            "not read yet: wire-latency SLO threshold in seconds",
-            unread=_ITEM14)
+            "wire-latency SLO threshold in seconds")
 define_flag("slo_healthy_score", 0.8,
-            "not read yet: health score at or above which the verdict "
-            "is 'healthy'", unread=_ITEM14)
+            "health score at or above which the verdict "
+            "is 'healthy'")
 define_flag("slo_degraded_score", 0.4,
-            "not read yet: health score at or above which the verdict "
-            "is 'degraded'", unread=_ITEM14)
+            "health score at or above which the verdict "
+            "is 'degraded'")
 define_flag("train_numerics", True,
             "not read yet: per-step training numerics telemetry of "
             "resilient_train_loop", unread=_ITEM14)
@@ -176,8 +176,8 @@ define_flag("concurrency_check", False,
             "not read yet: arm the lock-order and guarded-by checks of "
             "make_lock() sites", unread=_ITEM17)
 define_flag("trace_sample_every", 8,
-            "not read yet: the gateway traces 1 in N requests that "
-            "carry no trace context", unread=_ITEM12)
+            "the gateway traces 1 in N requests that "
+            "carry no trace context")
 define_flag("fleet_heartbeat_interval_s", 0.5,
             "not read yet: backend -> router heartbeat period",
             unread=_ITEM14)
@@ -208,3 +208,21 @@ define_flag("fleet_min_backends", 1,
 define_flag("fleet_max_backends", 8,
             "not read yet: autoscaler ceiling of live backends",
             unread=_ITEM14)
+define_flag("plan_hbm_bytes", 0.0,
+            "device memory budget (bytes) for the serving fit gate; 0 "
+            "disables. InferenceServer aborts startup with a "
+            "model-does-not-fit ERROR when the static peak estimate of "
+            "its largest bucket exceeds it")
+define_flag("plan_fusion_discount", 1.0,
+            "fraction of the liveness intermediate transient the "
+            "planner's step-peak and capture-peak estimates charge. A "
+            "captured graph fuses nothing (every intermediate the eager "
+            "ops make is allocated in its pool), so the port charges it "
+            "all; the JAX package's 0.25 was calibrated against XLA's "
+            "fused executables")
+define_flag("plan_large_param_mb", 64.0,
+            "not read yet: replicated-large-param hazard threshold (MiB) "
+            "of the sharding propagation", unread=_ITEM15_PLAN)
+define_flag("plan_link_gbps", 100.0,
+            "not read yet: per-link bandwidth (GB/s) of the planner's "
+            "collective transfer model", unread=_ITEM15_PLAN)

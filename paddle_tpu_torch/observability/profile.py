@@ -50,14 +50,27 @@ is launched once.
   that captured. On the CPU the step runs eagerly, recorded as "eager".
   `ledger_jit(fn, site=)`, the JAX package's name, is
   `profiled_graph(fn, "executor", site)`.
+* **The capture gate.** A capture in the default (global) capture mode
+  fails when any other thread of the process makes a CUDA call that is
+  not capture-safe (a synchronizing copy, an allocation from the
+  driver). `capture_gate()` is the process's reader-writer gate:
+  Executor runs (their feed copies, replays and fetch copies) and a
+  GenerationServer's ticks hold it shared, a capture holds it
+  exclusively (a thread that holds it shared gives its hold up while it
+  captures). So a model version being prewarmed while another serves
+  captures between two of the other's replays, never during one; the
+  gate's `stats()` keeps how long captures held it and how long shared
+  holders waited (the pause a hot swap costs traffic).
 * **MemoryLedger** samples `torch.cuda.memory_stats` (an injectable
   reader for tests), keeps the peak watermark, per-tag deltas and a
   monotonic-growth leak detector.
 
 Exposition: `profile_snapshot()` (ledger, executable stats, memory,
-compile-cache stats, peak flops) and `chrome_events()` (captures and
-executable runs on the tracer's perf_counter timebase). The JAX
-snapshot's "concurrency" and "plan_check" sections have no counterpart.
+compile-cache stats, peak flops, the capture gate and the planner's
+"plan_check" cross-check of its estimates against the captures' peaks)
+and `chrome_events()` (captures and executable runs on the tracer's
+perf_counter timebase). The JAX snapshot's "concurrency" section has no
+counterpart.
 """
 import collections
 import contextlib
@@ -81,7 +94,7 @@ __all__ = [
     "MemoryLedger", "memory_ledger",
     "attribution", "current_attribution",
     "ProfiledGraph", "profiled_graph", "profiled_jit", "LedgerJit",
-    "ExecutorPool",
+    "ExecutorPool", "CaptureGate", "capture_gate", "warm_capture",
     "ledger_jit", "CaptureError", "disable_capture", "capture_disabled",
     "observe_run", "executable_stats", "signature_of", "dispatch_key",
     "diff_signatures", "peak_flops", "note_kernel_flops",
@@ -735,6 +748,128 @@ def _cache_for(token):
     return cc.compile_cache()
 
 
+class CaptureGate:
+    """Reader-writer gate between captures and every other use of the
+    card by the process's threads (see the module docstring). `shared()`
+    nests on a thread; `exclusive()` inside a shared hold of the same
+    thread gives that hold up until the capture ends (two threads
+    capturing from shared holds take turns). A waiting capture stops new
+    shared holders (a re-entrant one passes). `stats()`: captures, the
+    seconds they held the gate (total and longest) and waited for it,
+    and the waits of shared holders (count, total and longest)."""
+
+    def __init__(self):
+        self._cond = threading.Condition(threading.Lock())
+        self._readers = 0
+        self._writer = None
+        self._writers_waiting = 0
+        self._tls = threading.local()
+        self._stats = {"captures": 0, "held_s": 0.0, "max_held_s": 0.0,
+                       "capture_wait_s": 0.0, "shared_waits": 0,
+                       "shared_wait_s": 0.0, "max_shared_wait_s": 0.0}
+
+    @contextlib.contextmanager
+    def shared(self):
+        tl = self._tls
+        depth = getattr(tl, "depth", 0)
+        count = depth == 0 and self._writer != threading.get_ident()
+        if count:
+            with self._cond:
+                if self._writer is not None or self._writers_waiting:
+                    t0 = _clock()
+                    while self._writer is not None or self._writers_waiting:
+                        self._cond.wait()
+                    waited = _clock() - t0
+                    st = self._stats
+                    st["shared_waits"] += 1
+                    st["shared_wait_s"] += waited
+                    st["max_shared_wait_s"] = max(st["max_shared_wait_s"],
+                                                  waited)
+                self._readers += 1
+            tl.counted = True
+        tl.depth = depth + 1
+        try:
+            yield
+        finally:
+            tl.depth = depth
+            if count:
+                with self._cond:
+                    self._readers -= 1
+                    tl.counted = False
+                    self._cond.notify_all()
+
+    @contextlib.contextmanager
+    def exclusive(self):
+        me = threading.get_ident()
+        if self._writer == me:
+            yield
+            return
+        tl = self._tls
+        had = getattr(tl, "counted", False)
+        t0 = _clock()
+        with self._cond:
+            if had:
+                self._readers -= 1
+                tl.counted = False
+                self._cond.notify_all()
+            self._writers_waiting += 1
+            while self._writer is not None or self._readers:
+                self._cond.wait()
+            self._writers_waiting -= 1
+            self._writer = me
+        t1 = _clock()
+        try:
+            yield
+        finally:
+            held = _clock() - t1
+            with self._cond:
+                self._writer = None
+                if had:
+                    self._readers += 1
+                    tl.counted = True
+                st = self._stats
+                st["captures"] += 1
+                st["held_s"] += held
+                st["max_held_s"] = max(st["max_held_s"], held)
+                st["capture_wait_s"] += t1 - t0
+                self._cond.notify_all()
+
+    def stats(self):
+        with self._cond:
+            return dict(self._stats)
+
+    def reset_stats(self):
+        with self._cond:
+            for k in self._stats:
+                self._stats[k] = 0 if k in ("captures", "shared_waits") \
+                    else 0.0
+
+
+_gate = CaptureGate()
+
+
+def capture_gate():
+    """The process's capture gate (see CaptureGate)."""
+    return _gate
+
+
+#: the cache outcome a warm-start capture records (see warm_capture)
+_warm_var = contextvars.ContextVar("pt_profile_warm", default=None)
+
+
+@contextlib.contextmanager
+def warm_capture(cache):
+    """Executor entries captured inside the block record `cache` (a
+    warm-start "hit") as their compile-cache outcome instead of a miss
+    and a store: how a server restores its bucket ladder from a
+    manifest (serving/pool.py)."""
+    token = _warm_var.set(dict(cache))
+    try:
+        yield
+    finally:
+        _warm_var.reset(token)
+
+
 #: what `_capture_graph` made
 _Capture = collections.namedtuple(
     "_Capture", "out graph outputs launched cost warm_s peak_bytes constants")
@@ -745,7 +880,9 @@ def _capture_graph(fn, dev, pool, prepare, failed):
     once eagerly (the warm-up: its outputs are the call's result, and it
     sizes the kernels' per-stream workspaces), call `prepare(graph)`
     (which registers the generators the graph draws from), then capture
-    a second run into a CUDA graph in memory pool `pool`. Host values
+    a second run into a CUDA graph in memory pool `pool`, holding the
+    capture gate exclusively from `prepare` to the capture's end. Host
+    values
     the runs copy to the device (registry.constant) are kept in
     `.constants`, which must live as long as the graph. A garbage
     collection is held off during the capture (one could free another
@@ -768,24 +905,25 @@ def _capture_graph(fn, dev, pool, prepare, failed):
                 out = fn()
         stream.synchronize()
         warm_s = _clock() - t0
-        prepare(graph)
-        m0 = torch.cuda.memory_allocated(dev)
-        torch.cuda.reset_peak_memory_stats(dev)
-        counts = _launch_snapshot()
-        gc_was_on = gc.isenabled()
-        gc.disable()
-        try:
-            with torch.cuda.graph(graph, pool=pool, stream=stream):
-                outputs = fn()
-        except Exception as e:
-            raise CaptureError(f"{failed(e)}: {type(e).__name__}: "
-                               f"{e}") from e
-        finally:
-            if gc_was_on:
-                gc.enable()
-            launched = _launch_delta(counts, _launch_snapshot())
-            _add_launches(launched, -1)
-    peak = int(torch.cuda.max_memory_allocated(dev) - m0)
+        with _gate.exclusive():
+            prepare(graph)
+            m0 = torch.cuda.memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            counts = _launch_snapshot()
+            gc_was_on = gc.isenabled()
+            gc.disable()
+            try:
+                with torch.cuda.graph(graph, pool=pool, stream=stream):
+                    outputs = fn()
+            except Exception as e:
+                raise CaptureError(f"{failed(e)}: {type(e).__name__}: "
+                                   f"{e}") from e
+            finally:
+                if gc_was_on:
+                    gc.enable()
+                launched = _launch_delta(counts, _launch_snapshot())
+                _add_launches(launched, -1)
+            peak = int(torch.cuda.max_memory_allocated(dev) - m0)
     cur.wait_stream(stream)
     _record_stream(out, cur)
     return _Capture(out=out, graph=graph, outputs=outputs,
@@ -1285,7 +1423,13 @@ class LedgerJit:
     `disable_capture()` runs eagerly on the card.
 
     On the CPU the step runs eagerly and its first call is recorded with
-    kind "eager". `pool` is the Executor's ExecutorPool."""
+    kind "eager". `pool` is the Executor's ExecutorPool: its lock is held
+    from the feeds' copy into a graph's static buffers until the fetches
+    are copied out of its outputs, so Predictor clones on several
+    threads never mix their rows, and inside it the capture gate is held
+    shared. A capture made inside `warm_capture` records its cache
+    outcome; otherwise, with the compile cache armed, a capture is a
+    miss and a store under the attribution's scope."""
 
     def __init__(self, step, site, cache_token=None, device=None, pool=None):
         from paddle_tpu_torch.core.places import resolve_device
@@ -1304,10 +1448,10 @@ class LedgerJit:
         """Run the step over `scope`'s state: returns the fetches and
         updates the scope."""
         if not _captures_on(self.device):
-            with self._mu:
+            with self._mu, _gate.shared():
                 self.rngs.begin()
                 return self._eager(scope, state_names, feed, seed)
-        with self.pool.mu:
+        with self.pool.mu, _gate.shared():
             self.rngs.begin()
             return self._captured(scope, state_names, feed, seed)
 
@@ -1389,17 +1533,19 @@ class LedgerJit:
                   "pool_bytes": _pool_bytes(self.pool.handle()),
                   "graphs": len(run.graphs)}
         cost = {"flops": run.flops, "bytes accessed": None}
-        cache = None
+        cache = _warm_var.get()
         pcache = _cache_for(self.cache_token) if enabled() else None
-        if pcache is not None:
+        if pcache is not None and cache is None:
+            attr = current_attribution()
+            scope = None if attr is None else attr.scope
             key_hash = pcache.key_for(self.cache_token,
                                       dispatch_key((state, feed)))
             pcache.note_event("miss", key_hash, "executor", self.site,
-                              reason="not_warm")
+                              scope=scope, reason="not_warm")
             event, reason = pcache.store(
                 key_hash, self.cache_token, sig, (), len(sig), seconds,
-                component="executor", key=self.site, cost=cost,
-                memory=memory)
+                component="executor", key=self.site, scope=scope,
+                cost=cost, memory=memory)
             cache = {"event": event, "tier": "signature"}
             if reason:
                 cache["reason"] = reason
@@ -1552,7 +1698,16 @@ def profile_snapshot(ledger_limit=256):
         "compile_cache": None if pcache is None else pcache.stats(),
         "peak_flops": (_peak_cache.get("bfloat16")
                        or _flags.get_flag("profile_peak_flops") or None),
+        "capture_gate": _gate.stats(),
+        # the planner's estimates against the captures' peaks; None until
+        # a server registers estimates (analysis/planner.py)
+        "plan_check": _planner_section(),
     }
+
+
+def _planner_section():
+    from paddle_tpu_torch.analysis import planner
+    return planner.cross_check_section()
 
 
 def chrome_events():

@@ -44,7 +44,7 @@ __all__ = [
     "Span", "SpanContext", "Tracer", "get_tracer", "span", "start_span",
     "attach", "current_context", "context_to_dict", "context_from_dict",
     "set_enabled", "is_enabled", "export_chrome_trace", "reset_tracer",
-    "format_id",
+    "format_id", "noop_span",
 ]
 
 _clock = time.perf_counter
@@ -478,6 +478,12 @@ def export_chrome_trace(path, extra_events=()):
 
 def format_id(i):
     return _fmt_id(i)
+
+
+def noop_span():
+    """The suppression sentinel: a span whose descendants are all noops
+    (the gateway hands it to requests its head sampling leaves out)."""
+    return _NOOP_SPAN
 
 
 def reset_tracer():

@@ -37,8 +37,10 @@ PT_FLAGS_compile_cache_dir is set), `compile_count()` and
 `stats()["compiled_signatures"]` are views over the CompileLedger, and
 `observability.profile.disable_capture()` runs the rungs eagerly. On the
 CPU the rungs run eagerly and the ledger records their first sights.
-The reference's planner estimates have no counterpart (ROADMAP Queue 1
-item 17).
+The planner's rung geometry (`analysis.planner.estimate_decode_rungs` /
+`estimate_paged_rungs`) prices the ladder on request; unlike the
+reference's engines, these do not register it for the ledger
+cross-check at construction.
 """
 import collections
 import hashlib

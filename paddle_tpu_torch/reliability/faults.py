@@ -1,10 +1,13 @@
 """Deterministic fault injection.
 
 Counterpart of paddle_tpu/reliability/faults.py for the choke points the
-port has so far: the `generation.*` sites of the generation server
-(serving/generation.py) and of the paged engine's spill tier and state
-documents (ops/generation.py), the Predictor's `predictor.run` and the
-params files' `io.*` sites (inference/, static/io.py). Named
+port has so far: the serving pool's `serving.run_batch`, the gateway's
+`gateway.*` sites (serving/gateway.py, serving/registry.py) and its
+stream writes, the wire client's `fleet.journal_replay`, the
+`generation.*` sites of the generation server (serving/generation.py)
+and of the paged engine's spill tier and state documents
+(ops/generation.py), the Predictor's `predictor.run` and the params
+files' `io.*` sites (inference/, static/io.py). Named
 `inject_point()` calls sit on the live serving path, inert until a
 `FaultPlan` is armed (`set_fault_plan` / the `fault_plan` context
 manager); then each hit consults the plan and may raise, delay, hang or
@@ -41,6 +44,35 @@ __all__ = [
 #: Every registered choke point of the port (the test suite checks that
 #: each has a call site).
 KNOWN_SITES = (
+    "serving.run_batch",     # serving/pool.py        per-replica batch
+                             #   (tag: r<replica>): a raise fails the
+                             #   batch, which retries on a healthy
+                             #   replica; `nan` poisons its outputs
+    "gateway.accept",        # serving/gateway.py       per accepted
+                             #   connection, BEFORE its handler thread:
+                             #   a raise drops that connection (the
+                             #   acceptor must survive the storm)
+    "gateway.read",          # serving/gateway.py       after each
+                             #   inbound wire frame: a raise models a
+                             #   torn/poisoned read — the connection
+                             #   dies, the gateway does not
+    "gateway.write",         # serving/gateway.py       before each
+                             #   response write (tags: wire|http): a
+                             #   raise models a client that stopped
+                             #   reading
+    "gateway.swap",          # serving/registry.py      model-version
+                             #   cutover stage boundaries (tags: load|
+                             #   verify|prewarm|commit|drain) — kill a
+                             #   swap at any stage; pre-commit kills
+                             #   must roll back, post-commit kills must
+                             #   leave the new version serving
+    "generation.stream_write",  # serving/gateway.py    before each
+                             #   streamed token frame (tags: wire|http):
+                             #   a raise is a client gone mid-stream —
+                             #   its decode slot frees on the next tick
+    "fleet.journal_replay",  # serving/wire.py          a resumed
+                             #   stream's re-dispatch: a raise dies
+                             #   before the wire, the journal survives
     "generation.prefill",    # serving/generation.py    per slot
                              #   admission (tag: s<slot>): a raise fails
                              #   THAT request; the slot and every

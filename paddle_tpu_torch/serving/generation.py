@@ -42,6 +42,7 @@ import numpy as np
 from paddle_tpu_torch.analysis.concurrency import make_condition
 from paddle_tpu_torch.core.enforce import enforce
 from paddle_tpu_torch.observability import metrics as obs_metrics
+from paddle_tpu_torch.observability import profile as obs_profile
 from paddle_tpu_torch.observability import trace as obs_trace
 from paddle_tpu_torch.ops.generation import (
     PagedDecodeEngine, PoolExhausted, greedy_verify, prefix_block_hashes,
@@ -970,10 +971,14 @@ class GenerationServer:
 
     def _drive(self):
         b = self.batcher
+        gate = obs_profile.capture_gate()
         while True:
             if b.closed and (not b._draining or b.idle()):
                 break
-            live = b.step()
+            # a tick's replays and host reads never overlap another
+            # thread's capture (observability/profile.py)
+            with gate.shared():
+                live = b.step()
             if live == 0 and b.queue_depth == 0:
                 self._wake.wait(self._idle_wait)
                 self._wake.clear()

@@ -380,21 +380,30 @@ def test_importing_the_package_builds_no_kernel():
 PROFILE_FLAGS = ("profile_compile_ledger", "profile_memory_sample_every",
                  "profile_peak_flops", "compile_cache_dir",
                  "compile_cache_keep", "compile_cache_slow_compile_s")
+#: the flags paddle_tpu/analysis/planner.py defines, which the port keeps
+#: in its core/flags.py; plan_fusion_discount's default is the port's own
+#: (1.0: a captured graph fuses nothing; analysis/planner.py)
+PLANNER_FLAGS = ("plan_hbm_bytes", "plan_fusion_discount",
+                 "plan_large_param_mb", "plan_link_gbps")
 
 
 def test_flags_are_the_references():
     """Every flag paddle_tpu/core/flags.py defines, same default and
     type (other JAX modules add their own flags to the registry), plus
-    the profile and compile-cache flags."""
+    the profile, compile-cache and planner flags."""
     import re
 
-    import paddle_tpu.core.compile_cache  # noqa: F401  (defines flags)
+    import paddle_tpu.analysis.planner  # noqa: F401  (defines flags)
+    import paddle_tpu.core.compile_cache  # noqa: F401
     import paddle_tpu.observability.profile  # noqa: F401
     with open(os.path.join(REPO, "paddle_tpu", "core", "flags.py")) as f:
         names = set(re.findall(r'define_flag\("(\w+)"', f.read()))
     ref = {k: v for k, v in jflags.all_flags().items() if k in names}
     assert len(ref) == len(names) == 34
-    ref.update({k: jflags._REGISTRY[k].default for k in PROFILE_FLAGS})
+    ref.update({k: jflags._REGISTRY[k].default
+                for k in PROFILE_FLAGS + PLANNER_FLAGS})
+    assert ref["plan_fusion_discount"] == 0.25
+    ref["plan_fusion_discount"] = 1.0
     assert tflags.all_flags() == ref
     for name in ref:
         assert type(tflags._REGISTRY[name].default) is type(
@@ -409,7 +418,11 @@ def test_flags_are_the_references():
 #: the flags a module of the port reads; every other flag names why not
 READ_FLAGS = {"check_nan_inf", "executor_log_level", "verify_program",
               "deterministic", "default_dtype", "amp_dtype",
-              *PROFILE_FLAGS}
+              *PROFILE_FLAGS, "trace_sample_every", "slo_eval_interval_s",
+              "slo_availability_objective", "slo_latency_objective",
+              "slo_wire_p99_threshold_s", "slo_healthy_score",
+              "slo_degraded_score", "plan_hbm_bytes",
+              "plan_fusion_discount"}
 
 
 def test_unread_flags_warn_once_and_read_flags_take_effect(monkeypatch):
@@ -424,15 +437,15 @@ def test_unread_flags_warn_once_and_read_flags_take_effect(monkeypatch):
 
     # an unread flag set away from its default warns once, from the
     # environment or from set_flag; its default value does not warn
-    tflags._WARNED.discard("slo_healthy_score")
-    with pytest.warns(UserWarning, match="slo_healthy_score.*no effect"):
-        tflags.set_flag("slo_healthy_score", 0.5)
+    tflags._WARNED.discard("watchdog_deadline_s")
+    with pytest.warns(UserWarning, match="watchdog_deadline_s.*no effect"):
+        tflags.set_flag("watchdog_deadline_s", 0.5)
     import warnings
     with warnings.catch_warnings():
         warnings.simplefilter("error")
-        tflags.set_flag("slo_healthy_score", 0.6)      # once only
-        tflags.set_flag("trace_sample_every", 8)       # its default
-        tflags.set_flag("slo_healthy_score", 0.8)
+        tflags.set_flag("watchdog_deadline_s", 0.6)    # once only
+        tflags.set_flag("fleet_min_backends", 1)       # its default
+        tflags.set_flag("watchdog_deadline_s", 0.0)
     monkeypatch.setenv("PT_FLAGS_probe_unread", "3")
     with pytest.warns(UserWarning, match="probe_unread"):
         tflags.define_flag("probe_unread", 1, "not read: probe",
