@@ -7,6 +7,7 @@
     python3 chip_smoke.py --flash-sweep [ROOT]
     python3 chip_smoke.py --capture
     python3 chip_smoke.py --serving
+    python3 chip_smoke.py --fleet
 
 Phases, each of which raises (exit code != 0) when its check fails:
 
@@ -415,6 +416,54 @@ Phases, each of which raises (exit code != 0) when its check fails:
     `--serving` builds the kernels and runs phase 33 alone, then prints
     one SERVING line and the device line.
 
+34. The fleet (`paddle_tpu_torch.fleet`): an active and a standby
+    router, each a `RouterProcess` child (the standby's `StandbyMonitor`
+    watching the active), and backend processes spawned by a
+    `FleetManager` (this process keeps a `FleetDirectory` with a
+    `DirectoryStore`, the manager and a `FleetAutoscaler`), sharing one
+    compile-cache directory. Each backend serves GPT-2-small generation
+    (phase 3's widths, seed-0 weights) on int8 paged pools (K7), spec_k 0,
+    8 slots, and a saved fc stack (FLEET_MLP_*: a flat `x` of 784, four fc
+    + relu of 1024, softmax 10; the ladder FLEET_BUCKETS). (a) b1 starts
+    with the routers, b2 after it: spawn-to-READY seconds and their
+    stages, captures paid; b2 restores both ladders from b1's manifests
+    (loaded = captured = requested, the fc ladder's 4). (b) PTGW clients
+    with endpoints = the pair: one-row infer requests throughout (each
+    row within LOGITS_TOL of the serial `Predictor.run`), FLEET_STREAMS
+    concurrent streams of FLEET_TOKENS, each equal to its single-request
+    int8 reference (`paged_greedy`; near-tie rule); a session's second
+    stream lands on its ring backend. (c) b1 is SIGKILLed at the third
+    token of a FLEET_KILL_TOKENS stream: the router resumes it on b2 with
+    the journal (K7's prefill route at the prompt plus the journal), the
+    stream equals the reference, gapless and exactly once, 0 infer
+    requests fail, the active's directory walks b1 through SUSPECT to
+    LOST; kill-to-resume-dispatch and kill-to-first-resumed-token ms.
+    (d) The active router's wire-latency SLO (threshold
+    FLEET_SLO_THRESHOLD_S) pages under a burst of streams; its page
+    alerts, relayed from GET /slo, make the autoscaler spawn b3, which
+    warm-starts and joins LIVE. (e) The active router is SIGKILLed with
+    FLEET_STREAMS streams mid-decode: the standby promotes to epoch 2
+    (takeover ms), the backends stay LIVE on it, every stream resumes
+    from its client's journal and equals its reference, 0 infer requests
+    fail, and the promoted router's page alerts spawn nothing (the
+    cooldown). (f) b2 and b3 drain: their FLEET-DRAIN documents carry no
+    capture paid during traffic, no jax, and K7's decode and prefill
+    launches (> 0; the kernels line's `launches_by_path` "fleet").
+35. Fault-tolerant training: phase 14's ResNet-50 program at batch 32 x
+    224^2 under deterministic cuDNN, FT_STEPS steps of
+    `resilient_train_loop` checkpointing every FT_SAVE_EVERY: (a)
+    uninterrupted in this process, while (b) a `Supervisor` runs the
+    same training as a worker process (`chip_smoke.py --ft-worker`)
+    whose environment arms `train.step:FT_CRASH_AT:crash`: the first
+    incarnation dies right after the step-8 snapshot, the supervisor
+    restarts it once, it resumes from step 8, and its final parameters
+    and losses are bit-equal to (a)'s. (c) The supervision report:
+    exit codes [17, 0], one restart, the incarnations' flight-dump
+    paths, the restart-to-first-step seconds and their stages. No kernel
+    of the kernels line launches in (a) or in the worker. `--fleet`
+    builds the kernels and runs phases 34 and 35 alone, then prints one
+    FLEET line and the device line.
+
 Then a `{"kernels": [...]}` line and, last, the device line
 `{"ok": true, "device": {...}}`. Every number is printed beside the
 card's name and power limit.
@@ -430,7 +479,9 @@ lines (decode route, chunk route) report phases 4 and 4' together, K7's two
 lines those of its three serving runs (phases 4a and 4b) together; phase
 33's gateway windows add to K6's, K7's and K8's lines, and their
 `launches_by_path` keeps them apart ("in_process" or "predictor", and
-"gateway").
+"gateway"); phase 34's backend processes add K7's launches under
+"fleet" (each backend zeroes its counts after its warm-up and reports
+them in its drain document).
 
 `--latency [ROOT]` runs none of the phases: it measures, with the port
 found under ROOT (default: this checkout), one prompt's prefill latency
@@ -6618,6 +6669,772 @@ def serving_phase(torch, gen, seed, tag):
     return out, launches
 
 
+#: phase 34's fc stack (tools/fleet_bench.py::build_mlp's shape: a flat
+#: `x`, fc + relu layers, a softmax over 10), at MNIST's input width
+FLEET_MLP_IN, FLEET_MLP_HIDDEN, FLEET_MLP_LAYERS = 784, 1024, 4
+FLEET_BUCKETS = (1, 2, 4, 8)
+#: concurrent generate streams and their new tokens; the backend-death
+#: stream's budget (long enough that the SIGKILL lands mid-stream)
+FLEET_STREAMS, FLEET_TOKENS, FLEET_KILL_TOKENS = 4, 32, 64
+#: GPT-2-small prompts of 16..128 tokens, none sharing a block
+FLEET_PROMPT_LEN = (16, 129)
+#: the routers' wire-latency SLO threshold: a stream that takes longer
+#: is a bad event, so a burst of streams burns the page rule
+FLEET_SLO_THRESHOLD_S = 0.05
+#: liveness: backend beats, the routers' directory edges, the standby's
+#: watch of the active
+FLEET_BEAT_S, FLEET_SUSPECT_S, FLEET_LOST_S = 0.1, 0.5, 1.5
+FLEET_MONITOR = dict(beat_interval_s=0.05, monitor_suspect_after_s=0.2,
+                     monitor_lost_after_s=0.4)
+#: where the backends run (None: the card; a CPU rehearsal sets "cpu")
+FLEET_BACKEND_DEVICE = None
+#: phase 35: steps, the checkpoint interval and the crash step; phase
+#: 14's batch and image side; the worker's device (None: the card)
+FT_STEPS, FT_SAVE_EVERY, FT_CRASH_AT = 12, 4, 8
+FT_BATCH, FT_IMAGE, FT_DEVICE = TRAIN_BATCH, 224, None
+
+
+def fleet_warm_check(ws):
+    """A backend spawned after the first restored both ladders from the
+    shared cache's manifests: every listed entry loaded and captured
+    before traffic (the Predictor's: one per bucket)."""
+    model, lm = ws["model"], ws["generator"]
+    assert model["found"] and model["loaded"] == model["captured"] == \
+        len(FLEET_BUCKETS), ws
+    assert lm["found"] and lm["loaded"] == lm["captured"] == \
+        lm["requested"] > 0, ws
+
+
+def fleet_mlp(static, ir, Executor, mdir, seed):
+    """The fc stack, initialised on the card from `seed` and saved with
+    save_inference_model (feed `x`, target the softmax)."""
+    main, startup = ir.Program(), ir.Program()
+    startup.random_seed = seed
+    with ir.program_guard(main, startup):
+        x = static.data("x", [FLEET_MLP_IN], "float32")
+        h = x
+        for _ in range(FLEET_MLP_LAYERS):
+            h = static.fc(h, FLEET_MLP_HIDDEN, act="relu")
+        out = static.fc(h, 10, act="softmax")
+    exe = Executor()
+    exe.run(startup)
+    static.io.save_inference_model(mdir, ["x"], [out], exe,
+                                   main_program=main)
+    return mdir
+
+
+def _free_ports(n):
+    """`n` free TCP ports on 127.0.0.1 (bound together, then released)."""
+    import socket
+    socks = [socket.socket() for _ in range(n)]
+    try:
+        for sk in socks:
+            sk.bind(("127.0.0.1", 0))
+        return [sk.getsockname()[1] for sk in socks]
+    finally:
+        for sk in socks:
+            sk.close()
+
+
+def _http_json(wire, addr, path):
+    status, doc, _ = wire.http_request(addr[0], addr[1], "GET", path,
+                                       timeout=10.0)
+    return status, doc
+
+
+def _wait_for(cond, timeout_s, what, poll=0.05):
+    deadline = time.monotonic() + timeout_s
+    while time.monotonic() < deadline:
+        got = cond()
+        if got:
+            return got
+        time.sleep(poll)
+    raise AssertionError(f"timed out after {timeout_s} s waiting for {what}")
+
+
+def _live_on(wire, addr, names):
+    """The router at `addr` holds every one of `names` LIVE."""
+    status, doc = _http_json(wire, addr, "/fleet")
+    backends = (doc or {}).get("directory", {}).get("backends", {})
+    return all(backends.get(n, {}).get("state") == "LIVE" for n in names)
+
+
+class _InferLoad:
+    """One PTGW client (endpoints = the HA pair, a patient retry policy)
+    sending one-row infer requests `pace_s` apart until stopped; each
+    answer is kept with its row for the comparison with the serial
+    Predictor."""
+
+    def __init__(self, wire, RetryPolicy, endpoints, xs, pace_s=0.01):
+        import threading
+        self.wire, self.endpoints, self.xs = wire, endpoints, xs
+        self.retry = RetryPolicy(max_attempts=60, base_delay=0.05,
+                                 max_delay=0.3, jitter=0.2, deadline=60.0)
+        self.pace_s = pace_s
+        self.rows, self.failed, self.errors = [], 0, []
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def _run(self):
+        with self.wire.GatewayClient(*self.endpoints[0],
+                                     endpoints=self.endpoints,
+                                     timeout_s=60.0,
+                                     retry_policy=self.retry) as c:
+            k = 0
+            while not self._stop.is_set():
+                i = k % len(self.xs)
+                k += 1
+                try:
+                    outs, _ = c.infer("m", {"x": self.xs[i:i + 1]})
+                    self.rows.append((i, np.asarray(outs[0])))
+                except Exception as e:       # counted: the gate is 0
+                    self.failed += 1
+                    self.errors.append(f"{type(e).__name__}: {e}")
+                time.sleep(self.pace_s)
+
+    def start(self):
+        self._thread.start()
+        return self
+
+    def stop(self):
+        self._stop.set()
+        self._thread.join(120)
+        return self
+
+
+def _stream(wire, endpoints, prompt, n, session, on_token=None):
+    """One generate stream through the HA pair: (tokens as the callback
+    saw them, their indices, the end frame)."""
+    toks, idxs = [], []
+
+    def cb(t, i):
+        toks.append(int(t))
+        idxs.append(int(i))
+        if on_token is not None:
+            on_token(len(toks))
+
+    with wire.GatewayClient(*endpoints[0], endpoints=endpoints,
+                            timeout_s=300.0) as c:
+        end = c.generate("gpt2", [int(t) for t in prompt], n,
+                         session=session, on_token=cb)
+    return toks, idxs, end
+
+
+def _check_stream(label, got, ref, gaps):
+    toks, idxs, end = got
+    assert idxs == list(range(len(toks))), (label, idxs)
+    assert [int(t) for t in end["tokens"]] == toks, (label, end, toks)
+    return compare(label, toks, ref, gaps)
+
+
+def _timings(doc):
+    return ", ".join(f"{k[:-2]} {v:.1f}" for k, v in
+                     sorted(doc["timings"].items()))
+
+
+def _page_alerts(wire, addr):
+    """The page alerts the router at `addr` has firing, as the
+    SloEngine's fire events."""
+    try:
+        _, doc = _http_json(wire, addr, "/slo")
+    except (OSError, wire.WireError, ValueError):
+        return []                # a dead router has no alerts to relay
+    return [{"event": "fire", "slo": a["slo"], "rule": a["rule"],
+             "severity": a["severity"], "t": time.monotonic()}
+            for a in (doc or {}).get("firing", ())
+            if a.get("severity") == "page"]
+
+
+def fleet_phase(torch, gen, seed, tag):
+    """Phase 34: the fleet on the card (see the module docstring).
+    Returns (results, K7's launches on the fleet path by kernel)."""
+    import shutil
+    import threading
+    from paddle_tpu_torch import fleet, inference, static
+    from paddle_tpu_torch.core import ir
+    from paddle_tpu_torch.core.executor import Executor
+    from paddle_tpu_torch.fleet.ha import RouterProcess
+    from paddle_tpu_torch.reliability.retry import RetryPolicy
+    from paddle_tpu_torch.serving import wire
+
+    t_phase = time.perf_counter()
+    cfg = gen.LMConfig(**GPT2_SMALL)
+    tmp = tempfile.mkdtemp(prefix="pt_fleet_")
+    out = {}
+    routers, manager, loads = [], None, []
+    saved_env = {k: os.environ.get(k) for k in
+                 ("PT_FLAGS_compile_cache_dir",
+                  "PT_FLAGS_slo_wire_p99_threshold_s")}
+    try:
+        # the served fc stack and its serial answers
+        ir.reset_unique_names()
+        mdir = fleet_mlp(static, ir, Executor, os.path.join(tmp, "mlp"),
+                         seed)
+        rng = np.random.RandomState(seed + 34)
+        xs = rng.rand(16, FLEET_MLP_IN).astype(np.float32)
+        pred = inference.create_predictor(inference.Config(mdir))
+        want_rows = [pred.run({"x": xs[i:i + 1]})[0] for i in range(16)]
+        del pred
+        # the HA pair, each a child process; backends share the cache
+        cache, snap = os.path.join(tmp, "cache"), os.path.join(tmp, "snap")
+        os.environ["PT_FLAGS_compile_cache_dir"] = cache
+        os.environ["PT_FLAGS_slo_wire_p99_threshold_s"] = str(
+            FLEET_SLO_THRESHOLD_S)
+        common = {"snapshot_dir": snap, "suspect_after_s": FLEET_SUSPECT_S,
+                  "lost_after_s": FLEET_LOST_S, "poll_interval_s": 0.5}
+        # ports picked here, so the routers and the first backend start
+        # together (a backend's heartbeater dials until its routers are up)
+        a_addr, s_addr = [("127.0.0.1", p) for p in _free_ports(2)]
+        endpoints = [a_addr, s_addr]
+        active = RouterProcess(dict(common, name="r-active", epoch=1,
+                                    port=a_addr[1])).start()
+        routers.append(active)
+        standby = RouterProcess(dict(common, **FLEET_MONITOR,
+                                     name="r-standby", standby=True,
+                                     port=s_addr[1],
+                                     active=list(a_addr))).start()
+        routers.append(standby)
+
+        # the parent's control plane: a directory of what it spawned,
+        # snapshotted with the autoscaler's state, the manager, the
+        # autoscaler (its page alerts relayed from the routers' /slo)
+        directory = fleet.FleetDirectory(suspect_after_s=3600.0,
+                                         lost_after_s=7200.0)
+        store = fleet.DirectoryStore(os.path.join(tmp, "control"))
+        directory.attach_store(store)
+        gen_spec = dict(GPT2_SMALL, seed=seed, slots=8, paged=True,
+                        block_size=8, spec_k=0, kv_dtype="int8",
+                        name="gpt2")
+
+        def spec_factory(name):
+            spec = {"model": {"kind": "model_dir", "dir": mdir},
+                    "buckets": list(FLEET_BUCKETS),
+                    "in_dim": FLEET_MLP_IN, "read_timeout_s": 600.0,
+                    "heartbeat_interval_s": FLEET_BEAT_S,
+                    "hbm_budget_bytes": 8 << 30,
+                    "router": list(a_addr), "generator": dict(gen_spec)}
+            if FLEET_BACKEND_DEVICE is not None:
+                spec["device"] = FLEET_BACKEND_DEVICE
+            return spec
+
+        manager = fleet.FleetManager(directory, spec_factory,
+                                     routers=[s_addr],
+                                     spawn_timeout_s=300.0)
+        scaler = fleet.FleetAutoscaler(manager, slo_engine=None,
+                                       min_backends=1, max_backends=3,
+                                       cooldown_s=600.0,
+                                       quiet_after_s=1e9,
+                                       spawn_async=False)
+        directory.extra_state("autoscaler", scaler.export_state)
+
+        # (a) spawn and warm start: b1 starts with the routers and the
+        # references are made meanwhile; b2 restores b1's manifests
+        t_spawn = time.perf_counter()
+        h1 = manager.spawn("b1", wait=False)
+        # the int8 single-request references of every stream
+        t0 = time.perf_counter()
+        model = gen.TinyDecoderLM(cfg).init_params(seed)
+        n_prompts = 2 * FLEET_STREAMS + 2
+        prompts = [rng.randint(0, cfg.vocab_size,
+                               size=rng.randint(*FLEET_PROMPT_LEN)
+                               ).astype(np.int32) for _ in range(n_prompts)]
+        budgets = [FLEET_TOKENS] * n_prompts
+        budgets[-2] = FLEET_KILL_TOKENS
+        refs, gaps, _ = paged_greedy(gen, model, prompts, budgets, "int8")
+        del model
+        torch.cuda.empty_cache()
+        ref_s = time.perf_counter() - t0
+
+        assert active.wait_ready(120) == a_addr
+        assert standby.wait_ready(120) == s_addr
+        directory.announce("b1", h1.wait_ready(300),
+                           meta={"pid": h1.pid})
+        spawned = {"b1": h1.ready_doc,
+                   "b2": manager.spawn("b2").ready_doc}
+        spawn_s = time.perf_counter() - t_spawn
+        _wait_for(lambda: _live_on(wire, a_addr, ["b1", "b2"])
+                  and _live_on(wire, s_addr, ["b1", "b2"]), 30,
+                  "b1 and b2 LIVE on both routers")
+        fleet_warm_check(spawned["b2"]["warm_start"])
+        for name, doc in spawned.items():
+            print(f"phase 34(a) {name}: spawn-to-READY "
+                  f"{doc['t_ready_s']:.2f} s ({_timings(doc)}), captures "
+                  f"paid {doc['compiles_paid']}, warm start model "
+                  f"{doc['warm_start']['model']}, generator "
+                  f"{doc['warm_start']['generator']} {tag}")
+        print(f"phase 34(a) routers, b1 and the references, then b2: "
+              f"{spawn_s:.1f} s (references {ref_s:.1f} s) {tag}")
+        out["spawn"] = {n: {"ready_s": d["t_ready_s"],
+                            "timings": d["timings"],
+                            "captures_paid": d["compiles_paid"],
+                            "warm_start": d["warm_start"]}
+                        for n, d in spawned.items()}
+        out["spawn_s"] = spawn_s
+
+        # (b) traffic through the active router
+        loads = [_InferLoad(wire, RetryPolicy, endpoints, xs).start()]
+        ring = fleet.HashRing()
+        ring.rebuild(["b1", "b2"])
+        sessions = [f"s{i}" for i in range(FLEET_STREAMS)]
+        got = [None] * FLEET_STREAMS
+
+        def run(i):
+            got[i] = _stream(wire, endpoints, prompts[i], budgets[i],
+                             sessions[i])
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=run, args=(i,))
+                   for i in range(FLEET_STREAMS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(300)
+        streams_s = time.perf_counter() - t0
+        near = sum(_check_stream(f"phase 34(b) stream {i}", got[i],
+                                 refs[i], gaps[i])
+                   for i in range(FLEET_STREAMS))
+        # affinity: a session's second stream goes where its first went
+        addrs = {n: tuple(directory.get(n)["address"])
+                 for n in ("b1", "b2")}
+
+        def gen_requests():
+            return {n: _http_json(wire, a, "/stats")[1]["counters"][
+                "gen_requests"] for n, a in addrs.items()}
+
+        for i in range(2):
+            pre = gen_requests()
+            again = _stream(wire, endpoints, prompts[i], budgets[i],
+                            sessions[i])
+            post = gen_requests()
+            moved = {n: post[n] - pre[n] for n in addrs}
+            want = ring.lookup(sessions[i])
+            assert moved[want] == 1 and sum(moved.values()) == 1, (
+                sessions[i], want, moved)
+            near += _check_stream(f"phase 34(b) stream {i} again", again,
+                                  refs[i], gaps[i])
+        print(f"phase 34(b) traffic: {FLEET_STREAMS} concurrent streams "
+              f"of {FLEET_TOKENS} tokens in {streams_s:.2f} s, tokens equal "
+              f"the int8 references (near-ties {near}), sessions "
+              f"{sessions[:2]} on their ring backends "
+              f"{[ring.lookup(s) for s in sessions[:2]]} {tag}")
+
+        # (c) backend death mid-stream
+        victim_session = next(f"k{i}" for i in range(64)
+                              if ring.lookup(f"k{i}") == "b1")
+        kill_at, arrived = {}, []
+
+        def on_token(n):
+            arrived.append(time.monotonic())
+            if n == 3 and "t" not in kill_at:
+                manager.kill("b1")
+                kill_at["t"] = time.monotonic()
+
+        k = len(prompts) - 2
+        killed = _stream(wire, endpoints, prompts[k], budgets[k],
+                         victim_session, on_token=on_token)
+        assert "t" in kill_at, "the stream ended before the kill"
+        near_c = _check_stream("phase 34(c) killed backend's stream",
+                               killed, refs[k], gaps[k])
+        assert killed[2].get("resumed") is True, killed[2]
+        # the router's failover record: the first resumed token is the one
+        # at the journal's length (the router's clock is the system's
+        # monotonic clock, as this process's)
+        (resume,) = _http_json(wire, a_addr, "/fleet")[1]["stream_resumes"]
+        assert resume["backend"] == "b2" and resume["failed"] == ["b1"]
+        resume_ms = (arrived[resume["committed"]] - kill_at["t"]) * 1e3
+        dispatch_ms = (resume["t"] - kill_at["t"]) * 1e3
+        _wait_for(lambda: "b1" in _http_json(wire, a_addr, "/fleet")[1][
+            "directory"]["tombstones"], 3 * FLEET_LOST_S + 5,
+            "b1 evicted LOST on the active router")
+        fdoc = _http_json(wire, a_addr, "/fleet")[1]
+        walk = [e["event"] for e in fdoc["directory"]["events"]
+                if e["backend"] == "b1"]
+        assert fdoc["directory"]["tombstones"]["b1"]["state"] == "LOST"
+        assert "suspect" in walk and walk.index("suspect") < \
+            walk.index("evict"), walk
+        directory.evict("b1", reason="lost")
+        counters = fdoc["counters"]
+        assert counters["stream_resumed"] >= 1, counters
+        print(f"phase 34(c) SIGKILL of b1 at token 3 of a {budgets[k]}-token "
+              f"stream: resumed on b2 via the journal, "
+              f"{resume['committed']} tokens committed, kill-to-resume-"
+              f"dispatch {dispatch_ms:.1f} ms, kill-to-first-resumed-token "
+              f"{resume_ms:.1f} ms, stream "
+              f"equal to the reference (near-ties {near_c}), directory walk "
+              f"{walk}, router counters stream_resumed "
+              f"{counters['stream_resumed']} forward_failures "
+              f"{counters['forward_failures']} {tag}")
+
+        # (d) a page alert spawns a replacement (the infer load paused:
+        # the window's events are the streams')
+        loads[-1].stop()
+        alerts = []
+
+        def paged():
+            alerts[:] = _page_alerts(wire, a_addr)
+            if not alerts:
+                burst = [threading.Thread(
+                    target=_stream, args=(wire, endpoints, prompts[i],
+                                          budgets[i], f"p{i}"))
+                         for i in range(FLEET_STREAMS)]
+                for t in burst:
+                    t.start()
+                for t in burst:
+                    t.join(300)
+            return alerts
+
+        _wait_for(paged, 60, "a page alert on the active router", 0.2)
+        for evt in alerts:
+            scaler.on_alert(evt)
+        assert scaler.counters["spawns"] == 1, (scaler.counters,
+                                                 scaler.timeline[-4:])
+        b3 = next(n for n in manager.names() if n not in ("b1", "b2"))
+        h3 = manager.handle(b3)
+        _wait_for(lambda: _live_on(wire, a_addr, [b3]), 30,
+                  f"{b3} LIVE on the active router")
+        ws3 = h3.ready_doc["warm_start"]
+        fleet_warm_check(ws3)
+        print(f"phase 34(d) page alerts {[a['slo'] for a in alerts]} -> "
+              f"autoscaler spawned {b3}: spawn-to-READY "
+              f"{h3.ready_doc['t_ready_s']:.2f} s "
+              f"({_timings(h3.ready_doc)}), captures paid "
+              f"{h3.ready_doc['compiles_paid']}, warm start {ws3} {tag}")
+        out["autoscale"] = {"alerts": alerts, "backend": b3,
+                            "ready_s": h3.ready_doc["t_ready_s"],
+                            "captures_paid": h3.ready_doc["compiles_paid"],
+                            "warm_start": ws3}
+
+        # (e) the active router dies mid-stream
+        loads.append(_InferLoad(wire, RetryPolicy, endpoints, xs).start())
+        spawns = scaler.counters["spawns"]
+        progress = [0] * FLEET_STREAMS
+        got = [None] * FLEET_STREAMS
+        base = FLEET_STREAMS
+
+        def run_e(i):
+            def mark(n):
+                progress[i] = n
+            got[i] = _stream(wire, endpoints, prompts[base + i],
+                             budgets[base + i], f"e{i}", on_token=mark)
+
+        threads = [threading.Thread(target=run_e, args=(i,))
+                   for i in range(FLEET_STREAMS)]
+        for t in threads:
+            t.start()
+        _wait_for(lambda: min(progress) >= 2, 120,
+                  "every stream mid-decode")
+        t_kill = time.time()
+        active.kill()
+        for t in threads:
+            t.join(300)
+        promoted = standby.wait_promoted(30)
+        assert promoted is not None, standby.tail()
+        takeover_ms = (promoted["t_wall"] - t_kill) * 1e3
+        assert promoted["epoch"] == 2, promoted
+        resumed_e = sum(bool(g[2].get("resumed")) for g in got)
+        assert resumed_e >= 1, "no stream was resumed on the standby"
+        near_e = sum(_check_stream(f"phase 34(e) stream {i}", got[i],
+                                   refs[base + i], gaps[base + i])
+                     for i in range(FLEET_STREAMS))
+        _wait_for(lambda: _live_on(wire, s_addr, ["b2", b3]),
+                  10 * FLEET_BEAT_S + 5, "b2 and b3 LIVE on the promoted "
+                  "router")
+        # the promoted router's alerts reach the autoscaler too: the
+        # cooldown inherited from (d) holds every one of them
+        for evt in _page_alerts(wire, s_addr):
+            scaler.on_alert(evt)
+        assert scaler.counters["spawns"] == spawns, scaler.counters
+        loads[-1].stop()
+        print(f"phase 34(e) SIGKILL of the active router with "
+              f"{FLEET_STREAMS} streams mid-decode: standby promoted to "
+              f"epoch {promoted['epoch']} in {takeover_ms:.1f} ms "
+              f"(adopted {promoted['adopted']}), {resumed_e} streams "
+              f"resumed from the clients' journals, all equal to the "
+              f"references (near-ties {near_e}), spawns after the "
+              f"takeover {scaler.counters['spawns'] - spawns} {tag}")
+        rows = [r for ld in loads for r in ld.rows]
+        failed = sum(ld.failed for ld in loads)
+        errs = [_row_err(o, want_rows[i]) for i, o in rows]
+        assert failed == 0, [e for ld in loads for e in ld.errors][:4]
+        assert rows and max(errs) <= LOGITS_TOL, max(errs)
+        print(f"phase 34 infer: {len(rows)} one-row requests through the "
+              f"routers over (b)-(c) and (e), 0 failed, max row error "
+              f"{max(errs):.3g} (LOGITS_TOL {LOGITS_TOL}) against the "
+              f"serial Predictor {tag}")
+
+        # (f) drain: K7's launches, captures during traffic
+        drains = {}
+
+        def retire(name):
+            drains[name] = manager.retire(name, drain=True, timeout_s=60.0)
+
+        retiring = [threading.Thread(target=retire, args=(n,))
+                    for n in ("b2", b3)]
+        for t in retiring:
+            t.start()
+        for t in retiring:
+            t.join(120)
+        assert all(drains.get(n) for n in ("b2", b3)), drains
+        ready = {"b2": spawned["b2"], b3: h3.ready_doc}
+        for name, doc in drains.items():
+            assert doc["compiles_paid"] == ready[name]["compiles_paid"], (
+                name, doc["compiles_paid"], ready[name]["compiles_paid"])
+            assert not doc["jax_loaded"], name
+        launches = {k: sum(d["launch_counts"][k] for d in drains.values())
+                    for k in ("quantized_paged_decode_attention",
+                              "quantized_paged_prefill_attention")}
+        launches["quantized_paged_decode_attention"] -= launches[
+            "quantized_paged_prefill_attention"]
+        # every route launches once per layer
+        assert all(v > 0 and v % cfg.num_layers == 0
+                   for v in launches.values()), launches
+        phase_s = time.perf_counter() - t_phase
+        out.update(
+            reference_s=ref_s, streams_s=streams_s, near_ties=near + near_c
+            + near_e, kill_to_first_resumed_token_ms=resume_ms,
+            kill_to_resume_dispatch_ms=dispatch_ms,
+            resume_committed=resume["committed"],
+            takeover_ms=takeover_ms, epoch_after=promoted["epoch"],
+            directory_walk=walk, infer_requests=len(rows),
+            infer_failed=failed, max_row_err=max(errs),
+            resumed_after_takeover=resumed_e,
+            spawns_after_takeover=scaler.counters["spawns"] - spawns,
+            launches=launches, drained=sorted(drains), phase_s=phase_s,
+            snapshot_loads=store.load_latest()[0] is not None)
+        print(f"phase 34(f) K7 launches on the fleet path (drain docs of "
+              f"{sorted(drains)}; b1's died with it): {launches}; no "
+              f"capture during traffic; phase 34: {phase_s:.1f} s {tag}")
+        return out, launches
+    finally:
+        for ld in loads:
+            ld.stop()
+        if manager is not None:
+            for name in manager.names():
+                manager.handle(name).kill()
+            manager.shutdown_all(drain=False, timeout_s=10.0)
+        for r in routers:
+            r.kill()
+            r.terminate(timeout_s=10.0)
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def ft_train(torch, seed, ckpt_dir, batch=None, image=None, device=None,
+             on_step=None):
+    """Phase 35's run: phase 14's ResNet-50 program at `batch` x
+    `image`^2 on one seeded batch, f32 with TF32 off, cuDNN
+    deterministic, FT_STEPS steps of `resilient_train_loop`
+    checkpointing every FT_SAVE_EVERY steps into `ckpt_dir` (resuming
+    from it when it holds a snapshot). Returns (losses of the steps this
+    process ran, the final persistables as numpy, the loop's report, the
+    kernels' launch counts). None takes FT_BATCH, FT_IMAGE, FT_DEVICE."""
+    from paddle_tpu_torch.core import flags
+    from paddle_tpu_torch.core.executor import Executor
+    from paddle_tpu_torch.core.scope import Scope
+    from paddle_tpu_torch.ops.kernels import decode_attention as da
+    from paddle_tpu_torch.ops.kernels import flash_attention as tfa
+    from paddle_tpu_torch.ops.kernels import quantized_matmul as k8
+    from paddle_tpu_torch.reliability import resilient_train_loop
+    from paddle_tpu_torch.weights import scope_to_numpy
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
+    flags.set_flag("deterministic", True)
+    batch = FT_BATCH if batch is None else batch
+    image = FT_IMAGE if image is None else image
+    device = FT_DEVICE if device is None else device
+    main, startup, _, _, loss = resnet_train_programs(seed, image)
+    exe, scope = Executor(device), Scope()
+    exe.run(startup, scope=scope)
+    if on_step is not None:
+        on_step(None)
+    rng = np.random.RandomState(seed + 35)
+    feed = {"img": resnet_images(rng, batch, image),
+            "label": rng.randint(0, 1000, (batch, 1)).astype(np.int64)}
+    for mod in (da, tfa, k8):
+        mod.reset_launch_counts()
+    losses = []
+
+    def step_cb(step, fetches):
+        losses.append(float(np.asarray(fetches[0]).reshape(-1)[0]))
+        if on_step is not None:
+            on_step(step)
+
+    report = resilient_train_loop(exe, main, lambda step: feed, [loss],
+                                  FT_STEPS, ckpt_dir,
+                                  save_every=FT_SAVE_EVERY, scope=scope,
+                                  on_step=step_cb)
+    if exe.device.type == "cuda":
+        torch.cuda.synchronize()
+    final = scope_to_numpy(scope, sorted(
+        v.name for v in main.list_vars() if v.persistable))
+    counts = {**da.launch_counts, **tfa.launch_counts, **k8.launch_counts}
+    return losses, final, report, counts
+
+
+def ft_worker(spec):
+    """The supervised worker of phase 35 (`chip_smoke.py --ft-worker
+    JSON`): prints FT-START / FT-STEP lines with wall times, trains, and
+    writes its losses, final persistables and launch counts to
+    spec["out"] (an .npz beside a .json)."""
+    import torch
+    print("FT-START " + json.dumps({"t_wall": time.time(), "pid":
+                                    os.getpid()}), flush=True)
+
+    def on_step(step):
+        if step is None:            # the program built, startup run
+            print("FT-BUILT " + json.dumps({"t_wall": time.time()}),
+                  flush=True)
+            return
+        print("FT-STEP " + json.dumps({"step": step, "t_wall":
+                                       time.time()}), flush=True)
+
+    losses, final, report, counts = ft_train(
+        torch, spec["seed"], spec["ckpt"], spec["batch"], spec["image"],
+        spec["device"], on_step=on_step)
+    np.savez(spec["out"] + ".npz", **final)
+    with open(spec["out"] + ".json", "w") as f:
+        json.dump({"losses": losses, "resumed_from": report["resumed_from"],
+                   "launches": counts,
+                   "jax_loaded": "jax" in sys.modules}, f)
+    return 0
+
+
+def _ft_lines(path, mark):
+    with open(path) as f:
+        return [json.loads(ln[len(mark):]) for ln in f
+                if ln.startswith(mark)]
+
+
+def ft_phase(torch, seed, tag):
+    """Phase 35: fault-tolerant training on the card (see the module
+    docstring). Returns the results."""
+    import shutil
+    import threading
+    from paddle_tpu_torch.reliability import Supervisor, WorkerSpec
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="pt_ft_")
+    procs, supervised = [], None
+    try:
+        # (b) the run under the supervisor, crashed at FT_CRASH_AT, in a
+        # thread: its workers' start-up overlaps (a)
+        out = os.path.join(tmp, "worker")
+        log = os.path.join(tmp, "worker.log")
+        spec = {"seed": seed, "ckpt": os.path.join(tmp, "ckpt"), "out": out,
+                "batch": FT_BATCH, "image": FT_IMAGE, "device": FT_DEVICE}
+        assert FT_CRASH_AT % FT_SAVE_EVERY == 0
+        worker = WorkerSpec(0, [sys.executable, os.path.abspath(__file__),
+                                "--ft-worker", json.dumps(spec)],
+                            env={"PT_FLAGS_fault_plan":
+                                 f"train.step:{FT_CRASH_AT}:crash"},
+                            log_path=log)
+
+        def popen(cmd, **kw):
+            procs.append(subprocess.Popen(cmd, **kw))
+            return procs[-1]
+
+        sup = Supervisor([worker], max_restarts=2, restart_window=600.0,
+                         restart_delay=0.0, drain_timeout=10.0,
+                         report_path=os.path.join(tmp, "report.json"),
+                         flight_dir=os.path.join(tmp, "flight"),
+                         handle_signals=False, popen=popen)
+        done = {}
+        supervised = threading.Thread(
+            target=lambda: done.update(report=sup.run(poll=0.05)))
+        t0 = time.perf_counter()
+        supervised.start()
+        # (a) the same run uninterrupted, in this process
+        t1 = time.perf_counter()
+        losses, want, rep, counts = ft_train(torch, seed,
+                                             os.path.join(tmp, "plain"))
+        plain_s = time.perf_counter() - t1
+        assert rep["resumed_from"] == 0 and len(losses) == FT_STEPS, rep
+        assert np.isfinite(losses).all() and losses[-1] < losses[0], losses
+        assert not any(counts.values()), counts
+        supervised.join(600)
+        assert "report" in done, "the supervised run did not finish"
+        report = done["report"]
+        supervised_s = time.perf_counter() - t0
+        w = report["workers"]["0"]
+        assert report["success"] and report["exit_code"] == 0, report
+        assert report["restarts_total"] == 1 and w["restarts"] == 1, report
+        assert w["exit_codes"] == [17, 0], w
+        assert len(w["flight_dumps"]) == 2, w
+        starts = _ft_lines(log, "FT-START ")
+        built = _ft_lines(log, "FT-BUILT ")
+        steps = _ft_lines(log, "FT-STEP ")
+        first = [s for s in steps if s["step"] == FT_CRASH_AT]
+        last_before = [s for s in steps if s["step"] == FT_CRASH_AT - 1]
+        assert len(starts) == 2 and len(first) == 1, (starts, steps)
+        restart_s = first[0]["t_wall"] - last_before[0]["t_wall"]
+        # the restart's stages: the crash, the snapshot and a new
+        # interpreter to its start; torch, the program and startup; the
+        # restore and the first (eager) step
+        stages = {"to_start_s": starts[1]["t_wall"] - last_before[0][
+                      "t_wall"],
+                  "to_built_s": built[1]["t_wall"] - starts[1]["t_wall"],
+                  "to_first_step_s": first[0]["t_wall"] - built[1][
+                      "t_wall"]}
+        with open(out + ".json") as f:
+            doc = json.load(f)
+        assert doc["resumed_from"] == FT_CRASH_AT, doc
+        assert not any(doc["launches"].values()), doc["launches"]
+        assert not doc["jax_loaded"]
+        with np.load(out + ".npz") as z:
+            got = {k: z[k] for k in z.files}
+        assert sorted(got) == sorted(want)
+        diffs = {k: float(np.abs(got[k].astype(np.float64)
+                                 - want[k].astype(np.float64)).max())
+                 for k in want if want[k].dtype.kind == "f"}
+        worst = max(diffs.values())
+        loss_diff = abs(doc["losses"][-1] - losses[-1])
+        bit_equal = all(np.array_equal(got[k], want[k]) for k in want)
+        resumed_losses = doc["losses"]
+        assert len(resumed_losses) == FT_STEPS - FT_CRASH_AT
+        assert bit_equal and resumed_losses == losses[FT_CRASH_AT:], (
+            f"resumed run differs: max |param diff| {worst:.3g}, last "
+            f"loss {doc['losses'][-1]!r} vs {losses[-1]!r}")
+        phase_s = time.perf_counter() - t_phase
+        staged = ", ".join(f"{k} {v:.2f}" for k, v in stages.items())
+        print(f"phase 35: ResNet-50 b{FT_BATCH} x {FT_IMAGE}^2, {FT_STEPS} "
+              f"steps (save_every {FT_SAVE_EVERY}): uninterrupted "
+              f"{plain_s:.1f} s; supervised with train.step:{FT_CRASH_AT}:"
+              f"crash: exit codes {w['exit_codes']}, restarts "
+              f"{report['restarts_total']}, resumed from step "
+              f"{doc['resumed_from']}, restart-to-first-step "
+              f"{restart_s:.2f} s ({staged}), "
+              f"supervised {supervised_s:.1f} s; final "
+              f"parameters and losses bit-equal to the uninterrupted run "
+              f"(max |diff| {worst:.3g}, last loss {losses[-1]:.6f}); "
+              f"flight dumps {[d['exists'] for d in w['flight_dumps']]}; "
+              f"0 table-kernel launches; phase 35: {phase_s:.1f} s {tag}")
+        return {"uninterrupted_s": plain_s, "supervised_s": supervised_s,
+                "restart_to_first_step_s": restart_s,
+                "restart_stages": stages,
+                "exit_codes": w["exit_codes"],
+                "restarts": report["restarts_total"],
+                "resumed_from": doc["resumed_from"],
+                "bit_equal": bit_equal, "max_param_diff": worst,
+                "last_loss_diff": loss_diff, "losses": losses,
+                "flight_dumps": w["flight_dumps"], "phase_s": phase_s}
+    finally:
+        if supervised is not None and supervised.is_alive():
+            sup.request_stop()
+            supervised.join(60)
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=30)
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6650,7 +7467,16 @@ def main(argv=None):
                          "serving front end: gateway, registry, hot swap, "
                          "warm start, streamed generation); print one "
                          "SERVING line")
+    ap.add_argument("--fleet", action="store_true",
+                    help="only build the kernels and run phases 34 and 35 "
+                         "(the fleet: routers, backend processes, failover, "
+                         "autoscaling; fault-tolerant training under the "
+                         "supervisor); print one FLEET line")
+    ap.add_argument("--ft-worker", default=None, metavar="JSON",
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.ft_worker is not None:
+        return ft_worker(json.loads(args.ft_worker))
     out_dir = (os.path.dirname(os.path.abspath(args.out)) if args.out
                else None)
 
@@ -6697,6 +7523,17 @@ def main(argv=None):
           f"{'built' if info['built'] else 'already built'}) {tag}")
     # the tensor-core kernels' ptxas lines and SASS
     build = build_report(info, tag)
+
+    if args.fleet:
+        out, launches = fleet_phase(torch, gen, args.seed, tag)
+        ft = ft_phase(torch, args.seed, tag)
+        print("FLEET " + json.dumps({"fleet": out, "launches": launches,
+                                     "fault_tolerant_training": ft},
+                                    default=str))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
 
     if args.serving:
         out, launches = serving_phase(torch, gen, args.seed, tag)
@@ -7205,6 +8042,19 @@ def main(argv=None):
         kernels[k]["launches_by_path"] = {first: kernels[k]["launches"],
                                           "gateway": n}
         kernels[k]["launches"] += n
+
+    # 34. the fleet: K7's launches in the backend processes, read from
+    # their drain documents (each backend zeroes its counts after its
+    # warm-up)
+    results["fleet"], fleet_launches = fleet_phase(torch, gen, args.seed,
+                                                   tag)
+    for k, n in fleet_launches.items():
+        kernels[k]["launches_by_path"]["fleet"] = n
+        kernels[k]["launches"] += n
+    torch.cuda.empty_cache()
+
+    # 35. fault-tolerant training, which launches none of the kernels
+    results["fault_tolerant_training"] = ft_phase(torch, args.seed, tag)
 
     results["total_s"] = time.perf_counter() - t_start
     print(f"total: {results['total_s']:.1f} s {tag}")

@@ -52,6 +52,7 @@ import zlib
 
 from paddle_tpu_torch.analysis.concurrency import make_lock
 from paddle_tpu_torch.core import flags as _flags
+from paddle_tpu_torch.reliability.faults import FaultError, inject_point
 
 logger = logging.getLogger("paddle_tpu_torch.compile_cache")
 
@@ -199,12 +200,15 @@ class CompileCache:
         """(entry | None, miss reason)."""
         path = self._entry_path(key_hash)
         try:
+            # chaos choke point: a raise models a torn / unreadable cache
+            # volume — the lookup degrades to a clean miss
+            inject_point("compile_cache.read", tag=key_hash[:8])
             with open(path, "rb") as f:
                 head = f.readline()
                 body = f.read()
         except FileNotFoundError:
             return None, "absent"
-        except OSError as e:
+        except (OSError, FaultError) as e:
             return None, f"io_error:{type(e).__name__}"
         try:
             header = json.loads(head)
@@ -261,10 +265,13 @@ class CompileCache:
         path = self._entry_path(key_hash)
         tmp = f"{path}.tmp-{os.getpid()}"
         try:
+            # chaos choke point: a raise models a full disk / torn write —
+            # a clean reject, the temporary file removed
+            inject_point("compile_cache.write", tag=key_hash[:8])
             with open(tmp, "wb") as f:
                 f.write(header + b"\n" + body)
             os.replace(tmp, path)
-        except OSError as e:
+        except (OSError, FaultError) as e:
             if os.path.exists(tmp):
                 os.remove(tmp)
             event, reason = "reject", f"io_error:{type(e).__name__}"

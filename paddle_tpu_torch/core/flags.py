@@ -8,8 +8,10 @@ check_nan_inf, executor_log_level, verify_program and deterministic (the
 Executor), default_dtype (static parameters), amp_dtype (`amp`), the
 profile_* flags (`observability.profile`), the compile_cache_* flags
 (`core.compile_cache`), trace_sample_every (`serving.gateway`), the
-slo_* flags (`observability.slo` and `observability.health`) and
-plan_hbm_bytes and plan_fusion_discount (`analysis.planner`). The JAX package's compile_cache_jax_cache has no
+slo_* flags (`observability.slo` and `observability.health`),
+plan_hbm_bytes and plan_fusion_discount (`analysis.planner`), fault_plan
+(`reliability.faults`), watchdog_deadline_s and train_numerics
+(`reliability.training`) and the fleet_* flags (`fleet`). The JAX package's compile_cache_jax_cache has no
 counterpart: it plumbs the cache directory into jax's own compilation
 cache, and a captured CUDA graph has no compiler cache beneath it. The
 others name the module of a later slice that will read them (`unread`);
@@ -77,8 +79,6 @@ def all_flags():
 _PARITY = "kept for API parity, no counterpart in the port"
 _ITEM15_PLAN = "read by the planner's sharding half, ROADMAP Queue 1 " \
                "item 15"
-_ITEM14 = "read by the reliability / SLO / fleet services, ROADMAP " \
-          "Queue 1 item 14"
 _ITEM15 = "read by the parameter-server client, ROADMAP Queue 1 item 15"
 _ITEM17 = "read by analysis.concurrency, ROADMAP Queue 1 item 17"
 
@@ -132,9 +132,8 @@ define_flag("amp_dtype", "bfloat16",
             "low-precision dtype of amp.auto_cast, amp.decorate and "
             "amp.rewrite_program when the caller names none")
 define_flag("fault_plan", "",
-            "not read yet: the seeded fault-injection plan "
-            "(site[@hits]:action; ...) that arms the inject_point "
-            "sites", unread=_ITEM14)
+            "the seeded fault-injection plan (site[@hits]:action; ...) "
+            "armed on the first get_fault_plan()")
 define_flag("ps_retry_attempts", 5,
             "not read yet: PS client RPC retry budget per verb "
             "(rpc_client.h FLAGS_rpc_retry_times)", unread=_ITEM15)
@@ -152,8 +151,8 @@ define_flag("ps_failover_after_s", 5.0,
             "before the PS client fails over to its backup",
             unread=_ITEM15)
 define_flag("watchdog_deadline_s", 0.0,
-            "not read yet: the hung-step watchdog's deadline around "
-            "resilient_train_loop steps (0 disables)", unread=_ITEM14)
+            "the hung-step watchdog's deadline around "
+            "resilient_train_loop steps (0 disables)")
 define_flag("slo_eval_interval_s", 0.5,
             "SLO engine background evaluation period in "
             "seconds")
@@ -170,8 +169,8 @@ define_flag("slo_degraded_score", 0.4,
             "health score at or above which the verdict "
             "is 'degraded'")
 define_flag("train_numerics", True,
-            "not read yet: per-step training numerics telemetry of "
-            "resilient_train_loop", unread=_ITEM14)
+            "per-step training numerics telemetry of "
+            "resilient_train_loop")
 define_flag("concurrency_check", False,
             "not read yet: arm the lock-order and guarded-by checks of "
             "make_lock() sites", unread=_ITEM17)
@@ -179,35 +178,29 @@ define_flag("trace_sample_every", 8,
             "the gateway traces 1 in N requests that "
             "carry no trace context")
 define_flag("fleet_heartbeat_interval_s", 0.5,
-            "not read yet: backend -> router heartbeat period",
-            unread=_ITEM14)
+            "backend -> router heartbeat period")
 define_flag("fleet_suspect_after_s", 2.0,
-            "not read yet: heartbeat age after which a backend is "
-            "SUSPECT", unread=_ITEM14)
+            "heartbeat age after which a backend is SUSPECT")
 define_flag("fleet_lost_after_s", 6.0,
-            "not read yet: heartbeat age after which a backend is LOST "
-            "and evicted", unread=_ITEM14)
+            "heartbeat age after which a backend is LOST and evicted")
 define_flag("fleet_poll_interval_s", 1.0,
-            "not read yet: router poll period for each backend's "
-            "/healthz and /stats", unread=_ITEM14)
+            "router poll period for each backend's /healthz and "
+            "/stats")
 define_flag("fleet_reroute_attempts", 4,
-            "not read yet: backends an idempotent request is tried "
-            "against before it fails", unread=_ITEM14)
+            "backends an idempotent request is tried against before "
+            "it fails")
 define_flag("fleet_spawn_timeout_s", 180.0,
-            "not read yet: budget for a spawned backend to print its "
-            "FLEET-READY line", unread=_ITEM14)
+            "budget for a spawned backend to print its FLEET-READY "
+            "line")
 define_flag("fleet_scale_cooldown_s", 5.0,
-            "not read yet: autoscaler's minimum gap between scaling "
-            "actions", unread=_ITEM14)
+            "autoscaler's minimum gap between scaling actions")
 define_flag("fleet_quiet_after_s", 30.0,
-            "not read yet: quiet time after which the autoscaler "
-            "retires one backend", unread=_ITEM14)
+            "quiet time after which the autoscaler retires one "
+            "backend")
 define_flag("fleet_min_backends", 1,
-            "not read yet: autoscaler floor of live backends",
-            unread=_ITEM14)
+            "autoscaler floor of live backends")
 define_flag("fleet_max_backends", 8,
-            "not read yet: autoscaler ceiling of live backends",
-            unread=_ITEM14)
+            "autoscaler ceiling of live backends")
 define_flag("plan_hbm_bytes", 0.0,
             "device memory budget (bytes) for the serving fit gate; 0 "
             "disables. InferenceServer aborts startup with a "

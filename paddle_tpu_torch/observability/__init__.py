@@ -11,13 +11,17 @@ port has:
 * `recorder` — the flight-recorder ring flushed into crash dumps;
 * `profile` — the port's counterpart of `jax.jit`: one captured CUDA
   graph per signature (`profiled_graph`), the CompileLedger with
-  recompile forensics, runtime attribution and MFU, the memory ledger.
-
-The JAX package's `slo` and `health` modules wait for ROADMAP Queue 1
-item 14.
+  recompile forensics, runtime attribution and MFU, the memory ledger;
+* `slo` — burn-rate objectives over windowed views of the registry
+  (`SloEngine`, the alerts the fleet's autoscaler scales on);
+* `health` — the composed verdict `/healthz` serves (`HealthScorer`,
+  and `router_pair_factor` for a fleet router's HA pair).
 """
 from paddle_tpu_torch.observability import (  # noqa: F401
-    metrics, profile, recorder, trace,
+    health, metrics, profile, recorder, slo, trace,
+)
+from paddle_tpu_torch.observability.health import (  # noqa: F401
+    HealthScorer,
 )
 from paddle_tpu_torch.observability.metrics import (  # noqa: F401
     Histogram, MetricsRegistry, registry,
@@ -29,6 +33,10 @@ from paddle_tpu_torch.observability.profile import (  # noqa: F401
 )
 from paddle_tpu_torch.observability.recorder import (  # noqa: F401
     FlightRecorder, default_dump_path, flight_recorder,
+)
+from paddle_tpu_torch.observability.slo import (  # noqa: F401
+    BurnRule, Selector, SloEngine, SloSpec, WindowedView,
+    default_serving_specs,
 )
 from paddle_tpu_torch.observability.trace import (  # noqa: F401
     Span, SpanContext, Tracer, attach, context_from_dict,

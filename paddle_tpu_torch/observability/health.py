@@ -37,7 +37,8 @@ from paddle_tpu_torch.core import flags as _flags
 from paddle_tpu_torch.observability import metrics as obs_metrics
 from paddle_tpu_torch.observability.slo import Selector, WindowedView
 
-__all__ = ["HealthScorer", "replica_score", "verdict_of", "VERDICTS"]
+__all__ = ["HealthScorer", "replica_score", "verdict_of", "VERDICTS",
+           "router_pair_factor"]
 
 VERDICTS = ("healthy", "degraded", "unhealthy")
 
@@ -58,6 +59,16 @@ def verdict_of(score, healthy_at, degraded_at):
 
 
 _WORST = {v: i for i, v in enumerate(VERDICTS)}
+
+
+def router_pair_factor(peer_ages_s, fresh_s=5.0):
+    """The HA-pair factor of a fleet router's /healthz: an active router
+    whose standby beat within `fresh_s` is "paired" (1.0); one with no
+    fresh peer is "unpaired" (0.5 — serving today, one process death
+    from losing the front tier)."""
+    if any(a <= float(fresh_s) for a in peer_ages_s):
+        return 1.0, "paired"
+    return 0.5, "unpaired"
 
 
 def _worse(a, b):

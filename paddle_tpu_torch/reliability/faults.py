@@ -1,19 +1,23 @@
 """Deterministic fault injection.
 
-Counterpart of paddle_tpu/reliability/faults.py for the choke points the
-port has so far: the serving pool's `serving.run_batch`, the gateway's
-`gateway.*` sites (serving/gateway.py, serving/registry.py) and its
-stream writes, the wire client's `fleet.journal_replay`, the
-`generation.*` sites of the generation server (serving/generation.py)
-and of the paged engine's spill tier and state documents
-(ops/generation.py), the Predictor's `predictor.run` and the params
-files' `io.*` sites (inference/, static/io.py). Named
-`inject_point()` calls sit on the live serving path, inert until a
-`FaultPlan` is armed (`set_fault_plan` / the `fault_plan` context
-manager); then each hit consults the plan and may raise, delay, hang or
-NaN-poison, deterministically, so a chaos run replays bit-for-bit. The
-reference also arms a plan from PT_FLAGS_fault_plan; the port arms plans
-in code only.
+Counterpart of paddle_tpu/reliability/faults.py: the serving pool's
+`serving.run_batch`, the gateway's `gateway.*` sites (serving/gateway.py,
+serving/registry.py) and its stream writes, the wire client's
+`fleet.journal_replay`, the `generation.*` sites of the generation
+server (serving/generation.py) and of the paged engine's spill tier and
+state documents (ops/generation.py), the Predictor's `predictor.run`,
+the params files' `io.*` sites (inference/, static/io.py), the compile
+cache's `compile_cache.*` (core/compile_cache.py), the checkpoints'
+`checkpoint.*` and the train loop's `train.step` (reliability/), and
+the fleet's `fleet.*` (fleet/). Named `inject_point()` calls sit on the
+live paths, inert until a `FaultPlan` is armed — in code
+(`set_fault_plan` / the `fault_plan` context manager) or from
+PT_FLAGS_fault_plan on the first `get_fault_plan()`, which is how a
+spawned backend or a supervised worker gets its chaos plan; then each
+hit consults the plan and may raise, delay, hang, NaN-poison or crash,
+deterministically, so a chaos run replays bit-for-bit. The PS client's
+`ps.transport` sites wait for the parameter server (ROADMAP Queue 1
+item 15).
 
 Plan grammar::
 
@@ -34,11 +38,13 @@ from paddle_tpu_torch.analysis.concurrency import make_lock
 import time
 import zlib
 
+from paddle_tpu_torch.core import flags as _flags
 from paddle_tpu_torch.core.enforce import enforce
 
 __all__ = [
     "FaultError", "FaultPlanError", "FaultPlan", "KNOWN_SITES",
     "inject_point", "set_fault_plan", "get_fault_plan", "fault_plan",
+    "reset_to_flags",
 ]
 
 #: Every registered choke point of the port (the test suite checks that
@@ -121,6 +127,53 @@ KNOWN_SITES = (
                              #   and its rename: a raise leaves the
                              #   previous file intact (atomic publish)
     "io.load_persistables",  # static/io.py  before a params file is read
+    "checkpoint.write",      # reliability/checkpoint.py  after the
+                             #   snapshot and its manifest are on disk,
+                             #   BEFORE the publish: a raise leaves only
+                             #   the inert .tmp
+    "checkpoint.read",       # reliability/checkpoint.py  pre-restore
+    "train.step",            # reliability/training.py  per completed
+                             #   step (tag: steps done): `crash` at hit N
+                             #   is the supervised-restart drill
+    "compile_cache.read",    # core/compile_cache.py  per entry read
+                             #   (tag: key-hash prefix): a raise is a
+                             #   torn cache volume — a clean miss and a
+                             #   capture, never a crash or a wrong hit
+    "compile_cache.write",   # core/compile_cache.py  per entry publish:
+                             #   a raise is a full disk — a clean reject,
+                             #   the temporary file removed
+    "fleet.dial",            # fleet/router.py  before each backend
+                             #   connect (tag: backend): the router
+                             #   re-routes, the client never sees it
+    "fleet.forward",         # fleet/router.py  before each relay send
+                             #   (tag: backend): idempotent requests
+                             #   replay on another backend, streams fail
+                             #   over through the journal
+    "fleet.heartbeat",       # fleet/router.py  per received beat (tag:
+                             #   backend): a beat lost in the network —
+                             #   dropped silently; enough of them walk
+                             #   the liveness FSM to SUSPECT -> LOST
+    "fleet.spawn",           # fleet/backend.py  FleetManager.spawn,
+                             #   after the placement vet, before the
+                             #   process exists: the autoscaler absorbs
+                             #   it (counter + timeline)
+    "fleet.stream_resume",   # fleet/router.py  before a dead stream
+                             #   re-dispatches to a peer (tag: peer): the
+                             #   journal survives, the next peer resumes
+    "fleet.takeover",        # fleet/router.py  inside promote(), before
+                             #   the standby takes the active role: a
+                             #   raise aborts THIS attempt, the monitor
+                             #   retries
+    "fleet.adopt",           # fleet/discovery.py  per backend re-adopted
+                             #   from a snapshot: a raise skips THAT
+                             #   backend — it rejoins on its next beat
+    "fleet.snapshot_write",  # fleet/discovery.py  directory snapshot,
+                             #   doc on disk, manifest not yet published:
+                             #   the previous snapshot stays the newest
+                             #   valid one
+    "fleet.snapshot_read",   # fleet/discovery.py  per validated snapshot
+                             #   read: the walk falls back to the next
+                             #   older snapshot
 )
 
 _DEFAULT_HANG_S = 30.0
@@ -313,7 +366,8 @@ def _nan_poison(value):
 
 
 # --- process-global active plan --------------------------------------
-_active = None
+_UNSET = object()
+_active = _UNSET
 _active_lock = make_lock("faults.active")
 
 
@@ -328,8 +382,24 @@ def set_fault_plan(plan):
     return plan
 
 
+def reset_to_flags():
+    """Forget the armed plan: the next `get_fault_plan()` re-reads
+    PT_FLAGS_fault_plan."""
+    global _active
+    with _active_lock:
+        _active = _UNSET
+
+
 def get_fault_plan():
-    """The armed plan, or None."""
+    """The armed plan (or None), armed from PT_FLAGS_fault_plan on first
+    use, so a child process gets its chaos plan through its environment
+    alone."""
+    global _active
+    if _active is _UNSET:
+        with _active_lock:
+            if _active is _UNSET:
+                spec = _flags.get_flag("fault_plan")
+                _active = FaultPlan(spec) if spec else None
     return _active
 
 

@@ -408,11 +408,11 @@ def test_flags_are_the_references():
     for name in ref:
         assert type(tflags._REGISTRY[name].default) is type(
             jflags._REGISTRY[name].default), name
-    tflags._WARNED.discard("fleet_min_backends")
-    with pytest.warns(UserWarning, match="fleet_min_backends"):
-        tflags.set_flag("fleet_min_backends", 3)
-    assert tflags.get_flag("fleet_min_backends") == 3
-    tflags.set_flag("fleet_min_backends", 1)
+    tflags._WARNED.discard("ps_retry_attempts")
+    with pytest.warns(UserWarning, match="ps_retry_attempts"):
+        tflags.set_flag("ps_retry_attempts", 3)
+    assert tflags.get_flag("ps_retry_attempts") == 3
+    tflags.set_flag("ps_retry_attempts", 5)
 
 
 #: the flags a module of the port reads; every other flag names why not
@@ -422,7 +422,13 @@ READ_FLAGS = {"check_nan_inf", "executor_log_level", "verify_program",
               "slo_availability_objective", "slo_latency_objective",
               "slo_wire_p99_threshold_s", "slo_healthy_score",
               "slo_degraded_score", "plan_hbm_bytes",
-              "plan_fusion_discount"}
+              "plan_fusion_discount", "fault_plan", "watchdog_deadline_s",
+              "train_numerics", "fleet_heartbeat_interval_s",
+              "fleet_suspect_after_s", "fleet_lost_after_s",
+              "fleet_poll_interval_s", "fleet_reroute_attempts",
+              "fleet_spawn_timeout_s", "fleet_scale_cooldown_s",
+              "fleet_quiet_after_s", "fleet_min_backends",
+              "fleet_max_backends"}
 
 
 def test_unread_flags_warn_once_and_read_flags_take_effect(monkeypatch):
@@ -437,15 +443,17 @@ def test_unread_flags_warn_once_and_read_flags_take_effect(monkeypatch):
 
     # an unread flag set away from its default warns once, from the
     # environment or from set_flag; its default value does not warn
-    tflags._WARNED.discard("watchdog_deadline_s")
-    with pytest.warns(UserWarning, match="watchdog_deadline_s.*no effect"):
-        tflags.set_flag("watchdog_deadline_s", 0.5)
+    tflags._WARNED.discard("ps_retry_deadline_s")
+    with pytest.warns(UserWarning, match="ps_retry_deadline_s.*no effect"):
+        tflags.set_flag("ps_retry_deadline_s", 0.5)
     import warnings
     with warnings.catch_warnings():
         warnings.simplefilter("error")
-        tflags.set_flag("watchdog_deadline_s", 0.6)    # once only
-        tflags.set_flag("fleet_min_backends", 1)       # its default
-        tflags.set_flag("watchdog_deadline_s", 0.0)
+        tflags.set_flag("ps_retry_deadline_s", 0.6)    # once only
+        tflags.set_flag("ps_retry_attempts", 5)        # its default
+        tflags.set_flag("ps_retry_deadline_s", 30.0)
+        tflags.set_flag("fleet_min_backends", 3)       # read: no warning
+        tflags.set_flag("fleet_min_backends", 1)
     monkeypatch.setenv("PT_FLAGS_probe_unread", "3")
     with pytest.warns(UserWarning, match="probe_unread"):
         tflags.define_flag("probe_unread", 1, "not read: probe",

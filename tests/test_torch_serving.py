@@ -250,9 +250,15 @@ def test_every_known_site_has_a_call_site():
     from paddle_tpu_torch.serving import registry as treg
     from paddle_tpu_torch.serving import wire as twire
     from paddle_tpu_torch.static import io as tio
+    from paddle_tpu_torch.core import compile_cache as tcc
+    from paddle_tpu_torch.fleet import backend as tfb
+    from paddle_tpu_torch.fleet import discovery as tfd
+    from paddle_tpu_torch.fleet import router as tfr
+    from paddle_tpu_torch.reliability import checkpoint as tck
+    from paddle_tpu_torch.reliability import training as ttr
     src = "".join(pathlib.Path(m.__file__).read_text()
                   for m in (tserve, tgen, tinf, tio, tpool, tgw, treg,
-                            twire))
+                            twire, tcc, tfb, tfd, tfr, tck, ttr))
     for site in KNOWN_SITES:
         assert f'inject_point("{site}"' in src, site
 
