@@ -8,6 +8,7 @@
     python3 chip_smoke.py --capture
     python3 chip_smoke.py --serving
     python3 chip_smoke.py --fleet
+    python3 chip_smoke.py --parallel
 
 Phases, each of which raises (exit code != 0) when its check fails:
 
@@ -463,6 +464,25 @@ Phases, each of which raises (exit code != 0) when its check fails:
     of the kernels line launches in (a) or in the worker. `--fleet`
     builds the kernels and runs phases 34 and 35 alone, then prints one
     FLEET line and the device line.
+36-38. Parallelism over torch.distributed: one pool of RANK_WORLD = 4
+    rank processes (`chip_smoke.py --rank-worker`, started together) in
+    one gloo group on the card; each loads the kernel library phase 1
+    built and reports that it holds no jax. First a probe that gloo
+    takes CUDA tensors for every collective ops/collective.py hands it
+    unstaged (it stages only send / recv, through pinned host buffers,
+    and counts them).
+    36 (`par_data_parallel`): ResNet-50 over CompiledProgram dp=2, the
+    same step at world size 1 over NCCL inside a captured graph, and
+    the tp fc programs over tp=4. 37 (`par_sequence_expert`): the f32
+    flash pair against attention_reference at a ring chunk's shapes
+    (with the lse cotangent) and Ulysses' (`par_flash_cases`), the
+    GPT-2-small-wide causal LM at T=8192 over sp=4 under ring_flash and
+    ulysses_flash (K1-K4 on every rank), switch_moe over ep=4. 38
+    (`par_pipeline`): BERT-base's encoder over pp=4 under 1f1b and
+    interleaved (v=3). Every check is against a single-process run on
+    the card from the same numpy-seeded weights (PAR_TOL). `--parallel`
+    builds the kernels and runs phases 36-38 alone, then prints one
+    PARALLEL line and the device line.
 
 Then a `{"kernels": [...]}` line and, last, the device line
 `{"ok": true, "device": {...}}`. Every number is printed beside the
@@ -481,7 +501,9 @@ lines those of its three serving runs (phases 4a and 4b) together; phase
 `launches_by_path` keeps them apart ("in_process" or "predictor", and
 "gateway"); phase 34's backend processes add K7's launches under
 "fleet" (each backend zeroes its counts after its warm-up and reports
-them in its drain document).
+them in its drain document); phases 37-38's ranks add the flash lines'
+launches under "parallel" (each rank zeroes its counts before a step
+and reports them after it).
 
 `--latency [ROOT]` runs none of the phases: it measures, with the port
 found under ROOT (default: this checkout), one prompt's prefill latency
@@ -1665,6 +1687,12 @@ def flash_case(torch, tfa, dev, dtype, b, t, n, d, tk=None, lengths=None,
                      "dq": dq, "dk": dk, "dv": dv}
         if mask_grad:
             res[side]["dmask"] = m.grad
+    return _case_errors(torch, res), launched
+
+
+def _case_errors(torch, res):
+    """{output: (max abs err, relative err)} of res["kernel"] against
+    res["plain"]; fails on a non-finite kernel output."""
     torch.cuda.synchronize()
     out = {}
     for key, want in res["plain"].items():
@@ -1672,7 +1700,51 @@ def flash_case(torch, tfa, dev, dtype, b, t, n, d, tk=None, lengths=None,
         diff = float((got - want).abs().max())
         assert bool(torch.isfinite(got).all()), f"{key}: non-finite values"
         out[key] = (diff, diff / max(float(want.abs().max()), 1e-30))
-    return out, launched
+    return out
+
+
+def flash_lse_case(torch, tfa, dev, b, tq, tk, n, d, causal, fused,
+                   seed=0):
+    """A ring step's use of the f32 pair: `flash_attention_lse` of q
+    against one K/V chunk, and one backward with cotangents on both o
+    and the lse (which the kernel folds into delta), against
+    `attention_reference(..., return_lse=True)` on the same inputs. With
+    `fused` (tq == tk) q, k, v are views of one [B, T, 3, N, D] leaf, as
+    the LM's projections give a rank's own chunk; else separate tensors,
+    as the received K/V chunks are. Returns ({output: (max abs err,
+    relative err)}, {kernel: launches of the kernel side})."""
+    f32 = torch.float32
+    ins = attn_inputs(torch, dev, f32, b, tq, tk, n, d, None, seed)
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    dlse = torch.randn((b, tq, n, 1), generator=g, device=dev)
+    res, launched = {}, {}
+    for side in ("kernel", "plain"):
+        if fused:
+            leaf = torch.stack([ins[key] for key in "qkv"], dim=2) \
+                .detach().requires_grad_()
+            q, k, v = leaf[:, :, 0], leaf[:, :, 1], leaf[:, :, 2]
+        else:
+            q, k, v = (ins[key].detach().clone().requires_grad_()
+                       for key in "qkv")
+        if side == "kernel":
+            before = dict(tfa.launch_counts)
+            o, lse = tfa.flash_attention_lse(q, k, v, causal=causal)
+        else:
+            o, lse = tfa.attention_reference(q, k, v, None, causal,
+                                             return_lse=True)
+        ((o * ins["dout"]).sum() + (lse * dlse).sum()).backward()
+        if side == "kernel":
+            launched = {kn: tfa.launch_counts[kn] - before[kn]
+                        for kn in tfa.launch_counts
+                        if tfa.launch_counts[kn] != before[kn]}
+        if fused:
+            dq, dk, dv = leaf.grad[:, :, 0], leaf.grad[:, :, 1], \
+                leaf.grad[:, :, 2]
+        else:
+            dq, dk, dv = q.grad, k.grad, v.grad
+        res[side] = {"o": o.detach(), "lse": lse.detach(), "dq": dq,
+                     "dk": dk, "dv": dv}
+    return _case_errors(torch, res), launched
 
 
 #: the kernels whose ptxas lines and SASS the build report checks: mangled
@@ -5048,6 +5120,10 @@ def misc_op_cases(seed, w=MISC_WIDTHS):
         case("fused_fc_elementwise_layernorm",
              {"X": f(b, 6), "W": f(6, 8), "Y": f(b, 8), "Scale": f(8),
               "Bias1": f(8)}, {"epsilon": 1e-5}, ["X", "W", "Y"]),
+        case("switch_moe", {"X": f(b, 16), "GateW": f(16, 4),
+                            "WIn": f(4, 16, 32) * 0.3,
+                            "WOut": f(4, 32, 16) * 0.3},
+             {"capacity_factor": 1.25}, ["X", "GateW", "WIn", "WOut"]),
         case("fusion_lstm", {"X": f(rb, t, d), "WeightX": f(d, 4 * h) * 0.1,
                              "WeightH": f(h, 4 * h) * 0.1,
                              "Bias": f(1, 4 * h) * 0.1},
@@ -7435,7 +7511,1021 @@ def ft_phase(torch, seed, tag):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# 36-38. parallelism over torch.distributed: the rank pool
+# ---------------------------------------------------------------------------
+#: the rank pool: 4 worker processes (`chip_smoke.py --rank-worker`) in one
+#: gloo process group on the one card (NCCL refuses two ranks on one
+#: device)
+RANK_WORLD = 4
+RANK_TIMEOUT_S = 240
+#: phase 36(a): ResNet-50 (phase 14's program) data parallel over dp=2
+PAR_RESNET = dict(batch=32, image=224, steps=2)
+#: and its float64 check (dp=2 and per-rank BN against one process)
+PAR_RESNET_F64 = dict(batch=4, image=64, steps=2)
+#: phase 36(c): tests/test_parallel.py's tp fc programs at these widths
+PAR_TP = dict(batch=64, d_in=1024, hidden=4096, classes=16, steps=3)
+#: phase 37(a): tests/test_long_context_training.py's causal LM at
+#: GPT-2-small widths, B=1, T=8192 over sp=4
+PAR_LM = dict(vocab=50257, hidden=768, heads=12, layers=12, batch=1,
+              seq=8192)
+#: phase 37(b): switch_moe over ep=4
+PAR_MOE = dict(n=4096, d=768, h=3072, e=8)
+#: phase 38: BERT-base's encoder over pp=4, M microbatches
+PAR_BERT = dict(layers=12, micro=8, mb_batch=2, seq=512, virtual=3)
+#: gates. Losses: relative; gradients: max |got - want| over max |want|
+#: (each tensor; the f32 ring / Ulysses / pipeline sums reorder the
+#: single-process step's); ResNet-50 over dp=2: the first loss and the
+#: first update's error norm against the update's norm, then every
+#: later loss and the final parameters' error norm against the whole
+#: run's update norm, looser (cuDNN picks its algorithms per batch size
+#: and f32 ReLU masks flip, so the steps drift apart), exact in float64
+PAR_TOL = dict(resnet_loss=1e-5, resnet_update=2e-2, resnet_later_loss=1e-2,
+               resnet_final=5e-2, resnet64=1e-9,
+               nccl_loss=1e-5,
+               tp_loss=1e-5, tp_sum=1e-5, lm_loss=1e-5, lm_grad=1e-3,
+               moe=1e-4, bert_loss=1e-5, bert_grad=1e-3)
+
+
+def rank_worker_main(argv):
+    """`chip_smoke.py --rank-worker ...`: one rank of the pool."""
+    from paddle_tpu_torch.parallel.ranks import worker
+    return worker(argv)
+
+
+def _rank_setup(torch, ctx):
+    """Every rank function's first step: TF32 off, the kernel library
+    phase 1 built loaded (no rank builds), the counters at 0."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if ctx.device.startswith("cuda"):
+        from paddle_tpu_torch.ops.kernels import _build
+        assert os.path.exists(_build.library_path()), (
+            "the kernel library is not built: phase 1 builds it")
+        _build.load_library()
+    from paddle_tpu_torch.ops import collective
+    from paddle_tpu_torch.ops.kernels import flash_attention as tfa
+    tfa.reset_launch_counts()
+    collective.reset_staged()
+
+
+def _sync(torch, device):
+    if str(device).startswith("cuda"):
+        torch.cuda.synchronize(device)
+
+
+def _flash_launches(tfa):
+    return {k: int(tfa.launch_counts.get(k, 0)) for k in FLASH_KERNELS}
+
+
+#: the collectives the probe tries on CUDA tensors over gloo: those
+#: ops/collective.py hands gloo as they are. Not send / recv (its
+#: GLOO_STAGED): gloo's send of a device pointer aborts the rank process
+#: ("writev: Bad address"), which this probe saw on the card when it
+#: tried it in a pool of its own.
+GLOO_PROBE_OPS = ("all_reduce", "broadcast", "all_gather", "reduce_scatter",
+                  "all_to_all")
+
+
+def rank_probe_op(ctx, op):
+    """Try one collective on CUDA tensors over gloo: True, or the
+    exception's name when gloo refuses it."""
+    import torch
+    import torch.distributed as dist
+    x = torch.ones(4, device=ctx.device)
+    fns = {
+        "all_reduce": lambda: dist.all_reduce(x.clone()),
+        "broadcast": lambda: dist.broadcast(x.clone(), 0),
+        "all_gather": lambda: dist.all_gather(
+            [torch.empty_like(x) for _ in range(ctx.world)], x),
+        "reduce_scatter": lambda: dist.reduce_scatter_tensor(
+            torch.empty(4 // ctx.world, device=ctx.device), x),
+        "all_to_all": lambda: dist.all_to_all_single(torch.empty_like(x),
+                                                     x)}
+
+    try:
+        fns[op]()
+        torch.cuda.synchronize()
+        return True
+    except Exception as e:                 # the probe records a refusal
+        return f"refused ({type(e).__name__})"
+
+
+def gloo_cuda_probe(pool, tag):
+    """Which collectives gloo takes CUDA tensors for on this card's
+    torch (GLOO_PROBE_OPS, on the pool's ranks): {op: True |
+    "refused (...)"}. Fails unless gloo takes every one that
+    ops/collective.py does not stage."""
+    from paddle_tpu_torch.ops.collective import GLOO_STAGED
+    out = {}
+    for op in GLOO_PROBE_OPS:
+        got = pool.run(__file__, "rank_probe_op", op)
+        out[op] = got[0] if all(g == got[0] for g in got) else got
+    print(f"gloo on CUDA tensors (torch's own support; ops/collective.py "
+          f"stages {sorted(GLOO_STAGED)} only): {out} {tag}")
+    assert not set(GLOO_PROBE_OPS) & GLOO_STAGED, GLOO_STAGED
+    refused = {op: r for op, r in out.items() if r is not True}
+    assert not refused, f"gloo refuses CUDA tensors unstaged: {refused}"
+    return out
+
+
+# -- 36. data parallel ------------------------------------------------------
+def _par_state_file(state, path):
+    np.savez(path, **state)
+    return path
+
+
+def _load_npz(path):
+    with np.load(path) as f:
+        return {k: f[k] for k in f.files}
+
+
+def _resnet_run(torch, main, loss, prog, state, feeds, device, params):
+    """Run `prog` (main or a CompiledProgram of it) from `state` over the
+    numpy `feeds` (img{i}, label{i}) under deterministic cuDNN: the
+    losses, each step's wall ms, and `params` after the first and the
+    last step."""
+    from paddle_tpu_torch.core import flags
+    from paddle_tpu_torch.core.executor import Executor
+    from paddle_tpu_torch.core.scope import Scope
+    from paddle_tpu_torch.weights import scope_from_jax, scope_to_numpy
+    scope = scope_from_jax(state, Scope(), device, program=main)
+    exe = Executor(device)
+    steps = len([k for k in feeds if k.startswith("img")])
+    losses, walls, first = [], [], None
+    flags.set_flag("deterministic", True)
+    try:
+        for i in range(steps):
+            t0 = time.perf_counter()
+            lv, = exe.run(prog, feed={"img": feeds[f"img{i}"],
+                                      "label": feeds[f"label{i}"]},
+                          fetch_list=[loss], scope=scope)
+            walls.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(np.asarray(lv).reshape(-1)[0]))
+            if i == 0:
+                first = scope_to_numpy(scope, params)
+    finally:
+        flags.set_flag("deterministic", False)
+    return losses, walls, first, scope_to_numpy(scope, params)
+
+
+def _resnet_dp_programs(image, f64):
+    main, _, _, _, loss = resnet_train_programs(0, image)
+    params = sorted(v.name for v in main.list_vars()
+                    if v.desc.is_parameter)
+    if f64:
+        import torch
+        main = widened(torch, main)
+    return main, loss, params
+
+
+@contextlib.contextmanager
+def _per_rank_batch_norm():
+    """36(a)'s control: CompiledProgram runs a training batch_norm as
+    sync_batch_norm; inside this block the rank process's op registry
+    maps that name to batch_norm, so each rank normalizes its shard by
+    the shard's own moments."""
+    from paddle_tpu_torch.core import registry
+    plain = registry.get_op("batch_norm")
+    saved = registry.get_op("sync_batch_norm")
+    registry._OPS["sync_batch_norm"] = plain
+    try:
+        yield
+    finally:
+        registry._OPS["sync_batch_norm"] = saved
+
+
+def rank_resnet_dp(ctx, state_path, feeds_path, sync_bn, image, f64):
+    """36(a): ResNet-50 training through CompiledProgram over dp=2
+    (ranks 0 and 1; ranks 2 and 3 join the group's making and wait);
+    rank 0 returns the losses, the step walls and the parameters after
+    the first and the last step."""
+    import torch
+    from paddle_tpu_torch.ops import collective
+    from paddle_tpu_torch.parallel import CompiledProgram, make_mesh
+    _rank_setup(torch, ctx)
+    mesh = make_mesh({"dp": 2}, device=ctx.device, ranks=[0, 1])
+    if mesh is None:
+        return None
+    main, loss, params = _resnet_dp_programs(image, f64)
+    state = _load_npz(state_path)
+    if f64:
+        state = widen_state(state)
+    prog = CompiledProgram(main).with_data_parallel(loss_name=loss,
+                                                    mesh=mesh)
+    with contextlib.ExitStack() as stack:
+        if not sync_bn:
+            stack.enter_context(_per_rank_batch_norm())
+        losses, walls, first, last = _resnet_run(
+            torch, main, loss, prog, state, _load_npz(feeds_path),
+            ctx.device, params)
+    return {"losses": losses, "step_ms": walls,
+            "first": first if ctx.rank == 0 else None,
+            "last": last if ctx.rank == 0 else None,
+            "staged": dict(collective.staged),
+            "jax_loaded": ctx.jax_loaded}
+
+
+def _tp_programs(tp, kind, c):
+    """tests/test_parallel.py's tp programs at `c`'s widths (PAR_TP):
+    "train" (column-parallel fc1, row-parallel fc2, Momentum) or "sum"
+    (one column-parallel fc, relu, reduce_sum)."""
+    from paddle_tpu_torch import optimizer, static
+    from paddle_tpu_torch.core import ir
+    from paddle_tpu_torch.utils.param_attr import ParamAttr
+    ir.reset_unique_names()
+    main, startup = ir.Program(), ir.Program()
+    main.random_seed = startup.random_seed = 11
+    with ir.program_guard(main, startup):
+        x = static.data("x", [-1, c["d_in"]], append_batch_size=False)
+        a1 = ParamAttr(name="w1", sharding=(None, "tp") if tp else None)
+        if kind == "sum":
+            h = static.fc(x, c["hidden"], param_attr=a1, bias_attr=False,
+                          act="relu")
+            out = static.reduce_sum(h)
+            return main, startup, out.name
+        y = static.data("y", [-1, 1], dtype="int64",
+                        append_batch_size=False)
+        a2 = ParamAttr(name="w2", sharding=("tp", None) if tp else None)
+        h = static.fc(x, c["hidden"], param_attr=a1, act="relu")
+        logits = static.fc(h, c["classes"], param_attr=a2)
+        loss = static.mean(static.softmax_with_cross_entropy(logits, y))
+        optimizer.Momentum(0.05, 0.9).minimize(loss,
+                                               startup_program=startup)
+    return main, startup, loss.name
+
+
+def _tp_run(device, mesh, kind, state, feeds, c):
+    from paddle_tpu_torch.core.executor import Executor
+    from paddle_tpu_torch.core.scope import Scope
+    from paddle_tpu_torch.parallel import CompiledProgram
+    from paddle_tpu_torch.weights import scope_from_jax
+    main, _, fetch = _tp_programs(mesh is not None, kind, c)
+    scope = scope_from_jax(state, Scope(), device, program=main)
+    prog = main if mesh is None else CompiledProgram(
+        main).with_data_parallel(loss_name=fetch, mesh=mesh)
+    exe = Executor(device)
+    return [float(np.asarray(exe.run(prog, feed=f, fetch_list=[fetch],
+                                     scope=scope)[0]).reshape(-1)[0])
+            for f in feeds]
+
+
+def rank_tp(ctx, kind, state, feeds, c):
+    """36(c): a tp program over tp=4 (every rank stores its slice)."""
+    import torch
+    from paddle_tpu_torch.parallel import make_mesh
+    _rank_setup(torch, ctx)
+    mesh = make_mesh({"tp": ctx.world}, device=ctx.device)
+    return _tp_run(ctx.device, mesh, kind, state, feeds, c)
+
+
+def par_data_parallel(torch, pool, seed, tag, dev="cuda"):
+    """Phase 36. (a) ResNet-50 static training (phase 14's program at
+    full width) through CompiledProgram over dp=2 ranks of the pool,
+    global batch PAR_RESNET (16 a rank), Momentum, deterministic cuDNN,
+    against the single-process run of the same global batches from the
+    same state: in f32 the first step's loss (1e-5 relative) and update
+    (the norm of the parameter difference over the update's), every
+    later loss and the final parameters against the whole run's update,
+    looser (PAR_TOL: f32 ReLU masks flip between the two runs' conv
+    algorithms, and the steps drift apart, as phase 14 found); in
+    float64 at PAR_RESNET_F64 every loss, the first update and the final
+    parameters to 1e-9, and the same program with per-rank batch norm
+    (`_per_rank_batch_norm`), which must land far from it. (b) the same
+    f32 step at world size 1 over NCCL in this process: equal to the
+    plain program's run, captured, no collective issued from Python in
+    its replays (a one-rank in-place all-reduce leaves nothing in a
+    graph to see); and a program of c_allgather and c_reducescatter
+    (out of place: NCCL copies into the output, a node of the graph)
+    whose replayed outputs follow new feeds only if the collectives
+    replay inside the graph (`nccl_graph_collectives`). (c) the tp
+    programs of tests/test_parallel.py at PAR_TP's widths over tp=4
+    against their replicated runs (atol 1e-5 on the loss, rtol 1e-5 on
+    the sum)."""
+    import tempfile
+    from paddle_tpu_torch.core.executor import Executor
+    from paddle_tpu_torch.core.scope import Scope
+    from paddle_tpu_torch.weights import scope_to_numpy
+    out = {}
+    c = PAR_RESNET
+    tmp = tempfile.mkdtemp(prefix="phase36-")
+
+    def update_err(got, want, start, params):
+        num = sum(float(np.sum((got[n].astype(np.float64) - want[n]) ** 2))
+                  for n in params)
+        den = sum(float(np.sum((want[n].astype(np.float64) - start[n]) ** 2))
+                  for n in params)
+        return (num / den) ** 0.5
+
+    def case(image, batch, steps, f64, sync_variants):
+        main, startup, _, _, loss = resnet_train_programs(seed, image)
+        exe, scope = Executor(dev), Scope()
+        exe.run(startup, scope=scope)
+        names = sorted(v.name for v in main.list_vars()
+                       if v.persistable and scope.has(v.name))
+        state = scope_to_numpy(scope, names)
+        del scope
+        rng = np.random.RandomState(seed + 36 + image)
+        feeds = {}
+        for i in range(steps):
+            feeds[f"img{i}"] = resnet_images(rng, batch, image)
+            feeds[f"label{i}"] = rng.randint(0, 1000, (batch, 1)).astype(
+                np.int64)
+        tag_ = f"{image}-{int(f64)}"
+        sp = _par_state_file(state, os.path.join(tmp, f"state{tag_}.npz"))
+        fp = _par_state_file(feeds, os.path.join(tmp, f"feeds{tag_}.npz"))
+        pmain, ploss, params = _resnet_dp_programs(image, f64)
+        st = widen_state(state) if f64 else state
+        ref = _resnet_run(torch, pmain, ploss, pmain, st, feeds, dev,
+                          params)
+        torch.cuda.empty_cache()
+        rows = {}
+        for sync in sync_variants:
+            t0 = time.perf_counter()
+            got = pool.run(__file__, "rank_resnet_dp", sp, fp, sync,
+                           image, f64, timeout=RANK_TIMEOUT_S)
+            assert not any(g and g["jax_loaded"] for g in got), got
+            g = got[0]
+            rows[sync] = {
+                "losses": g["losses"], "single_losses": ref[0],
+                "loss_rel_err": [abs(a - b) / abs(b) for a, b in
+                                 zip(g["losses"], ref[0])],
+                "first_update_rel_err": update_err(g["first"], ref[2],
+                                                   st, params),
+                "final_update_rel_err": update_err(g["last"], ref[3],
+                                                   st, params),
+                "rank0_step_ms": g["step_ms"], "single_step_ms": ref[1],
+                "staged": g["staged"], "wall_s": time.perf_counter() - t0}
+        return rows
+
+    f32 = case(c["image"], c["batch"], c["steps"], False, (True,))[True]
+    print(f"phase 36(a) resnet-50 dp=2 (gloo, f32, global batch "
+          f"{c['batch']} x {c['image']}^2, Momentum): losses "
+          f"{f32['losses']} vs single {f32['single_losses']} (rel "
+          f"{f32['loss_rel_err']}), first update |got - want| / |update| "
+          f"{f32['first_update_rel_err']:.3g}, final parameters "
+          f"{f32['final_update_rel_err']:.3g}; step ms rank 0 "
+          f"{f32['rank0_step_ms']} (two ranks share the card) vs single "
+          f"{f32['single_step_ms']}; staged {f32['staged']} {tag}")
+    assert f32["loss_rel_err"][0] <= PAR_TOL["resnet_loss"], f32
+    assert f32["first_update_rel_err"] <= PAR_TOL["resnet_update"], f32
+    assert max(f32["loss_rel_err"]) <= PAR_TOL["resnet_later_loss"], f32
+    assert f32["final_update_rel_err"] <= PAR_TOL["resnet_final"], f32
+    f64 = case(PAR_RESNET_F64["image"], PAR_RESNET_F64["batch"],
+               PAR_RESNET_F64["steps"], True, (True, False))
+    print(f"phase 36(a) float64 at batch {PAR_RESNET_F64['batch']} x "
+          f"{PAR_RESNET_F64['image']}^2, {PAR_RESNET_F64['steps']} steps: "
+          f"sync BN loss rel {f64[True]['loss_rel_err']}, first update "
+          f"rel {f64[True]['first_update_rel_err']:.3g}, final parameters "
+          f"rel {f64[True]['final_update_rel_err']:.3g}; per-rank BN loss "
+          f"rel {f64[False]['loss_rel_err']}, first update rel "
+          f"{f64[False]['first_update_rel_err']:.3g} {tag}")
+    assert max(f64[True]["loss_rel_err"]) <= PAR_TOL["resnet64"], f64
+    assert f64[True]["first_update_rel_err"] <= PAR_TOL["resnet64"], f64
+    assert f64[True]["final_update_rel_err"] <= PAR_TOL["resnet64"], f64
+    assert f64[False]["first_update_rel_err"] > 1e3 * PAR_TOL["resnet64"]
+    out["resnet_dp"] = {"f32": f32, "f64": {"sync_bn": f64[True],
+                                            "per_rank_bn": f64[False]}}
+    main, startup, _, _, loss = resnet_train_programs(seed, c["image"])
+    exe, scope = Executor(dev), Scope()
+    exe.run(startup, scope=scope)
+    state = scope_to_numpy(scope, sorted(
+        v.name for v in main.list_vars()
+        if v.persistable and scope.has(v.name)))
+    del scope
+    rng = np.random.RandomState(seed + 36)
+    feeds = {"img0": resnet_images(rng, c["batch"], c["image"]),
+             "label0": rng.randint(0, 1000, (c["batch"], 1)).astype(
+                 np.int64)}
+    out["resnet_nccl_world1"] = par_nccl_world1(
+        torch, main, startup, loss, state, feeds, tmp, tag, dev)
+
+    # (c) tp=4
+    rows = {}
+    for kind in ("train", "sum"):
+        pmain, pstart, fetch = _tp_programs(False, kind, PAR_TP)
+        s = Scope()
+        Executor(dev).run(pstart, scope=s)
+        st = scope_to_numpy(s, sorted(v.name for v in pmain.list_vars()
+                                      if v.persistable and s.has(v.name)))
+        r = np.random.RandomState(seed + 360)
+        fs = []
+        for _ in range(PAR_TP["steps"] if kind == "train" else 1):
+            xs = r.randn(PAR_TP["batch"], PAR_TP["d_in"]).astype(np.float32)
+            f = {"x": xs}
+            if kind == "train":
+                f["y"] = r.randint(0, PAR_TP["classes"],
+                                   (PAR_TP["batch"], 1)).astype(np.int64)
+            fs.append(f)
+        want = _tp_run(dev, None, kind, st, fs, PAR_TP)
+        got_tp = pool.run(__file__, "rank_tp", kind, st, fs, PAR_TP,
+                          timeout=RANK_TIMEOUT_S)
+        for g in got_tp:
+            if kind == "train":
+                err = max(abs(a - b) for a, b in zip(g, want))
+                assert err <= PAR_TOL["tp_loss"], (g, want)
+            else:
+                err = max(abs(a - b) / abs(b) for a, b in zip(g, want))
+                assert err <= PAR_TOL["tp_sum"], (g, want)
+        rows[kind] = {"got": got_tp[0], "want": want, "err": err}
+    print(f"phase 36(c) tp=4 fc programs ({PAR_TP}): train losses "
+          f"{rows['train']['got']} vs {rows['train']['want']} (max abs err "
+          f"{rows['train']['err']:.3g}), reduce_sum rel err "
+          f"{rows['sum']['err']:.3g} {tag}")
+    out["tp"] = rows
+    return out
+
+
+def par_nccl_world1(torch, main, startup, loss, state, feeds, tmp, tag,
+                    dev):
+    """36(b): a one-rank NCCL group in this process; the ResNet-50 step
+    through CompiledProgram (captured: the Executor's first run of a
+    signature is its eager warm-up) against the plain program's run."""
+    import datetime
+    import torch.distributed as dist
+    from paddle_tpu_torch.core import flags
+    from paddle_tpu_torch.core.executor import Executor
+    from paddle_tpu_torch.core.scope import Scope
+    from paddle_tpu_torch.ops import collective
+    from paddle_tpu_torch.parallel import CompiledProgram, make_mesh
+    from paddle_tpu_torch.weights import scope_from_jax
+    feed = {"img": feeds["img0"], "label": feeds["label0"]}
+    dist.init_process_group(
+        "nccl", init_method=f"file://{os.path.join(tmp, 'nccl-store')}",
+        world_size=1, rank=0, timeout=datetime.timedelta(seconds=120))
+    flags.set_flag("deterministic", True)
+    try:
+        mesh = make_mesh({"dp": 1}, device=dev)
+        runs = {}
+        for label, make in (("plain", lambda: main),
+                            ("compiled", lambda: CompiledProgram(
+                                main).with_data_parallel(loss_name=loss,
+                                                         mesh=mesh))):
+            scope = scope_from_jax(state, Scope(), dev, program=main)
+            exe, prog = Executor(dev), make()
+            collective.reset_staged()
+            runs[label] = [float(np.asarray(exe.run(
+                prog, feed=feed, fetch_list=[loss], scope=scope)[0])
+                .reshape(-1)[0]) for _ in range(3)]
+            if label == "compiled":
+                capture_issued = dict(collective.issued)
+
+                def step(n, exe=exe, prog=prog, scope=scope):
+                    for _ in range(n):
+                        exe.run(prog, feed=feed, fetch_list=[loss],
+                                scope=scope)
+                    torch.cuda.synchronize()
+                collective.reset_staged()
+                host = {}
+                rows = device_rows(torch, lambda: step(2), host)
+                replay_issued = dict(collective.issued)
+        nccl = [e.key for e in rows if "nccl" in e.key.lower()]
+        err = max(abs(a - b) / abs(b)
+                  for a, b in zip(runs["compiled"], runs["plain"]))
+        print(f"phase 36(b) resnet-50 at world size 1 over nccl: losses "
+              f"{runs['compiled']} vs plain {runs['plain']} (rel err "
+              f"{err:.3g}); collectives issued in the first 3 runs (eager "
+              f"warm-up, capture, replay) {capture_issued}, in 2 more "
+              f"replayed steps {replay_issued} with "
+              f"{host['graph_launches']} graph launches (a one-rank NCCL "
+              f"all-reduce is in place: no kernel, NCCL kernels seen "
+              f"{sorted(set(nccl))[:3]}) {tag}")
+        assert err <= PAR_TOL["nccl_loss"], runs
+        assert capture_issued["all_reduce"] > 0, capture_issued
+        assert not any(replay_issued.values()), replay_issued
+        assert host["graph_launches"] >= 2, host
+        gathered = nccl_graph_collectives(torch, mesh, dev, tag)
+        return {"collective_program": gathered,
+                "losses": runs["compiled"], "plain_losses": runs["plain"],
+                "loss_rel_err": err, "nccl_kernels": sorted(set(nccl)),
+                "issued_first_3_runs": capture_issued,
+                "issued_2_replays": replay_issued,
+                "graph_launches_2_steps": host["graph_launches"]}
+    finally:
+        flags.set_flag("deterministic", False)
+        dist.destroy_process_group()
+        torch.cuda.empty_cache()
+
+
+def nccl_graph_collectives(torch, mesh, dev, tag):
+    """36(b)'s falsifiable half: a static program of c_allgather and
+    c_reducescatter over the one-rank NCCL group (each out of place, so
+    NCCL copies its input into the output buffer: a node of the graph),
+    run through CompiledProgram by the Executor, which captures its
+    second run; the later runs are replays. Every run's fetches must
+    equal its own feed (world size 1), so a replay whose graph lacks the
+    collectives returns stale or unwritten memory, not the new feed."""
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.core import ir
+    from paddle_tpu_torch.core.executor import Executor
+    from paddle_tpu_torch.core.scope import Scope
+    from paddle_tpu_torch.ops import collective
+    from paddle_tpu_torch.parallel import CompiledProgram
+    from paddle_tpu_torch.static.helper import LayerHelper
+    ir.reset_unique_names()
+    main = ir.Program()
+    with ir.program_guard(main, ir.Program()):
+        x = static.data("x", [-1, 256], append_batch_size=False)
+        gathered = LayerHelper("c_allgather").append_simple(
+            {"X": x}, {"axis_name": "dp"})
+        scattered = LayerHelper("c_reducescatter").append_simple(
+            {"X": gathered}, {"axis_name": "dp"})
+    prog = CompiledProgram(main).with_data_parallel(mesh=mesh)
+    exe, scope = Executor(dev), Scope()
+    rng = np.random.RandomState(361)
+    feeds = [rng.randn(64, 256).astype(np.float32) for _ in range(6)]
+
+    def run(f):
+        return [np.asarray(v) for v in exe.run(
+            prog, feed={"x": f}, fetch_list=[gathered, scattered],
+            scope=scope)]
+    early = [run(f) for f in feeds[:2]]              # eager, capture
+    collective.reset_staged()
+    host, late = {}, []
+    device_rows(torch, lambda: late.extend(run(f) for f in feeds[2:]),
+                host)
+    issued = dict(collective.issued)
+    errs = [max(float(np.abs(o - f).max()) for o in outs)
+            for outs, f in zip(early + late, feeds)]
+    print(f"phase 36(b) c_allgather + c_reducescatter at world size 1 "
+          f"over nccl: max |fetch - feed| per run {errs} (runs 3-6 "
+          f"replayed: {host['graph_launches']} graph launches, collectives "
+          f"issued from Python {issued}) {tag}")
+    assert max(errs) == 0.0, errs
+    assert host["graph_launches"] >= len(feeds) - 2, host
+    assert not any(issued.values()), issued
+    return {"max_abs_err_by_run": errs,
+            "graph_launches_4_replays": host["graph_launches"],
+            "issued_in_replays": issued}
+
+
+# -- 37. sequence and expert parallel ----------------------------------------
+def lm_params(torch, seed, dev, c):
+    """tests/test_long_context_training.py's causal LM at `c`'s widths
+    (tied embedding, no norms), weights from numpy's `seed`."""
+    r = np.random.RandomState(seed)
+    h, L = c["hidden"], c["layers"]
+
+    def w(*shape):
+        return torch.tensor((r.standard_normal(shape) * 0.02).astype(
+            np.float32), device=dev)
+    p = {"emb": w(c["vocab"], h)}
+    for i in range(L):
+        p[f"qkv_w{i}"] = w(h, 3 * h)
+        p[f"out_w{i}"] = w(h, h)
+        p[f"mlp1_w{i}"] = w(h, 4 * h)
+        p[f"mlp2_w{i}"] = w(4 * h, h)
+        for name, n in (("qkv_b", 3 * h), ("out_b", h), ("mlp1_b", 4 * h),
+                        ("mlp2_b", h)):
+            p[f"{name}{i}"] = torch.zeros(n, device=dev)
+    return p
+
+
+def lm_loss_sum(torch, p, ids, labels, attn, c):
+    """Sum over the given tokens of the LM's next-token NLL."""
+    import torch.nn.functional as F
+    b, t = ids.shape
+    nh, dh = c["heads"], c["hidden"] // c["heads"]
+    x = p["emb"][ids]
+    for i in range(c["layers"]):
+        qkv = x @ p[f"qkv_w{i}"] + p[f"qkv_b{i}"]
+        q, k, v = (a.reshape(b, t, nh, dh) for a in qkv.chunk(3, dim=-1))
+        x = x + attn(q, k, v).reshape(b, t, -1) @ p[f"out_w{i}"] \
+            + p[f"out_b{i}"]
+        m = F.gelu(x @ p[f"mlp1_w{i}"] + p[f"mlp1_b{i}"],
+                   approximate="tanh")
+        x = x + m @ p[f"mlp2_w{i}"] + p[f"mlp2_b{i}"]
+    logp = torch.log_softmax(x @ p["emb"].t(), dim=-1)
+    return -logp.gather(-1, labels[..., None]).sum()
+
+
+def _lm_tokens(seed, c):
+    r = np.random.RandomState(seed + 37)
+    ids = r.randint(0, c["vocab"], (c["batch"], c["seq"] + 1))
+    return ids[:, :-1].astype(np.int64), ids[:, 1:].astype(np.int64)
+
+
+def rank_lm(ctx, impl, seed, c):
+    """37(a): one training step of the LM with the sequence over sp=4:
+    each rank its T/4 tokens, the attention `impl`; the loss and the
+    gradients summed over the group. Returns them (rank 0) with the
+    rank's flash launches and staged copies."""
+    import torch
+    from paddle_tpu_torch.ops import collective
+    from paddle_tpu_torch.ops.kernels import flash_attention as tfa
+    from paddle_tpu_torch.parallel import (make_mesh, shard_map_attention,
+                                           shard_sequence)
+    _rank_setup(torch, ctx)
+    mesh = make_mesh({"sp": ctx.world}, device=ctx.device)
+    p = {k: v.requires_grad_() for k, v in
+         lm_params(torch, seed, ctx.device, c).items()}
+    ids, labels = (shard_sequence(torch.tensor(a, device=ctx.device), mesh)
+                   for a in _lm_tokens(seed, c))
+    n_tok = c["batch"] * c["seq"]
+
+    def attn(q, k, v):
+        return shard_map_attention(mesh, q, k, v, causal=True, impl=impl)
+    _sync(torch, ctx.device)
+    tfa.reset_launch_counts()
+    collective.reset_staged()
+    t0 = time.perf_counter()
+    with torch.enable_grad():
+        loss = lm_loss_sum(torch, p, ids, labels, attn, c) / n_tok
+        grads = torch.autograd.grad(loss, list(p.values()))
+    with torch.no_grad():
+        from paddle_tpu_torch.parallel import bind_mesh
+        with bind_mesh(mesh):
+            loss = collective.all_reduce(loss.detach(), "sp")
+            grads = [collective.all_reduce(g, "sp") for g in grads]
+    _sync(torch, ctx.device)
+    wall = time.perf_counter() - t0
+    out = {"launches": _flash_launches(tfa), "staged": dict(
+        collective.staged), "wall_s": wall, "loss": float(loss),
+        "jax_loaded": ctx.jax_loaded}
+    if ctx.rank == 0:
+        out["grads"] = {k: g.cpu().numpy() for k, g in zip(p, grads)}
+    return out
+
+
+def rank_moe(ctx, seed, c):
+    """37(b): switch_moe over ep=4, each rank 2 of the 8 experts; the
+    output, aux loss and gradients (summed over the group) of rank 0."""
+    import torch
+    from paddle_tpu_torch.ops.collective import all_reduce
+    from paddle_tpu_torch.parallel import bind_mesh, make_mesh, switch_moe
+    _rank_setup(torch, ctx)
+    mesh = make_mesh({"ep": ctx.world}, device=ctx.device)
+    x, gw, wi, wo, cot = _moe_inputs(seed, c)
+    e = gw.shape[1]
+    k = e // ctx.world
+    sl = slice(ctx.rank * k, (ctx.rank + 1) * k)
+    leaves = [torch.tensor(a, device=ctx.device).requires_grad_()
+              for a in (x, gw, wi[sl], wo[sl])]
+    cot_t = torch.tensor(cot, device=ctx.device)
+    with bind_mesh(mesh), torch.enable_grad():
+        y, aux = switch_moe(*leaves, mesh=mesh)
+        g = torch.autograd.grad(((y * cot_t).sum() + 0.01 * aux)
+                                / ctx.world, leaves)
+        gx, ggw = all_reduce(g[0], "ep"), all_reduce(g[1], "ep")
+    return {"y": y.detach().cpu().numpy(), "aux": float(aux),
+            "gx": gx.cpu().numpy(), "ggw": ggw.cpu().numpy(),
+            "gwi": g[2].cpu().numpy(), "gwo": g[3].cpu().numpy()}
+
+
+def _moe_inputs(seed, c):
+    r = np.random.RandomState(seed + 371)
+    f = np.float32
+    return (r.standard_normal((c["n"], c["d"])).astype(f),
+            (r.standard_normal((c["d"], c["e"])) * 0.1).astype(f),
+            (r.standard_normal((c["e"], c["d"], c["h"])) * 0.02).astype(f),
+            (r.standard_normal((c["e"], c["h"], c["d"])) * 0.02).astype(f),
+            r.standard_normal((c["n"], c["d"])).astype(f))
+
+
+def _rel(got, want):
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+
+
+def par_flash_cases(torch, tfa, seed, tag, dev, c):
+    """37's kernels against their plain version at the shapes the ranks
+    give them: a ring step's diagonal chunk (causal, q, k, v views of
+    the fused projection) and a past chunk (no mask, received K/V) of
+    T_local rows through `flash_attention_lse` with cotangents on o and
+    the lse, and Ulysses' head shard (all T, heads / sp) through
+    `flash_attention`, causal; every output within FLASH_TOL's f32
+    relative error. These launches are not counted on the path: the
+    ranks' own counters are."""
+    b, t, heads = c["batch"], c["seq"], c["heads"]
+    t_local, d = t // RANK_WORLD, c["hidden"] // heads
+    cases = [
+        ("ring diagonal chunk", lambda: flash_lse_case(
+            torch, tfa, dev, b, t_local, t_local, heads, d, True, True,
+            seed)),
+        ("ring past chunk", lambda: flash_lse_case(
+            torch, tfa, dev, b, t_local, t_local, heads, d, False, False,
+            seed)),
+        ("ulysses head shard", lambda: flash_case(
+            torch, tfa, dev, torch.float32, b, t, heads // RANK_WORLD, d,
+            tk=t, causal=True, seed=seed)),
+    ]
+    tol = FLASH_TOL["float32"]
+    out = {}
+    for label, run in cases:
+        errs, launched = run()
+        torch.cuda.empty_cache()
+        print(f"phase 37 flash f32 {label}: " + ", ".join(
+            f"{k} abs {a:.3g} rel {r:.3g}" for k, (a, r) in errs.items())
+            + f" (tolerance rel {tol}; launched {launched}) {tag}")
+        assert set(launched) == set(FLASH_F32), (label, launched)
+        bad = {k: r for k, (_, r) in errs.items() if not r <= tol}
+        assert not bad, f"flash {label}: relative errors {bad} > {tol}"
+        out[label] = errs
+    return out
+
+
+def par_sequence_expert(torch, tfa, pool, seed, tag, dev="cuda"):
+    """Phase 37. First the f32 flash pair against its plain version at
+    the ranks' shapes (`par_flash_cases`). (a) the causal LM at PAR_LM's
+    GPT-2-small widths, B=1,
+    T=8192 over sp=4 (T_local 2048): one training step under
+    `ring_flash` and one under `ulysses_flash`, the loss and every
+    parameter gradient against the single-process step on the flash
+    kernels over the whole sequence (PAR_TOL; the tolerance was checked
+    in float64 on the plain path first), each rank's K1/K2 launches from
+    its own counters (> 0). (b) switch_moe at PAR_MOE over ep=4 against
+    the unsharded call, output, aux loss and gradients. Returns (row,
+    the ranks' flash launches summed)."""
+    c = PAR_LM
+    out = {"flash_cases": par_flash_cases(torch, tfa, seed, tag, dev, c)}
+    p = {k: v.requires_grad_() for k, v in lm_params(torch, seed, dev,
+                                                     c).items()}
+    ids, labels = (torch.tensor(a, device=dev) for a in _lm_tokens(seed, c))
+
+    def attn(q, k, v):
+        return tfa.flash_attention(q, k, v, causal=True)
+    t0 = time.perf_counter()
+    with torch.enable_grad():
+        loss = lm_loss_sum(torch, p, ids, labels, attn, c) / (
+            c["batch"] * c["seq"])
+        grads = torch.autograd.grad(loss, list(p.values()))
+    torch.cuda.synchronize()
+    ref_s = time.perf_counter() - t0
+    want = {k: g.cpu().numpy() for k, g in zip(p, grads)}
+    want_loss = float(loss)
+    del p, grads, loss
+    torch.cuda.empty_cache()
+    out["lm_single_s"], launches = ref_s, {k: 0 for k in FLASH_KERNELS}
+    for impl in ("ring_flash", "ulysses_flash"):
+        t0 = time.perf_counter()
+        got = pool.run(__file__, "rank_lm", impl, seed, c,
+                       timeout=RANK_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        g0 = got[0]
+        loss_err = abs(g0["loss"] - want_loss) / abs(want_loss)
+        grad_err = max(_rel(g0["grads"][k], want[k]) for k in want)
+        per_rank = [g["launches"] for g in got]
+        print(f"phase 37(a) LM {c} sp={RANK_WORLD} {impl}: loss "
+              f"{g0['loss']:.6f} vs {want_loss:.6f} (rel {loss_err:.3g}), "
+              f"max gradient err / max |grad| {grad_err:.3g}; per-rank "
+              f"flash launches {per_rank}; staged {g0['staged']}; step "
+              f"{g0['wall_s']:.2f} s (four ranks share the card) {tag}")
+        assert not any(g["jax_loaded"] for g in got)
+        assert loss_err <= PAR_TOL["lm_loss"], (g0["loss"], want_loss)
+        assert grad_err <= PAR_TOL["lm_grad"], grad_err
+        for g in got:
+            assert all(g["launches"][k] > 0 for k in FLASH_F32), (
+                impl, g["launches"])
+            for k, n in g["launches"].items():
+                launches[k] += n
+        out[impl] = {"loss": g0["loss"], "single_loss": want_loss,
+                     "loss_rel_err": loss_err, "grad_rel_err": grad_err,
+                     "rank_launches": per_rank, "staged": g0["staged"],
+                     "rank0_step_s": g0["wall_s"], "wall_s": wall}
+    del want
+    # (b) MoE
+    from paddle_tpu_torch.parallel import switch_moe
+    x, gw, wi, wo, cot = _moe_inputs(seed, PAR_MOE)
+    leaves = [torch.tensor(a, device=dev).requires_grad_()
+              for a in (x, gw, wi, wo)]
+    with torch.enable_grad():
+        y, aux = switch_moe(*leaves)
+        g = torch.autograd.grad((y * torch.tensor(cot, device=dev)).sum()
+                                + 0.01 * aux, leaves)
+    ref = [y.detach().cpu().numpy()] + [t.cpu().numpy() for t in g]
+    got = pool.run(__file__, "rank_moe", seed, PAR_MOE,
+                   timeout=RANK_TIMEOUT_S)
+    k = PAR_MOE["e"] // RANK_WORLD
+    errs = {"y": max(_rel(r["y"], ref[0]) for r in got),
+            "aux": max(abs(r["aux"] - float(aux)) for r in got),
+            "gx": max(_rel(r["gx"], ref[1]) for r in got),
+            "ggw": max(_rel(r["ggw"], ref[2]) for r in got),
+            "gwi": max(_rel(r["gwi"], ref[3][i * k:(i + 1) * k])
+                       for i, r in enumerate(got)),
+            "gwo": max(_rel(r["gwo"], ref[4][i * k:(i + 1) * k])
+                       for i, r in enumerate(got))}
+    print(f"phase 37(b) switch_moe {PAR_MOE} ep={RANK_WORLD}: errors "
+          f"against the unsharded call {errs} {tag}")
+    assert all(v <= PAR_TOL["moe"] for v in errs.values()), errs
+    out["moe"] = errs
+    return out, launches
+
+
+# -- 38. pipeline ------------------------------------------------------------
+def _bert_template(torch, dev, count):
+    """`count` BERT-base encoder layers (flash attention, no dropout):
+    the structure a stage function runs with a chunk's parameters."""
+    from paddle_tpu_torch.models.bert import BertConfig, BertLayer
+    cfg = BertConfig(attention_impl="flash", hidden_dropout=0.0,
+                     attention_dropout=0.0)
+    return [BertLayer(cfg, device=dev).eval() for _ in range(count)]
+
+
+def _bert_layer_params(torch, dev, first, count, seed):
+    """Layers first .. first+count-1's weights, layer i's from numpy's
+    seed + i (normal 0.02, zero biases, unit norm scales), named
+    "{j}.{parameter}" for the j-th layer of the chunk."""
+    names = [(n, tuple(t.shape)) for n, t in
+             _bert_template(torch, "cpu", 1)[0].named_parameters()]
+    params = {}
+    for j in range(count):
+        r = np.random.RandomState(seed + first + j)
+        for name, shape in names:
+            a = (r.standard_normal(shape) * 0.02).astype(np.float32)
+            if name.endswith("bias"):
+                a[:] = 0.0
+            elif name.startswith("ln"):
+                a[:] = 1.0
+            params[f"{j}.{name}"] = torch.tensor(a, device=dev)
+    return params
+
+
+def _bert_stage_fn(torch, layers):
+    """stage_fn(params, x): the template layers in order, each with its
+    "{j}." parameters (torch.func.functional_call)."""
+    from torch.func import functional_call
+
+    def fn(p, x):
+        for j, layer in enumerate(layers):
+            own = {k.split(".", 1)[1]: v for k, v in p.items()
+                   if k.split(".", 1)[0] == str(j)}
+            x = functional_call(layer, own, (x, None))
+        return x
+    return fn
+
+
+def _bert_inputs(seed, c):
+    r = np.random.RandomState(seed + 38)
+    b = c["micro"] * c["mb_batch"]
+    x = (r.standard_normal((b, c["seq"], 768)) * 0.5).astype(np.float32)
+    tgt = r.standard_normal((b, c["seq"], 768)).astype(np.float32)
+    return x, tgt
+
+
+def _mse(y, t):
+    return ((y - t) ** 2).mean()
+
+
+def rank_bert_pipe(ctx, schedule, v, seed, c):
+    """38: BERT-base's encoder over pp=4 under `schedule` (v virtual
+    stages a rank): two fused training steps (the first's wall is the
+    warm-up), this rank's stage gradients and the measured bubble."""
+    import torch
+    from paddle_tpu_torch.ops import collective
+    from paddle_tpu_torch.ops.kernels import flash_attention as tfa
+    from paddle_tpu_torch.parallel import Pipeline, make_mesh
+    _rank_setup(torch, ctx)
+    S = ctx.world
+    per = c["layers"] // (S * v)
+    mesh = make_mesh({"pp": S}, device=ctx.device)
+    firsts = [(chunk * S + ctx.rank) * per for chunk in range(v)]
+    chunks = [_bert_layer_params(torch, ctx.device, f, per, seed)
+              for f in firsts]
+    pipe = Pipeline(mesh, _bert_stage_fn(torch, _bert_template(
+        torch, ctx.device, per)), S, c["micro"], schedule=schedule,
+        virtual_stages=v)
+    x, tgt = (torch.tensor(a, device=ctx.device)
+              for a in _bert_inputs(seed, c))
+    losses = []
+    stage_params = chunks if v > 1 else chunks[0]
+    for _ in range(2):
+        with torch.no_grad():
+            pipe(stage_params, x)           # the forward-only wall
+        tfa.reset_launch_counts()
+        collective.reset_staged()
+        loss, grads = pipe.loss_and_grad(_mse, stage_params, x, tgt)
+        losses.append(float(loss))
+    grads = grads if v > 1 else [grads]
+    return {"loss": losses[-1], "losses": losses,
+            "grads": [{k: g.cpu().numpy() for k, g in gc.items()}
+                      for gc in grads],
+            "firsts": firsts, "per": per,
+            "launches": _flash_launches(tfa),
+            "staged": dict(collective.staged),
+            "bubble_model": pipe.bubble_fraction(),
+            "bubble_measured": pipe.bubble_fraction(measured=True),
+            "tick_times": pipe.measured_tick_times(),
+            "jax_loaded": ctx.jax_loaded}
+
+
+def par_pipeline(torch, pool, seed, tag, dev="cuda"):
+    """Phase 38. BERT-base's 12 encoder layers (flash attention, K1-K4)
+    over pp=4 ranks, f32, PAR_BERT's M=8 microbatches of 2 x 512, under
+    `1f1b` (3 layers a stage) and `interleaved` with v=3 (1 layer a
+    virtual stage); the embeddings and the head run outside (the input
+    is the embeddings' output, the loss an MSE against a target). Gate:
+    the loss and every stage's gradients against the single-process
+    12-layer step (PAR_TOL). Prints schedule_report's model bubble
+    beside the one measured from the step walls. Returns (row, the
+    ranks' flash launches summed)."""
+    from paddle_tpu_torch.parallel import schedule_report
+    c = PAR_BERT
+    layers = _bert_template(torch, dev, c["layers"])
+    params = {k: v.requires_grad_() for k, v in _bert_layer_params(
+        torch, dev, 0, c["layers"], seed).items()}
+    x, tgt = (torch.tensor(a, device=dev) for a in _bert_inputs(seed, c))
+    t0 = time.perf_counter()
+    with torch.enable_grad():
+        y = _bert_stage_fn(torch, layers)(params, x)
+        loss = _mse(y, tgt)
+        g = torch.autograd.grad(loss, list(params.values()))
+    torch.cuda.synchronize()
+    ref_s = time.perf_counter() - t0
+    want = {k: t.cpu().numpy() for k, t in zip(params, g)}
+    want_loss = float(loss)
+    del params, g, y, loss
+    torch.cuda.empty_cache()
+    out, launches = {"single_s": ref_s}, {k: 0 for k in FLASH_KERNELS}
+    for schedule, v in (("1f1b", 1), ("interleaved", c["virtual"])):
+        t0 = time.perf_counter()
+        got = pool.run(__file__, "rank_bert_pipe", schedule, v, seed, c,
+                       timeout=RANK_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        assert not any(r["jax_loaded"] for r in got)
+        loss_err = max(abs(r["loss"] - want_loss) / abs(want_loss)
+                       for r in got)
+        grad_err = 0.0
+        for r in got:
+            for first, gc in zip(r["firsts"], r["grads"]):
+                for k, a in gc.items():
+                    j, name = k.split(".", 1)
+                    grad_err = max(grad_err, _rel(
+                        a, want[f"{first + int(j)}.{name}"]))
+        rep = schedule_report(schedule, RANK_WORLD, c["micro"], v)
+        per_rank = [r["launches"] for r in got]
+        print(f"phase 38 BERT-base encoder pp={RANK_WORLD} {schedule} "
+              f"(v={v}, M={c['micro']}): loss {got[0]['loss']:.6f} vs "
+              f"{want_loss:.6f} (rel {loss_err:.3g}), max gradient err / "
+              f"max |grad| {grad_err:.3g}; bubble model "
+              f"{rep['bubble_model']:.3f} (fill-drain formula "
+              f"{rep['bubble_formula_fill_drain']:.3f}), measured "
+              f"{[r['bubble_measured'] for r in got]}; per-rank flash "
+              f"launches {per_rank}; staged {got[0]['staged']} {tag}")
+        assert loss_err <= PAR_TOL["bert_loss"], (got[0]["loss"], want_loss)
+        assert grad_err <= PAR_TOL["bert_grad"], grad_err
+        for r in got:
+            assert all(r["launches"][k] > 0 for k in FLASH_F32), (
+                schedule, r["launches"])
+            for k, n in r["launches"].items():
+                launches[k] += n
+        out[schedule] = {
+            "loss": got[0]["loss"], "single_loss": want_loss,
+            "loss_rel_err": loss_err, "grad_rel_err": grad_err,
+            "schedule_report": {k: rep[k] for k in (
+                "ticks", "peak_in_flight", "bubble_model",
+                "bubble_formula_fill_drain")},
+            "bubble_measured": [r["bubble_measured"] for r in got],
+            "tick_times": got[0]["tick_times"],
+            "rank_launches": per_rank, "staged": got[0]["staged"],
+            "wall_s": wall}
+    return out, launches
+
+
+def parallel_phases(torch, tfa, seed, tag, device="cuda"):
+    """Phases 36-38 over one pool of RANK_WORLD rank processes (started
+    together; each loads the kernel library phase 1 built); every rank
+    is killed when they end. Returns (row, the flash launches of the
+    ranks in phases 37 and 38)."""
+    import tempfile
+    from paddle_tpu_torch.parallel.ranks import RankPool
+    t0 = time.perf_counter()
+    store = os.path.join(tempfile.mkdtemp(prefix="ranks-"), "store")
+    pool = RankPool(RANK_WORLD, backend="gloo", device=device, store=store,
+                    timeout=RANK_TIMEOUT_S,
+                    command=[sys.executable, os.path.abspath(__file__),
+                             "--rank-worker"])
+    try:
+        out = {"pool_start_s": time.perf_counter() - t0}
+        ready = pool.run_module("paddle_tpu_torch.parallel.ranks", "_ready")
+        print(f"phases 36-38: pool of {RANK_WORLD} gloo ranks up in "
+              f"{out['pool_start_s']:.1f} s {tag}")
+        assert not any(r["jax_loaded"] for r in ready), ready
+        out["gloo_cuda_probe"] = gloo_cuda_probe(pool, tag)
+        t = time.perf_counter()
+        out["data_parallel"] = par_data_parallel(torch, pool, seed, tag,
+                                                 device)
+        out["phase36_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        out["sequence_expert"], l37 = par_sequence_expert(
+            torch, tfa, pool, seed, tag, device)
+        out["phase37_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        out["pipeline"], l38 = par_pipeline(torch, pool, seed, tag, device)
+        out["phase38_s"] = time.perf_counter() - t
+    finally:
+        pool.close()
+    out["total_s"] = time.perf_counter() - t0
+    launches = {k: l37[k] + l38[k] for k in FLASH_KERNELS}
+    print(f"phases 36-38: {out['total_s']:.1f} s (36: "
+          f"{out['phase36_s']:.1f}, 37: {out['phase37_s']:.1f}, 38: "
+          f"{out['phase38_s']:.1f}); the ranks' flash launches {launches} "
+          f"{tag}")
+    return out, launches
+
+
 def main(argv=None):
+    argv = sys.argv[1:] if argv is None else list(argv)
+    if argv[:1] == ["--rank-worker"]:
+        return rank_worker_main(argv[1:])
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=None,
@@ -7472,6 +8562,11 @@ def main(argv=None):
                          "(the fleet: routers, backend processes, failover, "
                          "autoscaling; fault-tolerant training under the "
                          "supervisor); print one FLEET line")
+    ap.add_argument("--parallel", action="store_true",
+                    help="only build the kernels and run phases 36-38 "
+                         "(data, tensor, sequence, expert and pipeline "
+                         "parallelism over a pool of 4 gloo ranks); print "
+                         "one PARALLEL line")
     ap.add_argument("--ft-worker", default=None, metavar="JSON",
                     help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
@@ -7523,6 +8618,15 @@ def main(argv=None):
           f"{'built' if info['built'] else 'already built'}) {tag}")
     # the tensor-core kernels' ptxas lines and SASS
     build = build_report(info, tag)
+
+    if args.parallel:
+        out, launches = parallel_phases(torch, tfa, args.seed, tag)
+        print("PARALLEL " + json.dumps(dict(out, launches=launches),
+                                       default=str))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
 
     if args.fleet:
         out, launches = fleet_phase(torch, gen, args.seed, tag)
@@ -8055,6 +9159,23 @@ def main(argv=None):
 
     # 35. fault-tolerant training, which launches none of the kernels
     results["fault_tolerant_training"] = ft_phase(torch, args.seed, tag)
+    torch.cuda.empty_cache()
+
+    # 36-38. parallelism over a pool of gloo ranks: the flash kernels'
+    # launches in the ranks of phases 37 and 38, read from each rank's
+    # own counters (zeroed just before each step)
+    results["parallel"], par_launches = parallel_phases(
+        torch, tfa, args.seed, tag)
+    for k in FLASH_KERNELS:
+        kernels[k]["launches_by_path"]["parallel"] = par_launches[k]
+        kernels[k]["launches"] += par_launches[k]
+    # phase 37's f32 flash cases at the ranks' shapes
+    for errs in results["parallel"]["sequence_expert"][
+            "flash_cases"].values():
+        for kname in FLASH_F32:
+            kernels[kname]["max_abs_err"] = max(
+                kernels[kname]["max_abs_err"],
+                *(errs[o][0] for o in FLASH_OUTPUTS[kname] if o in errs))
 
     results["total_s"] = time.perf_counter() - t_start
     print(f"total: {results['total_s']:.1f} s {tag}")

@@ -21,9 +21,8 @@ imported, on first access (a module `__getattr__`), and nothing builds
 or loads the kernels. A name that is also a submodule's is the
 submodule (`unique_name`: fluid's module, `generate` / `guard`). The
 reference's `TPUPlace` / `is_compiled_with_tpu` become `CUDAPlace` /
-`is_compiled_with_cuda`; `parallel`, `distributed`,
-`name_scope`, `AsyncExecutor` and `DataFeedDesc` wait for ROADMAP Queue
-1 items 15 and 16.
+`is_compiled_with_cuda`; `distributed`, `name_scope`, `AsyncExecutor`
+and `DataFeedDesc` wait for ROADMAP Queue 1 items 15b and 16.
 """
 import importlib
 
@@ -44,12 +43,14 @@ _LAZY = {
     "EnforceError": ("paddle_tpu_torch.core.enforce", "EnforceError"),
     "enforce": ("paddle_tpu_torch.core.enforce", "enforce"),
     "flags": ("paddle_tpu_torch.core.flags", None),
+    "ParallelExecutor": ("paddle_tpu_torch.parallel_executor",
+                         "ParallelExecutor"),
     "layers": ("paddle_tpu_torch.static", None),
     **{n: (f"paddle_tpu_torch.{n}", None) for n in (
         "ops", "static", "nn", "optimizer", "io", "amp", "inference",
         "serving", "analysis", "reliability", "slim", "contrib", "utils",
         "models", "average", "evaluator", "regularizer", "initializer",
-        "clip", "weights", "unique_name")},
+        "clip", "weights", "unique_name", "parallel", "compiler")},
 }
 
 __all__ = ["CPUPlace", "CUDAPlace", "resolve_device",

@@ -79,6 +79,21 @@ class Diagnostic:
         return format_record(self.severity, self.code, self.location(),
                              self.message, self.hint)
 
+    def to_dict(self):
+        """The JAX package's JSON shape: every key present, absent
+        fields null."""
+        return {
+            "code": self.code,
+            "severity": self.severity,
+            "message": self.message,
+            "block_idx": self.block_idx,
+            "op_index": self.op_index,
+            "op_type": self.op_type,
+            "var": self.var,
+            "hint": self.hint,
+            "pass": self.pass_name,
+        }
+
     def sort_key(self):
         """Most severe first, then program order (block, op, var)."""
         return (-Severity.rank(self.severity),

@@ -38,10 +38,21 @@ was calibrated against XLA's fused executables; a captured graph fuses
 nothing, so the port charges all of it (1.0). Callers that must match
 the JAX package pass the discount explicitly.
 
-The sharding half — `MeshSpec` beyond one device, `propagate_shardings`,
-`price_collectives`, `plan_program` with a mesh and `PlannerPass` — waits
-for the port's parallelism (ROADMAP Queue 1 item 15) and raises
-NotImplementedError naming it.
+The sharding half is the JAX package's, rule for rule:
+
+* **sharding propagation** (`propagate_shardings`) seeds per-param and
+  per-feed specs from declared `VarDesc.sharding`, a `MeshSpec` or a
+  strategy's `mesh_axes`, pushes them through op semantics (elementwise,
+  matmul contraction, reshape/transpose, batch-preserving ops, reductions,
+  `moe_switch`) and flags `axis-mismatch`, `reshard-on-hot-path`,
+  `replicated-large-param` (PT_FLAGS_plan_large_param_mb) and
+  `unshardable-op`. Its `CollectiveEvent`s are what the port's
+  data-parallel step reads to combine a reduction over the batch across
+  ranks and to tell a batch-sharded fetch from a replicated one
+  (parallel/compiler.py).
+* **communication-cost model** (`price_collectives`): ring / all-to-all
+  transfer bytes per device at PT_FLAGS_plan_link_gbps GB/s per link.
+* `plan_program(..., mesh=...)` and `PlannerPass` run all three.
 """
 import math
 
@@ -49,6 +60,7 @@ import torch
 
 from paddle_tpu_torch.analysis.concurrency import make_lock
 from paddle_tpu_torch.analysis.diagnostic import Diagnostic, Severity
+from paddle_tpu_torch.analysis.framework import Pass, register_pass
 from paddle_tpu_torch.analysis.verifier import consumer_map, feedable_names
 from paddle_tpu_torch.core import dtypes as _dt
 from paddle_tpu_torch.core import flags as _flags
@@ -65,11 +77,6 @@ PLANNER_PASSES = ("plan_resources",)
 
 PASS_NAME = "plan_resources"
 
-_ITEM15 = ("the planner's sharding half (sharding propagation, collective "
-           "pricing, meshes beyond one device) waits for the port's "
-           "parallelism, ROADMAP Queue 1 item 15")
-
-
 def _human(nbytes):
     if nbytes is None:
         return "?"
@@ -82,8 +89,8 @@ def _human(nbytes):
 
 class MeshSpec:
     """Named device mesh: ordered {axis name: size}, parsed from a
-    "dp:2,tp:4" string, a dict or another MeshSpec. Only a single-device
-    mesh (no axis, or axes of size 1) is planned until item 15."""
+    "dp:2,tp:4" string, a dict, a strategy's `mesh_axes`, a
+    parallel.env.Mesh or another MeshSpec."""
 
     __slots__ = ("axes",)
 
@@ -94,9 +101,6 @@ class MeshSpec:
             enforce(size >= 1, "mesh axis %r must have size >= 1, got %s",
                     k, v)
             self.axes[str(k)] = size
-        if self.total() > 1:
-            raise NotImplementedError(
-                f"mesh {self.describe()}: {_ITEM15}")
 
     @classmethod
     def parse(cls, spec):
@@ -107,6 +111,8 @@ class MeshSpec:
         mesh_axes = getattr(spec, "mesh_axes", None)
         if mesh_axes is not None:
             return cls(mesh_axes)
+        if isinstance(getattr(spec, "shape", None), dict):   # env.Mesh
+            return cls(spec.shape)
         enforce(isinstance(spec, str),
                 "cannot parse mesh spec from %r", spec)
         axes = {}
@@ -120,8 +126,18 @@ class MeshSpec:
             axes[name.strip()] = int(size)
         return cls(axes)
 
+    def has_axis(self, axis):
+        return axis in self.axes
+
     def size(self, axis):
         return self.axes.get(axis, 1)
+
+    def batch_axis(self):
+        """The axis feeds are sharded over by default: `dp` when
+        present, else the first declared axis."""
+        if "dp" in self.axes:
+            return "dp"
+        return next(iter(self.axes), None)
 
     def total(self):
         n = 1
@@ -360,25 +376,462 @@ def estimate_peak_memory(program, batch_size=1, mesh=None,
 
 
 # ---------------------------------------------------------------------------
-# the plan (one device)
+# sharding propagation
 # ---------------------------------------------------------------------------
 
-def propagate_shardings(*args, **kwargs):
-    raise NotImplementedError(_ITEM15)
+class CollectiveEvent:
+    """One implied collective: what moves, how much, over which axis."""
+
+    __slots__ = ("kind", "payload_bytes", "axis", "op_index", "op_type",
+                 "var")
+
+    def __init__(self, kind, payload_bytes, axis, op_index=None,
+                 op_type=None, var=None):
+        self.kind = kind                  # all_reduce/all_gather/
+        self.payload_bytes = int(payload_bytes)   # reduce_scatter/all_to_all
+        self.axis = axis
+        self.op_index = op_index
+        self.op_type = op_type
+        self.var = var
+
+    def to_dict(self):
+        return {"kind": self.kind, "payload_bytes": self.payload_bytes,
+                "axis": self.axis, "op_index": self.op_index,
+                "op_type": self.op_type, "var": self.var}
 
 
-def price_collectives(*args, **kwargs):
-    raise NotImplementedError(_ITEM15)
+#: ops whose single output carries its single data input's spec verbatim
+_ELEMENTWISE_UNARY = frozenset({
+    "relu", "relu6", "leaky_relu", "elu", "gelu", "tanh", "sigmoid",
+    "hard_sigmoid", "hard_swish", "swish", "logsigmoid", "exp", "log",
+    "sqrt", "rsqrt", "square", "abs", "floor", "ceil", "round", "sign",
+    "pow", "scale", "cast", "clip", "dropout", "assign", "relu_",
+    "increment", "softsign", "softplus", "stanh", "brelu", "cos", "sin",
+})
 
+#: binary broadcasting ops: output spec joins both inputs
+_ELEMENTWISE_BINARY = frozenset({
+    "elementwise_add", "elementwise_sub", "elementwise_mul",
+    "elementwise_div", "elementwise_max", "elementwise_min",
+    "elementwise_pow", "elementwise_mod",
+})
+
+_MATMUL_OPS = frozenset({"mul", "matmul", "matmul_v2"})
+
+_RESHAPE_OPS = frozenset({"reshape", "reshape2", "flatten", "flatten2",
+                          "squeeze", "squeeze2", "unsqueeze",
+                          "unsqueeze2"})
+
+_TRANSPOSE_OPS = frozenset({"transpose", "transpose2"})
+
+#: structured ops that keep the batch (leading) dim and operate within
+#: each example — dim-0 sharding flows through, other dims replicate
+_BATCH_PRESERVING = frozenset({
+    "conv2d", "depthwise_conv2d", "conv2d_transpose", "pool2d",
+    "max_pool2d_with_index", "batch_norm", "sync_batch_norm",
+    "layer_norm", "instance_norm", "group_norm", "softmax",
+    "log_softmax", "lrn", "pad", "pad2d", "prelu", "data_norm",
+    "cross_entropy", "softmax_with_cross_entropy", "one_hot",
+    "lookup_table", "embedding", "accuracy", "top_k", "arg_max",
+})
+
+_REDUCE_OPS = frozenset({"reduce_sum", "reduce_mean", "reduce_max",
+                         "reduce_min", "reduce_prod", "mean"})
+
+
+def _first(op, slot):
+    names = op.inputs.get(slot) or []
+    return names[0] if names else None
+
+
+def _join_specs(a, b):
+    """Elementwise join of two equal-rank specs; None on conflict."""
+    out = []
+    for x, y in zip(a, b):
+        if x and y and x != y:
+            return None
+        out.append(x or y)
+    return tuple(out)
+
+
+def propagate_shardings(program, mesh, batch_size=1,
+                        large_param_bytes=None):
+    """Seed + propagate sharding specs over block 0.
+
+    Returns (specs, hazards, events): `specs` maps var name → a
+    PartitionSpec-like tuple (axis name or None per dim), `hazards` are
+    ready Diagnostics, `events` the implied CollectiveEvents for
+    `price_collectives`. Seeds come from declared `VarDesc.sharding`
+    first; feeds with no declared spec default to batch-dim sharding
+    over the mesh's batch axis. With a trivial mesh (total size 1) the
+    walk still validates declared specs but prices nothing.
+    """
+    mesh = MeshSpec.parse(mesh)
+    if large_param_bytes is None:
+        large_param_bytes = int(float(
+            _flags.get_flag("plan_large_param_mb")) * (1 << 20))
+    block = program.global_block()
+    env0 = feedable_names(program)
+    feeds = set(program.meta.get("feed_targets", []))
+    nontrivial = mesh.total() > 1
+    batch_axis = mesh.batch_axis()
+    specs, hazards, events = {}, [], []
+
+    def _desc(name):
+        return block.var(name).desc if block.has_var(name) else None
+
+    def _rank(name):
+        d = _desc(name)
+        return len(d.shape) if d is not None and d.shape is not None \
+            else None
+
+    def _nbytes(name):
+        return var_bytes(_desc(name), batch_size, mesh,
+                         specs.get(name))
+
+    def _spec(name):
+        s = specs.get(name)
+        if s is not None:
+            return s
+        r = _rank(name)
+        return (None,) * r if r is not None else None
+
+    def _haz(code, severity, message, **kw):
+        kw.setdefault("pass_name", PASS_NAME)
+        hazards.append(Diagnostic(code, severity, message, block_idx=0,
+                                  **kw))
+
+    def _gather_to_replicated(name, i, op):
+        """Pessimistic reshard: all-gather `name` to replicated."""
+        s = specs.get(name)
+        if not s or not any(s):
+            return
+        b = _nbytes(name)
+        if b:
+            events.append(CollectiveEvent(
+                "all_gather", b,
+                next(ax for ax in s if ax), op_index=i,
+                op_type=op.type, var=name))
+        specs[name] = (None,) * len(s)
+
+    # -- seeds ---------------------------------------------------------
+    for name in sorted(env0):
+        d = _desc(name)
+        if d is None or d.shape is None:
+            continue
+        rank = len(d.shape)
+        if d.sharding:
+            spec = tuple(d.sharding) + (None,) * (rank - len(d.sharding))
+            bad = [ax for ax in spec if ax and not mesh.has_axis(ax)]
+            if bad:
+                _haz("axis-mismatch", Severity.ERROR,
+                     f"declared sharding {tuple(d.sharding)} names mesh "
+                     f"axes {bad} absent from mesh "
+                     f"({mesh.describe()})", var=name,
+                     hint="fix VarDesc.sharding or extend the mesh")
+                spec = (None,) * rank
+            specs[name] = spec
+        elif (d.is_data or name in feeds) and not d.persistable \
+                and nontrivial and batch_axis and rank >= 1:
+            # default data-parallel seed: shard the batch dim
+            specs[name] = (batch_axis,) + (None,) * (rank - 1)
+        else:
+            specs[name] = (None,) * rank
+        if d.is_parameter and nontrivial and not any(specs[name]):
+            b = var_bytes(d, batch_size)
+            if b is not None and b > large_param_bytes:
+                _haz("replicated-large-param", Severity.WARNING,
+                     f"parameter is replicated on every device "
+                     f"({_human(b)} × {mesh.total()} devices, threshold "
+                     f"{_human(large_param_bytes)})", var=name,
+                     hint="declare VarDesc.sharding over a mesh axis "
+                          "(tp/ep) or raise PT_FLAGS_plan_large_param_mb")
+
+    # -- per-op propagation --------------------------------------------
+    for i, op in enumerate(block.ops):
+        in_names = [n for n in op.input_names()]
+        sharded_in = [n for n in in_names
+                      if specs.get(n) and any(specs[n])]
+        out_names = op.output_names()
+
+        def _set_outputs(spec_fn):
+            for n in out_names:
+                r = _rank(n)
+                if r is None:
+                    specs[n] = None
+                    continue
+                s = spec_fn(n, r)
+                if s is None:
+                    s = (None,) * r
+                specs[n] = tuple(s[:r]) + (None,) * (r - len(s))
+
+        if op.type in _MATMUL_OPS:
+            x, y = _first(op, "X"), _first(op, "Y")
+            sx, sy = _spec(x) or (), _spec(y) or ()
+            cx = sx[-1] if sx else None      # x's contraction dim
+            cy = sy[0] if sy else None       # y's contraction dim
+            out = tuple(sx[:-1]) + ((sy[-1] if sy else None),)
+            if cx and cy and cx != cy:
+                _haz("axis-mismatch", Severity.ERROR,
+                     f"contraction dims are sharded on different mesh "
+                     f"axes ({x}:{cx} vs {y}:{cy}) — the matmul cannot "
+                     f"be partitioned", op_index=i, op_type=op.type,
+                     hint="align both operands' contraction sharding")
+            elif cx and cy:
+                # sharded contraction: partial results all-reduce
+                o = out_names[0] if out_names else None
+                b = _nbytes(o) if o else 0
+                if b:
+                    events.append(CollectiveEvent(
+                        "all_reduce", b, cx, op_index=i,
+                        op_type=op.type, var=o))
+            elif cx or cy:
+                # one side sharded on the contraction dim: the other is
+                # replicated there, so the sharded side reduces locally
+                # then all-reduces nothing — but the OUTPUT inherits a
+                # partial sum; price an all-reduce of the output
+                o = out_names[0] if out_names else None
+                b = _nbytes(o) if o else 0
+                if b:
+                    events.append(CollectiveEvent(
+                        "all_reduce", b, cx or cy, op_index=i,
+                        op_type=op.type, var=o))
+            _set_outputs(lambda n, r: out)
+        elif op.type in _ELEMENTWISE_BINARY:
+            x, y = _first(op, "X"), _first(op, "Y")
+            sx, sy = _spec(x), _spec(y)
+            if sx is None or sy is None:
+                _set_outputs(lambda n, r: sx or sy or (None,) * r)
+            elif len(sx) == len(sy):
+                j = _join_specs(sx, sy)
+                if j is None:
+                    _haz("axis-mismatch", Severity.ERROR,
+                         f"operands {x!r} and {y!r} are sharded on "
+                         f"different axes per dim ({sx} vs {sy})",
+                         op_index=i, op_type=op.type)
+                    j = (None,) * len(sx)
+                _set_outputs(lambda n, r: j)
+            else:
+                # broadcasting add (bias): the smaller operand aligns to
+                # the larger's trailing dims; output follows the larger
+                big = sx if len(sx) >= len(sy) else sy
+                _set_outputs(lambda n, r: big)
+        elif op.type in _ELEMENTWISE_UNARY:
+            x = _first(op, "X") or (in_names[0] if in_names else None)
+            s = _spec(x) if x else None
+            _set_outputs(lambda n, r: s or (None,) * r)
+        elif op.type in _TRANSPOSE_OPS:
+            x = _first(op, "X")
+            s = _spec(x)
+            perm = op.attrs.get("perm") or op.attrs.get("axis")
+            if s is not None and perm:
+                out = tuple(s[p] for p in perm)
+                _set_outputs(lambda n, r: out)
+            else:
+                _set_outputs(lambda n, r: (None,) * r)
+        elif op.type in _RESHAPE_OPS:
+            x = _first(op, "X")
+            s = _spec(x) or ()
+            dx = _desc(x)
+            lead = s[0] if s else None
+            inner = [ax for ax in s[1:] if ax]
+            if inner:
+                _haz("reshard-on-hot-path", Severity.WARNING,
+                     f"reshape of a tensor sharded on inner dims "
+                     f"({s}) implies an all-gather inside the step",
+                     op_index=i, op_type=op.type, var=x,
+                     hint="reshape before sharding, or shard only the "
+                          "batch dim across reshapes")
+                _gather_to_replicated(x, i, op)
+                lead = specs[x][0] if specs.get(x) else None
+            # leading (batch) dim survives when the reshape keeps it
+            keeps_lead = False
+            for n in out_names:
+                do = _desc(n)
+                if dx is not None and do is not None and dx.shape and \
+                        do.shape and dx.shape[0] == do.shape[0]:
+                    keeps_lead = True
+            _set_outputs(lambda n, r:
+                         ((lead,) + (None,) * (r - 1))
+                         if keeps_lead else (None,) * r)
+        elif op.type in _REDUCE_OPS:
+            x = _first(op, "X") or (in_names[0] if in_names else None)
+            s = _spec(x) if x else None
+            dims = op.attrs.get("dim")
+            if op.type == "mean" or dims is None:
+                dims = list(range(len(s))) if s else []
+            elif isinstance(dims, int):
+                dims = [dims]
+            reduced_axes = sorted({s[d] for d in dims
+                                   if s and -len(s) <= d < len(s)
+                                   and s[d]})
+            if reduced_axes and out_names:
+                b = _nbytes(out_names[0]) or dtype_bytes("float32")
+                for ax in reduced_axes:
+                    events.append(CollectiveEvent(
+                        "all_reduce", b, ax, op_index=i,
+                        op_type=op.type, var=out_names[0]))
+            keep = op.attrs.get("keep_dim", False)
+            if s is None:
+                _set_outputs(lambda n, r: (None,) * r)
+            elif keep:
+                out = tuple(None if d in dims else ax
+                            for d, ax in enumerate(s))
+                _set_outputs(lambda n, r: out)
+            else:
+                out = tuple(ax for d, ax in enumerate(s)
+                            if d not in dims)
+                _set_outputs(lambda n, r: out)
+        elif op.type == "moe_switch":
+            _moe_rule(op, i, specs, events, hazards, mesh, _spec,
+                      _desc, _nbytes, batch_size)
+            _set_outputs(lambda n, r: (_spec(_first(op, "X")) or
+                                       (None,) * r) if r > 1
+                         else (None,) * r)
+        elif op.type in _BATCH_PRESERVING or (
+                sharded_in and all(
+                    (specs.get(n) and specs[n][0] and
+                     not any(specs[n][1:])) or not any(specs.get(n) or ())
+                    for n in in_names if specs.get(n) is not None)):
+            # structured-but-per-example op, or the generic heuristic:
+            # everything sharded here is sharded ONLY on the batch dim
+            # and the op keeps a leading batch dim — let dim-0 flow
+            lead = None
+            for n in in_names:
+                s = specs.get(n)
+                if s and s[0]:
+                    lead = s[0]
+                    break
+            bad = [n for n in in_names
+                   if specs.get(n) and any(specs[n][1:])]
+            if bad and op.type in _BATCH_PRESERVING:
+                _haz("reshard-on-hot-path", Severity.WARNING,
+                     f"{op.type} input(s) {bad} sharded on non-batch "
+                     f"dims imply a gather before the op",
+                     op_index=i, op_type=op.type)
+                for n in bad:
+                    _gather_to_replicated(n, i, op)
+            _set_outputs(lambda n, r:
+                         (lead,) + (None,) * (r - 1) if r >= 1 else ())
+        else:
+            # unknown semantics with sharded inputs: the planner cannot
+            # place it — gather everything, replicate the outputs
+            if sharded_in:
+                _haz("unshardable-op", Severity.INFO,
+                     f"no sharding rule for op {op.type!r} with sharded "
+                     f"inputs {sharded_in} — planning an all-gather to "
+                     f"replicated (pessimistic)",
+                     op_index=i, op_type=op.type,
+                     hint="add a rule to analysis/planner.py or attach "
+                          "sharding metadata to the op")
+                for n in sharded_in:
+                    _gather_to_replicated(n, i, op)
+            _set_outputs(lambda n, r: (None,) * r)
+
+    # any event inside the step body is, by definition, on the hot path
+    if events and nontrivial:
+        kinds = {}
+        for ev in events:
+            kinds[ev.kind] = kinds.get(ev.kind, 0) + 1
+        summary = ", ".join(f"{v}×{k}" for k, v in sorted(kinds.items()))
+        _haz("reshard-on-hot-path", Severity.WARNING,
+             f"step graph implies {len(events)} collective(s) "
+             f"({summary}) — every one is paid per step",
+             hint="fold collectives into the parallel plan "
+                  "(DistributedStrategy) or accept the comms budget")
+    return specs, hazards, events
+
+
+def _moe_rule(op, i, specs, events, hazards, mesh, _spec, _desc,
+              _nbytes, batch_size):
+    """Price the Switch-MoE dispatch: tokens [N,D] route into expert
+    slices [E,C,D] sharded over the expert axis — one all-to-all in,
+    one all-to-all back (parallel/moe.py's GSPMD layout)."""
+    ep_axis = op.attrs.get("expert_axis", "ep")
+    x = _first(op, "X")
+    gw = _first(op, "GateW")
+    dx, dg = _desc(x), _desc(gw)
+    if dx is None or dx.shape is None or dg is None or dg.shape is None:
+        return
+    n_dim = dx.shape[0]
+    n_tok = int(batch_size) if n_dim == -1 else int(n_dim)
+    d_model = int(dx.shape[-1])
+    n_experts = int(dg.shape[-1])
+    cap = op.attrs.get("capacity")
+    if cap is None:
+        cf = float(op.attrs.get("capacity_factor", 1.25))
+        cap = int(max(1, (n_tok * cf) // max(n_experts, 1)))
+    payload = (n_experts * int(cap) * d_model
+               * dtype_bytes(dx.dtype or "float32"))
+    if mesh.has_axis(ep_axis) and mesh.size(ep_axis) > 1:
+        for _ in range(2):   # dispatch + combine
+            events.append(CollectiveEvent(
+                "all_to_all", payload, ep_axis, op_index=i,
+                op_type=op.type, var=x))
+    elif mesh.total() > 1:
+        hazards.append(Diagnostic(
+            "axis-mismatch", Severity.ERROR,
+            f"moe_switch routes over expert axis {ep_axis!r} which is "
+            f"not in the mesh ({mesh.describe()})", block_idx=0,
+            op_index=i, op_type=op.type,
+            hint="add the expert axis to the mesh or set the op's "
+                 "expert_axis attr", pass_name=PASS_NAME))
+
+
+# ---------------------------------------------------------------------------
+# communication-cost model
+# ---------------------------------------------------------------------------
+
+def price_collectives(events, mesh, link_gbps=None):
+    """Ring / all-to-all transfer model: on an n-way ring an all-gather
+    or reduce-scatter moves b·(n-1)/n bytes per device, an all-reduce
+    2·b·(n-1)/n (reduce-scatter + all-gather), and an all-to-all
+    exchanges b·(n-1)/n. Seconds assume `link_gbps` GB/s per link
+    (PT_FLAGS_plan_link_gbps)."""
+    mesh = MeshSpec.parse(mesh)
+    if link_gbps is None:
+        link_gbps = float(_flags.get_flag("plan_link_gbps"))
+    priced = []
+    total_payload = wire = 0
+    for ev in events:
+        n = mesh.size(ev.axis)
+        frac = (n - 1) / n if n > 1 else 0.0
+        factor = 2.0 if ev.kind == "all_reduce" else 1.0
+        w = int(ev.payload_bytes * frac * factor)
+        total_payload += ev.payload_bytes
+        wire += w
+        d = ev.to_dict()
+        d["participants"] = n
+        d["wire_bytes"] = w
+        priced.append(d)
+    seconds = wire / (link_gbps * 1e9) if link_gbps > 0 else 0.0
+    return {
+        "events": priced,
+        "count": len(priced),
+        "total_payload_bytes": total_payload,
+        "wire_bytes": wire,
+        "step_seconds": seconds,
+        "link_gbps": link_gbps,
+    }
+
+
+# ---------------------------------------------------------------------------
+# the plan
+# ---------------------------------------------------------------------------
 
 class ResourcePlan:
-    """plan_program's result on one device: the memory estimate and the
-    fit verdict, renderable as Diagnostics or JSON."""
+    """plan_program's result: memory estimate + shardings + hazards +
+    priced comms, renderable as Diagnostics or JSON."""
 
-    __slots__ = ("memory", "mesh", "batch_size", "hbm_budget_bytes")
+    __slots__ = ("memory", "shardings", "hazards", "comms", "mesh",
+                 "batch_size", "hbm_budget_bytes")
 
-    def __init__(self, memory, mesh, batch_size, hbm_budget_bytes=None):
+    def __init__(self, memory, shardings, hazards, comms, mesh,
+                 batch_size, hbm_budget_bytes=None):
         self.memory = memory
+        self.shardings = shardings
+        self.hazards = list(hazards)
+        self.comms = comms
         self.mesh = mesh
         self.batch_size = batch_size
         self.hbm_budget_bytes = hbm_budget_bytes
@@ -409,7 +862,7 @@ class ResourcePlan:
             pass_name=PASS_NAME)
 
     def diagnostics(self):
-        """The peak-memory INFO finding, the unsized-var blind spot and
+        """Hazards + the peak-memory / comms summary INFO findings +
         the fit verdict (when a budget was set)."""
         m = self.memory
         out = [Diagnostic(
@@ -427,37 +880,85 @@ class ResourcePlan:
                 f"{len(m.unsized_vars)} var(s) declare no shape and "
                 f"count 0 bytes: {sorted(m.unsized_vars)[:8]}",
                 block_idx=0, pass_name=PASS_NAME,
-                hint="declare shapes, or accept the blind spot"))
+                hint="declare shapes, or accept the blind spot "
+                     "(tools/repo_lint.py tracks shape-blind ops)"))
+        if self.comms["count"]:
+            c = self.comms
+            out.append(Diagnostic(
+                "comm-budget", Severity.INFO,
+                f"step comms: {c['count']} collective(s), payload "
+                f"{_human(c['total_payload_bytes'])}, wire "
+                f"{_human(c['wire_bytes'])} "
+                f"(~{c['step_seconds'] * 1e3:.3f}ms at "
+                f"{c['link_gbps']:g}GB/s per link)",
+                block_idx=0, pass_name=PASS_NAME))
+        out.extend(self.hazards)
         fit = self.fit_diagnostic()
         if fit is not None:
             out.append(fit)
         return out
 
     def to_dict(self):
-        return {"mesh": self.mesh.axes, "batch_size": self.batch_size,
-                "memory": self.memory.to_dict(),
-                "hbm_budget_bytes": self.hbm_budget_bytes,
-                "fits": self.fits()}
+        return {
+            "mesh": self.mesh.axes,
+            "batch_size": self.batch_size,
+            "memory": self.memory.to_dict(),
+            "comms": self.comms,
+            "shardings": {n: list(s) if s else None
+                          for n, s in sorted(self.shardings.items())},
+            "hazards": [d.to_dict() for d in self.hazards],
+            "hbm_budget_bytes": self.hbm_budget_bytes,
+            "fits": self.fits(),
+        }
 
 
 def plan_program(program, mesh=None, batch_size=1, stash_bytes=0,
-                 hbm_budget_bytes=None):
-    """The single-device plan: the liveness memory estimate and the fit
-    verdict. A mesh beyond one device raises NotImplementedError."""
+                 hbm_budget_bytes=None, large_param_bytes=None,
+                 link_gbps=None):
+    """Run the full planner: sharding propagation → sharded liveness
+    memory estimate → collective pricing. Returns a ResourcePlan."""
     mesh = MeshSpec.parse(mesh)
+    specs, hazards, events = propagate_shardings(
+        program, mesh, batch_size=batch_size,
+        large_param_bytes=large_param_bytes)
     memory = estimate_peak_memory(program, batch_size=batch_size,
-                                  mesh=mesh, stash_bytes=stash_bytes)
-    return ResourcePlan(memory, mesh, batch_size,
-                        hbm_budget_bytes=hbm_budget_bytes)
+                                  mesh=mesh, shardings=specs,
+                                  stash_bytes=stash_bytes)
+    comms = price_collectives(events, mesh, link_gbps=link_gbps)
+    return ResourcePlan(memory, specs, hazards, comms, mesh,
+                        batch_size, hbm_budget_bytes=hbm_budget_bytes)
 
 
-class PlannerPass:
-    """The planner as an analysis pass waits for item 15: its default
-    instance reads a mesh from the program and pairs sharding hazards
-    with the memory plan."""
+@register_pass(PASS_NAME)
+class PlannerPass(Pass):
+    """The planner as a framework pass. A default-constructed instance
+    (what `get_pass("plan_resources")` builds) reads the mesh from
+    `program.meta["mesh_axes"]` and the HBM budget from
+    PT_FLAGS_plan_hbm_bytes; explicit instances (the --mesh CLI mode,
+    the serving fit gate) carry their own configuration."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(_ITEM15)
+    def __init__(self, mesh=None, batch_size=None, hbm_budget_bytes=None,
+                 stash_bytes=0):
+        self._mesh = mesh
+        self._batch_size = batch_size
+        self._hbm_budget = hbm_budget_bytes
+        self._stash_bytes = stash_bytes
+
+    def run(self, program, context):
+        mesh = self._mesh
+        if mesh is None:
+            mesh = program.meta.get("mesh_axes")
+        budget = self._hbm_budget
+        if budget is None:
+            budget = float(_flags.get_flag("plan_hbm_bytes")) or None
+        plan = plan_program(
+            program, mesh=mesh,
+            batch_size=self._batch_size or 1,
+            stash_bytes=self._stash_bytes,
+            hbm_budget_bytes=budget)
+        if context is not None:
+            context.scratch["resource_plan"] = plan
+        return plan.diagnostics()
 
 
 # ---------------------------------------------------------------------------

@@ -32,6 +32,10 @@ state:.../train|infer`, :99-123):
   re-seeds each draw site's persistent generator before a replay, so a
   captured run draws what an eager run draws.
 
+A `parallel.CompiledProgram` runs on the rank's batch shard through its
+data-parallel op hook under its mesh (parallel/compiler.py) and returns
+global fetches; a `PipelineCompiledProgram` runs its own schedule.
+
 On the CPU, and on the card inside `profile.disable_capture()`, the same
 segments run eagerly. `Executor(place=None)` runs on the GPU and raises
 without one; pass `place="cpu"` (or `CPUPlace()`) for the CPU.
@@ -84,14 +88,19 @@ class Executor:
         self._pool = obs_profile.ExecutorPool()
 
     @staticmethod
-    def _cache_token(program, fetch_names, state_names, training):
+    def _cache_token(program, fetch_names, state_names, training,
+                     compiled=None):
         """The persistent cache's identity of one entry: the program's
-        content hash, fetches, state names and mode (the JAX token)."""
+        content hash, fetches, state names and mode (the JAX token), and
+        a CompiledProgram's plan fingerprint."""
         from paddle_tpu_torch.core.compile_cache import program_cache_token
-        return (f"prog:{program_cache_token(program)}"
-                f"/fetch:{','.join(fetch_names)}"
-                f"/state:{','.join(state_names)}"
-                f"/{'train' if training else 'infer'}")
+        token = (f"prog:{program_cache_token(program)}"
+                 f"/fetch:{','.join(fetch_names)}"
+                 f"/state:{','.join(state_names)}"
+                 f"/{'train' if training else 'infer'}")
+        if compiled is not None:
+            token += f"/plan:{compiled.cache_fingerprint()}"
+        return token
 
     def _consumes_rng(self, program):
         key = (id(program), program._version)
@@ -107,6 +116,13 @@ class Executor:
             return_numpy=True, training=None):
         """Run `program` once: feed → step → fetches. `training`
         defaults to True unless the program was cloned for test."""
+        compiled = None
+        if program is not None and hasattr(program, "with_data_parallel"):
+            compiled = program
+            if hasattr(compiled, "build_step"):      # the pipeline's run
+                return compiled.run(self, feed, fetch_list, scope,
+                                    return_numpy, training)
+            program = compiled.program
         program = program or default_main_program()
         scope = scope or global_scope()
         fetch_names = [_fetch_name(f) for f in (fetch_list or [])]
@@ -115,14 +131,23 @@ class Executor:
 
         with obs_profile.capture_gate().shared():
             feed_vals = self._prepare_feed(program, dict(feed or {}))
+        hook = None
+        if compiled is not None:
+            enforce(compiled.mesh is not None,
+                    "call CompiledProgram.with_data_parallel first")
+            compiled.shard_state(scope)
+            feed_vals, b_local, b_global = compiled.shard_feeds(feed_vals)
         state_names = referenced_state(program, scope)
-        key = (id(program), program._version,
+        key = (id(program), program._version, id(compiled),
                tuple(sorted((n, tuple(v.shape), str(v.dtype))
                             for n, v in feed_vals.items())),
                tuple(fetch_names), tuple(state_names), training)
+        if compiled is not None:
+            hook = compiled.hook(key, b_local, b_global)
+            hook.begin(feed_vals)
         with self._cache_mu:
             step = self._entry(key, program, feed_vals, fetch_names,
-                               state_names, training)
+                               state_names, training, compiled)
             if training or self._consumes_rng(program):
                 seed = (program.random_seed * 1_000_003
                         + self._step_counter)
@@ -132,7 +157,12 @@ class Executor:
         if flags.get_flag("deterministic"):   # FLAGS_cudnn_deterministic
             torch.backends.cudnn.deterministic = True
             torch.backends.cudnn.benchmark = False
-        fetches = step(scope, state_names, feed_vals, seed)
+        if compiled is None:
+            fetches = step(scope, state_names, feed_vals, seed)
+        else:
+            fetches = self._run_compiled(compiled, hook, step, scope,
+                                         state_names, feed_vals, seed,
+                                         fetch_names)
 
         with obs_profile.capture_gate().shared():
             if flags.get_flag("check_nan_inf"):
@@ -147,8 +177,26 @@ class Executor:
                 fetches = [to_numpy(v) for v in fetches]
         return fetches
 
+    @staticmethod
+    def _run_compiled(compiled, hook, step, scope, state_names, feed_vals,
+                      seed, fetch_names):
+        """One CompiledProgram step: the program's ops through the
+        data-parallel hook under the mesh, the fetches made global; on a
+        gloo group eagerly (its collectives are host work)."""
+        from paddle_tpu_torch.core.lowering import op_hook
+        from paddle_tpu_torch.parallel.env import bind_mesh
+        with bind_mesh(compiled.mesh), op_hook(hook):
+            if compiled.uses_host_collectives():
+                with obs_profile.disable_capture():
+                    fetches = step(scope, state_names, feed_vals, seed)
+            else:
+                fetches = step(scope, state_names, feed_vals, seed)
+            with torch.no_grad():
+                return [hook.fetch(n, v)
+                        for n, v in zip(fetch_names, fetches)]
+
     def _entry(self, key, program, feed_vals, fetch_names, state_names,
-               training):
+               training, compiled=None):
         """The LedgerJit of one signature, made on its first run. The
         cache holds the Program and checks identity: an id() can be
         reused by a new Program after the old one is collected."""
@@ -167,7 +215,7 @@ class Executor:
                   f"{','.join(fetch_names)}/"
                   f"{'train' if training else 'infer'}"),
             cache_token=self._cache_token(program, fetch_names,
-                                          state_names, training),
+                                          state_names, training, compiled),
             device=self.device, pool=self._pool)
         self._cache[key] = (program, step)
         return step

@@ -77,8 +77,6 @@ def all_flags():
 
 #: the reasons of the flags no module of the port reads yet
 _PARITY = "kept for API parity, no counterpart in the port"
-_ITEM15_PLAN = "read by the planner's sharding half, ROADMAP Queue 1 " \
-               "item 15"
 _ITEM15 = "read by the parameter-server client, ROADMAP Queue 1 item 15"
 _ITEM17 = "read by analysis.concurrency, ROADMAP Queue 1 item 17"
 
@@ -214,8 +212,9 @@ define_flag("plan_fusion_discount", 1.0,
             "all; the JAX package's 0.25 was calibrated against XLA's "
             "fused executables")
 define_flag("plan_large_param_mb", 64.0,
-            "not read yet: replicated-large-param hazard threshold (MiB) "
-            "of the sharding propagation", unread=_ITEM15_PLAN)
+            "replicated-large-param hazard threshold (MiB) of the "
+            "planner's sharding propagation: an unsharded parameter "
+            "above it on a multi-rank mesh is flagged")
 define_flag("plan_link_gbps", 100.0,
-            "not read yet: per-link bandwidth (GB/s) of the planner's "
-            "collective transfer model", unread=_ITEM15_PLAN)
+            "per-link bandwidth (GB/s) of the planner's ring / "
+            "all-to-all collective transfer model")

@@ -40,6 +40,8 @@ their randomness under the op index base `base + 1000 * (i + 1)` of the
 control-flow op at position `i`, the JAX package's numbering; a `scan`
 has no host read and runs inside its enclosing segment.
 """
+import contextlib
+import contextvars
 from collections import namedtuple
 
 import torch
@@ -50,13 +52,28 @@ from paddle_tpu_torch.core.places import resolve_device
 from paddle_tpu_torch.core.registry import OpContext, get_op, host_reason
 
 __all__ = ["Segment", "capture_plan", "run_ops", "run_block",
-           "make_step_fn", "referenced_state"]
+           "make_step_fn", "referenced_state", "op_hook"]
 
 #: one part of a block's capture plan: ops[start:stop]; kind "graph" (a
 #: straight-line run of device ops), "host" (one host op, `reason` why)
 #: or "eager" (an autodiff region that holds host ops); `reads` the names
 #: its ops read (their sub-blocks' too), `writes` the names they write
 Segment = namedtuple("Segment", "kind start stop reason reads writes")
+
+#: the op hook of a data-parallel step (parallel/compiler.py): while one
+#: is set, forward ops run through `hook.run_op(op, impl, ctx, env)` and
+#: the autodiff region's gradients through `hook.on_grads(params, grads)`
+_OP_HOOK = contextvars.ContextVar("paddle_tpu_torch_op_hook", default=None)
+
+
+@contextlib.contextmanager
+def op_hook(hook):
+    """Run the block's ops through `hook` (None: plainly) for the block."""
+    token = _OP_HOOK.set(hook)
+    try:
+        yield hook
+    finally:
+        _OP_HOOK.reset(token)
 
 
 def _sub_blocks(op):
@@ -152,6 +169,7 @@ def run_ops(ops, block, env, seed, training, device, op_index_base=0,
     `session` the capturing runner a host op's sub-blocks run through
     (None: eagerly). An op's failure is an OpRunError carrying its block
     and op index."""
+    hook = _OP_HOOK.get()
     for i, op in enumerate(ops, start):
         impl = get_op(op.type)
         ctx = OpContext(op.attrs, seed, training, op_index_base + i, device,
@@ -161,8 +179,10 @@ def run_ops(ops, block, env, seed, training, device, op_index_base=0,
                 block.program, env, seed, training, device,
                 op_index_base + 1000 * (i + 1), rngs, session)
         try:
-            args = impl.gather_inputs(op, env)
-            result = impl.fn(ctx, *args)
+            if hook is None:
+                result = impl.fn(ctx, *impl.gather_inputs(op, env))
+            else:
+                result = hook.run_op(op, impl, ctx, env)
         except OpRunError:
             raise
         except Exception as e:  # attach IR context (op_call_stack.cc parity)
@@ -172,6 +192,8 @@ def run_ops(ops, block, env, seed, training, device, op_index_base=0,
         impl.bind_outputs(op, env, result)
         for n in op.output_names():
             env[n] = _maybe_stop_gradient(block, n, env[n])
+        if hook is not None:
+            hook.after_op(op, env)
     return env
 
 
@@ -234,12 +256,16 @@ def _run_segment(program, block, seg, env, seed, training, device, base,
         enforce(loss.numel() == 1, "loss %r must be a scalar, got shape %s",
                 loss_name, tuple(loss.shape))
         grads = _grads(loss.reshape(()), leaves)
+    hook = _OP_HOOK.get()
+    if hook is not None:
+        grads = hook.on_grads(params, grads)
     # drop the graph: later ops, fetches and state see plain values
     env = {n: v.detach() if isinstance(v, torch.Tensor) else v
            for n, v in env.items()}
     env.update(zip(ad_op.outputs["Grads"], grads))
-    return run_ops(ops[ad_idx + 1:], block, env, seed, training, device,
-                   base, rngs, start=ad_idx + 1)
+    with op_hook(None):     # the update ops see only replicated values
+        return run_ops(ops[ad_idx + 1:], block, env, seed, training,
+                       device, base, rngs, start=ad_idx + 1)
 
 
 def _subblock_runner(program, env, seed, training, device, op_index_base,

@@ -53,6 +53,8 @@ _OP_MODULES = ("paddle_tpu_torch.ops.tensor", "paddle_tpu_torch.ops.random",
                "paddle_tpu_torch.ops.detection",
                "paddle_tpu_torch.ops.detection_train",
                "paddle_tpu_torch.ops.misc", "paddle_tpu_torch.ops.ctr",
+               "paddle_tpu_torch.ops.collective",
+               "paddle_tpu_torch.parallel.moe",
                "paddle_tpu_torch.amp.amp_ops",
                "paddle_tpu_torch.slim.quant_ops")
 _loaded = [False]

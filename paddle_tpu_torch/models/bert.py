@@ -244,6 +244,28 @@ class Bert(nn.Layer):
         nsp_loss = F.softmax_cross_entropy(nsp_logits, nsp_labels).mean()
         return mlm_loss + nsp_loss
 
+    def param_shardings(self, mesh_axes=("dp", "tp")):
+        """PartitionSpec-like tuple per parameter for Megatron-style
+        tensor parallelism over `tp` (the JAX package's specs): QKV and
+        MLP-in column-sharded, out and MLP-out row-sharded, the token
+        embedding vocab-sharded, everything else replicated (())."""
+        tp = mesh_axes[1] if len(mesh_axes) > 1 else None
+        specs = {}
+        for name in self.trainable_dict():
+            if tp is None:
+                specs[name] = ()
+            elif "qkv.weight" in name or "fc1.weight" in name:
+                specs[name] = (None, tp)
+            elif "qkv.bias" in name or "fc1.bias" in name:
+                specs[name] = (tp,)
+            elif "out.weight" in name or "fc2.weight" in name:
+                specs[name] = (tp, None)
+            elif "tok_emb.weight" in name:
+                specs[name] = (tp, None)
+            else:
+                specs[name] = ()
+        return specs
+
     def flops_per_token(self):
         """Approximate training FLOPs/token (fwd+bwd ≈ 6*N params matmul
         + attention), as the JAX package counts them."""

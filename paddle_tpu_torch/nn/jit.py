@@ -12,8 +12,8 @@ Counterpart of paddle_tpu/nn/jit.py:
   `traced_meta.json`, the input shapes and dtypes it was traced at). The
   JAX package's artifact is a `jax.export` StableHLO module
   (`model.jaxexport`); the two cannot be interchanged.
-* `DataParallel` waits for the parallel slice (ROADMAP Queue 1 item 15)
-  and raises.
+* `DataParallel` runs each rank's slice of the global batch over a
+  parallel.env.Mesh and averages the gradients across the ranks.
 """
 import json
 import os
@@ -118,10 +118,92 @@ def load_dygraph(model_path):
 
 
 class DataParallel:
-    """Eager data parallelism (dygraph/parallel.py DataParallel): not
-    ported yet."""
+    """Eager data parallelism (dygraph/parallel.py:84 DataParallel),
+    counterpart of the JAX package's, over the `axis` dim of a
+    parallel.env.Mesh (default: the bound mesh):
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "nn.DataParallel waits for the parallel slice "
-            "(torch.distributed; ROADMAP Queue 1 item 15)")
+        dp_model = DataParallel(model, mesh)
+        loss, grads = dp_model.value_and_grad(loss_fn)(params, *batch)
+
+    Every rank passes the global batch; each runs its slice (dim 0 of
+    every tensor argument). `value_and_grad` returns the global loss and
+    the replicated gradients, both the mean over the ranks of the
+    per-slice ones: exact for a loss that is a mean over the batch, the
+    reference's contract (`scale_loss`). `forward` returns the global
+    output (the slices all-gathered; its gradient reaches each rank's
+    slice). After a `backward` of a per-slice loss,
+    `apply_collective_grads` averages each parameter's `.grad` over the
+    ranks."""
+
+    def __init__(self, layers, mesh=None, axis="dp"):
+        from paddle_tpu_torch.parallel.env import get_mesh
+        self._layer = layers
+        self.mesh = mesh or get_mesh()
+        self.axis = axis
+
+    def _n(self):
+        return self.mesh.axis_size(self.axis)
+
+    def scale_loss(self, loss):
+        return loss
+
+    def apply_collective_grads(self):
+        from paddle_tpu_torch.ops.collective import all_reduce
+        from paddle_tpu_torch.parallel.env import bind_mesh
+        with bind_mesh(self.mesh), torch.no_grad():
+            for p in self._layer.parameters():
+                if p.grad is not None:
+                    p.grad.copy_(all_reduce(p.grad, self.axis) / self._n())
+
+    def _shard(self, args):
+        n, c = self._n(), self.mesh.coord(self.axis)
+        out = []
+        for a in args:
+            if isinstance(a, torch.Tensor) and a.dim() >= 1 and n > 1:
+                enforce(a.shape[0] % n == 0, "DataParallel: batch %d does "
+                        "not split over %s=%d", a.shape[0], self.axis, n)
+                b = a.shape[0] // n
+                a = a.narrow(0, c * b, b)
+            out.append(a)
+        return tuple(out)
+
+    def forward(self, *args):
+        from paddle_tpu_torch.ops.collective import all_gather
+        from paddle_tpu_torch.parallel.env import bind_mesh
+        y = self._layer(*self._shard(args))
+        with bind_mesh(self.mesh):
+            return all_gather(y, self.axis, 0)
+
+    __call__ = forward
+
+    def value_and_grad(self, loss_fn):
+        """f(params, *batch) -> (global loss, {name: gradient}), params a
+        {flat name: tensor} loaded into the layer first (None: the
+        layer's own)."""
+        from paddle_tpu_torch.ops.collective import all_reduce
+        from paddle_tpu_torch.parallel.env import bind_mesh
+        model = self._layer
+
+        def wrapped(params, *args):
+            if params is not None:
+                model.set_state_dict(params)
+            named = dict(model.named_parameters())
+            with torch.enable_grad():
+                loss = loss_fn(model, *self._shard(args))
+                grads = torch.autograd.grad(loss, list(named.values()),
+                                            allow_unused=True)
+            n = self._n()
+            with bind_mesh(self.mesh), torch.no_grad():
+                loss = all_reduce(loss.detach(), self.axis) / n
+                out = {k: all_reduce(torch.zeros_like(p) if g is None
+                                     else g, self.axis) / n
+                       for (k, p), g in zip(named.items(), grads)}
+            return loss, out
+
+        return wrapped
+
+    def state_dict(self, *a, **k):
+        return self._layer.state_dict(*a, **k)
+
+    def set_state_dict(self, *a, **k):
+        return self._layer.set_state_dict(*a, **k)

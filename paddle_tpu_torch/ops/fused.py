@@ -10,8 +10,9 @@ seqpool_concat, seqpool_cvm_concat, squared_mat_sub,
 transpose_flatten_concat). As in the JAX package, each composes the
 registered base ops (gru, lstm, sequence_conv, cvm) or their torch
 arithmetic: the ops exist so a program that names them runs, not as
-hand-fused kernels. `switch_moe` comes with the parallelism slice
-(ROADMAP Queue 1 item 15).
+hand-fused kernels. `switch_moe` is parallel/moe.py's layer under an op:
+with its expert parameters declared sharded over `ep`, a CompiledProgram
+gathers them before the op runs.
 """
 import numpy as np
 import torch
@@ -305,3 +306,14 @@ def _attention_lstm(ctx, x, c0, h0, att_w, att_b, att_s, att_sb,
         hs.append(h)
         cs.append(c)
     return torch.stack(hs, dim=1), torch.stack(cs, dim=1)
+
+
+@register_op("switch_moe", inputs=["X", "GateW", "WIn", "WOut"],
+             outputs=["Out", "AuxLoss"])
+def _switch_moe_op(ctx, x, gw, wi, wo):
+    """Switch-MoE layer op (parallel/moe.py over [..., D] tokens)."""
+    from paddle_tpu_torch.parallel.moe import switch_moe as _moe
+    d = x.shape[-1]
+    y, aux = _moe(x.reshape(-1, d), gw, wi, wo,
+                  capacity_factor=ctx.attr("capacity_factor", 1.25))
+    return y.reshape(x.shape), aux

@@ -115,12 +115,25 @@ def _register_unary(name, fn):
         return _fn(x)
 
 
+def clip(x, lo, hi):
+    """jnp.clip: minimum(maximum(x, lo), hi), so a value on a bound takes
+    half the gradient, as under JAX (torch.clamp passes all of it)."""
+    lo = torch.as_tensor(lo, dtype=x.dtype, device=x.device)
+    hi = torch.as_tensor(hi, dtype=x.dtype, device=x.device)
+    return torch.minimum(torch.maximum(x, lo), hi)
+
+
+def abs_(x):
+    """jnp.abs, whose derivative at 0 is 1 (torch.abs's is 0)."""
+    return torch.where(x >= 0, x, -x)
+
+
 def _softplus(x):
     """jax.nn.softplus: log(1 + exp(x)) = logaddexp(x, 0)."""
     return torch.logaddexp(x, torch.zeros_like(x))
 
 
-_register_unary("relu", torch.relu)
+_register_unary("relu", lambda x: torch.maximum(x, x.new_zeros(())))
 _register_unary("sigmoid", torch.sigmoid)
 _register_unary("tanh", torch.tanh)
 _register_unary("exp", torch.exp)
@@ -128,7 +141,7 @@ _register_unary("log", torch.log)
 _register_unary("sqrt", torch.sqrt)
 _register_unary("rsqrt", torch.rsqrt)
 _register_unary("square", torch.square)
-_register_unary("abs", torch.abs)
+_register_unary("abs", abs_)
 _register_unary("ceil", torch.ceil)
 _register_unary("floor", torch.floor)
 _register_unary("round", torch.round)
@@ -162,7 +175,7 @@ def _elu(ctx, x):
 
 @register_op("relu6", inputs=["X"], outputs=["Out"])
 def _relu6(ctx, x):
-    return torch.clamp(x, 0, ctx.attr("threshold", 6.0))
+    return clip(x, 0.0, ctx.attr("threshold", 6.0))
 
 
 @register_op("swish", inputs=["X"], outputs=["Out"])
@@ -172,15 +185,15 @@ def _swish(ctx, x):
 
 @register_op("hard_sigmoid", inputs=["X"], outputs=["Out"])
 def _hard_sigmoid(ctx, x):
-    return torch.clamp(ctx.attr("slope", 0.2) * x + ctx.attr("offset", 0.5),
-                       0.0, 1.0)
+    return clip(ctx.attr("slope", 0.2) * x + ctx.attr("offset", 0.5),
+                0.0, 1.0)
 
 
 @register_op("hard_swish", inputs=["X"], outputs=["Out"])
 def _hard_swish(ctx, x):
     t, s, o = (ctx.attr("threshold", 6.0), ctx.attr("scale", 6.0),
                ctx.attr("offset", 3.0))
-    return x * torch.clamp(x + o, 0.0, t) / s
+    return x * clip(x + o, 0.0, t) / s
 
 
 @register_op("pow", inputs=["X"], outputs=["Out"])
@@ -190,7 +203,7 @@ def _pow(ctx, x):
 
 @register_op("clip", inputs=["X"], outputs=["Out"])
 def _clip(ctx, x):
-    return torch.clamp(x, ctx.attr("min"), ctx.attr("max"))
+    return clip(x, ctx.attr("min"), ctx.attr("max"))
 
 
 @register_op("logsigmoid", inputs=["X"], outputs=["Out"])

@@ -39,6 +39,7 @@ import torch.nn.functional as F
 from paddle_tpu_torch.core.dtypes import at_least_f32_dtype
 from paddle_tpu_torch.core.enforce import enforce
 from paddle_tpu_torch.core.registry import register_op
+from paddle_tpu_torch.ops.math import clip
 from paddle_tpu_torch.ops.nn import stable_sigmoid_ce
 from paddle_tpu_torch.ops.random import _op_generator
 
@@ -57,13 +58,13 @@ def _relu0(x):
 # ---------------------------------------------------------- activations
 @register_op("brelu", inputs=["X"], outputs=["Out"])
 def _brelu(ctx, x):
-    return torch.clamp(x, ctx.attr("t_min", 0.0), ctx.attr("t_max", 24.0))
+    return clip(x, ctx.attr("t_min", 0.0), ctx.attr("t_max", 24.0))
 
 
 @register_op("soft_relu", inputs=["X"], outputs=["Out"])
 def _soft_relu(ctx, x):
     t = ctx.attr("threshold", 40.0)
-    return torch.log1p(torch.exp(torch.clamp(x, -t, t)))
+    return torch.log1p(torch.exp(clip(x, -t, t)))
 
 
 @register_op("selu", inputs=["X"], outputs=["Out"])

@@ -1,9 +1,10 @@
 """Neural-net ops: conv, pool, norms, embedding, dropout, losses,
 resampling.
 
-Counterpart of paddle_tpu/ops/nn.py: every op type of it but
-`sync_batch_norm`, which comes with the collectives (ROADMAP Queue 1
-item 15). NCHW activations and OIHW filters (IOHW for
+Counterpart of paddle_tpu/ops/nn.py: every op type of it.
+`sync_batch_norm` all-reduces its moments over the bound mesh's dp
+ranks (ops/collective.py), where the JAX package's alias of batch_norm
+gets the global moments from GSPMD. NCHW activations and OIHW filters (IOHW for
 `conv2d_transpose`, Fluid's convention, which is also PyTorch's).
 `conv2d` goes to `F.conv2d` (cuDNN on the card; a float32 conv there
 runs in TF32 unless the caller turns `torch.backends.cudnn.allow_tf32`
@@ -34,11 +35,14 @@ import torch.nn.functional as F
 from paddle_tpu_torch.core.dtypes import at_least_f32
 from paddle_tpu_torch.core.enforce import enforce
 from paddle_tpu_torch.core.registry import register_op
+from paddle_tpu_torch.ops.collective import \
+    _host_reason as collective_host_reason
+from paddle_tpu_torch.ops.math import abs_, clip
 
 #: conv2d's `fuse_activation` attr (inference/optimize.py fuse_conv_act)
 CONV_ACTIVATIONS = {
     "relu": torch.relu,
-    "relu6": lambda t: torch.clamp(t, 0.0, 6.0),
+    "relu6": lambda t: clip(t, 0.0, 6.0),
     "sigmoid": torch.sigmoid,
     "tanh": torch.tanh,
 }
@@ -144,6 +148,56 @@ def _batch_norm(ctx, x, scale, bias, mean, var):
         v = xf.var(dim=axes, unbiased=False)
         new_mean = momentum * mean + (1 - momentum) * m.to(mean.dtype)
         new_var = momentum * var + (1 - momentum) * v.to(var.dtype)
+    inv = torch.rsqrt(at_least_f32(v) + eps)
+    y = (xf - m.reshape(bshape)) * inv.reshape(bshape)
+    y = y * scale.reshape(bshape) + bias.reshape(bshape)
+    return y.to(x.dtype), new_mean, new_var, at_least_f32(m), inv
+
+
+def _global_moments(xf, axes, axis_name):
+    """Mean and biased variance of xf over `axes` and over the ranks of
+    the mesh axis `axis_name`, from each rank's own two-pass moments and
+    its share w of the global count: m = sum(w m_r), v = sum(w (v_r +
+    (m_r - m)^2)). One rank (w = 1) gives batch_norm's moments bit for
+    bit. Gradients flow through the all-reduces."""
+    from paddle_tpu_torch.ops.collective import all_reduce
+    count = 1
+    for a in axes:
+        count *= xf.shape[a]
+    n = torch.full((), float(count), dtype=xf.dtype, device=xf.device)
+    w = n / all_reduce(n, axis_name)
+    m_r = xf.mean(dim=axes)
+    v_r = xf.var(dim=axes, unbiased=False)
+    m = all_reduce(w * m_r, axis_name)
+    v = all_reduce(w * (v_r + (m_r - m) ** 2), axis_name)
+    return m, v
+
+
+@register_op("sync_batch_norm",
+             inputs=["X", "Scale", "Bias", "Mean", "Variance"],
+             outputs=["Y", "MeanOut", "VarianceOut", "SavedMean",
+                      "SavedVariance"],
+             host=collective_host_reason)
+def _sync_batch_norm(ctx, x, scale, bias, mean, var):
+    """sync_batch_norm_op.cu: batch_norm whose training moments are over
+    the global batch, the ranks of the bound mesh's dp axis (attr
+    `axis_name`, default "dp") together: what the JAX package's alias of
+    batch_norm computes under GSPMD. Without that axis bound it is
+    batch_norm."""
+    from paddle_tpu_torch.parallel.env import axis_info
+    axis_name = ctx.attr("axis_name", "dp")
+    use_global = (ctx.attr("is_test", False)
+                  or ctx.attr("use_global_stats", False) or not ctx.training)
+    if use_global or axis_info(axis_name) is None:
+        return _batch_norm(ctx, x, scale, bias, mean, var)
+    eps = ctx.attr("epsilon", 1e-5)
+    momentum = ctx.attr("momentum", 0.9)
+    axes = tuple(i for i in range(x.dim()) if i != 1)
+    bshape = (1, -1) + (1,) * (x.dim() - 2)
+    xf = at_least_f32(x)
+    m, v = _global_moments(xf, axes, axis_name)
+    new_mean = momentum * mean + (1 - momentum) * m.detach().to(mean.dtype)
+    new_var = momentum * var + (1 - momentum) * v.detach().to(var.dtype)
     inv = torch.rsqrt(at_least_f32(v) + eps)
     y = (xf - m.reshape(bshape)) * inv.reshape(bshape)
     y = y * scale.reshape(bshape) + bias.reshape(bshape)
@@ -411,7 +465,7 @@ def _kldiv(ctx, x, t):
 
 @register_op("l1_norm", inputs=["X"], outputs=["Out"])
 def _l1_norm(ctx, x):
-    return torch.abs(x).sum()
+    return abs_(x).sum()
 
 
 @register_op("mse_loss", inputs=["X", "Y"], outputs=["Out"])

@@ -65,7 +65,10 @@ def _fake_qdq_channel(ctx, x):
     bits = ctx.attr("bit_length", 8)
     axis = ctx.attr("quant_axis", 0)
     red = tuple(i for i in range(x.dim()) if i != axis)
-    scale = x.abs().amax(dim=red, keepdim=True).detach()
+    # a 1-D x keeps one scale per element: amax over dim=() would reduce
+    # over every dim
+    scale = (x.abs().amax(dim=red, keepdim=True) if red
+             else x.abs()).detach()
     return _ste(x, scale, bits), scale.reshape(-1)
 
 

@@ -10,9 +10,8 @@ the recurrent layers, tensor arrays and beam-search steps (`rnn.py`),
 the structured losses (`losses.py`), the cell API (`rnn_api.py`), the
 long-tail builders (`extras.py`), the compatibility surface
 (`compat.py`), the detection layers (`detection.py`, also exported
-flat, as `fluid.layers` does), `distributions` and `save` / `load`.
-Of the JAX package's names only `switch_moe` is missing: it comes with
-the parallelism slice (ROADMAP Queue 1 item 15).
+flat, as `fluid.layers` does), `distributions` and `save` / `load`:
+every name of the JAX package's static.
 """
 from paddle_tpu_torch.core.ir import (  # noqa: F401
     Program, Variable, default_main_program, default_startup_program,

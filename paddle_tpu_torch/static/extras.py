@@ -16,8 +16,7 @@ program is built; the Executor runs it eagerly, so `py_func` reads its
 inputs on the host (a device synchronisation on the card) and `Print`
 prints the tensor. `BasicGRUUnit` and `BasicLSTMUnit` are eager cells
 (nn.Layer) whose weights are made on first call, on `device` (None
-means CUDA). `switch_moe` comes with the parallelism slice (ROADMAP
-Queue 1 item 15).
+means CUDA). `switch_moe` builds the Switch-MoE op (parallel/moe.py).
 """
 import numpy as np
 import torch
@@ -34,6 +33,7 @@ from paddle_tpu_torch.utils.initializer import Constant
 from paddle_tpu_torch.utils.param_attr import ParamAttr
 
 __all__ = [
+    "switch_moe",
     "brelu", "soft_relu", "selu", "stanh", "maxout", "lrn", "conv3d",
     "pool3d", "row_conv", "affine_channel", "instance_norm", "grid_sampler",
     "im2sequence", "pixel_shuffle", "temporal_shift", "image_resize",
@@ -1185,3 +1185,38 @@ class BasicLSTMUnit:
         new_c = (pre_cell * torch.sigmoid(f + self._forget_bias)
                  + torch.sigmoid(i) * torch.tanh(j))
         return torch.tanh(new_c) * torch.sigmoid(o), new_c
+
+
+def switch_moe(input, num_experts, hidden_dim, capacity_factor=1.25,
+               gate_attr=None, expert_attr=None, name=None):
+    """Switch-MoE layer for the static graph (parallel/moe.py under an
+    op). Returns (out, aux_loss); add ~1e-2·aux_loss to the model loss.
+    Pass expert_attr=ParamAttr(sharding=("ep", None, None)) to shard the
+    experts over an ep mesh axis (expert parallelism)."""
+    helper = LayerHelper(name or "switch_moe")
+    d = int(input.shape[-1])
+    dtype = input.dtype
+    gw = helper.create_parameter(gate_attr, [d, num_experts], dtype)
+    wi = helper.create_parameter(expert_attr,
+                                 [num_experts, d, hidden_dim], dtype)
+    if expert_attr is not None:
+        ea = ParamAttr.to_attr(expert_attr)
+        # a copy minus the name: two parameters share the training
+        # config and the ep sharding
+        wo_attr = ParamAttr(initializer=ea.initializer,
+                            learning_rate=ea.learning_rate,
+                            regularizer=ea.regularizer,
+                            trainable=ea.trainable,
+                            gradient_clip=ea.gradient_clip,
+                            sharding=ea.sharding)
+    else:
+        wo_attr = None
+    wo = helper.create_parameter(wo_attr, [num_experts, hidden_dim, d],
+                                 dtype)
+    out = helper.create_tmp(dtype=dtype)
+    aux = helper.create_tmp(dtype="float32")
+    helper.append_op("switch_moe",
+                     {"X": input, "GateW": gw, "WIn": wi, "WOut": wo},
+                     {"Out": out, "AuxLoss": aux},
+                     {"capacity_factor": float(capacity_factor)})
+    return out, aux

@@ -309,8 +309,11 @@ def test_to_variable_and_layer_surface():
     with tnn.guard():
         with tnn.no_grad():
             assert not torch.is_grad_enabled()
-    with pytest.raises(NotImplementedError, match="item 15"):
-        tnn.DataParallel(tnn.Linear(2, 2, device="cpu"))
+    from paddle_tpu_torch.parallel import make_mesh
+    dp = tnn.DataParallel(tnn.Linear(2, 2, device="cpu"),
+                          make_mesh({"dp": 1}, device="cpu"))
+    x = torch.ones(3, 2)
+    torch.testing.assert_close(dp(x), dp._layer(x))
 
 
 # ------------------------------------------------------------ ext layers

@@ -331,8 +331,8 @@ def test_contrib_summary_and_transpiler_match_jax(capsys):
 #: the JAX package's top-level names the port does not have, each with
 #: the ROADMAP Queue 1 item that brings it (or its port counterpart)
 TOP_LEVEL_LEFT = {"TPUPlace": "CUDAPlace", "is_compiled_with_tpu":
-                  "is_compiled_with_cuda", "parallel": "item 15",
-                  "distributed": "item 15", "name_scope": "item 15",
+                  "is_compiled_with_cuda",
+                  "distributed": "item 15b", "name_scope": "item 15b",
                   "AsyncExecutor": "item 16", "DataFeedDesc": "item 16"}
 
 
@@ -422,7 +422,8 @@ READ_FLAGS = {"check_nan_inf", "executor_log_level", "verify_program",
               "slo_availability_objective", "slo_latency_objective",
               "slo_wire_p99_threshold_s", "slo_healthy_score",
               "slo_degraded_score", "plan_hbm_bytes",
-              "plan_fusion_discount", "fault_plan", "watchdog_deadline_s",
+              "plan_fusion_discount", "plan_large_param_mb",
+              "plan_link_gbps", "fault_plan", "watchdog_deadline_s",
               "train_numerics", "fleet_heartbeat_interval_s",
               "fleet_suspect_after_s", "fleet_lost_after_s",
               "fleet_poll_interval_s", "fleet_reroute_attempts",
@@ -480,11 +481,9 @@ def test_unread_flags_warn_once_and_read_flags_take_effect(monkeypatch):
 
 
 # ------------------------------------------------------ static-name ratchet
-#: the names of paddle_tpu.static that the port's static lacks: the
-#: parallelism slice's layer (ROADMAP Queue 1 item 15) and a module the
-#: JAX package's star imports leak
-STATIC_LEFT = {"switch_moe": "Queue 1 item 15",
-               "builtins": "not API: the module common.py imports"}
+#: the names of paddle_tpu.static that the port's static lacks: a module
+#: the JAX package's star imports leak
+STATIC_LEFT = {"builtins": "not API: the module common.py imports"}
 
 
 def test_static_names_left_equal_the_list():

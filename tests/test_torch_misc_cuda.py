@@ -49,7 +49,7 @@ def test_every_op_of_the_families_has_a_case():
     ops = {op for op in registry.registered_ops()
            if registry.get_op(op).fn.__module__ in mods}
     assert {c["op"] for c in CASES.values()} == ops
-    assert len(ops) == 75
+    assert len(ops) == 76
 
 
 @pytest.mark.cuda

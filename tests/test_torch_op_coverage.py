@@ -9,11 +9,10 @@ JAX package's, on the CPU.
   list); an op that leaves the port, or a new reference op, fails here.
 * Every op type of paddle_tpu/ops/{tensor,math,nn,random,optimizer_ops,
   metrics,sequence,rnn,control_flow,beam_search,loss,detection,
-  detection_train,vision,misc,text,ctr,fused}.py is ported but
-  `sync_batch_norm` and `switch_moe` (the parallelism slice, Queue 1
-  item 15), and amp's two loss-scaling ops: 322 of the reference's 338
-  op types. What is missing is item 15's: the 13 collectives,
-  `sync_batch_norm`, `switch_moe` and `parallel.moe`'s `moe_switch`.
+  detection_train,vision,misc,text,ctr,fused}.py is ported, with amp's
+  two loss-scaling ops, ops/collective.py's 13 collectives and
+  `parallel.moe`'s `moe_switch`: 338 of the reference's 338 op types.
+  MISSING is empty.
 * The op library is what the op modules register. `static.py_func`
   and `static.Print` register a host-callback op when a program is
   built (in both packages); those are not library op types and are
@@ -26,23 +25,15 @@ import pytest
 from paddle_tpu.core import registry as jregistry
 from paddle_tpu_torch.core import registry as tregistry
 
-MISSING = {
-    "ops.collective": ["c_allgather", "c_allreduce_max", "c_allreduce_min",
-        "c_allreduce_prod", "c_allreduce_sum", "c_alltoall", "c_broadcast",
-        "c_comm_init", "c_gen_unique_id", "c_permute", "c_reducescatter",
-        "c_sync_calc_stream", "c_sync_comm_stream"],
-    "ops.fused": ["switch_moe"],
-    "ops.nn": ["sync_batch_norm"],
-    "parallel.moe": ["moe_switch"],
-}
+MISSING = {}
 
 #: the JAX package's op modules that this port covers in full
 FULL_FAMILIES = ("tensor", "math", "nn", "random", "optimizer_ops",
                  "metrics", "sequence", "rnn", "control_flow", "beam_search",
                  "loss", "detection", "detection_train", "vision", "misc",
                  "text", "ctr", "fused")
-#: what each family still lacks (Queue 1 item 15)
-FAMILY_LEFT = {"nn": {"sync_batch_norm"}, "fused": {"switch_moe"}}
+#: what each family still lacks
+FAMILY_LEFT = {}
 #: the module of the builders that register host-callback ops
 _BUILDERS = ("paddle_tpu.static.extras", "paddle_tpu_torch.static.extras")
 
@@ -66,7 +57,7 @@ def test_port_op_is_a_reference_op_with_its_slots(op_type):
 
 
 def test_missing_reference_ops_equal_the_list():
-    assert len(_library(tregistry)) == 322
+    assert len(_library(tregistry)) == 338
     assert len(_library(jregistry)) == 338
     missing = set(_library(jregistry)) - set(_library(tregistry))
     listed = {op for ops in MISSING.values() for op in ops}

@@ -121,9 +121,9 @@ LAYER_CASES = [("vision", _unwrap(c)) for c in test_ops_vision.CASES] + [
 CASES = [(fam, _unwrap(case)) for fam, mod in FAMILIES.items()
          for case in mod.CASES if tregistry.has_op(_unwrap(case).op)] + [
     ("text", case) for case in TEXT_CASES] + LAYER_CASES
-#: the corpus's op types the port leaves out: `sync_batch_norm` waits
-#: for the collectives
-NOT_PORTED = {"sync_batch_norm"}
+#: the corpus's op types the port leaves out (none: `sync_batch_norm`
+#: is batch_norm where no mesh binds its dp axis)
+NOT_PORTED = set()
 GRAD_RTOL = 1e-4
 
 

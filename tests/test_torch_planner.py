@@ -10,7 +10,9 @@ of the port against the JAX package's (CPU).
 * The fit gate refuses and accepts the same programs with the same
   diagnostic; the decode-rung geometry estimates equal the JAX ones on
   the same engine configuration; the cross-check's ok/fail/skip legs
-  behave as the JAX package's; the sharding half raises naming item 15.
+  behave as the JAX package's; the sharding half plans meshes beyond
+  one device (held against the JAX package in
+  test_torch_planner_sharding.py).
 * The lints (verifier excluded) give the JAX package's findings, code
   by code and place by place, on the three programs and on programs
   built to trip each lint; the one pinned divergence is
@@ -206,18 +208,22 @@ def test_estimator_units_match_jax():
 
 
 def test_sharding_half_waits_for_item_15():
+    """Item 15a ported the sharding half: meshes beyond one device parse
+    and plan (tests/test_torch_planner_sharding.py holds it against the
+    JAX package)."""
     assert tplanner.MeshSpec.parse("dp:1").total() == 1
     assert tplanner.MeshSpec.parse(None).describe() == "single-device"
     with pytest.raises(EnforceError):
         tplanner.MeshSpec.parse("dp")
+    mesh = tplanner.MeshSpec.parse("dp:2,tp:4")
+    assert mesh.total() == 8 and mesh.batch_axis() == "dp"
     p, _ = _mlp("port")
-    for call in (lambda: tplanner.MeshSpec.parse("dp:2,tp:4"),
-                 lambda: tplanner.plan_program(p, mesh="dp:2"),
-                 lambda: tplanner.propagate_shardings(p, None),
-                 lambda: tplanner.price_collectives([], None),
-                 lambda: tplanner.PlannerPass()):
-        with pytest.raises(NotImplementedError, match="item 15"):
-            call()
+    plan = tplanner.plan_program(p, mesh="dp:2", batch_size=4)
+    assert plan.mesh.describe() == "dp:2"
+    specs, hazards, events = tplanner.propagate_shardings(p, None)
+    assert events == []
+    assert tplanner.price_collectives([], None)["count"] == 0
+    assert tplanner.PlannerPass().run(p, None)
 
 
 @pytest.mark.parametrize("paged", [False, True])
