@@ -9,6 +9,7 @@
     python3 chip_smoke.py --serving
     python3 chip_smoke.py --fleet
     python3 chip_smoke.py --parallel
+    python3 chip_smoke.py --ps
 
 Phases, each of which raises (exit code != 0) when its check fails:
 
@@ -483,6 +484,31 @@ Phases, each of which raises (exit code != 0) when its check fails:
     the card from the same numpy-seeded weights (PAR_TOL). `--parallel`
     builds the kernels and runs phases 36-38 alone, then prints one
     PARALLEL line and the device line.
+39. The parameter server, the launcher and dataset training, with DeepFM
+    at BASELINE config 5 (26 slots x 10000 ids, embed 16, 13 dense, MLP
+    400-400-400, f32, batch PS_BATCH = 1024 a trainer): the port's native
+    library built with g++, PS_RECORDS MultiSlot records written from
+    --seed and read through `io.fluid_dataset.InMemoryDataset` (global
+    shuffle, trainer shards). (a) One trainer pulls the batch's rows,
+    computes DeepFM's logit from them with dense_w and the MLP on the
+    card and pushes the row gradients synchronously to a fresh port
+    Server, PS_SYNC_STEPS steps, against the same loop on the CPU and a
+    second server: losses and the touched rows (PS_TOL). (b) A pserver
+    process (TRAINING_ROLE=PSERVER, fleet.run_server) and two trainers
+    started by `python -m paddle_tpu_torch.distributed.launch` on the
+    card, all started together: sparse pushes through an
+    AsyncCommunicator, the dense part through a GeoCommunicator,
+    PS_FLEET_STEPS steps each; each trainer's loss falls, both tables
+    hold rows, the dense table moved, nothing undelivered, every process
+    exits 0. (c) The launcher's two ranks train the static CTR program
+    through fleet.distributed_optimizer and CompiledProgram's data
+    parallelism over the gloo group fleet.init starts: each rank's loss
+    within 1e-5 of one process's. (d) Executor.train_from_dataset and
+    AsyncExecutor.run of that program over the files, bit-equal to
+    Executor.run on the same batches. No kernel of the kernels line
+    launches (the flash, K5-K8 lines record 0 under "ps"). `--ps` runs
+    phase 39 alone (no kernel build), then prints one PS line and the
+    device line.
 
 Then a `{"kernels": [...]}` line and, last, the device line
 `{"ok": true, "device": {...}}`. Every number is printed beside the
@@ -608,10 +634,20 @@ def f32_split(da, cap, d):
             f"{-(-cap // nsplit)} keys a block at a full window")
 
 
-def one_kernel_a_call(torch, fn, sets, what, tag):
+def one_kernel_a_call(torch, fn, sets, what, tag, windows=3):
     """The profiler's rows of `fn` over `sets`: exactly one kernel a
-    call, f32_decode_kernel. Returns the rows."""
-    kernels = kernel_rows(torch, fn, sets)
+    call, f32_decode_kernel. Returns the rows. A window whose one row
+    counts fewer launches than calls lost device records (a short
+    kernel's activity record can miss the profiler: 5 of 20 once on an
+    H100): it is printed and measured again, up to `windows` windows,
+    each held to the same gate."""
+    for _ in range(windows):
+        kernels = kernel_rows(torch, fn, sets)
+        if len(kernels) != 1 or kernels[0]["launches_per_call"] >= 1:
+            break
+        print(f"{what}: the profiler's window lost device records "
+              f"({kernels[0]['launches_per_call']:g} launches a call of "
+              f"{kernels[0]['name'][:60]}); measured again {tag}")
     assert len(kernels) == 1 and kernels[0]["launches_per_call"] == 1 \
         and "f32_decode_kernel" in kernels[0]["name"], (what, kernels)
     print(f"{what}: kernels per call (torch.profiler): " + "; ".join(
@@ -1121,8 +1157,27 @@ def beam_choices(torch, steps, batch, beam, eos, other=None):
     return out
 
 
+def _final_rank_tie(torch, got, want, scores, got_scores):
+    """The largest gap of a final-ranking tie, or None when `got`'s beams
+    [K, T] are not a reordering of `want`'s (a beam of one the other
+    lacks). Two gaps count: between the reference's final `scores` [K]
+    of the beams the reordering swaps, and between the final score
+    `got_scores` [K] of each beam and the reference's of the same beam."""
+    rows = [tuple(b) for b in want.tolist()]
+    perm = []
+    for b in got.tolist():
+        if tuple(b) not in rows:
+            return None
+        perm.append(rows.index(tuple(b)))
+    if sorted(perm) != list(range(len(rows))):
+        return None
+    return max(max(float(abs(scores[p] - scores[k])),
+                   float(abs(got_scores[k] - scores[p])))
+               for k, p in enumerate(perm))
+
+
 def beam_near_ties(torch, label, got, want, forced, want_steps, batch,
-                   beam, eos):
+                   beam, eos, want_scores=None, got_scores=None):
     """Phase 24's rule for beam ids ([B, K, T] against the reference's):
     rows whose ids are equal are held to bit equality; a row whose ids
     differ is excused only when the other model, teacher forced on the
@@ -1132,7 +1187,13 @@ def beam_near_ties(torch, label, got, want, forced, want_steps, batch,
     differ, the reference's score of the other model's candidate lies
     within NEAR_TIE of the reference's score of its own candidate there.
     Each such step is printed with its largest gap; a slot without a tie
-    raises. Returns [(row, step, gap)]."""
+    raises. A row whose every step chose the reference's candidates is
+    excused only as a tie of the final ranking (beam search orders the
+    beams by their length-penalised scores: `want_scores` [B, K] the
+    reference's, `got_scores` the other model's): the same beams,
+    reordered only among beams whose final scores lie within NEAR_TIE,
+    each scoring within NEAR_TIE of the reference's score of it (step
+    "final"). Returns [(row, step, gap)]."""
     steps = beam_choices(torch, want_steps, batch, beam, eos, forced)
     excused = []
     for r in range(batch):
@@ -1154,12 +1215,19 @@ def beam_near_ties(torch, label, got, want, forced, want_steps, batch,
                     f"there: no tie")
             ties.append((r, t, gap))
         if not ties:
-            raise AssertionError(f"{label} row {r}: the ids differ where "
-                                 f"every step chose the same candidates")
+            gap = (None if want_scores is None else _final_rank_tie(
+                torch, got[r], want[r], want_scores[r], got_scores[r]))
+            if gap is None or not gap < NEAR_TIE:
+                raise AssertionError(
+                    f"{label} row {r}: the ids differ where every step "
+                    f"chose the same candidates (final-ranking gap {gap}; "
+                    f"got {got[r].tolist()}, want {want[r].tolist()})")
+            ties.append((r, "final", gap))
         for _, t, gap in ties:
-            print(f"near-tie: {label} row {r}: step {t} chose otherwise "
-                  f"from the same beams at a score gap of {gap:.3g} < "
-                  f"{NEAR_TIE}")
+            what = ("the final ranking reorders beams" if t == "final" else
+                    f"step {t} chose otherwise from the same beams")
+            print(f"near-tie: {label} row {r}: {what} at a score gap of "
+                  f"{gap:.3g} < {NEAR_TIE}")
         excused += ties
     return excused
 
@@ -4212,8 +4280,10 @@ def mt_big_decode(torch, tfa, model, seed, tag, dev="cuda"):
             before = dict(tfa.launch_counts)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
+            scores = None
             if label == "beam":
-                (ids, _), rec = recorded_beam(m, fn)
+                (ids, scores), rec = recorded_beam(m, fn)
+                scores = scores.cpu()
             else:
                 ids, rec = fn(m), None
             torch.cuda.synchronize()
@@ -4222,7 +4292,8 @@ def mt_big_decode(torch, tfa, model, seed, tag, dev="cuda"):
                      else bs.host_reads["beam_search"])
             wait = (T.host_reads["wait_s"] if label == "greedy"
                     else bs.host_reads["wait_s"])
-            res[impl] = dict(ids=ids.cpu(), wall_s=wall, host_reads=reads,
+            res[impl] = dict(ids=ids.cpu(), scores=scores, wall_s=wall,
+                             host_reads=reads,
                              wait_s=wait, rec=rec, flash={
                                  k: tfa.launch_counts[k] - before[k]
                                  for k in FLASH_F32})
@@ -4239,7 +4310,8 @@ def mt_big_decode(torch, tfa, model, seed, tag, dev="cuda"):
                 torch, "phase 24 beam", res["flash"]["ids"],
                 res["plain"]["ids"],
                 forced_steps(torch, model, ref, res["flash"]["rec"]),
-                ref["steps"], *bk)
+                ref["steps"], *bk, want_scores=res["plain"]["scores"],
+                got_scores=res["flash"]["scores"])
             control = beam_control(torch, T, plain, fn, res["plain"], bk,
                                    dev)
         assert res["flash"]["flash"][FLASH_F32[0]] > 0
@@ -4281,7 +4353,7 @@ def beam_control(torch, T, plain, fn, ref, bk, dev):
                 if isinstance(mod, T.MultiHeadAttention):
                     mod.q.weight.mul_(scale)
                     mod.q.bias.mul_(scale)
-        (ids, _), rec = recorded_beam(ctl, fn)
+        (ids, scores), rec = recorded_beam(ctl, fn)
         ids = ids.cpu()
         if torch.equal(ids, ref["ids"]):
             print(f"phase 24 control: attention logits x {scale} move no "
@@ -4290,7 +4362,9 @@ def beam_control(torch, T, plain, fn, ref, bk, dev):
         try:
             ties = beam_near_ties(torch, "phase 24 control", ids, ref["ids"],
                                   forced_steps(torch, ctl, ref["rec"], rec),
-                                  ref["rec"]["steps"], *bk)
+                                  ref["rec"]["steps"], *bk,
+                                  want_scores=ref["scores"],
+                                  got_scores=scores.cpu())
         except AssertionError as e:
             print(f"phase 24 control (attention logits x {scale}) refused, "
                   f"as it must be: {e}")
@@ -8522,6 +8596,863 @@ def parallel_phases(torch, tfa, seed, tag, device="cuda"):
     return out, launches
 
 
+# ---------------------------------------------------------------------------
+# 39. the parameter server, the launcher and dataset training
+# ---------------------------------------------------------------------------
+
+#: phase 39's trainer batch (BASELINE config 5: DeepFMConfig() at batch
+#: 1024 a trainer), the MultiSlot records the phase writes (PS_FILES
+#: files), and each leg's depth
+PS_BATCH = 1024
+PS_RECORDS = 40960
+PS_FILES = 8
+PS_SYNC_STEPS = 20          # (a): one trainer, synchronous pushes
+PS_FLEET_STEPS = 60         # (b): each of the two launched trainers
+PS_GEO_STEPS = 5            # (b): the dense part's GeoCommunicator k
+PS_COLLECTIVE_STEPS = 5     # (c): global batch 2 x PS_BATCH
+PS_DATASET_FILES = 2        # (d): the files train_from_dataset reads
+PS_SPARSE_LR = 0.05         # the server's SGD on the two sparse tables
+PS_DENSE_LR = 0.05          # the trainer's SGD on dense_w and the MLP
+PS_CTR_LR = 0.05            # (c), (d): the static program's SGD
+PS_TABLES = {"w1": 1, "emb": 2, "dense": 3}
+PS_LEG_TIMEOUT_S = 300
+#: (a) card against the CPU: per-step loss (relative) and the touched
+#: rows of both tables (of their largest magnitude) after 20 chained f32
+#: steps, where a ReLU pre-activation within rounding of 0 flips its mask
+#: between the two and moves the hot rows (slot ids are Zipf: id 0 is in
+#: ~25% of a batch's rows, ~260 duplicate pushes a step). The rows gate
+#: lies between the faithful runs (2.06e-06 - 6.17e-05 of max on an H100)
+#: and the bf16-forward control (8.57e-04 - 1.02e-03), near their
+#: geometric mean; (c) each rank's loss against one process (absolute:
+#: test_dist_parity.py's bar)
+PS_TOL = dict(loss=1e-5, rows=2.5e-4, collective=1e-5)
+
+
+def ps_config():
+    from paddle_tpu_torch.models.deepfm import DeepFMConfig
+    return DeepFMConfig()
+
+
+def ps_slots(cfg):
+    """The MultiSlot schema: label, the dense features, one sparse slot of
+    one id per categorical feature (C0..C25 at config 5)."""
+    return ([("label", "dense", 1), ("dense", "dense", cfg.dense_dim)]
+            + [(f"C{s}", "sparse", 0) for s in range(cfg.num_slots)])
+
+
+def ps_records(rng, n, cfg):
+    """`n` synthetic CTR records: Gaussian dense features, Zipf-skewed
+    per-slot ids (many repeats in a batch, as in CTR logs), a label from
+    the dense features and slot 0's id."""
+    w = rng.randn(cfg.dense_dim) / np.sqrt(cfg.dense_dim)
+    effect = rng.randn(cfg.vocab_per_slot)
+    dense = rng.randn(n, cfg.dense_dim).astype(np.float32)
+    ids = np.minimum(rng.zipf(1.3, (n, cfg.num_slots)) - 1,
+                     cfg.vocab_per_slot - 1).astype(np.int64)
+    score = dense @ w + 0.5 * effect[ids[:, 0]] + 0.3 * rng.randn(n)
+    return dense, ids, (score > 0).astype(np.int64)
+
+
+def ps_write_files(dirname, seed, cfg, records=None, files=None):
+    """Write `records` (PS_RECORDS) MultiSlot lines from `seed` into
+    `files` (PS_FILES) files; returns their paths."""
+    records = PS_RECORDS if records is None else records
+    files = PS_FILES if files is None else files
+    rng = np.random.RandomState(seed + 39)
+    dense, ids, label = ps_records(rng, records, cfg)
+    fmt = " ".join(["1 %d", f"{cfg.dense_dim}"]
+                   + ["%.9g"] * cfg.dense_dim + ["1 %d"] * cfg.num_slots)
+    rows = np.concatenate([label[:, None].astype(object),
+                           dense.astype(object), ids.astype(object)], 1)
+    paths, per = [], records // files
+    for f in range(files):
+        path = os.path.join(dirname, f"part-{f:03d}")
+        with open(path, "w") as fh:
+            fh.write("\n".join(fmt % tuple(r)
+                               for r in rows[f * per:(f + 1) * per]))
+            fh.write("\n")
+        paths.append(path)
+    return paths
+
+
+def ps_dataset(files, cfg, batch, fleet=None, seed=0, kind="InMemoryDataset",
+               threads=4):
+    """The files through the port's fluid_dataset: loaded, and shuffled
+    globally (a trainer's hash shard under `fleet`) when in memory."""
+    from paddle_tpu_torch.io.fluid_dataset import DatasetFactory
+    ds = DatasetFactory().create_dataset(kind)
+    ds.set_slots(ps_slots(cfg))
+    ds.set_batch_size(batch)
+    ds.set_thread(threads)
+    ds.set_filelist(list(files))
+    if kind == "InMemoryDataset":
+        ds.load_into_memory()
+        ds.global_shuffle(fleet, seed)
+    return ds
+
+
+def ps_arrays(feed, cfg):
+    """A dataset batch -> (dense [B, 13], per-slot ids [B, 26], labels
+    [B]) as numpy."""
+    ids = np.concatenate([np.asarray(feed[f"C{s}"])[:, :1]
+                          for s in range(cfg.num_slots)], 1)
+    return (np.asarray(feed["dense"], np.float32), ids,
+            np.asarray(feed["label"]).reshape(-1))
+
+
+def ps_tables(cfg, dense_size=None):
+    """The server's tables: w1 (dim 1) and emb (dim 16), SGD; with
+    `dense_size`, the dense table the GeoCommunicator syncs."""
+    from paddle_tpu_torch import ps
+    out = [ps.TableConfig(PS_TABLES["w1"], "sparse", dim=1, optimizer="sgd",
+                          lr=PS_SPARSE_LR),
+           ps.TableConfig(PS_TABLES["emb"], "sparse", dim=cfg.embed_dim,
+                          optimizer="sgd", lr=PS_SPARSE_LR)]
+    if dense_size is not None:
+        out.append(ps.TableConfig(PS_TABLES["dense"], "dense",
+                                  size=dense_size, optimizer="sgd", lr=1.0))
+    return out
+
+
+class PSTrainer:
+    """The parameter-server trainer step of tests/test_dist_parity.py's
+    PS trainer at DeepFM's full width: pull the batch's w1 and emb rows
+    for the flat ids, the logit from them and the local dense_w + MLP on
+    `device` (DeepFM.forward_rows), push the rows' gradients (duplicate
+    ids stay duplicate rows) synchronously or through `comm`, SGD on the
+    dense part, and a GeoCommunicator sync of the dense part when `geo`
+    is given. Counts the bytes it copies host -> device and back, and
+    times each step's parts: the pulls and the pushes on the host's
+    clock, the model's forward, backward and dense update on the card's
+    (CUDA events; none on the CPU). `autocast`: a dtype the forward
+    runs in under torch.autocast (phase 39(a)'s control)."""
+
+    def __init__(self, torch, model, client, comm=None, geo=None,
+                 autocast=None):
+        self.torch, self.model, self.client = torch, model, client
+        self.comm, self.geo, self.autocast = comm, geo, autocast
+        self.dev = next(model.mlp.parameters()).device
+        self.dense_params = [p for n, p in model.named_parameters()
+                             if not n.startswith(("w1.", "emb."))]
+        self.bytes = {"h2d": 0, "d2h": 0}
+        self.times = {"pull_ms": [], "push_ms": [], "device_ms": []}
+        self.steps = 0
+
+    def _event(self):
+        if self.dev.type != "cuda":
+            return None
+        ev = self.torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+
+    def _to(self, a):
+        self.bytes["h2d"] += a.nbytes
+        return self.torch.from_numpy(np.ascontiguousarray(a)).to(self.dev)
+
+    def _host(self, t):
+        a = t.detach().cpu().numpy()
+        self.bytes["d2h"] += a.nbytes
+        return a
+
+    def dense_vector(self):
+        return np.concatenate([self._host(p).reshape(-1)
+                               for p in self.dense_params])
+
+    def load_dense(self, vec):
+        t = self._to(vec.astype(np.float32))
+        i = 0
+        with self.torch.no_grad():
+            for p in self.dense_params:
+                p.copy_(t[i:i + p.numel()].view_as(p))
+                i += p.numel()
+
+    def step(self, dense, ids, labels):
+        torch, cfg = self.torch, self.model.cfg
+        b, s, d = ids.shape[0], cfg.num_slots, cfg.embed_dim
+        flat = self.model.flat_ids(ids).reshape(-1)
+        t = time.perf_counter()
+        w1 = self.client.pull_sparse(PS_TABLES["w1"], flat, 1)
+        emb = self.client.pull_sparse(PS_TABLES["emb"], flat, d)
+        self.times["pull_ms"].append(1e3 * (time.perf_counter() - t))
+        w1_t = self._to(w1).view(b, s, 1).requires_grad_()
+        emb_t = self._to(emb).view(b, s, d).requires_grad_()
+        dense_t, labels_t = self._to(dense), self._to(labels)
+        ev = [self._event()]
+        with torch.autocast(self.dev.type, dtype=self.autocast,
+                            enabled=self.autocast is not None):
+            logit = self.model.forward_rows(dense_t, w1_t, emb_t)
+            loss = self.model.logit_loss(logit[:, 0].float(), labels_t)
+        grads = torch.autograd.grad(loss, [w1_t, emb_t] + self.dense_params)
+        ev.append(self._event())
+        g1 = self._host(grads[0]).reshape(-1, 1)
+        g2 = self._host(grads[1]).reshape(-1, d)
+        push = (self.client.push_sparse if self.comm is None
+                else self.comm.push_sparse_async)
+        t = time.perf_counter()
+        push(PS_TABLES["w1"], flat, g1)
+        push(PS_TABLES["emb"], flat, g2)
+        self.times["push_ms"].append(1e3 * (time.perf_counter() - t))
+        ev.append(self._event())
+        with torch.no_grad():
+            for p, g in zip(self.dense_params, grads[2:]):
+                p.sub_(PS_DENSE_LR * g)
+        ev.append(self._event())
+        self.steps += 1
+        if self.geo is not None:
+            if self.steps % self.geo.k == 0:    # the geo step that syncs
+                self.geo.local = self.dense_vector()
+            if self.geo.maybe_sync():
+                self.load_dense(self.geo.local)
+        out = float(self._host(loss))
+        if ev[0] is not None:         # the loss's copy waited for them
+            self.times["device_ms"].append(ev[0].elapsed_time(ev[1])
+                                           + ev[2].elapsed_time(ev[3]))
+        return out
+
+
+def _ps_launch_counts():
+    from paddle_tpu_torch.ops.kernels import decode_attention as da
+    from paddle_tpu_torch.ops.kernels import flash_attention as tfa
+    from paddle_tpu_torch.ops.kernels import quantized_matmul as k8
+    return {**da.launch_counts, **tfa.launch_counts, **k8.launch_counts}
+
+
+def _ps_reset_counts():
+    from paddle_tpu_torch.ops.kernels import decode_attention as da
+    from paddle_tpu_torch.ops.kernels import flash_attention as tfa
+    from paddle_tpu_torch.ops.kernels import quantized_matmul as k8
+    for mod in (da, tfa, k8):
+        mod.reset_launch_counts()
+
+
+def ps_sync_leg(torch, cfg, files, seed, tag, dev="cuda"):
+    """(a) One trainer, synchronous pushes, PS_SYNC_STEPS steps on `dev`
+    against a fresh port Server, and on the CPU against a second fresh
+    server, on the same batches from the same weights: per-step losses
+    and the touched rows of both tables. The control, a third CPU run
+    whose forward runs in bfloat16 (torch.autocast), must fail both
+    gates against the CPU run. The card run's steps are split into the
+    pulls and the pushes (host clock) and the model's device work (CUDA
+    events)."""
+    from paddle_tpu_torch import nn, ps
+    from paddle_tpu_torch.models.deepfm import DeepFM
+    t0 = time.perf_counter()
+    ds = ps_dataset(files, cfg, PS_BATCH, seed=seed)
+    batches = [ps_arrays(f, cfg) for f, _ in zip(ds, range(PS_SYNC_STEPS))]
+    assert len(batches) == PS_SYNC_STEPS, len(batches)
+    nn.seed(seed)
+    ref = DeepFM(cfg, device="cpu")
+    runs = {}
+    for key, where, cast in (("dev", dev, None), ("cpu", "cpu", None),
+                             ("control", "cpu", torch.bfloat16)):
+        model = DeepFM(cfg, device=where)
+        model.load_state_dict(ref.state_dict())
+        srv = ps.Server(tables=ps_tables(cfg), num_workers=1).start()
+        cli = ps.Client([f"127.0.0.1:{srv.port}"]).connect()
+        tr = PSTrainer(torch, model, cli, autocast=cast)
+        losses, times = [], []
+        for b in batches:
+            t = time.perf_counter()
+            losses.append(tr.step(*b))
+            times.append(time.perf_counter() - t)
+        touched = np.unique(np.concatenate(
+            [model.flat_ids(b[1]).reshape(-1) for b in batches]))
+        rows = (cli.pull_sparse(PS_TABLES["w1"], touched, 1),
+                cli.pull_sparse(PS_TABLES["emb"], touched, cfg.embed_dim))
+        runs[key] = dict(losses=losses, rows=rows, times=times,
+                         parts={k: float(np.median(v[1:])) if v[1:] else None
+                                for k, v in tr.times.items()},
+                         bytes=dict(tr.bytes), n_rows=len(touched),
+                         server_rows=[srv.sparse_rows(1),
+                                      srv.sparse_rows(2)])
+        cli.stop_servers()
+        srv.join()
+        cli.close()
+        del model
+
+    def errs(x, y):
+        return (max(abs(u - v) / abs(v) for u, v in zip(x["losses"],
+                                                         y["losses"])),
+                max(float(np.abs(u - v).max()) / float(np.abs(v).max())
+                    for u, v in zip(x["rows"], y["rows"])))
+
+    a, c = runs["dev"], runs["cpu"]
+    loss_err, rows_err = errs(a, c)
+    ctl_loss_err, ctl_rows_err = errs(runs["control"], c)
+    out = {"steps": PS_SYNC_STEPS, "losses": a["losses"],
+           "cpu_losses": c["losses"], "loss_err": loss_err,
+           "rows_err": rows_err, "control_loss_err": ctl_loss_err,
+           "control_rows_err": ctl_rows_err, "touched_rows": a["n_rows"],
+           "server_rows": a["server_rows"],
+           "first_step_ms": 1e3 * a["times"][0],
+           "step_ms": 1e3 * float(np.median(a["times"][1:])),
+           "cpu_step_ms": 1e3 * float(np.median(c["times"][1:])),
+           "parts_ms": a["parts"],
+           "bytes": a["bytes"], "seconds": time.perf_counter() - t0}
+    parts = ", ".join(f"{k[:-3]} {v:.3f} ms" for k, v in a["parts"].items()
+                      if v is not None)
+    print(f"phase 39(a) one trainer, sync push, {PS_SYNC_STEPS} steps at "
+          f"batch {PS_BATCH}: losses {a['losses'][0]:.5f} -> "
+          f"{a['losses'][-1]:.5f}, card vs cpu loss err {loss_err:.3g} "
+          f"(gate {PS_TOL['loss']}), rows err {rows_err:.3g} of max "
+          f"({a['n_rows']} touched rows; gate {PS_TOL['rows']}); control "
+          f"(bf16 forward on the cpu) vs cpu loss err {ctl_loss_err:.3g}, "
+          f"rows err {ctl_rows_err:.3g}; median step "
+          f"{out['step_ms']:.2f} ms after a first of "
+          f"{out['first_step_ms']:.1f} (cpu {out['cpu_step_ms']:.2f}), "
+          f"its medians: {parts}; "
+          f"host->card {a['bytes']['h2d']} B, card->host "
+          f"{a['bytes']['d2h']} B; {out['seconds']:.1f} s {tag}")
+    assert a["losses"][-1] < a["losses"][0], a["losses"]
+    assert loss_err <= PS_TOL["loss"], loss_err
+    assert rows_err <= PS_TOL["rows"], rows_err
+    assert ctl_loss_err > PS_TOL["loss"] and ctl_rows_err > PS_TOL["rows"], \
+        ("the bf16 control passed a gate", ctl_loss_err, ctl_rows_err)
+    assert a["server_rows"] == [a["n_rows"]] * 2, (a["server_rows"],
+                                                   a["n_rows"])
+    return out
+
+
+def ps_server_main(spec):
+    """`chip_smoke.py --ps-server JSON`: phase 39(b)'s pserver, its role
+    from the environment (TRAINING_ROLE=PSERVER); prints PS-SERVER with
+    the tables' rows once a trainer stopped it."""
+    from paddle_tpu_torch import ps
+    from paddle_tpu_torch.distributed import PaddleCloudRoleMaker, fleet
+    from paddle_tpu_torch.models.deepfm import DeepFMConfig
+    cfg = DeepFMConfig(**spec["cfg"])
+    for t in ps_tables(cfg, spec["dense_size"]):
+        ps.register_table(t)
+    fleet.init(PaddleCloudRoleMaker(is_collective=False))
+    assert fleet.is_server()
+    print("PS-SERVER-UP", flush=True)
+    fleet.run_server()
+    srv = ps._active_server
+    print("PS-SERVER " + json.dumps({
+        "sparse_rows": [srv.sparse_rows(PS_TABLES["w1"]),
+                        srv.sparse_rows(PS_TABLES["emb"])],
+        "jax_loaded": "jax" in sys.modules}), flush=True)
+    return 0
+
+
+def ps_trainer_main(spec):
+    """`chip_smoke.py --ps-trainer JSON` under the launcher: one of phase
+    39(b)'s trainers (PaddleCloudRoleMaker from the PADDLE_* environment,
+    fleet.init_worker), sparse pushes through an AsyncCommunicator, the
+    dense part through GeoCommunicator(k=PS_GEO_STEPS); prints
+    PS-TRAINER."""
+    import torch
+    from paddle_tpu_torch import nn, ps
+    from paddle_tpu_torch.distributed import PaddleCloudRoleMaker, fleet
+    from paddle_tpu_torch.models.deepfm import DeepFM, DeepFMConfig
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = DeepFMConfig(**spec["cfg"])
+    fleet.init(PaddleCloudRoleMaker(is_collective=False))
+    fleet.init_worker()
+    rank, n = fleet.worker_index(), fleet.worker_num()
+    cli = ps.client()
+    nn.seed(spec["seed"])
+    model = DeepFM(cfg, device=spec["device"])
+    tr = PSTrainer(torch, model, cli)
+    init = tr.dense_vector()
+    if rank == 0:
+        cli.init_dense(PS_TABLES["dense"], init)
+    cli.barrier(rank)
+    dense_cfg = ps_tables(cfg, init.size)[-1]
+    tr.geo = ps.GeoCommunicator(cli, dense_cfg, k_steps=PS_GEO_STEPS,
+                                n_workers=n)
+    tr.load_dense(tr.geo.local)
+    tr.comm = ps.AsyncCommunicator(cli).start()
+    _ps_reset_counts()
+    ds = ps_dataset(spec["files"], cfg, spec["batch"], fleet, spec["seed"])
+    losses, times = [], []
+    while len(losses) < spec["steps"]:
+        for feed in ds:
+            if len(losses) == spec["steps"]:
+                break
+            t = time.perf_counter()
+            losses.append(tr.step(*ps_arrays(feed, cfg)))
+            times.append(time.perf_counter() - t)
+    undelivered = tr.comm.stop()
+    cli.barrier(rank)           # every trainer's pushes are in
+    moved = None
+    if rank == 0:
+        final = cli.pull_dense(PS_TABLES["dense"], init.size)
+        moved = float(np.abs(final - init).max())
+    print("PS-TRAINER " + json.dumps({
+        "rank": rank, "losses": losses, "step_s": times,
+        "ready_s": spec["t_start"] and time.time() - spec["t_start"]
+        - sum(times),
+        "shard_records": ds.get_memory_data_size(),
+        "undelivered": undelivered, "dense_moved": moved,
+        "bytes": tr.bytes, "launches": _ps_launch_counts(),
+        "client": cli.stats()["verbs"],
+        "jax_loaded": "jax" in sys.modules}), flush=True)
+    fleet.stop_worker()
+    return 0
+
+
+def _ps_marks(text, mark):
+    return [json.loads(ln[len(mark):]) for ln in text.splitlines()
+            if ln.startswith(mark)]
+
+
+def _launch(args, script_args, log_dir, env):
+    """`python -m paddle_tpu_torch.distributed.launch` on this file."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    return subprocess.Popen(
+        [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+         *args, f"--log_dir={log_dir}", os.path.abspath(__file__),
+         *script_args], cwd=here, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+
+
+def _worker_logs(log_dir, n):
+    out = []
+    for r in range(n):
+        with open(os.path.join(log_dir, f"workerlog.{r}")) as f:
+            out.append(f.read())
+    return out
+
+
+def ps_fleet_leg(torch, cfg, files, seed, tag, dev="cuda"):
+    """(b) A fleet PS cluster: one pserver process (TRAINING_ROLE=PSERVER,
+    fleet.run_server) and two trainers started by the launcher on the
+    card, all three started together; each trainer's last-5 mean loss
+    below its first-5, both sparse tables hold rows, the dense table
+    moved from its initial values, nothing left undelivered,
+    fleet.stop_worker ends the server and every process exits 0."""
+    from paddle_tpu_torch.models.deepfm import DeepFM
+    t0 = time.perf_counter()
+    ps_port, started, master = _free_ports(3)
+    here = os.path.dirname(os.path.abspath(__file__))
+    log_dir = tempfile.mkdtemp(prefix="pt_ps_logs_")
+    pserver = f"127.0.0.1:{ps_port}"
+    trainers = f"127.0.0.1:{started},127.0.0.1:{started + 1}"
+    probe = DeepFM(cfg, device="cpu")
+    dense_size = sum(p.numel() for n, p in probe.named_parameters()
+                     if not n.startswith(("w1.", "emb.")))
+    del probe
+    spec = {"cfg": dict(cfg.__dict__), "seed": seed, "files": files,
+            "steps": PS_FLEET_STEPS, "device": dev, "batch": PS_BATCH,
+            "dense_size": dense_size, "t_start": time.time()}
+    base = {k: v for k, v in os.environ.items()
+            if not k.startswith(("PADDLE_", "TRAINING_ROLE"))}
+    srv = subprocess.Popen(
+        [sys.executable, "-u", os.path.abspath(__file__), "--ps-server",
+         json.dumps(spec)], cwd=here, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True,
+        env=dict(base, TRAINING_ROLE="PSERVER", PADDLE_PORT=str(ps_port),
+                 POD_IP="127.0.0.1", PADDLE_PSERVERS_IP_PORT_LIST=pserver,
+                 PADDLE_TRAINER_ENDPOINTS=trainers))
+    launcher = _launch(["--nproc_per_node=2", f"--started_port={started}",
+                        f"--master_port={master}"],
+                       ["--ps-trainer", json.dumps(spec)], log_dir,
+                       dict(base, TRAINING_ROLE="TRAINER",
+                            PADDLE_PSERVERS_IP_PORT_LIST=pserver))
+    try:
+        launch_out, _ = launcher.communicate(timeout=PS_LEG_TIMEOUT_S)
+        if launcher.returncode != 0:
+            srv.kill()
+        srv_out, _ = srv.communicate(timeout=60)
+    finally:
+        for p in (launcher, srv):
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    logs = _worker_logs(log_dir, 2)
+    assert launcher.returncode == 0 and srv.returncode == 0, (
+        launcher.returncode, srv.returncode, launch_out[-2000:],
+        srv_out[-2000:], [lg[-3000:] for lg in logs])
+    server = _ps_marks(srv_out, "PS-SERVER ")[0]
+    rows = [_ps_marks(lg, "PS-TRAINER ")[0] for lg in logs]
+    out = {"trainers": [], "server_rows": server["sparse_rows"],
+           "seconds": time.perf_counter() - t0}
+    for r in rows:
+        first5 = float(np.mean(r["losses"][:5]))
+        last5 = float(np.mean(r["losses"][-5:]))
+        out["trainers"].append({
+            "rank": r["rank"], "first5": first5, "last5": last5,
+            "ready_s": r["ready_s"],
+            "step_ms": 1e3 * float(np.median(r["step_s"][1:])),
+            "first_step_ms": 1e3 * r["step_s"][0],
+            "shard_records": r["shard_records"],
+            "undelivered": r["undelivered"], "bytes": r["bytes"],
+            "launches": sum(r["launches"].values()),
+            "retries": sum(v["retries"] for v in r["client"].values())})
+        assert last5 < first5, (r["rank"], first5, last5)
+        assert r["undelivered"] == 0, r
+        assert not r["jax_loaded"] and not any(r["launches"].values()), r
+    moved = [r["dense_moved"] for r in rows if r["dense_moved"] is not None]
+    out["dense_moved"] = moved[0]
+    assert moved[0] > 1e-4, moved
+    assert all(n > 0 for n in server["sparse_rows"]), server
+    assert not server["jax_loaded"], server
+    assert sum(t["shard_records"] for t in out["trainers"]) == len(
+        files) * (PS_RECORDS // len(files)), out["trainers"]
+    print(f"phase 39(b) fleet PS cluster (1 pserver + 2 launched trainers "
+          f"on the card, {PS_FLEET_STEPS} steps each, async sparse pushes, "
+          f"geo k={PS_GEO_STEPS}): " + "; ".join(
+              f"trainer {t['rank']} first-5 {t['first5']:.5f} last-5 "
+              f"{t['last5']:.5f}, median step {t['step_ms']:.2f} ms "
+              f"(first {t['first_step_ms']:.1f}), "
+              f"{t['shard_records']} records, host->card "
+              f"{t['bytes']['h2d']} B, card->host {t['bytes']['d2h']} B, "
+              f"undelivered {t['undelivered']}, outside its steps "
+              f"{t['ready_s']:.1f} s" for t in out["trainers"])
+          + f"; server rows {server['sparse_rows']}, dense moved "
+          f"{moved[0]:.3g}; {out['seconds']:.1f} s {tag}")
+    return out
+
+
+def ps_ctr_program(static, ir, optimizer, ParamAttr, cfg, lr=PS_CTR_LR,
+                   seed=5, dist_opt=None):
+    """The static CTR program at `cfg`'s widths in the package of
+    `static`: the 26 id slots concatenated and offset to the flat rows,
+    static.embedding over the flat [S x V, 16] and [S x V, 1] tables, the
+    embeddings concatenated with the dense features through fc 400 x 3
+    (relu) and fc 1, plus the first-order sum, sigmoid cross-entropy,
+    SGD (wrapped by `dist_opt`, e.g. fleet.distributed_optimizer).
+    Returns (main, startup, loss)."""
+    ir.reset_unique_names()
+    main, startup = ir.Program(), ir.Program()
+    main.random_seed = startup.random_seed = seed
+    n, v = cfg.num_slots, cfg.vocab_per_slot
+    with ir.program_guard(main, startup):
+        label = static.data("label", [-1, 1], "float32",
+                            append_batch_size=False)
+        dense = static.data("dense", [-1, cfg.dense_dim], "float32",
+                            append_batch_size=False)
+        ids = [static.data(f"C{s}", [-1, 1], "int64",
+                           append_batch_size=False) for s in range(n)]
+        flat = static.elementwise_add(
+            static.concat(ids, axis=1),
+            static.assign(np.arange(n, dtype=np.int64) * v))
+        emb = static.embedding(flat, [n * v, cfg.embed_dim],
+                               param_attr=ParamAttr(name="emb"))
+        w1 = static.embedding(flat, [n * v, 1],
+                              param_attr=ParamAttr(name="w1"))
+        h = static.concat([static.reshape(emb, [-1, n * cfg.embed_dim]),
+                           dense], axis=1)
+        for d in cfg.mlp_dims:
+            h = static.fc(h, d, act="relu")
+        first = static.unsqueeze(
+            static.reduce_sum(w1, dim=[1, 2], keep_dim=False), [1])
+        logit = static.elementwise_add(static.fc(h, 1), first)
+        loss = static.mean(static.sigmoid_cross_entropy_with_logits(
+            logit, label))
+        opt = optimizer.SGD(lr)
+        if dist_opt is not None:
+            opt = dist_opt(opt)
+        opt.minimize(loss)
+    return main, startup, loss
+
+
+def _ps_ctr(cfg, dist_opt=None):
+    from paddle_tpu_torch import optimizer, static
+    from paddle_tpu_torch.core import ir
+    from paddle_tpu_torch.utils.param_attr import ParamAttr
+    return ps_ctr_program(static, ir, optimizer, ParamAttr, cfg,
+                          dist_opt=dist_opt)
+
+
+def ps_ctr_feed(dense, ids, labels):
+    feed = {"label": labels.reshape(-1, 1).astype(np.float32),
+            "dense": dense}
+    feed.update({f"C{s}": ids[:, s:s + 1] for s in range(ids.shape[1])})
+    return feed
+
+
+def ps_collective_main(spec):
+    """`chip_smoke.py --collective-worker JSON` under the launcher: one
+    rank of phase 39(c): fleet.init (a process group over the PADDLE_*
+    environment and MASTER_ADDR / MASTER_PORT), the CTR program through
+    fleet.distributed_optimizer, CompiledProgram over the group's mesh;
+    prints PS-COLLECTIVE."""
+    stages = {"started": time.time() - spec["t_start"]}
+    import torch
+    from paddle_tpu_torch.core.executor import Executor
+    from paddle_tpu_torch.core.scope import Scope
+    from paddle_tpu_torch.distributed import PaddleCloudRoleMaker, fleet
+    from paddle_tpu_torch.models.deepfm import DeepFMConfig
+    from paddle_tpu_torch.parallel import CompiledProgram, make_mesh
+    from paddle_tpu_torch.weights import scope_from_jax
+    torch.backends.cuda.matmul.allow_tf32 = False
+    stages["imported"] = time.time() - spec["t_start"]
+    cfg = DeepFMConfig(**spec["cfg"])
+    fleet.init(PaddleCloudRoleMaker(), device=spec["device"])
+    stages["group"] = time.time() - spec["t_start"]
+    main, _, loss = _ps_ctr(cfg, fleet.distributed_optimizer)
+    with np.load(spec["state"]) as f:
+        state = {k: f[k] for k in f.files}
+    scope = scope_from_jax(state, Scope(), fleet.device, program=main)
+    stages["state"] = time.time() - spec["t_start"]
+    prog = CompiledProgram(main).with_data_parallel(
+        loss_name=loss.name, mesh=make_mesh(device=fleet.device))
+    exe = Executor(fleet.device)
+    _ps_reset_counts()
+    ready = stages["mesh"] = time.time() - spec["t_start"]
+    losses, times = [], []
+    with np.load(spec["batches"]) as f:
+        for step in range(spec["steps"]):
+            feed = ps_ctr_feed(f[f"dense{step}"], f[f"ids{step}"],
+                               f[f"label{step}"])
+            t = time.perf_counter()
+            (lv,) = exe.run(prog, feed=feed, fetch_list=[loss], scope=scope)
+            losses.append(float(np.asarray(lv).reshape(-1)[0]))
+            times.append(time.perf_counter() - t)
+    fleet.barrier_worker()
+    print("PS-COLLECTIVE " + json.dumps({
+        "rank": fleet.worker_index(), "losses": losses, "ready_s": ready,
+        "stages_s": stages, "step_s": times,
+        "backend": fleet.backend, "world": fleet.worker_num(),
+        "launches": _ps_launch_counts(),
+        "jax_loaded": "jax" in sys.modules}), flush=True)
+    return 0
+
+
+def ps_collective_leg(torch, cfg, seed, tag, dev="cuda", during=None):
+    """(c) `launch --nproc_per_node=2` trains the CTR program through
+    fleet.distributed_optimizer(SGD) and CompiledProgram's data
+    parallelism on the card (one gloo group: the two ranks share it);
+    each rank's per-step loss against one process's full-batch run.
+    `during()` runs while the ranks start (their ~30 s of imports, CUDA
+    context and state). Returns (results, what `during` returned)."""
+    from paddle_tpu_torch.core.executor import Executor
+    from paddle_tpu_torch.core.scope import Scope
+    from paddle_tpu_torch.weights import scope_from_jax, scope_to_numpy
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="pt_ps_coll_")
+    main, startup, loss = _ps_ctr(cfg)
+    exe, scope = Executor(dev), Scope()
+    exe.run(startup, scope=scope)
+    state = scope_to_numpy(scope, sorted(
+        v.name for v in main.list_vars() if v.persistable))
+    np.savez(os.path.join(tmp, "state.npz"), **state)
+    rng = np.random.RandomState(seed + 3900)
+    batches = {}
+    for step in range(PS_COLLECTIVE_STEPS):
+        d, i, lb = ps_records(rng, 2 * PS_BATCH, cfg)
+        batches.update({f"dense{step}": d, f"ids{step}": i,
+                        f"label{step}": lb})
+    np.savez(os.path.join(tmp, "batches.npz"), **batches)
+    spec = {"cfg": dict(cfg.__dict__), "device": dev,
+            "steps": PS_COLLECTIVE_STEPS,
+            "state": os.path.join(tmp, "state.npz"),
+            "batches": os.path.join(tmp, "batches.npz"),
+            "t_start": time.time()}
+    started, master = _free_ports(2)
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("PADDLE_", "TRAINING_ROLE"))}
+    launcher = _launch(["--nproc_per_node=2", f"--started_port={started}",
+                        f"--master_port={master}"],
+                       ["--collective-worker", json.dumps(spec)],
+                       os.path.join(tmp, "logs"), env)
+    during_out = during() if during is not None else None
+    # the single-process full-batch run
+    one = scope_from_jax(state, Scope(), exe.device, program=main)
+    single, single_s = [], []
+    for step in range(PS_COLLECTIVE_STEPS):
+        feed = ps_ctr_feed(batches[f"dense{step}"], batches[f"ids{step}"],
+                           batches[f"label{step}"])
+        t = time.perf_counter()
+        (lv,) = exe.run(main, feed=feed, fetch_list=[loss], scope=one)
+        single.append(float(np.asarray(lv).reshape(-1)[0]))
+        single_s.append(time.perf_counter() - t)
+    try:
+        launch_out, _ = launcher.communicate(timeout=PS_LEG_TIMEOUT_S)
+    finally:
+        if launcher.poll() is None:
+            launcher.kill()
+            launcher.wait()
+    logs = _worker_logs(os.path.join(tmp, "logs"), 2)
+    assert launcher.returncode == 0, (launcher.returncode,
+                                      launch_out[-2000:],
+                                      [lg[-3000:] for lg in logs])
+    ranks = [_ps_marks(lg, "PS-COLLECTIVE ")[0] for lg in logs]
+    err = max(abs(a - b) for r in ranks for a, b in zip(r["losses"],
+                                                         single))
+    out = {"single": single, "ranks": [r["losses"] for r in ranks],
+           "backend": ranks[0]["backend"], "loss_err": err,
+           "rank_ready_s": [r["ready_s"] for r in ranks],
+           "rank_stages_s": [r["stages_s"] for r in ranks],
+           "rank_step_ms": [[1e3 * x for x in r["step_s"]] for r in ranks],
+           "single_step_ms": [1e3 * x for x in single_s],
+           "seconds": time.perf_counter() - t0}
+    print(f"phase 39(c) fleet collective ({ranks[0]['backend']}, 2 "
+          f"launched ranks, CompiledProgram dp=2, global batch "
+          f"{2 * PS_BATCH}, {PS_COLLECTIVE_STEPS} steps): losses "
+          f"{single[0]:.6f} -> {single[-1]:.6f}, max |rank - one process| "
+          f"{err:.3g} (gate {PS_TOL['collective']}); ranks ready after "
+          f"{max(out['rank_ready_s']):.1f} s (rank 0: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in
+                      out["rank_stages_s"][0].items())
+          + f"), rank 0's steps "
+          f"{[round(x, 1) for x in out['rank_step_ms'][0]]} ms, one "
+          f"process's {[round(x, 1) for x in out['single_step_ms']]} ms; "
+          f"{out['seconds']:.1f} s {tag}")
+    for r in ranks:
+        assert len(r["losses"]) == PS_COLLECTIVE_STEPS, r
+        assert not r["jax_loaded"] and not any(r["launches"].values()), r
+    assert err <= PS_TOL["collective"], (single, out["ranks"])
+    return out, during_out
+
+
+def ps_feed_desc(cfg, batch):
+    """A DataFeedDesc of the phase's slots in the reference's proto text."""
+    from paddle_tpu_torch.data_feed_desc import DataFeedDesc
+    lines = ['name: "MultiSlotDataFeed"', f"batch_size: {batch}",
+             "multi_slot_desc {"]
+    for name, kind, dim in ps_slots(cfg):
+        lines += ["  slots {", f'    name: "{name}"',
+                  f'    type: "{"float" if kind == "dense" else "uint64"}"',
+                  f"    is_dense: {'true' if kind == 'dense' else 'false'}",
+                  "    is_used: true"]
+        if kind == "dense":
+            lines.append(f"    shape: {dim}")
+        lines.append("  }")
+    lines.append("}")
+    return DataFeedDesc("\n".join(lines))
+
+
+def ps_dataset_leg(torch, cfg, files, seed, tag, dev="cuda"):
+    """(d) Dataset training: Executor.train_from_dataset over an
+    InMemoryDataset of the phase's files and AsyncExecutor.run over them
+    (a QueueDataset, one reader thread: file order), each from the same
+    initial state, against Executor.run on the same batches in the same
+    order: losses and every persistable bit-equal."""
+    from paddle_tpu_torch.async_executor import AsyncExecutor
+    from paddle_tpu_torch.core.executor import Executor
+    from paddle_tpu_torch.core.scope import Scope, scope_guard
+    from paddle_tpu_torch.weights import scope_from_jax, scope_to_numpy
+    t0 = time.perf_counter()
+    main, startup, loss = _ps_ctr(cfg)
+    names = sorted(v.name for v in main.list_vars() if v.persistable)
+    exe, scope = Executor(dev), Scope()
+    exe.run(startup, scope=scope)
+    state = scope_to_numpy(scope, names)
+
+    def fresh():
+        return scope_from_jax(state, Scope(), exe.device, program=main)
+
+    def by_run(feeds):
+        s = fresh()
+        losses = [exe.run(main, feed=f, fetch_list=[loss], scope=s)[0]
+                  for f in feeds]
+        return losses, scope_to_numpy(s, names)
+
+    def diff(a, b):
+        return max(float(np.abs(np.asarray(x, np.float64)
+                                - np.asarray(y, np.float64)).max())
+                   for x, y in zip(a, b))
+
+    sub = files[:PS_DATASET_FILES]
+    ds = ps_dataset(sub, cfg, PS_BATCH, seed=seed)
+    s1 = fresh()
+    t = time.perf_counter()
+    got = [r[0] for r in exe.train_from_dataset(main, ds, fetch_list=[loss],
+                                                scope=s1)]
+    tfd_s = time.perf_counter() - t
+    want, want_state = by_run(list(ds))
+    got_state = scope_to_numpy(s1, names)
+    tfd = (diff(got, want), diff([got_state[n] for n in names],
+                                 [want_state[n] for n in names]))
+    ae = AsyncExecutor(exe.device)
+    s3 = fresh()
+    with scope_guard(s3):
+        t = time.perf_counter()
+        got3 = [r[0] for r in ae.run(main, ps_feed_desc(cfg, PS_BATCH), sub,
+                                     1, [loss])]
+        ae_s = time.perf_counter() - t
+    q = ps_dataset(sub, cfg, PS_BATCH, kind="QueueDataset", threads=1)
+    want3, want3_state = by_run(list(q))
+    got3_state = scope_to_numpy(s3, names)
+    aex = (diff(got3, want3), diff([got3_state[n] for n in names],
+                                   [want3_state[n] for n in names]))
+    out = {"batches": len(got), "train_from_dataset": {
+        "loss_diff": tfd[0], "state_diff": tfd[1], "seconds": tfd_s},
+        "async_executor": {"batches": len(got3), "loss_diff": aex[0],
+                           "state_diff": aex[1], "seconds": ae_s},
+        "losses": [float(np.asarray(x).reshape(-1)[0]) for x in got],
+        "seconds": time.perf_counter() - t0}
+    print(f"phase 39(d) dataset training ({len(sub)} files, "
+          f"{len(got)} batches of {PS_BATCH}): train_from_dataset vs "
+          f"Executor.run loss diff {tfd[0]:.3g}, state diff {tfd[1]:.3g} "
+          f"({tfd_s:.2f} s); AsyncExecutor.run vs Executor.run loss diff "
+          f"{aex[0]:.3g}, state diff {aex[1]:.3g} ({len(got3)} batches, "
+          f"{ae_s:.2f} s); losses {out['losses'][0]:.5f} -> "
+          f"{out['losses'][-1]:.5f}; {out['seconds']:.1f} s {tag}")
+    want_n = -(-len(sub) * (PS_RECORDS // len(files)) // PS_BATCH)
+    assert len(got) == len(got3) == want_n, (len(got), len(got3), want_n)
+    assert tfd == (0.0, 0.0) and aex == (0.0, 0.0), (tfd, aex)
+    return out
+
+
+def start_native_build():
+    """Build the port's native library on a thread (g++ beside phase 1's
+    nvcc); returns a join() that re-raises its failure and returns the
+    build's seconds."""
+    import threading
+    from paddle_tpu_torch import native
+    box = {}
+
+    def run():
+        t0 = time.perf_counter()
+        try:
+            native.load()
+        except BaseException as e:     # re-raised by join()
+            box["error"] = e
+        box["seconds"] = time.perf_counter() - t0
+
+    th = threading.Thread(target=run, daemon=True, name="native-build")
+    th.start()
+
+    def join():
+        th.join()
+        if "error" in box:
+            raise box["error"]
+        return box["seconds"]
+    return join
+
+
+def ps_phase(torch, seed, tag, dev="cuda", native_build=None):
+    """Phase 39: the parameter server, the launcher and dataset training
+    with DeepFM at BASELINE config 5 (legs (a)-(d); (c)'s ranks start
+    while (b) runs); the kernel counts are reset before and read after,
+    in this process and in every child, and must stay 0. `native_build`
+    joins the native library's build started beside the kernels' (None:
+    build it here). Returns (results, this process's launches)."""
+    from paddle_tpu_torch import native
+    t0 = time.perf_counter()
+    # built once here; the children load it
+    build_s = (native_build or start_native_build())()
+    cfg = ps_config()
+    tmp = tempfile.mkdtemp(prefix="pt_ps_data_")
+    t = time.perf_counter()
+    files = ps_write_files(tmp, seed, cfg)
+    write_s = time.perf_counter() - t
+    print(f"phase 39: native library built in {build_s:.1f} s, waited "
+          f"{time.perf_counter() - t0:.1f} s for it "
+          f"({native.library_path()}), {PS_RECORDS} MultiSlot records in "
+          f"{PS_FILES} files written in {write_s:.1f} s; DeepFM "
+          f"{cfg.num_slots} x {cfg.vocab_per_slot} ids, embed "
+          f"{cfg.embed_dim}, {cfg.dense_dim} dense, MLP {cfg.mlp_dims} "
+          f"{tag}")
+    _ps_reset_counts()
+    out = {"native_build_s": build_s, "write_s": write_s}
+    out["sync"] = ps_sync_leg(torch, cfg, files, seed, tag, dev)
+    out["collective"], out["fleet"] = ps_collective_leg(
+        torch, cfg, seed, tag, dev,
+        during=lambda: ps_fleet_leg(torch, cfg, files, seed, tag, dev))
+    out["dataset"] = ps_dataset_leg(torch, cfg, files, seed, tag, dev)
+    counts = _ps_launch_counts()
+    assert not any(counts.values()), counts
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 39: {out['seconds']:.1f} s (no kernel of the kernels "
+          f"line launched, here or in a child) {tag}")
+    return out, counts
+
+
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else list(argv)
     if argv[:1] == ["--rank-worker"]:
@@ -8567,11 +9498,23 @@ def main(argv=None):
                          "(data, tensor, sequence, expert and pipeline "
                          "parallelism over a pool of 4 gloo ranks); print "
                          "one PARALLEL line")
+    ap.add_argument("--ps", action="store_true",
+                    help="only run phase 39 (the parameter server, the "
+                         "launcher and dataset training with DeepFM); "
+                         "print one PS line")
     ap.add_argument("--ft-worker", default=None, metavar="JSON",
                     help=argparse.SUPPRESS)
+    for role in ("--ps-server", "--ps-trainer", "--collective-worker"):
+        ap.add_argument(role, default=None, metavar="JSON",
+                        help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.ft_worker is not None:
         return ft_worker(json.loads(args.ft_worker))
+    for spec, fn in ((args.ps_server, ps_server_main),
+                     (args.ps_trainer, ps_trainer_main),
+                     (args.collective_worker, ps_collective_main)):
+        if spec is not None:
+            return fn(json.loads(spec))
     out_dir = (os.path.dirname(os.path.abspath(args.out)) if args.out
                else None)
 
@@ -8606,10 +9549,19 @@ def main(argv=None):
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
 
-    # 1. device + build
+    # 1. device + build (phase 39's native library on a thread beside)
     card = card_line()
     print(f"card: {card}")
     tag = f"[{card}]"
+    native_build = (start_native_build() if not any(
+        (args.capture, args.serving, args.fleet, args.parallel)) else None)
+    if args.ps:
+        out, _ = ps_phase(torch, args.seed, tag, native_build=native_build)
+        print("PS " + json.dumps(out, default=str))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     t0 = time.perf_counter()
     _build.load_library()
     info = _build.build_info()
@@ -9177,6 +10129,15 @@ def main(argv=None):
                 kernels[kname]["max_abs_err"],
                 *(errs[o][0] for o in FLASH_OUTPUTS[kname] if o in errs))
 
+    # 39. the parameter server, the launcher and dataset training, which
+    # launch none of the kernels, here or in a child process
+    results["ps"], ps_launches = ps_phase(torch, args.seed, tag,
+                                          native_build=native_build)
+    for name in kernels:
+        by_path = kernels[name].setdefault(
+            "launches_by_path", {"main": kernels[name]["launches"]})
+        by_path["ps"] = ps_launches.get(name, 0)
+
     results["total_s"] = time.perf_counter() - t_start
     print(f"total: {results['total_s']:.1f} s {tag}")
     keys = ("name", "route", "source", "replaces", "launches",
@@ -9190,8 +10151,7 @@ def main(argv=None):
                  + FLASH_KERNELS + ("quantized_matmul",
                                     "quantized_matmul_weight_only")):
         rows.append({k: kernels[name][k] for k in keys})
-        if "launches_by_path" in kernels[name]:
-            rows[-1]["launches_by_path"] = kernels[name]["launches_by_path"]
+        rows[-1]["launches_by_path"] = kernels[name]["launches_by_path"]
     line = {"kernels": rows}
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),

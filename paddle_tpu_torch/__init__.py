@@ -17,29 +17,31 @@ The top-level surface is the JAX package's (`paddle_tpu/__init__.py`):
     pt.static (= pt.layers), pt.nn, pt.optimizer, pt.io, pt.amp, ...
 
 Importing this package is light: a name resolves, and its module is
-imported, on first access (a module `__getattr__`), and nothing builds
-or loads the kernels. A name that is also a submodule's is the
+imported, on first access (a module `__getattr__`); torch is not
+imported until a name needs it, and nothing builds or loads the
+kernels. A name that is also a submodule's is the
 submodule (`unique_name`: fluid's module, `generate` / `guard`). The
 reference's `TPUPlace` / `is_compiled_with_tpu` become `CUDAPlace` /
-`is_compiled_with_cuda`; `distributed`, `name_scope`, `AsyncExecutor`
-and `DataFeedDesc` wait for ROADMAP Queue 1 items 15b and 16.
+`is_compiled_with_cuda`.
 """
 import importlib
 
-from paddle_tpu_torch.core.places import CPUPlace, CUDAPlace, resolve_device
-
 #: name -> (module, attribute); attribute None means the module itself
 _LAZY = {
+    **{n: ("paddle_tpu_torch.core.places", n) for n in (
+        "CPUPlace", "CUDAPlace", "resolve_device")},
     **{n: ("paddle_tpu_torch.core.dtypes", n) for n in (
         "float32", "float64", "float16", "bfloat16", "int8", "int16",
         "int32", "int64", "bool_", "uint8")},
     **{n: ("paddle_tpu_torch.core.ir", n) for n in (
         "Program", "Block", "OpDesc", "VarDesc", "Variable",
         "default_main_program", "default_startup_program", "program_guard",
-        "switch_main_program")},
+        "switch_main_program", "name_scope")},
     **{n: ("paddle_tpu_torch.core.scope", n) for n in (
         "Scope", "global_scope", "scope_guard")},
     "Executor": ("paddle_tpu_torch.core.executor", "Executor"),
+    "AsyncExecutor": ("paddle_tpu_torch.async_executor", "AsyncExecutor"),
+    "DataFeedDesc": ("paddle_tpu_torch.data_feed_desc", "DataFeedDesc"),
     "EnforceError": ("paddle_tpu_torch.core.enforce", "EnforceError"),
     "enforce": ("paddle_tpu_torch.core.enforce", "enforce"),
     "flags": ("paddle_tpu_torch.core.flags", None),
@@ -50,11 +52,11 @@ _LAZY = {
         "ops", "static", "nn", "optimizer", "io", "amp", "inference",
         "serving", "analysis", "reliability", "slim", "contrib", "utils",
         "models", "average", "evaluator", "regularizer", "initializer",
-        "clip", "weights", "unique_name", "parallel", "compiler")},
+        "clip", "weights", "unique_name", "parallel", "compiler",
+        "distributed")},
 }
 
-__all__ = ["CPUPlace", "CUDAPlace", "resolve_device",
-           "is_compiled_with_cuda", "__version__"] + sorted(_LAZY)
+__all__ = ["is_compiled_with_cuda", "__version__"] + sorted(_LAZY)
 
 __version__ = "0.1.0"
 

@@ -220,6 +220,41 @@ class Executor:
         self._cache[key] = (program, step)
         return step
 
+    def train_from_dataset(self, program, dataset, fetch_list=None,
+                           fetch_callback=None, epochs=1, scope=None,
+                           prefetch=8):
+        """The dataset-driven loop (executor.py:1098). The reference runs
+        C++ trainer threads (trainer.h:38 MultiTrainer,
+        hogwild_worker.cc:163-181); here a prefetch thread reads the
+        next batches and copies them to this Executor's device (pinned,
+        non-blocking on the card) while the current step runs. Returns
+        each run's fetches."""
+        from paddle_tpu_torch.io.reader import buffered
+        if hasattr(dataset, "batches"):
+            def read():
+                return dataset.batches(self.device)
+        else:
+            def read():
+                return iter(dataset)
+        results = []
+        for _ in range(epochs):
+            src = buffered(read, prefetch) if prefetch else read
+            for batch in src():
+                res = self.run(program, feed=batch, fetch_list=fetch_list,
+                               scope=scope)
+                if fetch_callback is not None:
+                    fetch_callback(res)
+                results.append(res)
+        return results
+
+    def infer_from_dataset(self, program, dataset, fetch_list=None,
+                           scope=None):
+        """One inference run per batch of the dataset."""
+        batches = (dataset.batches(self.device)
+                   if hasattr(dataset, "batches") else iter(dataset))
+        return [self.run(program, feed=b, fetch_list=fetch_list,
+                         scope=scope, training=False) for b in batches]
+
     def _prepare_feed(self, program, feed):
         """numpy (or tensors) → tensors on the executor's device, cast to
         and validated against the declared VarDescs (DataFeeder parity).

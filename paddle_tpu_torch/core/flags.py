@@ -11,7 +11,9 @@ profile_* flags (`observability.profile`), the compile_cache_* flags
 slo_* flags (`observability.slo` and `observability.health`),
 plan_hbm_bytes and plan_fusion_discount (`analysis.planner`), fault_plan
 (`reliability.faults`), watchdog_deadline_s and train_numerics
-(`reliability.training`) and the fleet_* flags (`fleet`). The JAX package's compile_cache_jax_cache has no
+(`reliability.training`), the fleet_* flags (`fleet`) and the ps_retry_*
+and ps_failover_after_s flags (`ps`). The JAX package's
+compile_cache_jax_cache has no
 counterpart: it plumbs the cache directory into jax's own compilation
 cache, and a captured CUDA graph has no compiler cache beneath it. The
 others name the module of a later slice that will read them (`unread`);
@@ -77,7 +79,6 @@ def all_flags():
 
 #: the reasons of the flags no module of the port reads yet
 _PARITY = "kept for API parity, no counterpart in the port"
-_ITEM15 = "read by the parameter-server client, ROADMAP Queue 1 item 15"
 _ITEM17 = "read by analysis.concurrency, ROADMAP Queue 1 item 17"
 
 
@@ -133,21 +134,18 @@ define_flag("fault_plan", "",
             "the seeded fault-injection plan (site[@hits]:action; ...) "
             "armed on the first get_fault_plan()")
 define_flag("ps_retry_attempts", 5,
-            "not read yet: PS client RPC retry budget per verb "
-            "(rpc_client.h FLAGS_rpc_retry_times)", unread=_ITEM15)
+            "PS client RPC retry budget per verb "
+            "(rpc_client.h FLAGS_rpc_retry_times)")
 define_flag("ps_retry_base_s", 0.05,
-            "not read yet: PS client retry backoff base delay in "
-            "seconds", unread=_ITEM15)
+            "PS client retry backoff base delay in seconds")
 define_flag("ps_retry_max_s", 2.0,
-            "not read yet: PS client retry backoff cap in seconds",
-            unread=_ITEM15)
+            "PS client retry backoff cap in seconds")
 define_flag("ps_retry_deadline_s", 30.0,
-            "not read yet: per-RPC wall-clock deadline across all "
-            "retries (FLAGS_rpc_deadline)", unread=_ITEM15)
+            "per-RPC wall-clock deadline across all retries "
+            "(FLAGS_rpc_deadline)")
 define_flag("ps_failover_after_s", 5.0,
-            "not read yet: seconds an endpoint may stay unreachable "
-            "before the PS client fails over to its backup",
-            unread=_ITEM15)
+            "seconds an endpoint may stay unreachable before the PS "
+            "client fails over to its backup")
 define_flag("watchdog_deadline_s", 0.0,
             "the hung-step watchdog's deadline around "
             "resilient_train_loop steps (0 disables)")

@@ -24,7 +24,7 @@ __all__ = ["IR_VERSION", "IR_MINOR", "OpRole", "VarDesc", "OpDesc", "Block",
            "Program", "Variable", "default_main_program",
            "default_startup_program", "switch_main_program",
            "switch_startup_program", "program_guard", "unique_name",
-           "reset_unique_names", "op_version", "register_op_version"]
+           "reset_unique_names", "name_scope", "op_version", "register_op_version"]
 
 IR_VERSION = 1        # major: breaking serialization changes only
 IR_MINOR = 1          # minor: additive (new attrs/ops) — forward-loadable
@@ -480,12 +480,26 @@ def program_guard(main_program, startup_program=None):
 # ---------------------------------------------------------------------------
 
 _name_counters = {}
+_name_scope_stack = []
 
 
 def unique_name(prefix="tmp"):
-    i = _name_counters.get(prefix, 0)
-    _name_counters[prefix] = i + 1
-    return f"{prefix}_{i}"
+    scope = "/".join(_name_scope_stack)
+    key = f"{scope}/{prefix}" if scope else prefix
+    i = _name_counters.get(key, 0)
+    _name_counters[key] = i + 1
+    return f"{key}_{i}"
+
+
+@contextlib.contextmanager
+def name_scope(name):
+    """Prefix the unique names made inside the block with `name/`
+    (fluid.name_scope)."""
+    _name_scope_stack.append(name)
+    try:
+        yield
+    finally:
+        _name_scope_stack.pop()
 
 
 def reset_unique_names():

@@ -62,7 +62,8 @@ Segment = namedtuple("Segment", "kind start stop reason reads writes")
 
 #: the op hook of a data-parallel step (parallel/compiler.py): while one
 #: is set, forward ops run through `hook.run_op(op, impl, ctx, env)` and
-#: the autodiff region's gradients through `hook.on_grads(params, grads)`
+#: the autodiff region's gradients through `hook.on_grads(params, grads)`,
+#: the update ops after it through `hook.update_hook(params, grad_names)`
 _OP_HOOK = contextvars.ContextVar("paddle_tpu_torch_op_hook", default=None)
 
 
@@ -263,7 +264,11 @@ def _run_segment(program, block, seg, env, seed, training, device, base,
     env = {n: v.detach() if isinstance(v, torch.Tensor) else v
            for n, v in env.items()}
     env.update(zip(ad_op.outputs["Grads"], grads))
-    with op_hook(None):     # the update ops see only replicated values
+    # the update ops see replicated values and the rank's slices of the
+    # sharded state; an op reducing over a slice runs on the whole
+    upd = None if hook is None else hook.update_hook(
+        params, ad_op.outputs["Grads"])
+    with op_hook(upd):
         return run_ops(ops[ad_idx + 1:], block, env, seed, training,
                        device, base, rngs, start=ad_idx + 1)
 

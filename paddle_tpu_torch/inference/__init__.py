@@ -26,10 +26,18 @@ so its requests and the original's are serialised on the Executor's
 graphs: two threads never interleave one entry's input copies, replays
 and output copies.
 
-Not ported in this slice, and raising NotImplementedError: the native
-C++ engine, StableHLO export and the AOT bundle (ROADMAP Queue 1 item
-9).
+`Config.enable_native_engine()` serves float32 through the C++
+Program-IR interpreter instead (`paddle_tpu_torch.native`, the
+pd_predictor_* C API, as the reference's NativePredictor): host-only,
+requests touch no tensor of torch's; an artifact saved without the
+export passes gets them first, written to `ir_opt_cache/` beside it.
+
+Not ported in this slice, and raising NotImplementedError: StableHLO
+export and the AOT bundle (ROADMAP Queue 1 item 9).
 """
+import json
+import os
+
 import numpy as np
 
 from paddle_tpu_torch.core.enforce import enforce
@@ -54,6 +62,7 @@ class Config:
         self.params_filename = params_filename
         self.device = device
         self.precision = PrecisionType.Float32
+        self.use_native_engine = False
         self._calib_loader = None
         self.ir_optim = True
 
@@ -78,9 +87,11 @@ class Config:
         self.precision = PrecisionType.Bfloat16
 
     def enable_native_engine(self):
-        raise NotImplementedError(
-            "the native C++ engine is not ported yet (ROADMAP Queue 1 "
-            "item 16)")
+        """Serve through the C++ interpreter (the reference's
+        NativePredictor against AnalysisPredictor, api/api_impl.cc):
+        float32 on the host; create_predictor raises NativeBuildError
+        when the library does not build (nothing falls back)."""
+        self.use_native_engine = True
 
 
 class _Handle:
@@ -230,15 +241,135 @@ class Predictor:
         return c
 
 
+class _NativeEnginePredictor(Predictor):
+    """The Predictor's handle surface over the C++ interpreter
+    (Config.enable_native_engine)."""
+
+    def __init__(self, config):
+        from paddle_tpu_torch import native
+        enforce(config.precision == PrecisionType.Float32,
+                "the native engine serves float32")
+        self.config = config
+        self._pred = native.NativePredictor(
+            self._maybe_optimize_artifact(config), config.model_filename,
+            config.params_filename)
+        self._init_handles(self._pred.input_names(),
+                           self._pred.output_names())
+        # the saved program's declared feed dtypes: both engines cast
+        # feeds alike (the Executor in _prepare_feed)
+        with open(os.path.join(
+                config.model_dir,
+                config.model_filename or "__model__.json")) as f:
+            feed_vars = json.load(f)["blocks"][0]["vars"]
+        self._feed_dtypes = {n: feed_vars[n].get("dtype") or "float32"
+                             for n in self._feed_order if n in feed_vars}
+
+    @staticmethod
+    def _maybe_optimize_artifact(config):
+        """An artifact saved without the export passes gets them before
+        the interpreter loads it, written to `ir_opt_cache/` beside it
+        (built in a temporary directory and renamed into place); a
+        read-only model directory serves the artifact as it is."""
+        import shutil
+        import tempfile
+        if not config.ir_optim:
+            return config.model_dir
+        mf = config.model_filename or "__model__.json"
+        pf = config.params_filename or "params.npz"
+        try:
+            with open(os.path.join(config.model_dir, mf)) as f:
+                model = json.load(f)
+        except OSError:
+            return config.model_dir   # the C++ loader reports the error
+        if model.get("meta", {}).get("ir_optimized"):
+            return config.model_dir
+        cache = os.path.join(config.model_dir, "ir_opt_cache")
+
+        def src_sig():
+            return "|".join(
+                f"{fn}:{st.st_size}:{st.st_mtime_ns}"
+                for fn, st in ((fn, os.stat(os.path.join(
+                    config.model_dir, fn))) for fn in (mf, pf)))
+
+        try:
+            with open(os.path.join(cache, ".src_sig")) as f:
+                if f.read().strip() == src_sig() and \
+                        os.path.exists(os.path.join(cache, mf)):
+                    return cache
+        except OSError:
+            pass
+        from paddle_tpu_torch.core.ir import Program
+        from paddle_tpu_torch.inference.optimize import (
+            optimize_inference_program,
+        )
+        program = Program.from_dict(model)
+        with np.load(os.path.join(config.model_dir, pf)) as data:
+            params = {n: np.asarray(data[n]) for n in data.files}
+        program, params = optimize_inference_program(program, params)
+        program.meta["ir_optimized"] = True
+        try:
+            tmp = tempfile.mkdtemp(dir=config.model_dir,
+                                   prefix=".ir_opt_tmp")
+            with open(os.path.join(tmp, pf), "wb") as f:
+                np.savez(f, **params)
+            with open(os.path.join(tmp, ".src_sig"), "w") as f:
+                f.write(src_sig())
+            with open(os.path.join(tmp, mf), "w") as f:
+                json.dump(program.to_dict(), f)
+            shutil.rmtree(cache, ignore_errors=True)
+            try:
+                os.rename(tmp, cache)
+            except OSError:
+                shutil.rmtree(tmp, ignore_errors=True)   # raced: reuse
+            return (cache if os.path.exists(os.path.join(cache, mf))
+                    else config.model_dir)
+        except OSError:
+            return config.model_dir
+
+    def run(self, feed=None, fetch_list=None):
+        """ZeroCopyRun on the interpreter; `fetch_list` is refused (the
+        C API returns the saved fetch targets only)."""
+        enforce(not fetch_list, "the native engine fetches only the "
+                "saved fetch targets")
+        if feed is None:
+            feed = {}
+            for n, h in self._inputs.items():
+                enforce(h._value is not None,
+                        "input %s not set (copy_from_cpu)", n)
+                feed[n] = h._value
+        cast = {}
+        for n, a in feed.items():
+            a = np.asarray(a)
+            want = self._feed_dtypes.get(n)
+            cast[n] = a.astype(want) if want and str(a.dtype) != want else a
+        outs = inject_point("predictor.run", value=self._pred.run(cast))
+        for n, o in zip(self._fetch_order, outs):
+            self._outputs[n]._value = np.asarray(o)
+        return outs
+
+    def clone(self):
+        """A clone sharing the C++ model (weights and parsed program),
+        with its own handles."""
+        c = object.__new__(_NativeEnginePredictor)
+        c.config = self.config
+        c._pred = self._pred.clone()
+        c._feed_dtypes = self._feed_dtypes
+        c._init_handles(list(self._feed_order), list(self._fetch_order))
+        return c
+
+
 def create_predictor(config):
-    """paddle_infer::CreatePredictor parity."""
+    """paddle_infer::CreatePredictor parity: the Executor's Predictor, or
+    the C++ interpreter after `Config.enable_native_engine()`."""
+    if config.use_native_engine:
+        return _NativeEnginePredictor(config)
     return Predictor(config)
 
 
 def export_stablehlo(*args, **kwargs):
     raise NotImplementedError(
         "StableHLO export has no counterpart in the port yet (ROADMAP "
-        "Queue 1 item 16: torch.export or out of scope)")
+        "Queue 1 item 9: torch.export or out of scope)")
 
 
 def export_aot_bundle(*args, **kwargs):

@@ -24,9 +24,11 @@ rank and keeps that promise rank by rank:
 * A parameter declared sharded (`VarDesc.sharding`, `ParamAttr(
   sharding=...)`) is stored sliced on each rank, its optimizer state
   sliced alike; the hook all-gathers it before its first use in the
-  step (its gradient comes back reduce-scattered). The results equal
-  the replicated program's, as GSPMD's do; Megatron-style split compute
-  is later work (ROADMAP).
+  step (its gradient comes back reduce-scattered). An elementwise
+  update op runs on the slices; any other update op that reads a slice
+  (a global-norm clip, LARS' and LAMB's norms, the AMP overflow check)
+  runs on the gathered whole (`_UpdateHook`). The results equal the replicated program's, as
+  GSPMD's do; Megatron-style split compute is later work (ROADMAP).
 * Gradients: every collective's backward is its true transpose
   (ops/collective.py), so each rank's autodiff holds its share of the
   gradient of the global loss. The hook all-reduces each gradient over
@@ -312,6 +314,10 @@ class _DataParallelHook:
             out.append(g * scale)
         return out
 
+    def update_hook(self, params, grad_names):
+        """The hook of the step's update ops (after the autodiff op)."""
+        return _UpdateHook(self.mesh, self.sharded, params, grad_names)
+
     def fetch(self, name, value):
         """The global value of a fetch."""
         from paddle_tpu_torch.ops.collective import all_gather
@@ -324,6 +330,95 @@ class _DataParallelHook:
         if spec is not None:
             return all_gather(value, spec[1], spec[0])
         return value
+
+
+#: update-side ops that are elementwise in every tensor they read: on
+#: the rank's slices of a sharded parameter, its gradient and its state
+#: they make the slices of the whole's results
+_ON_SLICES = _BINARY | frozenset({
+    "sgd", "momentum", "adam", "adamax", "adagrad", "decayed_adagrad",
+    "adadelta", "rmsprop", "ftrl", "proximal_gd",
+    "scale", "sum", "clip", "sign", "abs", "square", "sqrt", "cast",
+    "assign",
+})
+
+
+class _UpdateHook:
+    """Runs a step's update ops (regularizers, clips, loss scaling,
+    optimizer ops) under a mesh. They see replicated values and the
+    rank's slices of the sharded parameters, their optimizer state and
+    their gradients. An op of `_ON_SLICES` whose every tensor operand is
+    a slice of one layout or a scalar runs on the slices and makes
+    slices. Any other op that reads a slice (a global-norm clip's
+    squared_l2_norm, LARS' and LAMB's norms, check_finite_and_unscale's
+    overflow flag, dpsgd's clip) runs on the gathered wholes, as the JAX
+    package's GSPMD program computes it; an output that names a sliced
+    input, or has the whole shape of exactly one layout read, is cut
+    back to the rank's slice, and one whose layout is ambiguous raises."""
+
+    def __init__(self, mesh, sharded, params, grad_names):
+        self.mesh = mesh
+        self.sliced = dict(sharded)          # name -> (dim, axis)
+        for p, g in zip(params, grad_names):
+            if p in sharded:
+                self.sliced[g] = sharded[p]
+        self._run = None
+
+    def _whole_shape(self, piece, spec):
+        dim, axis = spec
+        return piece[:dim] + (piece[dim] * self.mesh.axis_size(axis),) + \
+            piece[dim + 1:]
+
+    def run_op(self, op, impl, ctx, env):
+        from paddle_tpu_torch.ops.collective import all_gather
+        hit = {n: (self.sliced[n], tuple(env[n].shape))
+               for n in op.input_names() if n in self.sliced}
+        self._run = None
+        if hit:
+            layouts = set(hit.values())
+            if op.type in _ON_SLICES and len(layouts) == 1 and all(
+                    n in hit or not isinstance(env.get(n), torch.Tensor)
+                    or env[n].numel() == 1 for n in op.input_names()):
+                self._run = ("slices", layouts.pop())
+            else:
+                self._run = ("whole", hit)
+                env = {**env, **{n: all_gather(env[n], spec[1], spec[0])
+                                 for n, (spec, _) in hit.items()}}
+        return impl.fn(ctx, *impl.gather_inputs(op, env))
+
+    def after_op(self, op, env):
+        run, self._run = self._run, None
+        for name in op.output_names():
+            v = env.get(name)
+            spec = None
+            if run is not None and isinstance(v, torch.Tensor):
+                spec = self._output_layout(op, name, tuple(v.shape), run)
+            if spec is None:
+                self.sliced.pop(name, None)
+                continue
+            if run[0] == "whole":
+                dim, axis = spec
+                piece = v.shape[dim] // self.mesh.axis_size(axis)
+                v = v.narrow(dim, self.mesh.coord(axis) * piece,
+                             piece).contiguous()
+                env[name] = v
+            self.sliced[name] = spec
+
+    def _output_layout(self, op, name, shape, run):
+        """The (dim, axis) of output `name` of shape `shape`, None when
+        it is replicated."""
+        kind, what = run
+        if kind == "slices":
+            return what[0] if shape == what[1] else None
+        if name in what:
+            spec, piece = what[name]
+            return spec if shape == self._whole_shape(piece, spec) else None
+        specs = {spec for spec, piece in what.values()
+                 if shape == self._whole_shape(piece, spec)}
+        enforce(len(specs) <= 1, "tensor parallelism: output %r of update "
+                "op %r has the whole shape %s of sharded operands laid "
+                "out differently %s", name, op.type, shape, sorted(specs))
+        return specs.pop() if specs else None
 
 
 # ---------------------------------------------------------------------------

@@ -490,9 +490,9 @@ class PipelineOptimizer:
     `interleaved`); `minimize` appends the normal autodiff and optimizer
     ops and records the plan, schedule included, in program.meta, which
     `PipelineCompiledProgram` runs. Without cut_list and with more than
-    one microbatch the reference merges gradients through the fleet
-    optimizer, which comes with the port's `distributed` package (ROADMAP
-    Queue 1 item 15b)."""
+    one microbatch the gradients of `num_microbatches` runs are merged
+    before one optimizer step (`distributed.CollectiveOptimizer`'s
+    gradient merge), as in the reference."""
 
     def __init__(self, optimizer, num_microbatches=1, cut_list=None,
                  start_cpu_core_id=0, schedule="gpipe", virtual_stages=1):
@@ -523,10 +523,13 @@ class PipelineOptimizer:
         if self._k <= 1:
             return self._opt.minimize(loss, startup_program,
                                       parameter_list, no_grad_set)
-        raise NotImplementedError(
-            "PipelineOptimizer without cut_list merges gradients through "
-            "distributed.CollectiveOptimizer, which waits for ROADMAP "
-            "Queue 1 item 15b")
+        from paddle_tpu_torch.distributed.fleet import CollectiveOptimizer
+        from paddle_tpu_torch.distributed.strategy import (
+            DistributedStrategy)
+        s = DistributedStrategy()
+        s.gradient_merge_steps = self._k
+        return CollectiveOptimizer(self._opt, strategy=s).minimize(
+            loss, startup_program, parameter_list, no_grad_set)
 
 
 class PipelineCompiledProgram:

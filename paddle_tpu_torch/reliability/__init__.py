@@ -1,7 +1,7 @@
 """paddle_tpu_torch.reliability — fault injection, fault tolerance, resume.
 
 Counterpart of paddle_tpu/reliability/__init__.py, exporting what it
-does except the parameter server's half (ROADMAP Queue 1 item 15):
+does:
 
 * `faults` — the seeded fault-injection registry: `FaultPlan` rules at
   named `inject_point()` choke points, armed in code or from
@@ -11,10 +11,13 @@ does except the parameter server's half (ROADMAP Queue 1 item 15):
 * `training` — `resilient_train_loop`: interval + SIGTERM checkpointing
   around the Executor step loop with auto-resume;
 * `retry` — `RetryPolicy`: deadline, capped exponential backoff with
-  seeded jitter, bounded attempts;
-* `supervisor` — `Supervisor` / `WorkerSpec`: restart budget in a
-  sliding window, same-rank restart with checkpoint resume, SIGTERM
-  drain, JSON supervision report;
+  seeded jitter, bounded attempts; wrapped around every parameter-server
+  client verb (`paddle_tpu_torch.ps`) with a retry-safety class per verb
+  and seq-stamped at-most-once pushes;
+* `supervisor` — `Supervisor` / `WorkerSpec`: the supervision loop
+  behind `distributed.launch --elastic`: restart budget in a sliding
+  window, same-rank restart with checkpoint resume, SIGTERM drain, JSON
+  supervision report;
 * `watchdog` — `Watchdog`: hung-step detection with a stack, counter
   and flight-recorder dump, then abort / event / callback.
 """

@@ -9,15 +9,15 @@ state documents (ops/generation.py), the Predictor's `predictor.run`,
 the params files' `io.*` sites (inference/, static/io.py), the compile
 cache's `compile_cache.*` (core/compile_cache.py), the checkpoints'
 `checkpoint.*` and the train loop's `train.step` (reliability/), and
-the fleet's `fleet.*` (fleet/). Named `inject_point()` calls sit on the
+the fleet's `fleet.*` (fleet/), and the parameter-server client's
+`ps.transport` / `ps.transport.after` (ps/). Named `inject_point()`
+calls sit on the
 live paths, inert until a `FaultPlan` is armed — in code
 (`set_fault_plan` / the `fault_plan` context manager) or from
 PT_FLAGS_fault_plan on the first `get_fault_plan()`, which is how a
 spawned backend or a supervised worker gets its chaos plan; then each
 hit consults the plan and may raise, delay, hang, NaN-poison or crash,
-deterministically, so a chaos run replays bit-for-bit. The PS client's
-`ps.transport` sites wait for the parameter server (ROADMAP Queue 1
-item 15).
+deterministically, so a chaos run replays bit-for-bit.
 
 Plan grammar::
 
@@ -132,6 +132,14 @@ KNOWN_SITES = (
                              #   BEFORE the publish: a raise leaves only
                              #   the inert .tmp
     "checkpoint.read",       # reliability/checkpoint.py  pre-restore
+    "ps.transport",          # ps/__init__.py  client RPC edge, BEFORE
+                             #   the wire (tag: verb): a raise is a
+                             #   connect refused / a request never sent,
+                             #   always retry-safe
+    "ps.transport.after",    # ps/__init__.py  push verbs, AFTER the
+                             #   server applied: a raise is the reply
+                             #   lost mid-verb, which the seq-stamped
+                             #   at-most-once push exists for
     "train.step",            # reliability/training.py  per completed
                              #   step (tag: steps done): `crash` at hit N
                              #   is the supervised-restart drill

@@ -1,9 +1,8 @@
 """Elastic worker supervision: restart-with-resume for crashed trainers.
 
 Counterpart of paddle_tpu/reliability/supervisor.py, the supervision
-loop behind the reference's `distributed.launch --elastic` (the port's
-launcher waits for ROADMAP Queue 1 item 15; drive `Supervisor` directly
-through `WorkerSpec`s):
+loop behind `python -m paddle_tpu_torch.distributed.launch --elastic`
+(or drive `Supervisor` directly through `WorkerSpec`s):
 
 * a crashed worker is relaunched with the SAME rank and environment plus
   `PT_ELASTIC_RESTARTS=<n>`, up to `max_restarts` restarts within a

@@ -127,6 +127,43 @@ def test_equal_ids_pass_and_differing_ids_need_a_differing_choice():
                                   w_steps, B, K, EOS)
 
 
+@pytest.mark.parametrize("gap,drift", [
+    pytest.param(1e-6, 0.0, id="1e-06"), pytest.param(0.5, 0.0, id="0.5"),
+    pytest.param(1e-6, 1e-6, id="drift-1e-06"),
+    pytest.param(1e-6, 0.5, id="drift-0.5")])
+def test_a_final_ranking_tie_is_excused_and_nothing_else(capsys, gap,
+                                                         drift):
+    """Every step chose the reference's candidates, but beam search's
+    final ordering by length-penalised score swapped two beams: excused
+    only when their final scores lie within NEAR_TIE, each beam's final
+    score (`drift` away from the reference's) too, and only a reordering
+    of the same beams."""
+    want = _logits(2)
+    w_ids, w_steps = _scripted(want)
+    g_ids = w_ids.clone()
+    g_ids[0, [0, 1]] = w_ids[0, [1, 0]]
+    scores = torch.tensor([[-1.0, -1.0 - gap], [-2.0, -3.0]])
+    g_scores = scores.clone()
+    g_scores[0] = scores[0, [1, 0]] + torch.tensor([drift, 0.0])
+    if max(gap, drift) < chip_smoke.NEAR_TIE:
+        excused = chip_smoke.beam_near_ties(
+            torch, "rank", g_ids, w_ids, w_steps, w_steps, B, K, EOS,
+            want_scores=scores, got_scores=g_scores)
+        assert [(r, t) for r, t, _ in excused] == [(0, "final")]
+        assert "the final ranking reorders beams" in capsys.readouterr().out
+    else:
+        with pytest.raises(AssertionError, match="same candidates"):
+            chip_smoke.beam_near_ties(torch, "rank", g_ids, w_ids, w_steps,
+                                      w_steps, B, K, EOS, want_scores=scores,
+                                      got_scores=g_scores)
+    edited = w_ids.clone()
+    edited[0, 0, -1] = (edited[0, 0, -1] + 1) % EOS
+    with pytest.raises(AssertionError, match="same candidates"):
+        chip_smoke.beam_near_ties(torch, "edited", edited, w_ids, w_steps,
+                                  w_steps, B, K, EOS, want_scores=scores,
+                                  got_scores=scores)
+
+
 def _tiny_plain():
     """A tiny Transformer (plain attention, its output layer scaled up so
     the candidates stand apart), its beam decode of a seeded batch and
@@ -147,8 +184,8 @@ def _tiny_plain():
     def fn(m):
         return m.beam_search_decode(src, src_len, max_len=10, beam_size=K)
 
-    (ids, _), rec = chip_smoke.recorded_beam(plain, fn)
-    return plain, fn, {"ids": ids, "rec": rec}
+    (ids, scores), rec = chip_smoke.recorded_beam(plain, fn)
+    return plain, fn, {"ids": ids, "scores": scores, "rec": rec}
 
 
 def test_the_sm_scale_control_fails_the_rule():
@@ -176,7 +213,7 @@ def test_a_control_scale_that_parts_beams_only_at_ties_is_passed_over(
     plain, fn, ref = _tiny_plain()
     calls = []
 
-    def rule(torch_, label, *args):
+    def rule(torch_, label, *args, **scores):
         calls.append(label)
         if len(calls) <= tied_scales:
             return [(0, 3, 0.0)]

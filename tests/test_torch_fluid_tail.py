@@ -331,9 +331,7 @@ def test_contrib_summary_and_transpiler_match_jax(capsys):
 #: the JAX package's top-level names the port does not have, each with
 #: the ROADMAP Queue 1 item that brings it (or its port counterpart)
 TOP_LEVEL_LEFT = {"TPUPlace": "CUDAPlace", "is_compiled_with_tpu":
-                  "is_compiled_with_cuda",
-                  "distributed": "item 15b", "name_scope": "item 15b",
-                  "AsyncExecutor": "item 16", "DataFeedDesc": "item 16"}
+                  "is_compiled_with_cuda"}
 
 
 def test_top_level_surface_is_the_references():
@@ -408,11 +406,11 @@ def test_flags_are_the_references():
     for name in ref:
         assert type(tflags._REGISTRY[name].default) is type(
             jflags._REGISTRY[name].default), name
-    tflags._WARNED.discard("ps_retry_attempts")
-    with pytest.warns(UserWarning, match="ps_retry_attempts"):
-        tflags.set_flag("ps_retry_attempts", 3)
-    assert tflags.get_flag("ps_retry_attempts") == 3
-    tflags.set_flag("ps_retry_attempts", 5)
+    tflags._WARNED.discard("eager_delete_tensor_gb")
+    with pytest.warns(UserWarning, match="eager_delete_tensor_gb"):
+        tflags.set_flag("eager_delete_tensor_gb", 3.0)
+    assert tflags.get_flag("eager_delete_tensor_gb") == 3.0
+    tflags.set_flag("eager_delete_tensor_gb", 0.0)
 
 
 #: the flags a module of the port reads; every other flag names why not
@@ -429,7 +427,9 @@ READ_FLAGS = {"check_nan_inf", "executor_log_level", "verify_program",
               "fleet_poll_interval_s", "fleet_reroute_attempts",
               "fleet_spawn_timeout_s", "fleet_scale_cooldown_s",
               "fleet_quiet_after_s", "fleet_min_backends",
-              "fleet_max_backends"}
+              "fleet_max_backends", "ps_retry_attempts", "ps_retry_base_s",
+              "ps_retry_max_s", "ps_retry_deadline_s",
+              "ps_failover_after_s"}
 
 
 def test_unread_flags_warn_once_and_read_flags_take_effect(monkeypatch):
@@ -444,14 +444,17 @@ def test_unread_flags_warn_once_and_read_flags_take_effect(monkeypatch):
 
     # an unread flag set away from its default warns once, from the
     # environment or from set_flag; its default value does not warn
-    tflags._WARNED.discard("ps_retry_deadline_s")
-    with pytest.warns(UserWarning, match="ps_retry_deadline_s.*no effect"):
-        tflags.set_flag("ps_retry_deadline_s", 0.5)
+    tflags._WARNED.discard("eager_delete_tensor_gb")
+    with pytest.warns(UserWarning,
+                      match="eager_delete_tensor_gb.*no effect"):
+        tflags.set_flag("eager_delete_tensor_gb", 0.5)
     import warnings
     with warnings.catch_warnings():
         warnings.simplefilter("error")
-        tflags.set_flag("ps_retry_deadline_s", 0.6)    # once only
-        tflags.set_flag("ps_retry_attempts", 5)        # its default
+        tflags.set_flag("eager_delete_tensor_gb", 0.6)    # once only
+        tflags.set_flag("allocator_strategy", "xla")      # its default
+        tflags.set_flag("eager_delete_tensor_gb", 0.0)
+        tflags.set_flag("ps_retry_deadline_s", 0.5)     # read: no warning
         tflags.set_flag("ps_retry_deadline_s", 30.0)
         tflags.set_flag("fleet_min_backends", 3)       # read: no warning
         tflags.set_flag("fleet_min_backends", 1)

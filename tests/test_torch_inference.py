@@ -280,9 +280,7 @@ def test_predictor_fault_site_and_unported_options(tmp_path):
             pred.run(FEED)
         (out,) = pred.run(FEED)
     assert np.isfinite(out).all()
-    cfg = tinf.Config(d)
-    for fn in (cfg.enable_native_engine, tinf.export_stablehlo,
-               tinf.export_aot_bundle):
+    for fn in (tinf.export_stablehlo, tinf.export_aot_bundle):
         with pytest.raises(NotImplementedError):
             fn()
 

@@ -18,9 +18,15 @@
   the detection slice runs: a tiny YOLOv3's loss and predict and a
   static multi_box_head -> ssd_loss Momentum step, and a tiny CRNN-CTC
   Momentum step, save / load, a distribution, contrib, WeightedAverage
-  and the top-level surface.
+  and the top-level surface; the native library loads, a parameter
+  server answers a client and a MultiSlot file trains a step through
+  `Executor.train_from_dataset`.
 * A source scan finds no import of jax or of the JAX package in the
-  port or in chip_smoke.py.
+  port or in chip_smoke.py, and no path into paddle_tpu/ in the port's
+  code (the native build reads only the port's copy of the C++).
+* The launcher's children and a pserver child, each with jax and
+  paddle_tpu blocked, run a parameter-server round trip through the
+  fleet.
 * `device=None` means CUDA: without a GPU the entry points raise
   (`Executor()`, a Predictor from a default `Config`,
   `weights.scope_from_jax`, `YOLOv3`, `DetectionMAP.eval`, a
@@ -305,6 +311,36 @@ _BLOCKED_RUN = textwrap.dedent("""
     wavg.add(2.0, 1)
     assert wavg.eval() == 2.0
     assert paddle_tpu_torch.Executor is Executor
+    # the native runtime: a PS round trip, a dataset-driven step
+    import os
+    from paddle_tpu_torch import native, ps
+    from paddle_tpu_torch.io import fluid_dataset
+    srv = ps.Server(tables=[ps.TableConfig(1, "sparse", dim=2)]).start()
+    cli = ps.Client(["127.0.0.1:%d" % srv.port]).connect()
+    assert cli.pull_sparse(1, np.array([4], np.uint64), 2).shape == (1, 2)
+    cli.stop_servers()
+    srv.join()
+    path = d + "/part-0"
+    with open(path, "w") as f:
+        f.write("\\n".join("13 " + " ".join(["0.5"] * 13) + " 1 %d" % i
+                           for i in range(8)) + "\\n")
+    ds = fluid_dataset.DatasetFactory().create_dataset("InMemoryDataset")
+    ds.set_slots([("x", "dense", 13), ("y", "dense", 1)])
+    ds.set_batch_size(4)
+    ds.set_filelist([path])
+    ds.load_into_memory()
+    from paddle_tpu_torch.core.scope import Scope
+    main, startup = ir.Program(), ir.Program()
+    with ir.program_guard(main, startup):
+        cost = static.mean(static.square_error_cost(
+            static.fc(static.data("x", [13]), 1), static.data("y", [1])))
+        optimizer.SGD(0.01).minimize(cost)
+    sc = Scope()
+    exe.run(startup, scope=sc)
+    assert len(exe.train_from_dataset(main, ds, fetch_list=[cost],
+                                      scope=sc)) == 2
+    assert native.library_path().startswith(
+        os.path.dirname(paddle_tpu_torch.__file__))
     assert not _build.build_info(), "a CPU step must not build kernels"
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "paddle_tpu"))
@@ -345,6 +381,124 @@ def test_source_scan_finds_no_jax_or_reference_import():
             root = name.split(".")[0]
             assert root not in ("jax", "jaxlib", "paddle_tpu"), (
                 f"{path.relative_to(REPO)} imports {name}")
+
+
+def test_source_scan_finds_no_path_into_the_jax_package():
+    """No string the port's code uses (docstrings aside) is a path into
+    paddle_tpu/, nor joins "paddle_tpu" into one: the native build and
+    every data file come from the port's own tree."""
+    hits = []
+    for path in sorted(PKG.rglob("*.py")):
+        tree = ast.parse(path.read_text(), filename=str(path))
+        docs = {id(n.body[0].value) for n in ast.walk(tree)
+                if isinstance(n, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                                  ast.AsyncFunctionDef))
+                and n.body and isinstance(n.body[0], ast.Expr)
+                and isinstance(n.body[0].value, ast.Constant)}
+        for node in ast.walk(tree):
+            if (isinstance(node, ast.Constant) and isinstance(node.value, str)
+                    and id(node) not in docs
+                    and ("paddle_tpu/" in node.value
+                         or "paddle_tpu\\" in node.value)):
+                hits.append((str(path.relative_to(REPO)), node.lineno))
+            if (isinstance(node, ast.Call)
+                    and getattr(node.func, "attr", None) == "join"
+                    and any(isinstance(a, ast.Constant)
+                            and a.value == "paddle_tpu" for a in node.args)):
+                hits.append((str(path.relative_to(REPO)), node.lineno))
+    assert not hits, hits
+    from paddle_tpu_torch import native
+    for name in native._LIB_SRCS + tuple(
+            s for srcs in native._BIN_SRCS.values() for s in srcs):
+        assert (pathlib.Path(native.SRC_DIR) / name).is_file(), name
+    assert pathlib.Path(native.SRC_DIR).is_relative_to(PKG)
+    assert pathlib.Path(native.BUILD_DIR).is_relative_to(PKG / "_build")
+
+
+_BLOCK = textwrap.dedent("""
+    import sys
+
+    class Block:
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in ("jax", "jaxlib", "paddle_tpu"):
+                raise ImportError("blocked: " + name)
+            return None
+
+    sys.meta_path.insert(0, Block())
+""")
+
+
+def test_launched_children_and_a_pserver_import_neither(tmp_path):
+    """A pserver child (fleet.run_server) and two trainers started by the
+    launcher (fleet.init_worker, a pull, a push, a barrier,
+    fleet.stop_worker), each with jax and paddle_tpu blocked."""
+    import socket
+    socks = [socket.socket() for _ in range(3)]
+    for sk in socks:
+        sk.bind(("127.0.0.1", 0))
+    ps_port, started, master = [sk.getsockname()[1] for sk in socks]
+    for sk in socks:
+        sk.close()
+    pserver = f"127.0.0.1:{ps_port}"
+    server = tmp_path / "server.py"
+    server.write_text(_BLOCK + textwrap.dedent("""
+        from paddle_tpu_torch import ps
+        from paddle_tpu_torch.distributed import fleet, PaddleCloudRoleMaker
+        ps.register_table(ps.TableConfig(1, "sparse", dim=4))
+        fleet.init(PaddleCloudRoleMaker(is_collective=False))
+        fleet.run_server()
+        print("SERVER-OK rows=%d" % ps._active_server.sparse_rows(1))
+        assert not any(m.split(".")[0] in ("jax", "paddle_tpu")
+                       for m in sys.modules)
+    """))
+    trainer = tmp_path / "trainer.py"
+    trainer.write_text(_BLOCK + textwrap.dedent("""
+        import numpy as np
+        from paddle_tpu_torch import ps
+        from paddle_tpu_torch.distributed import fleet, PaddleCloudRoleMaker
+        fleet.init(PaddleCloudRoleMaker(is_collective=False))
+        fleet.init_worker()
+        rank = fleet.worker_index()
+        cli = ps.client()
+        ids = np.array([rank, 7], np.uint64)
+        cli.push_sparse(1, ids, np.ones((2, 4), np.float32)
+                        * cli.pull_sparse(1, ids, 4))
+        cli.barrier(rank)
+        assert not any(m.split(".")[0] in ("jax", "paddle_tpu")
+                       for m in sys.modules)
+        print("TRAINER-OK", rank, flush=True)
+        cli.barrier(rank)
+        fleet.stop_worker()
+    """))
+    base = {k: v for k, v in os.environ.items()
+            if not k.startswith(("PADDLE_", "TRAINING_ROLE"))}
+    base["PYTHONPATH"] = str(REPO)
+    trainers = f"127.0.0.1:{started},127.0.0.1:{started + 1}"
+    srv = subprocess.Popen(
+        [sys.executable, str(server)], cwd=REPO, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True,
+        env=dict(base, TRAINING_ROLE="PSERVER", PADDLE_PORT=str(ps_port),
+                 POD_IP="127.0.0.1", PADDLE_PSERVERS_IP_PORT_LIST=pserver,
+                 PADDLE_TRAINER_ENDPOINTS=trainers))
+    try:
+        r = subprocess.run(
+            [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+             "--nproc_per_node=2", f"--started_port={started}",
+             f"--master_port={master}", f"--log_dir={tmp_path}/logs",
+             str(trainer)], cwd=REPO, capture_output=True, text=True,
+            timeout=180, env=dict(base, TRAINING_ROLE="TRAINER",
+                                  PADDLE_PSERVERS_IP_PORT_LIST=pserver))
+        out, _ = srv.communicate(timeout=60)
+    finally:
+        if srv.poll() is None:
+            srv.kill()
+            srv.wait()
+    logs = [(tmp_path / "logs" / f"workerlog.{i}").read_text()
+            for i in range(2)]
+    assert r.returncode == 0, (r.stderr[-2000:], logs)
+    assert srv.returncode == 0 and "SERVER-OK rows=3" in out, out[-2000:]
+    for i, log in enumerate(logs):
+        assert f"TRAINER-OK {i}" in log, log[-2000:]
 
 
 def test_default_device_is_cuda_and_raises_without_it(monkeypatch):

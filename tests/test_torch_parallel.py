@@ -63,13 +63,13 @@ def _batches(n, bs=32, conv=False):
     return out
 
 
-def _jax_fc(mesh_axes, batches, tp=False, bn=False, conv=False):
-    """The JAX run: (startup state as numpy, per-step (loss, sum), w1)."""
-    def opt(loss, startup):
-        pt.optimizer.Momentum(0.05, 0.9).minimize(
-            loss, startup_program=startup)
+def _jax_fc(mesh_axes, batches, tp=False, bn=False, conv=False,
+            opt="momentum", prep=None):
+    """The JAX run: (startup state as numpy, per-step (loss, sum), w1);
+    `prep(state)` edits the startup state in place before the steps."""
     main, startup, loss, total = R.fc_program(
-        pt.static, jir, JParamAttr, tp=tp, bn=bn, optimizer=opt, conv=conv)
+        pt.static, jir, JParamAttr, tp=tp, bn=bn,
+        optimizer=R.fc_optimizer(pt, opt), conv=conv)
     scope = pt.Scope()
     with pt.scope_guard(scope):
         exe = pt.Executor()
@@ -77,6 +77,10 @@ def _jax_fc(mesh_axes, batches, tp=False, bn=False, conv=False):
         state = {v.name: np.asarray(scope.get(v.name))
                  for v in main.list_vars()
                  if v.persistable and scope.get(v.name) is not None}
+        if prep is not None:
+            prep(state)
+            for name, value in state.items():
+                scope.set(name, value)
         prog = main
         if mesh_axes:
             prog = JCompiled(main).with_data_parallel(
@@ -140,6 +144,60 @@ def test_tp_training_parity(pool, axes):
                                    [l for l, _ in want], rtol=0, atol=1e-5)
         assert shape == (32, 64 // axes["tp"])
         np.testing.assert_allclose(w1_r, w1, rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.parametrize("opt", ["clip", "lars", "lamb", "dpsgd"])
+def test_tp_whole_parameter_norms_match_jax(pool, opt):
+    """A global-norm clip, LARS, LAMB and dpsgd reduce over a whole
+    parameter: under tp=2 each rank holds half of w1 and w2 (and of
+    their gradients and moments), and the norms must still be the
+    whole's, as in the JAX package's GSPMD program: per-step losses and
+    the final w1 against the JAX CompiledProgram over the same mesh."""
+    axes = {"dp": 2, "tp": 2}
+    batches = _batches(3)
+    state, want, w1 = _jax_fc(axes, batches, tp=True, opt=opt)
+    got = pool.run(RANKS, "train_static", axes, state, batches, tp=True,
+                   opt=opt)
+    for r in range(WORLD):
+        losses, w1_r, shape, _ = got[r]
+        assert shape == (32, 32)
+        np.testing.assert_allclose([l for l, _ in losses],
+                                   [l for l, _ in want], rtol=0, atol=1e-5)
+        np.testing.assert_allclose(w1_r, w1, rtol=1e-4, atol=1e-6)
+
+
+def _overflow_on_rank0_slice(state):
+    """w1 scaled by 1e-10 (with x scaled by 1e10 the activations stay as
+    they were) and w2's second half of rows zeroed: the gradients of
+    rank 0's slice of w1 grow 1e10-fold, rank 1's are 0, and the other
+    gradients stay as they were."""
+    state["w1"] = (state["w1"] * 1e-10).astype(np.float32)
+    state["w2"] = state["w2"].copy()
+    state["w2"][32:] = 0.0
+
+
+def test_tp_amp_overflow_in_one_slice_skips_the_step_everywhere(pool):
+    """Under a 1e32 loss scale only rank 0's slice of the w1 gradient
+    overflows. check_finite_and_unscale must see every slice,
+    as the JAX package's GSPMD program does: every rank skips the first
+    step and drops the scale to 1e22, then the steps after it update:
+    on one batch fed three times, the first two losses are equal. Judged
+    on the slice alone, rank 1 would update the biases in step 1 and
+    keep the 1e32 scale."""
+    axes = {"dp": 2, "tp": 2}
+    (xs, ys), = _batches(1)
+    batches = [(xs * np.float32(1e10), ys)] * 3
+    state, want, w1 = _jax_fc(axes, batches, tp=True, opt="amp",
+                              prep=_overflow_on_rank0_slice)
+    assert want[0][0] == want[1][0] and want[1][0] != want[2][0]
+    got = pool.run(RANKS, "train_static", axes, state, batches, tp=True,
+                   opt="amp")
+    for r in range(WORLD):
+        losses, w1_r, shape, _ = got[r]
+        assert shape == (32, 32)
+        np.testing.assert_allclose([l for l, _ in losses],
+                                   [l for l, _ in want], rtol=0, atol=1e-5)
+        np.testing.assert_allclose(w1_r, w1, rtol=1e-4, atol=1e-16)
 
 
 def test_gradient_scale_one_sums_the_shard_gradients(pool):

@@ -503,8 +503,7 @@ def test_watchdog_abort_kills_a_wedged_process():
 # ---------------------------------------------------------------------
 
 def test_flag_arms_the_plan_and_sites_match_the_reference():
-    assert set(tfaults.KNOWN_SITES) == set(jfaults.KNOWN_SITES) - {
-        "ps.transport", "ps.transport.after"}
+    assert set(tfaults.KNOWN_SITES) == set(jfaults.KNOWN_SITES)
     prev = flags.get_flag("fault_plan")
     try:
         flags.set_flag("fault_plan", "probe.site@2:raise")

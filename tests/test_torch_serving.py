@@ -256,9 +256,10 @@ def test_every_known_site_has_a_call_site():
     from paddle_tpu_torch.fleet import router as tfr
     from paddle_tpu_torch.reliability import checkpoint as tck
     from paddle_tpu_torch.reliability import training as ttr
+    from paddle_tpu_torch import ps as tps
     src = "".join(pathlib.Path(m.__file__).read_text()
                   for m in (tserve, tgen, tinf, tio, tpool, tgw, treg,
-                            twire, tcc, tfb, tfd, tfr, tck, ttr))
+                            twire, tcc, tfb, tfd, tfr, tck, ttr, tps))
     for site in KNOWN_SITES:
         assert f'inject_point("{site}"' in src, site
 

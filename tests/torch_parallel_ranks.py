@@ -76,21 +76,51 @@ def fc_program(S, ir, ParamAttr, tp=False, bn=False, optimizer=None,
     return main, startup, loss, total
 
 
-def _port_fc(tp=False, bn=False, conv=False):
+def fc_optimizer(pt, kind="momentum"):
+    """The update of the fc program in the package `pt`: Momentum, or one
+    whose ops reduce over a whole parameter (a global-norm clip, LARS,
+    LAMB, dpsgd's clip without noise) or over all the gradients (AMP's
+    overflow check under a dynamic loss scale: the fc stays float32, the
+    scale starts at 1e32 and drops to 1e22 after one overflow, and the
+    rate suits gradients of 1e9)."""
+    import importlib
+    clip = importlib.import_module(pt.__name__ + ".clip")
+    amp = importlib.import_module(pt.__name__ + ".amp")
+
+    def opt(loss, startup):
+        if kind == "momentum":
+            o = pt.optimizer.Momentum(0.05, 0.9)
+        elif kind == "clip":
+            o = pt.optimizer.Momentum(
+                0.05, 0.9, grad_clip=clip.GradientClipByGlobalNorm(0.05))
+        elif kind == "lars":
+            o = pt.optimizer.LarsMomentum(0.5, 0.9, lars_coeff=0.1)
+        elif kind == "dpsgd":
+            o = pt.optimizer.Dpsgd(0.5, clip=0.05, batch_size=1.0,
+                                   sigma=0.0)
+        elif kind == "amp":
+            o = amp.decorate(
+                pt.optimizer.Momentum(1e-20, 0.9),
+                amp.AutoMixedPrecisionLists(custom_black_list={"mul"}),
+                init_loss_scaling=1e32, decr_every_n_nan_or_inf=1,
+                decr_ratio=1e-10, use_dynamic_loss_scaling=True)
+        else:
+            o = pt.optimizer.Lamb(0.01)
+        o.minimize(loss, startup_program=startup)
+    return opt
+
+
+def _port_fc(tp=False, bn=False, conv=False, opt="momentum"):
     import paddle_tpu_torch as pt
     from paddle_tpu_torch import static as S
     from paddle_tpu_torch.core import ir
     from paddle_tpu_torch.utils.param_attr import ParamAttr
-
-    def opt(loss, startup):
-        pt.optimizer.Momentum(0.05, 0.9).minimize(
-            loss, startup_program=startup)
-    return fc_program(S, ir, ParamAttr, tp=tp, bn=bn, optimizer=opt,
-                      conv=conv)
+    return fc_program(S, ir, ParamAttr, tp=tp, bn=bn,
+                      optimizer=fc_optimizer(pt, opt), conv=conv)
 
 
 def train_static(ctx, mesh_axes, state, batches, tp=False, bn=False,
-                 conv=False, scale="coeff"):
+                 conv=False, scale="coeff", opt="momentum"):
     """Train the fc program from `state` (numpy, the JAX package's
     startup) through CompiledProgram over `mesh_axes`; returns the
     per-step (loss, reduce_sum) fetches and the final w1 (gathered)."""
@@ -99,7 +129,7 @@ def train_static(ctx, mesh_axes, state, batches, tp=False, bn=False,
     from paddle_tpu_torch.parallel import (BuildStrategy, CompiledProgram,
                                            make_mesh)
     from paddle_tpu_torch.weights import scope_from_jax
-    main, startup, loss, total = _port_fc(tp=tp, bn=bn, conv=conv)
+    main, startup, loss, total = _port_fc(tp=tp, bn=bn, conv=conv, opt=opt)
     scope = scope_from_jax(state, Scope(), "cpu", program=main)
     exe = Executor("cpu")
     bs = BuildStrategy()
