@@ -10,6 +10,7 @@
     python3 chip_smoke.py --fleet
     python3 chip_smoke.py --parallel
     python3 chip_smoke.py --ps
+    python3 chip_smoke.py --slim
 
 Phases, each of which raises (exit code != 0) when its check fails:
 
@@ -509,6 +510,35 @@ Phases, each of which raises (exit code != 0) when its check fails:
     launches (the flash, K5-K8 lines record 0 under "ps"). `--ps` runs
     phase 39 alone (no kernel build), then prints one PS line and the
     device line.
+40. The slim pipeline on ResNet-50 at its published width (224 x 224,
+    1000 classes, weights from --seed): (a) `slim.Pruner("channel")`
+    zeroes half the output channels of each bottleneck's 3 x 3 conv
+    (shapes kept), `sparsity` and `sensitivity` printed; (b) the unpruned
+    network as a frozen teacher (`distill.merge`), the student's cross
+    entropy plus T^2 x a soft-label term at T = 4, phase 14's Momentum +
+    L2Decay: one step card against CPU at phase 14's gates, then 8 steps
+    at batch 32 fed by `io.DataLoader` over `xmap_readers`, masks
+    re-applied; the teacher bit-equal, pruned channels 0, the loss
+    falling; the student saved to `mem://` through io.fs. (c) Loaded
+    back, PTQ-calibrated, planned by `analysis.plan_quantization` and
+    frozen by `quantize_program(plan=...)`: phase 12's op counts, the
+    plan's int8 bytes equal to the Predictor's, its capture price within
+    25% of each batch size's measured capture peak, K8 on every request at
+    batch 1, 8 and 32, the served fc = plain K8 + bias within 1 ulp,
+    int8 vs f32 under phase 12's gate; a planted K = 200000 `mul` is
+    vetoed and stays f32 (within 1e-5 of float64), and its unplanned
+    quantization's error is printed. (d) The lock checker armed
+    (PT_FLAGS_concurrency_check) before the gateway is built: the
+    planned int8 model served, then hot-swapped to the f32 student
+    under 4 PTGW clients; rows equal the serial runs, no capture during
+    plain traffic, no lock-order cycle and no guarded-by violation, GET
+    /profile's "concurrency" section; a planted A -> B / B -> A pair
+    must give exactly one cycle. (e) `slim.NASSearcher` with an
+    `SAController` over the four stages' block counts, 6 candidates
+    each trained 2 steps at batch 8, none over `max_flops` (`flops_of`
+    of the full network). K8's launches in (c) and (d) are its "slim"
+    path. `--slim` builds the kernels and runs phase 40 alone, then
+    prints one SLIM line and the device line.
 
 Then a `{"kernels": [...]}` line and, last, the device line
 `{"ok": true, "device": {...}}`. Every number is printed beside the
@@ -529,7 +559,8 @@ lines those of its three serving runs (phases 4a and 4b) together; phase
 "fleet" (each backend zeroes its counts after its warm-up and reports
 them in its drain document); phases 37-38's ranks add the flash lines'
 launches under "parallel" (each rank zeroes its counts before a step
-and reports them after it).
+and reports them after it); phase 40 adds K8's int8 line's launches
+under "slim".
 
 `--latency [ROOT]` runs none of the phases: it measures, with the port
 found under ROOT (default: this checkout), one prompt's prefill latency
@@ -2408,6 +2439,25 @@ def serve_requests(pred, requests):
     return outs, secs
 
 
+def served_fc_ulps(torch, k8, pred, x):
+    """An int8 Predictor's served fc on `x` against K8's plain version on
+    the same fc input, plus the fc's bias: the largest difference in
+    float32 ulps."""
+    ops = pred._program.global_block().ops
+    qmul = next(op for op in ops if op.type == "quantized_mul")
+    add = next(op for op in ops if op.type == "elementwise_add"
+               and op.inputs["X"] == qmul.outputs["Out"])
+    served, fc_in = pred.run({"img": x}, fetch_list=[qmul.inputs["X"][0]])
+    sc = pred._scope
+    w = sc.get(qmul.inputs["Y"][0])
+    fc_x = torch.from_numpy(fc_in).to(w.device)
+    plain = k8.dequant_matmul_reference(
+        fc_x.reshape(fc_x.shape[0], -1), w,
+        sc.get(qmul.inputs["YScale"][0]).reshape(-1),
+        x_scale=qmul.attrs["x_scale"]) + sc.get(add.inputs["Y"][0])
+    return ulps(torch, torch.from_numpy(served).to(w.device), plain)
+
+
 def resnet_int8_serving(torch, k8, seed, tag, image_size=224):
     """Phase 12. ResNet-50 at its published width (He et al. 2015 Table
     1, 50 layers, 224 x 224, 1000 classes; depth not cut), built with the
@@ -2496,19 +2546,10 @@ def resnet_int8_serving(torch, k8, seed, tag, image_size=224):
     assert fidelity < INT8_FIDELITY_GATE, fidelity
 
     # the main path's fc: K8's plain version on the served inputs + bias
-    qmul = next(op for op in ops if op.type == "quantized_mul")
-    add = next(op for op in ops if op.type == "elementwise_add"
-               and op.inputs["X"] == qmul.outputs["Out"])
     x32 = requests[-1]
-    served, fc_in = int8.run({"img": x32}, fetch_list=[qmul.inputs["X"][0]])
-    sc = int8._scope
-    fc_x = torch.from_numpy(fc_in).cuda()
-    plain = k8.dequant_matmul_reference(
-        fc_x.reshape(fc_x.shape[0], -1), sc.get(qmul.inputs["Y"][0]),
-        sc.get(qmul.inputs["YScale"][0]).reshape(-1),
-        x_scale=qmul.attrs["x_scale"]) + sc.get(add.inputs["Y"][0])
-    fc_ulps = ulps(torch, torch.from_numpy(served).cuda(), plain)
+    fc_ulps = served_fc_ulps(torch, k8, int8, x32)
     assert fc_ulps <= 1, f"served fc vs plain K8 + bias: {fc_ulps} ulps"
+    sc = int8._scope
 
     # the stem's and a 3x3 conv's int32 accumulators against float64 on
     # the CPU, on the same codes (8 images of the batch-32 request)
@@ -2636,7 +2677,8 @@ def one_step(torch, program, state, feed, fetch, device):
     return outs, scope_to_numpy(scope, sorted(state))
 
 
-def step_agreement(torch, main, state, feed, loss, tag):
+def step_agreement(torch, main, state, feed, loss, tag,
+                   devs=("cuda", "cpu")):
     """Phase 14(a): one step at CHECK_BATCH from the same weights on the
     card and on the host CPU, in float32 and with every float var made
     float64. float32 holds the loss (LOSS_RTOL) and the BN running
@@ -2645,7 +2687,8 @@ def step_agreement(torch, main, state, feed, loss, tag):
     within float32's forward error of zero takes the other side of the
     kink, and the gradient behind it moves by that element's whole
     upstream value. float64 holds the loss, every update (UPDATE_TOL of
-    its max), the BN statistics and the velocities (STATE_TOL)."""
+    its max), the BN statistics and the velocities (STATE_TOL). `devs`:
+    the card's device and the host's."""
     ops = main.global_block().ops
     params = next(op for op in ops if op.type == "autodiff").attrs["params"]
     relu_in = [op.inputs["X"][0] for op in ops if op.type == "relu"]
@@ -2656,13 +2699,13 @@ def step_agreement(torch, main, state, feed, loss, tag):
     gates = {"update": UPDATE_TOL, "bn statistics": STATE_TOL,
              "velocity": STATE_TOL}
     wide = widen_state(state)
-    runs = {("float32", dev): one_step(torch, main, state, feed,
-                                       [loss] + relu_in, dev)
-            for dev in ("cuda", "cpu")}
+    runs = {("float32", k): one_step(torch, main, state, feed,
+                                     [loss] + relu_in, dev)
+            for k, dev in zip(("cuda", "cpu"), devs)}
     feed64 = dict(feed, img=feed["img"].astype(np.float64))
-    runs.update({("float64", dev): one_step(
+    runs.update({("float64", k): one_step(
         torch, widened(torch, main), wide, feed64, [loss] + relu_in, dev)
-        for dev in ("cuda", "cpu")})
+        for k, dev in zip(("cuda", "cpu"), devs)})
 
     def err(got, want, name):
         if name in params:       # updates: after - before
@@ -6317,7 +6360,7 @@ def _row_err(got, want):
 
 
 def _traffic(client_cls, host, port, images, clients, per_client,
-             on_start=None, until=None, pace_s=0.0):
+             on_start=None, until=None, pace_s=0.0, model="resnet50"):
     """`clients` threads, each with its own PTGW connection, send
     `per_client` one-row requests of `images` (thread c takes rows
     c, c + clients, ...), `pace_s` apart, and go on while `until()` is
@@ -6338,7 +6381,7 @@ def _traffic(client_cls, host, port, images, clients, per_client,
                     row = (c + k * clients) % len(images)
                     k += 1
                     t0 = time.perf_counter()
-                    outs, resp = cli.infer("resnet50",
+                    outs, resp = cli.infer(model,
                                            {"img": images[row:row + 1]})
                     t1 = time.perf_counter()
                     with lock:
@@ -9453,6 +9496,714 @@ def ps_phase(torch, seed, tag, dev="cuda", native_build=None):
     return out, counts
 
 
+# ---------------------------------------------------------------------------
+# phase 40: the slim pipeline: prune, distill, plan, quantize, serve armed
+# ---------------------------------------------------------------------------
+
+#: phase 40's network: ResNet-50 at its published width (He et al. 2015
+#: Table 1), 224 x 224, 1000 classes; build_static's keyword arguments
+SLIM_NET = dict(depth=50)
+SLIM_IMAGE = 224
+#: (a) the fraction of output channels pruned in every bottleneck's 3 x 3
+#: conv; sensitivity over the first SLIM_SENS_PARAMS of them
+SLIM_PRUNE_RATIO = 0.5
+SLIM_SENS_PARAMS, SLIM_SENS_RATIOS = 2, (0.3, 0.5)
+#: (b) distillation: steps at SLIM_BATCH (one batch from --seed, fed
+#: SLIM_STEPS times through the DataLoader), the soft-label temperature
+SLIM_STEPS, SLIM_BATCH, SLIM_TEMPERATURE = 8, 32, 4.0
+#: (c) where the saved student lives (io.fs's in-process store), the
+#: ledger scope of the planned Predictor's captures, the pricing gate
+#: (the JAX package's tools/quant_check.py TOLERANCE) and the planted
+#: veto's contraction depth (tests/test_slim_passes.py)
+SLIM_DIR = "mem://slim/student"
+SLIM_SCOPE = "slim-int8"
+SLIM_PRICE_TOL = 0.25
+SLIM_VETO_K = 200000
+SLIM_VETO_TOL = 1e-5
+#: (d) the gateway's buckets and its two windows' clients x requests
+SLIM_BUCKETS = (1, 2, 4, 8)
+SLIM_CLIENTS, SLIM_REQUESTS = 4, 8
+#: (e) the search's steps; a candidate trains two steps at this batch
+SLIM_NAS_STEPS, SLIM_NAS_BATCH = 6, 8
+
+
+def slim_blocks():
+    from paddle_tpu_torch.models.resnet import CFG
+    return tuple(SLIM_NET.get("blocks") or CFG[SLIM_NET["depth"]])
+
+
+def slim_programs(seed, image_size):
+    """The student (ResNet-50 by build_static, its test clone made before
+    anything is added) and the teacher: the same build under the same
+    names, its test clone pruned to the logits. Returns (main, startup,
+    test, teacher, logits, loss)."""
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.core import ir
+    from paddle_tpu_torch.models.resnet import build_static
+    from paddle_tpu_torch.static.io import prune
+
+    def build():
+        ir.reset_unique_names()
+        main, startup = ir.Program(), ir.Program()
+        startup.random_seed = seed
+        with ir.program_guard(main, startup):
+            img = static.data("img", [3, image_size, image_size], "float32")
+            label = static.data("label", [1], "int64")
+            logits, loss, _ = build_static(img, label, **SLIM_NET)
+        return main, startup, logits, loss
+
+    tmain, _, tlogits, _ = build()
+    teacher = prune(tmain.clone(for_test=True), [tlogits.name])
+    main, startup, logits, loss = build()
+    return main, startup, main.clone(for_test=True), teacher, logits, loss
+
+
+def precise_bn_stats(exe, main, scope, feed):
+    """Set every batch norm's running mean and variance to its statistics
+    on `feed` (one training forward of `main`, fetching each op's batch
+    mean and inverse standard deviation): a random-weight network in
+    inference mode then normalizes as training does, where the initial
+    statistics (0, 1) let its activations grow through 50 layers."""
+    bns = [op for op in main.global_block().ops if op.type == "batch_norm"]
+    fetch = ([op.outputs["SavedMean"][0] for op in bns]
+             + [op.outputs["SavedVariance"][0] for op in bns])
+    outs = exe.run(main, feed=feed, fetch_list=fetch, scope=scope)
+    for op, m, inv in zip(bns, outs[:len(bns)], outs[len(bns):]):
+        eps = op.attrs.get("epsilon", 1e-5)
+        scope.set(op.inputs["Mean"][0], m.astype(np.float32))
+        scope.set(op.inputs["Variance"][0],
+                  (1.0 / np.square(inv.astype(np.float64)) - eps)
+                  .astype(np.float32))
+
+
+def slim_prune_distill(torch, seed, tag, dev="cuda", image_size=None):
+    """Phase 40(a)-(b). (a) `sensitivity` over two of the bottlenecks'
+    3 x 3 convs at SLIM_SENS_RATIOS, its metric the test clone's loss on
+    one batch; then `slim.Pruner("channel")` zeroes SLIM_PRUNE_RATIO of
+    the output channels of every bottleneck's 3 x 3 conv (masks; shapes
+    kept); `sparsity` over those and over every student parameter. (b)
+    `distill.merge` of the unpruned teacher (same seeded weights, test
+    mode, every batch norm's statistics set from the training batch by
+    `precise_bn_stats`) into the student; the loss is the student's
+    cross entropy plus T^2 x KL(teacher || student) at T =
+    SLIM_TEMPERATURE (`distill.soft_label_loss` from the static layers),
+    minimized by phase 14's Momentum + L2Decay. One step at CHECK_BATCH
+    card against CPU (`step_agreement`, phase 14's gates), then
+    SLIM_STEPS steps at SLIM_BATCH fed by `io.DataLoader` over
+    `xmap_readers(process_num=1)`, the masks re-applied after each. The
+    teacher stays bit-equal, pruned channels stay 0, losses fall. The
+    student is saved to SLIM_DIR through io.fs. Returns (summary,
+    student logits name)."""
+    from paddle_tpu_torch import io as tio
+    from paddle_tpu_torch import optimizer, regularizer, static
+    from paddle_tpu_torch.core import ir
+    from paddle_tpu_torch.core.executor import Executor
+    from paddle_tpu_torch.core.scope import Scope, scope_guard
+    from paddle_tpu_torch.slim import Pruner, distill, sensitivity, sparsity
+    from paddle_tpu_torch.weights import scope_to_numpy
+    image_size = image_size or SLIM_IMAGE
+    t0 = time.perf_counter()
+    main, startup, test, teacher, logits, loss = slim_programs(seed,
+                                                               image_size)
+    exe, scope = Executor(dev), Scope()
+    exe.run(startup, scope=scope)
+    rng = np.random.RandomState(seed + 40)
+    classes = SLIM_NET.get("num_classes", 1000)
+    imgs = resnet_images(rng, SLIM_BATCH, image_size)
+    labels = rng.randint(0, classes, (SLIM_BATCH, 1)).astype(np.int64)
+
+    def samples():
+        for _ in range(SLIM_STEPS):
+            for i in range(SLIM_BATCH):
+                yield imgs[i], labels[i]
+
+    def mapper(s):          # per-image standardization, on the worker
+        x = s[0]
+        return ((x - x.mean()) / (x.std() + 1e-6)).astype(np.float32), s[1]
+
+    serial = list(tio.batch(tio.map_readers(mapper, samples),
+                            SLIM_BATCH)())
+    first = {"img": np.stack([s[0] for s in serial[0]]),
+             "label": np.stack([s[1] for s in serial[0]])}
+    precise_bn_stats(exe, main, scope, first)
+    fixed = {"img": np.stack([mapper((x, 0))[0] for x in resnet_images(
+                 rng, CHECK_BATCH * 2, image_size)]),
+             "label": rng.randint(0, classes, (CHECK_BATCH * 2, 1))
+             .astype(np.int64)}
+    # the teacher's weights (and statistics) are the student's before
+    # pruning
+    distill.merge(teacher, main, {"img": "img"}, scope=scope)
+    blk = main.global_block()
+    t_logits = blk.var("teacher_" + logits.name)
+    opt_startup = ir.Program()
+    with ir.program_guard(main, opt_startup):
+        # slim.distill.soft_label_loss from the static layers: KL(teacher
+        # || student) at temperature T, times T^2
+        T = SLIM_TEMPERATURE
+        log_t = static.log_softmax(static.scale(t_logits, 1.0 / T))
+        log_s = static.log_softmax(static.scale(logits, 1.0 / T))
+        kl = static.mean(static.reduce_sum(static.elementwise_mul(
+            static.exp(log_t), static.elementwise_sub(log_t, log_s)),
+            dim=-1))
+        total = static.elementwise_add(loss, static.scale(kl, T * T))
+        optimizer.Momentum(
+            learning_rate=TRAIN_LR, momentum=TRAIN_MOMENTUM,
+            regularization=regularizer.L2Decay(TRAIN_L2)).minimize(total)
+    exe.run(opt_startup, scope=scope)
+    teacher_names = sorted(n for n, d in blk.vars.items()
+                           if n.startswith("teacher_") and d.persistable)
+    student = sorted(v.name for v in main.all_parameters()
+                     if not v.name.startswith("teacher_"))
+    assert teacher_names and all(not blk.var(n).desc.trainable
+                                 for n in teacher_names)
+
+    # (a) sensitivity of the unpruned network, then prune and sparsity
+    convs3 = [n for n in student if len(blk.var(n).shape) == 4
+              and tuple(blk.var(n).shape[2:]) == (3, 3)]
+    assert len(convs3) == sum(slim_blocks()), convs3
+
+    def eval_loss():
+        return float(exe.run(test, feed=fixed, fetch_list=[loss.name],
+                             scope=scope)[0])
+
+    base = eval_loss()
+    sens = sensitivity(test, exe, scope, convs3[:SLIM_SENS_PARAMS],
+                       eval_loss, SLIM_SENS_RATIOS)
+    assert eval_loss() == base          # sensitivity restored the weights
+    pruner = Pruner("channel")
+    masks = pruner.prune(scope, {n: SLIM_PRUNE_RATIO for n in convs3})
+    sp3, sp_all = sparsity(scope, convs3), sparsity(scope, student)
+    print(f"phase 40(a) Pruner('channel') at {SLIM_PRUNE_RATIO} over the "
+          f"{len(convs3)} bottleneck 3x3 convs: sparsity {sp3:.4f} there, "
+          f"{sp_all:.4f} over all {len(student)} student parameters; "
+          f"sensitivity before pruning (l1_norm; the test clone's loss on "
+          f"a batch of {len(fixed['img'])}, {base:.6g} unpruned) "
+          f"{json.dumps(sens)} {tag}")
+    assert abs(sp3 - SLIM_PRUNE_RATIO) < 0.01, sp3
+    assert all(np.isfinite(v) for d in sens.values() for v in d.values())
+
+    # (b) one step card against CPU from the pruned start (phase 14's
+    # method and gates), then training
+    names = sorted(v.name for v in main.list_vars() if v.persistable)
+    start = scope_to_numpy(scope, names)
+    small = {k: v[:CHECK_BATCH] for k, v in fixed.items()}
+    agreement = step_agreement(torch, main, start, small, total.name, tag,
+                               devs=(dev, "cpu"))
+    loader = tio.DataLoader.from_generator(
+        feed_list=[blk.var("img"), blk.var("label")], capacity=2)
+    loader.set_sample_generator(tio.xmap_readers(mapper, samples, 1, 64),
+                                SLIM_BATCH)
+    t_before = {n: scope.find_np(n) for n in teacher_names}
+    losses, feeds_equal = [], True
+    t_train = time.perf_counter()
+    for i, feed in enumerate(loader):
+        want = serial[i]
+        feeds_equal &= (np.array_equal(feed["img"], np.stack(
+            [s[0] for s in want])) and np.array_equal(
+            feed["label"], np.stack([s[1] for s in want])))
+        losses.append(float(exe.run(main, feed=feed, fetch_list=[total],
+                                    scope=scope)[0]))
+        pruner.apply_masks(scope, masks)
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    train_s = time.perf_counter() - t_train
+    assert len(losses) == SLIM_STEPS and feeds_equal, (len(losses),
+                                                      feeds_equal)
+    teacher_same = all(np.array_equal(scope.find_np(n), a)
+                       for n, a in t_before.items())
+    zero = all(not np.any(scope.find_np(n)[~masks[n]]) for n in convs3)
+    sp_after = sparsity(scope, convs3)
+    print(f"phase 40(b) distillation (teacher: the unpruned ResNet-50, "
+          f"{len(teacher_names)} frozen persistables): {SLIM_STEPS} steps "
+          f"at batch {SLIM_BATCH} through DataLoader(xmap_readers(1 "
+          f"thread)), feed dicts equal the serial reader's: {feeds_equal}; "
+          f"loss {losses[0]:.4f} -> {losses[-1]:.4f} in {train_s:.1f} s; "
+          f"teacher bit-equal {teacher_same}, pruned channels all 0 "
+          f"{zero}, sparsity {sp_after:.4f} {tag}")
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0], losses
+    assert teacher_same and zero and sp_after == sp3
+
+    with scope_guard(scope):
+        static.io.save_inference_model(SLIM_DIR, ["img"], [logits], exe,
+                                       main_program=main)
+    out = {"pruned_params": len(convs3), "sparsity_pruned": sp3,
+           "sparsity_all": sp_all, "sensitivity": sens,
+           "sensitivity_base": base,
+           "agreement": agreement, "losses": losses, "train_s": train_s,
+           "teacher_bit_equal": teacher_same, "feeds_equal": feeds_equal,
+           "seconds": time.perf_counter() - t0}
+    return out, logits.name
+
+
+def slim_frozen_bytes(pred):
+    """The int8 codes and float32 scales the frozen program's quantized
+    ops read, as the Predictor holds them: (bytes, devices)."""
+    slots = {"quantized_conv2d": ("Filter", "FilterScale"),
+             "quantized_mul": ("Y", "YScale")}
+    seen, total, devices = set(), 0, set()
+    for op in pred._program.global_block().ops:
+        for slot in slots.get(op.type, ()):
+            name = op.inputs[slot][0]
+            if name in seen:
+                continue
+            seen.add(name)
+            t = pred._scope.get(name)
+            total += t.numel() * t.element_size()
+            devices.add(t.device.type)
+    return total, devices
+
+
+def slim_quantize(torch, k8, seed, tag, dev="cuda", image_size=None):
+    """Phase 40(c). The student loaded from SLIM_DIR twice: an f32
+    Predictor, and one that PTQ calibrates (4 batches of 8, hist), that
+    `analysis.plan_quantization` plans (params from its scope as numpy,
+    the card's free memory as the budget) and that
+    `quantize_program(plan=...)` freezes. 4 requests each at batch 1, 8
+    and 32; K8 launches on every one; the served fc equals K8's plain
+    version + bias within 1 ulp; int8 vs f32 under INT8_FIDELITY_GATE;
+    the plan's int8 bytes equal what the frozen Predictor holds; its
+    capture price against each batch size's measured capture peak
+    (`QuantPlan.register_estimate`, `planner.cross_check`, within
+    SLIM_PRICE_TOL on the card). Returns (summary, int8 Predictor, f32
+    Predictor, K8 launches over the requests)."""
+    from collections import Counter
+    from paddle_tpu_torch import inference, slim
+    from paddle_tpu_torch.analysis import planner, plan_quantization
+    from paddle_tpu_torch.observability import profile as prof
+    image_size = image_size or SLIM_IMAGE
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(seed + 41)
+    f32 = inference.create_predictor(inference.Config(SLIM_DIR, device=dev))
+    pred = inference.create_predictor(inference.Config(SLIM_DIR,
+                                                       device=dev))
+    loader = [{"img": resnet_images(rng, 8, image_size)} for _ in range(4)]
+    ptq = slim.PostTrainingQuantization(pred._exe, pred._program, ["img"],
+                                        loader, scope=pred._scope,
+                                        batch_nums=4)
+    scales = ptq.calibrate()
+    params = {v.name: pred._scope.find_np(v.name)
+              for v in pred._program.list_vars()
+              if v.persistable and pred._scope.has(v.name)}
+    budget = torch.cuda.mem_get_info()[0] if dev == "cuda" else None
+    t_plan = time.perf_counter()
+    plan = plan_quantization(pred._program, params=params,
+                             batch_size=max(RESNET_BATCHES),
+                             hbm_budget_bytes=budget)
+    plan_s = time.perf_counter() - t_plan
+    del params
+    rungs = dict(Counter(v.rung for v in plan.report.ladder))
+    hazards = dict(Counter(d.code for d in plan.diagnostics()))
+    print(f"phase 40(c) plan_quantization (batch {max(RESNET_BATCHES)}, "
+          f"budget {budget} B free on the card) in {plan_s:.2f} s: ladder "
+          f"{rungs}, hazards {hazards}, vetoed ops {plan.vetoed_ops()}, "
+          f"weights saved {plan.weights_saved_bytes} B of "
+          f"{sum(w['bytes_f32'] for w in plan.weights)} B {tag}")
+    assert plan.vetoed_ops() == [] and "int8-range-overflow" not in hazards
+    assert plan.fit_diagnostic() is None
+    ptq.freeze(scales, plan=plan)
+    pred._program._version += 1
+    types = [op.type for op in pred._program.global_block().ops]
+    blocks = slim_blocks()
+    want_convs = 1 + 3 * sum(blocks) + len(blocks)
+    assert types.count("quantized_conv2d") == want_convs and \
+        types.count("quantized_mul") == 1, Counter(types)
+    assert not any(t.startswith("fake_") for t in types)
+    assert "conv2d" not in types and "fc" not in types and "mul" not in types
+
+    # each batch size's first runs (warm-up, capture) under the ledger
+    # scope the plan's estimates register against
+    requests = [resnet_images(rng, b, image_size) for b in RESNET_BATCHES
+                for _ in range(RESNET_REQUESTS_PER_BATCH)]
+    planner.clear_static_estimates(scope=SLIM_SCOPE)
+    for b, x in zip(RESNET_BATCHES, requests[::RESNET_REQUESTS_PER_BATCH]):
+        with prof.attribution("predictor", key=f"batch{b}",
+                              scope=SLIM_SCOPE):
+            for _ in range(2):
+                pred.run({"img": x})
+        plan.register_estimate(SLIM_SCOPE, f"batch{b}", batch_size=b)
+        f32.run({"img": x})
+    # what the frozen Predictor holds on the card once it has run
+    held, devices = slim_frozen_bytes(pred)
+    planned = sum(w["bytes_int8"] for w in plan.weights if not w["vetoed"])
+    assert devices == {dev} and held == planned, (held, planned, devices)
+    legs = [g for g in planner.cross_check(SLIM_PRICE_TOL)["legs"]
+            if g["scope"] == SLIM_SCOPE]
+    pricing = {g["key"]: {"estimate": g["estimate_bytes"],
+                          "measured": g["measured_bytes"],
+                          "ratio": g["ratio"], "status": g["status"],
+                          "step_peak": g["detail"]["step_peak_bytes"],
+                          "working": plan.working_bytes(
+                              g["detail"]["batch_size"])}
+               for g in legs}
+    print(f"phase 40(c) pricing: the plan's quant_capture_peak_bytes (the "
+          f"shadow's every intermediate + the quantized ops' working set) "
+          f"vs the measured capture peak (tolerance {SLIM_PRICE_TOL}; its "
+          f"quant_step_peak_bytes beside): {json.dumps(pricing)} {tag}")
+    if dev == "cuda":
+        assert all(p["status"] == "ok" for p in pricing.values()), pricing
+    k8.reset_launch_counts()
+    int8_out, int8_s = serve_requests(pred, requests)
+    launches = dict(k8.launch_counts)
+    assert launches["quantized_matmul"] == len(requests), launches
+    f32_out, _ = serve_requests(f32, requests)
+    num = sum(float(np.abs(a - b).sum()) for a, b in zip(int8_out, f32_out))
+    fidelity = num / sum(float(np.abs(b).sum()) for b in f32_out)
+    for o in int8_out:
+        assert np.isfinite(o).all()
+    fc = served_fc_ulps(torch, k8, pred, requests[-1])
+    p50 = {b: 1e3 * float(np.median(int8_s[i * RESNET_REQUESTS_PER_BATCH:
+                                           (i + 1) *
+                                           RESNET_REQUESTS_PER_BATCH]))
+           for i, b in enumerate(RESNET_BATCHES)}
+    print(f"phase 40(c) the planned int8 Predictor: {want_convs} "
+          f"quantized_conv2d + 1 quantized_mul, int8 codes + scales held "
+          f"{held} B = planned {planned} B; K8 {launches['quantized_matmul']}"
+          f" launches over {len(requests)} requests; served fc vs plain K8 "
+          f"+ bias {fc} ulp; int8 vs the f32 student mean |dlogits| / mean "
+          f"|logits| {fidelity:.5f} (gate {INT8_FIDELITY_GATE}); p50 ms by "
+          f"batch {json.dumps(p50)} {tag}")
+    assert fc <= 1 and fidelity < INT8_FIDELITY_GATE, (fc, fidelity)
+    out = {"rungs": rungs, "hazards": hazards,
+           "vetoed_ops": plan.vetoed_ops(),
+           "weights_saved_bytes": plan.weights_saved_bytes,
+           "int8_bytes_held": held, "int8_bytes_planned": planned,
+           "plan_s": plan_s, "pricing": pricing,
+           "int8_working_bytes": plan.int8_working_bytes,
+           "k8_launches": launches["quantized_matmul"],
+           "requests": len(requests), "fc_ulps": fc, "fidelity": fidelity,
+           "p50_ms": p50, "seconds": time.perf_counter() - t0}
+    return out, pred, f32, launches
+
+
+def slim_planted_veto(torch, seed, tag, dev="cuda"):
+    """Phase 40(c)'s planted veto: the K = SLIM_VETO_K `mul` of
+    tests/test_slim_passes.py with x and w positive and every element at
+    its calibrated abs max. Planned, the op is vetoed (`skip_quant`) and
+    stays float32: it must equal float64 on the CPU within SLIM_VETO_TOL
+    of the result. Quantized without the plan, K * 127^2 products
+    overflow int32: its error is printed, not gated. Returns the
+    readings."""
+    from paddle_tpu_torch import slim
+    from paddle_tpu_torch.analysis import plan_quantization
+    from paddle_tpu_torch.core import ir
+    from paddle_tpu_torch.core.executor import Executor
+    from paddle_tpu_torch.core.scope import Scope
+    k, n, m = SLIM_VETO_K, 4, 2
+    xv, wv = 0.5, 0.25
+    x = np.full((m, k), xv, np.float32)
+    want = float(np.float64(xv) * np.float64(wv) * k)
+
+    def program():
+        p = ir.Program()
+        b = p.global_block()
+        b.create_var(name="x", shape=[-1, k], dtype="float32", is_data=True)
+        w = b.create_var(name="w", shape=[k, n], dtype="float32",
+                         persistable=True)
+        w.desc.is_parameter = True
+        b.create_var(name="out", shape=[-1, n], dtype="float32")
+        b.append_op("mul", {"X": ["x"], "Y": ["w"]}, {"Out": ["out"]})
+        return p
+
+    exe, res = Executor(dev), {}
+    for planned in (True, False):
+        prog, scope = program(), Scope()
+        scope.set("w", np.full((k, n), wv, np.float32))
+        ptq = slim.PostTrainingQuantization(exe, prog, ["x"], [{"x": x}],
+                                            scope=scope, batch_nums=1,
+                                            algo="abs_max")
+        scales = ptq.calibrate()
+        plan = None
+        if planned:
+            plan = plan_quantization(prog, params={"w": scope.find_np("w")},
+                                     batch_size=m)
+            assert plan.vetoed_ops() == [0], plan.vetoed_ops()
+        ptq.freeze(scales, plan=plan)
+        types = [op.type for op in prog.global_block().ops]
+        (got,) = exe.run(prog, feed={"x": x}, fetch_list=["out"],
+                         scope=scope)
+        rel = float(np.abs(got.astype(np.float64) - want).max() / want)
+        res["planned" if planned else "unplanned"] = {
+            "ops": types, "rel_err": rel, "out": float(got.flat[0])}
+    p, u = res["planned"], res["unplanned"]
+    print(f"phase 40(c) planted veto, mul K={k} (K x 127^2 = "
+          f"{k * 127 ** 2} > 2^31 - 1): planned -> {p['ops']}, f32 result "
+          f"{p['out']:.6g} vs float64 {want:.6g}, rel {p['rel_err']:.3g} "
+          f"(gate {SLIM_VETO_TOL}); unplanned -> {u['ops']}, result "
+          f"{u['out']:.6g}, rel {u['rel_err']:.3g} (recorded, not gated) "
+          f"{tag}")
+    assert p["ops"] == ["mul"] and p["rel_err"] <= SLIM_VETO_TOL, p
+    assert u["ops"] == ["quantized_mul"], u
+    return res
+
+
+def slim_serving(torch, k8, int8, f32, seed, tag, dev="cuda",
+                 image_size=None):
+    """Phase 40(d). The lock checker armed (PT_FLAGS_concurrency_check,
+    `set_enabled(True)`) before the registry, the replica pool and the
+    gateway are built: the planned int8 Predictor deployed as slim:v1,
+    SLIM_CLIENTS PTGW clients x SLIM_REQUESTS one-row requests (no
+    capture), then the same again with a hot swap to the f32 student
+    (slim:v2) under traffic (only v2's prewarm captures). Every row
+    equals the serial Predictor.run of the version that computed it
+    (phase 33's tolerances); the checker finds no lock-order cycle and
+    no guarded-by violation; GET /profile carries its section. Control:
+    two tracked locks taken A -> B on one thread and B -> A on another,
+    one after the other: exactly one lock-order-cycle naming both
+    stacks. Returns (summary, K8 launches over the two windows)."""
+    import threading
+    from paddle_tpu_torch.analysis import concurrency as cc
+    from paddle_tpu_torch.core import flags
+    from paddle_tpu_torch.observability import profile as prof
+    from paddle_tpu_torch.serving import (GatewayClient, ModelRegistry,
+                                          ServingGateway, wire)
+    image_size = image_size or SLIM_IMAGE
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(seed + 42)
+    images = resnet_images(rng, SLIM_CLIENTS * SLIM_REQUESTS, image_size)
+    ex = {"img": images[:1]}
+    ledger = prof.compile_ledger()
+    out, gw = {}, None
+    flags.set_flag("concurrency_check", True)
+    cc.set_enabled(True)
+    cc.clear_findings()
+    try:
+        registry = ModelRegistry(num_replicas=2, buckets=list(SLIM_BUCKETS),
+                                 max_wait_ms=2.0, max_queue=1024,
+                                 drain_timeout_s=120.0)
+        gw = ServingGateway(registry=registry, read_timeout_s=600.0,
+                            write_timeout_s=60.0, max_in_flight=4096,
+                            device=dev)
+        registry.deploy("slim", "v1", int8, prewarm_feed=ex, tier="int8")
+        v1 = registry.resolve("slim").server
+        assert isinstance(registry._mu, cc.TrackedLock)
+        host, port = gw.start()
+        refs = {"v1": int8.clone(), "v2": f32.clone()}
+        serial = {v: {} for v in refs}
+        k8.reset_launch_counts()
+        n0 = len(ledger.compile_events())
+        got, errors = _traffic(GatewayClient, host, port, images,
+                               SLIM_CLIENTS, SLIM_REQUESTS, model="slim")
+        assert not errors, errors[:3]
+        plain_caps = len(ledger.compile_events()) - n0
+        assert plain_caps == 0, f"{plain_caps} captures during traffic"
+        swap = {}
+
+        def do_swap():
+            time.sleep(0.05)
+            try:
+                swap.update(registry.deploy("slim", "v2", f32,
+                                            prewarm_feed=ex, tier="fp32"))
+            except Exception as e:
+                swap["error"] = f"{type(e).__name__}: {e}"
+
+        swapper = threading.Thread(target=do_swap)
+        swapped = []
+
+        def after_swap():
+            if swapper.is_alive():
+                return False
+            swapped.append(time.perf_counter())
+            return swapped[-1] - swapped[0] > 0.2
+
+        n1 = len(ledger.compile_events())
+        more, errors = _traffic(GatewayClient, host, port, images,
+                                SLIM_CLIENTS, SLIM_REQUESTS,
+                                on_start=swapper.start, until=after_swap,
+                                pace_s=SERVE_SWAP_PACE_S, model="slim")
+        swapper.join(600)
+        assert swap.get("ok") and swap["replaced"] == "v1", swap
+        assert not errors, errors[:3]
+        v2 = registry.resolve("slim").server
+        caps = ledger.compile_events()[n1:]
+        assert caps and all(e.scope == v2.ledger_scope for e in caps), \
+            [(e.scope, e.key) for e in caps]
+        launches = dict(k8.launch_counts)
+        got += more
+        assert len(got) >= 2 * SLIM_CLIENTS * SLIM_REQUESTS
+        by_version, worst = {}, {"v1": 0.0, "v2": 0.0}
+        tol = {"v1": SERVE_INT8_ROW_TOL, "v2": LOGITS_TOL}
+        for r, o, _, *rest in got:
+            errs = {}
+            for v, ref in refs.items():
+                if r not in serial[v]:
+                    serial[v][r] = ref.run(
+                        feed={"img": images[r:r + 1]})[0]
+                errs[v] = _row_err(o, serial[v][r])
+            computed = min(errs, key=lambda v: errs[v] / tol[v])
+            assert errs[computed] <= tol[computed], (r, errs)
+            by_version[computed] = by_version.get(computed, 0) + 1
+            worst[computed] = max(worst[computed], errs[computed])
+        assert by_version.get("v1") and by_version.get("v2"), by_version
+        assert launches["quantized_matmul"] > 0, launches
+        st, profile_doc, _ = wire.http_request(host, port, "GET", "/profile")
+        section = profile_doc.get("concurrency")
+        assert st == 200 and section and section["locks"], st
+        found = cc.findings()
+        bad = [d for d in found if d.code in ("lock-order-cycle",
+                                              "guarded-by-violation")]
+        assert not bad, [d.message for d in bad]
+        top = sorted(section["locks"].items(),
+                     key=lambda kv: -kv[1]["wait_total_s"])[:3]
+        out.update(requests=len(got), by_version=by_version,
+                   max_row_err=worst, captures_plain=plain_caps,
+                   captures_swap=len(caps), findings=len(found),
+                   tracked_locks=len(section["locks"]),
+                   top_waits={n: {"wait_total_s": d["wait_total_s"],
+                                  "contended": d["contended"],
+                                  "acquisitions": d["acquisitions"]}
+                              for n, d in top},
+                   prewarm_s=swap["prewarm_s"])
+        # the control: A -> B on one thread, then B -> A on another
+        cc.clear_findings()
+        a, b = (cc.make_lock("slim.control.A"),
+                cc.make_lock("slim.control.B"))
+
+        def ab():
+            with a:
+                with b:
+                    pass
+
+        def ba():
+            with b:
+                with a:
+                    pass
+
+        for fn in (ab, ba):
+            th = threading.Thread(target=fn)
+            th.start()
+            th.join(10)
+        recs = cc.finding_records()
+    finally:
+        if gw is not None:
+            gw.shutdown(timeout_s=120.0)
+        flags.set_flag("concurrency_check", False)
+        cc.clear_findings()
+    assert [r["diagnostic"]["code"] for r in recs] == ["lock-order-cycle"], \
+        recs
+    assert set(recs[0]["stacks"]) == {"slim.control.A -> slim.control.B",
+                                      "slim.control.B -> slim.control.A"}
+    out["control"] = {"findings": len(recs),
+                      "stacks": sorted(recs[0]["stacks"])}
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 40(d) armed lock checker, slim:v1 (planned int8) then a "
+          f"hot swap to slim:v2 (f32 student) under {SLIM_CLIENTS} clients: "
+          f"{out['requests']} requests computed by {out['by_version']}, "
+          f"rows vs serial {out['max_row_err']} (gates int8 "
+          f"{SERVE_INT8_ROW_TOL}, f32 {LOGITS_TOL}); captures during plain "
+          f"traffic {plain_caps}, in the swap window {len(caps)} (v2's "
+          f"prewarm); {out['tracked_locks']} tracked locks, findings "
+          f"{out['findings']} (no cycle, no guarded-by violation); largest "
+          f"waits {json.dumps(out['top_waits'])}; K8 launches {launches}; "
+          f"control A->B / B->A: {len(recs)} lock-order-cycle naming both "
+          f"stacks {tag}")
+    return out, launches
+
+
+def slim_nas(torch, seed, tag, dev="cuda", image_size=None):
+    """Phase 40(e). `slim.NASSearcher` with `SAController(seed)` over the
+    network's four stage block counts (each from 1 to its count), for
+    SLIM_NAS_STEPS steps. `max_flops` is `flops_of` of the full network
+    at batch 1 (printed beside `flops_per_image`); a candidate's reward
+    is its loss drop over two momentum-SGD steps at SLIM_NAS_BATCH on the
+    card (eager). No evaluated candidate exceeds `max_flops`."""
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.models.resnet import ResNet, flops_per_image
+    from paddle_tpu_torch.observability import profile as prof
+    from paddle_tpu_torch.slim import (NASSearcher, SAController,
+                                       SearchSpace, flops_of)
+    image_size = image_size or SLIM_IMAGE
+    t0 = time.perf_counter()
+    full = slim_blocks()
+    classes = SLIM_NET.get("num_classes", 1000)
+    kw = {k: v for k, v in SLIM_NET.items() if k in ("width", "num_classes")}
+    rng = np.random.RandomState(seed + 43)
+    x1 = torch.from_numpy(resnet_images(rng, 1, image_size)).to(dev)
+    xb = torch.from_numpy(resnet_images(rng, SLIM_NAS_BATCH,
+                                        image_size)).to(dev)
+    yb = torch.from_numpy(rng.randint(0, classes, SLIM_NAS_BATCH)).to(dev)
+    flops_cache, evaluated = {}, []
+
+    def net(tokens):
+        nn.seed(seed)
+        return ResNet(blocks=tuple(t + 1 for t in tokens), device=dev, **kw)
+
+    def flops_fn(tokens):
+        key = tuple(tokens)
+        if key not in flops_cache:
+            m = net(tokens).eval()
+            flops_cache[key] = flops_of(m, x1)
+            del m
+        return flops_cache[key]
+
+    def loss_fn(model, x, y):
+        return torch.nn.functional.cross_entropy(model(x), y)
+
+    def eval_fn(tokens):
+        m = net(tokens)
+        with prof.disable_capture():
+            first, second, _ = zoo_step(torch, m, loss_fn, (xb, yb))
+        evaluated.append((list(tokens), first - second))
+        del m
+        return first - second
+
+    class Space(SearchSpace):
+        def init_tokens(self):
+            return [n - 1 for n in full]
+
+        def range_table(self):
+            return list(full)
+
+    max_flops = flops_fn([n - 1 for n in full])
+    searcher = NASSearcher(Space(), SAController(seed=seed),
+                           max_flops=max_flops, flops_fn=flops_fn,
+                           search_steps=SLIM_NAS_STEPS)
+    best, reward, history = searcher.search(eval_fn)
+    over = [t for t, _ in evaluated if flops_fn(t) > max_flops]
+    out = {"max_flops": max_flops,
+           "flops_per_image": flops_per_image(SLIM_NET["depth"],
+                                              image_size),
+           "history": [(t, r, flops_cache[tuple(t)]) for t, r in history],
+           "best": best, "best_reward": reward,
+           "seconds": time.perf_counter() - t0}
+    print(f"phase 40(e) NAS, SAController(seed={seed}) over stage blocks "
+          f"1..{list(full)}, {len(history)} candidates: max_flops "
+          f"{max_flops:.4g} (flops_of, batch 1 x {image_size}^2; "
+          f"flops_per_image {out['flops_per_image']:.4g}); history "
+          f"{[(t, round(r, 4)) for t, r in history]}; best {best} "
+          f"(loss drop {reward:.4f}); candidates over max_flops: {len(over)} "
+          f"{tag}")
+    assert len(history) == SLIM_NAS_STEPS and not over, (history, over)
+    return out
+
+
+def slim_phase(torch, k8, seed, tag, dev="cuda"):
+    """Phase 40 (see the module docstring). Returns (results, K8 launches
+    over the main path: the planned Predictor's requests and the
+    gateway's two windows)."""
+    t0 = time.perf_counter()
+    out = {}
+    out["prune_distill"], _ = slim_prune_distill(torch, seed, tag, dev)
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    out["quantize"], int8, f32, served = slim_quantize(torch, k8, seed, tag,
+                                                       dev)
+    out["planted_veto"] = slim_planted_veto(torch, seed, tag, dev)
+    out["serving"], gw_launches = slim_serving(torch, k8, int8, f32, seed,
+                                               tag, dev)
+    del int8, f32
+    from paddle_tpu_torch.io import fs
+    fs.get_fs(SLIM_DIR)[0].delete(SLIM_DIR)
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    out["nas"] = slim_nas(torch, seed, tag, dev)
+    launches = {"quantized_matmul": served["quantized_matmul"]
+                + gw_launches["quantized_matmul"]}
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 40: {out['seconds']:.1f} s; K8 launches on the slim path "
+          f"{launches} {tag}")
+    return out, launches
+
+
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else list(argv)
     if argv[:1] == ["--rank-worker"]:
@@ -9502,6 +10253,11 @@ def main(argv=None):
                     help="only run phase 39 (the parameter server, the "
                          "launcher and dataset training with DeepFM); "
                          "print one PS line")
+    ap.add_argument("--slim", action="store_true",
+                    help="only build the kernels and run phase 40 (prune, "
+                         "distill, plan, quantize and serve ResNet-50 under "
+                         "the armed lock checker, then NAS); print one SLIM "
+                         "line")
     ap.add_argument("--ft-worker", default=None, metavar="JSON",
                     help=argparse.SUPPRESS)
     for role in ("--ps-server", "--ps-trainer", "--collective-worker"):
@@ -9554,7 +10310,8 @@ def main(argv=None):
     print(f"card: {card}")
     tag = f"[{card}]"
     native_build = (start_native_build() if not any(
-        (args.capture, args.serving, args.fleet, args.parallel)) else None)
+        (args.capture, args.serving, args.fleet, args.parallel,
+         args.slim)) else None)
     if args.ps:
         out, _ = ps_phase(torch, args.seed, tag, native_build=native_build)
         print("PS " + json.dumps(out, default=str))
@@ -9571,6 +10328,15 @@ def main(argv=None):
     # the tensor-core kernels' ptxas lines and SASS
     build = build_report(info, tag)
 
+    if args.slim:
+        from paddle_tpu_torch.ops.kernels import quantized_matmul as k8
+        out, launches = slim_phase(torch, k8, args.seed, tag)
+        print("SLIM " + json.dumps(dict(out, launches=launches),
+                                   default=str))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     if args.parallel:
         out, launches = parallel_phases(torch, tfa, args.seed, tag)
         print("PARALLEL " + json.dumps(dict(out, launches=launches),
@@ -10137,6 +10903,15 @@ def main(argv=None):
         by_path = kernels[name].setdefault(
             "launches_by_path", {"main": kernels[name]["launches"]})
         by_path["ps"] = ps_launches.get(name, 0)
+
+    # 40. the slim pipeline: K8's int8 launches on the pruned, distilled
+    # and planned ResNet-50 (counts reset just before its requests and its
+    # gateway windows, read just after)
+    results["slim"], slim_launches = slim_phase(torch, k8, args.seed, tag)
+    for name in kernels:
+        n = slim_launches.get(name, 0)
+        kernels[name]["launches_by_path"]["slim"] = n
+        kernels[name]["launches"] += n
 
     results["total_s"] = time.perf_counter() - t_start
     print(f"total: {results['total_s']:.1f} s {tag}")

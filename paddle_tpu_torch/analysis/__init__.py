@@ -1,8 +1,9 @@
 """Program analysis: the diagnostic model, the pass framework, the
 verifier family and the device-hazard lints (counterpart of
-paddle_tpu/analysis/), the planner's memory half (`planner`), the
-deploy-time quantization parity gate (`numerics.quant_parity_check`),
-and `concurrency` (named locks).
+paddle_tpu/analysis/), the planner's memory half (`planner`), the static
+numerics analysis and quantization planner (`numerics`), and the
+concurrency checker (`concurrency`, `interleave`, and the static
+`astlint`).
 
 * **verifier** (verifier.py, `VERIFY_PASSES`) — structural
   well-formedness.
@@ -14,6 +15,10 @@ and `concurrency` (named locks).
   package's: the `InferenceServer` / `ModelRegistry.deploy` fit gate and
   the cross-check of its estimates against the captures' peaks
   (GET /profile "plan_check").
+* **numerics** (numerics.py, `NUMERICS_PASSES`) — interval dataflow,
+  the precision ladder and `plan_quantization` -> QuantPlan; opt-in
+  (`lint_numerics`), consumed by `slim.quantize_program(plan=...)`, with
+  the deploy-time parity gate `quant_parity_check`.
 
 `lint_graph` (verifier + lints, collect mode) is what `InferenceServer`
 runs at startup.
@@ -34,12 +39,15 @@ from paddle_tpu_torch.analysis.planner import (  # noqa: F401
     register_static_estimate,
 )
 from paddle_tpu_torch.analysis.numerics import (  # noqa: F401
-    quant_parity_check,
+    NUMERICS_PASSES, Interval, LadderVerdict, NumericsPass,
+    NumericsReport, QuantPlan, analyze_numerics, numerics_covered_ops,
+    plan_quantization, price_quantized_kv, propagate_intervals,
+    quant_parity_check, transfer_families,
 )
 
-# the planner is opt-in (the serving fit gate, PT_FLAGS_plan_hbm_bytes):
-# not part of the default lint pipeline, so lint_graph output stays
-# stable
+# the planner and numerics families are opt-in (the serving fit gate,
+# PT_FLAGS_plan_hbm_bytes, the slim sandwich): registered but not part of
+# the default lint pipeline, so lint_graph output stays stable
 ALL_PASSES = VERIFY_PASSES + LINT_PASSES
 
 

@@ -164,7 +164,7 @@ class CompileCache:
                 "event": event, "key_hash": key_hash,
                 "component": component, "key": key, "scope": scope,
                 "reason": reason, "tier": tier, "seconds": seconds,
-                "at": time.time()})
+                "at": time.time()})  # wallclock-ok: stamp
             if len(self._events) > 4096:
                 del self._events[:2048]
 
@@ -252,7 +252,7 @@ class CompileCache:
                                             for s in signature])
         meta = {"format": ENTRY_FORMAT, "key_hash": key_hash,
                 "token": token, "component": component, "key": key,
-                "stamp": self.stamp(), "created_at": time.time(),
+                "stamp": self.stamp(), "created_at": time.time(),  # wallclock-ok
                 "compile_s": float(compile_s),
                 "signature": [[label, list(shape), dtype]
                               for label, shape, dtype in signature],
@@ -302,7 +302,7 @@ class CompileCache:
                                            "component": e["component"],
                                            "key": e["key"]}
             entries = list(seen.values())
-        doc = {"name": str(name), "written_at": time.time(),
+        doc = {"name": str(name), "written_at": time.time(),  # wallclock-ok
                "stamp": self.stamp(), "entries": entries}
         path = self._manifest_path(name)
         tmp = f"{path}.tmp-{os.getpid()}"
@@ -372,7 +372,7 @@ class CompileCache:
     def _flag_pathology(self, key_hash, **info):
         """Advisory record of a slow capture (last writer wins)."""
         doc = self._read_pathology()
-        info["flagged_at"] = time.time()
+        info["flagged_at"] = time.time()  # wallclock-ok: a wall stamp
         doc[key_hash] = info
         tmp = f"{self._pathology_path()}.tmp-{os.getpid()}"
         try:
@@ -409,7 +409,7 @@ class CompileCache:
             except OSError:
                 continue
             if ".tmp-" in name:
-                if time.time() - mtime > 300:
+                if time.time() - mtime > 300:  # wallclock-ok: vs file mtime
                     os.remove(p)
                 continue
             entries.append((mtime, name))

@@ -12,13 +12,13 @@ slo_* flags (`observability.slo` and `observability.health`),
 plan_hbm_bytes and plan_fusion_discount (`analysis.planner`), fault_plan
 (`reliability.faults`), watchdog_deadline_s and train_numerics
 (`reliability.training`), the fleet_* flags (`fleet`) and the ps_retry_*
-and ps_failover_after_s flags (`ps`). The JAX package's
-compile_cache_jax_cache has no
-counterpart: it plumbs the cache directory into jax's own compilation
-cache, and a captured CUDA graph has no compiler cache beneath it. The
-others name the module of a later slice that will read them (`unread`);
-until then a value other than the default warns once that it has no
-effect. No flag picks the device: that is `core.places.resolve_device`'s.
+and ps_failover_after_s flags (`ps`) and concurrency_check
+(`analysis.concurrency`). The JAX package's compile_cache_jax_cache has
+no counterpart: it plumbs the cache directory into jax's own
+compilation cache, and a captured CUDA graph has no compiler cache
+beneath it. The two flags no module reads say why (`unread`); a value
+other than the default warns once that it has no effect. No flag picks
+the device: that is `core.places.resolve_device`'s.
 """
 import os
 import warnings
@@ -77,9 +77,8 @@ def all_flags():
     return {k: v.value for k, v in _REGISTRY.items()}
 
 
-#: the reasons of the flags no module of the port reads yet
+#: the reason of the flags no module of the port reads
 _PARITY = "kept for API parity, no counterpart in the port"
-_ITEM17 = "read by analysis.concurrency, ROADMAP Queue 1 item 17"
 
 
 define_flag("check_nan_inf", False,
@@ -168,8 +167,11 @@ define_flag("train_numerics", True,
             "per-step training numerics telemetry of "
             "resilient_train_loop")
 define_flag("concurrency_check", False,
-            "not read yet: arm the lock-order and guarded-by checks of "
-            "make_lock() sites", unread=_ITEM17)
+            "arm the lock checker: make_lock() sites return TrackedLocks "
+            "feeding the process-wide LockRegistry (lock-order cycles, "
+            "wait/hold histograms) and guarded_by() annotations check "
+            "shared-structure access against the thread's held locks "
+            "(analysis/concurrency.py)")
 define_flag("trace_sample_every", 8,
             "the gateway traces 1 in N requests that "
             "carry no trace context")

@@ -23,10 +23,11 @@ graph's memory pool.
 `.numpy()` share its storage, and a host copy must not change when the
 tensor is later updated in place.
 """
-import threading
 
 import numpy as np
 import torch
+
+from paddle_tpu_torch.analysis.concurrency import make_lock
 
 __all__ = ["Scope", "global_scope", "scope_guard", "to_numpy"]
 
@@ -42,7 +43,7 @@ class Scope:
     def __init__(self):
         self._vars = {}
         self._bound = {}      # id(tensor) -> (name, tensor): bound state
-        self._lock = threading.Lock()
+        self._lock = make_lock("core.scope")
 
     def set(self, name, value):
         with self._lock:

@@ -162,10 +162,10 @@ def start_procs(args):
         for pr in procs:
             if pr.poll() is None:
                 pr.send_signal(signal.SIGTERM)
-        deadline = time.time() + 10
+        deadline = time.monotonic() + 10
         for pr in procs:
             try:
-                pr.wait(timeout=max(0.1, deadline - time.time()))
+                pr.wait(timeout=max(0.1, deadline - time.monotonic()))
             except subprocess.TimeoutExpired:
                 pr.kill()
                 pr.wait()

@@ -307,7 +307,7 @@ def main(argv=None):
             announced = True
             print(ROUTER_PROMOTED_MARK + json.dumps({
                 "name": router.name, "epoch": router.epoch,
-                "t_wall": time.time(),
+                "t_wall": time.time(),  # wallclock-ok: a wall stamp
                 "adopted": router.stats()["counters"]["adopted"],
                 "monitor": monitor.stats()}), flush=True)
     if monitor is not None:

@@ -1,17 +1,29 @@
 """Built-in datasets: mnist, cifar, uci_housing, imdb, imikolov, wmt16
-and ctr.
+and ctr, and (from io/dataset_ext.py) movielens, conll05, flowers and
+voc2012.
 
-Counterpart of paddle_tpu/io/dataset.py's offline synthetic generators
-(the reference's paddle.dataset.* downloads files; the port reads
-none): the same seeds and the same numpy draws give the same samples as
-the JAX package, bit for bit, for the same `n` and split. The readers
-of real data files (`set_data_dir`) and the datasets of
-io/dataset_ext.py are later work (ROADMAP Queue 1 item 16).
+Counterpart of paddle_tpu/io/dataset.py (the reference's
+paddle.dataset.*). When `set_data_dir` (or PT_DATA_DIR) names a
+directory that holds a dataset in its canonical on-disk format, its
+readers parse the real files; otherwise a deterministic synthetic
+generator serves, with the same seeds and numpy draws as the JAX
+package, so the samples are bit for bit the JAX package's for the same
+`n` and split.
 """
+import os
+
 import numpy as np
 
 __all__ = ["mnist", "cifar", "uci_housing", "imdb", "imikolov", "wmt16",
-           "ctr"]
+           "ctr", "movielens", "conll05", "flowers", "voc2012",
+           "set_data_dir", "download", "md5file", "DATA_HOME"]
+
+_data_dir = os.environ.get("PT_DATA_DIR")
+
+
+def set_data_dir(path):
+    global _data_dir
+    _data_dir = path
 
 
 def _rng(seed):
@@ -233,3 +245,268 @@ class ctr:
     @staticmethod
     def test(n=1024):
         return ctr._make(n, 1)
+
+
+# ---------------------------------------------------------------------
+# Real-format parsers. Each train()/test() above consults these first:
+# when `set_data_dir` (or PT_DATA_DIR) points at a directory holding the
+# dataset in its canonical on-disk format, samples come from the real
+# files with the exact same generator contract; otherwise the synthetic
+# generator is used. Formats match what the reference's downloaders
+# fetch (python/paddle/dataset/mnist.py IDX ubyte, cifar.py python
+# pickles, uci_housing.py whitespace table, imdb.py aclImdb tree,
+# plus Criteo TSV for the CTR config).
+def _real_path(*names):
+    if not _data_dir:
+        return None
+    for name in names:
+        p = os.path.join(_data_dir, name)
+        if os.path.exists(p):
+            return p
+    return None
+
+
+def _open_maybe_gz(path):
+    if path.endswith(".gz"):
+        import gzip
+        return gzip.open(path, "rb")
+    return open(path, "rb")
+
+
+def _parse_idx(images_path, labels_path):
+    """MNIST IDX ubyte format (magic 2051 images / 2049 labels)."""
+    import struct
+    with _open_maybe_gz(images_path) as f:
+        magic, n, rows, cols = struct.unpack(">IIII", f.read(16))
+        if magic != 2051:
+            raise ValueError(f"bad IDX image magic {magic}")
+        images = np.frombuffer(f.read(n * rows * cols), np.uint8)
+        images = images.reshape(n, 1, rows, cols)
+    with _open_maybe_gz(labels_path) as f:
+        magic, n2 = struct.unpack(">II", f.read(8))
+        if magic != 2049:
+            raise ValueError(f"bad IDX label magic {magic}")
+        labels = np.frombuffer(f.read(n2), np.uint8)
+    if n != n2:
+        raise ValueError("IDX image/label count mismatch")
+    return images, labels
+
+
+def _mnist_real(split, n):
+    prefix = "train" if split == "train" else "t10k"
+    ip = _real_path(f"{prefix}-images-idx3-ubyte",
+                    f"{prefix}-images-idx3-ubyte.gz")
+    lp = _real_path(f"{prefix}-labels-idx1-ubyte",
+                    f"{prefix}-labels-idx1-ubyte.gz")
+    if not (ip and lp):
+        return None
+    images, labels = _cached(("mnist", split),
+                             lambda: _parse_idx(ip, lp))
+    n = min(n or len(images), len(images))
+
+    def gen():
+        for i in range(n):
+            # reference normalization (dataset/mnist.py): [0,255]→[-1,1]
+            x = images[i].astype(np.float32) / 127.5 - 1.0
+            yield x, np.int64(labels[i])
+    return gen
+
+
+def _cifar_real(split, n, num_classes):
+    import pickle
+    if num_classes == 10:
+        sub = "cifar-10-batches-py"
+        files = ([f"data_batch_{i}" for i in range(1, 6)]
+                 if split == "train" else ["test_batch"])
+        label_key = b"labels"
+    else:
+        sub = "cifar-100-python"
+        files = ["train"] if split == "train" else ["test"]
+        label_key = b"fine_labels"
+    if not _data_dir or not os.path.isdir(os.path.join(_data_dir, sub)):
+        return None
+    def load():
+        xs, ys = [], []
+        for fname in files:
+            p = os.path.join(_data_dir, sub, fname)
+            if not os.path.exists(p):
+                return None
+            with open(p, "rb") as f:
+                d = pickle.load(f, encoding="bytes")
+            xs.append(np.asarray(d[b"data"], np.uint8))
+            ys.extend(d[label_key])
+        return (np.concatenate(xs).reshape(-1, 3, 32, 32),
+                np.asarray(ys, np.int64))
+
+    loaded = _cached(("cifar", num_classes, split), load)
+    if loaded is None:
+        return None
+    data, labels = loaded
+    n = min(n or len(data), len(data))
+
+    def gen():
+        for i in range(n):
+            yield (data[i].astype(np.float32) / 255.0, np.int64(labels[i]))
+    return gen
+
+
+def _uci_housing_real(split, n):
+    p = _real_path("housing.data")
+    if not p:
+        return None
+    table = _cached(("housing",), lambda: np.loadtxt(p).astype(np.float32))
+    # reference split (dataset/uci_housing.py feature_range): 80/20,
+    # features scaled (x - avg) / (max - min) over the whole table
+    feat, target = table[:, :-1], table[:, -1:]
+    lo, hi, avg = feat.min(0), feat.max(0), feat.mean(0)
+    feat = (feat - avg) / np.maximum(hi - lo, 1e-6)
+    cut = int(len(table) * 0.8)
+    sl = slice(0, cut) if split == "train" else slice(cut, None)
+    feat, target = feat[sl], target[sl]
+    n = min(n or len(feat), len(feat))
+
+    def gen():
+        for i in range(n):
+            yield feat[i], target[i]
+    return gen
+
+
+_parsed_cache = {}
+
+
+def _cached(key, loader):
+    """Parse-once cache keyed on (data_dir, dataset, split) — real files
+    are immutable for a session; switching set_data_dir changes the key."""
+    full = (_data_dir,) + key
+    if full not in _parsed_cache:
+        _parsed_cache[full] = loader()
+    return _parsed_cache[full]
+
+
+_imdb_vocab_cache = _parsed_cache  # legacy alias (tests clear it)
+
+
+def _imdb_tokenize(text):
+    import re
+    return re.findall(r"[a-z0-9']+", text.lower())
+
+
+def _imdb_real(split, n):
+    root = _real_path("aclImdb")
+    if not root:
+        return None
+    vkey = (_data_dir, "imdb", "vocab")
+    if vkey not in _parsed_cache:
+        # vocab from train split, most-frequent first (dataset/imdb.py
+        # build_dict), capped at imdb.VOCAB with id VOCAB-1 as <unk>
+        from collections import Counter
+        cnt = Counter()
+        for lab in ("pos", "neg"):
+            d = os.path.join(root, "train", lab)
+            for fname in sorted(os.listdir(d)):
+                with open(os.path.join(d, fname), errors="ignore") as f:
+                    cnt.update(_imdb_tokenize(f.read()))
+        words = [w for w, _ in cnt.most_common(imdb.VOCAB - 1)]
+        _parsed_cache[vkey] = {w: i for i, w in enumerate(words)}
+    vocab = _parsed_cache[vkey]
+    unk = imdb.VOCAB - 1
+    samples = []
+    for y, lab in ((1, "pos"), (0, "neg")):
+        d = os.path.join(root, split, lab)
+        if not os.path.isdir(d):
+            return None
+        for fname in sorted(os.listdir(d)):
+            samples.append((os.path.join(d, fname), y))
+    n = min(n or len(samples), len(samples))
+
+    def gen():
+        for path, y in samples[:n]:
+            with open(path, errors="ignore") as f:
+                toks = np.asarray([vocab.get(w, unk)
+                                   for w in _imdb_tokenize(f.read())],
+                                  np.int64)
+            if len(toks):
+                yield toks, np.int64(y)
+    return gen
+
+
+def _ctr_real(split, n):
+    """Criteo display-advertising TSV: label \\t 13 integer features \\t
+    26 hashed categorical features (empty fields allowed)."""
+    p = _real_path("train.txt" if split == "train" else "test.txt")
+    if not p:
+        return None
+
+    def gen():
+        count = 0
+        nfield = ctr.DENSE_DIM + ctr.SLOTS
+        with open(p) as f:
+            for line in f:
+                if n and count >= n:
+                    break
+                parts = line.rstrip("\n").split("\t")
+                if len(parts) == 1 + nfield:       # labeled
+                    y = np.int64(int(parts[0]))
+                    parts = parts[1:]
+                elif len(parts) == nfield:         # canonical unlabeled test
+                    y = np.int64(-1)
+                else:
+                    continue
+                dense = np.asarray(
+                    [float(v) if v else 0.0
+                     for v in parts[:ctr.DENSE_DIM]], np.float32)
+                # log-transform per the Criteo winning-solution recipe
+                dense = np.log1p(np.maximum(dense, 0.0))
+                sparse = np.asarray(
+                    [(int(v, 16) if v else 0) % ctr.VOCAB_PER_SLOT
+                     for v in parts[ctr.DENSE_DIM:]], np.int64)
+                count += 1
+                yield dense, sparse, y
+    return gen
+
+
+def _with_real(synthetic_gen, real_gen):
+    return real_gen if real_gen is not None else synthetic_gen
+
+
+# hook the real parsers into the public readers
+_mnist_train_syn, _mnist_test_syn = mnist.train, mnist.test
+mnist.train = staticmethod(
+    lambda n=8192: _with_real(_mnist_train_syn(n), _mnist_real("train", n)))
+mnist.test = staticmethod(
+    lambda n=1024: _with_real(_mnist_test_syn(n), _mnist_real("test", n)))
+
+_cifar_tr10, _cifar_te10 = cifar.train10, cifar.test10
+_cifar_tr100, _cifar_te100 = cifar.train100, cifar.test100
+cifar.train10 = staticmethod(lambda n=8192: _with_real(
+    _cifar_tr10(n), _cifar_real("train", n, 10)))
+cifar.test10 = staticmethod(lambda n=1024: _with_real(
+    _cifar_te10(n), _cifar_real("test", n, 10)))
+cifar.train100 = staticmethod(lambda n=8192: _with_real(
+    _cifar_tr100(n), _cifar_real("train", n, 100)))
+cifar.test100 = staticmethod(lambda n=1024: _with_real(
+    _cifar_te100(n), _cifar_real("test", n, 100)))
+
+_uci_tr, _uci_te = uci_housing.train, uci_housing.test
+uci_housing.train = staticmethod(lambda n=404: _with_real(
+    _uci_tr(n), _uci_housing_real("train", n)))
+uci_housing.test = staticmethod(lambda n=102: _with_real(
+    _uci_te(n), _uci_housing_real("test", n)))
+
+_imdb_tr, _imdb_te = imdb.train, imdb.test
+imdb.train = staticmethod(lambda n=4096: _with_real(
+    _imdb_tr(n), _imdb_real("train", n)))
+imdb.test = staticmethod(lambda n=512: _with_real(
+    _imdb_te(n), _imdb_real("test", n)))
+
+_ctr_tr, _ctr_te = ctr.train, ctr.test
+ctr.train = staticmethod(lambda n=8192: _with_real(
+    _ctr_tr(n), _ctr_real("train", n)))
+ctr.test = staticmethod(lambda n=1024: _with_real(
+    _ctr_te(n), _ctr_real("test", n)))
+
+
+# round-out datasets + fetch layer (io/dataset_ext.py): movielens,
+# conll05 SRL, flowers-102, voc2012 segmentation, md5-cached download
+from paddle_tpu_torch.io.dataset_ext import (  # noqa: E402,F401
+    DATA_HOME, conll05, download, flowers, md5file, movielens, voc2012)

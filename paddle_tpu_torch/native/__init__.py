@@ -30,10 +30,11 @@ import hashlib
 import os
 import subprocess
 import tempfile
-import threading
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
+
+from paddle_tpu_torch.analysis.concurrency import make_lock
 
 __all__ = ["NativeBuildError", "NativeDataset", "NativePredictor", "load",
            "available", "library_path", "build_pt_infer", "build_pt_train",
@@ -48,7 +49,7 @@ _LIB_SRCS = ("datafeed.cc", "ps.cc", "c_api.cc", "interp.cc")
 _BIN_SRCS = {"pt_infer": ("pt_infer.cc", "interp.cc"),
              "pt_train": ("pt_train.cc", "interp.cc")}
 
-_lock = threading.Lock()
+_lock = make_lock("native.build")
 _lib = None
 
 

@@ -60,16 +60,18 @@ void Dataset::LoadIntoMemory(int num_threads) {
   if (num_threads < 1) num_threads = 1;
   records_.clear();
   err_.clear();
-  Channel<Record> out_chan;  // unbounded: workers never block on output
+  // Each file's records land in its own slot and the slots are joined in
+  // file-list order, so the loaded order (and every seeded shuffle of
+  // it) does not depend on which worker thread finished first.
+  std::vector<std::vector<Record>> per_file(files_.size());
   std::atomic<size_t> file_idx{0};
   std::atomic<bool> failed{false};
   std::mutex err_mu;
 
   auto worker = [&]() {
-    std::vector<Record> local;
     for (;;) {
       size_t i = file_idx.fetch_add(1);
-      if (i >= files_.size()) break;
+      if (i >= files_.size() || failed) break;
       FILE* f = fopen(files_[i].c_str(), "r");
       if (!f) {
         std::lock_guard<std::mutex> lk(err_mu);
@@ -77,6 +79,7 @@ void Dataset::LoadIntoMemory(int num_threads) {
         failed = true;
         break;
       }
+      auto& local = per_file[i];
       char* line = nullptr;
       size_t cap = 0;
       ssize_t n;
@@ -96,19 +99,18 @@ void Dataset::LoadIntoMemory(int num_threads) {
       free(line);
       fclose(f);
       if (failed) break;
-      if (local.size() >= 4096) {
-        out_chan.PutBatch(std::move(local));
-        local.clear();
-      }
     }
-    if (!local.empty()) out_chan.PutBatch(std::move(local));
   };
 
   std::vector<std::thread> ths;
   for (int t = 0; t < num_threads; ++t) ths.emplace_back(worker);
   for (auto& t : ths) t.join();
-  records_ = out_chan.DrainAll();
-  if (failed) records_.clear();
+  if (failed) return;
+  size_t total = 0;
+  for (const auto& v : per_file) total += v.size();
+  records_.reserve(total);
+  for (auto& v : per_file)
+    for (auto& r : v) records_.emplace_back(std::move(r));
 }
 
 void Dataset::LocalShuffle(uint64_t seed) {
@@ -119,7 +121,7 @@ void Dataset::LocalShuffle(uint64_t seed) {
 void Dataset::GlobalShuffle(uint64_t seed) {
   // All trainers run this over the same file list; each keeps the shard
   // hash(record content) % trainer_num == trainer_id — a true partition
-  // regardless of the (thread-nondeterministic) in-memory order, matching
+  // regardless of the in-memory order, matching
   // the reference's redistribute-by-record-hash semantics
   // (data_set.cc GlobalShuffle) without a cluster.
   if (trainer_num_ > 1) {

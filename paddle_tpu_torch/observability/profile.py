@@ -67,10 +67,10 @@ is launched once.
 
 Exposition: `profile_snapshot()` (ledger, executable stats, memory,
 compile-cache stats, peak flops, the capture gate and the planner's
-"plan_check" cross-check of its estimates against the captures' peaks)
-and `chrome_events()` (captures and executable runs on the tracer's
-perf_counter timebase). The JAX snapshot's "concurrency" section has no
-counterpart.
+"plan_check" cross-check of its estimates against the captures' peaks,
+and the lock checker's "concurrency" section when
+PT_FLAGS_concurrency_check armed it) and `chrome_events()` (captures and
+executable runs on the tracer's perf_counter timebase).
 """
 import collections
 import contextlib
@@ -86,7 +86,8 @@ import numpy as np
 from torch import Generator as _Generator
 from torch import Tensor as _Tensor
 
-from paddle_tpu_torch.analysis.concurrency import make_lock, make_rlock
+from paddle_tpu_torch.analysis.concurrency import (make_condition, make_lock,
+                                                   make_rlock)
 from paddle_tpu_torch.core import flags as _flags
 
 __all__ = [
@@ -265,7 +266,7 @@ class CompileRecord:
         self.static_args = static_args
         self.compile_s = compile_s
         self.start = start
-        self.wall_time = time.time()
+        self.wall_time = time.time()  # wallclock-ok: a wall stamp
         self.cost = cost
         self.memory = memory
         self.recompile_of = recompile_of
@@ -641,7 +642,7 @@ def _add_launches(delta, sign=1):
             counts[k] += sign * v
 
 
-_cost_mu = threading.Lock()
+_cost_mu = make_lock("profile.cost")
 _cost_scopes = []
 
 
@@ -690,7 +691,7 @@ class CaptureError(RuntimeError):
     eagerly in its place."""
 
 
-_eager_mu = threading.Lock()
+_eager_mu = make_lock("profile.eager")
 _eager_depth = [0]
 
 
@@ -759,7 +760,8 @@ class CaptureGate:
     and the waits of shared holders (count, total and longest)."""
 
     def __init__(self):
-        self._cond = threading.Condition(threading.Lock())
+        self._cond = make_condition("profile.capture_gate",
+                                    make_lock("profile.capture_gate"))
         self._readers = 0
         self._writer = None
         self._writers_waiting = 0
@@ -1688,7 +1690,9 @@ def memory_ledger():
 
 def profile_snapshot(ledger_limit=256):
     """Ledger (cache trail included), per-executable utilization, memory
-    watermarks and compile-cache state, as plain JSON types."""
+    watermarks, compile-cache state, the planner's cross-check and the
+    lock checker's section, as plain JSON types."""
+    from paddle_tpu_torch.analysis import concurrency as _conc
     from paddle_tpu_torch.core import compile_cache as cc
     pcache = cc.compile_cache()
     return {
@@ -1702,6 +1706,8 @@ def profile_snapshot(ledger_limit=256):
         # the planner's estimates against the captures' peaks; None until
         # a server registers estimates (analysis/planner.py)
         "plan_check": _planner_section(),
+        # None unless PT_FLAGS_concurrency_check armed the tracked locks
+        "concurrency": _conc.profile_section(),
     }
 
 

@@ -17,7 +17,7 @@ import collections
 import itertools
 import json
 
-from paddle_tpu_torch.analysis.concurrency import make_lock
+from paddle_tpu_torch.analysis.concurrency import guarded_by, make_lock
 import os
 import tempfile
 import time
@@ -42,8 +42,9 @@ class FlightRecorder:
     def __init__(self, capacity=4096):
         self.capacity = int(capacity)
         self._mu = make_lock("recorder.ring")
-        self._ring = collections.deque(maxlen=self.capacity)
-        self._count = itertools.count(1)                    
+        self._ring = collections.deque(maxlen=self.capacity)  # guarded_by(_mu)
+        self._count = itertools.count(1)
+        guarded_by(self, "_ring", "recorder.ring")
 
     # -- producers ------------------------------------------------------
     def record(self, kind, **fields):
@@ -127,7 +128,7 @@ class FlightRecorder:
             "artifact": "pt_flight_recorder",
             "reason": reason,
             "pid": os.getpid(),
-            "wall_time": time.time(),
+            "wall_time": time.time(),  # wallclock-ok: a wall stamp
             "monotonic": _clock(),
             "capacity": self.capacity,
             "evicted": self.evicted,

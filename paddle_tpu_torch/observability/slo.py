@@ -50,7 +50,7 @@ import time
 
 import numpy as np
 
-from paddle_tpu_torch.analysis.concurrency import make_lock
+from paddle_tpu_torch.analysis.concurrency import guarded_by, make_lock
 from paddle_tpu_torch.core import flags as _flags
 from paddle_tpu_torch.core.enforce import enforce
 from paddle_tpu_torch.observability import metrics as obs_metrics
@@ -137,6 +137,7 @@ class WindowedView:
             maxlen=int(max_snapshots))
         self._clock = clock
         self._mu = make_lock("slo.window")
+        guarded_by(self, "_ring", "slo.window")
 
     # -- capture -------------------------------------------------------
     def _capture(self):

@@ -1277,7 +1277,8 @@ class PagedDecodeEngine:
                         break
                     spill_want.append(hashes[j])
         n_total = -(-total_len // self.block_size)
-        own = self.pool.acquire(shared, n_total - len(shared),
+        # lock-ok: BlockPool.acquire allocates KV blocks, not a lock
+        own = self.pool.acquire(shared, n_total - len(shared),  # lock-ok
                                 demote_cb=self._demote_cb(state))
         promoted = []
         for h in spill_want:

@@ -15,8 +15,9 @@ import hashlib
 import os
 import shutil
 import subprocess
-import threading
 import time
+
+from paddle_tpu_torch.analysis.concurrency import make_lock
 
 __all__ = ["BuildError", "load_library", "library_path", "build_info"]
 
@@ -67,7 +68,7 @@ class BuildError(RuntimeError):
     """nvcc is missing or refused the sources."""
 
 
-_lock = threading.Lock()
+_lock = make_lock("kernels.build")
 _lib = [None]
 _info = {}
 

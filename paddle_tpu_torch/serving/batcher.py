@@ -32,7 +32,8 @@ import time
 
 import numpy as np
 
-from paddle_tpu_torch.analysis.concurrency import make_condition, make_lock
+from paddle_tpu_torch.analysis.concurrency import (guarded_by, make_condition,
+                                                   make_lock)
 from paddle_tpu_torch.core.enforce import enforce
 
 
@@ -250,6 +251,7 @@ class DynamicBatcher:
         self._park_seq = itertools.count()
         self._closed = False
         self._draining = False
+        guarded_by(self, "_pending", "serving.batcher")
 
     # -- producer side -------------------------------------------------
     def put(self, request):

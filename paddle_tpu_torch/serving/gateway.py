@@ -459,8 +459,9 @@ class ServingGateway:
         if method == "GET" and path == "/profile":
             # executable-level profile: the compile ledger (captures,
             # recapture forensics), per-executable run stats, the memory
-            # ledger's watermarks, the capture gate and the planner's
-            # estimates against the captures' peaks (plan_check)
+            # ledger's watermarks, the capture gate, the planner's
+            # estimates against the captures' peaks (plan_check) and the
+            # lock checker's "concurrency" section when it is armed
             from paddle_tpu_torch.observability import profile as obs_profile
             return 200, obs_profile.profile_snapshot(), ()
         if method == "GET" and path == "/models":

@@ -44,7 +44,7 @@ import time
 
 import numpy as np
 
-from paddle_tpu_torch.analysis.concurrency import make_lock
+from paddle_tpu_torch.analysis.concurrency import guarded_by, make_lock
 from paddle_tpu_torch.core.enforce import enforce
 from paddle_tpu_torch.observability import profile as obs_profile
 from paddle_tpu_torch.observability import trace as obs_trace
@@ -222,6 +222,10 @@ class InferenceServer:
         # lock (the Executor cache itself is the fast path).
         self._seen_buckets = set()  # guarded_by(_first_dispatch_lock)
         self._first_dispatch_lock = make_lock("serving.first_dispatch")
+        # writes-only runtime guard: the dispatch hot path reads the
+        # warm-set lock-free by design (double-checked under the lock)
+        guarded_by(self, "_seen_buckets", "serving.first_dispatch",
+                   mode="w")
         self._threads = [
             threading.Thread(target=self._worker, args=(i, rep),
                              name=f"pt-serving-{i}", daemon=True)

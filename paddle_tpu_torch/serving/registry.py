@@ -36,7 +36,7 @@ the rollback contract is tested deterministically.
 import logging
 import time
 
-from paddle_tpu_torch.analysis.concurrency import make_lock
+from paddle_tpu_torch.analysis.concurrency import guarded_by, make_lock
 from paddle_tpu_torch.core.enforce import enforce
 from paddle_tpu_torch.reliability.faults import inject_point
 from paddle_tpu_torch.serving.batcher import ServingError
@@ -101,6 +101,8 @@ class ModelRegistry:
         self._swap_mu = make_lock("serving.registry.swap")  # one cutover at a time
         self._models = {}   # guarded_by(_mu) name -> {version: record}
         self._active = {}   # guarded_by(_mu) name -> version
+        guarded_by(self, "_models", "serving.registry.route")
+        guarded_by(self, "_active", "serving.registry.route")
         self._history = []                # swap/deploy audit log
 
     # -- routing (hot path) --------------------------------------------

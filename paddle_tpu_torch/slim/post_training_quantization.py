@@ -13,16 +13,12 @@ package's, on host numpy.
 """
 import numpy as np
 
+from paddle_tpu_torch.analysis.numerics import CALIB_ALGO_ATTR, CALIB_ATTR
 from paddle_tpu_torch.core.enforce import enforce
 from paddle_tpu_torch.slim.quantization_pass import (QUANTIZABLE, _is_param,
                                                      quantize_program)
 
 __all__ = ["PostTrainingQuantization", "CALIB_ATTR", "CALIB_ALGO_ATTR"]
-
-#: VarDesc attrs that record the calibrated |x| range and its algorithm
-#: (the names the JAX package's analysis/numerics.py reads)
-CALIB_ATTR = "calib_abs_max"
-CALIB_ALGO_ATTR = "calib_algo"
 
 
 class PostTrainingQuantization:
@@ -106,10 +102,11 @@ class PostTrainingQuantization:
                 d.attrs[CALIB_ATTR] = float(s)
                 d.attrs[CALIB_ALGO_ATTR] = self.algo
 
-    def quantize(self, plan=None):
-        """Run calibration, then freeze through the verify → pass → verify
-        sandwich. Returns the int8 program (the input program, rewritten
-        in place)."""
+    def calibrate(self):
+        """Run the calibration batches, derive the activation scales and
+        stamp them on the activation VarDescs (CALIB_ATTR), which is what
+        `analysis.numerics.plan_quantization` reads. Returns the scales
+        ({activation name: |x| bound})."""
         acts = self._activation_names()
         enforce(acts, "program has no quantizable ops")
         for bi, feed in enumerate(self.loader):
@@ -122,6 +119,13 @@ class PostTrainingQuantization:
         enforce(self._stats, "calibration loader yielded no batches")
         scales = self._scales()
         self._stamp_calibration(scales)
+        return scales
+
+    def freeze(self, scales, plan=None):
+        """Freeze with calibrated `scales` through the verify -> pass ->
+        verify sandwich; `plan` (a numerics.QuantPlan) keeps its vetoed
+        ops in float. Returns the int8 program (the input program,
+        rewritten in place)."""
         # PTQ marks ops as QAT-equivalent, then freezes with the collected
         # scales: per-channel abs_max weight fake-quant (the scope weights
         # are final) and abs_max activation placeholders
@@ -135,3 +139,7 @@ class PostTrainingQuantization:
                 weight_bits=self.wbits, activation_bits=self.abits,
                 activation_scales=scales))
         return self.program
+
+    def quantize(self, plan=None):
+        """Calibrate, then freeze (`plan` as in `freeze`)."""
+        return self.freeze(self.calibrate(), plan=plan)

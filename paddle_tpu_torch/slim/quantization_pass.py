@@ -11,10 +11,9 @@ flat op list is rewritten directly.
 
 Both rewrites are registered passes ("quant_transform" / "quant_freeze")
 that act only when armed through `AnalysisContext.scratch`; the entry
-point is `quantize_program`, the verify → pass → verify sandwich. The
-JAX package's `plan` argument (a `analysis.numerics.QuantPlan`) waits
-for the numerics analyzer; until then an op stays in float when its
-`skip_quant` attr is set.
+point is `quantize_program`, the verify → pass → verify sandwich, which
+stamps a `analysis.numerics.QuantPlan`'s vetoes (`skip_quant` on the
+int8-range-overflow ops, `apply_plan_vetoes`) before rewriting.
 """
 import numpy as np
 
@@ -27,7 +26,7 @@ from paddle_tpu_torch.slim import quant_ops
 
 __all__ = ["SLIM_PASSES", "QUANTIZABLE", "QuantizationTransformPass",
            "QuantizationFreezePass", "ConvertToInt8Pass",
-           "quantize_program"]
+           "apply_plan_vetoes", "quantize_program"]
 
 SLIM_PASSES = ("quant_transform", "quant_freeze")
 
@@ -368,23 +367,42 @@ def _armed(context, key):
     return scratch.get(key)
 
 
+def apply_plan_vetoes(program, plan, skip_pattern="skip_quant"):
+    """Stamp a QuantPlan's int8 refusals onto the program: every
+    overflow-vetoed op index gets `skip_quant`, so the transform pass's
+    skip hook leaves it in float. Accepts a QuantPlan or an iterable of
+    op indices; returns how many ops were vetoed."""
+    block = program.global_block()
+    idxs = plan.vetoed_ops() if hasattr(plan, "vetoed_ops") else list(plan)
+    for i in idxs:
+        enforce(0 <= i < len(block.ops),
+                "quant veto op index %d out of range", i)
+        block.ops[i].attrs[skip_pattern] = True
+    return len(idxs)
+
+
 @register_pass("quant_transform")
 class RegisteredQuantTransform(Pass):
     """QuantizationTransformPass behind the pass registry. MUTATING —
     arms only when `context.scratch['quant_transform']` carries a config
-    ({startup_program, **TransformPass kwargs}); no-ops otherwise."""
+    ({plan, startup_program, **TransformPass kwargs}); no-ops otherwise."""
 
     def run(self, program, context):
         cfg = _armed(context, "quant_transform")
         if cfg is None:
             return
         cfg = dict(cfg)
+        plan = cfg.pop("plan", None)
         startup = cfg.pop("startup_program", None)
+        vetoed = apply_plan_vetoes(program, plan) if plan is not None \
+            else 0
         QuantizationTransformPass(**cfg).apply(program, startup)
         n = sum(1 for op in program.global_block().ops
                 if op.attrs.get("quantization_type") == "qat")
-        yield self.diag("quant-transform-applied", Severity.INFO,
-                        f"inserted fake quant-dequant around {n} ops")
+        yield self.diag(
+            "quant-transform-applied", Severity.INFO,
+            f"inserted fake quant-dequant around {n} ops"
+            + (f" ({vetoed} vetoed by plan)" if vetoed else ""))
 
 
 @register_pass("quant_freeze")
@@ -410,19 +428,13 @@ def quantize_program(program, scope=None, *, plan=None,
                      startup_program=None, transform_kwargs=None,
                      freeze_kwargs=None, freeze=True, label="slim"):
     """The verify → pass → verify sandwich over the slim rewrites:
-    structural verification brackets every mutation. `plan` must be None
-    here (QuantPlan comes with the numerics analyzer); set an op's
-    `skip_quant` attr to keep it in float. Returns the Diagnostics the
-    armed passes emitted."""
+    structural verification brackets every mutation. `plan` (a
+    numerics.QuantPlan) vetoes int8 on overflow-flagged ops before the
+    transform runs. Returns the Diagnostics the armed passes emitted."""
     from paddle_tpu_torch import analysis
 
-    if plan is not None:
-        raise NotImplementedError(
-            "quantize_program(plan=...) needs analysis.numerics.QuantPlan, "
-            "which is not ported yet; set `skip_quant` on ops to keep them "
-            "in float")
     analysis.verify_program(program, label=f"{label}:pre-quant")
-    scratch = {"quant_transform": dict(transform_kwargs or {},
+    scratch = {"quant_transform": dict(transform_kwargs or {}, plan=plan,
                                        startup_program=startup_program)}
     if freeze:
         enforce(scope is not None,

@@ -10,8 +10,8 @@ fluid/io.py: save_persistables :523, save/load_inference_model
 
 The artifact is the JAX package's, so each package loads what the other
 saved. Every file is published atomically (write a temp file, then
-rename). This slice writes to the local file system only; the JAX
-package's `io.fs` abstraction (remote file systems) is a later slice.
+rename). Paths go through `io.fs` (`get_fs` / `join`), so `file://`,
+`mem://` and any registered scheme work as local paths do.
 """
 import json
 import os
@@ -24,10 +24,11 @@ from paddle_tpu_torch.core.enforce import EnforceError, enforce
 from paddle_tpu_torch.core.ir import Program, Variable, default_main_program
 from paddle_tpu_torch.core.places import resolve_device
 from paddle_tpu_torch.core.scope import global_scope
+from paddle_tpu_torch.io.fs import get_fs, join as _fs_join
 from paddle_tpu_torch.reliability.faults import inject_point
 
 __all__ = ["MODEL_FILENAME", "PARAMS_FILENAME", "CheckpointError",
-           "save_persistables", "load_persistables", "prune",
+           "save_persistables", "save_params", "load_persistables", "prune",
            "save_inference_model", "load_inference_model", "save", "load"]
 
 MODEL_FILENAME = "__model__.json"
@@ -39,18 +40,18 @@ class CheckpointError(Exception):
     message names the file."""
 
 
-def _atomic_write(path, mode, writer, params_file=False):
-    """Write-temp-then-rename: `writer(f)` fills a sibling temp file,
-    which replaces `path` only after the write completed, so a crash
-    leaves the previous file (and an inert temp), never a truncated one.
-    A params file passes the `io.save_persistables` fault site between
-    write and publish."""
+def _atomic_write(fs, path, mode, writer, params_file=False):
+    """Write-temp-then-rename on `fs`: `writer(f)` fills a sibling temp
+    file, which replaces `path` only after the write completed, so a
+    crash leaves the previous file (and an inert temp), never a truncated
+    one. A params file passes the `io.save_persistables` fault site
+    between write and publish."""
     tmp = path + ".saving"
-    with open(tmp, mode) as f:
+    with fs.open(tmp, mode) as f:
         writer(f)
     if params_file:
         inject_point("io.save_persistables", tag=path)
-    os.replace(tmp, path)
+    fs.rename(tmp, path)
 
 
 def _collect_persistables(program, scope):
@@ -65,21 +66,26 @@ def save_persistables(executor, dirname, main_program=None, filename=None):
     """Write every persistable var of the program that the scope holds
     (io.py:523), atomically."""
     program = main_program or default_main_program()
-    os.makedirs(dirname, exist_ok=True)
+    fs, dirname = get_fs(dirname)
+    fs.mkdirs(dirname)
     arrs = _collect_persistables(program, global_scope())
     enforce(arrs, "nothing persistable to save")
-    _atomic_write(os.path.join(dirname, filename or PARAMS_FILENAME), "wb",
+    _atomic_write(fs, _fs_join(dirname, filename or PARAMS_FILENAME), "wb",
                   lambda f: np.savez(f, **arrs), params_file=True)
+
+
+save_params = save_persistables
 
 
 def load_persistables(executor, dirname, main_program=None, filename=None):
     """Read a params file into the current scope, as tensors on the
     executor's device; without an executor, on the GPU
     (`core.places.resolve_device(None)`: raises when none is visible)."""
-    path = os.path.join(dirname, filename or PARAMS_FILENAME)
+    fs, dirname = get_fs(dirname)
+    path = _fs_join(dirname, filename or PARAMS_FILENAME)
     inject_point("io.load_persistables", tag=path)
     try:
-        with np.load(path) as data:
+        with fs.open(path, "rb") as f, np.load(f) as data:
             loaded = {name: np.asarray(data[name]) for name in data.files}
     except (OSError, EnforceError) as e:
         raise CheckpointError(
@@ -166,14 +172,15 @@ def save_inference_model(dirname, feeded_var_names, target_vars, executor,
         program, arrs = optimize_inference_program(program, arrs)
         program.meta["ir_optimized"] = True  # Predictor load skips rerun
 
-    os.makedirs(dirname, exist_ok=True)
+    fs, dirname = get_fs(dirname)
+    fs.mkdirs(dirname)
     # params first, program last: the artifact is loadable iff the model
     # file exists, so a crash between the two never yields a program
     # whose params are missing
-    _atomic_write(os.path.join(dirname, params_filename or PARAMS_FILENAME),
+    _atomic_write(fs, _fs_join(dirname, params_filename or PARAMS_FILENAME),
                   "wb", lambda f: np.savez(f, **arrs),
                   params_file=True)
-    _atomic_write(os.path.join(dirname, model_filename or MODEL_FILENAME),
+    _atomic_write(fs, _fs_join(dirname, model_filename or MODEL_FILENAME),
                   "w", lambda f: json.dump(program.to_dict(), f))
     return fetch_names
 
@@ -182,9 +189,10 @@ def load_inference_model(dirname, executor, model_filename=None,
                          params_filename=None):
     """io.py:1215 parity → (program, feed_target_names, fetch_targets);
     the params go into the current scope on the executor's device."""
-    mpath = os.path.join(dirname, model_filename or MODEL_FILENAME)
+    fs, fs_dirname = get_fs(dirname)
+    mpath = _fs_join(fs_dirname, model_filename or MODEL_FILENAME)
     try:
-        with open(mpath) as f:
+        with fs.open(mpath, "r") as f:
             program = Program.from_dict(json.load(f))
     except (OSError, EnforceError) as e:
         raise CheckpointError(
@@ -203,11 +211,13 @@ def save(program, model_path):
     """fluid.save (io.py:1493): the program's persistables to
     `model_path`.npz and the program to `model_path`.json, each
     published atomically; the JAX package's two files."""
-    os.makedirs(os.path.dirname(model_path) or ".", exist_ok=True)
+    fs, path = get_fs(model_path)
+    if os.path.dirname(path):
+        fs.mkdirs(os.path.dirname(path))
     arrs = _collect_persistables(program, global_scope())
-    _atomic_write(model_path + ".npz", "wb", lambda f: np.savez(f, **arrs),
-                  params_file=True)
-    _atomic_write(model_path + ".json", "w",
+    _atomic_write(fs, path + ".npz", "wb",
+                  lambda f: np.savez(f, **arrs), params_file=True)
+    _atomic_write(fs, path + ".json", "w",
                   lambda f: json.dump(program.to_dict(), f))
 
 
@@ -217,11 +227,12 @@ def load(program, model_path, executor=None):
     `core.places.resolve_device`)."""
     device = (executor.device if executor is not None
               else resolve_device(None))
-    path = model_path + ".npz"
+    fs, path = get_fs(model_path)
+    path += ".npz"
     try:
-        with np.load(path) as data:
+        with fs.open(path, "rb") as f, np.load(f) as data:
             loaded = {name: np.asarray(data[name]) for name in data.files}
-    except OSError as e:
+    except (OSError, EnforceError) as e:
         raise CheckpointError(
             f"state file {path} missing or unreadable: {e}") from e
     except (ValueError, zipfile.BadZipFile) as e:

@@ -25,9 +25,9 @@ import collections
 import contextlib
 import os
 import tempfile
-import threading
 import time
 
+from paddle_tpu_torch.analysis.concurrency import make_lock
 from paddle_tpu_torch.observability import metrics as _obs_metrics
 from paddle_tpu_torch.observability import recorder as _obs_recorder
 from paddle_tpu_torch.observability import trace as _obs_trace
@@ -39,7 +39,7 @@ __all__ = ["RecordEvent", "start_profiler", "stop_profiler", "profiler",
 #: host event log bound: a ring, not a leak
 _MAX_EVENTS = 65536
 
-_mu = threading.Lock()
+_mu = make_lock("profiler.shim")
 _events = collections.deque(maxlen=_MAX_EVENTS)  # (name, start, end)
 _counters = {}  # series -> dict of scalar counters
 _session = []   # the running torch.profiler.profile, if any

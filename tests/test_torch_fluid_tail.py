@@ -429,7 +429,7 @@ READ_FLAGS = {"check_nan_inf", "executor_log_level", "verify_program",
               "fleet_quiet_after_s", "fleet_min_backends",
               "fleet_max_backends", "ps_retry_attempts", "ps_retry_base_s",
               "ps_retry_max_s", "ps_retry_deadline_s",
-              "ps_failover_after_s"}
+              "ps_failover_after_s", "concurrency_check"}
 
 
 def test_unread_flags_warn_once_and_read_flags_take_effect(monkeypatch):

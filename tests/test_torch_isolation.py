@@ -20,7 +20,10 @@
   Momentum step, save / load, a distribution, contrib, WeightedAverage
   and the top-level surface; the native library loads, a parameter
   server answers a client and a MultiSlot file trains a step through
-  `Executor.train_from_dataset`.
+  `Executor.train_from_dataset`; the analysis, slim and reader tails
+  take one call each (a plan's veto, a channel prune, a DataLoader over
+  xmap_readers, a mem:// save, an armed lock cycle, the AST lint of the
+  package, a NAS controller step, flops_of).
 * A source scan finds no import of jax or of the JAX package in the
   port or in chip_smoke.py, and no path into paddle_tpu/ in the port's
   code (the native build reads only the port's copy of the C++).
@@ -341,6 +344,57 @@ _BLOCKED_RUN = textwrap.dedent("""
                                       scope=sc)) == 2
     assert native.library_path().startswith(
         os.path.dirname(paddle_tpu_torch.__file__))
+    # the analysis / slim / reader tails: a plan vetoes an overflowing
+    # mul, a channel prune, a DataLoader over xmap_readers, a mem://
+    # save, an armed lock pair, the AST lint, a NAS step and a download
+    modules = {m.name for m in pkgutil.walk_packages(
+        paddle_tpu_torch.__path__, "paddle_tpu_torch.")}
+    for sub in ("analysis.numerics", "analysis.concurrency",
+                "analysis.interleave", "analysis.astlint", "slim.prune",
+                "slim.distill", "slim.nas", "io.fs", "io.dataset_ext"):
+        assert "paddle_tpu_torch." + sub in modules, sub
+    from paddle_tpu_torch import analysis, slim
+    from paddle_tpu_torch import io as tio
+    from paddle_tpu_torch.analysis import astlint, concurrency
+    from paddle_tpu_torch.core import flags
+    big = ir.Program()
+    b = big.global_block()
+    b.create_var(name="x", shape=[-1, 200000], dtype="float32",
+                 is_data=True)
+    b.create_var(name="w", shape=[200000, 2], dtype="float32",
+                 persistable=True).desc.is_parameter = True
+    b.create_var(name="o", shape=[-1, 2], dtype="float32")
+    b.append_op("mul", {"X": ["x"], "Y": ["w"]}, {"Out": ["o"]})
+    assert analysis.plan_quantization(big).vetoed_ops() == [0]
+    psc = Scope()
+    psc.set("cw", np.ones((4, 2, 3, 3), np.float32))
+    slim.Pruner("channel").prune(psc, {"cw": 0.5})
+    assert slim.sparsity(psc, ["cw"]) == 0.5
+    feeds = list(tio.DataLoader(["a"]).set_sample_generator(
+        tio.xmap_readers(lambda s: s, lambda: iter([(1.0,)] * 4), 1, 2),
+        2))
+    assert len(feeds) == 2 and feeds[0]["a"].shape == (2,)
+    from paddle_tpu_torch.core.scope import scope_guard
+    with scope_guard(sc):
+        static.io.save_params(exe, "mem://iso/p", main_program=main)
+    assert tio.fs.get_fs("mem://")[0].exists("mem://iso/p/params.npz")
+    flags.set_flag("concurrency_check", True)
+    la, lb = concurrency.make_lock("iso.a"), concurrency.make_lock("iso.b")
+    with la:
+        with lb:
+            pass
+    with lb:
+        with la:
+            pass
+    assert [f.code for f in concurrency.findings()] == ["lock-order-cycle"]
+    flags.set_flag("concurrency_check", False)
+    assert astlint.lint_package(os.path.dirname(
+        paddle_tpu_torch.__file__)) == {}
+    ctl = slim.SAController(seed=0)
+    ctl.reset([3, 3])
+    assert len(ctl.next_tokens()) == 2
+    assert slim.flops_of(torch.matmul, torch.ones(4, 4),
+                         torch.ones(4, 4)) == 128
     assert not _build.build_info(), "a CPU step must not build kernels"
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "paddle_tpu"))
