@@ -539,6 +539,31 @@ Phases, each of which raises (exit code != 0) when its check fails:
     of the full network). K8's launches in (c) and (d) are its "slim"
     path. `--slim` builds the kernels and runs phase 40 alone, then
     prints one SLIM line and the device line.
+41. Deployment artifacts. (a) ResNet-50 at phase 12's width frozen to
+    int8 (PTQ at load), the frozen program saved and loaded back, then
+    `inference.export_aot_bundle` at feed (8, 3, 224, 224), one rung:
+    `torch.export` (the graph names K8, a registered op) and an
+    AOTInductor package; the bundle loads its native tier (stamp
+    matching), the rung's exported tier loads on its own; 6 requests
+    through each: exported rows bit-equal to the reloaded int8
+    Predictor's, native within SERVE_INT8_ROW_TOL of max, K8 once a
+    request on each tier; export and compile seconds and each tier's p50
+    printed. (b) The f32 ResNet-50 training program, 2 captured steps,
+    `io.save_checkpoint(async_save=True)` while 2 more replay, then
+    `io.load_checkpoint` and the 2 again: losses bit-equal, the saved
+    tensors the state at the save. (c) `pt_aoti_run` (built with g++
+    beside phase 1) in a child on (a)'s rung: outputs equal to the
+    native tier's, its JSON line ok with K8 launched. (d) The flash
+    wrappers' widened shapes against the plain version: D = 80 bf16 and
+    f32, float16, an unaligned bf16 view, B * N = 67200 with dropout
+    (chunked), T = 65600 forward and backward in f32 and bf16 (one of
+    each with dropout and a key bias). K8's launches of the two tiers
+    and the child are its "deploy" path. In the whole script (a)'s
+    export child starts before phase 26 and each phase that starts
+    while it runs says so (their timings are taken beside its compile);
+    `--deploy-child-late` starts it at phase 41 instead, a baseline for
+    those timings. `--deploy` builds the kernels and runs phase 41
+    alone, then prints one DEPLOY line and the device line.
 
 Then a `{"kernels": [...]}` line and, last, the device line
 `{"ok": true, "device": {...}}`. Every number is printed beside the
@@ -560,7 +585,7 @@ lines those of its three serving runs (phases 4a and 4b) together; phase
 them in its drain document); phases 37-38's ranks add the flash lines'
 launches under "parallel" (each rank zeroes its counts before a step
 and reports them after it); phase 40 adds K8's int8 line's launches
-under "slim".
+under "slim", phase 41 under "deploy".
 
 `--latency [ROOT]` runs none of the phases: it measures, with the port
 found under ROOT (default: this checkout), one prompt's prefill latency
@@ -574,6 +599,7 @@ prints `FLASH_SWEEP {...}`. Run any of them on two checkouts in one call
 (parent, change, change, parent) to compare them on the same card.
 """
 import argparse
+import atexit
 import contextlib
 import json
 import os
@@ -2350,14 +2376,15 @@ def check_quantized_matmul(torch, k8, seed, tag, copies=3):
         wo_bnd, wo_by = bound_ms(nbytes, 3 * 2.0 * m * k * n, BF16_FLOPS)
         args = [(a, b, c, xs) for a, b, c in sets]
         deq = [(a, b.float() * (c / 127.0)) for a, b, c in sets]
-        row = {"M": m, "K": k, "N": n, "splits": k8.k8_split_count(m, k, n),
-               "tile": k8.k8_tile(m), "max_ulps": err_ulp,
+        plan, wo_plan = (k8.k8_plan(m, k, n, mode) for mode in (True, False))
+        row = {"M": m, "K": k, "N": n, "splits": plan["splits"],
+               "tile": plan["tile"], "max_ulps": err_ulp,
                "max_abs_err": float((got - want).abs().max()),
                "weight_only_rel_err": wo_rel,
                "weight_only_max_abs_err": float(
                    (got_wo - want_wo).abs().max()),
-               "weight_only_splits": k8.k8_wo_split_count(m, k, n),
-               "weight_only_tile": k8.k8_wo_tile(m, n),
+               "weight_only_splits": wo_plan["splits"],
+               "weight_only_tile": wo_plan["tile"],
                "ms": timed_ms(torch, lambda a, b, c, s:
                               k8.fused_dequant_matmul(a, b, c, x_scale=s),
                               args),
@@ -5920,6 +5947,8 @@ def capture_phase(torch, gen, tfa, model, prompts, budgets, gaps, seed, tag,
 
 #: phase 32's requests per Predictor and batch size (the first captures)
 EXEC_REQUESTS = 4
+#: phase 32's profile windows: steps (or requests) per window
+EXEC_PROFILE_STEPS = 2
 
 
 def executor_records(prof, program, since=0):
@@ -5991,7 +6020,7 @@ def deterministic_cudnn(torch, flags, on):
 
 
 def exec_training(torch, prof, label, main, startup, feed, loss, tag,
-                  masks=(), steps=3):
+                  masks=(), steps=EXEC_PROFILE_STEPS):
     """Phase 32, a training program: from the state after one captured
     step (the warm-up and capture), two replayed steps against two eager
     ones and, as the control, two more eager ones, all with cuDNN's
@@ -6148,7 +6177,8 @@ def exec_predictors(torch, prof, k8, seed, tag, image_size=224):
 
             row[b] = exec_profiles(
                 torch, prof, f"{name} ResNet-50 Predictor, batch {b}",
-                {"captured": requests, "eager": requests}, 3,
+                {"captured": requests, "eager": requests},
+                EXEC_PROFILE_STEPS,
                 entry_stats(prof, pred._program, seq0), tag)
             row[b].update(logits_err=err, new_records=new)
             print(f"phase 32 {name} Predictor batch {b}: {EXEC_REQUESTS} "
@@ -6226,8 +6256,8 @@ def exec_crnn(torch, prof, seed, tag):
 
     row["decode"] = exec_profiles(
         torch, prof, "crnn-ctc decode (test program)",
-        {"captured": decodes(exe), "eager": decodes(Executor())}, 3,
-        entry_stats(prof, test), tag)
+        {"captured": decodes(exe), "eager": decodes(Executor())},
+        EXEC_PROFILE_STEPS, entry_stats(prof, test), tag)
     row["decode"]["equal"] = equal
     del scope
     torch.cuda.empty_cache()
@@ -6283,7 +6313,8 @@ def exec_mt_decode(torch, prof, control_flow, seed, tag):
     stats = entry_stats(prof, dec)
     row = exec_profiles(torch, prof, "mt While decode",
                         {"captured": decodes(cexe),
-                         "eager": decodes(eexe)}, 3, stats, tag)
+                         "eager": decodes(eexe)}, EXEC_PROFILE_STEPS, stats,
+                        tag)
     row.update(ids_equal=ids_equal, host_reads=reads)
     del scope
     torch.cuda.empty_cache()
@@ -9435,27 +9466,9 @@ def start_native_build():
     """Build the port's native library on a thread (g++ beside phase 1's
     nvcc); returns a join() that re-raises its failure and returns the
     build's seconds."""
-    import threading
     from paddle_tpu_torch import native
-    box = {}
-
-    def run():
-        t0 = time.perf_counter()
-        try:
-            native.load()
-        except BaseException as e:     # re-raised by join()
-            box["error"] = e
-        box["seconds"] = time.perf_counter() - t0
-
-    th = threading.Thread(target=run, daemon=True, name="native-build")
-    th.start()
-
-    def join():
-        th.join()
-        if "error" in box:
-            raise box["error"]
-        return box["seconds"]
-    return join
+    join = start_build(native.load, "native-build")
+    return lambda: join()[0]
 
 
 def ps_phase(torch, seed, tag, dev="cuda", native_build=None):
@@ -10204,6 +10217,694 @@ def slim_phase(torch, k8, seed, tag, dev="cuda"):
     return out, launches
 
 
+# ---------------------------------------------------------------------------
+# phase 41: the deployment artifacts (export, the AOT bundle, pt_aoti_run),
+# checkpoints on captured state, and the flash wrappers' widened shapes
+# ---------------------------------------------------------------------------
+
+#: 41(a): ResNet-50 (phase 12's configuration) frozen to int8, exported at
+#: one rung of this batch and served from the artifact by each tier
+DEPLOY_NET = dict(depth=50)
+DEPLOY_IMAGE, DEPLOY_BATCH, DEPLOY_REQUESTS = 224, 8, 6
+#: 41(b): the f32 ResNet-50 training program's batch
+CKPT_BATCH = 8
+#: 41(d): relative tolerance of a float16 output (one float16 rounding of
+#: the float32 kernels' result, 2^-10, with room for the plain version's
+#: float16 probabilities)
+FLASH_F16_TOL = 2e-3
+
+
+def start_build(build, name):
+    """`build()` on a thread beside phase 1's nvcc; returns a join() that
+    re-raises its failure and returns (seconds, its result)."""
+    import threading
+    box = {}
+
+    def run():
+        t0 = time.perf_counter()
+        try:
+            box["result"] = build()
+        except BaseException as e:     # re-raised by join()
+            box["error"] = e
+        box["seconds"] = time.perf_counter() - t0
+
+    th = threading.Thread(target=run, daemon=True, name=name)
+    th.start()
+
+    def join():
+        th.join()
+        if "error" in box:
+            raise box["error"]
+        return box["seconds"], box.get("result")
+    return join
+
+
+def start_aoti_build():
+    """pt_aoti_run (g++ against the torch headers, ~30 s) on a thread."""
+    from paddle_tpu_torch import native
+    return start_build(native.build_pt_aoti_run, "aoti-build")
+
+
+def _timed_runs(torch, run, requests):
+    """(outputs, seconds a request) of `run` over `requests`, each
+    synchronised."""
+    outs, secs = [], []
+    for x in requests:
+        t0 = time.perf_counter()
+        out = run(x)
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        outs.append(out)
+    return outs, secs
+
+
+def deploy_artifacts(torch, seed, work, dev="cuda", image_size=None,
+                     net=None, batch=None, native=None):
+    """Phase 41(a)'s artifacts, built in `work`: ResNet-50 at phase 12's
+    width (224 x 224, 1000 classes), initialized from `seed`, saved,
+    frozen to int8 by a Predictor's PTQ at load (2 batches of 8), the
+    frozen program saved (`int8/`) and loaded back, then
+    `export_aot_bundle` at feed (batch, 3, 224, 224) with buckets=None
+    (one rung, the JAX package's default) into `bundle/`. Returns the
+    timings and the op counts."""
+    from paddle_tpu_torch import inference, static
+    from paddle_tpu_torch.core import ir
+    from paddle_tpu_torch.core.executor import Executor
+    from paddle_tpu_torch.core.scope import Scope, scope_guard
+    from paddle_tpu_torch.models.resnet import build_static
+
+    image_size = image_size or DEPLOY_IMAGE
+    batch = batch or DEPLOY_BATCH
+    net = net or DEPLOY_NET
+    rng = np.random.RandomState(seed + 41)
+    t0 = time.perf_counter()
+    ir.reset_unique_names()
+    main, startup = ir.Program(), ir.Program()
+    startup.random_seed = seed
+    with ir.program_guard(main, startup):
+        img = static.data("img", [3, image_size, image_size], "float32")
+        label = static.data("label", [1], "int64")
+        logits, _, _ = build_static(img, label, **net)
+    f32_dir, int8_dir = (os.path.join(work, n) for n in ("f32", "int8"))
+    exe = Executor(dev)
+    with scope_guard(Scope()):
+        exe.run(startup)
+        static.io.save_inference_model(f32_dir, ["img"], [logits], exe,
+                                       main_program=main)
+    cfg = inference.Config(f32_dir)
+    if dev == "cpu":
+        cfg.disable_gpu()
+    cfg.enable_int8([{"img": resnet_images(rng, 8, image_size)}
+                     for _ in range(2)])
+    ptq = inference.create_predictor(cfg)
+    fetch = ptq.get_output_names()[0]
+    ptq_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with scope_guard(ptq._scope):
+        static.io.save_inference_model(
+            int8_dir, ["img"], [ptq._program.global_block().var(fetch)],
+            ptq._exe, main_program=ptq._program)
+    scope = Scope()
+    with scope_guard(scope):
+        prog, _, _ = static.io.load_inference_model(int8_dir, Executor(dev))
+    save_load_s = time.perf_counter() - t0
+    types = [op.type for op in prog.global_block().ops]
+    ops = {"quantized_conv2d": types.count("quantized_conv2d"),
+           "quantized_mul": types.count("quantized_mul")}
+    if net == DEPLOY_NET:
+        assert ops == {"quantized_conv2d": 53, "quantized_mul": 1}, ops
+    t0 = time.perf_counter()
+    inference.export_aot_bundle(prog, {"img": ((batch, 3, image_size,
+                                                image_size), "float32")},
+                                os.path.join(work, "bundle"), scope=scope,
+                                device=dev, native=native)
+    with open(os.path.join(work, "bundle", "BUNDLE.json")) as f:
+        rung = json.load(f)["buckets"][0]
+    return {"config": f"ResNet-50 (phase 12) {net}, {image_size} x "
+                      f"{image_size}, int8 (PTQ at load), one rung at batch "
+                      f"{batch}",
+            "quantized_ops": ops, "init_and_ptq_s": ptq_s,
+            "int8_save_load_s": save_load_s,
+            "bundle_s": time.perf_counter() - t0,
+            "export_s": rung["export_seconds"],
+            "aoti_compile_s": rung.get("aoti_seconds"),
+            "aoti_cxx": (inference.export.aoti_compiler()
+                         if "native" in rung["tiers"] else None),
+            "tiers": rung["tiers"], "batch": batch,
+            "image_size": image_size, "work": work}
+
+
+def deploy_export_main(spec):
+    """`chip_smoke.py --deploy-export JSON`: phase 41(a)'s artifacts in a
+    child process (so AOTInductor's compile can run beside earlier
+    phases); prints DEPLOY-EXPORT with `deploy_artifacts`' summary."""
+    import torch
+    if spec["device"] == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    out = deploy_artifacts(torch, spec["seed"], spec["work"],
+                           dev=spec["device"], **spec.get("kw", {}))
+    out["child_s"] = time.perf_counter() - t0
+    print("DEPLOY-EXPORT " + json.dumps(out), flush=True)
+    return 0
+
+
+def start_deploy_export(seed, dev="cuda", **kw):
+    """Phase 41(a)'s artifacts built by a child process from now on;
+    returns a join() that waits for it, fails on its failure, and
+    returns its summary (with the seconds it ran beside the caller)."""
+    work = tempfile.mkdtemp(prefix="deploy_")
+    log = open(os.path.join(work, "export.log"), "w")
+    t0 = time.perf_counter()
+    # niced: its compile workers yield the host's cores to the phases it
+    # runs beside
+    proc = subprocess.Popen(
+        [sys.executable, "-u", os.path.abspath(__file__), "--deploy-export",
+         json.dumps({"seed": seed, "work": work, "device": dev, "kw": kw})],
+        cwd=os.path.dirname(os.path.abspath(__file__)), stdout=log,
+        stderr=subprocess.STDOUT, text=True, preexec_fn=lambda: os.nice(10))
+    # a failure before the join must not leave the child running
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+
+    def join():
+        t1 = time.perf_counter()
+        rc = proc.wait()
+        log.close()
+        with open(os.path.join(work, "export.log")) as f:
+            text = f.read()
+        lines = [ln for ln in text.splitlines()
+                 if ln.startswith("DEPLOY-EXPORT ")]
+        assert rc == 0 and lines, f"41(a) export child rc {rc}:\n{text[-4000:]}"
+        out = json.loads(lines[-1][len("DEPLOY-EXPORT "):])
+        out["waited_s"] = time.perf_counter() - t1
+        out["started_before_s"] = t1 - t0
+        out["beside_phases"] = list(join.beside)
+        return out
+
+    def beside(phases, tag):
+        """Phases `phases` start now: noted (and said) if the child is
+        still running, so their timings are read as taken beside it."""
+        if proc.poll() is None:
+            join.beside.append(phases)
+            print(f"phase {phases} starts beside phase 41(a)'s export child "
+                  f"({time.perf_counter() - t0:.1f} s into it) {tag}")
+    join.beside = []
+    join.note = beside
+    return join
+
+
+def deploy_export(torch, k8, tag, export_join, dev="cuda"):
+    """Phase 41(a), served. The artifacts of `deploy_artifacts` (built by
+    the child that `export_join` waits for): the bundle loads with its
+    native tier (the stamp matches) and the rung's `exported` tier loads
+    on its own; DEPLOY_REQUESTS requests through each and through the
+    reloaded int8 Predictor, K8's counts reset just before each one's
+    requests: the exported tier bit-equal to the Predictor's rows, the
+    native tier within SERVE_INT8_ROW_TOL of max, K8 once a request on
+    each tier. Returns (summary, launches, (rung dir, an input, its
+    native rows, the work dir))."""
+    import shutil
+    from paddle_tpu_torch import inference
+
+    summary = export_join()
+    work, batch = summary["work"], summary["batch"]
+    image_size = summary["image_size"]
+    bdir = os.path.join(work, "bundle")
+    with open(os.path.join(bdir, "BUNDLE.json")) as f:
+        rung = json.load(f)["buckets"][0]
+    rung_dir = os.path.join(bdir, rung["dir"])
+    t0 = time.perf_counter()
+    bundle = inference.load_aot_bundle(bdir, device=dev)
+    load_s = time.perf_counter() - t0
+    has_native = "native" in rung["tiers"]
+    assert bundle.tiers[None] == ("native" if has_native else "exported"), (
+        bundle.tiers, bundle.errors)
+    assert not has_native or bundle.stamp_ok
+    exported = inference.load_exported(rung_dir, device=dev)
+    graph_k8 = sum(str(n.target) == "paddle_tpu_torch.fused_dequant_matmul"
+                   ".default" for n in exported.exported_program.graph.nodes)
+    n_mul = summary["quantized_ops"]["quantized_mul"]
+    assert graph_k8 == n_mul, graph_k8
+
+    cfg = inference.Config(os.path.join(work, "int8"))
+    if dev == "cpu":
+        cfg.disable_gpu()
+    reloaded = inference.create_predictor(cfg)
+    rng = np.random.RandomState(4101)
+    requests = [resnet_images(rng, batch, image_size)
+                for _ in range(DEPLOY_REQUESTS)]
+    tiers = {"predictor": lambda x: reloaded.run({"img": x})[0],
+             "exported": lambda x: exported.run({"img": x})[0]}
+    if has_native:
+        tiers["native"] = lambda x: bundle.runners[None].run({"img": x})[0]
+    rows, per_tier, launches = {}, {}, {"quantized_matmul": 0}
+    for name, run in tiers.items():
+        run(requests[0])                 # warm-up: allocator, capture
+        k8.reset_launch_counts()
+        rows[name], secs = _timed_runs(torch, run, requests)
+        n = k8.launch_counts["quantized_matmul"]
+        per_tier[name] = {"p50_ms": float(np.median(secs)) * 1e3,
+                          "k8_launches": n}
+        if name in ("exported", "native"):
+            # the CPU (a rehearsal) runs K8's plain version: no launch
+            assert n == (len(requests) if dev == "cuda" else 0), (name, n)
+            launches["quantized_matmul"] += n
+    want = rows["predictor"]
+    exported_equal = all(np.array_equal(a, b)
+                         for a, b in zip(rows["exported"], want))
+    native_err = None
+    if has_native:
+        native_err = max(float(np.abs(a - b).max() / np.abs(b).max())
+                         for a, b in zip(rows["native"], want))
+    summary.update(load_s=load_s, per_tier=per_tier,
+                   exported_bit_equal=exported_equal,
+                   native_max_err=native_err, requests=len(requests),
+                   k8_in_graph=graph_k8)
+    print(f"deploy (a): built in a child over {summary['child_s']:.1f} s "
+          f"(waited {summary['waited_s']:.1f} s for it here): init + PTQ "
+          f"{summary['init_and_ptq_s']:.2f} s, int8 save + load "
+          f"{summary['int8_save_load_s']:.2f} s, torch.export "
+          f"{summary['export_s']:.2f} s, AOTInductor "
+          f"{summary['aoti_compile_s'] or 0.0:.2f} s ({summary['aoti_cxx']});"
+          f" bundle load {load_s:.2f} s; p50 ms a request of {batch}: "
+          + ", ".join(f"{k} {v['p50_ms']:.3f} (K8 {v['k8_launches']})"
+                      for k, v in per_tier.items())
+          + f"; exported == Predictor: {exported_equal}, native max err "
+          f"{native_err} (gate {SERVE_INT8_ROW_TOL}) {tag}")
+    assert exported_equal, "exported tier != the int8 Predictor"
+    assert native_err is None or native_err <= SERVE_INT8_ROW_TOL, native_err
+    for out in rows["exported"]:
+        assert np.isfinite(out).all() and out.shape[0] == batch, out.shape
+    handoff = (rung_dir, requests[0],
+               rows["native"][0] if has_native else None, work)
+    del reloaded, bundle, exported
+    if not has_native:
+        shutil.rmtree(work, ignore_errors=True)
+    return summary, launches, handoff
+
+
+def deploy_checkpoint(torch, seed, tag, dev="cuda", image_size=None,
+                      batch=None):
+    """Phase 41(b). The f32 ResNet-50 training program (phase 14's) at
+    batch CKPT_BATCH under deterministic cuDNN: 2 steps (the eager
+    warm-up, then the captured graph), `save_checkpoint` with
+    `async_save` while 2 more steps replay (their losses A); then
+    `load_checkpoint` and the 2 steps again (losses B). A == B bit for
+    bit, and the saved tensors equal the state at the save, not after
+    it. Returns the summary."""
+    import shutil
+    from paddle_tpu_torch import io as tio
+    from paddle_tpu_torch.core import flags
+    from paddle_tpu_torch.core.executor import Executor
+    from paddle_tpu_torch.core.lowering import referenced_state
+    from paddle_tpu_torch.core.scope import Scope, scope_guard
+    from paddle_tpu_torch.io import checkpoint as ckpt_mod
+
+    image_size = image_size or DEPLOY_IMAGE
+    batch = batch or CKPT_BATCH
+    main, startup, _, _, loss = resnet_train_programs(seed, image_size)
+    rng = np.random.RandomState(seed + 4102)
+    feeds = [{"img": resnet_images(rng, batch, image_size),
+              "label": rng.randint(0, 1000, (batch, 1)).astype(np.int64)}
+             for _ in range(2)]
+    ck = tempfile.mkdtemp(prefix="ckpt_")
+    deterministic_cudnn(torch, flags, True)
+    try:
+        exe, scope = Executor(dev), Scope()
+        with scope_guard(scope):
+            exe.run(startup)
+            for i in range(2):
+                exe.run(main, feed=feeds[i], fetch_list=[loss])
+            names = referenced_state(main, scope)
+            at_save = {n: scope.find_np(n) for n in names}
+            t0 = time.perf_counter()
+            tio.save_checkpoint(exe, ck, main, step=2, async_save=True)
+            save_return_ms = (time.perf_counter() - t0) * 1e3
+            mgr = ckpt_mod._managers[os.path.abspath(ck)]
+            la = [float(exe.run(main, feed=feeds[i], fetch_list=[loss])[0])
+                  for i in range(2)]
+            steps_s = time.perf_counter() - t0
+            in_flight = mgr.in_flight()
+            mgr.wait()
+            save_s = time.perf_counter() - t0
+            after = {n: scope.find_np(n) for n in names}
+            assert tio.load_checkpoint(exe, ck, main) == 2
+            lb = [float(exe.run(main, feed=feeds[i], fetch_list=[loss])[0])
+                  for i in range(2)]
+        saved, _ = tio.CheckpointManager(ck).restore(2)
+        saved_equal = all(np.array_equal(np.asarray(saved[n]), at_save[n])
+                          for n in names)
+        moved = sum(not np.array_equal(after[n], at_save[n]) for n in names)
+    finally:
+        deterministic_cudnn(torch, flags, False)
+        shutil.rmtree(ck, ignore_errors=True)
+    assert la == lb, (la, lb)
+    assert saved_equal, "the checkpoint is not the state at the save"
+    assert moved > 0, "the steps after the save moved no state"
+    summary = {"losses": la, "resumed_losses": lb, "bit_equal": la == lb,
+               "state_names": len(names), "changed_after_save": moved,
+               "saved_equals_state_at_save": saved_equal,
+               "save_return_ms": save_return_ms,
+               "steps_during_save_s": steps_s, "save_total_s": save_s,
+               "in_flight_after_steps": in_flight}
+    print(f"deploy (b): async save of {len(names)} tensors returned in "
+          f"{save_return_ms:.1f} ms; 2 captured steps ran {steps_s:.3f} s "
+          f"after it began (still writing after them: {in_flight}); the "
+          f"save took {save_s:.3f} s; resumed losses {lb} == {la}; saved "
+          f"== state at the save ({moved} tensors moved after it) {tag}")
+    return summary
+
+
+def deploy_aoti_run(torch, tag, aoti_build, handoff):
+    """Phase 41(c). `pt_aoti_run` (built beside phase 1) in a child
+    process on (a)'s rung with the first request as .npy: its outputs
+    equal (a)'s native tier's rows on that input, its last line reads ok
+    with K8 launched in the child. Returns (summary, its K8 launches)."""
+    import shutil
+    rung_dir, x, native_rows, work = handoff
+    build_s, exe = aoti_build()
+    try:
+        xin = os.path.join(work, "img.npy")
+        np.save(xin, x)
+        out_dir = os.path.join(work, "aoti_out")
+        os.makedirs(out_dir, exist_ok=True)
+        t0 = time.perf_counter()
+        proc = subprocess.run([exe, "--model-dir", rung_dir, "--input",
+                               f"img={xin}", "--output-dir", out_dir,
+                               "--repeat", str(DEPLOY_REQUESTS)],
+                              capture_output=True, text=True, timeout=300)
+        wall_s = time.perf_counter() - t0
+        assert proc.returncode == 0, proc.stderr[-3000:]
+        doc = json.loads(proc.stdout.strip().splitlines()[-1])
+        got = np.load(os.path.join(out_dir, "out_0.npy"))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    assert doc["ok"] and doc["engine"] == "aoti", doc
+    assert doc["k8_launches"] == (DEPLOY_REQUESTS if doc["device"] == "cuda"
+                                  else 0), doc
+    equal = bool(np.array_equal(got, native_rows))
+    assert equal, float(np.abs(got - native_rows).max())
+    summary = dict(doc, build_s=build_s, child_wall_s=wall_s,
+                   equals_native_tier=equal)
+    print(f"deploy (c): pt_aoti_run built in {build_s:.1f} s; child "
+          f"{wall_s:.2f} s, a request {doc['latency_ms_avg']:.3f} ms avg / "
+          f"{doc['latency_ms_best']:.3f} best over {doc['repeat']}, K8 "
+          f"{doc['k8_launches']} in the child; outputs == native tier "
+          f"{tag}")
+    return summary, doc["k8_launches"]
+
+
+def widened_flash_case(torch, tfa, dtype, b, t, n, d, offset=0, rate=0.0,
+                       pad=False, backward=True, seed=0):
+    """One of Step 0's shapes through the public wrappers against the
+    plain version on the same inputs: q, k, v views of a fused
+    [B, T, 3, N, D] tensor `offset` elements into its buffer, the
+    padding mask of `flash_inputs`, forward o (and lse through
+    flash_attention_lse when there is no dropout) and one backward.
+    Returns ({output: (max abs err, relative err)}, launches)."""
+    dev = "cuda"
+    qkv, dout, mask = flash_inputs(torch, dev, dtype, b, t, n, d, pad,
+                                   False, seed)
+    seed_k = SEED_ATTN if rate else None
+    res = {}
+    for side in ("kernel", "plain"):
+        buf = torch.empty(qkv.numel() + offset, dtype=dtype, device=dev)
+        buf[offset:].copy_(qkv.reshape(-1))
+        buf.requires_grad_(backward)
+        x = buf[offset:].view(qkv.shape)
+        q, k, v = x[:, :, 0], x[:, :, 1], x[:, :, 2]
+        if side == "kernel":
+            before = dict(tfa.launch_counts)
+            o = tfa.flash_attention(q, k, v, mask, dropout_rate=rate,
+                                    dropout_seed=seed_k)
+            lse = (None if rate else tfa.flash_attention_lse(
+                q.detach(), k.detach(), v.detach(), mask)[1])
+        else:
+            keep = (tfa.batch_keep_masks(SEED_ATTN, b, n, t, t, rate,
+                                         device=dev) if rate else None)
+            o, lse = tfa.attention_reference(q, k, v, mask, keep_masks=keep,
+                                             return_lse=True)
+        out = {"o": o.detach()}
+        if lse is not None and not rate:
+            out["lse"] = lse.detach()
+        if backward:
+            (o.float() * dout.float()).sum().backward()
+            grad = buf.grad[offset:].view(qkv.shape)
+            out.update(dq=grad[:, :, 0], dk=grad[:, :, 1], dv=grad[:, :, 2])
+        if side == "kernel":
+            launched = {kn: tfa.launch_counts[kn] - before[kn]
+                        for kn in tfa.launch_counts
+                        if tfa.launch_counts[kn] != before[kn]}
+        res[side] = out
+    return _case_errors(torch, res), launched
+
+
+def _attention_f64(torch, q, k, v, mask, keep):
+    """`attention_reference`'s arithmetic (no causal) in float64, with
+    lse: the exact answer the float32 kernels and the float32 plain
+    version are both held to at T = 65600, where float32's own rounding
+    over 65600 keys reaches FLASH_TOL (the plain version computes its
+    logits in float32 by design)."""
+    logits = torch.einsum("btnd,bsnd->bnts", q, k) * (1.0 / q.shape[-1] ** 0.5)
+    if mask is not None:
+        logits = logits + mask[:, None, None, :]
+    probs = torch.softmax(logits, dim=-1)
+    if keep is not None:
+        probs = probs * keep.double()
+    out = torch.einsum("bnts,bsnd->btnd", probs, v)
+    return out, torch.logsumexp(logits, dim=-1).permute(0, 2, 1)[..., None]
+
+
+def long_sequence_case(torch, tfa, dtype, t=65600, n=2, d=32, rows=256,
+                       rate=0.0, bias=False, seed=0, dev="cuda"):
+    """T >= 65536 (no longer refused): one forward and backward of n
+    heads over t queries and keys on the kernels, the first and last
+    `rows` query rows held against the plain version on those rows (all
+    keys): o (and lse without dropout), and, with the output's cotangent
+    zero on every other row (so no other row adds to them), dq on those
+    rows, dk and dv over all keys, and with `bias` the gradient of an
+    additive key bias over all keys; dq of every other row must be
+    exactly 0. The plain version's dropout mask is drawn at the rows'
+    own indices (`row0`; past row 65535 the counter wraps, as the
+    kernels' and the JAX package's). The plain version is
+    `attention_reference` in the kernels' dtype; for float32 also the
+    same arithmetic in float64 (`_attention_f64`). Returns ({"plain":
+    {output: (max abs err, relative err)}, "f64": the kernel's errors
+    against float64 (float32 only), "plain_f64": the float32 plain
+    version's against float64}, launches)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v = (torch.randn((1, t, n, d), generator=g, device=dev).to(dtype)
+               for _ in range(3))
+    mask = (torch.randn((1, t), generator=g, device=dev) * 0.5
+            if bias else None)
+    sls = (slice(0, rows), slice(t - rows, t))
+    dout = torch.zeros((1, t, n, d), device=dev)
+    for sl in sls:
+        dout[:, sl] = torch.randn((1, rows, n, d), generator=g, device=dev)
+    got = {}
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    m_leaf = mask.clone().requires_grad_() if bias else None
+    before = dict(tfa.launch_counts)
+    if rate or bias:
+        o = tfa.flash_attention(*leaves, m_leaf, dropout_rate=rate,
+                                dropout_seed=SEED_ATTN if rate else None,
+                                mask_grad=bias)
+    else:
+        o, lse = tfa.flash_attention_lse(*leaves)
+        got.update({f"lse_{i}": lse[:, sl].detach()
+                    for i, sl in enumerate(sls)})
+    (o.float() * dout).sum().backward()
+    launched = {kn: tfa.launch_counts[kn] - before[kn]
+                for kn in tfa.launch_counts
+                if tfa.launch_counts[kn] != before[kn]}
+    dq = leaves[0].grad
+    rest = float(dq[:, rows:t - rows].float().abs().max())
+    assert rest == 0.0, f"T={t}: dq of rows with a zero cotangent {rest}"
+    got.update({f"o_{i}": o[:, sl].detach() for i, sl in enumerate(sls)})
+    got.update({f"dq_{i}": dq[:, sl] for i, sl in enumerate(sls)})
+    got.update(dk=leaves[1].grad, dv=leaves[2].grad)
+    if bias:
+        got["dbias"] = m_leaf.grad
+    keep = (torch.cat([tfa.keep_mask_reference(
+        SEED_ATTN, torch.arange(n).reshape(1, n), rows, t, rate,
+        device=dev, row0=sl.start) for sl in sls], 2) if rate else None)
+    dout_rows = torch.cat([dout[:, sl] for sl in sls], 1)
+
+    def plain(f64):
+        cast = (lambda x: x.double()) if f64 else (lambda x: x.clone())
+        q_rows = cast(torch.cat([q[:, sl] for sl in sls], 1))
+        kp, vp = cast(k), cast(v)
+        mp = cast(mask) if bias else None
+        for x in (q_rows, kp, vp) + ((mp,) if bias else ()):
+            x.requires_grad_()
+        if f64:
+            po, plse = _attention_f64(torch, q_rows, kp, vp, mp, keep)
+        else:
+            po, plse = tfa.attention_reference(q_rows, kp, vp, mp,
+                                               keep_masks=keep,
+                                               return_lse=True)
+        (po.to(torch.float64 if f64 else torch.float32)
+         * cast(dout_rows)).sum().backward()
+        want = {}
+        for i in range(len(sls)):
+            part = slice(i * rows, (i + 1) * rows)
+            want[f"o_{i}"] = po[:, part].detach()
+            want[f"dq_{i}"] = q_rows.grad[:, part]
+            if f"lse_{i}" in got:
+                want[f"lse_{i}"] = plse[:, part].detach()
+        want.update(dk=kp.grad, dv=vp.grad)
+        if bias:
+            want["dbias"] = mp.grad
+        return want
+
+    want = plain(False)
+    out = {"plain": _case_errors(torch, {"kernel": got, "plain": want})}
+    if dtype == torch.float32:
+        exact = plain(True)
+        out["f64"] = _case_errors(torch, {"kernel": got, "plain": exact})
+        out["plain_f64"] = _case_errors(torch, {"kernel": want,
+                                                "plain": exact})
+    return out, launched
+
+
+def deploy_flash(torch, tfa, seed, tag):
+    """Phase 41(d). Step 0's shapes on the card, each against its plain
+    version: D = 80 in bfloat16 and float32 (padded to 128), float16 (the
+    float32 kernels on a copy), a bfloat16 view one element off its
+    16-byte rows (copied), B * N = 67200 > 65535 at T = 8 with dropout
+    (chunked launches, each chunk's seed moved), and T = 65600 in float32
+    and bfloat16, each without and with dropout and a key bias, forward
+    and backward (`long_sequence_case`). Gates: FLASH_TOL of the
+    kernels' dtype (at T = 65600 in float32 against the float64 answer,
+    the float32 plain version's own distance from it printed beside),
+    FLASH_F16_TOL for float16. Returns the summary."""
+    f32, bf16, f16 = torch.float32, torch.bfloat16, torch.float16
+    cases = {
+        "d80_bf16": (dict(dtype=bf16, b=4, t=256, n=4, d=80, pad=True),
+                     FLASH_TOL["bfloat16"]),
+        "d80_f32": (dict(dtype=f32, b=4, t=256, n=4, d=80, pad=True),
+                    FLASH_TOL["float32"]),
+        "f16": (dict(dtype=f16, b=4, t=256, n=4, d=64, pad=True),
+                FLASH_F16_TOL),
+        "bf16_unaligned": (dict(dtype=bf16, b=2, t=256, n=4, d=64,
+                                offset=1), FLASH_TOL["bfloat16"]),
+        "bn_67200_dropout": (dict(dtype=f32, b=2100, t=8, n=32, d=32,
+                                  rate=0.1), FLASH_TOL["float32"]),
+    }
+    out = {}
+    for name, (kw, tol) in cases.items():
+        errs, launched = widened_flash_case(torch, tfa, seed=seed, **kw)
+        assert launched, name
+        out[name] = {"errors": errs, "launches": launched, "tol": tol}
+    chunks = len(tfa.bh_chunks(2100, 32))
+    assert out["bn_67200_dropout"]["launches"] == {
+        "flash_fwd_f32": chunks, "flash_bwd_f32": chunks}, out
+    # T = 65600: float32 held to the float64 answer, bfloat16 to its plain
+    # version; every case runs and prints before any is gated
+    for name, dtype in (("f32", f32), ("bf16", bf16)):
+        tol = FLASH_TOL[str(dtype).replace("torch.", "")]
+        for extra, kw in (("", {}), ("_dropout_bias",
+                                     dict(rate=0.1, bias=True))):
+            errs, launched = long_sequence_case(torch, tfa, dtype, seed=seed,
+                                                **kw)
+            out[f"t_65600_{name}{extra}"] = {
+                "errors": errs.get("f64", errs["plain"]), "launches":
+                launched, "tol": tol, "against": ("float64" if "f64" in errs
+                                                  else "plain"),
+                "vs_plain": errs["plain"], "plain_vs_f64":
+                errs.get("plain_f64")}
+
+    def worst(errs):
+        return max(rel for _, rel in errs.values())
+
+    for name, row in out.items():
+        extra = ""
+        if row.get("plain_vs_f64"):
+            extra = (f" against float64; the kernel against the float32 "
+                     f"plain version {worst(row['vs_plain']):.3e}, that "
+                     f"plain version against float64 "
+                     f"{worst(row['plain_vs_f64']):.3e}")
+        print(f"deploy (d) flash {name}: worst relative error "
+              f"{worst(row['errors']):.3e}{extra} (gate {row['tol']}), "
+              f"launches {row['launches']} {tag}")
+    for name, row in out.items():
+        assert worst(row["errors"]) <= row["tol"], (name, row["errors"])
+        if name.startswith("t_65600"):
+            kinds = (("flash_fwd_f32", "flash_bwd_f32") if "f32" in name
+                     else ("flash_fwd", "flash_bwd"))
+            assert row["launches"] == dict.fromkeys(kinds, 1), (
+                name, row["launches"])
+    return out
+
+
+def k8_dispatch_cost(torch, k8, tag, calls=300, m=8, k=2048, n=1000):
+    """The registered op's dispatch cost on an eager call: host
+    microseconds a call (enqueue, no synchronise inside the window) of
+    `torch.ops.paddle_tpu_torch.fused_dequant_matmul` against the
+    wrapper's checked launch it dispatches to, at the ResNet-50 fc's
+    shape, in turns (direct, op, op, direct). Launches made here are a
+    comparison's, reset after."""
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn((m, k), generator=g, device="cuda")
+    w_q = torch.randint(-127, 128, (k, n), generator=g, device="cuda",
+                        dtype=torch.int8)
+    w_s = torch.rand((n,), generator=g, device="cuda") + 0.1
+    fns = {"direct": lambda: k8._checked_launch(x, w_q, w_s, 2.5, 8, False),
+           "op": lambda: k8.op()(x, w_q, w_s, 2.5, 8)}
+    assert torch.equal(fns["direct"](), fns["op"]())
+    us = {name: [] for name in fns}
+    for name in ("direct", "op", "op", "direct"):
+        fns[name]()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fns[name]()
+        us[name].append((time.perf_counter() - t0) / calls * 1e6)
+        torch.cuda.synchronize()
+    k8.reset_launch_counts()
+    out = {name: float(np.mean(v)) for name, v in us.items()}
+    out["dispatch_us"] = out["op"] - out["direct"]
+    print(f"deploy K8 dispatch: {out['op']:.2f} us a call through "
+          f"torch.ops against {out['direct']:.2f} us for the wrapper's "
+          f"launch ({out['dispatch_us']:.2f} us of dispatch; host time, "
+          f"{calls} calls x 2 turns each, M={m} K={k} N={n}) {tag}")
+    return out
+
+
+def deploy_phase(torch, k8, tfa, seed, tag, aoti_build, export_join=None,
+                 dev="cuda"):
+    """Phase 41, legs (a)-(d); (a)'s artifacts come from the child that
+    `export_join` waits for (started now when None). K8's launches of the
+    exported and native tiers and of pt_aoti_run's child are its "deploy"
+    path. Returns (summary, launches)."""
+    t0 = time.perf_counter()
+    out = {}
+    if export_join is None:
+        export_join = start_deploy_export(seed, dev)
+    # (d) and (b) first: they run while the export child compiles
+    out["flash"] = deploy_flash(torch, tfa, seed, tag)
+    torch.cuda.empty_cache()
+    out["checkpoint"] = deploy_checkpoint(torch, seed, tag, dev=dev)
+    torch.cuda.empty_cache()
+    out["k8_dispatch"] = k8_dispatch_cost(torch, k8, tag)
+    out["export"], launches, handoff = deploy_export(torch, k8, tag,
+                                                     export_join, dev=dev)
+    out["aoti_run"], child = deploy_aoti_run(torch, tag, aoti_build,
+                                             handoff)
+    launches["quantized_matmul"] += child
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    beside = out["export"]["beside_phases"]
+    print(f"phase 41: {out['seconds']:.1f} s here (its export child ran "
+          f"{out['export']['child_s']:.1f} s, from "
+          f"{out['export']['started_before_s']:.1f} s before (a) waited for "
+          f"it, beside phases {', '.join(beside + ['41(d), 41(b)'])}); K8 "
+          f"launches on the deploy path {launches} {tag}")
+    return out, launches
+
+
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else list(argv)
     if argv[:1] == ["--rank-worker"]:
@@ -10258,15 +10959,28 @@ def main(argv=None):
                          "distill, plan, quantize and serve ResNet-50 under "
                          "the armed lock checker, then NAS); print one SLIM "
                          "line")
+    ap.add_argument("--deploy", action="store_true",
+                    help="only build the kernels and run phase 41 (ResNet-50 "
+                         "int8 exported, bundled with an AOTInductor tier "
+                         "and served from the artifact, pt_aoti_run, "
+                         "checkpoints on captured state, the widened flash "
+                         "shapes); print one DEPLOY line")
+    ap.add_argument("--deploy-child-late", action="store_true",
+                    help="in the whole script, start phase 41's export "
+                         "child at phase 41 rather than before phase 26: "
+                         "the phases it would run beside are then timed "
+                         "without it (about 2 minutes longer in all)")
     ap.add_argument("--ft-worker", default=None, metavar="JSON",
                     help=argparse.SUPPRESS)
-    for role in ("--ps-server", "--ps-trainer", "--collective-worker"):
+    for role in ("--ps-server", "--ps-trainer", "--collective-worker",
+                 "--deploy-export"):
         ap.add_argument(role, default=None, metavar="JSON",
                         help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.ft_worker is not None:
         return ft_worker(json.loads(args.ft_worker))
-    for spec, fn in ((args.ps_server, ps_server_main),
+    for spec, fn in ((args.deploy_export, deploy_export_main),
+                     (args.ps_server, ps_server_main),
                      (args.ps_trainer, ps_trainer_main),
                      (args.collective_worker, ps_collective_main)):
         if spec is not None:
@@ -10311,7 +11025,11 @@ def main(argv=None):
     tag = f"[{card}]"
     native_build = (start_native_build() if not any(
         (args.capture, args.serving, args.fleet, args.parallel,
-         args.slim)) else None)
+         args.slim, args.deploy)) else None)
+    # phase 41's pt_aoti_run, g++ against the torch headers, likewise
+    aoti_build = (start_aoti_build() if not any(
+        (args.capture, args.serving, args.fleet, args.parallel, args.slim,
+         args.ps)) else None)
     if args.ps:
         out, _ = ps_phase(torch, args.seed, tag, native_build=native_build)
         print("PS " + json.dumps(out, default=str))
@@ -10328,6 +11046,16 @@ def main(argv=None):
     # the tensor-core kernels' ptxas lines and SASS
     build = build_report(info, tag)
 
+    if args.deploy:
+        from paddle_tpu_torch.ops.kernels import quantized_matmul as k8
+        out, launches = deploy_phase(torch, k8, tfa, args.seed, tag,
+                                     aoti_build)
+        print("DEPLOY " + json.dumps(dict(out, launches=launches),
+                                     default=str))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     if args.slim:
         from paddle_tpu_torch.ops.kernels import quantized_matmul as k8
         out, launches = slim_phase(torch, k8, args.seed, tag)
@@ -10819,8 +11547,20 @@ def main(argv=None):
     results["dygraph_phases_s"] = time.perf_counter() - t_dy
     print(f"phases 22-25: {results['dygraph_phases_s']:.1f} s {tag}")
 
+    # phase 41(a)'s artifacts (ResNet-50 int8 exported and compiled by
+    # AOTInductor, ~2 minutes of host compile) are built by a child from
+    # here on, beside the phases that start before it ends (each says
+    # so); with --deploy-child-late, from phase 41 on
+    deploy_export_join = (None if args.deploy_child_late
+                          else start_deploy_export(args.seed))
+
+    def beside_child(phases):
+        if deploy_export_join is not None:
+            deploy_export_join.note(phases, tag)
+
     # 26-28. the detection ops and YOLOv3, which launch none of the
     # kernels: every count stays 0
+    beside_child("26-28")
     t_det = time.perf_counter()
     for mod in (da, tfa, k8):
         mod.reset_launch_counts()
@@ -10837,6 +11577,7 @@ def main(argv=None):
 
     # 29-30. the CRNN-CTC recogniser and the rest of the op library,
     # which launch none of the kernels: every count stays 0
+    beside_child("29-30")
     t_crnn = time.perf_counter()
     for mod in (da, tfa, k8):
         mod.reset_launch_counts()
@@ -10852,10 +11593,12 @@ def main(argv=None):
           f"launched) {tag}")
 
     # 32. the Executor's programs captured against eager runs
+    beside_child("32")
     results["executor_capture"] = executor_phase(torch, args.seed, tag)
 
     # 33. the serving front end: the gateway's launches of K6, K7 and K8
     # (counts reset just before each gateway window, read just after)
+    beside_child("33")
     results["serving"], gw_launches = serving_phase(torch, gen, args.seed,
                                                     tag)
     for k, n in gw_launches.items():
@@ -10868,6 +11611,7 @@ def main(argv=None):
     # 34. the fleet: K7's launches in the backend processes, read from
     # their drain documents (each backend zeroes its counts after its
     # warm-up)
+    beside_child("34")
     results["fleet"], fleet_launches = fleet_phase(torch, gen, args.seed,
                                                    tag)
     for k, n in fleet_launches.items():
@@ -10876,12 +11620,14 @@ def main(argv=None):
     torch.cuda.empty_cache()
 
     # 35. fault-tolerant training, which launches none of the kernels
+    beside_child("35")
     results["fault_tolerant_training"] = ft_phase(torch, args.seed, tag)
     torch.cuda.empty_cache()
 
     # 36-38. parallelism over a pool of gloo ranks: the flash kernels'
     # launches in the ranks of phases 37 and 38, read from each rank's
     # own counters (zeroed just before each step)
+    beside_child("36-38")
     results["parallel"], par_launches = parallel_phases(
         torch, tfa, args.seed, tag)
     for k in FLASH_KERNELS:
@@ -10897,6 +11643,7 @@ def main(argv=None):
 
     # 39. the parameter server, the launcher and dataset training, which
     # launch none of the kernels, here or in a child process
+    beside_child("39")
     results["ps"], ps_launches = ps_phase(torch, args.seed, tag,
                                           native_build=native_build)
     for name in kernels:
@@ -10907,10 +11654,22 @@ def main(argv=None):
     # 40. the slim pipeline: K8's int8 launches on the pruned, distilled
     # and planned ResNet-50 (counts reset just before its requests and its
     # gateway windows, read just after)
+    beside_child("40")
     results["slim"], slim_launches = slim_phase(torch, k8, args.seed, tag)
     for name in kernels:
         n = slim_launches.get(name, 0)
         kernels[name]["launches_by_path"]["slim"] = n
+        kernels[name]["launches"] += n
+
+    # 41. the deployment artifacts: K8's launches through the exported and
+    # native tiers of the int8 ResNet-50's bundle and in pt_aoti_run's
+    # child (counts reset just before each tier's requests, read just
+    # after; the child counts its own; the export child launches none)
+    results["deploy"], deploy_launches = deploy_phase(
+        torch, k8, tfa, args.seed, tag, aoti_build, deploy_export_join)
+    for name in kernels:
+        n = deploy_launches.get(name, 0)
+        kernels[name]["launches_by_path"]["deploy"] = n
         kernels[name]["launches"] += n
 
     results["total_s"] = time.perf_counter() - t_start

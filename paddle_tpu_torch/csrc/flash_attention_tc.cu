@@ -490,7 +490,7 @@ cudaError_t launch_d(bool fwd, const TcArgs& a, cudaStream_t stream) {
 
 int launch(bool fwd, TcArgs& a, int d, const long long* strides, float scale, int causal,
            int dropout, unsigned seed, unsigned thresh, float keep_scale, void* stream) {
-  if (a.B <= 0 || a.N <= 0 || a.Tq <= 0 || a.Tk <= 0 || a.Tq > 65535 || a.Tk > 65535 ||
+  if (a.B <= 0 || a.N <= 0 || a.Tq <= 0 || a.Tk <= 0 ||
       (long long)a.B * a.N > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   for (int i = 0; i < 21; ++i) a.s[i] = strides[i];

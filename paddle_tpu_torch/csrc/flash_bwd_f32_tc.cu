@@ -550,7 +550,7 @@ int ptt_flash_bwd_f32(const void* q, const void* k, const void* v, const void* b
                       void* dv, void* dbias, int B, int N, int Tq, int Tk, int D,
                       const long long* strides, float scale, int causal, int dropout,
                       unsigned seed, unsigned thresh, float keep_scale, void* stream) {
-  if (B <= 0 || N <= 0 || Tq <= 0 || Tk <= 0 || Tq > 65535 || Tk > 65535 ||
+  if (B <= 0 || N <= 0 || Tq <= 0 || Tk <= 0 ||
       (long long)B * N > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   BwdArgs a = {};

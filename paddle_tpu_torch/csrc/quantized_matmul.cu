@@ -46,7 +46,7 @@
 //    four n8 tiles. For that, column c of n8 tile j is weight column
 //    4c + j of the warp's 32: a lane then holds 8 adjacent output
 //    columns, written as two 16-byte stores.
-//  * Split-K fills 132 SMs at small M: the wrapper picks `splits` from
+//  * Split-K fills 132 SMs at small M: the plan picks `splits` from
 //    the number of output tiles (8 at the fc: 16 tiles x 8 = 128
 //    blocks), each block sums its k range and adds it into an int32
 //    workspace [M, N] by atomicAdd (integer addition is associative, so
@@ -54,7 +54,7 @@
 //    on the tile's arrival counter; the last block to arrive applies the
 //    rescale and writes out (and the accumulator), and zeroes the sums it
 //    read and the tile's counter again. With no split, the block writes
-//    straight from registers. The wrapper owns the workspace and the
+//    straight from registers. The caller owns the workspace and the
 //    counters: it zeroes them once when it allocates them, and the
 //    kernel leaves them zero, so later calls on the stream reuse them.
 //  * Edge tiles are zero-filled (rows past M, k past K, columns past N),
@@ -91,7 +91,7 @@
 //    16-byte copies, or 4-byte where its rows are not 16-byte aligned).
 //    Two converted buffers: the products of tile t run while tile t + 1
 //    is converted.
-//  * Split-K as in int8 mode (k8_wo_split_count, 8 at the fc), but
+//  * Split-K as in int8 mode (the same plan, 8 at the fc), but
 //    deterministic: each split writes its partial tile (fragment order,
 //    coalesced) to the workspace, and the last block to arrive on the
 //    tile's counter sums every split's partial in split order, so two
@@ -102,6 +102,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "quantized_matmul_plan.cuh"
 #include "tc_common.cuh"
 
 namespace {
@@ -427,12 +428,10 @@ cudaError_t launch_int8(const I8Args& a, cudaStream_t stream) {
 // weight-only mode: x in three bf16 pieces against the codes on wgmma
 // ---------------------------------------------------------------------------
 constexpr int kWoK = 64;           // k values per tile
-constexpr int kWoCounters = 256;   // arrival counters at the workspace's head
-constexpr int kSMs = 132;          // streaming multiprocessors of an H100 SXM
 
-// Tiles of the weight-only kernel at BM rows of x (the wrapper's
-// k8_wo_tile): BN = 64 weight columns per warpgroup; STAGES raw tiles in
-// flight; two converted buffers (the products of one while the other is
+// Tiles of the weight-only kernel at BM rows of x (the plan's,
+// quantized_matmul_plan.cu): BN = 64 weight columns per warpgroup;
+// STAGES raw tiles in flight; two converted buffers (the products of one while the other is
 // filled). x's three pieces are stacked as one K-major [3 BM][64] tile,
 // so up to BM = 64 one wgmma of n = 3 BM (the STACK) takes all three
 // pieces per k16 slice and reads each weight slice once; BM = 128 (n =
@@ -462,7 +461,7 @@ struct WoArgs {
   const int8_t* w;
   const float* w_scale;
   float* out;
-  int* counters;   // [kWoCounters] int32, zero, left zero; split-K only
+  int* counters;   // [kK8WoCounters] int32, zero, left zero; split-K only
   float* part;     // [splits][tiles][THREADS][ACC] partial sums; split-K only
   int M, K, N;
   int splits;
@@ -772,26 +771,26 @@ cudaError_t launch_wo(const WoArgs& a, cudaStream_t stream) {
 
 }  // namespace
 
-// `splits` k ranges per output tile (the wrapper's k8_split_count in
-// int8 mode, k8_wo_split_count in weight-only mode); with splits > 1,
-// `workspace` (int32, its counters zero) holds, in int8 mode, M * N int32
-// sums and then one arrival counter per output tile, all zero; in
-// weight-only mode kWoCounters (256) arrival counters, zero (a split
-// call has fewer tiles than the card has SMs), then splits x tiles x
-// THREADS x BM / 2 float32 partial sums (any content): calls of any
-// shape can share the buffer, the counters never moving.
-// The kernel leaves the zeros zero. Tiles: int8 mode 32 x 64 for M <= 32,
-// else 64 x 256; weight-only BM rows of x x 64 weight columns, BM the
-// least of 8, 16, 32, 64 that holds M, or (M > 64) 128 x 128 where those
-// tiles fill 132 SMs, else 32 x 64 (the wrapper's k8_wo_tile).
-// Weight-only mode ignores acc_out.
+// The tile and `splits`, the k ranges per output tile, are
+// ptt_quantized_matmul_plan's (quantized_matmul_plan.cu). With splits >
+// 1, `workspace` (int32, `workspace_words` of them, at least the plan's)
+// holds, in int8 mode, M * N int32 sums and then one arrival counter per
+// output tile, all zero; in weight-only mode kK8WoCounters (256) arrival
+// counters, zero, then splits x tiles x THREADS x BM / 2 float32 partial
+// sums (any content): calls of any shape can share the buffer, the
+// counters never moving. The kernel leaves the zeros zero. A workspace
+// smaller than the plan's is refused. Weight-only mode ignores acc_out.
 extern "C" int ptt_quantized_matmul(const void* x, const void* w_q, const void* w_scale,
-                                    void* out, void* acc_out, void* workspace, int M, int K,
-                                    int N, int int8_mode, int splits, float s, float qm,
-                                    float xs_over_qm, void* stream) {
+                                    void* out, void* acc_out, void* workspace,
+                                    long long workspace_words, int M, int K, int N, int int8_mode,
+                                    float s, float qm, float xs_over_qm, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (M <= 0 || N <= 0 || K < 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (splits < 1 || splits > 65535 || (splits > 1 && workspace == nullptr))
+  int plan[3];
+  long long words = 0;
+  if (ptt_quantized_matmul_plan(M, K, N, int8_mode, plan, &words) != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int bm = plan[0], splits = plan[2];
+  if (splits > 1 && (workspace == nullptr || workspace_words < words))
     return static_cast<int>(cudaErrorInvalidValue);
   if (!int8_mode) {
     WoArgs a = {};
@@ -807,16 +806,9 @@ extern "C" int ptt_quantized_matmul(const void* x, const void* w_q, const void* 
     a.xvec = K % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
     const uintptr_t wp = reinterpret_cast<uintptr_t>(w_q);
     a.wvec = N % 16 == 0 && wp % 16 == 0 ? 16 : (N % 8 == 0 && wp % 8 == 0 ? 8 : 1);
-    // rows of x per tile: the least of 8, 16, 32, 64 that holds M; above,
-    // 128 x 128 tiles where they fill the card, else 32 x 64
-    int bm = M <= 8 ? 8 : M <= 16 ? 16 : M <= 32 ? 32 : M <= 64 ? 64 : 32;
-    if (M > 64 && (long long)((M + 127) / 128) * ((N + 127) / 128) >= kSMs) bm = 128;
-    const int bn = bm == 128 ? 128 : 64;
-    const long long tiles = (long long)((N + bn - 1) / bn) * ((M + bm - 1) / bm);
-    if (splits > 1 && tiles > kWoCounters) return static_cast<int>(cudaErrorInvalidValue);
-    if (workspace != nullptr) {
+    if (splits > 1) {
       a.counters = static_cast<int*>(workspace);
-      a.part = reinterpret_cast<float*>(a.counters + kWoCounters);
+      a.part = reinterpret_cast<float*>(a.counters + kK8WoCounters);
     }
     switch (bm) {
       case 8: return static_cast<int>(launch_wo<8>(a, st));
@@ -832,7 +824,7 @@ extern "C" int ptt_quantized_matmul(const void* x, const void* w_q, const void* 
   a.w_scale = static_cast<const float*>(w_scale);
   a.out = static_cast<float*>(out);
   a.acc_out = static_cast<int*>(acc_out);
-  a.work = static_cast<int*>(workspace);
+  a.work = splits > 1 ? static_cast<int*>(workspace) : nullptr;
   a.counters = a.work == nullptr ? nullptr : a.work + (long long)M * N;
   a.M = M;
   a.K = K;
@@ -843,6 +835,6 @@ extern "C" int ptt_quantized_matmul(const void* x, const void* w_q, const void* 
   a.xs_over_qm = xs_over_qm;
   a.xvec = K % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
   a.wvec = N % 8 == 0 && reinterpret_cast<uintptr_t>(w_q) % 8 == 0;
-  if (M <= 32) return static_cast<int>(launch_int8<32, 64, 1>(a, st));
+  if (bm == 32) return static_cast<int>(launch_int8<32, 64, 1>(a, st));
   return static_cast<int>(launch_int8<64, 256, 2>(a, st));
 }

@@ -32,8 +32,10 @@ pd_predictor_* C API, as the reference's NativePredictor): host-only,
 requests touch no tensor of torch's; an artifact saved without the
 export passes gets them first, written to `ir_opt_cache/` beside it.
 
-Not ported in this slice, and raising NotImplementedError: StableHLO
-export and the AOT bundle (ROADMAP Queue 1 item 9).
+Export (`inference/export.py`): `export_program` / `load_exported`
+(aliased `export_stablehlo` / `load_stablehlo` / `StableHLORunner`)
+write and serve a `torch.export` artifact, and `export_aot_bundle` /
+`load_aot_bundle` the bucket ladder with an AOTInductor tier.
 """
 import json
 import os
@@ -43,7 +45,10 @@ import numpy as np
 from paddle_tpu_torch.core.enforce import enforce
 from paddle_tpu_torch.reliability.faults import inject_point
 
-__all__ = ["PrecisionType", "Config", "Predictor", "create_predictor"]
+__all__ = ["PrecisionType", "Config", "Predictor", "create_predictor",
+           "export_program", "ExportedRunner", "load_exported",
+           "export_stablehlo", "StableHLORunner", "load_stablehlo",
+           "export_aot_bundle", "AOTBundle", "load_aot_bundle"]
 
 
 class PrecisionType:
@@ -366,13 +371,8 @@ def create_predictor(config):
     return Predictor(config)
 
 
-def export_stablehlo(*args, **kwargs):
-    raise NotImplementedError(
-        "StableHLO export has no counterpart in the port yet (ROADMAP "
-        "Queue 1 item 9: torch.export or out of scope)")
-
-
-def export_aot_bundle(*args, **kwargs):
-    raise NotImplementedError(
-        "the AOT serving bundle has no counterpart in the port yet (ROADMAP "
-        "Queue 1 items 9 and 13)")
+from paddle_tpu_torch.inference.export import (  # noqa: E402
+    AOTBundle, ExportedRunner, StableHLORunner, export_aot_bundle,
+    export_program, export_stablehlo, load_aot_bundle, load_exported,
+    load_stablehlo,
+)

@@ -7,8 +7,8 @@ and the real-file readers, movielens, conll05, flowers, voc2012, the
 md5-cached `download`), `fs.py` (file://, mem:// and registered
 schemes), the eager models' ragged batching (`ragged.py`), and the
 native data feed's datasets (`fluid_dataset.py`: DatasetFactory,
-InMemoryDataset, QueueDataset). Checkpoints (`checkpoint.py`) are a
-later slice (ROADMAP Queue 1 item 9).
+InMemoryDataset, QueueDataset), and checkpoints (`checkpoint.py`:
+Checkpointer, CheckpointManager, save_checkpoint, load_checkpoint).
 """
 from paddle_tpu_torch.io.reader import (  # noqa: F401
     DataFeeder, DataLoader, batch, buffered, cache, chain, compose, firstn,
@@ -20,4 +20,7 @@ from paddle_tpu_torch.io import dataset_ext  # noqa: F401,E402
 from paddle_tpu_torch.io import ragged  # noqa: F401,E402
 from paddle_tpu_torch.io.fluid_dataset import (  # noqa: F401,E402
     DatasetFactory, InMemoryDataset, QueueDataset,
+)
+from paddle_tpu_torch.io.checkpoint import (  # noqa: F401,E402
+    Checkpointer, CheckpointManager, load_checkpoint, save_checkpoint,
 )

@@ -11,9 +11,9 @@ Attention: `attention_impl="flash"` calls the flash kernels
 (`ops/kernels/flash_attention.py`) with sm_scale 1/sqrt(D), the [B, 1,
 1, Tk] padding bias on encoder self-attention and cross-attention, and
 `causal=True` (top-left aligned, key <= query) on decoder
-self-attention; "xla" is the plain einsum path. The kernels take head
-dims 32, 64 and 128 only, so a flash model for a CUDA device with
-another head dim raises at construction.
+self-attention; "xla" is the plain einsum path. Any head dim up to 128
+runs on the kernels: the wrapper pads one they have no instantiation
+for (32, 64, 128) to the next.
 
 Where the port differs from the JAX model:
 
@@ -38,10 +38,7 @@ import torch
 from paddle_tpu_torch import nn
 from paddle_tpu_torch.core.dtypes import at_least_f32
 from paddle_tpu_torch.core.enforce import enforce
-from paddle_tpu_torch.core.places import resolve_device
-from paddle_tpu_torch.ops.kernels.flash_attention import (
-    KERNEL_HEAD_DIMS, flash_attention,
-)
+from paddle_tpu_torch.ops.kernels.flash_attention import flash_attention
 
 __all__ = ["TransformerConfig", "sinusoid_position_encoding",
            "MultiHeadAttention", "EncoderLayer", "DecoderLayer",
@@ -94,17 +91,11 @@ def sinusoid_position_encoding(max_len, d_model):
     return pe
 
 
-def _check_flash(impl, head_dim, device):
-    """The construction-time refusal: the flash kernels take head dims
-    in KERNEL_HEAD_DIMS only (the CPU path takes any)."""
+def _check_impl(impl):
+    """Every head dim runs on either path: the flash wrapper pads one the
+    kernels have no instantiation for (ops/kernels/flash_attention.py)."""
     enforce(impl in ("xla", "flash"), "attention_impl must be 'xla' or "
             "'flash', got %r", impl)
-    if impl == "flash" and resolve_device(device).type == "cuda":
-        enforce(head_dim in KERNEL_HEAD_DIMS,
-                "attention_impl='flash' on a CUDA device needs a head dim "
-                "in %s (the flash kernels' instantiations), got d_model / "
-                "num_heads = %d; use attention_impl='xla'",
-                KERNEL_HEAD_DIMS, head_dim)
 
 
 class MultiHeadAttention(nn.Layer):
@@ -113,7 +104,7 @@ class MultiHeadAttention(nn.Layer):
         super().__init__(dtype=dtype, device=device)
         self.n = num_heads
         self.d = d_model // num_heads
-        _check_flash(impl, self.d, device)
+        _check_impl(impl)
         self.impl = impl
         self.q = nn.Linear(d_model, d_model, device=device)
         self.k = nn.Linear(d_model, d_model, device=device)
@@ -189,8 +180,7 @@ class DecoderLayer(nn.Layer):
 class Transformer(nn.Layer):
     def __init__(self, cfg=None, device=None):
         cfg = cfg or TransformerConfig()
-        _check_flash(cfg.attention_impl, cfg.d_model // cfg.num_heads,
-                     device)
+        _check_impl(cfg.attention_impl)
         super().__init__(dtype=cfg.dtype, device=device)
         self.cfg = cfg
         dev = device

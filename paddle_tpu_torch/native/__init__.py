@@ -10,7 +10,11 @@ with `g++` on first use into `paddle_tpu_torch/_build/native/`:
   `load()`: `NativeDataset`, `NativePredictor` here, the PS client and
   server in `paddle_tpu_torch.ps`;
 * the Python-free binaries `pt_infer` and `pt_train` (`build_pt_infer`,
-  `build_pt_train`).
+  `build_pt_train`);
+* `pt_aoti_run` (`build_pt_aoti_run`): an AOTInductor package of an
+  exported Program (`inference.export_aot_bundle`'s native tier) run
+  through libtorch, built against `torch.utils.cpp_extension`'s include
+  and library paths, with K8 registered by `aoti_ops.cc`.
 
 Each `.cc` compiles to an object named by a hash of the command, the
 source and the headers (all objects of a build start together; an
@@ -21,8 +25,9 @@ launcher's trainers) build once. A failed build raises
 `NativeBuildError`: nothing falls back. Nothing builds at import time.
 
 The wire of the parameter server is the same C++ as the JAX package's,
-so a port client talks to a JAX-package server and back. XLA's PJRT
-runner (`build_pt_pjrt_run`) has no counterpart here.
+so a port client talks to a JAX-package server and back. `pt_aoti_run`
+takes XLA's PJRT runner's place (`pt_pjrt_run`, with its command line but
+for `--plugin`).
 """
 import ctypes
 import fcntl
@@ -38,7 +43,7 @@ from paddle_tpu_torch.analysis.concurrency import make_lock
 
 __all__ = ["NativeBuildError", "NativeDataset", "NativePredictor", "load",
            "available", "library_path", "build_pt_infer", "build_pt_train",
-           "build_pt_pjrt_run", "BUILD_DIR", "SRC_DIR"]
+           "build_pt_aoti_run", "BUILD_DIR", "SRC_DIR"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 SRC_DIR = os.path.join(_HERE, "src")
@@ -48,6 +53,7 @@ CXX_FLAGS = ("-O2", "-std=c++17", "-fPIC", "-Wall", "-pthread")
 _LIB_SRCS = ("datafeed.cc", "ps.cc", "c_api.cc", "interp.cc")
 _BIN_SRCS = {"pt_infer": ("pt_infer.cc", "interp.cc"),
              "pt_train": ("pt_train.cc", "interp.cc")}
+_AOTI_SRCS = ("pt_aoti_run.cc", "aoti_ops.cc")
 
 _lock = make_lock("native.build")
 _lib = None
@@ -80,7 +86,7 @@ def _headers():
     return sorted(f for f in os.listdir(SRC_DIR) if f.endswith(".h"))
 
 
-def _plan(srcs, link):
+def _plan(srcs, link, cxx_flags=CXX_FLAGS):
     """([(object path, compile command)] of `srcs`, the hash that keys
     the output linked from them by `link`)."""
     hdr = b"".join(open(os.path.join(SRC_DIR, f), "rb").read()
@@ -90,7 +96,7 @@ def _plan(srcs, link):
         path = os.path.join(SRC_DIR, src)
         with open(path, "rb") as f:
             body = f.read()
-        cmd = ["g++", *CXX_FLAGS, "-c", path]
+        cmd = ["g++", *cxx_flags, "-c", path]
         # the object's name hashes what decides it (flags, source,
         # headers), not where the checkout lies
         key = _digest(" ".join(cmd[:-1]), src, body, hdr)
@@ -129,12 +135,13 @@ class _FileLock:
         os.close(self._fd)
 
 
-def _build_locked(name, srcs, link_flags):
+def _build_locked(name, srcs, link_flags, cxx_flags=CXX_FLAGS, libs=()):
     """Build `name` under BUILD_DIR if its sources or command changed;
-    the caller holds the file lock. Returns the output path."""
+    the caller holds the file lock. `libs` follow the objects on the
+    link line. Returns the output path."""
     out = os.path.join(BUILD_DIR, name)
-    link = ["g++", *CXX_FLAGS, *link_flags]
-    objs, key = _plan(srcs, link)
+    link = ["g++", *cxx_flags, *link_flags]
+    objs, key = _plan(srcs, link + list(libs), cxx_flags)
     stamp = out + ".srchash"
     try:
         with open(stamp) as f:
@@ -148,7 +155,7 @@ def _build_locked(name, srcs, link_flags):
     fd, tmp = tempfile.mkstemp(prefix=f".{name}.", dir=BUILD_DIR)
     os.close(fd)
     try:
-        _run(link + ["-o", tmp] + [o for o, _ in objs], name)
+        _run(link + ["-o", tmp] + [o for o, _ in objs] + list(libs), name)
         os.chmod(tmp, 0o755)
         os.replace(tmp, out)
     finally:
@@ -206,10 +213,39 @@ def build_pt_train():
     return _build_bin("pt_train")
 
 
-def build_pt_pjrt_run():
-    raise NotImplementedError(
-        "pt_pjrt_run runs StableHLO through XLA's PJRT; the port has no "
-        "counterpart yet (ROADMAP Queue 1 item 9, with export_stablehlo)")
+def _libtorch_flags(kernel_lib):
+    """(compile flags, link libraries) of a libtorch binary: torch's
+    include and library paths and C++ ABI, K8's kernel library path
+    (PTT_KERNEL_LIB) and, with a CUDA build of torch, its CUDA kernel
+    (PTT_WITH_CUDA) and libraries."""
+    import torch
+    from torch.utils import cpp_extension
+
+    cuda = torch.version.cuda is not None
+    abi = int(torch._C._GLIBCXX_USE_CXX11_ABI)
+    cxx = ("-O2", "-std=c++17", "-fPIC", "-pthread",
+           f"-D_GLIBCXX_USE_CXX11_ABI={abi}",
+           *(f"-I{p}" for p in cpp_extension.include_paths()),
+           f'-DPTT_KERNEL_LIB="{kernel_lib}"',
+           *(("-DPTT_WITH_CUDA",) if cuda else ()))
+    libdir = cpp_extension.library_paths()[0]
+    libs = [f"-L{libdir}", f"-Wl,-rpath,{libdir}", "-Wl,--no-as-needed",
+            "-ltorch", "-ltorch_cpu", "-lc10",
+            *(("-ltorch_cuda", "-lc10_cuda") if cuda else ()), "-ldl"]
+    return cxx, libs
+
+
+def build_pt_aoti_run(kernel_lib=None):
+    """Build the `pt_aoti_run` binary (an AOTInductor package of an
+    exported Program through libtorch, no Python) with g++ against the
+    installed torch; returns its path. `kernel_lib` is the CUDA kernel
+    library its K8 op loads on first use (None: the one
+    `ops/kernels/_build.py` builds for the current sources). Takes tens of
+    seconds the first time (the torch headers)."""
+    from paddle_tpu_torch.ops.kernels import _build
+    cxx, libs = _libtorch_flags(kernel_lib or _build.library_path())
+    with _lock, _FileLock():
+        return _build_locked("pt_aoti_run", _AOTI_SRCS, [], cxx, libs)
 
 
 def _declare(lib):

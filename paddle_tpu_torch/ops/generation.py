@@ -61,8 +61,8 @@ from paddle_tpu_torch.core.places import resolve_device
 from paddle_tpu_torch.observability import metrics as obs_metrics
 from paddle_tpu_torch.observability import profile as obs_profile
 from paddle_tpu_torch.ops.kernels.decode_attention import (
-    NEG_INF, decode_attention, paged_decode_attention,
-    quantized_paged_decode_attention,
+    KERNEL_HEAD_DIMS as DECODE_HEAD_DIMS, NEG_INF, decode_attention,
+    paged_decode_attention, quantized_paged_decode_attention,
 )
 from paddle_tpu_torch.reliability.faults import FaultError, inject_point
 from paddle_tpu_torch.weights import kv_to_numpy
@@ -341,11 +341,20 @@ def select_token(logits, mode="greedy", temperature=1.0, rng=None):
     return int(rng.choice(row.size, p=p))
 
 
-def _engine_device(model, device):
+def _engine_device(model, device, decode_kernels=False):
     """Resolve the engine's device and move the model there (in place,
-    as nn.Module.to does). Float32 matmuls run in full float32."""
+    as nn.Module.to does). Float32 matmuls run in full float32. An
+    engine that attends through the decode kernels (`decode_kernels`)
+    refuses, on the card, a head dim they have no instantiation for: the
+    JAX package's K5-K7 take any D, but padding a cache or pool to the
+    next width would copy it on every tick (ROADMAP Queue 3)."""
     dev = resolve_device(device)
     if dev.type == "cuda":
+        enforce(not decode_kernels
+                or model.config.head_dim in DECODE_HEAD_DIMS,
+                "the decode kernels take head dims %s on the card, got "
+                "%d (d_model / num_heads)", DECODE_HEAD_DIMS,
+                model.config.head_dim)
         torch.backends.cuda.matmul.allow_tf32 = False
     model.to(dev)
     return dev
@@ -372,7 +381,7 @@ class DecodeEngine:
                 "engine max_len %d exceeds the model's positional table "
                 "%d", max_len, cfg.max_len)
         enforce(batch_size >= 1, "batch_size must be >= 1")
-        self.device = _engine_device(model, device)
+        self.device = _engine_device(model, device, decode_kernels=True)
         self.model = model
         self.batch_size = int(batch_size)
         self.max_len = int(max_len)
@@ -1092,7 +1101,7 @@ class PagedDecodeEngine:
         enforce(spec_k >= 0, "spec_k must be >= 0")
         enforce(kv_dtype in KV_DTYPES,
                 "kv_dtype must be one of %s, got %r", KV_DTYPES, kv_dtype)
-        self.device = _engine_device(model, device)
+        self.device = _engine_device(model, device, decode_kernels=True)
         self.model = model
         self.batch_size = int(batch_size)
         self.max_len = int(max_len)

@@ -59,8 +59,9 @@ SIGNATURES = {
     "ptt_flash_bwd": [_c_void_p] * 11 + _FLASH_TAIL,
     "ptt_flash_fwd_f32": [_c_void_p] * 6 + _FLASH_TAIL,
     "ptt_flash_bwd_f32": [_c_void_p] * 11 + _FLASH_TAIL,
-    "ptt_quantized_matmul": ([_c_void_p] * 6 + [_c_int] * 5
+    "ptt_quantized_matmul": ([_c_void_p] * 6 + [_c_ll] + [_c_int] * 4
                              + [_c_float] * 3 + [_c_void_p]),
+    "ptt_quantized_matmul_plan": [_c_int] * 4 + [_c_void_p, _c_ll_p],
 }
 
 

@@ -25,10 +25,25 @@ Beside them stand their plain PyTorch versions: `keep_mask_reference`,
 the dropout hash bit for bit, and `attention_reference`, the same
 arithmetic as the JAX package's `attention_reference`. A wrapper takes
 the plain version only because the tensors it was given lie on the CPU;
-on a CUDA tensor it launches the kernels of its dtype or raises (a failed
-build, a refused launch, an unsupported head dim or dtype, a bfloat16
-view whose rows are not 16-byte aligned; a float32 view of any stride
-is taken); no call reaches a CUDA-core kernel.
+on a CUDA tensor it launches the kernels or raises (a failed build, a
+refused launch, a head dim above 128); no call reaches a CUDA-core
+kernel. It takes what the JAX wrapper takes (`_kernel_operands`):
+
+- a head dim D <= 128 that has no instantiation (32, 64, 128) is
+  zero-padded to the next one, with `sm_scale` from the true D, and the
+  output (and dQ, dK, dV) sliced back: zero columns add nothing to
+  q.k^T, and v's zero columns give zero output columns;
+- float16 runs the float32 kernels on a float32 copy, cast back;
+- a bfloat16 view whose rows are not 16-byte aligned (or any view not
+  contiguous in its last dim) is copied to a contiguous buffer, and only
+  then; a float32 view of any (batch, time, head) strides is taken;
+- B * N above the grid's 65535 rows (grid.y holds one (batch, head) a
+  block row) is launched in chunks of whole batches (or, when N alone
+  exceeds it, of heads within one batch), each chunk's dropout seed
+  advanced by its first (batch * N + head) times the hash's stream
+  separator, so every chunk draws the mask of the whole call;
+- T has no limit of its own: the hash's counter (row << 16 ^ col,
+  wrapping in 32 bits) is the JAX package's at any T.
 `launch_counts` counts launches per kernel (registered with
 `observability.profile`, so a captured graph adds its launches on every
 replay); each launch reports its operations to the profile.
@@ -58,8 +73,10 @@ __all__ = [
 NEG_INF = -1e30
 #: dropout seeds are integers in [0, SEED_LIMIT), exact in float32
 SEED_LIMIT = 1 << 23
-#: head dims the kernels are instantiated for
+#: head dims the kernels are instantiated for (a smaller D is padded)
 KERNEL_HEAD_DIMS = (32, 64, 128)
+#: (batch, head) pairs one launch takes: grid.y's limit
+MAX_GRID_ROWS = 65535
 #: the kernel of each dtype: (forward, backward kernels)
 KERNELS = {torch.bfloat16: ("flash_fwd", ("flash_bwd",)),
            torch.float32: ("flash_fwd_f32", ("flash_bwd_f32",))}
@@ -103,14 +120,17 @@ def keep_threshold(p):
     return min(int(p * 2.0 ** 32), _U32)
 
 
-def keep_mask_reference(seed, bh, tq, tk, p, device=None):
+def keep_mask_reference(seed, bh, tq, tk, p, device=None, row0=0):
     """The kernels' dropout mask: float32 [..., tq, tk] holding 1/(1-p)
     where kept and 0 where dropped, for the integer `seed` and the
     (batch * num_heads + head) index `bh` (an int or an integer tensor
-    of any shape, which leads the result). Bit for bit the JAX
-    package's `_np_keep_mask`; computed in int64 masked to 32 bits."""
+    of any shape, which leads the result), of query rows row0 ..
+    row0 + tq - 1. Bit for bit the JAX package's `_np_keep_mask`;
+    computed in int64 masked to 32 bits (a row past 65535 shifts its
+    counter past 32 bits, which wraps, as the kernels' uint32 does)."""
     bh = torch.as_tensor(bh, dtype=torch.int64, device=device)
-    rows = torch.arange(tq, dtype=torch.int64, device=bh.device)[:, None]
+    rows = torch.arange(row0, row0 + tq, dtype=torch.int64,
+                        device=bh.device)[:, None]
     cols = torch.arange(tk, dtype=torch.int64, device=bh.device)[None, :]
     stream = _fmix32((int(seed) + _mul32(bh & _U32, _GOLD)) & _U32)
     ctr = ((rows << 16) ^ cols) & _U32
@@ -174,15 +194,11 @@ def _aligned(t):
 
 def _check(q, k, v, mask):
     for name, t in (("q", q), ("k", k), ("v", v)):
-        enforce(t.dtype in KERNELS, "%s must be float32 or bfloat16, got %s",
-                name, t.dtype)
+        enforce(t.dtype in KERNELS or t.dtype == torch.float16,
+                "%s must be float32, bfloat16 or float16, got %s", name,
+                t.dtype)
         enforce(t.dim() == 4, "%s must be [B, T, N, D], got shape %s", name,
                 tuple(t.shape))
-        enforce(t.stride(-1) == 1, "%s must be contiguous in its last dim "
-                "(strides %s)", name, t.stride())
-        enforce(t.dtype != torch.bfloat16 or _aligned(t), "%s: bfloat16 rows "
-                "must start 16-byte aligned, strides in multiples of 8 "
-                "elements (strides %s)", name, t.stride())
     b, tq, n, d = q.shape
     tk = k.shape[1]
     enforce(q.dtype == k.dtype == v.dtype, "q, k, v dtypes differ: %s %s %s",
@@ -190,11 +206,11 @@ def _check(q, k, v, mask):
     enforce(tuple(k.shape) == (b, tk, n, d) and v.shape == k.shape,
             "k %s / v %s do not match q %s", tuple(k.shape), tuple(v.shape),
             tuple(q.shape))
-    enforce(d in KERNEL_HEAD_DIMS, "head dim %d not in %s", d,
+    enforce(0 < d <= KERNEL_HEAD_DIMS[-1], "head dim %d above %d (the "
+            "widest instantiation, %s)", d, KERNEL_HEAD_DIMS[-1],
             KERNEL_HEAD_DIMS)
-    enforce(0 < tq < 65536 and 0 < tk < 65536,
-            "sequence lengths must lie in [1, 65536), got %d / %d", tq, tk)
-    enforce(b * n <= 65535, "B * N = %d exceeds 65535", b * n)
+    enforce(tq > 0 and tk > 0, "sequence lengths must be positive, got "
+            "%d / %d", tq, tk)
     for name, t in (("q", q), ("k", k), ("v", v)):
         enforce(t.is_cuda, "%s must be a CUDA tensor, got device %s", name,
                 t.device)
@@ -204,6 +220,60 @@ def _check(q, k, v, mask):
         enforce(mask.numel() == b * tk and mask.shape[-1] == tk,
                 "mask of shape %s does not broadcast from [B, Tk] = [%d, %d]",
                 tuple(mask.shape), b, tk)
+
+
+def padded_head_dim(d):
+    """The instantiated head dim a D <= 128 runs at: the least of
+    KERNEL_HEAD_DIMS that holds it."""
+    return next(w for w in KERNEL_HEAD_DIMS if d <= w)
+
+
+def _kernel_operands(t, dp):
+    """One of q, k, v as the kernels take it: float32 for float16,
+    zero-padded to dp columns, copied to a contiguous buffer when its
+    rows are not what the kernels read (a bfloat16 view not 16-byte
+    aligned, or any view not contiguous in its last dim). Differentiable
+    copies, so the gradients come back through them."""
+    if t.dtype == torch.float16:
+        t = t.float()
+    if t.shape[-1] != dp:
+        return torch.nn.functional.pad(t, (0, dp - t.shape[-1]))
+    if t.stride(-1) != 1 or (t.dtype == torch.bfloat16 and not _aligned(t)):
+        return t.clone(memory_format=torch.contiguous_format)
+    return t
+
+
+def _on_kernels(q, k, v, mask, cfg, mask_grad):
+    """(out [B, Tq, N, D] in q's dtype, lse [B, Tq, N, 1] f32) from the
+    kernels, on checked operands brought to what they take."""
+    d = q.shape[-1]
+    dp = padded_head_dim(d)
+    qk, kk, vk = (_kernel_operands(t, dp) for t in (q, k, v))
+    out, lse = _FlashFn.apply(qk, kk, vk, mask, cfg, mask_grad)
+    if dp != d:
+        out = out[..., :d]
+    return out.to(q.dtype), lse
+
+
+def bh_chunks(b, n):
+    """(b0, b1, n0, n1) ranges of the (batch, head) pairs each launch
+    takes, every pair once: all of them when B * N fits grid.y; else
+    whole batches, MAX_GRID_ROWS // N a launch; else (N alone above the
+    limit) heads of one batch, MAX_GRID_ROWS a launch."""
+    if b * n <= MAX_GRID_ROWS:
+        return [(0, b, 0, n)]
+    if n <= MAX_GRID_ROWS:
+        step = MAX_GRID_ROWS // n
+        return [(b0, min(b, b0 + step), 0, n) for b0 in range(0, b, step)]
+    return [(bi, bi + 1, n0, min(n, n0 + MAX_GRID_ROWS))
+            for bi in range(b) for n0 in range(0, n, MAX_GRID_ROWS)]
+
+
+def chunk_seed(seed, first_bh):
+    """The seed a chunk whose first (batch * N + head) is `first_bh`
+    launches with: the kernels' stream seed + bh * GOLD (mod 2**32) is
+    then the whole call's for every pair of the chunk."""
+    return (int(seed or 0) + _mul32(first_bh & _U32, _GOLD)) & _U32
 
 
 def _strides(*tensors):
@@ -230,12 +300,13 @@ def _stream(device):
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def _tail(q, cfg):
-    causal, sm_scale, dropout, seed = cfg
+def _tail(q, cfg, seed=None):
+    causal, sm_scale, dropout, cfg_seed = cfg
     thresh = keep_threshold(dropout) if dropout > 0.0 else 0
     keep_scale = float(np.float32(1.0 / (1.0 - dropout)))
-    return (float(sm_scale), int(causal), int(dropout > 0.0), int(seed or 0),
-            thresh, keep_scale, _stream(q.device))
+    return (float(sm_scale), int(causal), int(dropout > 0.0),
+            int(cfg_seed or 0) if seed is None else seed, thresh, keep_scale,
+            _stream(q.device))
 
 
 def _shape_args(q, k):
@@ -258,15 +329,29 @@ def _launch(name, flops, *args):
     _profile.note_kernel_flops(flops)
 
 
+def _chunked(q, k, bias, cfg):
+    """Per launch: (index of its (batch, head) ranges into [B, T, N, ...]
+    tensors, into [B, N, ...] ones, into [B, Tk] ones, its seed)."""
+    n = q.shape[2]
+    for b0, b1, n0, n1 in bh_chunks(q.shape[0], n):
+        yield ((slice(b0, b1), slice(None), slice(n0, n1)),
+               (slice(b0, b1), slice(n0, n1)), slice(b0, b1),
+               chunk_seed(cfg[3], b0 * n + n0))
+
+
 def _launch_fwd(q, k, v, bias, cfg):
-    """The forward kernel of q's dtype: (o, lse [B, N, Tq] f32)."""
+    """The forward kernel of q's dtype: (o, lse [B, N, Tq] f32), one
+    launch per (batch, head) chunk."""
     b, tq, n, d = q.shape
     out = torch.empty((b, tq, n, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, n, tq), dtype=torch.float32, device=q.device)
-    _launch(KERNELS[q.dtype][0], _attention_flops(q, k, cfg),
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias),
-            out.data_ptr(), lse.data_ptr(), *_shape_args(q, k),
-            _strides(q, k, v, None, out), *_tail(q, cfg))
+    for tix, bnix, bix, seed in _chunked(q, k, bias, cfg):
+        qc, kc, vc, oc = q[tix], k[tix], v[tix], out[tix]
+        bc = None if bias is None else bias[bix]
+        _launch(KERNELS[q.dtype][0], _attention_flops(qc, kc, cfg),
+                qc.data_ptr(), kc.data_ptr(), vc.data_ptr(), _ptr(bc),
+                oc.data_ptr(), lse[bnix].data_ptr(), *_shape_args(qc, kc),
+                _strides(qc, kc, vc, None, oc), *_tail(q, cfg, seed))
     return out, lse
 
 
@@ -281,7 +366,7 @@ def bwd_delta(out, dout, dlse=None):
 
 def _launch_bwd_tc(q, k, v, bias, dout, lse, delta, cfg, want_dbias):
     """The tensor-core backward of q's dtype: dQ, dK, dV and dbias from
-    one launch. dQ is summed with atomics into a zeroed float32 workspace
+    one launch per (batch, head) chunk. dQ is summed with atomics into a zeroed float32 workspace
     [B, Tq, N, D]: for float32 that workspace is dQ, for bfloat16 it is
     cast to q's dtype here. dbias [B, Tk] f32 (zeroed) only if
     `want_dbias`."""
@@ -292,12 +377,17 @@ def _launch_bwd_tc(q, k, v, bias, dout, lse, delta, cfg, want_dbias):
                          device=q.device) if want_dbias else None)
     # the backward's five products against the forward's two (dQ, dK, dV
     # and the recomputed S and dP): twice the forward's operations
-    _launch(KERNELS[q.dtype][1][0], 2 * _attention_flops(q, k, cfg),
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias),
-            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-            dq_acc.data_ptr(), dk.data_ptr(), dv.data_ptr(), _ptr(dbias),
-            *_shape_args(q, k), _strides(q, k, v, dout, dq_acc, dk, dv),
-            *_tail(q, cfg))
+    for tix, bnix, bix, seed in _chunked(q, k, bias, cfg):
+        qc, kc, vc, doc = q[tix], k[tix], v[tix], dout[tix]
+        dqc, dkc, dvc = dq_acc[tix], dk[tix], dv[tix]
+        bc = None if bias is None else bias[bix]
+        dbc = None if dbias is None else dbias[bix]
+        _launch(KERNELS[q.dtype][1][0], 2 * _attention_flops(qc, kc, cfg),
+                qc.data_ptr(), kc.data_ptr(), vc.data_ptr(), _ptr(bc),
+                doc.data_ptr(), lse[bnix].data_ptr(), delta[bnix].data_ptr(),
+                dqc.data_ptr(), dkc.data_ptr(), dvc.data_ptr(), _ptr(dbc),
+                *_shape_args(qc, kc), _strides(qc, kc, vc, doc, dqc, dkc, dvc),
+                *_tail(q, cfg, seed))
     return dq_acc.to(q.dtype), dk, dv, dbias
 
 
@@ -389,7 +479,7 @@ def flash_attention(q, k, v, mask=None, causal=False, sm_scale=None,
     if q.device.type == "cpu":
         return _plain(q, k, v, mask, cfg, mask_grad, False)
     _check(q, k, v, mask)
-    return _FlashFn.apply(q, k, v, mask, cfg, mask_grad)[0]
+    return _on_kernels(q, k, v, mask, cfg, mask_grad)[0]
 
 
 def flash_attention_lse(q, k, v, mask=None, causal=False, sm_scale=None,
@@ -401,4 +491,4 @@ def flash_attention_lse(q, k, v, mask=None, causal=False, sm_scale=None,
     if q.device.type == "cpu":
         return _plain(q, k, v, mask, cfg, False, True)
     _check(q, k, v, mask)
-    return _FlashFn.apply(q, k, v, mask, cfg, False)
+    return _on_kernels(q, k, v, mask, cfg, False)

@@ -25,10 +25,26 @@ arithmetic as the JAX package's `dequant_matmul_reference`: it computes
 the int32 accumulator as a float64 matmul of the codes (exact for
 K < 2^53 / 127^2; CUDA has no integer GEMM in `torch.matmul`).
 
-The wrapper takes the plain version only for tensors that lie on the
-CPU (or on the meta device, where shape inference evaluates ops without
-data). On a CUDA tensor it launches the kernel or raises: a failed build
-or a refused launch is an error, never a fallback. `launch_counts`
+K8 is a registered PyTorch op, `paddle_tpu_torch::fused_dequant_matmul`
+(schema `OP_SCHEMA`, the one copy of it in Python; the C++ that runs an
+AOTInductor package without Python, `native/src/aoti_ops.cc`, registers
+the same string): its CPU implementation is the plain version, its CUDA
+implementation the launch, and its fake implementation gives the
+[M, N] float32 output from shapes alone, so `torch.export` traces a
+program through it and the exported graph names the kernel (as the JAX
+package's StableHLO names its Pallas custom call). The op takes the
+plain version only for tensors that lie on the CPU (or on the meta
+device, where shape inference evaluates ops without data). On a CUDA
+tensor it launches the kernel or raises: a failed build or a refused
+launch is an error, never a fallback.
+
+The int8 activation quantization and rescale that the frozen int8 conv
+shares with K8's plain version are registered ops too
+(`quantize_activation`, `int8_rescale`; `QUANTIZE_SCHEMA`,
+`RESCALE_SCHEMA`), plain PyTorch on every device: AOTInductor replaces a
+division by a constant with a multiply by its reciprocal on the GPU,
+which moves activation codes across a rounding edge, so a compiled
+package keeps these ops' IEEE divisions by calling them. `launch_counts`
 counts kernel launches (registered with `observability.profile`); each
 launch reports its 2 M K N operations to the profile.
 
@@ -36,14 +52,26 @@ Scalars enter divisions as float32 tensors on the operand's device:
 PyTorch's CUDA division by a Python scalar multiplies by its reciprocal,
 which is not the IEEE quotient the JAX package (and the kernel) compute.
 """
+import ctypes
+
 import torch
 
 from paddle_tpu_torch.core.enforce import enforce
 from paddle_tpu_torch.observability import profile as _profile
 
 __all__ = ["qmax", "dequant_matmul_reference", "fused_dequant_matmul",
-           "launch_counts", "reset_launch_counts", "k8_tile",
-           "k8_split_count", "k8_wo_tile", "k8_wo_split_count"]
+           "launch_counts", "reset_launch_counts", "k8_plan",
+           "OP_NAMESPACE", "OP_SCHEMA", "QUANTIZE_SCHEMA", "RESCALE_SCHEMA",
+           "op"]
+
+#: the registered ops: torch.ops.paddle_tpu_torch.<name>
+OP_NAMESPACE = "paddle_tpu_torch"
+OP_SCHEMA = ("fused_dequant_matmul(Tensor x, Tensor w_q, Tensor w_scale, "
+             "float? x_scale=None, int bits=8) -> Tensor")
+QUANTIZE_SCHEMA = ("quantize_activation(Tensor x, float x_scale, "
+                   "int bits=8) -> Tensor")
+RESCALE_SCHEMA = ("int8_rescale(Tensor acc, Tensor w_scale, float x_scale, "
+                  "int bits=8) -> Tensor")
 
 #: kernel launches: every launched call counts under "quantized_matmul";
 #: weight-only calls (their own kernel) also under
@@ -60,15 +88,6 @@ launch_counts = _profile.register_launch_counts(
 _workspaces = {}
 _wo_workspaces = {}
 _retired_workspaces = []
-
-#: streaming multiprocessors of an H100 SXM: split-K aims to fill them
-_SMS = 132
-#: k values per pipeline stage of the int8 kernel
-_K_TILE = 64
-_MAX_SPLITS = 16
-#: arrival counters at the head of the weight-only workspace (kWoCounters
-#: in csrc/quantized_matmul.cu)
-_WO_COUNTERS = 256
 
 
 def reset_launch_counts():
@@ -89,19 +108,32 @@ def _f32(value, device):
 def quantize_activation(x, x_scale, bits=8):
     """int8 codes of x at a static abs-max scale, in the JAX order:
     clip(round(x / s * qmax), -qmax, qmax), s = float32(max(x_scale,
-    1e-8)), round half to even."""
+    1e-8)), round half to even (the registered op)."""
+    return torch.ops.paddle_tpu_torch.quantize_activation(
+        x, float(x_scale), int(bits))
+
+
+def int8_rescale(acc, x_scale, w_scale, bits=8):
+    """(float32(acc) * float32(x_scale / qmax)) * (w_scale / qmax), the
+    per-channel scales along acc's dim 1 (the registered op)."""
+    return torch.ops.paddle_tpu_torch.int8_rescale(
+        acc, w_scale, float(x_scale), int(bits))
+
+
+def _quantize_plain(x, x_scale, bits=8):
     qm = qmax(bits)
     s = _f32(max(float(x_scale), 1e-8), x.device)
     q = torch.round(x / s * qm)
     return torch.clamp(q, -qm, qm).to(torch.int8)
 
 
-def int8_rescale(acc, x_scale, w_scale, bits=8):
-    """(float32(acc) * float32(x_scale / qmax)) * (w_scale / qmax)."""
+def _rescale_plain(acc, w_scale, x_scale, bits=8):
     qm = qmax(bits)
     dev = acc.device
+    shape = [1] * acc.dim()
+    shape[1] = -1
     return ((acc.to(torch.float32) * _f32(float(x_scale) / qm, dev))
-            * (w_scale.reshape(1, -1).to(torch.float32) / _f32(qm, dev)))
+            * (w_scale.reshape(shape).to(torch.float32) / _f32(qm, dev)))
 
 
 def dequant_matmul_reference(x, w_q, w_scale, x_scale=None, bits=8,
@@ -122,62 +154,22 @@ def dequant_matmul_reference(x, w_q, w_scale, x_scale=None, bits=8,
     return (out, acc) if return_acc else out
 
 
-def k8_tile(m):
-    """(rows, columns) of the int8 kernel's output tile at M = m: 32 x 64
-    up to M = 32 (the main path's batches 1, 8, 32), else 64 x 256 (the
-    wide tile quantizes each row of x for fewer column tiles)."""
-    return (32, 64) if m <= 32 else (64, 256)
-
-
-def k8_split_count(m, k, n):
-    """k ranges per output tile of the int8 kernel (split-K): none when
-    the output tiles alone fill the 132 SMs, else as many as put one
-    block on each SM (8 at the ResNet-50 fc), at most _MAX_SPLITS and
-    never under two k tiles of 64 each."""
-    bm, bn = k8_tile(m)
-    tiles = -(-m // bm) * -(-n // bn)
-    return _splits(tiles, k)
-
-
-def _splits(tiles, k):
-    if tiles >= _SMS:
-        return 1
-    k_tiles = -(-k // _K_TILE)
-    return int(max(1, min(_SMS // tiles, _MAX_SPLITS, k_tiles // 2)))
-
-
-def k8_wo_tile(m, n):
-    """(rows of x, weight columns) of the weight-only kernel's output tile
-    at M = m, N = n: the least of 8, 16, 32, 64 rows that holds m, by 64
-    columns (one warpgroup: the columns fill wgmma's 64-row side); above
-    64 rows, 128 x 128 (two warpgroups) where those tiles fill the card,
-    else 32 x 64 (more tiles in flight; on the card it beat 64 x 64 at
-    every such shape timed)."""
-    for bm in (8, 16, 32, 64):
-        if m <= bm:
-            return bm, 64
-    if -(-m // 128) * -(-n // 128) >= _SMS:
-        return 128, 128
-    return 32, 64
-
-
-def k8_wo_split_count(m, k, n):
-    """k ranges per output tile of the weight-only kernel, by
-    k8_split_count's rule over its own tiles (8 at the ResNet-50 fc)."""
-    bm, bn = k8_wo_tile(m, n)
-    return _splits(-(-m // bm) * -(-n // bn), k)
-
-
-def _wo_workspace_words(m, k, n):
-    """int32 words of the weight-only split-K workspace: _WO_COUNTERS
-    arrival counters (a split call has fewer tiles than _SMS, so calls of
-    every shape share them where they stay zero), then splits x tiles x
-    threads x bm / 2 float32 partial sums."""
-    bm, bn = k8_wo_tile(m, n)
-    tiles = -(-m // bm) * -(-n // bn)
-    threads = 2 * bn
-    return (_WO_COUNTERS
-            + k8_wo_split_count(m, k, n) * tiles * threads * bm // 2)
+def k8_plan(m, k, n, int8_mode=True):
+    """K8's launch plan at (M, K, N) in int8 or weight-only mode, asked of
+    the kernel library (`ptt_quantized_matmul_plan`,
+    csrc/quantized_matmul_plan.cu: the one copy of the tile, split-K and
+    workspace rule, which the launch itself follows): {"tile": (rows,
+    columns), "splits": k ranges per output tile, "words": int32 words
+    of the split-K workspace, 0 without a split}."""
+    from paddle_tpu_torch.ops.kernels import _build
+    tile_splits = (ctypes.c_int * 3)()
+    words = ctypes.c_longlong()
+    err = _build.load_library().ptt_quantized_matmul_plan(
+        int(m), int(k), int(n), int(bool(int8_mode)), tile_splits,
+        ctypes.byref(words))
+    enforce(err == 0, "K8 has no plan for M=%s K=%s N=%s", m, k, n)
+    return {"tile": (tile_splits[0], tile_splits[1]),
+            "splits": tile_splits[2], "words": words.value}
 
 
 def _check(name, t, dtype, ndim, device):
@@ -194,10 +186,18 @@ def fused_dequant_matmul(x, w_q, w_scale, x_scale=None, bits=8,
     """K8: x [M, K] float32 @ w_q [K, N] int8 with per-channel scales
     w_scale [N] float32, int8-activation mode when `x_scale` is given,
     weight-only otherwise. Any M, K, N. Returns [M, N] float32 (and the
-    int32 accumulator with `return_acc`, int8 mode only)."""
+    int32 accumulator with `return_acc`, int8 mode only, which the op's
+    schema does not carry: that call runs outside the dispatcher)."""
+    if not return_acc:
+        return op()(x, w_q, w_scale, None if x_scale is None
+                    else float(x_scale), int(bits))
     if x.device.type in ("cpu", "meta"):
         return dequant_matmul_reference(x, w_q, w_scale, x_scale=x_scale,
-                                        bits=bits, return_acc=return_acc)
+                                        bits=bits, return_acc=True)
+    return _checked_launch(x, w_q, w_scale, x_scale, bits, True)
+
+
+def _checked_launch(x, w_q, w_scale, x_scale, bits, return_acc):
     enforce(x.is_cuda, "fused_dequant_matmul: unsupported device %s",
             x.device)
     enforce(2 <= bits <= 8, "bits must be in [2, 8], got %s", bits)
@@ -212,6 +212,56 @@ def fused_dequant_matmul(x, w_q, w_scale, x_scale=None, bits=8,
             "shapes do not match: x %s, w_q %s, w_scale %s", tuple(x.shape),
             tuple(w_q.shape), tuple(w_scale.shape))
     return _launch(x, w_q, w_scale, x_scale, bits, return_acc)
+
+
+# ---------------------------------------------------------------------------
+# the registered ops
+# ---------------------------------------------------------------------------
+
+def _op_cpu(x, w_q, w_scale, x_scale=None, bits=8):
+    return dequant_matmul_reference(x, w_q, w_scale, x_scale=x_scale,
+                                    bits=bits)
+
+
+def _op_cuda(x, w_q, w_scale, x_scale=None, bits=8):
+    return _checked_launch(x, w_q, w_scale, x_scale, bits, False)
+
+
+def _op_fake(x, w_q, w_scale, x_scale=None, bits=8):
+    return x.new_empty((x.shape[0], w_q.shape[1]), dtype=torch.float32)
+
+
+def _register():
+    """Define the ops once a process (the Library must stay alive for its
+    registrations to stay)."""
+    if hasattr(getattr(torch.ops, OP_NAMESPACE), "fused_dequant_matmul"):
+        return None
+    lib = torch.library.Library(OP_NAMESPACE, "FRAGMENT")
+    fakes = {"fused_dequant_matmul": _op_fake,
+             "quantize_activation": lambda x, x_scale, bits=8:
+                 torch.empty_like(x, dtype=torch.int8),
+             "int8_rescale": lambda acc, w_scale, x_scale, bits=8:
+                 torch.empty_like(acc, dtype=torch.float32)}
+    for schema in (OP_SCHEMA, QUANTIZE_SCHEMA, RESCALE_SCHEMA):
+        lib.define(schema)
+    lib.impl("fused_dequant_matmul", _op_cpu, "CPU")
+    lib.impl("fused_dequant_matmul", _op_cuda, "CUDA")
+    lib.impl("quantize_activation", _quantize_plain,
+             "CompositeExplicitAutograd")
+    lib.impl("int8_rescale", _rescale_plain, "CompositeExplicitAutograd")
+    for name, fake in fakes.items():
+        torch.library.register_fake(f"{OP_NAMESPACE}::{name}", fake,
+                                    lib=lib)
+    return lib
+
+
+_LIB = _register()
+
+
+def op():
+    """The op's overload packet, torch.ops.paddle_tpu_torch.
+    fused_dequant_matmul."""
+    return torch.ops.paddle_tpu_torch.fused_dequant_matmul
 
 
 def _stream(device):
@@ -232,25 +282,16 @@ def _launch(x, w_q, w_scale, x_scale, bits, return_acc):
     int8_mode = x_scale is not None
     s = max(float(x_scale), 1e-8) if int8_mode else 1.0
     xs_over_qm = float(x_scale) / qm if int8_mode else 0.0
-    work, cache = None, _workspaces
-    if int8_mode:
-        splits = k8_split_count(m, k, n)
-        if splits > 1:   # int32 sums [M, N], then one arrival counter a tile
-            bm, bn = k8_tile(m)
-            work = _workspace(m * n + -(-m // bm) * -(-n // bn), x.device,
-                              cache)
-    else:
-        splits = k8_wo_split_count(m, k, n)
-        cache = _wo_workspaces
-        if splits > 1:   # arrival counters, then the splits' partial tiles
-            work = _workspace(_wo_workspace_words(m, k, n), x.device, cache)
+    cache = _workspaces if int8_mode else _wo_workspaces
+    words = k8_plan(m, k, n, int8_mode)["words"]
+    work = _workspace(words, x.device, cache) if words else None
     lib = _build.load_library()
     err = lib.ptt_quantized_matmul(
         x.data_ptr(), w_q.data_ptr(), w_scale.data_ptr(), out.data_ptr(),
         acc.data_ptr() if acc is not None else None,
         work.data_ptr() if work is not None else None,
-        m, k, n, int(int8_mode), splits, s, qm, xs_over_qm,
-        _stream(x.device))
+        work.numel() if work is not None else 0,
+        m, k, n, int(int8_mode), s, qm, xs_over_qm, _stream(x.device))
     if err != 0:
         dropped = cache.pop((x.device, _stream(x.device)), None)
         if dropped is not None:

@@ -106,9 +106,9 @@ def _quantized_mul(ctx, x, w_int8, w_scale):
     for d in xs[:xd]:
         lead *= int(d)
     x2 = x.reshape(lead, -1).contiguous()
-    out = _k8.fused_dequant_matmul(x2, w_int8.contiguous(),
-                                   w_scale.reshape(-1).contiguous(),
-                                   x_scale=x_scale, bits=bits)
+    out = torch.ops.paddle_tpu_torch.fused_dequant_matmul(
+        x2, w_int8.contiguous(), w_scale.reshape(-1).contiguous(),
+        float(x_scale), int(bits))
     return out.reshape(xs[:xd] + (int(w_int8.shape[1]),))
 
 
@@ -143,11 +143,7 @@ def _quantized_conv2d(ctx, x, w_int8, w_scale, bias):
         xq, w_int8, tuple(ctx.attr("strides", [1, 1])),
         tuple(ctx.attr("paddings", [0, 0])),
         tuple(ctx.attr("dilations", [1, 1])), ctx.attr("groups", 1))
-    qm = _qmax(bits)
-    dev = acc.device
-    out = ((acc.to(torch.float32) * _k8._f32(float(x_scale) / qm, dev))
-           * (w_scale.reshape(1, -1, 1, 1).to(torch.float32)
-              / _k8._f32(qm, dev)))
+    out = _k8.int8_rescale(acc, x_scale, w_scale.reshape(-1), bits)
     if bias is not None:
         out = out + bias.reshape(1, -1, 1, 1)
     return out

@@ -209,4 +209,5 @@ def test_library_is_named_by_its_sources():
                                       "ptt_flash_fwd", "ptt_flash_bwd",
                                       "ptt_flash_fwd_f32",
                                       "ptt_flash_bwd_f32",
-                                      "ptt_quantized_matmul"}
+                                      "ptt_quantized_matmul",
+                                      "ptt_quantized_matmul_plan"}

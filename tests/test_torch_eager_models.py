@@ -65,14 +65,22 @@ def jax_state(jl):
     return params, buffers
 
 
+_JITTED = {}
+
+
 def jax_loss_and_grads(jm, loss_fn, params, *args):
-    """jitted (loss, {name: grad}) of loss_fn(model, *args) at params."""
+    """jitted (loss, {name: grad}) of loss_fn(model, *args) at params; the
+    jitted function is kept per (model, loss_fn), so a second step of one
+    model reuses its compile."""
+    key = (id(jm), id(loss_fn))
+    if key not in _JITTED:
+        def inner(p, *a):
+            jm.load_trainable(p)
+            return loss_fn(jm, *a)
 
-    def inner(p, *a):
-        jm.load_trainable(p)
-        return loss_fn(jm, *a)
-
-    out = jax.jit(jax.value_and_grad(inner))(params, *args)
+        # the model and loss stay referenced, so their ids stay theirs
+        _JITTED[key] = (jm, loss_fn, jax.jit(jax.value_and_grad(inner)))
+    out = _JITTED[key][2](params, *args)
     jm.load_trainable(params)
     return float(out[0]), {k: np.asarray(v) for k, v in out[1].items()}
 
@@ -146,10 +154,13 @@ def test_resnet_two_sgd_steps_against_jax(fmt):
     x, y = images(1, 4, 3, 16, 5)
     if fmt == "NHWC":
         x = np.ascontiguousarray(x.transpose(0, 2, 3, 1))
+
+    def jloss(m, a, b):
+        return jce(m(a), b)
+
     for _ in range(2):
         params, grads = compare_step(
-            jm, tm, lambda m, a, b: jce(m(a), b),
-            lambda m, a, b: tce(m(a), b),
+            jm, tm, jloss, lambda m, a, b: tce(m(a), b),
             (jnp.asarray(x), jnp.asarray(y)),
             (torch.from_numpy(x), torch.from_numpy(y)))
         jm.load_trainable({k: params[k] - 0.1 * grads[k] for k in params})
@@ -183,19 +194,41 @@ def test_resnet_nhwc_equals_nchw():
         assert_close(g, g1[k], TOL, k)
 
 
+_JAX_ZOO = {}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _jax_zoo_once():
+    """Each family's JAX model (its parameter draws take seconds) is
+    built once a module, shared by the eval and the training test."""
+    _JAX_ZOO.clear()
+    yield
+    _JAX_ZOO.clear()
+    _JITTED.clear()
+
+
 def _zoo(family):
+    """(JAX model, port model) of a family; the port model is new, the
+    JAX one shared (its weights are loaded into the port model before
+    each comparison, and a comparison restores them)."""
     from paddle_tpu.models import vision_zoo as J
     from paddle_tpu_torch.models import vision_zoo as T
+    if family not in _JAX_ZOO:
+        _JAX_ZOO[family] = (
+            J.VGG(11, num_classes=4, image_size=32, dropout=0.0)
+            if family == "vgg11" else
+            J.MobileNetV1(num_classes=4, scale=0.25)
+            if family == "mobilenet_v1" else
+            J.SEResNeXt(50, num_classes=4, cardinality=4, width=8))
     if family == "vgg11":
-        return (J.VGG(11, num_classes=4, image_size=32, dropout=0.0),
-                T.VGG(11, num_classes=4, image_size=32, dropout=0.0,
-                      device="cpu"))
-    if family == "mobilenet_v1":
-        return (J.MobileNetV1(num_classes=4, scale=0.25),
-                T.MobileNetV1(num_classes=4, scale=0.25, device="cpu"))
-    return (J.SEResNeXt(50, num_classes=4, cardinality=4, width=8),
-            T.SEResNeXt(50, num_classes=4, cardinality=4, width=8,
-                        device="cpu"))
+        tm = T.VGG(11, num_classes=4, image_size=32, dropout=0.0,
+                   device="cpu")
+    elif family == "mobilenet_v1":
+        tm = T.MobileNetV1(num_classes=4, scale=0.25, device="cpu")
+    else:
+        tm = T.SEResNeXt(50, num_classes=4, cardinality=4, width=8,
+                         device="cpu")
+    return _JAX_ZOO[family], tm
 
 
 @pytest.mark.parametrize("family", ["vgg11", "mobilenet_v1", "se_resnext50"])
@@ -211,6 +244,7 @@ def test_vision_zoo_eval_mode(family):
 @pytest.mark.parametrize("family", ["vgg11", "mobilenet_v1", "se_resnext50"])
 def test_vision_zoo_training_step(family):
     jm, tm = _zoo(family)
+    jm.train()
     x, y = images(3, 16, 3, 32, 4)
     weights.layer_state_from_jax(*jax_state(jm), tm)
     lj, gj = jax_loss_and_grads(jm, lambda m, a, b: jce(m(a), b),
@@ -336,17 +370,48 @@ def test_transformer_argmax_ties_go_to_the_lower_index():
 
 
 def test_flash_head_dim_refused_at_construction_on_cuda(monkeypatch):
-    """A flash Transformer for a CUDA device whose head dim the kernels
-    do not take raises before any parameter is made; the CPU path and
-    the einsum path take it."""
+    """A flash Transformer for a CUDA device takes any head dim up to 128
+    (the name is kept from when a head dim outside (32, 64, 128) was
+    refused here): a D = 80 model constructs for "cuda", and its call
+    reaches the kernel with D padded to 128 and the true D's sm_scale.
+    The parameters are placed on the CPU and the wrapper's CUDA dispatch
+    is driven through the kernel library's recording stub
+    (tests/test_torch_flash_dispatch.py)."""
     from paddle_tpu_torch.models import transformer as T
+    from paddle_tpu_torch.nn import layers
+    from paddle_tpu_torch.ops.kernels import _build
+    from paddle_tpu_torch.ops.kernels import flash_attention as tfa
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    cfg = T.TransformerConfig.tiny()          # head dim 16
+    monkeypatch.setattr(layers, "resolve_device",
+                        lambda device=None: torch.device("cpu"))
+    calls = []
+
+    class Lib:
+        def __getattr__(self, name):
+            return lambda *args: calls.append((name, args)) or 0
+
+    monkeypatch.setattr(_build, "load_library", lambda: Lib())
+    monkeypatch.setattr(tfa, "_stream", lambda device: 0)
+
+    def on_cuda(q, k, v, mask=None, causal=False, sm_scale=None, **kw):
+        # flash_attention past its device check, as on a CUDA tensor
+        cfg = tfa._resolve(q, sm_scale, causal, 0.0, None)
+        return tfa._on_kernels(q, k, v, mask, cfg, False)[0]
+
+    monkeypatch.setattr(T, "flash_attention", on_cuda)
+    mha = T.MultiHeadAttention(160, 2, impl="flash", device="cuda")
+    x = torch.zeros((2, 5, 160))
+    with torch.no_grad():
+        out = mha(x, x, x)
+    assert out.shape == (2, 5, 160)
+    (name, args), = calls
+    assert name == "ptt_flash_fwd_f32"
+    nptr = 6
+    assert args[nptr:nptr + 5] == (2, 2, 5, 5, 128)       # B N Tq Tk D
+    assert args[nptr + 6] == pytest.approx(1.0 / 80 ** 0.5)
+    cfg = T.TransformerConfig.tiny()          # head dim 16, padded to 32
     cfg.attention_impl = "flash"
-    with pytest.raises(Exception, match="head dim in \\(32, 64, 128\\).*16"):
-        T.Transformer(cfg, device="cuda")
-    with pytest.raises(Exception, match="head dim"):
-        T.MultiHeadAttention(48, 2, impl="flash", device="cuda")
+    T.Transformer(cfg, device="cuda")
     with pytest.raises(Exception, match="attention_impl"):
         T.MultiHeadAttention(64, 2, impl="pallas", device="cpu")
     T.Transformer(cfg, device="cpu")

@@ -140,6 +140,17 @@ def test_keep_mask_bit_identical_to_numpy_oracle(seed, bh, t, rate):
     assert np.array_equal(got.view(np.uint32), want.view(np.uint32))
 
 
+@pytest.mark.parametrize("row0", [65528, 131060])
+def test_keep_mask_rows_from_row0_match_the_oracle_past_65535(row0):
+    """Rows row0 .. row0 + 31 of the mask (a slice of a T >= 65536 run;
+    the counter's row << 16 wraps mod 2**32) are the JAX oracle's rows
+    of the whole mask, bit for bit."""
+    seed, bh, tk, rate = 4321, 3, 40, 0.2
+    want = jfa._np_keep_mask(seed, bh, row0 + 32, tk, rate)[row0:]
+    got = tfa.keep_mask_reference(seed, bh, 32, tk, rate, row0=row0).numpy()
+    assert np.array_equal(got.view(np.uint32), want.view(np.uint32))
+
+
 def test_batch_keep_masks_lead_with_batch_and_head():
     b, n, t, rate, seed = 2, 3, 16, 0.3, 99
     masks = tfa.batch_keep_masks(seed, b, n, t, t, rate)

@@ -39,6 +39,7 @@
 import ast
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import sys
@@ -467,6 +468,26 @@ def test_source_scan_finds_no_path_into_the_jax_package():
         assert (pathlib.Path(native.SRC_DIR) / name).is_file(), name
     assert pathlib.Path(native.SRC_DIR).is_relative_to(PKG)
     assert pathlib.Path(native.BUILD_DIR).is_relative_to(PKG / "_build")
+
+
+def test_source_scan_of_the_native_sources_finds_no_xla_or_jax():
+    """The port's C++ (native/src: the runtime, pt_aoti_run and its K8
+    op) includes nothing of XLA, PJRT, JAX or the JAX package, and its
+    code names no path into paddle_tpu/ (comments aside); pt_aoti_run's
+    sources are the port's own."""
+    from paddle_tpu_torch import native
+    src = pathlib.Path(native.SRC_DIR)
+    files = sorted(src.glob("*.cc")) + sorted(src.glob("*.h"))
+    assert {"pt_aoti_run.cc", "aoti_ops.cc"} <= {f.name for f in files}
+    for path in files:
+        for line in path.read_text().splitlines():
+            code = line.split("//", 1)[0]
+            if code.lstrip().startswith("#include"):
+                assert not re.search(r"xla/|pjrt|jax|paddle_tpu/", code), (
+                    path.name, line)
+            assert "paddle_tpu/" not in code, (path.name, line)
+    for name in native._AOTI_SRCS:
+        assert (src / name).is_file(), name
 
 
 _BLOCK = textwrap.dedent("""

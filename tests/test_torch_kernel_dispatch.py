@@ -14,17 +14,19 @@ that K7 sends decode ticks (C = 1) to its one-launch decode kernel with
 a zeroed int32 workspace of arrival counters and records (reused from
 call to call, dropped after a refused launch) and the verify and
 prefill chunks to its tensor-core kernel with partial buffers; that K8
-in int8 mode asks for the split count `k8_split_count` gives and hands
-the kernel a zeroed int32 workspace of M * N sums plus one arrival
-counter per output tile, reused from call to call (the kernel leaves it
-zero); that every call has the arity `_build.SIGNATURES` declares; and
-that those declarations match the C prototypes in csrc/. The kernels'
+hands the kernel a zeroed int32 workspace of the size the kernel
+library's own plan (csrc/quantized_matmul_plan.cu, compiled here by g++
+and standing in the stub) asks for: in int8 mode M * N sums plus one
+arrival counter per output tile, reused from call to call (the kernel
+leaves it zero); that every call has the arity `_build.SIGNATURES`
+declares; and that those declarations match the C prototypes in csrc/. The kernels'
 arithmetic is held against the plain versions on the card
 (tests/test_torch_kernels_cuda.py).
 """
 import ctypes
 import pathlib
 import re
+import subprocess
 
 import numpy as np
 import pytest
@@ -57,9 +59,23 @@ class _Recorder:
         return fn
 
 
+@pytest.fixture(scope="module")
+def k8_plan_fn(tmp_path_factory):
+    """The kernel library's K8 plan, compiled by g++ from the source the
+    card's library is built from (host code only)."""
+    so = tmp_path_factory.mktemp("k8_plan") / "libk8plan.so"
+    subprocess.run(["g++", "-x", "c++", "-std=c++17", "-O1", "-shared",
+                    "-fPIC", "-I", str(CSRC), "-o", str(so),
+                    str(CSRC / "quantized_matmul_plan.cu")], check=True)
+    fn = ctypes.CDLL(str(so)).ptt_quantized_matmul_plan
+    fn.argtypes = _build.SIGNATURES["ptt_quantized_matmul_plan"]
+    return fn
+
+
 @pytest.fixture
-def stub(monkeypatch):
+def stub(monkeypatch, k8_plan_fn):
     lib = _Recorder()
+    lib.ptt_quantized_matmul_plan = k8_plan_fn   # not a launch: unrecorded
     monkeypatch.setattr(_build, "load_library", lambda: lib)
     monkeypatch.setattr(tda, "_stream", lambda device: 0)
     monkeypatch.setattr(tk8, "_stream", lambda device: 0)
@@ -370,9 +386,12 @@ def test_f32_decode_refused_launch_raises_and_counts_nothing(
     (5, 33, 17, (32, 64), 1),           # one k tile
     (130, 257, 129, (64, 256), 2),      # 3 tiles, 5 k tiles
 ])
-def test_k8_split_count(m, k, n, tile, splits):
-    assert tk8.k8_tile(m) == tile
-    assert tk8.k8_split_count(m, k, n) == splits
+def test_k8_split_count(stub, m, k, n, tile, splits):
+    plan = tk8.k8_plan(m, k, n)
+    assert plan["tile"] == tile and plan["splits"] == splits
+    bm, bn = tile
+    assert plan["words"] == (m * n + -(-m // bm) * -(-n // bn)
+                             if splits > 1 else 0)
 
 
 @pytest.mark.parametrize("m,k,n", [(32, 2048, 1000), (1, 2048, 1000),
@@ -381,12 +400,12 @@ def test_k8_split_count(m, k, n, tile, splits):
 def test_k8_launch_hands_a_zeroed_workspace(stub, m, k, n, return_acc):
     seen = {}
 
+    plan = tk8.k8_plan(m, k, n)
+
     def hook(name, args):
-        work, splits = args[5], args[10]
-        seen.update(splits=splits, work=work)
+        work, size = args[5], args[6]
+        seen.update(size=size, work=work)
         if work is not None:
-            bm, bn = tk8.k8_tile(m)
-            size = m * n + -(-m // bm) * -(-n // bn)
             words = (ctypes.c_int32 * size).from_address(work)
             seen["zeroed"] = not any(words)
 
@@ -399,12 +418,12 @@ def test_k8_launch_hands_a_zeroed_workspace(stub, m, k, n, return_acc):
     (name, call), = stub.calls
     assert name == "ptt_quantized_matmul"
     assert len(call) == len(_build.SIGNATURES[name])
-    assert call[6:11] == (m, k, n, 1, tk8.k8_split_count(m, k, n))
+    assert call[6:11] == (plan["words"], m, k, n, 1)
     assert (call[4] is None) != return_acc
-    if seen["splits"] > 1:
-        assert seen["zeroed"]
+    if plan["splits"] > 1:
+        assert seen["zeroed"] and seen["size"] == plan["words"] > 0
     else:
-        assert seen["work"] is None
+        assert seen["work"] is None and seen["size"] == 0
     out = res[0] if return_acc else res
     assert out.shape == (m, n) and out.dtype == torch.float32
     assert tk8.launch_counts["quantized_matmul"] == 1
@@ -452,11 +471,11 @@ def test_k8_weight_only_asks_for_no_split(stub):
     K holds one k tile): no workspace, one launch counted under both
     keys."""
     for m, k, n in [(4096, 768, 3072), (5, 33, 17)]:
-        assert tk8.k8_wo_split_count(m, k, n) == 1
+        assert tk8.k8_plan(m, k, n, int8_mode=False)["splits"] == 1
         tk8._launch(torch.ones(m, k), torch.ones(k, n, dtype=torch.int8),
                     torch.ones(n), None, 8, False)
     for _, call in stub.calls:
-        assert call[9:11] == (0, 1) and call[5] is None
+        assert call[10] == 0 and call[6] == 0 and call[5] is None
     assert tk8._wo_workspaces == {}
     assert tk8.launch_counts == {"quantized_matmul": 2,
                                  "quantized_matmul_weight_only": 2}
@@ -473,13 +492,13 @@ def test_k8_weight_only_asks_for_no_split(stub):
     (16, 4096, 8192, (16, 64), 1),      # 128 tiles of 64 columns
     (1, 64, 1000, (8, 64), 1),          # one k tile: no split
 ])
-def test_k8_wo_split_count(m, k, n, tile, splits):
+def test_k8_wo_split_count(stub, m, k, n, tile, splits):
     """The weight-only kernel's tile (rows of x as wgmma's n side, 64
     weight columns a warpgroup; 128 x 128 only where those tiles fill
-    the card) and split count, by k8_split_count's rule over its own
+    the card) and split count, by int8 mode's rule over its own
     tiles."""
-    assert tk8.k8_wo_tile(m, n) == tile
-    assert tk8.k8_wo_split_count(m, k, n) == splits
+    plan = tk8.k8_plan(m, k, n, int8_mode=False)
+    assert plan["tile"] == tile and plan["splits"] == splits
 
 
 @pytest.mark.parametrize("m,k,n", [(32, 2048, 1000), (1, 2048, 1000),
@@ -490,14 +509,14 @@ def test_k8_weight_only_hands_a_workspace_with_zero_counters(stub, m, k, n):
     followed by room for every split's partial tile (splits x tiles x
     threads x bm / 2 floats)."""
     seen = {}
-    bm, bn = tk8.k8_wo_tile(m, n)
+    plan = tk8.k8_plan(m, k, n, int8_mode=False)
+    (bm, bn), splits = plan["tile"], plan["splits"]
     tiles = -(-m // bm) * -(-n // bn)
-    splits = tk8.k8_wo_split_count(m, k, n)
     words = 256 + splits * tiles * 2 * bn * bm // 2
-    assert tiles < 132
+    assert tiles < 132 and plan["words"] == words
 
     def hook(name, args):
-        seen.update(splits=args[10], mode=args[9])
+        seen.update(size=args[6], mode=args[10])
         counters = (ctypes.c_int32 * words).from_address(args[5])
         seen["zeroed"] = not any(counters[:256])
 
@@ -508,7 +527,7 @@ def test_k8_weight_only_hands_a_workspace_with_zero_counters(stub, m, k, n):
     out = tk8._launch(x, w_q, torch.rand(n), None, 8, False)
     (name, call), = stub.calls
     assert len(call) == len(_build.SIGNATURES[name])
-    assert seen == {"splits": splits, "mode": 0, "zeroed": True}
+    assert seen == {"size": words, "mode": 0, "zeroed": True}
     assert splits > 1 and call[4] is None
     (work,) = tk8._wo_workspaces.values()
     assert work.numel() == words and tk8._workspaces == {}
@@ -575,3 +594,24 @@ def test_c_prototypes_match_signatures():
     assert set(protos) == set(_build.SIGNATURES)
     for name, kinds in protos.items():
         assert kinds == list(_build.SIGNATURES[name]), name
+
+
+@pytest.mark.parametrize("engine", ["DecodeEngine", "PagedDecodeEngine"])
+def test_decode_engines_refuse_a_head_dim_without_a_kernel_on_cuda(
+        monkeypatch, engine):
+    """The decode kernels (K5-K7) are instantiated for head dims 32, 64
+    and 128; the JAX package's take any D. An engine for the card with
+    another head dim (the default tiny LM's 8) is refused at
+    construction, before the model moves; on the CPU it is built."""
+    from paddle_tpu_torch.ops import generation as tgen
+    model = tgen.TinyDecoderLM(tgen.LMConfig(), device="cpu").init_params(0)
+    assert model.config.head_dim not in tda.KERNEL_HEAD_DIMS
+    cls = getattr(tgen, engine)
+    monkeypatch.setattr(tgen, "resolve_device",
+                        lambda device=None: torch.device("cuda"))
+    with pytest.raises(Exception, match="decode kernels take head dims "
+                       r"\(32, 64, 128\) on the card, got 8"):
+        cls(model, batch_size=2, max_len=16)
+    assert next(model.parameters()).device.type == "cpu"
+    monkeypatch.undo()
+    cls(model, batch_size=2, max_len=16, device="cpu")

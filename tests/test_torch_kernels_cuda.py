@@ -618,7 +618,7 @@ def test_k8_split_calls_share_a_workspace_and_leave_it_zero(cuda):
     workspace: each stays exact and leaves every sum and counter zero."""
     for m, k, n in [(32, 2048, 1000), (130, 257, 129), (1, 2048, 1000),
                     (32, 2048, 1000)]:
-        assert tk8.k8_split_count(m, k, n) > 1
+        assert tk8.k8_plan(m, k, n)["splits"] > 1
         x, w_q, w_s, xs = _k8_inputs(m, k, n, 8, cuda)
         _, acc = tk8.fused_dequant_matmul(x, w_q, w_s, x_scale=xs,
                                           return_acc=True)
@@ -659,8 +659,7 @@ def test_k8_weight_only_split_calls_leave_their_counters_zero(cuda):
     arrival counter zero."""
     for m, k, n in [(32, 2048, 1000), (1, 2048, 1000), (130, 257, 129),
                     (32, 2048, 1000)]:
-        splits = tk8.k8_wo_split_count(m, k, n)
-        assert splits > 1
+        assert tk8.k8_plan(m, k, n, int8_mode=False)["splits"] > 1
         x, w_q, w_s, _ = _k8_inputs(m, k, n, 8, cuda)
         got = tk8.fused_dequant_matmul(x, w_q, w_s)
         want = tk8.dequant_matmul_reference(x, w_q, w_s)

@@ -110,8 +110,16 @@ def test_a_failed_build_raises_and_loads_nothing(tmp_path, monkeypatch):
     assert tnative._lib is None
     assert not tnative.available()
     assert not os.path.exists(os.path.join(build, "libpt_native.so"))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tnative.build_pt_pjrt_run()
+    # pt_aoti_run (XLA's pt_pjrt_run's counterpart) is built too, and a
+    # failed build raises the same way: here without torch's include
+    # paths, so both sources stop at their first #include
+    assert not hasattr(tnative, "build_pt_pjrt_run")
+    monkeypatch.setattr(tnative, "_libtorch_flags", lambda lib: (
+        ("-O2", "-std=c++17", "-fPIC"), ["-ldl"]))
+    with pytest.raises(tnative.NativeBuildError,
+                       match="(pt_aoti_run|aoti_ops).cc: build failed"):
+        tnative.build_pt_aoti_run()
+    assert not os.path.exists(os.path.join(build, "pt_aoti_run"))
 
 
 @pytest.fixture(scope="module")

@@ -163,6 +163,7 @@ def test_ctypes_signature_matches_the_cuda_entry_point():
                       src).group(1)
     params = [p.strip() for p in proto.split(",")]
     kinds = [ctypes.c_void_p if "*" in p else
-             ctypes.c_float if p.startswith("float") else ctypes.c_int
+             ctypes.c_float if p.startswith("float") else
+             ctypes.c_longlong if p.startswith("long long") else ctypes.c_int
              for p in params]
     assert _build.SIGNATURES["ptt_quantized_matmul"] == kinds

@@ -15,21 +15,24 @@ SMALL = dict(depth=50, width=8, blocks=(1, 2, 1, 1), num_classes=10)
 
 @pytest.fixture
 def cs(monkeypatch):
-    """chip_smoke at the small depth; K8's wrapper counts its CPU calls
-    (its plain version there) as the card counts its launches."""
+    """chip_smoke at the small depth; each `quantized_mul` run (one K8
+    call through its registered op, the plain version on the CPU)
+    counts as the card counts K8's launches."""
     import torch
     import chip_smoke
+    from paddle_tpu_torch.core.registry import get_op
     from paddle_tpu_torch.ops.kernels import quantized_matmul as k8
     monkeypatch.setattr(chip_smoke, "SLIM_NET", SMALL)
     monkeypatch.setattr(chip_smoke, "SLIM_IMAGE", 32)
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
-    plain = k8.fused_dequant_matmul
+    impl = get_op("quantized_mul")
+    plain = impl.fn
 
     def counted(*args, **kw):
         k8.launch_counts["quantized_matmul"] += 1
         return plain(*args, **kw)
 
-    monkeypatch.setattr(k8, "fused_dequant_matmul", counted)
+    monkeypatch.setattr(impl, "fn", counted)
     return chip_smoke
 
 
